@@ -1,0 +1,117 @@
+"""Build and load the port's CUDA kernels at first use.
+
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
+together) for ``sm_90a`` and the objects are linked into one shared library
+with a plain C interface, loaded with ``ctypes``.  The library name carries a
+hash of the sources and flags, so an edited source is rebuilt.  The build
+directory ``jaxlsq_torch/_build/`` is not tracked by git.  A failed build raises with the compiler's output; nothing
+falls back to the plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+__all__ = ["load_library", "check"]
+
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+          "-Xcompiler", "-fPIC"]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C entry points and their argument types (pointers and the stream as
+# c_void_p: a bare Python int would be passed as a 32-bit int).
+_SIGNATURES = {
+    # x, w, scale, zp, out, part, rowsum, M, K, N, per_channel, int4, stream
+    "jlt_wo_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # q, kd, ks, vd, vs, qpos, out, B, KVH, L, hd, t, gt, window, carrier,
+    # scale, stream
+    "jlt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _I, ctypes.c_float, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit "
+                       "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources():
+    return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _build() -> str:
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for path in srcs:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    tag = h.hexdigest()[:16]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+    os.makedirs(out_dir, exist_ok=True)
+    lib_path = os.path.join(out_dir, f"libjaxlsq_torch_{tag}.so")
+    if os.path.exists(lib_path):
+        return lib_path
+    nvcc = _nvcc()
+    procs = []
+    for src in (s for s in srcs if s.endswith(".cu")):
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *_FLAGS, "-I", _CSRC, "-c", src, "-o", obj]
+        procs.append((obj, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for obj, cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{out}")
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    cmd = [nvcc, *_FLAGS[:2], "-shared", "-o", tmp] + [o for o, _, _ in procs]
+    link = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({' '.join(cmd)}):\n{link.stdout}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(_build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.jlt_wo_chunk_rows.restype = ctypes.c_int
+            lib.jlt_wo_slab_rows.restype = ctypes.c_int
+            lib.chunk_rows = lib.jlt_wo_chunk_rows()
+            lib.slab_rows = lib.jlt_wo_slab_rows()
+            _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise when a C entry point reports a CUDA error (its cudaGetLastError)."""
+    if err != 0:
+        lib = load_library()
+        lib.jlt_error_string.restype = ctypes.c_char_p
+        lib.jlt_error_string.argtypes = [_I]
+        msg = lib.jlt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

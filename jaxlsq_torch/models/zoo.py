@@ -1,0 +1,343 @@
+"""Quantized transformer LM for serving (port of ``QuantTransformerBlock``,
+``QuantTransformerLM``, ``_rope`` and the dense-cache ``_cached_attention`` of
+``jaxlsq/models/zoo.py``).
+
+The modules hold serve-mode buffers (packed kernels from
+``jaxlsq_torch.serve.convert``, loaded by ``jaxlsq_torch.interop``) and run:
+
+* without a cache: the full causal forward, with plain PyTorch attention;
+* with a cache: the new k/v are written into the cache IN PLACE at
+  ``cache_index`` (the JAX package returns a new cache; here the returned
+  cache is the same objects, updated) and attention runs through
+  ``serve.attention.decode_attention`` — the CUDA kernel on the card.
+
+Carriers: f32/bf16 caches (new k/v cast to the cache dtype on write, read back
+as f32), and int8/int4 ``(data, scales)`` caches quantized per (b, head,
+position) on write.  A scalar ``cache_index`` (int) is checked against the
+cache length here; a per-slot (B,) index tensor is the caller's to keep in
+range (the engine does), since checking it would stall on the card.
+MoE blocks and paged caches come with later slices and raise.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .._device import resolve_device
+from ..serve.attention import MASK, decode_attention
+from .layers import QuantDense, QuantEmbed
+from .qconfig import QConfig
+
+__all__ = ["QuantTransformerBlock", "QuantTransformerLM", "init_variables"]
+
+_LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
+
+
+def _rope(x: torch.Tensor, pos: torch.Tensor, base: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding over the head dim, half-split layout.  x: (B, H, t, hd);
+    pos: (t,) shared or (B, t) per-slot positions."""
+    hd = x.shape[-1]
+    half = hd // 2
+    inv = 1.0 / (base ** (torch.arange(half, dtype=torch.float32, device=x.device) / half))
+    ang = pos.to(torch.float32)[..., None] * inv
+    if ang.dim() == 2:
+        ang = ang[None]
+    cos = torch.cos(ang)[:, None]
+    sin = torch.sin(ang)[:, None]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1).to(x.dtype)
+
+
+def _is_scalar_index(cache_index) -> bool:
+    return isinstance(cache_index, int) or (
+        torch.is_tensor(cache_index) and cache_index.dim() == 0)
+
+
+def _q8(a: torch.Tensor):
+    """Per-(b, h, position) symmetric int8, scales floored at f32 tiny."""
+    s = a.abs().amax(dim=-1) / 127.0
+    s = torch.clamp_min(s, torch.finfo(torch.float32).tiny)
+    data = torch.clamp(torch.round(a / s[..., None]), -127, 127)
+    return data.to(torch.int8), s.to(torch.float32)
+
+
+def _q4(a: torch.Tensor):
+    """The same scheme at 4 bits ([-7, 7]), two values per byte along
+    head_dim: low nibble = even index, high nibble = odd index."""
+    s = a.abs().amax(dim=-1) / 7.0
+    s = torch.clamp_min(s, torch.finfo(torch.float32).tiny)
+    data = torch.clamp(torch.round(a / s[..., None]), -7, 7).to(torch.int32)
+    n = data & 0xF
+    packed = n[..., 0::2] | (n[..., 1::2] << 4)
+    return packed.to(torch.uint8), s.to(torch.float32)
+
+
+def _write(c: torch.Tensor, new: torch.Tensor, cache_index, t: int) -> None:
+    """Write ``new`` (B, H, t, ...) into cache ``c`` (B, H, L, ...) at
+    positions [idx, idx + t) — scalar idx, or per-slot (B,) idx."""
+    new = new.to(c.dtype)
+    if _is_scalar_index(cache_index):
+        i = int(cache_index)
+        c[:, :, i:i + t] = new
+        return
+    b = c.shape[0]
+    pos = cache_index.to(torch.int64)[:, None] + torch.arange(t, device=c.device)
+    bidx = torch.arange(b, device=c.device)[:, None]
+    c[bidx, :, pos] = new.transpose(1, 2)
+
+
+def _cached_attention(q, k, v, kv_cache, cache_index, attn_window=None):
+    """Write fresh k/v (B, KVH, t, hd) into a dense cache entry and attend q
+    (B, H, t, hd) to it; returns ``(y, cache_entry)``."""
+    if not (isinstance(kv_cache, (tuple, list)) and len(kv_cache) == 2):
+        raise NotImplementedError(
+            "paged KV caches arrive with the paged-engine slice; the port "
+            "takes dense (k, v) cache entries")
+    t = q.shape[2]
+    ck, cv = kv_cache
+    quantized = isinstance(ck, (tuple, list))
+    length = (ck[0] if quantized else ck).shape[2]
+    if _is_scalar_index(cache_index):
+        i = int(cache_index)
+        if i < 0 or i + t > length:
+            raise ValueError(f"cache_index {i} + {t} new positions exceeds the "
+                             f"cache length {length}")
+    if quantized:
+        quant = _q4 if ck[0].dtype == torch.uint8 else _q8
+        kq, ks = quant(k)
+        vq, vs = quant(v)
+        _write(ck[0], kq, cache_index, t)
+        _write(ck[1], ks, cache_index, t)
+        _write(cv[0], vq, cache_index, t)
+        _write(cv[1], vs, cache_index, t)
+    else:
+        _write(ck, k, cache_index, t)
+        _write(cv, v, cache_index, t)
+    y = decode_attention(q, ck, cv, cache_index, window=attn_window)
+    return y, (ck, cv)
+
+
+def _layer_norm(dim: int, device) -> nn.LayerNorm:
+    return nn.LayerNorm(dim, eps=_LN_EPS, device=device)
+
+
+class QuantTransformerBlock(nn.Module):
+    """Pre-LN block: fused q|k|v projection, attention, output projection,
+    GELU (tanh form, as flax ``nn.gelu``) MLP — every matmul quantized."""
+
+    def __init__(self, dim: int, num_heads: int, qconfig: QConfig, *,
+                 mlp_ratio: int = 4, num_kv_heads: Optional[int] = None,
+                 rope: bool = False, attn_window: Optional[int] = None,
+                 moe_experts: Optional[int] = None, path=(), device=None):
+        super().__init__()
+        if moe_experts:
+            raise NotImplementedError("MoE blocks arrive with the MoE slice")
+        if attn_window is not None and attn_window < 1:
+            raise ValueError(f"attn_window must be >= 1 or None, got {attn_window}")
+        kvh = num_kv_heads or num_heads
+        if num_heads % kvh:
+            raise ValueError(f"num_heads {num_heads} not divisible by num_kv_heads {kvh}")
+        self.dim, self.num_heads, self.kvh = dim, num_heads, kvh
+        self.hd = dim // num_heads
+        self.rope, self.attn_window = rope, attn_window
+        path = tuple(path)
+        self.ln1 = _layer_norm(dim, device)
+        self.qkv = QuantDense(dim, dim + 2 * kvh * self.hd, qconfig,
+                              path=path + ("qkv",), device=device)
+        self.proj = QuantDense(dim, dim, qconfig, path=path + ("proj",), device=device)
+        self.ln2 = _layer_norm(dim, device)
+        self.mlp_up = QuantDense(dim, mlp_ratio * dim, qconfig,
+                                 path=path + ("mlp_up",), device=device)
+        self.mlp_down = QuantDense(mlp_ratio * dim, dim, qconfig,
+                                   path=path + ("mlp_down",), device=device)
+
+    def _attention(self, q, k, v):
+        """No-cache causal attention (plain PyTorch, as the JAX package's
+        einsum path)."""
+        b, h, t, hd = q.shape
+        g = h // self.kvh
+        mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+        if self.attn_window is not None:
+            ar = torch.arange(t, device=q.device)
+            mask = mask & ((ar[:, None] - ar[None, :]) < self.attn_window)
+        q5 = q.reshape(b, self.kvh, g, t, hd)
+        att = torch.einsum("bkgqd,bkld->bkgql", q5, k) / math.sqrt(hd)
+        att = torch.softmax(torch.where(mask, att, MASK), dim=-1)
+        return torch.einsum("bkgql,bkld->bkgqd", att, v).reshape(b, h, t, hd)
+
+    def forward(self, x, kv_cache=None, cache_index=None):
+        b, t, d = x.shape
+        h, kvh, hd = self.num_heads, self.kvh, self.hd
+        y = self.ln1(x)
+        qkv = self.qkv(y)
+        q = qkv[..., :d].reshape(b, t, h, hd).transpose(1, 2)
+        k = qkv[..., d:d + kvh * hd].reshape(b, t, kvh, hd).transpose(1, 2)
+        v = qkv[..., d + kvh * hd:].reshape(b, t, kvh, hd).transpose(1, 2)
+        if self.rope:
+            ar = torch.arange(t, device=x.device)
+            if kv_cache is None:
+                rpos = ar
+            elif _is_scalar_index(cache_index):
+                rpos = ar + int(cache_index)
+            else:
+                rpos = cache_index.to(torch.int64)[:, None] + ar
+            q = _rope(q, rpos)
+            k = _rope(k, rpos)
+        new_kv = None
+        if kv_cache is None:
+            y = self._attention(q, k, v)
+        else:
+            y, new_kv = _cached_attention(q, k, v, kv_cache, cache_index,
+                                          self.attn_window)
+        y = y.transpose(1, 2).reshape(b, t, d)
+        x = x + self.proj(y)
+        y = self.ln2(x)
+        y = self.mlp_down(F.gelu(self.mlp_up(y), approximate="tanh"))
+        out = x + y
+        if kv_cache is None:
+            return out
+        return out, new_kv
+
+
+class QuantTransformerLM(nn.Module):
+    """Embedding -> ``depth`` quantized blocks -> LayerNorm -> LM head (no
+    bias).  Serve mode only (pass ``qconfig.for_serving(...)``).
+
+    ``model(tokens)`` gives logits (B, t, vocab); ``model(tokens, cache=...,
+    cache_index=...)`` gives ``(logits, cache)`` with the cache updated in
+    place.  Runs on CUDA unless ``device`` says otherwise; with no card and
+    no ``device``, construction raises.
+    """
+
+    def __init__(self, vocab: int, dim: int, depth: int, num_heads: int,
+                 qconfig: QConfig, *, max_len: int = 256,
+                 num_kv_heads: Optional[int] = None, pos_embedding: str = "learned",
+                 attn_window: Optional[int] = None,
+                 moe_experts: Optional[int] = None, device=None):
+        super().__init__()
+        if pos_embedding not in ("learned", "rope"):
+            raise ValueError(f"pos_embedding must be 'learned' or 'rope', "
+                             f"got {pos_embedding!r}")
+        if moe_experts:
+            raise NotImplementedError("MoE blocks arrive with the MoE slice")
+        self.device = resolve_device(device)
+        self.vocab, self.dim, self.depth = vocab, dim, depth
+        self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
+        self.qconfig, self.max_len = qconfig, max_len
+        self.pos_embedding, self.attn_window = pos_embedding, attn_window
+        dev = self.device
+        self.tok_emb = QuantEmbed(vocab, dim, qconfig, path=("tok_emb",), device=dev)
+        if pos_embedding == "learned":
+            self.register_buffer("pos_emb", torch.zeros(max_len, dim, device=dev))
+        for i in range(depth):
+            self.add_module(f"block{i}", QuantTransformerBlock(
+                dim, num_heads, qconfig, num_kv_heads=num_kv_heads,
+                rope=pos_embedding == "rope", attn_window=attn_window,
+                path=(f"block{i}",), device=dev))
+        self.ln_f = _layer_norm(dim, dev)
+        self.lm_head = QuantDense(dim, vocab, qconfig, use_bias=False,
+                                  path=("lm_head",), device=dev)
+        self.requires_grad_(False)
+
+    def blocks(self):
+        return [getattr(self, f"block{i}") for i in range(self.depth)]
+
+    def forward(self, tokens: torch.Tensor, cache=None, cache_index=None):
+        b, t = tokens.shape
+        x = self.tok_emb(tokens)
+        if self.pos_embedding == "learned":
+            if cache is None:
+                if t > self.max_len:
+                    raise ValueError(f"sequence length {t} exceeds max_len {self.max_len}")
+                x = x + self.pos_emb[None, :t]
+            elif _is_scalar_index(cache_index):
+                i = int(cache_index)
+                if i < 0 or i + t > self.max_len:
+                    raise ValueError(f"positions [{i}, {i + t}) exceed max_len "
+                                     f"{self.max_len}")
+                x = x + self.pos_emb[None, i:i + t]
+            else:
+                positions = (cache_index.to(torch.int64)[:, None]
+                             + torch.arange(t, device=tokens.device))
+                x = x + self.pos_emb[positions]
+        new_cache = []
+        for i, block in enumerate(self.blocks()):
+            if cache is None:
+                x = block(x)
+            else:
+                x, kv = block(x, kv_cache=cache[i], cache_index=cache_index)
+                new_cache.append(kv)
+        logits = self.lm_head(self.ln_f(x))
+        if cache is None:
+            return logits
+        return logits, tuple(new_cache)
+
+
+def _lecun_normal(shape, gen, device) -> torch.Tensor:
+    """flax ``lecun_normal``: truncated normal (±2σ) with variance 1/fan_in,
+    σ corrected for the truncation."""
+    std = math.sqrt(1.0 / shape[0]) / 0.87962566103423978
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+
+
+def init_variables(model: QuantTransformerLM, seed: int = 0) -> dict:
+    """A seeded QAT-mode variables tree for ``model``, with the JAX package's
+    structure and distributions (``params`` + ``qparams``): lecun-normal dense
+    kernels and zero biases, normal(0.02) embedding and ``pos_emb``, LayerNorm
+    ones/zeros, static mean ± 3σ weight scales and the activation quantizers'
+    initial qparams.  The observer counters of ``quant_state`` are left out:
+    conversion never reads them.  Same distributions as flax ``init``, not
+    the same bits."""
+    dev = model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    qc = model.qconfig
+    params, qparams = {}, {}
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device=dev) * std
+
+    def quantizers(path, w, axis):
+        qcfg = qc.resolve(path)
+        node = {"weight_fq": {"qp": qcfg.weight_for_axis(axis).init(w)}}
+        acfg = qcfg.activation_for_axis(-1)
+        if acfg is not None and axis == 1:
+            node["act_fq"] = {"qp": acfg.init(num_channels=w.shape[0], device=dev)}
+        return node
+
+    def dense(path, k, n, bias=True):
+        w = _lecun_normal((k, n), gen, dev)
+        p = {"kernel": w}
+        if bias:
+            p["bias"] = torch.zeros(n, device=dev)
+        return p, quantizers(path, w, 1)
+
+    def ln():
+        return {"scale": torch.ones(model.dim, device=dev),
+                "bias": torch.zeros(model.dim, device=dev)}
+
+    emb = normal((model.vocab, model.dim), 0.02)
+    params["tok_emb"] = {"embedding": emb}
+    qparams["tok_emb"] = quantizers(("tok_emb",), emb, 0)
+    if model.pos_embedding == "learned":
+        params["pos_emb"] = normal((model.max_len, model.dim), 0.02)
+    d = model.dim
+    for i, blk in enumerate(model.blocks()):
+        name = f"block{i}"
+        bp, bq = {"ln1": ln(), "ln2": ln()}, {}
+        n_qkv = d + 2 * blk.kvh * blk.hd
+        hidden = blk.mlp_up.kernel.orig_shape[1]
+        for sub, k, n in (("qkv", d, n_qkv), ("proj", d, d),
+                          ("mlp_up", d, hidden), ("mlp_down", hidden, d)):
+            bp[sub], bq[sub] = dense((name, sub), k, n)
+        params[name], qparams[name] = bp, bq
+    params["ln_f"] = ln()
+    params["lm_head"], qparams["lm_head"] = dense(("lm_head",), d, model.vocab,
+                                                  bias=False)
+    return {"params": params, "qparams": qparams}

@@ -1,0 +1,476 @@
+"""Autoregressive decode on the quantized serving path (port of
+``make_sampler``, ``init_kv_cache``, ``prefill``, ``make_generate`` and
+``DecodeEngine`` from ``jaxlsq/serve/decode.py``).
+
+Differences from the JAX package, all from PyTorch running eagerly:
+
+* The cache is updated in place; ``prefill`` and the model return the same
+  cache objects they were given.
+* ``make_generate``'s decode loop is a Python loop (the JAX package scans).
+  Positions stay Python ints, so no step waits on the card.
+* Randomness is a ``torch.Generator`` (the JAX package folds keys); the same
+  seed gives other tokens than JAX's.
+* The engine keeps slot positions on the host and uploads them each step;
+  JAX's ``dynamic_update_slice`` clamps a write that runs past the cache,
+  the port refuses such requests at ``submit`` and never clamps.
+
+Prefix caching (``register_prefix``), beam search and the speculative
+generators and engines come with a later slice.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+from collections import deque
+from concurrent.futures import Future
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+__all__ = ["init_kv_cache", "prefill", "make_generate", "make_sampler",
+           "DecodeEngine"]
+
+
+def _greedy(logits: torch.Tensor, generator=None) -> torch.Tensor:
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def make_sampler(temperature: float = 1.0, top_k: Optional[int] = None):
+    """``pick(logits (B, V), generator) -> (B,) int32``: temperature +
+    optional top-k sampling; temperature 0 is greedy."""
+    if temperature <= 0.0:
+        return _greedy
+
+    def pick(logits, generator=None):
+        scaled = logits.to(torch.float32) / temperature
+        if top_k is not None:
+            kth = torch.sort(scaled, dim=-1).values[:, -top_k][:, None]
+            scaled = torch.where(scaled < kth, float("-inf"), scaled)
+        probs = torch.softmax(scaled, dim=-1)
+        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+
+    return pick
+
+
+def _dtype_name(dtype) -> str:
+    if isinstance(dtype, str):
+        return dtype
+    return str(dtype).replace("torch.", "")
+
+
+def init_kv_cache(model, batch_size: int, *, dtype=torch.float32,
+                  max_len: Optional[int] = None):
+    """Zero KV cache: ``model.depth`` per-layer ``(k, v)`` pairs.
+
+    ``dtype`` float32/bfloat16: arrays (B, KVH, L, hd).  ``torch.int8``:
+    ``(data int8 (B, KVH, L, hd), scales f32 (B, KVH, L))`` pairs.
+    ``"int4"``: ``(data uint8 (B, KVH, L, hd // 2), scales)`` with two
+    values per byte (needs an even head_dim)."""
+    length = model.max_len if max_len is None else max_len
+    hd = model.dim // model.num_heads
+    kvh = model.num_kv_heads or model.num_heads
+    shape = (batch_size, kvh, length, hd)
+    dev = model.device
+    name = _dtype_name(dtype)
+
+    def zeros(shp, dt):
+        return torch.zeros(shp, dtype=dt, device=dev)
+
+    if name == "int4":
+        if hd % 2:
+            raise ValueError("int4 KV cache needs an even head_dim "
+                             f"(got {hd}): values are nibble-packed in pairs")
+        return tuple(((zeros(shape[:-1] + (hd // 2,), torch.uint8),
+                       zeros(shape[:-1], torch.float32)),
+                      (zeros(shape[:-1] + (hd // 2,), torch.uint8),
+                       zeros(shape[:-1], torch.float32)))
+                     for _ in range(model.depth))
+    if name == "int8":
+        return tuple(((zeros(shape, torch.int8), zeros(shape[:-1], torch.float32)),
+                      (zeros(shape, torch.int8), zeros(shape[:-1], torch.float32)))
+                     for _ in range(model.depth))
+    if name not in ("float32", "bfloat16", "float16"):
+        raise ValueError(f"unsupported cache dtype {dtype!r}")
+    return tuple((zeros(shape, dtype), zeros(shape, dtype))
+                 for _ in range(model.depth))
+
+
+def _cache_len(cache) -> int:
+    lead = cache[0][0]
+    return (lead[0] if isinstance(lead, (tuple, list)) else lead).shape[2]
+
+
+@torch.no_grad()
+def prefill(model, tokens: torch.Tensor, *, cache=None, cache_dtype=torch.float32):
+    """Run the prompt (B, t) through the model, filling the cache.  Returns
+    ``(last_logits (B, vocab), cache, index)`` with ``index`` = t, the next
+    write position."""
+    b, t = tokens.shape
+    if cache is None:
+        cache = init_kv_cache(model, b, dtype=cache_dtype)
+    length = _cache_len(cache)
+    if t > length:
+        raise ValueError(f"prompt length {t} exceeds cache max_len {length}")
+    logits, cache = model(tokens, cache=cache, cache_index=0)
+    return logits[:, -1], cache, t
+
+
+def make_generate(model, prompt_len: int, n_new: int, *,
+                  cache_dtype=torch.float32,
+                  logits_to_token: Optional[Callable] = None,
+                  sampled: bool = False):
+    """Build ``generate(prompt (B, prompt_len)) -> (B, n_new) int32``: prefill,
+    then ``n_new - 1`` decode steps, greedy by default.  With ``sampled``,
+    ``generate(prompt, generator)`` passes the generator to
+    ``logits_to_token`` (e.g. :func:`make_sampler`)."""
+    if prompt_len + n_new > model.max_len:
+        raise ValueError(
+            f"prompt_len + n_new = {prompt_len + n_new} exceeds model.max_len "
+            f"= {model.max_len}")
+    pick = logits_to_token or _greedy
+
+    @torch.no_grad()
+    def generate(prompt: torch.Tensor, generator=None) -> torch.Tensor:
+        if prompt.shape[1] != prompt_len:
+            raise ValueError(f"prompt length {prompt.shape[1]} != {prompt_len}")
+        prompt = prompt.to(model.device)
+        last, cache, index = prefill(model, prompt, cache_dtype=cache_dtype)
+        tok = pick(last, generator) if sampled else pick(last)
+        toks = [tok]
+        for i in range(n_new - 1):
+            logits, cache = model(tok[:, None], cache=cache, cache_index=index + i)
+            tok = pick(logits[:, -1], generator) if sampled else pick(logits[:, -1])
+            toks.append(tok)
+        return torch.stack(toks, dim=1)
+
+    return generate
+
+
+class _GenRequest:
+    __slots__ = ("prompt", "n_new", "future", "tokens", "slot")
+
+    def __init__(self, prompt: np.ndarray, n_new: int):
+        self.prompt = prompt
+        self.n_new = n_new
+        self.future: Future = Future()
+        self.tokens: list = []
+        self.slot = -1
+
+
+class _PendingAdmit:
+    """One in-flight chunked admission: the reserved slot, its private B=1
+    cache and the chunk cursor."""
+
+    __slots__ = ("req", "slot", "slot_cache", "chunk_idx", "n_chunks", "padded",
+                 "c", "steps_at_start")
+
+    def __init__(self, *, req, slot, slot_cache, n_chunks, padded, c,
+                 steps_at_start):
+        self.req = req
+        self.slot = slot
+        self.slot_cache = slot_cache
+        self.chunk_idx = 0
+        self.n_chunks = n_chunks
+        self.padded = padded
+        self.c = c
+        self.steps_at_start = steps_at_start
+
+
+def _map_cache(fn, *caches):
+    """Apply ``fn`` leaf-wise over matching cache pytrees (tuples of tensors)."""
+    head = caches[0]
+    if torch.is_tensor(head):
+        return fn(*caches)
+    return tuple(_map_cache(fn, *parts) for parts in zip(*caches))
+
+
+class DecodeEngine:
+    """Token-level continuous batching: requests join the running batch at
+    the next token boundary.
+
+    One global cache (max_batch, KVH, max_len, hd) per layer; each slot holds
+    one request at its own depth (the model's per-slot ``cache_index`` path).
+    A new prompt is prefilled in ``prefill_chunk``-token chunks into a private
+    B=1 cache, one chunk per dispatcher iteration, interleaved with the decode
+    step; the final chunk emits the first token and copies the slot cache into
+    the global cache.  Padded chunk rows past the prompt write k/v that no
+    decode step reads before overwriting them.  Free slots decode parked at
+    ``max_len - 1`` and their tokens are dropped.
+
+    Args mirror the JAX package: ``max_batch``, ``prompt_buckets``
+    (admission cap), ``cache_dtype``, ``prefill_chunk`` (None = whole-bucket
+    chunks), ``max_wait_ms``, ``eos_id``, ``logits_to_token`` and ``rng`` (a
+    ``torch.Generator``; set it to call ``logits_to_token(logits, rng)``).
+    """
+
+    def __init__(self, model, *, max_batch: int = 8,
+                 prompt_buckets: Sequence[int] = (32, 128),
+                 cache_dtype=torch.float32, prefill_chunk: Optional[int] = 32,
+                 max_wait_ms: float = 2.0, eos_id: Optional[int] = None,
+                 logits_to_token: Optional[Callable] = None,
+                 rng: Optional[torch.Generator] = None):
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1 or None")
+        self.model = model
+        self.device = model.device
+        self.max_batch = max_batch
+        self.buckets = sorted(prompt_buckets)
+        self.max_len = model.max_len
+        self.eos_id = eos_id
+        self._rng = rng
+        self._sampled = rng is not None
+        self._pick = logits_to_token or _greedy
+        self.prefill_chunk = prefill_chunk
+        self._cache = init_kv_cache(model, max_batch, dtype=cache_dtype)
+        self._pos = np.full((max_batch,), self.max_len - 1, np.int64)
+        self._tok = torch.zeros((max_batch,), dtype=torch.int32, device=self.device)
+
+        self._queue: "queue.Queue[_GenRequest]" = queue.Queue()
+        self._slots: list = [None] * max_batch
+        self._pending: list = []
+        self._lifecycle_lock = threading.Lock()
+        self._state_lock = threading.Lock()
+        self._stop = False
+        self.max_wait_s = max_wait_ms / 1e3
+        self.stats = {"requests": 0, "steps": 0, "slot_tokens": 0,
+                      "active_token_sum": 0, "admission_chunks": 0,
+                      "admission_interleave": deque(maxlen=1024)}
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    # --------------------------------------------------------------- programs
+
+    def _pick_tok(self, logits):
+        return self._pick(logits, self._rng) if self._sampled else self._pick(logits)
+
+    def _run_chunk(self, slot_cache, tokens, start: int):
+        _, slot_cache = self.model(tokens, cache=slot_cache, cache_index=start)
+        return slot_cache
+
+    def _run_final_chunk(self, slot_cache, tokens, start: int, true_len: int,
+                         slot: int):
+        logits, slot_cache = self.model(tokens, cache=slot_cache, cache_index=start)
+        first = self._pick_tok(logits[0, true_len - 1 - start][None])[0]
+
+        def copy(g, s):
+            g[slot:slot + 1].copy_(s)
+            return g
+
+        _map_cache(copy, self._cache, slot_cache)
+        return first
+
+    def _run_step(self):
+        pos = torch.as_tensor(self._pos, dtype=torch.int32).to(self.device)
+        logits, _ = self.model(self._tok[:, None], cache=self._cache, cache_index=pos)
+        nxt = self._pick_tok(logits[:, -1])
+        self._pos = np.minimum(self._pos + 1, self.max_len - 1)
+        return nxt
+
+    def _slot_cache(self):
+        return _map_cache(lambda g: torch.zeros((1,) + tuple(g.shape[1:]),
+                                                dtype=g.dtype, device=g.device),
+                          self._cache)
+
+    def _chunk_len(self, bucket: int) -> int:
+        return bucket if self.prefill_chunk is None else min(self.prefill_chunk, bucket)
+
+    def _padded_admit_len(self, size: int) -> int:
+        """Rows a chunked admission of ``size`` tokens writes: whole chunks."""
+        b = next(b for b in self.buckets if b >= size)
+        c = self._chunk_len(b)
+        return -(-size // c) * c
+
+    # -------------------------------------------------------------------- API
+
+    @torch.no_grad()
+    def warmup(self):
+        """Run the decode step and each chunk length once (first calls build
+        the kernels).  Must run before requests are in flight: it resets the
+        cache and positions."""
+        with self._state_lock:
+            if any(s is not None for s in self._slots) or self._pending:
+                raise RuntimeError("warmup() must run before requests are in "
+                                   "flight (it resets the KV cache)")
+            self._run_step()
+            # chunks longer than the cache can never be admitted
+            for c in sorted(c for c in {self._chunk_len(b) for b in self.buckets}
+                            if c <= self.max_len):
+                toks = torch.zeros((1, c), dtype=torch.int32, device=self.device)
+                sc = self._run_chunk(self._slot_cache(), toks, 0)
+                self._run_final_chunk(sc, toks, 0, 1, 0)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            _map_cache(lambda g: g.zero_(), self._cache)
+            self._pos[:] = self.max_len - 1
+            self._tok.zero_()
+
+    def submit(self, prompt, n_new: int) -> Future:
+        """Queue one request; the Future resolves to an (n_new,) int32 array
+        (shorter when it emits ``eos_id``)."""
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim != 1 or prompt.size == 0:
+            raise ValueError("prompt must be a non-empty 1-D token array")
+        if n_new < 1:
+            raise ValueError("n_new must be >= 1")
+        if prompt.size > self.buckets[-1]:
+            raise ValueError(f"prompt length {prompt.size} exceeds the largest "
+                             f"bucket {self.buckets[-1]}")
+        if prompt.size + n_new > self.max_len:
+            raise ValueError("prompt + n_new exceeds model.max_len")
+        if self._padded_admit_len(prompt.size) > self.max_len:
+            raise ValueError(
+                "the chunk-padded admission would write past max_len (padded "
+                f"prompt {self._padded_admit_len(prompt.size)} > {self.max_len}); "
+                "lower prefill_chunk or the bucket")
+        req = _GenRequest(prompt, n_new)
+        with self._lifecycle_lock:
+            if self._stop:
+                raise RuntimeError("DecodeEngine is closed")
+            self._queue.put(req)
+        return req.future
+
+    def close(self):
+        with self._lifecycle_lock:
+            self._stop = True
+        self._thread.join(timeout=300)
+        if not self._thread.is_alive():
+            self._fail_pending(RuntimeError("DecodeEngine closed"))
+        else:  # dispatcher stuck: cancel so callers do not block
+            for req in (list(self._slots) + [p.req for p in self._pending]
+                        + self._drain_queue()):
+                if req is not None and not req.future.done():
+                    req.future.cancel()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    # ------------------------------------------------------------- dispatcher
+
+    def _drain_queue(self):
+        out = []
+        while True:
+            try:
+                out.append(self._queue.get_nowait())
+            except queue.Empty:
+                return out
+
+    def _fail_pending(self, exc):
+        for req in self._slots:
+            if req is not None and not req.future.done():
+                req.future.set_exception(exc)
+        self._slots = [None] * self.max_batch
+        for p in self._pending:
+            if not p.req.future.done():
+                p.req.future.set_exception(exc)
+        self._pending = []
+        for req in self._drain_queue():
+            if not req.future.done():
+                req.future.set_exception(exc)
+
+    def _finished(self, req: _GenRequest) -> bool:
+        return (len(req.tokens) >= req.n_new
+                or (self.eos_id is not None and len(req.tokens) > 0
+                    and req.tokens[-1] == self.eos_id))
+
+    def _start_admit(self, req: _GenRequest, slot: int):
+        b = next(b for b in self.buckets if b >= req.prompt.size)
+        c = self._chunk_len(b)
+        n_chunks = -(-req.prompt.size // c)
+        padded = np.zeros((1, n_chunks * c), np.int32)
+        padded[0, : req.prompt.size] = req.prompt
+        req.slot = slot
+        self._pending.append(_PendingAdmit(
+            req=req, slot=slot, slot_cache=self._slot_cache(), n_chunks=n_chunks,
+            padded=padded, c=c, steps_at_start=self.stats["steps"]))
+
+    def _advance_admission(self, p: _PendingAdmit):
+        """Run ONE chunk of the admission at the head of the queue."""
+        i = p.chunk_idx
+        toks = torch.as_tensor(p.padded[:, i * p.c:(i + 1) * p.c]).to(self.device)
+        start = i * p.c
+        if i < p.n_chunks - 1:
+            p.slot_cache = self._run_chunk(p.slot_cache, toks, start)
+            p.chunk_idx += 1
+        else:
+            first = self._run_final_chunk(p.slot_cache, toks, start,
+                                          p.req.prompt.size, p.slot)
+            self._tok[p.slot] = first
+            self._pos[p.slot] = p.req.prompt.size
+            p.req.tokens.append(int(first))
+            self._slots[p.slot] = p.req
+            self._pending.remove(p)
+            self.stats["requests"] += 1
+            self.stats["admission_interleave"].append(
+                self.stats["steps"] - p.steps_at_start)
+        self.stats["admission_chunks"] += 1
+
+    def _retire_done(self):
+        for slot, req in enumerate(self._slots):
+            if req is not None and self._finished(req):
+                if not req.future.done():
+                    req.future.set_result(np.asarray(req.tokens[: req.n_new], np.int32))
+                self._slots[slot] = None
+                self._pos[slot] = self.max_len - 1  # park the freed slot
+
+    def _stage_admissions(self, reserved: set):
+        for slot in range(self.max_batch):
+            if self._slots[slot] is None and slot not in reserved:
+                try:
+                    req = self._queue.get_nowait()
+                except queue.Empty:
+                    break
+                self._start_admit(req, slot)
+                reserved.add(slot)
+
+    def _loop(self):
+        with torch.no_grad():
+            while True:
+                if self._stop:
+                    self._fail_pending(RuntimeError("DecodeEngine closed"))
+                    return
+                with self._state_lock:
+                    idle = self._iterate()
+                if idle is None:
+                    return
+                if idle:
+                    time.sleep(self.max_wait_s)
+
+    def _iterate(self):
+        """One dispatcher iteration; True when idle, None after a failure."""
+        reserved = {p.slot for p in self._pending}
+        self._stage_admissions(reserved)
+        if self._pending:
+            p = self._pending[0]
+            try:
+                self._advance_admission(p)
+            except Exception as e:
+                self._pending.remove(p)
+                if not p.req.future.done():
+                    p.req.future.set_exception(e)
+        self._retire_done()
+        active = [s for s in self._slots if s is not None]
+        if not active:
+            return not self._pending
+        try:
+            nxt = self._run_step()
+            toks = nxt.cpu().numpy()
+        except Exception as e:  # device failure: fail fast
+            with self._lifecycle_lock:
+                self._stop = True
+            self._fail_pending(e)
+            return None
+        self._tok = nxt
+        for slot, req in enumerate(self._slots):
+            if req is not None and not self._finished(req):
+                req.tokens.append(int(toks[slot]))
+        self.stats["steps"] += 1
+        self.stats["slot_tokens"] += self.max_batch
+        self.stats["active_token_sum"] += len(active)
+        self._retire_done()
+        return False

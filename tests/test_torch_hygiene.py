@@ -1,0 +1,47 @@
+"""jaxlsq_torch stands alone: importing every module of the port (and the
+chip smoke script) loads neither jax nor the jaxlsq package, and the entry
+points refuse to fall back to the CPU when no device was asked for."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULES = [
+    "jaxlsq_torch", "jaxlsq_torch._build", "jaxlsq_torch._device",
+    "jaxlsq_torch.core", "jaxlsq_torch.core.spec", "jaxlsq_torch.core.golden",
+    "jaxlsq_torch.observers", "jaxlsq_torch.observers.quantizer",
+    "jaxlsq_torch.models", "jaxlsq_torch.models.qconfig",
+    "jaxlsq_torch.models.layers", "jaxlsq_torch.models.zoo",
+    "jaxlsq_torch.serve", "jaxlsq_torch.serve.pack", "jaxlsq_torch.serve.convert",
+    "jaxlsq_torch.serve.matmul", "jaxlsq_torch.serve.attention",
+    "jaxlsq_torch.serve.decode", "jaxlsq_torch.interop",
+]
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, runpy, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'jaxlsq'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_entry_points_need_a_device_without_cuda():
+    from jaxlsq_torch.models import QuantTransformerLM, default_qconfig
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QuantTransformerLM(32, 16, 1, 2, default_qconfig(8, 8).for_serving())
