@@ -1,33 +1,51 @@
 #!/usr/bin/env python3
-"""Smoke test of the jaxlsq_torch serving port on one NVIDIA GPU (H100).
+"""Smoke test of the jaxlsq_torch port on one NVIDIA GPU (H100): the serving
+slice and the QAT training slice.
 
     python3 chip_smoke.py [--record PATH]
 
 Runs from the root of a checkout, needs one CUDA card, imports no jax, and
 exits non-zero on any failure (no phase is caught and skipped):
 
-1. prints the card (``nvidia-smi`` name and power limit) and turns TF32 off;
+1. prints the card (``nvidia-smi`` name and power limit) and turns TF32 off
+   for matmuls and cuDNN convolutions;
 2. builds the CUDA kernels from ``jaxlsq_torch/csrc`` and holds each against
-   its plain PyTorch version at the main path's shapes (``wo8``/``wo4`` at
+   its plain PyTorch version at the main paths' shapes: ``wo8``/``wo4`` at
    M in {1, 8, 256} over every K x N of the d1024 LM plus an odd K;
    ``decode_attention`` for every cache carrier, a scalar index at B = 1
    and a per-slot index at B = 8, t in {1, 32}, L in {240, 2048}, and two
-   windows);
-3. drives the main path with the launch counts reset: the d1024 x 4 LM of
-   the JAX package's decode benchmark (vocab 8192, 16 heads, max_len 240,
-   int8 per-channel weights, bf16 cache, seeded random weights) through
+   windows; the four fake-quant kernels at all 42 quantizer shapes of
+   ``resnet18_cifar`` at B = 64 (21 activation inputs, 21 weights), in
+   train, eval and init modes, on random data and on the real activations,
+   weights and gradients of one training step (forward and dX bit-exact,
+   dS/dB within 1e-5 of the sum of the magnitudes of their terms);
+3. drives the serving path with every launch count reset: the d1024 x 4 LM
+   of the JAX package's decode benchmark (vocab 8192, 16 heads, max_len
+   240, int8 per-channel weights, bf16 cache, seeded random weights) through
    ``make_generate`` at B = 1 and 8 (tokens/s from the 16 -> 208 token
    slope), ``DecodeEngine`` (8 requests, each checked token for token
    against ``make_generate`` at B = 1), the int4-weight LM at B = 1, and the
    max_len 2048, B = 8 leg with int8 and int4 caches; checks the kernel
    path's logits against the plain path on the CPU; fails if a kernel of
-   the path was never launched;
-   profiles one B = 1 generate for the device's busy share and the time by
-   kernel;
-4. times each kernel at the main path's shapes (L2 flushed by rotating
-   buffer copies): device time from the profiler's CUDA trace and time a
-   call from CUDA events, beside its bound, its plain version and one
-   PyTorch library call.
+   the path was never launched; profiles one B = 1 generate for the
+   device's busy share and the time by kernel;
+4. times each kernel at the main paths' shapes (L2 flushed by rotating
+   buffer copies): device time from CUDA events around calls issued behind
+   a sleep kernel (so they run back to back) and time a call from CUDA
+   events around calls issued as the host can, beside its bound, its plain
+   version and one PyTorch library call;
+5. drives the training path with every launch count reset: full-width
+   ``resnet18_cifar`` under ``default_qconfig(8, 8, per_channel_weights=True,
+   init_batches=2)``, seeded on the card, SGD (lr 1e-2, momentum 0.9),
+   B = 64 seeded random 32x32x3 images and labels, 12 steps (the 2-batch
+   observer window, then full LSQ; steps/s and images/s over steps 3-12)
+   and one profiled step (busy share, time by kernel); fails unless every
+   loss is finite and each fake-quant kernel ran 21 times a step past the
+   window; then one B = 8 step from the same state on the card and on the
+   CPU plain path, the losses within 1e-3 relative (where a rounding
+   boundary fell the other way, the CPU takes the card's activation, at
+   most one quant step away, on at most 1e-5 of the elements); the step's
+   convolution FLOPs and its BatchNorm layers' device time alone.
 
 Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes the full
@@ -48,6 +66,21 @@ VOCAB, DIM, DEPTH, HEADS, T0 = 8192, 1024, 4, 16, 32
 N1, N2 = 16, 208
 WO_SHAPES = {"qkv": (1024, 3072), "proj": (1024, 1024), "mlp_up": (1024, 4096),
              "mlp_down": (4096, 1024), "lm_head": (1024, 8192)}
+TRAIN_B, TRAIN_STEPS, CHECK_B = 64, 12, 8
+MAX_MOVED_SHARE = 1e-5  # of a B = CHECK_B step's activation elements (53 of 5,337,088)
+FQ_KERNELS = ("fq_fwd_pt", "fq_fwd_pc", "fq_bwd_pt", "fq_bwd_pc")
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count to 0; returns the count dicts."""
+    from jaxlsq_torch.ops.fake_quant import LAUNCHES as FQ
+    from jaxlsq_torch.serve.attention import LAUNCHES as ATTN
+    from jaxlsq_torch.serve.matmul import LAUNCHES as MM
+
+    for counts in (MM, ATTN, FQ):
+        for k in counts:
+            counts[k] = 0
+    return MM, ATTN, FQ
 
 
 def log(*a):
@@ -59,37 +92,108 @@ def bound(nbytes, flops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def measure(torch, fn, arg_sets, reps=40):
-    """(device ms, call ms) per call, cycling through ``arg_sets`` (copies of
-    the inputs, so the working set exceeds the 50 MB L2).  Device ms: the
-    summed durations of the kernels the calls ran, from the profiler's CUDA
-    trace.  Call ms: CUDA events around back-to-back calls, which include
-    the host's time to issue each call whenever the host is the slower."""
-    from torch.profiler import ProfilerActivity, profile
+CYCLES_PER_MS = 2.0e6  # the H100's top SM clock; at a lower clock a sleep lasts longer
+PROFILE_MISSES = []  # every profile that lost kernel records, then taken again
+PROFILE_TRIES = 5  # the losses come in stretches of a few sessions: pause, retry
+WAITING_CALLS = []  # timed functions that wait on the device within a call
 
-    for a in arg_sets[:3]:
-        fn(*a)
+
+def events_ms(torch, run, sleep_ms=0.0):
+    """``(span ms, host ms)``: the span between CUDA events recorded around
+    ``run()``, and the host's time to issue it.  With ``sleep_ms`` a sleep
+    kernel holds the stream first; while the host issues the run before the
+    sleep ends, the run's kernels then go back to back and the span is their
+    device time with the device's own gaps between kernels and no host gap.
+    No profiler is involved."""
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    if sleep_ms:
+        torch.cuda._sleep(int(sleep_ms * CYCLES_PER_MS))
+    s = time.perf_counter()
     e0.record()
-    for i in range(reps):
-        fn(*arg_sets[i % len(arg_sets)])
+    run()
     e1.record()
+    host_ms = 1e3 * (time.perf_counter() - s)
     torch.cuda.synchronize()
-    call_ms = e0.elapsed_time(e1) / reps
-    for _ in range(3):  # a profile that recorded no kernel is taken again
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for i in range(reps):
-                fn(*arg_sets[i % len(arg_sets)])
-            torch.cuda.synchronize()
-        # only device activity is recorded, so every row is device time
-        dev_us = sum(e.self_device_time_total for e in prof.key_averages())
-        if dev_us > 0:
-            break
-    else:
-        raise AssertionError("the profiler saw no device time")
-    return dev_us / 1e3 / reps, call_ms
+    return e0.elapsed_time(e1), host_ms
+
+
+def _profiled(torch, run, sleep_ms=0.0):
+    """``(kernel rows, span ms)`` of one ``run()`` under the profiler (CUDA
+    activity only): the ``key_averages`` rows of the kernels the run
+    launched, less the sleep kernel and torch.optim's ``Optimizer.*``
+    annotation (it spans kernels counted already), and the CUDA-event span
+    of the run (``events_ms``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        span, _ = events_ms(torch, run, sleep_ms)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("Optimizer.") and "spin_kernel" not in e.key]
+    return rows, span
+
+
+def _ms(rows):
+    return sum(e.self_device_time_total for e in rows) / 1e3
+
+
+def _lost(what, why, **kw):
+    PROFILE_MISSES.append({"what": what, "why": why, **kw})
+    log(f"[profile] {why}: {PROFILE_MISSES[-1]}; profiling again in a second")
+    time.sleep(1.0)
+
+
+def device_profile(torch, run, what, sleep_ms):
+    """``(kernel rows, span ms)`` of one ``run()`` issued behind a
+    ``sleep_ms`` sleep kernel under the profiler.  The profiler on the H100
+    now and then loses a stretch of kernel records (a session sees none or
+    a part of its kernels), so the rows' device time is held against the
+    span of the same run: below half of it, the loss is logged, recorded in
+    ``PROFILE_MISSES`` and the run profiled again a second later (a loss
+    spans a few sessions in a row); the ``PROFILE_TRIES``-th loss fails."""
+    for _ in range(PROFILE_TRIES):
+        rows, span = _profiled(torch, run, sleep_ms)
+        if _ms(rows) >= 0.5 * span:
+            return rows, span
+        _lost(what, "kernel records lost", device_ms=_ms(rows), span_ms=span)
+    raise AssertionError(f"the profiler lost kernel records of {what} "
+                         f"{PROFILE_TRIES} times")
+
+
+def measure(torch, fn, arg_sets, reps=40):
+    """(device ms, call ms) per call, cycling through ``arg_sets`` (copies of
+    the inputs, so the working set exceeds the 50 MB L2).  Call ms: CUDA
+    events around back-to-back calls, which include the host's time to
+    issue each call whenever the host is the slower.  Device ms: the same
+    calls issued behind a sleep kernel three times as long as that, so they
+    run back to back on the device.  A call that waits on the device itself
+    (recorded in ``WAITING_CALLS``) cannot get ahead of the sleep; its
+    device ms is the larger kernel time of two profiles (a lost stretch of
+    records only lowers a reading) that agree within 20%; a pair that does
+    not is recorded in ``PROFILE_MISSES`` and taken again a second later,
+    the ``PROFILE_TRIES``-th fails."""
+    def run():
+        for i in range(reps):
+            fn(*arg_sets[i % len(arg_sets)])
+
+    for a in arg_sets[:3]:
+        fn(*a)
+    call_ms, _ = events_ms(torch, run)
+    sleep_ms = 3 * call_ms + 5
+    dev_ms, host_ms = events_ms(torch, run, sleep_ms)
+    if host_ms < 0.8 * sleep_ms:
+        return dev_ms / reps, call_ms / reps
+    what = getattr(fn, "__qualname__", str(fn))
+    WAITING_CALLS.append(what)
+    for _ in range(PROFILE_TRIES):
+        a, b = (_ms(_profiled(torch, run)[0]) for _ in range(2))
+        if min(a, b) >= 0.8 * max(a, b) > 0:
+            return max(a, b) / reps, call_ms / reps
+        _lost(what, "profiles disagree", device_ms=[a, b])
+    raise AssertionError(f"the profiler lost kernel records of {what} "
+                         f"{PROFILE_TRIES} times")
 
 
 def copies_for(nbytes, floor=160e6):
@@ -218,9 +322,7 @@ def phase_main(torch, rec):
     rec["main"] = main
     model, variables, qc = _lm(torch, 8, T0 + N2, seed=0)
     r = np.random.RandomState(7)
-    for counts in (MM, ATTN):
-        for k in counts:
-            counts[k] = 0
+    reset_counts()
     t_main = time.time()
 
     # make_generate, greedy, B = 1 and 8, bf16 cache
@@ -442,6 +544,426 @@ def phase_times(torch, rec):
     MM.update(saved)
 
 
+# ---------------------------------------------------------------------------
+# the QAT training slice: the fake-quant kernels and resnet18_cifar's step
+# ---------------------------------------------------------------------------
+
+def _resnet(torch, device, seed):
+    from jaxlsq_torch.models import default_qconfig, resnet18_cifar
+
+    qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=2)
+    return resnet18_cifar(10, qc, device=device, seed=seed)
+
+
+def _image_batches(torch, n, b, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [{"image": torch.randn(b, 3, 32, 32, device="cuda", generator=g),
+             "label": torch.randint(0, 10, (b,), device="cuda", generator=g)}
+            for _ in range(n)]
+
+
+def _sgd(torch, model):
+    return torch.optim.SGD(model.parameters(), lr=1e-2, momentum=0.9)
+
+
+def _capture_step(torch):
+    """One training step of a fresh resnet18_cifar at B = 64, with every
+    quantizer's input, qparams and incoming gradient captured by hooks."""
+    from jaxlsq_torch.models.layers import FakeQuantize
+    from jaxlsq_torch.parallel import make_train_step
+
+    model = _resnet(torch, "cuda", seed=1)
+    caps = []
+
+    def hook(name, mod, inputs, out):
+        cap = {"name": name, "x": inputs[0].detach().clone(),
+               "scale": mod.scale.detach().clone(),
+               "shift": mod.shift.detach().clone(), "spec": mod.cfg.spec}
+        caps.append(cap)
+        out.register_hook(lambda g: cap.__setitem__("g", g.detach().clone()))
+
+    handles = [mod.register_forward_hook(
+        lambda m, i, o, name=name: hook(name, m, i, o))
+        for name, mod in model.named_modules() if isinstance(mod, FakeQuantize)]
+    make_train_step(model, _sgd(torch, model))(
+        _image_batches(torch, 1, TRAIN_B, seed=11)[0])
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    if len(caps) != 42 or any("g" not in c for c in caps):
+        raise AssertionError(f"captured {len(caps)} quantizers, expected 42 with gradients")
+    return caps
+
+
+def _fq_term_sums(torch, g, x, s, b, spec, init_mode, gs):
+    """Per qparam, |gs| times the sum of |term| of dS and of dB, in f64: the
+    scale of a difference in summation order."""
+    from jaxlsq_torch.core.golden import broadcast_qparams
+
+    x, g = x.double(), g.double()
+    s = s.double().abs().clamp_min(2.0 ** -23)
+    b = b.double()
+    axis = spec.axis % x.dim() if spec.per_channel else None
+    if axis is not None:
+        s, b = (broadcast_qparams(t, x.dim(), axis) for t in (s, b))
+    zp = torch.round(torch.clamp(-b / s, spec.type_min, spec.type_max))
+    xq = torch.clamp(x / s + zp, spec.quant_min, spec.quant_max)
+    inside = (spec.quant_min < xq) & (xq < spec.quant_max)
+    xfq = (torch.round(xq) - zp) * s
+    geff = 2 * (xfq - x) if init_mode else g
+    ds = torch.where(inside, geff * (xfq - x) / s,
+                     torch.where(xq <= spec.quant_min, geff * (spec.quant_min - zp),
+                                 geff * (spec.quant_max - zp))).abs()
+    db = torch.where(inside, 0.0, geff).abs()
+    red = tuple(a for a in range(x.dim()) if a != axis)
+    return ds.sum(dim=red) * abs(gs), db.sum(dim=red) * abs(gs)
+
+
+def _check_fq(torch, x, s, b, g, spec, errs, what):
+    """The four kernels against golden on the card, train/eval/init modes:
+    forward and dX bit-exact, dS/dB within 1e-5 of their term sums."""
+    from jaxlsq_torch.core.golden import (effective_grad_scale, golden_backward,
+                                          golden_forward)
+    from jaxlsq_torch.ops.fake_quant import fake_quant_backward, fake_quant_forward
+
+    kind = "pc" if spec.per_channel else "pt"
+    gs = effective_grad_scale(spec, x.numel(), s.numel())
+    worst = 0.0
+    for eval_mode, init_mode in ((False, False), (True, False), (False, True)):
+        out = fake_quant_forward(x, s, b, spec, init_mode)
+        dx, ds, db = fake_quant_backward(g, x, s, b, spec, eval_mode, init_mode)
+        ref = golden_forward(x, s, b, spec, init_mode=init_mode)
+        rdx, rds, rdb = golden_backward(g, x, s, b, spec, eval_mode=eval_mode,
+                                        init_mode=init_mode)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, ref) and torch.equal(dx, rdx)):
+            raise AssertionError(
+                f"{what}: fake-quant forward/dX not bit-exact (eval={eval_mode}, "
+                f"init={init_mode}): {float((out - ref).abs().max())}, "
+                f"{float((dx - rdx).abs().max())}")
+        tot_s, tot_b = _fq_term_sums(torch, g, x, s, b, spec, init_mode, gs)
+        e_sums = 0.0
+        for got, want, tot in ((ds, rds, tot_s), (db, rdb, tot_b)):
+            err = (got.double() - want.double()).abs().reshape(tot.shape)
+            if not bool((err <= 1e-5 * tot).all()):
+                raise AssertionError(f"{what}: dS/dB off by {float(err.max())} "
+                                     f"(eval={eval_mode}, init={init_mode})")
+            e_sums = max(e_sums, float(err.max()))
+            worst = max(worst, float((err / tot.clamp_min(1e-30)).max()))
+        errs[f"fq_fwd_{kind}"] = max(errs[f"fq_fwd_{kind}"], float((out - ref).abs().max()))
+        errs[f"fq_bwd_{kind}"] = max(errs[f"fq_bwd_{kind}"],
+                                     float((dx - rdx).abs().max()), e_sums)
+    return worst
+
+
+def phase_fq_kernels(torch, rec):
+    caps = _capture_step(torch)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    errs = {k: 0.0 for k in FQ_KERNELS}
+    shapes = []
+    worst = 0.0
+    for c in caps:
+        x, grad, spec = c["x"], c["g"], c["spec"]
+        worst = max(worst, _check_fq(torch, x, c["scale"], c["shift"], grad, spec,
+                                     errs, f"{c['name']} real"))
+        xr = torch.randn(x.shape, device="cuda", generator=g) * x.std() + x.mean()
+        gr = torch.randn(x.shape, device="cuda", generator=g) * grad.std()
+        worst = max(worst, _check_fq(torch, xr, c["scale"], c["shift"], gr, spec,
+                                     errs, f"{c['name']} random"))
+        shapes.append({"name": c["name"], "shape": list(x.shape),
+                       "per_channel": spec.per_channel, "numel": x.numel()})
+    rec["max_abs_err"].update(errs)
+    rec["fq_shapes"] = shapes
+    rec["fq_worst_sum_rel_err"] = worst
+    n_act = sum(r["numel"] for r in shapes if not r["per_channel"])
+    n_w = sum(r["numel"] for r in shapes if r["per_channel"])
+    log(f"[check] fake-quant kernels at the {len(shapes)} quantizer shapes of "
+        f"resnet18_cifar, B={TRAIN_B} ({n_act} activation and {n_w} weight "
+        "elements a step), train/eval/init, real and random data: forward and dX "
+        f"bit-exact; dS/dB worst {worst:.2e} of their term sums (tol 1e-5); "
+        f"max_abs_err {errs}")
+
+
+def _categorise(name):
+    n = name.lower()
+    if "fq_" in n:
+        return "fake_quant"
+    if any(k in n for k in ("conv", "xmma", "gemm", "cudnn", "wgrad", "dgrad",
+                            "implicit", "cutlass", "winograd", "fft", "complex",
+                            "flip_filter", "nchw", "nhwc")):
+        return "conv"
+    if "multi_tensor_apply" in n:
+        return "optimizer"
+    return "other (BatchNorm, ReLU, observers, loss, grad zeroing)"
+
+
+def _profile_train_step(torch, step, batch, step_ms):
+    rows, span = device_profile(torch, lambda: step(batch), "the train step",
+                                sleep_ms=2 * step_ms + 5)
+    by_name, by_cat, n_kernels = {}, {}, 0
+    for e in rows:
+        ms = e.self_device_time_total / 1e3
+        by_name[e.key] = by_name.get(e.key, 0.0) + ms
+        cat = _categorise(e.key)
+        by_cat[cat] = by_cat.get(cat, 0.0) + ms
+        n_kernels += e.count
+    dev_ms = sum(by_name.values())
+    top = sorted(((k[:70], v) for k, v in by_name.items()), key=lambda kv: -kv[1])
+    return {"device_ms": dev_ms, "span_ms": span, "busy_share": dev_ms / step_ms,
+            "kernels": n_kernels, "by_category_ms": by_cat, "top": top[:15]}
+
+
+def _batchnorm_ms(torch, shapes):
+    """Device ms and kernels of the BatchNorm layers' forward and backward
+    in training mode at ``shapes``, on fresh layers and random inputs."""
+    from jaxlsq_torch.models import BatchNorm
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    layers = [(BatchNorm(shp[1], device="cuda"),
+               torch.randn(shp, device="cuda", generator=g).requires_grad_(True),
+               torch.randn(shp, device="cuda", generator=g)) for shp in shapes]
+
+    def run():
+        for bn, x, gy in layers:
+            x.grad = None
+            bn.zero_grad(set_to_none=True)
+            bn(x).backward(gy)
+
+    run()
+    _, host_ms = events_ms(torch, run)
+    rows, span = device_profile(torch, run, "the BatchNorm layers",
+                                sleep_ms=3 * host_ms + 5)
+    return {"ms": _ms(rows), "span_ms": span,
+            "kernels": sum(e.count for e in rows), "layers": len(shapes)}
+
+
+def phase_train(torch, rec):
+    from jaxlsq_torch.models import BatchNorm, QuantConv
+    from jaxlsq_torch.parallel import make_train_step
+
+    model = _resnet(torch, "cuda", seed=0)
+    step = make_train_step(model, _sgd(torch, model))
+    batches = _image_batches(torch, TRAIN_STEPS + 1, TRAIN_B, seed=3)
+    torch.cuda.synchronize()
+    train = {}
+    rec["train"] = train
+    _, _, fq = reset_counts()
+    losses, per_step = [], []
+    t_start = None
+    for i, batch in enumerate(batches[:TRAIN_STEPS]):
+        if i == 2:  # steps 3-12: past the 2-batch observer window
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        before = dict(fq)
+        losses.append(step(batch)["loss"])
+        per_step.append({k: fq[k] - before[k] for k in FQ_KERNELS})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    timed = TRAIN_STEPS - 2
+    bn_shapes, conv_flops = [], []
+    hooks = [m.register_forward_hook(
+        lambda mod, i, o: bn_shapes.append(tuple(i[0].shape)))
+        for m in model.modules() if isinstance(m, BatchNorm)]
+    # forward 2 * outputs * (I * kh * kw); dgrad and wgrad as much again each
+    hooks += [m.register_forward_hook(
+        lambda mod, i, o: conv_flops.append(3 * 2 * o.numel() * mod.kernel[0].numel()))
+        for m in model.modules() if isinstance(m, QuantConv)]
+    train.update({"steps_per_s": timed / wall, "images_per_s": timed * TRAIN_B / wall,
+                  "step_ms": 1e3 * wall / timed})
+    train["profile"] = _profile_train_step(torch, step, batches[TRAIN_STEPS],
+                                           train["step_ms"])
+    for h in hooks:
+        h.remove()
+    train["conv_gflop"] = sum(conv_flops) / 1e9
+    train["launches"] = {k: fq[k] for k in FQ_KERNELS}
+    losses = torch.stack(losses).cpu()
+    train.update({"losses": losses.tolist(), "per_step_launches": per_step})
+    p = train["profile"]
+    log(f"[train] resnet18_cifar B={TRAIN_B}: losses "
+        + " ".join(f"{v:.4f}" for v in train["losses"]))
+    log(f"[train] steps 3-{TRAIN_STEPS}: {train['steps_per_s']:.2f} steps/s, "
+        f"{train['images_per_s']:.1f} images/s ({train['step_ms']:.2f} ms a step)")
+    log(f"[train] profiled step: kernels busy {p['device_ms']:.2f} ms "
+        f"({100 * p['busy_share']:.1f}% of an unprofiled step; "
+        f"{p['span_ms']:.2f} ms span when issued behind a sleep kernel), "
+        f"{p['kernels']} kernels; by category: "
+        + "; ".join(f"{k} {v:.2f} ms" for k, v in sorted(p["by_category_ms"].items(),
+                                                         key=lambda kv: -kv[1])))
+    log("[train] top kernels: " + "; ".join(f"{k} {v:.2f} ms" for k, v in p["top"][:8]))
+    conv_ms = p["by_category_ms"].get("conv", 0.0)
+    log(f"[train] convolutions: {train['conv_gflop']:.1f} GFLOP a step forward + "
+        f"backward, {train['conv_gflop'] / max(conv_ms, 1e-9):.1f} TFLOP/s over their "
+        f"{conv_ms:.2f} ms on the device (f32, TF32 off)")
+    train["batchnorm"] = _batchnorm_ms(torch, bn_shapes)
+    log(f"[train] the step's {len(bn_shapes)} BatchNorm layers alone, forward + "
+        f"backward at their B={TRAIN_B} shapes: {train['batchnorm']['ms']:.2f} ms on "
+        f"the device ({train['batchnorm']['span_ms']:.2f} ms span), "
+        f"{train['batchnorm']['kernels']} kernels")
+    log(f"[train] fake-quant launches on the path: {train['launches']}")
+    fq_ms = p["by_category_ms"].get("fake_quant", 0.0)
+    n_all = sum(r["numel"] for r in rec["fq_shapes"])
+    b_ms, _ = bound(20 * n_all, 27 * n_all)
+    train["fq_step"] = {"device_ms": fq_ms, "bound_ms": b_ms, "elements": n_all}
+    log(f"[train] fake-quant kernels over the profiled step: {fq_ms:.3f} ms on the "
+        f"device (bound {b_ms:.3f} ms for {n_all} elements at 8 + 12 bytes each)")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"non-finite training loss: {train['losses']}")
+    for i, counts in enumerate(per_step):
+        for k, v in counts.items():
+            if v != 21:
+                raise AssertionError(f"step {i + 1}: {k} ran {v} times, not 21")
+
+    # one B = 8 step from the same state on the card and on the CPU plain path
+    train["cpu_check"] = _cpu_check(torch, model, step)
+
+
+def _act_quantizers(model):
+    from jaxlsq_torch.models.layers import FakeQuantize
+
+    return [(n, m) for n, m in model.named_modules()
+            if isinstance(m, FakeQuantize) and n.endswith("act_fq")]
+
+
+def _cpu_check(torch, model, step):
+    """One B = 8 training step from ``model``'s state on the card and on the
+    CPU plain path; the losses within 1e-3 relative.
+
+    The convolutions' sums run in another order on the two devices, so an
+    activation can land on the other side of a rounding boundary and come
+    out one quant step away; each such element moves every later layer a
+    little and flips more of them.  So the CPU step takes the card's
+    activation where the two differ by more than half a quant step, after
+    checking that they differ by at most one step, and fails if more than
+    ``MAX_MOVED_SHARE`` of the elements were taken: a kernel that rounds
+    wrong on a share of its elements fails here.  The loss without that
+    hand-over is recorded beside it."""
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.parallel import make_train_step
+
+    state = interop.qat_variables(model)
+    batch = _image_batches(torch, 1, CHECK_B, seed=5)[0]
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    card_out = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, i, o, n=n: card_out.__setitem__(n, o.detach().cpu()))
+        for n, m in _act_quantizers(model)]
+    gpu_loss = float(step(batch)["loss"])
+    for h in hooks:
+        h.remove()
+
+    def cpu_loss(hand_over):
+        cpu_model = _resnet(torch, "cpu", seed=0)
+        interop.load_qat_variables(cpu_model, state)
+        moved = [0, 0]
+
+        def take_card(n, mod, out):
+            d = card_out[n] - out.detach()
+            q = float(mod.scale.detach().abs().max())
+            far = d.abs() > 0.5 * q
+            if float(d.abs().max()) > q * (1 + 1e-5):
+                raise AssertionError(f"{n}: card and CPU activations differ by "
+                                     f"{float(d.abs().max())}, more than a quant step {q}")
+            moved[0] += int(far.sum())
+            moved[1] += out.numel()
+            return out + torch.where(far, d, torch.zeros_like(d))
+
+        if hand_over:
+            for n, m in _act_quantizers(cpu_model):
+                m.register_forward_hook(lambda mod, i, o, n=n: take_card(n, mod, o))
+        loss = float(make_train_step(cpu_model, _sgd(torch, cpu_model))(cpu_batch)["loss"])
+        return loss, moved
+
+    free_loss, _ = cpu_loss(False)
+    loss, (moved, total) = cpu_loss(True)
+    rel = abs(gpu_loss - loss) / abs(loss)
+    free_rel = abs(gpu_loss - free_loss) / abs(free_loss)
+    log(f"[train] B={CHECK_B} step from the same state: loss {gpu_loss:.6f} on the "
+        f"card, {loss:.6f} on the CPU plain path (rel err {rel:.2e}, tol 1e-3) with "
+        f"{moved} of {total} activation elements one quant step apart taken from "
+        f"the card (at most {MAX_MOVED_SHARE:g} of them); without that hand-over "
+        f"{free_loss:.6f} (rel err {free_rel:.2e})")
+    if not moved <= MAX_MOVED_SHARE * total:
+        raise AssertionError(f"{moved} of {total} activation elements differ by a quant "
+                             "step between the card and the CPU plain path")
+    if not rel <= 1e-3:
+        raise AssertionError("the card's training loss disagrees with the CPU plain path")
+    return {"gpu_loss": gpu_loss, "cpu_loss": loss, "rel_err": rel,
+            "moved_elements": moved, "activation_elements": total,
+            "cpu_loss_without_hand_over": free_loss, "rel_err_without_hand_over": free_rel}
+
+
+def phase_fq_times(torch, rec):
+    from jaxlsq_torch.core.golden import golden_backward, golden_forward
+    from jaxlsq_torch.models import default_qconfig
+    from jaxlsq_torch.ops.fake_quant import fake_quant_backward, fake_quant_forward
+
+    qc = default_qconfig(8, 8, per_channel_weights=True)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    times = rec["times"]
+    for kind, shape, spec in (("pt", (64, 64, 32, 32), qc.activation.spec),
+                              ("pc", (512, 512, 3, 3), qc.weight_for_axis(0).spec)):
+        n = math.prod(shape)
+        c = shape[0] if spec.per_channel else 1
+        if spec.per_channel:  # weights ~ lecun-normal, symmetric
+            sd = (shape[1] * shape[2] * shape[3]) ** -0.5
+            s = torch.full((c,), 4 * sd / spec.quant_max, device=dev)
+            b = torch.zeros(c, device=dev)
+        else:  # unit activations over the 0..qmax range
+            sd = 1.0
+            s = torch.full((1,), 6.0 / spec.quant_max, device=dev)
+            b = -s * (spec.quant_max // 2)
+        zp = -b / s  # the library's float zero point for the same grid
+        reps = copies_for(8 * n)
+        xs = [torch.randn(shape, device=dev, generator=g) * sd for _ in range(reps)]
+        gs_ = [torch.randn(shape, device=dev, generator=g) for _ in range(reps)]
+        fwd_args = [(x,) for x in xs]
+        bwd_args = list(zip(xs, gs_))
+        if spec.per_channel:
+            def lib_fwd(x):
+                return torch._fake_quantize_learnable_per_channel_affine(
+                    x, s, zp, 0, spec.quant_min, spec.quant_max, 1.0)
+        else:
+            def lib_fwd(x):
+                return torch._fake_quantize_learnable_per_tensor_affine(
+                    x, s, zp, spec.quant_min, spec.quant_max, 1.0)
+        s_l, zp_l = s.clone().requires_grad_(True), zp.clone().requires_grad_(True)
+        leaves = [(x.clone().requires_grad_(True), gg) for x, gg in bwd_args]
+
+        def lib_fwdbwd(x, gg):
+            if spec.per_channel:
+                y = torch._fake_quantize_learnable_per_channel_affine(
+                    x, s_l, zp_l, 0, spec.quant_min, spec.quant_max, 1.0)
+            else:
+                y = torch._fake_quantize_learnable_per_tensor_affine(
+                    x, s_l, zp_l, spec.quant_min, spec.quant_max, 1.0)
+            return torch.autograd.grad(y, (x, s_l, zp_l), gg)
+
+        for name, fn, plain_fn, lib_fn, args, lib_args, nbytes, ops in (
+                (f"fq_fwd_{kind}", lambda x: fake_quant_forward(x, s, b, spec),
+                 lambda x: golden_forward(x, s, b, spec), lib_fwd, fwd_args,
+                 fwd_args, 8 * n, 7 * n),
+                (f"fq_bwd_{kind}", lambda x, gg: fake_quant_backward(gg, x, s, b, spec),
+                 lambda x, gg: golden_backward(gg, x, s, b, spec), lib_fwdbwd,
+                 bwd_args, leaves, 12 * n, 20 * n)):
+            ms, call = measure(torch, fn, args)
+            plain, _ = measure(torch, plain_fn, args, reps=20)
+            lib, lib_call = measure(torch, lib_fn, lib_args)
+            b_ms, b_by = bound(nbytes, ops)
+            times[name] = {"shape": list(shape), "ms": ms, "call_ms": call,
+                           "plain_ms": plain, "library_ms": lib,
+                           "library_call_ms": lib_call, "bound_ms": b_ms,
+                           "bound_by": b_by, "bytes": nbytes, "ops": ops}
+            lib_what = ("torch._fake_quantize_learnable_per_"
+                        + ("channel" if spec.per_channel else "tensor") + "_affine"
+                        + (" forward" if "fwd" in name else " forward + backward"))
+            log(f"[time] {name} {tuple(shape)}: {ms * 1e3:.2f} us on the device, "
+                f"{call * 1e3:.2f} us a call (bound {b_ms * 1e3:.2f} us by {b_by}; "
+                f"plain {plain * 1e3:.2f} us; {lib_what} {lib * 1e3:.2f} us on the "
+                f"device, {lib_call * 1e3:.2f} us a call)")
+        del xs, gs_, leaves, fwd_args, bwd_args
+
+
 def kernels_line(rec):
     out = []
     for name, src, repl in (
@@ -469,6 +991,20 @@ def kernels_line(rec):
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "shape": "int8 cache, B=8, H=KVH=16, hd=64, L=2048, t=1, all keys live"})
+    for name, repl in (("fq_fwd_pt", "jaxlsq/ops/pallas_kernels.py:195"),
+                       ("fq_fwd_pc", "jaxlsq/ops/pallas_kernels.py:268"),
+                       ("fq_bwd_pt", "jaxlsq/ops/pallas_kernels.py:202"),
+                       ("fq_bwd_pc", "jaxlsq/ops/pallas_kernels.py:275")):
+        t = rec["times"][name]
+        out.append({"name": name, "route": "cuda",
+                    "source": "jaxlsq_torch/csrc/fake_quant.cu", "replaces": repl,
+                    "launches": rec["train"]["launches"][name],
+                    "max_abs_err": rec["max_abs_err"][name],
+                    "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                    "shape": ("x " + "x".join(map(str, t["shape"]))
+                              + (", train mode; library: forward + backward"
+                                 if "bwd" in name else ""))})
     return out
 
 
@@ -500,9 +1036,14 @@ def main(argv):
            "cuda": torch.version.cuda}
     t0 = time.time()
     phase_kernels(torch, rec)
+    phase_fq_kernels(torch, rec)
     phase_main(torch, rec)
     phase_times(torch, rec)
+    phase_fq_times(torch, rec)
+    phase_train(torch, rec)
     rec["wall_s"] = time.time() - t0
+    rec["profile_misses"] = PROFILE_MISSES
+    rec["waiting_calls"] = WAITING_CALLS
     rec["kernels"] = kernels_line(rec)
     if record:
         os.makedirs(os.path.dirname(os.path.abspath(record)), exist_ok=True)

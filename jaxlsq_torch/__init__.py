@@ -1,17 +1,30 @@
 """jaxlsq_torch: the PyTorch + CUDA port of jaxlsq (LSQ/LSQ+ quantization).
 
-This slice serves ``QuantTransformerLM`` with int8/int4 weight-only matmuls
-and KV-cache decode: ``models`` (QConfig, serve-mode layers, the LM),
-``serve`` (pack, convert, the ``wo_matmul`` and ``decode_attention`` kernels,
-``make_generate``, ``DecodeEngine``) and ``interop`` (load a JAX package
-variables tree).  The kernels are CUDA C++ for sm_90a in ``csrc/``, built at
-first use; on CPU tensors every kernel wrapper runs its plain PyTorch version.
-Nothing here imports jax or the jaxlsq package.
+Two slices so far:
+
+* LSQ QAT training of conv nets: ``ops`` (the fake-quant kernels and
+  ``fake_quant``/``lsq`` with their custom backward), ``observers`` (min/max
+  observers, the quantizer state machine), ``models`` (QAT ``QuantDense``,
+  ``QuantConv``, flax-rule ``BatchNorm``, ``QuantResNet``/``resnet18_cifar``)
+  and ``parallel`` (``make_train_step``, ``make_eval_step``);
+* serving ``QuantTransformerLM`` with int8/int4 weight-only matmuls and
+  KV-cache decode: ``serve`` (pack, convert, the ``wo_matmul`` and
+  ``decode_attention`` kernels, ``make_generate``, ``DecodeEngine``);
+
+and ``interop``, which carries JAX package variables trees across.  The
+kernels are CUDA C++ for sm_90a in ``csrc/``, built at first use; on CPU
+tensors every kernel wrapper runs its plain PyTorch version.  Nothing here
+imports jax or the jaxlsq package.
 """
 
-from . import core, interop, models, observers, serve
+from . import core, interop, models, observers, ops, parallel, serve
 from .core import QuantSpec
-from .models import QConfig, QuantTransformerLM, default_qconfig, init_variables
+from .models import (QConfig, QuantResNet, QuantTransformerLM, default_qconfig,
+                     init_variables, resnet18_cifar)
+from .ops import fake_quant, lsq
+from .parallel import make_eval_step, make_train_step
 
-__all__ = ["core", "interop", "models", "observers", "serve", "QuantSpec",
-           "QConfig", "QuantTransformerLM", "default_qconfig", "init_variables"]
+__all__ = ["core", "interop", "models", "observers", "ops", "parallel", "serve",
+           "QuantSpec", "QConfig", "QuantResNet", "QuantTransformerLM",
+           "default_qconfig", "init_variables", "resnet18_cifar", "fake_quant",
+           "lsq", "make_eval_step", "make_train_step"]

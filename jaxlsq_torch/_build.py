@@ -22,7 +22,7 @@ __all__ = ["load_library", "check"]
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC"]
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
 # c_void_p: a bare Python int would be passed as a 32-bit int).
 _SIGNATURES = {
@@ -32,6 +32,20 @@ _SIGNATURES = {
     # scale, stream
     "jlt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, ctypes.c_float, _P],
+    # outer, C, inner, per_channel
+    "jlt_fq_partials": [_I, _I, _I, _I],
+    # x, scale, shift, out, n, qmin, qmax, tmin, tmax, stream
+    "jlt_fq_fwd_pt": [_P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
+    # x, scale, shift, out, outer, C, inner, qmin, qmax, tmin, tmax, stream
+    "jlt_fq_fwd_pc": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
+    # g, x, scale, shift, dx, part, ds, db, n, qmin, qmax, tmin, tmax, sym,
+    # eval, init, gs, stream
+    "jlt_fq_bwd_pt": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I,
+                      _I, _I, _F, _P],
+    # g, x, scale, shift, dx, part, ds, db, outer, C, inner, qmin, qmax,
+    # tmin, tmax, sym, eval, init, gs, stream
+    "jlt_fq_bwd_pc": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
+                      _F, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,6 @@
-from .golden import broadcast_qparams, clamp_scale, golden_forward
+from .golden import (broadcast_qparams, clamp_scale, effective_grad_scale,
+                     golden_backward, golden_forward)
 from .spec import QuantSpec, int_dtype_range
 
-__all__ = ["QuantSpec", "int_dtype_range", "clamp_scale",
-           "broadcast_qparams", "golden_forward"]
+__all__ = ["QuantSpec", "int_dtype_range", "clamp_scale", "broadcast_qparams",
+           "effective_grad_scale", "golden_forward", "golden_backward"]

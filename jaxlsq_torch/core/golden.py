@@ -1,25 +1,44 @@
-"""Golden fake-quant math, the part the serving path needs.
+"""Golden fake-quant math: the numeric contract every other path meets.
 
-Port of ``jaxlsq/core/golden.py``: ``clamp_scale``, ``broadcast_qparams`` and
-the forward ``golden_forward``.  The backward and the traced-flag twins belong
-to the training path and are not here yet.
+Port of ``jaxlsq/core/golden.py``: ``clamp_scale``, ``broadcast_qparams``,
+``effective_grad_scale`` and the forward/backward pair ``golden_forward`` /
+``golden_backward``.  These are the plain versions of the fake-quant CUDA
+kernels (``jaxlsq_torch/ops/fake_quant.py``), which run them for CPU tensors.
+The traced-flag twins wait for the kernels that take the mode as device flags.
 
-``torch.round`` rounds half to even, like ``jnp.round``.
+``torch.round`` rounds half to even, like ``jnp.round``.  A per-channel
+``spec.axis`` may be negative here; it counts from the last axis.
 """
 
 from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
 
 import torch
 
 from .spec import QuantSpec
 
-__all__ = ["clamp_scale", "broadcast_qparams", "golden_forward"]
+__all__ = ["clamp_scale", "broadcast_qparams", "effective_grad_scale",
+           "golden_forward", "golden_backward"]
 
 
 def clamp_scale(scale: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """``s = max(eps, |scale|)`` with eps the machine epsilon of ``dtype``."""
     eps = torch.finfo(dtype).eps
     return torch.clamp_min(scale.to(dtype).abs(), eps)
+
+
+def effective_grad_scale(spec: QuantSpec, numel: int, num_channels: int = 1) -> float:
+    """LSQ gradient scale ``grad_scaler / sqrt(numel * qmax [/ C])``; the
+    per-channel ``/ C`` is the JAX package's deliberate deviation from the
+    reference's CUDA path (PARITY.md)."""
+    if not spec.use_grad_scaling:
+        return float(spec.grad_scaler)
+    n = float(numel) * float(spec.quant_max)
+    if spec.per_channel:
+        n = n / float(num_channels)
+    return float(spec.grad_scaler) / math.sqrt(n)
 
 
 def broadcast_qparams(q: torch.Tensor, x_ndim: int, axis: int) -> torch.Tensor:
@@ -29,15 +48,68 @@ def broadcast_qparams(q: torch.Tensor, x_ndim: int, axis: int) -> torch.Tensor:
     return q.reshape(shape)
 
 
-def golden_forward(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
-                   spec: QuantSpec) -> torch.Tensor:
-    """Fake-quantize forward: ``(round(clamp(x/s + zp, qmin, qmax)) - zp) * s``
-    with ``zp = round(clamp(-shift/s, tmin, tmax))``."""
+def _prep(x, scale, shift, spec: QuantSpec):
     s = clamp_scale(scale, x.dtype)
     b = shift.to(x.dtype)
     if spec.per_channel:
-        s = broadcast_qparams(s, x.dim(), spec.axis)
-        b = broadcast_qparams(b, x.dim(), spec.axis)
+        s = broadcast_qparams(s, x.dim(), spec.axis % x.dim())
+        b = broadcast_qparams(b, x.dim(), spec.axis % x.dim())
     zp = torch.round(torch.clamp(-b / s, spec.type_min, spec.type_max))
+    return s, zp
+
+
+def golden_forward(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                   spec: QuantSpec, *, init_mode: bool = False) -> torch.Tensor:
+    """Fake-quantize forward: ``(round(clamp(x/s + zp, qmin, qmax)) - zp) * s``
+    with ``zp = round(clamp(-shift/s, tmin, tmax))``; ``init_mode`` is the
+    identity."""
+    if init_mode:
+        return x
+    s, zp = _prep(x, scale, shift, spec)
     xq = torch.round(torch.clamp(x / s + zp, spec.quant_min, spec.quant_max))
     return (xq - zp) * s
+
+
+def golden_backward(grad: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
+                    shift: torch.Tensor, spec: QuantSpec, *,
+                    eval_mode: bool = False, init_mode: bool = False,
+                    numel: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fake-quantize backward; returns ``(dX, dS, dB)`` with dS/dB reduced to
+    the shape of scale/shift.
+
+    The mask is strict on the unrounded ``xq``; eval mode gives the STE dX and
+    zero dS/dB; init mode (LSQ+ backprop init) passes dX through and trains
+    scale/shift on ``||x_fq - x||^2``.  ``numel`` overrides ``x.numel()`` in
+    the gradient scale, which is applied after the sums.
+    """
+    s, zp = _prep(x, scale, shift, spec)
+    qmin, qmax = float(spec.quant_min), float(spec.quant_max)
+
+    xq = torch.clamp(x / s + zp, qmin, qmax)  # unrounded for the mask
+    mask = (qmin < xq) & (xq < qmax)
+    dX = grad if init_mode else grad * mask
+    if eval_mode:
+        return (dX, torch.zeros_like(scale, dtype=x.dtype),
+                torch.zeros_like(shift, dtype=x.dtype))
+
+    xfq = (torch.round(xq) - zp) * s
+    geff = 2.0 * (xfq - x) if init_mode else grad
+    db_elem = torch.where(mask, 0.0, geff)
+    if spec.symmetric:
+        db_elem = torch.zeros_like(db_elem)
+    border = torch.where(xq <= qmin, geff * (qmin - zp), geff * (qmax - zp))
+    ds_elem = torch.where(mask, geff * (xfq - x) / s, border)
+
+    n = numel if numel is not None else x.numel()
+    if spec.per_channel:
+        axis = spec.axis % x.dim()
+        gs = effective_grad_scale(spec, n, x.shape[axis])
+        red = tuple(a for a in range(x.dim()) if a != axis)
+        dS = ds_elem.sum(dim=red) * gs if red else ds_elem * gs
+        dB = db_elem.sum(dim=red) * gs if red else db_elem * gs
+    else:
+        gs = effective_grad_scale(spec, n)
+        dS = ds_elem.sum().reshape(scale.shape) * gs
+        dB = db_elem.sum().reshape(shift.shape) * gs
+    return dX, dS.to(scale.dtype), dB.to(shift.dtype)

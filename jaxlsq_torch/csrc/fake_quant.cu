@@ -1,0 +1,281 @@
+// LSQ/LSQ+ fake quantization, forward and backward, f32.
+//
+//   s   = max(|scale[c]|, FLT_EPSILON)
+//   zp  = rint(clamp(-shift[c] / s, tmin, tmax))
+//   fwd = (rint(clamp(x / s + zp, qmin, qmax)) - zp) * s
+//   bwd: xq = clamp(x / s + zp, qmin, qmax) (unrounded), m = qmin < xq < qmax,
+//        dX = g * m (train and eval; init mode writes no dX),
+//        geff = init ? 2 (xfq - x) : g,
+//        dS = gs * sum(m ? geff (xfq - x) / s : geff ((xq <= qmin ? qmin : qmax) - zp)),
+//        dB = gs * sum(m ? 0 : geff) (0 for a symmetric spec); eval writes neither.
+// c is the channel: 0 per tensor, (i / inner) % C per channel over the
+// tensor's (outer, C, inner) view, so no transpose copy is made.
+//
+// Replaces the TPU kernels of jaxlsq/ops/pallas_kernels.py: fq_fwd_pt
+// _pt_fwd_kernel (:195), fq_fwd_pc _pc_fwd_kernel (:268), fq_bwd_pt
+// _pt_bwd_kernel (:202) and fq_bwd_pc _pc_bwd_kernel (:275).
+//
+// Numerics: the golden functions (jaxlsq_torch/core/golden.py) run each step
+// as its own rounded f32 operation, so every product and sum here is an
+// explicit _rn intrinsic (nvcc may not contract them into an FMA), the
+// divisions are IEEE (no fast math), and rintf rounds half to even as
+// torch.round does.  The forward and dX are therefore bit-exact; dS and dB
+// differ from a torch.sum only in summation order.  The qparams are read from
+// device memory: no host sync.
+//
+// What bounds it on an H100: a few operations per 4-byte element, far below
+// the card's operations per byte, so each kernel is bound by its bytes: the
+// forward reads x and writes out (8 B an element), the training backward
+// reads g and x and writes dX (12 B).  The TPU kernels carry dS/dB in an
+// accumulator resident across their sequential grid; Hopper blocks run in
+// parallel, so each block writes a partial and a second small kernel sums the
+// partials in block order and applies the gradient scale after the sum, as
+// golden does.  The grids depend on the shape alone (never on the SM count),
+// so an input gives the same bits on every run.
+//
+// Per channel, a backward block owns one channel and a 2048-element chunk of
+// it, walked by its threads in the contiguous inner runs (an OIHW weight on
+// axis 0 is one run per channel; a (K, N) kernel on axis 1 has runs of one
+// element, read with a stride of C), and writes one (chunk, C) partial.
+#include <cuda_runtime.h>
+#include <algorithm>
+#include <cfloat>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kPtItems = 8;        // elements a thread takes per block, per tensor
+constexpr int kPtMaxBlocks = 1024; // per-tensor backward partials
+constexpr int kPcChunk = 2048;     // elements of one channel a block takes
+constexpr int kFwdMaxBlocks = 4096;
+
+struct Range {
+  float qmin, qmax, tmin, tmax;
+};
+
+__device__ __forceinline__ void load_qparams(const float* __restrict__ scale,
+                                             const float* __restrict__ shift,
+                                             int c, const Range& r, float& s,
+                                             float& zp) {
+  s = fmaxf(fabsf(scale[c]), FLT_EPSILON);
+  zp = rintf(fminf(fmaxf(__fdiv_rn(-shift[c], s), r.tmin), r.tmax));
+}
+
+__device__ __forceinline__ float fq_value(float x, float s, float zp, const Range& r) {
+  float v = __fadd_rn(__fdiv_rn(x, s), zp);
+  v = rintf(fminf(fmaxf(v, r.qmin), r.qmax));
+  return __fmul_rn(__fsub_rn(v, zp), s);
+}
+
+// One element of the backward: writes dX (unless init) and adds its dS/dB
+// terms to the thread's sums (unless eval).
+__device__ __forceinline__ void bwd_elem(const float* __restrict__ g,
+                                         const float* __restrict__ x,
+                                         float* __restrict__ dx, int i, float s,
+                                         float zp, const Range& r, int sym,
+                                         int eval_mode, int init_mode, float& ds,
+                                         float& db) {
+  const float xv = x[i];
+  const float gv = init_mode ? 0.f : g[i];
+  const float xq = fminf(fmaxf(__fadd_rn(__fdiv_rn(xv, s), zp), r.qmin), r.qmax);
+  const bool in = (r.qmin < xq) && (xq < r.qmax);
+  if (!init_mode) dx[i] = __fmul_rn(gv, in ? 1.f : 0.f);
+  if (eval_mode) return;
+  const float d = __fsub_rn(__fmul_rn(__fsub_rn(rintf(xq), zp), s), xv);
+  const float geff = init_mode ? __fmul_rn(2.f, d) : gv;
+  float dse;
+  if (in)
+    dse = __fdiv_rn(__fmul_rn(geff, d), s);
+  else
+    dse = __fmul_rn(geff, __fsub_rn(xq <= r.qmin ? r.qmin : r.qmax, zp));
+  ds = __fadd_rn(ds, dse);
+  if (!sym && !in) db = __fadd_rn(db, geff);
+}
+
+// Fixed-order tree sum of one value per thread; the result is in red[0].
+__device__ __forceinline__ void block_sum(float* red, float v) {
+  red[threadIdx.x] = v;
+  __syncthreads();
+  for (int off = kThreads / 2; off > 0; off >>= 1) {
+    if (threadIdx.x < off) red[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[threadIdx.x + off]);
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fq_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+              const float* __restrict__ shift, float* __restrict__ out, int n,
+              int C, int inner, Range r) {
+  const int stride = gridDim.x * kThreads;
+  if (C == 1) {
+    float s, zp;
+    load_qparams(scale, shift, 0, r, s, zp);
+    for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride)
+      out[i] = fq_value(x[i], s, zp, r);
+    return;
+  }
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
+    float s, zp;
+    load_qparams(scale, shift, (i / inner) % C, r, s, zp);
+    out[i] = fq_value(x[i], s, zp, r);
+  }
+}
+
+// Per tensor: block b writes part[b] (dS) and part[nblocks + b] (dB).
+__global__ void __launch_bounds__(kThreads)
+fq_bwd_pt_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                 const float* __restrict__ scale, const float* __restrict__ shift,
+                 float* __restrict__ dx, float* __restrict__ part, int n, Range r,
+                 int sym, int eval_mode, int init_mode) {
+  __shared__ float red[kThreads];
+  float s, zp;
+  load_qparams(scale, shift, 0, r, s, zp);
+  float ds = 0.f, db = 0.f;
+  const int stride = gridDim.x * kThreads;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride)
+    bwd_elem(g, x, dx, i, s, zp, r, sym, eval_mode, init_mode, ds, db);
+  if (eval_mode) return;
+  block_sum(red, ds);
+  if (threadIdx.x == 0) part[blockIdx.x] = red[0];
+  __syncthreads();
+  block_sum(red, db);
+  if (threadIdx.x == 0) part[gridDim.x + blockIdx.x] = red[0];
+}
+
+// Per channel: block b owns channel b / n_chunks, chunk b % n_chunks; writes
+// part[chunk * C + c] (dS) and part[(n_chunks + chunk) * C + c] (dB).
+__global__ void __launch_bounds__(kThreads)
+fq_bwd_pc_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                 const float* __restrict__ scale, const float* __restrict__ shift,
+                 float* __restrict__ dx, float* __restrict__ part, int outer,
+                 int C, int inner, int n_chunks, Range r, int sym, int eval_mode,
+                 int init_mode) {
+  __shared__ float red[kThreads];
+  const int c = blockIdx.x / n_chunks, chunk = blockIdx.x % n_chunks;
+  float s, zp;
+  load_qparams(scale, shift, c, r, s, zp);
+  const int m = outer * inner;
+  const int t1 = min(m, (chunk + 1) * kPcChunk);
+  float ds = 0.f, db = 0.f;
+  for (int t = chunk * kPcChunk + threadIdx.x; t < t1; t += kThreads) {
+    const int o = t / inner;
+    const int i = (o * C + c) * inner + (t - o * inner);
+    bwd_elem(g, x, dx, i, s, zp, r, sym, eval_mode, init_mode, ds, db);
+  }
+  if (eval_mode) return;
+  block_sum(red, ds);
+  if (threadIdx.x == 0) part[chunk * C + c] = red[0];
+  __syncthreads();
+  block_sum(red, db);
+  if (threadIdx.x == 0) part[(n_chunks + chunk) * C + c] = red[0];
+}
+
+// Sum the (n_parts, C) partials of dS and of dB in part order, then * gs.
+// Per tensor (C == 1) one block sums; per channel one thread per channel.
+__global__ void __launch_bounds__(kThreads)
+fq_bwd_sum_kernel(const float* __restrict__ part, int n_parts, int C, float gs,
+                  float* __restrict__ ds, float* __restrict__ db) {
+  if (C == 1) {
+    __shared__ float red[kThreads];
+    for (int which = 0; which < 2; ++which) {
+      const float* p = part + which * n_parts;
+      float a = 0.f;
+      for (int k = threadIdx.x; k < n_parts; k += kThreads) a = __fadd_rn(a, p[k]);
+      block_sum(red, a);
+      if (threadIdx.x == 0) (which ? db : ds)[0] = __fmul_rn(red[0], gs);
+      __syncthreads();
+    }
+    return;
+  }
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= C) return;
+  float a = 0.f, b = 0.f;
+  for (int k = 0; k < n_parts; ++k) {
+    a = __fadd_rn(a, part[k * C + c]);
+    b = __fadd_rn(b, part[(n_parts + k) * C + c]);
+  }
+  ds[c] = __fmul_rn(a, gs);
+  db[c] = __fmul_rn(b, gs);
+}
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+int pt_blocks(int n) { return std::min(kPtMaxBlocks, std::max(1, cdiv(n, kThreads * kPtItems))); }
+
+// Chunks per channel of the per-channel backward.
+int pc_chunks(int outer, int inner) { return std::max(1, cdiv(outer * inner, kPcChunk)); }
+
+int fwd_blocks(int n) { return std::min(kFwdMaxBlocks, std::max(1, cdiv(n, kThreads))); }
+
+}  // namespace
+
+extern "C" {
+
+// Floats of partials the backward needs: 2 * jlt_fq_partials(...).
+int jlt_fq_partials(int outer, int C, int inner, int per_channel) {
+  if (!per_channel) return pt_blocks(outer * C * inner);
+  return pc_chunks(outer, inner) * C;
+}
+
+// Forward per tensor (scale, shift are (1,)).  Returns cudaGetLastError().
+int jlt_fq_fwd_pt(const void* x, const void* scale, const void* shift, void* out,
+                  int n, float qmin, float qmax, float tmin, float tmax,
+                  void* stream) {
+  const Range r{qmin, qmax, tmin, tmax};
+  fq_fwd_kernel<<<fwd_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)scale, (const float*)shift, (float*)out, n,
+      1, 1, r);
+  return (int)cudaGetLastError();
+}
+
+// Forward per channel over the (outer, C, inner) view; scale, shift are (C,).
+int jlt_fq_fwd_pc(const void* x, const void* scale, const void* shift, void* out,
+                  int outer, int C, int inner, float qmin, float qmax, float tmin,
+                  float tmax, void* stream) {
+  const Range r{qmin, qmax, tmin, tmax};
+  const int n = outer * C * inner;
+  fq_fwd_kernel<<<fwd_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)scale, (const float*)shift, (float*)out, n,
+      C, inner, r);
+  return (int)cudaGetLastError();
+}
+
+// Backward per tensor.  part holds 2 * jlt_fq_partials floats; ds, db are
+// (1,).  dx is not written in init mode, part/ds/db not in eval mode.
+int jlt_fq_bwd_pt(const void* g, const void* x, const void* scale,
+                  const void* shift, void* dx, void* part, void* ds, void* db,
+                  int n, float qmin, float qmax, float tmin, float tmax, int sym,
+                  int eval_mode, int init_mode, float gs, void* stream) {
+  const Range r{qmin, qmax, tmin, tmax};
+  cudaStream_t st = (cudaStream_t)stream;
+  const int blocks = pt_blocks(n);
+  fq_bwd_pt_kernel<<<blocks, kThreads, 0, st>>>(
+      (const float*)g, (const float*)x, (const float*)scale, (const float*)shift,
+      (float*)dx, (float*)part, n, r, sym, eval_mode, init_mode);
+  if (!eval_mode)
+    fq_bwd_sum_kernel<<<1, kThreads, 0, st>>>((const float*)part, blocks, 1, gs,
+                                              (float*)ds, (float*)db);
+  return (int)cudaGetLastError();
+}
+
+// Backward per channel over the (outer, C, inner) view; ds, db are (C,).
+int jlt_fq_bwd_pc(const void* g, const void* x, const void* scale,
+                  const void* shift, void* dx, void* part, void* ds, void* db,
+                  int outer, int C, int inner, float qmin, float qmax, float tmin,
+                  float tmax, int sym, int eval_mode, int init_mode, float gs,
+                  void* stream) {
+  const Range r{qmin, qmax, tmin, tmax};
+  cudaStream_t st = (cudaStream_t)stream;
+  const int chunks = pc_chunks(outer, inner);
+  fq_bwd_pc_kernel<<<C * chunks, kThreads, 0, st>>>(
+      (const float*)g, (const float*)x, (const float*)scale, (const float*)shift,
+      (float*)dx, (float*)part, outer, C, inner, chunks, r, sym, eval_mode,
+      init_mode);
+  if (!eval_mode)
+    fq_bwd_sum_kernel<<<cdiv(C, kThreads), kThreads, 0, st>>>(
+        (const float*)part, chunks, C, gs, (float*)ds, (float*)db);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -1,4 +1,4 @@
-"""Carry a JAX package variables tree into the port's model.
+"""Carry JAX package variables trees into the port's models and back.
 
 :func:`load_variables` takes the tree ``QuantTransformerLM.init`` (or
 training, or ``jaxlsq.serve.convert``) produced in the JAX package, as nested
@@ -16,6 +16,15 @@ Layouts are the JAX package's: dense kernels (K, N); the ``qkv`` columns are
 ``[q | k | v]``; flax LayerNorm ``scale``/``bias`` are the LayerNorm weight
 and bias; ``lm_head`` has no bias.  Every buffer of the model must be given,
 and nothing else.
+
+:func:`load_qat_variables` and its inverse :func:`qat_variables` carry a QAT
+model's whole state (``params``/``qparams``/``quant_state``/``batch_stats``,
+as ``create_train_state`` or ``model.init`` gives it) into a QAT-mode model
+of the port (``QuantResNet``, ``QuantMLP``, or any model of ``QuantConv``,
+``QuantDense``, ``BatchNorm`` and ``FakeQuantize`` modules named as the flax
+modules are) and out again.  Conv kernels are HWIO there and OIHW here; a
+per-channel conv weight's qparams are the same (C,) vectors (axis 3 there, 0
+here); the quantizers' counters and flags become the host values.
 """
 
 from __future__ import annotations
@@ -25,10 +34,14 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .models.layers import FakeQuantize, QuantConv, QuantDense
+from .models.norm import BatchNorm
+from .observers.minmax import ObserverState
+from .observers.quantizer import HOST_FIELDS, QuantizerState
 from .serve.convert import convert
 from .serve.pack import PackedWeight
 
-__all__ = ["load_variables"]
+__all__ = ["load_variables", "load_qat_variables", "qat_variables"]
 
 _PACKED_FIELDS = ("data", "scale", "zero_point")
 
@@ -126,3 +139,130 @@ def load_variables(model, variables: Dict[str, Any]) -> None:
     left = _leftover(params, "params") + _leftover(quant, "quantized")
     if left:
         raise ValueError(f"unexpected variables {left}")
+
+
+def _pop_node(tree: Dict[str, Any], path, collection: str):
+    node = tree
+    for key in path[:-1]:
+        node = _take_node(node, key, collection, path)
+    return _take_node(node, path[-1], collection, path, pop=True)
+
+
+def _take_node(node, key, collection, path, pop=False):
+    if not isinstance(node, dict) or key not in node:
+        raise KeyError(f"variables tree lacks {collection}/{'/'.join(path)}")
+    return node.pop(key) if pop else node[key]
+
+
+def _copy_dicts(tree):
+    if isinstance(tree, dict):
+        return {k: _copy_dicts(v) for k, v in tree.items()}
+    return tree
+
+
+def _prune(tree):
+    """The tree without its empty dicts (what is left after loading)."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _prune(v) for k, v in tree.items()}
+    return {k: v for k, v in out.items() if v != {}}
+
+
+def _qat_modules(model):
+    for name, mod in model.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        if isinstance(mod, (FakeQuantize, BatchNorm)):
+            yield path, mod
+        elif isinstance(mod, (QuantConv, QuantDense)) and getattr(mod, "qat", True):
+            yield path, mod
+
+
+@torch.no_grad()
+def load_qat_variables(model, tree: Dict[str, Any]) -> None:
+    """Load a JAX-package QAT variables tree into the QAT-mode ``model``.
+    Every variable of the model must be given, and nothing else."""
+    dev = next(model.parameters()).device
+    tree = _copy_dicts(tree)  # nodes are popped as they are loaded
+    cols = {c: tree.pop(c, {}) for c in ("params", "qparams", "quant_state",
+                                         "batch_stats")}
+    if tree:
+        raise ValueError(f"unexpected collections {sorted(tree)}")
+
+    def get(node, key, path):
+        return _to_torch(_take_node(node, key, "", path), dev)
+
+    for path, mod in _qat_modules(model):
+        where = "/".join(path)
+        if isinstance(mod, FakeQuantize):
+            qp = _pop_node(cols["qparams"], path, "qparams")["qp"]
+            qs = _pop_node(cols["quant_state"], path, "quant_state")["qs"]
+            obs = qs["obs"]
+            st = QuantizerState(
+                scale=get(qp, "scale", path), shift=get(qp, "shift", path),
+                obs=ObserverState(get(obs, "min_val", path),
+                                  get(obs, "max_val", path),
+                                  int(np.asarray(obs["seen"]))),
+                **{f: (int if f in ("current_batch", "n_batches") else bool)(
+                    np.asarray(qs[f])) for f in HOST_FIELDS})
+            for a, b in ((st.scale, mod.scale), (st.obs.min_val, mod.obs_min)):
+                if a.shape != b.shape:
+                    raise ValueError(f"{where}: shape {tuple(a.shape)} != {tuple(b.shape)}")
+            mod.load_quant_state(st)
+        elif isinstance(mod, BatchNorm):
+            p = _pop_node(cols["params"], path, "params")
+            s = _pop_node(cols["batch_stats"], path, "batch_stats")
+            for dst, node, key in ((mod.scale, p, "scale"), (mod.bias, p, "bias"),
+                                   (mod.mean, s, "mean"), (mod.var, s, "var")):
+                _copy(dst, _to_torch(node.pop(key), dev), f"{where}/{key}")
+            if p or s:
+                raise ValueError(f"unexpected variables {sorted(p) + sorted(s)} at {where}")
+        else:
+            p = cols["params"]
+            for key in path:
+                p = _take_node(p, key, "params", path)
+            k = _to_torch(p.pop("kernel"), dev)
+            if isinstance(mod, QuantConv):
+                k = k.permute(3, 2, 0, 1)  # HWIO -> OIHW
+            _copy(mod.kernel, k, f"{where}/kernel")
+            if mod.bias is not None:
+                _copy(mod.bias, _to_torch(p.pop("bias"), dev), f"{where}/bias")
+    left = _prune(cols)
+    if left:
+        raise ValueError(f"unexpected variables {_leftover(left)}")
+
+
+def qat_variables(model) -> Dict[str, Any]:
+    """The QAT-mode ``model``'s variables as a JAX-package tree of numpy
+    arrays (the inverse of :func:`load_qat_variables`)."""
+    cols = {c: {} for c in ("params", "qparams", "quant_state", "batch_stats")}
+
+    def put(col, path, value):
+        node = cols[col]
+        for key in path:
+            node = node.setdefault(key, {})
+        node.update(value)
+
+    def np_(t):
+        return t.detach().cpu().numpy().copy()
+
+    for path, mod in _qat_modules(model):
+        if isinstance(mod, FakeQuantize):
+            st = mod.quant_state()
+            put("qparams", path, {"qp": {"scale": np_(st.scale), "shift": np_(st.shift)}})
+            qs = {f: np.asarray(getattr(st, f),
+                                np.int32 if f in ("current_batch", "n_batches") else bool)
+                  for f in HOST_FIELDS}
+            qs["obs"] = {"min_val": np_(st.obs.min_val), "max_val": np_(st.obs.max_val),
+                         "seen": np.asarray(st.obs.seen, np.int32)}
+            put("quant_state", path, {"qs": qs})
+        elif isinstance(mod, BatchNorm):
+            put("params", path, {"scale": np_(mod.scale), "bias": np_(mod.bias)})
+            put("batch_stats", path, {"mean": np_(mod.mean), "var": np_(mod.var)})
+        else:
+            k = np_(mod.kernel)
+            if isinstance(mod, QuantConv):
+                k = k.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+            put("params", path, {"kernel": k})
+            if mod.bias is not None:
+                put("params", path, {"bias": np_(mod.bias)})
+    return {c: v for c, v in cols.items() if v}

@@ -1,26 +1,45 @@
-"""Serve-mode quantized layers (port of the serve branches of
-``jaxlsq/models/layers.py``).
+"""Quantized layers (port of ``jaxlsq/models/layers.py``).
 
-:class:`QuantDense` holds a packed (K, N) kernel as buffers and runs the fused
-weight-only matmul (``serve.matmul.wo_matmul``); :class:`QuantEmbed` holds an
-int8 table and dequantizes only the gathered rows.  Both are filled by
-:func:`jaxlsq_torch.interop.load_variables`.  The QAT (fake-quant training)
-branches come with the training slice.
+QAT mode (fake-quant training):
+
+* :class:`FakeQuantize` is one LSQ quantizer as a module: ``scale``/``shift``
+  are ``nn.Parameter``s, the observer range is two buffers, and the phase
+  counters and flags are host values saved through ``get_extra_state``.  An
+  observer writes the parameters in place, under ``no_grad``, before the
+  fake-quant call that uses them, so the optimizer's update lands on top of
+  the observer's values (the JAX package's train-step contract).
+* :class:`QuantDense` keeps the JAX package's (K, N) kernel, per-channel
+  axis 1; :class:`QuantConv` takes NCHW activations and an OIHW kernel, so
+  its weight's per-channel axis is 0 (the JAX package: NHWC, HWIO, axis 3).
+  The matmul and the convolution are plain PyTorch, as the JAX package
+  leaves them to XLA.
+
+Serve mode: :class:`QuantDense` holds a packed (K, N) kernel as buffers and
+runs the fused weight-only matmul (``serve.matmul.wo_matmul``);
+:class:`QuantEmbed` (serve mode only) holds an int8 table and dequantizes
+only the gathered rows.  Both are filled by
+:func:`jaxlsq_torch.interop.load_variables`.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from .._device import resolve_device
+from ..observers.minmax import ObserverState
+from ..observers.quantizer import HOST_FIELDS, LSQQuantizer, QuantizerState
+from ..ops.functional import fake_quant
 from ..serve.convert import serving_bits
 from ..serve.matmul import wo_matmul
 from ..serve.pack import PackedWeight
 from .qconfig import QConfig
 
-__all__ = ["QuantDense", "QuantEmbed", "static_act_quant"]
+__all__ = ["FakeQuantize", "QuantDense", "QuantConv", "QuantEmbed",
+           "static_act_quant"]
 
 
 def static_act_quant(x: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
@@ -35,11 +54,87 @@ def static_act_quant(x: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
     return ((xq - z) * s).to(x.dtype)
 
 
+class FakeQuantize(nn.Module):
+    """One LSQ/LSQ+ fake-quantizer (``cfg``) over ``num_channels`` channels.
+
+    ``forward(x)`` runs ``cfg``'s phase machine with ``self.training`` as the
+    training flag.  With ``persist_state`` False (``make_eval_step`` sets it)
+    the forward uses what the observer would write but keeps nothing, as the
+    JAX package's eval step discards its mutated collections.
+    """
+
+    def __init__(self, cfg: LSQQuantizer, num_channels: int = 1, device=None):
+        super().__init__()
+        self.cfg = cfg
+        st = cfg.init(num_channels=num_channels, device=resolve_device(device))
+        self.scale = nn.Parameter(st.scale)
+        self.shift = nn.Parameter(st.shift)
+        self.register_buffer("obs_min", st.obs.min_val)
+        self.register_buffer("obs_max", st.obs.max_val)
+        self._host = {}
+        self._set_host(st)
+        self.persist_state = True
+
+    def _set_host(self, st: QuantizerState) -> None:
+        self._host = {f: getattr(st, f) for f in HOST_FIELDS}
+        self._host["seen"] = st.obs.seen
+
+    def quant_state(self) -> QuantizerState:
+        """The current state (scale/shift are the parameters themselves)."""
+        h = self._host
+        return QuantizerState(
+            scale=self.scale, shift=self.shift,
+            obs=ObserverState(self.obs_min, self.obs_max, h["seen"]),
+            **{f: h[f] for f in HOST_FIELDS})
+
+    @torch.no_grad()
+    def load_quant_state(self, st: QuantizerState) -> None:
+        """Write ``st`` into the module: parameters and buffers in place."""
+        for dst, src in ((self.scale, st.scale), (self.shift, st.shift),
+                         (self.obs_min, st.obs.min_val),
+                         (self.obs_max, st.obs.max_val)):
+            if src is not dst:
+                dst.copy_(src)
+        self._set_host(st)
+
+    def get_extra_state(self):
+        return dict(self._host)
+
+    def set_extra_state(self, state) -> None:
+        self._host = {k: state[k] for k in HOST_FIELDS + ("seen",)}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.debug_mode:
+            return x
+        st, modes = self.cfg.advance(self.quant_state(), x, self.training)
+        if self.persist_state:
+            self.load_quant_state(st)
+            scale, shift = self.scale, self.shift
+        else:
+            scale, shift = st.scale, st.shift
+        if modes is None:
+            return x
+        return fake_quant(x, scale, shift, self.cfg.spec, eval_mode=modes[0],
+                          init_mode=modes[1], numel=self.cfg.numel)
+
+    def extra_repr(self) -> str:
+        h = self._host
+        return (f"{self.cfg.otype}, channels={self.scale.shape[0]}, "
+                f"batch {h['current_batch']}/{h['n_batches']}, "
+                f"learning={h['learning_enabled']}, observer={h['observer_enabled']}, "
+                f"fake_quant={h['fake_quant_enabled']}")
+
+
+def _fake_quantizer(cfg: Optional[LSQQuantizer], channels: int,
+                    device) -> Optional[FakeQuantize]:
+    return None if cfg is None else FakeQuantize(cfg, channels, device)
+
+
 def _check_serve(qc: QConfig, what: str) -> None:
     if qc.mode != "serve":
         raise NotImplementedError(
-            f"{what}: only serve mode is ported so far; QAT layers arrive with "
-            "the training slice (use qconfig.for_serving())")
+            f"{what}: only serve mode is ported so far; its QAT branch arrives "
+            "with a later slice (use qconfig.for_serving())")
 
 
 class _PackedBuffers(nn.Module):
@@ -88,15 +183,29 @@ class _PackedBuffers(nn.Module):
 
 
 class QuantDense(nn.Module):
-    """Serve-mode dense layer: ``y = wo_matmul(x', W) + b`` where x' is x
-    (``act_mode='none'``) or its frozen fake-quant (``'static'``).  Kernel
-    layout (K, N), per-channel axis 1, as the JAX package."""
+    """Dense layer, kernel (K, N) with per-channel axis 1, as the JAX package.
+
+    QAT mode: ``y = fq_w(W) applied to fq_a(x) + b``, with the input's
+    quantizer over its last axis.  Serve mode: ``y = wo_matmul(x', W) + b``
+    where x' is x (``act_mode='none'``) or its frozen fake-quant
+    (``'static'``).
+    """
 
     def __init__(self, in_features: int, features: int, qconfig: QConfig, *,
                  use_bias: bool = True, path: Sequence[str] = (), device=None):
         super().__init__()
         qc = qconfig.resolve(tuple(path))
-        _check_serve(qc, "QuantDense")
+        self.qat = qc.mode != "serve"
+        if self.qat:
+            device = resolve_device(device)
+            self.act_fq = _fake_quantizer(qc.activation_for_axis(-1), in_features,
+                                          device)
+            self.kernel = nn.Parameter(torch.zeros(in_features, features,
+                                                   device=device))
+            self.weight_fq = _fake_quantizer(qc.weight_for_axis(1), features, device)
+            self.bias = (nn.Parameter(torch.zeros(features, device=device))
+                         if use_bias else None)
+            return
         if qc.act_mode not in ("none", "static"):
             raise NotImplementedError(
                 f"act_mode {qc.act_mode!r} (int8 x int8 matmuls) arrives with "
@@ -117,12 +226,90 @@ class QuantDense(nn.Module):
                                   requires_grad=False) if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.qat:
+            if self.act_fq is not None:
+                x = self.act_fq(x)
+            w = self.kernel if self.weight_fq is None else self.weight_fq(self.kernel)
+            y = torch.matmul(x, w)
+            return y if self.bias is None else y + self.bias
         if self.aspec is not None and self.act_mode == "static":
             x = static_act_quant(x, self.act_scale, self.act_zp, self.aspec)
         y = wo_matmul(x, self.kernel.packed())
         if self.bias is not None:
             y = y + self.bias
         return y.to(x.dtype)
+
+
+def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
+    """XLA's SAME padding of one spatial axis: ``ceil(size / stride)``
+    outputs, the odd pixel of padding after (a stride-2 3x3 conv on an even
+    size pads 0 before and 1 after; ``Conv2d(padding=1)`` would pad 1 and 1)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class QuantConv(nn.Module):
+    """QAT 2-D convolution with LSQ weight and input-activation quantizers.
+
+    NCHW activations (the activation quantizer's per-channel axis is 1) and
+    an OIHW ``kernel`` (the weight quantizer's per-channel axis is 0).
+    ``padding``: 'SAME' (XLA's rule, see :func:`same_padding`), 'VALID', or
+    ``((top, bottom), (left, right))``; it is applied after the activation's
+    fake quantization, as the JAX package pads inside the convolution.
+    """
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Sequence[int], qconfig: QConfig, *,
+                 strides: Union[int, Sequence[int]] = 1,
+                 padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
+                 use_bias: bool = True, feature_group_count: int = 1,
+                 path: Sequence[str] = (), device=None):
+        super().__init__()
+        qc = qconfig.resolve(tuple(path))
+        if qc.mode == "serve":
+            raise NotImplementedError(
+                "QuantConv: serve mode (packed conv weights) arrives with a "
+                "later slice; only QAT mode is ported")
+        if in_features % feature_group_count:
+            raise ValueError(f"in_features {in_features} is not a multiple of "
+                             f"feature_group_count {feature_group_count}")
+        device = resolve_device(device)
+        self.kh, self.kw = kernel_size
+        self.strides = ((strides, strides) if isinstance(strides, int)
+                        else tuple(strides))
+        if isinstance(padding, str) and padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be 'SAME', 'VALID' or pairs, got {padding!r}")
+        self.padding = padding
+        self.groups = feature_group_count
+        self.act_fq = _fake_quantizer(qc.activation_for_axis(1), in_features, device)
+        self.kernel = nn.Parameter(torch.zeros(
+            features, in_features // feature_group_count, self.kh, self.kw,
+            device=device))
+        self.weight_fq = _fake_quantizer(qc.weight_for_axis(0), features, device)
+        self.bias = (nn.Parameter(torch.zeros(features, device=device))
+                     if use_bias else None)
+
+    def _pads(self, h: int, w: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+        if self.padding == "SAME":
+            return (same_padding(h, self.kh, self.strides[0]),
+                    same_padding(w, self.kw, self.strides[1]))
+        if self.padding == "VALID":
+            return (0, 0), (0, 0)
+        (t, b), (l, r) = self.padding
+        return (int(t), int(b)), (int(l), int(r))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.act_fq is not None:
+            x = self.act_fq(x)
+        w = self.kernel if self.weight_fq is None else self.weight_fq(self.kernel)
+        (t, b), (l, r) = self._pads(x.shape[2], x.shape[3])
+        if t == b and l == r:
+            pad = (t, l)
+        else:
+            x = F.pad(x, (l, r, t, b))
+            pad = 0
+        return F.conv2d(x, w, self.bias, self.strides, pad, 1, self.groups)
 
 
 class QuantEmbed(nn.Module):

@@ -98,13 +98,13 @@ def default_qconfig(
     learn_params: bool = True,
 ) -> QConfig:
     """Symmetric signed weights + affine unsigned activations, optionally
-    range-narrowed by one bit.  Only the 'minmax' activation observer exists
-    in the port so far; the others come with the training slice."""
+    range-narrowed by one bit.  Only the 'minmax' activation observer (a
+    moving-average min/max) is ported so far."""
     if act_observer != "minmax":
         if act_observer in ("mse", "histogram", "percentile"):
             raise NotImplementedError(
-                f"act_observer {act_observer!r} arrives with the QAT training "
-                "slice of the port (observers are not ported yet)")
+                f"act_observer {act_observer!r} arrives with a later training "
+                "slice of the port (only the min/max observers are ported)")
         raise ValueError(f"unknown act_observer {act_observer!r}")
     wq = LSQQuantizer(
         spec=QuantSpec.weight_default(weight_bits, per_channel=per_channel_weights,

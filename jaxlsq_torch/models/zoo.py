@@ -1,8 +1,13 @@
-"""Quantized transformer LM for serving (port of ``QuantTransformerBlock``,
-``QuantTransformerLM``, ``_rope`` and the dense-cache ``_cached_attention`` of
-``jaxlsq/models/zoo.py``).
+"""Model zoo (port of ``jaxlsq/models/zoo.py``).
 
-The modules hold serve-mode buffers (packed kernels from
+QAT conv nets: :class:`QuantMLP`, :class:`BasicBlock`, :class:`QuantResNet`
+and :func:`resnet18_cifar`, built from ``QuantDense``/``QuantConv`` and the
+flax-rule ``BatchNorm``; NCHW inputs; :func:`init_qat_variables` draws their
+seeded initial variables.
+
+Serving: the quantized transformer LM (``QuantTransformerBlock``,
+``QuantTransformerLM``, ``_rope`` and the dense-cache ``_cached_attention``).
+Its modules hold serve-mode buffers (packed kernels from
 ``jaxlsq_torch.serve.convert``, loaded by ``jaxlsq_torch.interop``) and run:
 
 * without a cache: the full causal forward, with plain PyTorch attention;
@@ -22,7 +27,7 @@ MoE blocks and paged caches come with later slices and raise.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -30,10 +35,13 @@ from torch import nn
 
 from .._device import resolve_device
 from ..serve.attention import MASK, decode_attention
-from .layers import QuantDense, QuantEmbed
+from .layers import FakeQuantize, QuantConv, QuantDense, QuantEmbed
+from .norm import BatchNorm
 from .qconfig import QConfig
 
-__all__ = ["QuantTransformerBlock", "QuantTransformerLM", "init_variables"]
+__all__ = ["QuantMLP", "BasicBlock", "QuantResNet", "resnet18_cifar",
+           "init_qat_variables", "QuantTransformerBlock", "QuantTransformerLM",
+           "init_variables"]
 
 _LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
 
@@ -278,10 +286,10 @@ class QuantTransformerLM(nn.Module):
         return logits, tuple(new_cache)
 
 
-def _lecun_normal(shape, gen, device) -> torch.Tensor:
-    """flax ``lecun_normal``: truncated normal (±2σ) with variance 1/fan_in,
-    σ corrected for the truncation."""
-    std = math.sqrt(1.0 / shape[0]) / 0.87962566103423978
+def _lecun_normal(shape, gen, device, fan_in: Optional[int] = None) -> torch.Tensor:
+    """flax ``lecun_normal``: truncated normal (±2σ) with variance 1/fan_in
+    (default ``shape[0]``, a (K, N) kernel's), σ corrected for the truncation."""
+    std = math.sqrt(1.0 / (fan_in or shape[0])) / 0.87962566103423978
     w = torch.empty(shape, dtype=torch.float32, device=device)
     return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
 
@@ -303,12 +311,15 @@ def init_variables(model: QuantTransformerLM, seed: int = 0) -> dict:
     def normal(shape, std):
         return torch.randn(shape, generator=gen, device=dev) * std
 
+    def qp(state):
+        return {"qp": {"scale": state.scale, "shift": state.shift}}
+
     def quantizers(path, w, axis):
         qcfg = qc.resolve(path)
-        node = {"weight_fq": {"qp": qcfg.weight_for_axis(axis).init(w)}}
+        node = {"weight_fq": qp(qcfg.weight_for_axis(axis).init(w))}
         acfg = qcfg.activation_for_axis(-1)
         if acfg is not None and axis == 1:
-            node["act_fq"] = {"qp": acfg.init(num_channels=w.shape[0], device=dev)}
+            node["act_fq"] = qp(acfg.init(num_channels=w.shape[0], device=dev))
         return node
 
     def dense(path, k, n, bias=True):
@@ -341,3 +352,135 @@ def init_variables(model: QuantTransformerLM, seed: int = 0) -> dict:
     params["lm_head"], qparams["lm_head"] = dense(("lm_head",), d, model.vocab,
                                                   bias=False)
     return {"params": params, "qparams": qparams}
+
+
+# ---------------------------------------------------------------------------
+# QAT conv nets
+# ---------------------------------------------------------------------------
+
+class QuantMLP(nn.Module):
+    """Dense layers with ReLU between them: ``dense_0 … head``."""
+
+    def __init__(self, in_features: int, features: Sequence[int], qconfig: QConfig,
+                 *, device=None, seed: int = 0):
+        super().__init__()
+        self.device = resolve_device(device)
+        dims = (in_features,) + tuple(features)
+        names = [f"dense_{i}" for i in range(len(features) - 1)] + ["head"]
+        self.names = names
+        for name, k, n in zip(names, dims[:-1], dims[1:]):
+            self.add_module(name, QuantDense(k, n, qconfig, path=(name,),
+                                             device=self.device))
+        init_qat_variables(self, seed)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for name in self.names[:-1]:
+            x = F.relu(getattr(self, name)(x))
+        return self.head(x)
+
+
+class BasicBlock(nn.Module):
+    """ResNet-v1 basic block: conv1 (3x3, ``strides``) → bn1 → relu → conv2
+    → bn2, plus the residual, a 1x1 ``downsample`` conv and ``bn_down`` when
+    the shape changes; relu of the sum."""
+
+    def __init__(self, in_features: int, features: int, qconfig: QConfig, *,
+                 strides: int = 1, path: Sequence[str] = (), device=None):
+        super().__init__()
+        path = tuple(path)
+        self.conv1 = QuantConv(in_features, features, (3, 3), qconfig,
+                               strides=strides, use_bias=False,
+                               path=path + ("conv1",), device=device)
+        self.bn1 = BatchNorm(features, device=device)
+        self.conv2 = QuantConv(features, features, (3, 3), qconfig, use_bias=False,
+                               path=path + ("conv2",), device=device)
+        self.bn2 = BatchNorm(features, device=device)
+        self.downsample = self.bn_down = None
+        if strides != 1 or in_features != features:
+            self.downsample = QuantConv(in_features, features, (1, 1), qconfig,
+                                        strides=strides, use_bias=False,
+                                        path=path + ("downsample",), device=device)
+            self.bn_down = BatchNorm(features, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x if self.downsample is None else self.bn_down(self.downsample(x))
+        return F.relu(y + residual)
+
+
+class QuantResNet(nn.Module):
+    """ResNet-18-class network with the CIFAR stem (one 3x3 conv, no pooling)
+    and LSQ quantizers in every conv and the head.  Takes NCHW images and
+    returns logits (B, num_classes).  Runs on CUDA unless ``device`` says
+    otherwise; with no card and no ``device``, construction raises.
+    Parameters are drawn from ``seed`` (:func:`init_qat_variables`)."""
+
+    def __init__(self, num_classes: int, qconfig: QConfig, *,
+                 stage_sizes: Sequence[int] = (2, 2, 2, 2),
+                 widths: Sequence[int] = (64, 128, 256, 512),
+                 in_channels: int = 3, device=None, seed: int = 0):
+        super().__init__()
+        self.device = resolve_device(device)
+        dev = self.device
+        self.stem = QuantConv(in_channels, widths[0], (3, 3), qconfig,
+                              use_bias=False, path=("stem",), device=dev)
+        self.bn_stem = BatchNorm(widths[0], device=dev)
+        self.block_names = []
+        cin = widths[0]
+        for si, (n_blocks, w) in enumerate(zip(stage_sizes, widths)):
+            for bi in range(n_blocks):
+                name = f"stage{si}_block{bi}"
+                self.add_module(name, BasicBlock(
+                    cin, w, qconfig, strides=2 if (si > 0 and bi == 0) else 1,
+                    path=(name,), device=dev))
+                self.block_names.append(name)
+                cin = w
+        self.head = QuantDense(cin, num_classes, qconfig, path=("head",), device=dev)
+        init_qat_variables(self, seed)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.bn_stem(self.stem(x)))
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        return self.head(x.mean(dim=(2, 3)))
+
+
+def resnet18_cifar(num_classes: int, qconfig: QConfig, *, device=None,
+                   seed: int = 0) -> QuantResNet:
+    """ResNet-18 for 32x32 inputs: stages (2, 2, 2, 2), widths 64-512."""
+    return QuantResNet(num_classes, qconfig, device=device, seed=seed)
+
+
+@torch.no_grad()
+def init_qat_variables(model: nn.Module, seed: int = 0) -> None:
+    """Draw ``model``'s QAT variables in place from ``seed`` with flax's
+    distributions: lecun-normal kernels (fan-in = all but the output axis),
+    zero biases, BatchNorm scale 1, bias 0, mean 0, var 1; each weight
+    quantizer's static mean ± 3σ scale from its kernel, each activation
+    quantizer's initial state.  Same distributions as flax ``init``, not the
+    same bits; flax's ``init`` also runs one eval-mode forward that feeds
+    the activation observers, which this does not."""
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    for mod in model.modules():
+        if isinstance(mod, (QuantConv, QuantDense)) and getattr(mod, "qat", True):
+            k = mod.kernel
+            if isinstance(mod, QuantConv):  # OIHW: fan-in is I * kh * kw
+                k.copy_(_lecun_normal(k.shape, gen, dev, fan_in=k[0].numel()))
+            else:
+                k.copy_(_lecun_normal(k.shape, gen, dev))
+            if mod.bias is not None:
+                mod.bias.zero_()
+            if mod.weight_fq is not None:
+                mod.weight_fq.load_quant_state(mod.weight_fq.cfg.init(k))
+            if mod.act_fq is not None:
+                fq = mod.act_fq
+                fq.load_quant_state(fq.cfg.init(num_channels=fq.scale.shape[0],
+                                                device=dev))
+        elif isinstance(mod, BatchNorm):
+            mod.scale.fill_(1.0)
+            mod.bias.zero_()
+            mod.mean.zero_()
+            mod.var.fill_(1.0)

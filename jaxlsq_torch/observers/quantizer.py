@@ -1,23 +1,50 @@
-"""LSQ quantizer configuration and the qparam handoff to serving.
+"""LSQ quantizer: configuration, phase state machine and the qparam handoff
+to serving (port of ``jaxlsq/observers/quantizer.py``).
 
-Port of the serving-relevant part of ``jaxlsq/observers/quantizer.py``:
-``convert_shift_to_zp`` and :class:`LSQQuantizer` as a configuration object
-whose :meth:`LSQQuantizer.init` builds the initial (scale, shift).  The phase
-state machine and the observers belong to the training path and are not here
-yet.
+:class:`LSQQuantizer` is the static configuration; :class:`QuantizerState`
+its runtime state, and every mode switch returns a new state, as in the JAX
+package.  The phase counters and flags are host values (ints and bools), so
+the forward's phase decisions never wait for the card; scale/shift and the
+observer range are device tensors.  The forward is the JAX package's
+concrete (eager) regime, the reference's control flow::
+
+    forward(x, training):
+      debug_mode -> x
+      do_backprop_init = False; do_full_lsq = learning_enabled
+      if training and learning_enabled and current_batch <= n_batches:
+          'observer':  do_full_lsq = (current_batch == n_batches);
+                       on that last batch also disable_observer()
+          'learnable': disable_observer();
+                       do_backprop_init = (current_batch != n_batches)
+          current_batch += 1
+      if observer_enabled: update the observer on x;
+                           scale, zp = observer qparams; shift = -zp * scale
+      if fake_quant_enabled:
+          out = fake_quant(x, scale, shift, eval=not do_full_lsq,
+                           init=do_backprop_init and do_full_lsq)
+      else: out = x
+
+Weights get ``n_batches = -1`` (the window never opens) and a static
+mean ± 3σ scale.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Optional, Tuple
 
 import torch
 
 from ..core.spec import QuantSpec
+from ..ops.functional import fake_quant
+from .minmax import MinMaxObserver, MovingAverageMinMaxObserver, ObserverState
 
-__all__ = ["LSQQuantizer", "convert_shift_to_zp"]
+__all__ = ["LSQQuantizer", "QuantizerState", "convert_shift_to_zp", "HOST_FIELDS"]
+
+# The state's host values, in the order of the JAX package's quant_state.
+HOST_FIELDS = ("current_batch", "n_batches", "fake_quant_enabled",
+               "observer_enabled", "learning_enabled")
 
 
 def convert_shift_to_zp(shift: torch.Tensor, scale: torch.Tensor,
@@ -28,12 +55,34 @@ def convert_shift_to_zp(shift: torch.Tensor, scale: torch.Tensor,
 
 
 @dataclasses.dataclass(frozen=True)
+class QuantizerState:
+    """Runtime state of one quantizer: (C,) scale/shift and the observer
+    range on the device, the phase counters and flags on the host."""
+
+    scale: torch.Tensor
+    shift: torch.Tensor
+    current_batch: int
+    n_batches: int            # -1: the init window never opens
+    fake_quant_enabled: bool
+    observer_enabled: bool
+    learning_enabled: bool
+    obs: ObserverState
+
+    def replace(self, **kw) -> "QuantizerState":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
 class LSQQuantizer:
     """Static configuration of one LSQ/LSQ+ fake-quantizer.
 
     ``otype`` is 'weight' (static mean ± 3σ scale init, symmetric spec
     required) or 'activation' (``init_scale``/``init_shift``, with the shift
-    overridden by the symmetric rule for symmetric specs).
+    overridden by the symmetric rule for symmetric specs).  ``init_mode``
+    'observer' runs ``observer`` (a moving-average min/max by default) over
+    the first ``n_batches`` training batches; 'learnable' trains the qparams
+    from the start with LSQ+ backprop init over that window.  ``numel``
+    overrides the element count of the gradient scale.
     """
 
     spec: QuantSpec
@@ -42,7 +91,10 @@ class LSQQuantizer:
     n_batches: int = 1000
     init_scale: float = 1.0
     init_shift: float = 0.0
+    observer: Optional[MinMaxObserver] = None
     learn_params: bool = True
+    debug_mode: bool = False
+    numel: Optional[int] = None
 
     def __post_init__(self):
         if self.otype not in ("weight", "activation"):
@@ -52,6 +104,10 @@ class LSQQuantizer:
                 f"init_mode must be 'observer' or 'learnable', got {self.init_mode}")
         if self.otype == "weight" and not self.spec.symmetric:
             raise ValueError("weight quantizers must use a symmetric spec")
+        if (self.observer is None and self.init_mode == "observer"
+                and self.otype == "activation"):
+            object.__setattr__(self, "observer", MovingAverageMinMaxObserver(
+                per_channel=self.spec.per_channel, axis=self.spec.axis))
 
     @property
     def effective_init_shift(self) -> float:
@@ -59,12 +115,14 @@ class LSQQuantizer:
             return self.spec.symmetric_init_shift(self.init_scale)
         return self.init_shift
 
+    # ------------------------------------------------------------------ init
+
     def init(self, x: Optional[torch.Tensor] = None, *,
-             num_channels: Optional[int] = None,
-             device=None) -> Dict[str, torch.Tensor]:
-        """Initial ``{"scale", "shift"}`` (each (C,) f32).  For weights, ``x``
-        drives the static init ``max(|µ−3σ|, |µ+3σ|) / 2**bitness`` with
-        Bessel-corrected σ and ``bitness = ceil(log2(qmax−qmin)) − 1``."""
+             num_channels: Optional[int] = None, device=None) -> QuantizerState:
+        """A complete initial state on ``device`` (default: x's device).  For
+        weights, ``x`` drives the static init ``max(|µ−3σ|, |µ+3σ|) /
+        2**bitness`` with Bessel-corrected σ and ``bitness = ceil(log2(qmax −
+        qmin)) − 1``."""
         if not self.spec.per_channel:
             c = 1
         elif x is not None:
@@ -74,14 +132,17 @@ class LSQQuantizer:
         else:
             raise ValueError("per-channel quantizer init needs x or num_channels")
         if device is None:
-            device = x.device if x is not None else torch.device("cpu")
+            if x is None:
+                raise ValueError("quantizer init needs x or a device")
+            device = x.device
         scale = torch.full((c,), self.init_scale, dtype=torch.float32, device=device)
         if self.otype == "weight" and x is not None:
-            xd = x.detach().to(torch.float32)
+            xd = x.detach().to(device=device, dtype=torch.float32)
             bitness = math.ceil(
                 math.log2(self.spec.quant_max - self.spec.quant_min)) - 1
             if self.spec.per_channel:
-                red = tuple(a for a in range(x.dim()) if a != self.spec.axis)
+                axis = self.spec.axis % x.dim()
+                red = tuple(a for a in range(x.dim()) if a != axis)
                 mean = xd.mean(dim=red)
                 std = xd.std(dim=red, correction=1)
             else:
@@ -91,4 +152,104 @@ class LSQQuantizer:
                                   (mean + 3 * std).abs()) / 2 ** bitness
         shift = torch.full((c,), self.effective_init_shift, dtype=torch.float32,
                            device=device)
-        return {"scale": scale, "shift": shift}
+        obs = (self.observer.init(c, device) if self.observer is not None
+               else ObserverState(torch.zeros(c, device=device),
+                                  torch.zeros(c, device=device), 0))
+        state = QuantizerState(
+            scale=scale, shift=shift, current_batch=0,
+            n_batches=-1 if self.otype == "weight" else self.n_batches,
+            fake_quant_enabled=True, observer_enabled=True,
+            learning_enabled=bool(self.learn_params), obs=obs)
+        return self.enable_observer(state)
+
+    # --------------------------------------------------------- mode switches
+
+    def enable_observer(self, state: QuantizerState) -> QuantizerState:
+        """Enable, then gate off where the observer is not needed."""
+        learning = state.learning_enabled
+        if self.otype == "weight" or self.init_mode == "learnable":
+            enabled = not learning
+        else:
+            enabled = not (learning and state.current_batch > state.n_batches)
+        return state.replace(observer_enabled=enabled)
+
+    def disable_observer(self, state: QuantizerState) -> QuantizerState:
+        return state.replace(observer_enabled=False)
+
+    def enable_fake_quant(self, state: QuantizerState) -> QuantizerState:
+        return state.replace(fake_quant_enabled=True)
+
+    def disable_fake_quant(self, state: QuantizerState) -> QuantizerState:
+        return state.replace(fake_quant_enabled=False)
+
+    def enable_param_learning(self, state: QuantizerState) -> QuantizerState:
+        """Learn via LSQ: no observer, no init window."""
+        return state.replace(learning_enabled=True, observer_enabled=False,
+                             n_batches=-1)
+
+    def enable_static_estimate(self, state: QuantizerState) -> QuantizerState:
+        """A plain FakeQuantize driven by the observer."""
+        return self.enable_observer(state.replace(learning_enabled=False))
+
+    # --------------------------------------------------------------- qparams
+
+    def set_qparams(self, state: QuantizerState, scale=None, shift=None,
+                    zero_point=None) -> QuantizerState:
+        """New scale and/or shift; a zero point becomes ``shift = −zp·scale``
+        with the (possibly new) scale."""
+        def as_f32(v, like):
+            return torch.as_tensor(v, dtype=torch.float32,
+                                   device=like.device).reshape(like.shape)
+
+        new_scale = state.scale if scale is None else as_f32(scale, state.scale)
+        new_shift = state.shift
+        if zero_point is not None:
+            new_shift = -as_f32(zero_point, state.shift) * new_scale
+        if shift is not None:
+            new_shift = as_f32(shift, state.shift)
+        return state.replace(scale=new_scale, shift=new_shift)
+
+    def calculate_qparams(self, state: QuantizerState
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(scale, int32 zero_point) for serving: eps-floored scale, shift→zp."""
+        scale = torch.clamp_min(state.scale, torch.finfo(torch.float32).eps)
+        return scale, convert_shift_to_zp(state.shift, scale, self.spec)
+
+    # --------------------------------------------------------------- forward
+
+    def advance(self, state: QuantizerState, x: torch.Tensor, training: bool
+                ) -> Tuple[QuantizerState, Optional[Tuple[bool, bool]]]:
+        """The phase bookkeeping and observer update of one forward.  Returns
+        the new state and the fake-quant modes ``(eval_mode, init_mode)``, or
+        None when fake quantization is off."""
+        do_backprop_init = False
+        do_full_lsq = state.learning_enabled
+        if (training and state.learning_enabled
+                and state.current_batch <= state.n_batches):
+            if self.init_mode == "observer":
+                do_full_lsq = state.current_batch == state.n_batches
+                if do_full_lsq:
+                    state = self.disable_observer(state)
+            else:
+                state = self.disable_observer(state)
+                do_backprop_init = state.current_batch != state.n_batches
+            state = state.replace(current_batch=state.current_batch + 1)
+        if state.observer_enabled and self.observer is not None:
+            obs = self.observer.update(state.obs, x)
+            scale, zp = self.observer.calculate_qparams(obs, self.spec)
+            state = self.set_qparams(state.replace(obs=obs), scale=scale,
+                                     zero_point=zp)
+        if not state.fake_quant_enabled:
+            return state, None
+        return state, (not do_full_lsq, do_backprop_init and do_full_lsq)
+
+    def __call__(self, state: QuantizerState, x: torch.Tensor, *,
+                 training: bool = False) -> Tuple[torch.Tensor, QuantizerState]:
+        if self.debug_mode:
+            return x, state
+        state, modes = self.advance(state, x, training)
+        if modes is None:
+            return x, state
+        out = fake_quant(x, state.scale, state.shift, self.spec,
+                         eval_mode=modes[0], init_mode=modes[1], numel=self.numel)
+        return out, state

@@ -106,3 +106,148 @@ def test_engine_equals_generate_on_card(cuda):
         want = make_generate(m, len(p), n, cache_dtype=torch.bfloat16)(
             torch.as_tensor(p, device=cuda)[None])
         np.testing.assert_array_equal(got, want[0].cpu().numpy())
+
+
+FQ_SPECS = {
+    "act": dict(quant_min=0, quant_max=127, type_min=0, type_max=255),
+    "sym": dict(quant_min=-127, quant_max=127, symmetric=True),
+    "w_oihw": dict(quant_min=-127, quant_max=127, symmetric=True, per_channel=True,
+                   axis=0),
+    "w_kn": dict(quant_min=-127, quant_max=127, symmetric=True, per_channel=True,
+                 axis=1),
+    "aff_nchw": dict(quant_min=0, quant_max=255, per_channel=True, axis=1),
+}
+FQ_SHAPES = {"act": [(64, 3, 32, 32), (64, 512, 4, 4), (64, 512), (3,), (33, 7, 5)],
+             "sym": [(64, 64, 32, 32), (1000,)],
+             "w_oihw": [(512, 512, 3, 3), (64, 3, 3, 3), (128, 64, 1, 1), (5, 3, 1, 1)],
+             "w_kn": [(512, 10), (33, 300)],
+             "aff_nchw": [(8, 16, 5, 5)]}
+
+
+def _fq_abs_sums(g, x, s, b, spec, init_mode, gs):
+    """gs times the sum of |term| of dS and of dB per qparam, in f64: the
+    scale of a summation-order difference."""
+    from jaxlsq_torch.core.golden import broadcast_qparams
+
+    x, g = x.double(), g.double()
+    s = s.double().abs().clamp_min(2.0 ** -23)
+    b = b.double()
+    axis = spec.axis % x.dim() if spec.per_channel else None
+    if axis is not None:
+        s, b = (broadcast_qparams(t, x.dim(), axis) for t in (s, b))
+    zp = torch.round(torch.clamp(-b / s, spec.type_min, spec.type_max))
+    xq = torch.clamp(x / s + zp, spec.quant_min, spec.quant_max)
+    m = (spec.quant_min < xq) & (xq < spec.quant_max)
+    xfq = (torch.round(xq) - zp) * s
+    geff = 2 * (xfq - x) if init_mode else g
+    ds = torch.where(m, geff * (xfq - x) / s,
+                     torch.where(xq <= spec.quant_min, geff * (spec.quant_min - zp),
+                                 geff * (spec.quant_max - zp))).abs()
+    db = torch.where(m, 0.0, geff).abs()
+    red = tuple(a for a in range(x.dim()) if a != axis)
+    return ds.sum(dim=red) * abs(gs), db.sum(dim=red) * abs(gs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eval_mode,init_mode", [(False, False), (True, False),
+                                                 (False, True)])
+@pytest.mark.parametrize("name,shape", [(k, s) for k, v in FQ_SHAPES.items() for s in v])
+def test_fake_quant_kernels_match_plain(cuda, name, shape, eval_mode, init_mode):
+    """Forward and dX bit-exact; dS/dB within 1e-5 of the sum of |terms|."""
+    from jaxlsq_torch.core.golden import effective_grad_scale
+    from jaxlsq_torch.ops.fake_quant import (LAUNCHES, fake_quant_backward,
+                                             fake_quant_forward)
+
+    spec = QuantSpec(**FQ_SPECS[name])
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = torch.randn(shape, device=cuda, generator=g) * 1.5
+    c = shape[spec.axis] if spec.per_channel else 1
+    s = 0.01 + 0.04 * torch.rand(c, device=cuda, generator=g)
+    b = (torch.zeros(c, device=cuda) if spec.symmetric
+         else 0.2 * torch.randn(c, device=cuda, generator=g))
+    gr = torch.randn(shape, device=cuda, generator=g)
+    kind = "pc" if spec.per_channel else "pt"
+    before = dict(LAUNCHES)
+    out = fake_quant_forward(x, s, b, spec, init_mode)
+    dx, ds, db = fake_quant_backward(gr, x, s, b, spec, eval_mode, init_mode)
+    torch.cuda.synchronize()
+    assert LAUNCHES[f"fq_fwd_{kind}"] == before[f"fq_fwd_{kind}"] + (0 if init_mode else 1)
+    assert LAUNCHES[f"fq_bwd_{kind}"] == before[f"fq_bwd_{kind}"] + 1
+    ref = fake_quant_forward(*(t.cpu() for t in (x, s, b)), spec, init_mode)
+    rdx, rds, rdb = fake_quant_backward(*(t.cpu() for t in (gr, x, s, b)), spec,
+                                        eval_mode, init_mode)
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(dx.cpu(), rdx)
+    gs = effective_grad_scale(spec, x.numel(), c)
+    sums = _fq_abs_sums(gr.cpu(), x.cpu(), s.cpu(), b.cpu(), spec, init_mode, gs)
+    for got, want, tot in ((ds, rds, sums[0]), (db, rdb, sums[1])):
+        err = (got.cpu().double() - want.double()).abs()
+        assert bool((err <= 1e-5 * tot.reshape(err.shape)).all()), (err.max(), tot.max())
+        if eval_mode:
+            assert not got.any()
+
+
+@pytest.mark.gpu
+def test_fake_quant_kernels_refuse_other_dtypes(cuda):
+    from jaxlsq_torch.ops.fake_quant import fake_quant_backward, fake_quant_forward
+
+    spec = QuantSpec(**FQ_SPECS["act"])
+    x = torch.randn(8, 16, device=cuda, dtype=torch.bfloat16)
+    s, b = torch.ones(1, device=cuda), torch.zeros(1, device=cuda)
+    with pytest.raises(NotImplementedError, match="float32"):
+        fake_quant_forward(x, s, b, spec)
+    with pytest.raises(NotImplementedError, match="float32"):
+        fake_quant_backward(x, x, s, b, spec)
+
+
+@pytest.mark.gpu
+def test_fake_quant_kernels_are_deterministic(cuda):
+    """The grid depends on the shape alone: the same input gives the same
+    bits on every run."""
+    from jaxlsq_torch.ops.fake_quant import fake_quant_backward
+
+    spec = QuantSpec(**FQ_SPECS["w_oihw"])
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(512, 512, 3, 3, device=cuda, generator=g) * 0.02
+    gr = torch.randn(x.shape, device=cuda, generator=g)
+    s, b = torch.full((512,), 2e-4, device=cuda), torch.zeros(512, device=cuda)
+    first = fake_quant_backward(gr, x, s, b, spec)
+    for _ in range(3):
+        again = fake_quant_backward(gr, x, s, b, spec)
+        assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
+
+
+@pytest.mark.gpu
+def test_resnet_train_step_on_card_matches_cpu(cuda):
+    """Two B = 8 train steps (the observer window, then LSQ) of a small
+    QuantResNet on the card against the same steps on the CPU plain path,
+    from the same state (TF32 off for the convs): the losses within 1e-3
+    relative, the slack for conv sums taken in another order."""
+    from jaxlsq_torch.models import QuantResNet
+    from jaxlsq_torch.ops.fake_quant import LAUNCHES
+    from jaxlsq_torch.parallel import make_train_step
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=1)
+        r = np.random.RandomState(0)
+        x = torch.from_numpy(r.randn(8, 3, 16, 16).astype(np.float32))
+        y = torch.from_numpy(r.randint(0, 10, size=8))
+        losses = {}
+        cpu_model = QuantResNet(10, qc, stage_sizes=(1, 1), widths=(16, 32),
+                                device="cpu")
+        start = interop.qat_variables(cpu_model)
+        for dev in ("cuda", "cpu"):
+            m = QuantResNet(10, qc, stage_sizes=(1, 1), widths=(16, 32), device=dev)
+            interop.load_qat_variables(m, start)
+            opt = torch.optim.SGD(m.parameters(), lr=1e-2, momentum=0.9)
+            step = make_train_step(m, opt)
+            before = dict(LAUNCHES)
+            batch = {"image": x.to(dev), "label": y.to(dev)}
+            losses[dev] = [float(step(batch)["loss"]) for _ in range(2)]
+            if dev == "cuda":
+                assert all(LAUNCHES[k] > before[k] for k in LAUNCHES), LAUNCHES
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev

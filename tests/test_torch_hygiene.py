@@ -1,5 +1,5 @@
 """jaxlsq_torch stands alone: importing every module of the port (and the
-chip smoke script) loads neither jax nor the jaxlsq package, and the entry
+card's scripts, chip_smoke.py and profiler_check.py) loads neither jax nor the jaxlsq package, and the entry
 points refuse to fall back to the CPU when no device was asked for."""
 
 import os
@@ -14,8 +14,12 @@ MODULES = [
     "jaxlsq_torch", "jaxlsq_torch._build", "jaxlsq_torch._device",
     "jaxlsq_torch.core", "jaxlsq_torch.core.spec", "jaxlsq_torch.core.golden",
     "jaxlsq_torch.observers", "jaxlsq_torch.observers.quantizer",
+    "jaxlsq_torch.observers.minmax",
+    "jaxlsq_torch.ops", "jaxlsq_torch.ops.fake_quant", "jaxlsq_torch.ops.functional",
     "jaxlsq_torch.models", "jaxlsq_torch.models.qconfig",
-    "jaxlsq_torch.models.layers", "jaxlsq_torch.models.zoo",
+    "jaxlsq_torch.models.layers", "jaxlsq_torch.models.norm",
+    "jaxlsq_torch.models.zoo",
+    "jaxlsq_torch.parallel", "jaxlsq_torch.parallel.train",
     "jaxlsq_torch.serve", "jaxlsq_torch.serve.pack", "jaxlsq_torch.serve.convert",
     "jaxlsq_torch.serve.matmul", "jaxlsq_torch.serve.attention",
     "jaxlsq_torch.serve.decode", "jaxlsq_torch.interop",
@@ -28,6 +32,7 @@ def test_port_imports_no_jax():
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "runpy.run_path('profiler_check.py', run_name='not_main')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'jaxlsq'))\n"
         "assert not bad, bad\n"
@@ -39,9 +44,17 @@ def test_port_imports_no_jax():
 
 
 def test_entry_points_need_a_device_without_cuda():
-    from jaxlsq_torch.models import QuantTransformerLM, default_qconfig
+    from jaxlsq_torch.models import (QuantMLP, QuantResNet, QuantTransformerLM,
+                                     default_qconfig)
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         QuantTransformerLM(32, 16, 1, 2, default_qconfig(8, 8).for_serving())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QuantResNet(10, default_qconfig(8, 8), stage_sizes=(1,), widths=(8,))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QuantMLP(8, (4,), default_qconfig(8, 8))
+    model = QuantResNet(10, default_qconfig(8, 8), stage_sizes=(1,), widths=(8,),
+                        device="cpu")
+    assert all(p.device.type == "cpu" for p in model.parameters())
