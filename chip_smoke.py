@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke test of the jaxlsq_torch port on one NVIDIA GPU (H100): the serving
-slice and the QAT training slice.
+slice, the QAT training slice and its single-program (CUDA-graph) step.
 
     python3 chip_smoke.py [--record PATH]
 
@@ -16,9 +16,11 @@ exits non-zero on any failure (no phase is caught and skipped):
    and a per-slot index at B = 8, t in {1, 32}, L in {240, 2048}, and two
    windows; the four fake-quant kernels at all 42 quantizer shapes of
    ``resnet18_cifar`` at B = 64 (21 activation inputs, 21 weights), in
-   train, eval and init modes, on random data and on the real activations,
-   weights and gradients of one training step (forward and dX bit-exact,
-   dS/dB within 1e-5 of the sum of the magnitudes of their terms);
+   train, eval and init modes, and their four traced twins (modes read
+   from a device flag tensor) for the four (eval, init) flag pairs, on
+   random data and on the real activations, weights and gradients of one
+   eager training step (forward and dX bit-exact, dS/dB within 1e-5 of the
+   sum of the magnitudes of their terms);
 3. drives the serving path with every launch count reset: the d1024 x 4 LM
    of the JAX package's decode benchmark (vocab 8192, 16 heads, max_len
    240, int8 per-channel weights, bf16 cache, seeded random weights) through
@@ -33,19 +35,36 @@ exits non-zero on any failure (no phase is caught and skipped):
    buffer copies): device time from CUDA events around calls issued behind
    a sleep kernel (so they run back to back) and time a call from CUDA
    events around calls issued as the host can, beside its bound, its plain
-   version and one PyTorch library call;
-5. drives the training path with every launch count reset: full-width
+   version and one PyTorch library call (the traced fake-quant kernels in
+   train mode beside the static ones);
+5. drives the eager training path (``make_train_step(jit=False)``) with
+   every launch count reset: full-width
    ``resnet18_cifar`` under ``default_qconfig(8, 8, per_channel_weights=True,
    init_batches=2)``, seeded on the card, SGD (lr 1e-2, momentum 0.9),
    B = 64 seeded random 32x32x3 images and labels, 12 steps (the 2-batch
    observer window, then full LSQ; steps/s and images/s over steps 3-12)
    and one profiled step (busy share, time by kernel); fails unless every
    loss is finite and each fake-quant kernel ran 21 times a step past the
-   window; then one B = 8 step from the same state on the card and on the
+   window (in it ``fq_bwd_pt`` 20: the stem's activation quantizer reaches
+   no parameter there); then one B = 8 step from the same state on the card and on the
    CPU plain path, the losses within 1e-3 relative (where a rounding
    boundary fell the other way, the CPU takes the card's activation, at
    most one quant step away, on at most 1e-5 of the elements); the step's
-   convolution FLOPs and its BatchNorm layers' device time alone.
+   convolution FLOPs and its BatchNorm layers' device time alone;
+6. drives the captured training path (``make_train_step(jit=True)``) with
+   every launch count reset: phase 5's model, seed, batches and 12 steps
+   (step 1 an eager warm-up, step 2 the capture and its first replay,
+   steps 3-12 replays; steps/s and images/s over steps 3-12); fails unless
+   every loss is finite, each traced kernel was launched 21 times by the
+   warm-up and 21 by the capture and never by a replay, one graph ran every
+   replay and the observer-window -> LSQ switch happened inside one (step
+   3), a profiled replay ran the traced kernels and no static one, and
+   ``disable_fake_quant_on_act`` between two replays zeroed the activation
+   qparams' gradients without a new capture;
+7. the eager and the captured step from one state, cuDNN deterministic on
+   both sides, 5 steps across the switch and a toggle: losses, every
+   parameter and buffer (qparams, BatchNorm statistics, counters, flags,
+   observer state) and SGD's momentum buffers equal.
 
 Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes the full
@@ -55,6 +74,7 @@ record (every check, time and profile) to PATH as JSON.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -69,6 +89,9 @@ WO_SHAPES = {"qkv": (1024, 3072), "proj": (1024, 1024), "mlp_up": (1024, 4096),
 TRAIN_B, TRAIN_STEPS, CHECK_B = 64, 12, 8
 MAX_MOVED_SHARE = 1e-5  # of a B = CHECK_B step's activation elements (53 of 5,337,088)
 FQ_KERNELS = ("fq_fwd_pt", "fq_fwd_pc", "fq_bwd_pt", "fq_bwd_pc")
+TRACED_KERNELS = tuple(f"{k}_traced" for k in FQ_KERNELS)
+FLAG_PAIRS = ((0, 0), (1, 0), (0, 1), (1, 1))  # (eval, init)
+EQUAL_STEPS = 5
 
 
 def reset_counts():
@@ -567,8 +590,9 @@ def _sgd(torch, model):
 
 
 def _capture_step(torch):
-    """One training step of a fresh resnet18_cifar at B = 64, with every
-    quantizer's input, qparams and incoming gradient captured by hooks."""
+    """One eager training step of a fresh resnet18_cifar at B = 64, with
+    every quantizer's input, qparams and incoming gradient captured by
+    hooks."""
     from jaxlsq_torch.models.layers import FakeQuantize
     from jaxlsq_torch.parallel import make_train_step
 
@@ -585,8 +609,11 @@ def _capture_step(torch):
     handles = [mod.register_forward_hook(
         lambda m, i, o, name=name: hook(name, m, i, o))
         for name, mod in model.named_modules() if isinstance(mod, FakeQuantize)]
-    make_train_step(model, _sgd(torch, model))(
-        _image_batches(torch, 1, TRAIN_B, seed=11)[0])
+    batch = _image_batches(torch, 1, TRAIN_B, seed=11)[0]
+    # in the observer window the stem's qparams take no gradient, so only
+    # an image that does gives the stem's quantizer an incoming gradient
+    batch["image"].requires_grad_(True)
+    make_train_step(model, _sgd(torch, model), jit=False)(batch)
     torch.cuda.synchronize()
     for h in handles:
         h.remove()
@@ -619,26 +646,40 @@ def _fq_term_sums(torch, g, x, s, b, spec, init_mode, gs):
     return ds.sum(dim=red) * abs(gs), db.sum(dim=red) * abs(gs)
 
 
-def _check_fq(torch, x, s, b, g, spec, errs, what):
-    """The four kernels against golden on the card, train/eval/init modes:
-    forward and dX bit-exact, dS/dB within 1e-5 of their term sums."""
+def _check_fq(torch, x, s, b, g, spec, errs, what, traced=False):
+    """The static kernels (train/eval/init modes) or their traced twins (the
+    four flag pairs) against their plain versions on the card: forward and
+    dX bit-exact, dS/dB within 1e-5 of their term sums."""
     from jaxlsq_torch.core.golden import (effective_grad_scale, golden_backward,
-                                          golden_forward)
-    from jaxlsq_torch.ops.fake_quant import fake_quant_backward, fake_quant_forward
+                                          golden_backward_traced, golden_forward,
+                                          golden_forward_traced)
+    from jaxlsq_torch.ops.fake_quant import (fake_quant_backward,
+                                             fake_quant_backward_traced,
+                                             fake_quant_forward,
+                                             fake_quant_forward_traced)
 
-    kind = "pc" if spec.per_channel else "pt"
+    kind = ("pc" if spec.per_channel else "pt") + ("_traced" if traced else "")
     gs = effective_grad_scale(spec, x.numel(), s.numel())
     worst = 0.0
-    for eval_mode, init_mode in ((False, False), (True, False), (False, True)):
-        out = fake_quant_forward(x, s, b, spec, init_mode)
-        dx, ds, db = fake_quant_backward(g, x, s, b, spec, eval_mode, init_mode)
-        ref = golden_forward(x, s, b, spec, init_mode=init_mode)
-        rdx, rds, rdb = golden_backward(g, x, s, b, spec, eval_mode=eval_mode,
-                                        init_mode=init_mode)
+    for ev, ini in (FLAG_PAIRS if traced else FLAG_PAIRS[:3]):
+        eval_mode, init_mode = bool(ev), bool(ini)
+        if traced:
+            flags = torch.tensor([float(ev), float(ini)], device=x.device)
+            out = fake_quant_forward_traced(x, s, b, flags, spec)
+            dx, ds, db = fake_quant_backward_traced(g, x, s, b, flags, spec)
+            ref = golden_forward_traced(x, s, b, spec, flags[0], flags[1])
+            rdx, rds, rdb = golden_backward_traced(g, x, s, b, spec, flags[0],
+                                                   flags[1])
+        else:
+            out = fake_quant_forward(x, s, b, spec, init_mode)
+            dx, ds, db = fake_quant_backward(g, x, s, b, spec, eval_mode, init_mode)
+            ref = golden_forward(x, s, b, spec, init_mode=init_mode)
+            rdx, rds, rdb = golden_backward(g, x, s, b, spec, eval_mode=eval_mode,
+                                            init_mode=init_mode)
         torch.cuda.synchronize()
         if not (torch.equal(out, ref) and torch.equal(dx, rdx)):
             raise AssertionError(
-                f"{what}: fake-quant forward/dX not bit-exact (eval={eval_mode}, "
+                f"{what}: fq {kind} forward/dX not bit-exact (eval={eval_mode}, "
                 f"init={init_mode}): {float((out - ref).abs().max())}, "
                 f"{float((dx - rdx).abs().max())}")
         tot_s, tot_b = _fq_term_sums(torch, g, x, s, b, spec, init_mode, gs)
@@ -646,8 +687,9 @@ def _check_fq(torch, x, s, b, g, spec, errs, what):
         for got, want, tot in ((ds, rds, tot_s), (db, rdb, tot_b)):
             err = (got.double() - want.double()).abs().reshape(tot.shape)
             if not bool((err <= 1e-5 * tot).all()):
-                raise AssertionError(f"{what}: dS/dB off by {float(err.max())} "
-                                     f"(eval={eval_mode}, init={init_mode})")
+                raise AssertionError(f"{what}: fq {kind} dS/dB off by "
+                                     f"{float(err.max())} (eval={eval_mode}, "
+                                     f"init={init_mode})")
             e_sums = max(e_sums, float(err.max()))
             worst = max(worst, float((err / tot.clamp_min(1e-30)).max()))
         errs[f"fq_fwd_{kind}"] = max(errs[f"fq_fwd_{kind}"], float((out - ref).abs().max()))
@@ -659,28 +701,32 @@ def _check_fq(torch, x, s, b, g, spec, errs, what):
 def phase_fq_kernels(torch, rec):
     caps = _capture_step(torch)
     g = torch.Generator(device="cuda").manual_seed(2)
-    errs = {k: 0.0 for k in FQ_KERNELS}
+    errs = {k: 0.0 for k in FQ_KERNELS + TRACED_KERNELS}
     shapes = []
-    worst = 0.0
+    worst = {False: 0.0, True: 0.0}
     for c in caps:
         x, grad, spec = c["x"], c["g"], c["spec"]
-        worst = max(worst, _check_fq(torch, x, c["scale"], c["shift"], grad, spec,
-                                     errs, f"{c['name']} real"))
         xr = torch.randn(x.shape, device="cuda", generator=g) * x.std() + x.mean()
         gr = torch.randn(x.shape, device="cuda", generator=g) * grad.std()
-        worst = max(worst, _check_fq(torch, xr, c["scale"], c["shift"], gr, spec,
-                                     errs, f"{c['name']} random"))
+        for traced in (False, True):
+            for xx, gg, data in ((x, grad, "real"), (xr, gr, "random")):
+                worst[traced] = max(worst[traced], _check_fq(
+                    torch, xx, c["scale"], c["shift"], gg, spec, errs,
+                    f"{c['name']} {data}", traced))
         shapes.append({"name": c["name"], "shape": list(x.shape),
                        "per_channel": spec.per_channel, "numel": x.numel()})
     rec["max_abs_err"].update(errs)
     rec["fq_shapes"] = shapes
-    rec["fq_worst_sum_rel_err"] = worst
+    rec["fq_worst_sum_rel_err"] = worst[False]
+    rec["fq_traced_worst_sum_rel_err"] = worst[True]
     n_act = sum(r["numel"] for r in shapes if not r["per_channel"])
     n_w = sum(r["numel"] for r in shapes if r["per_channel"])
     log(f"[check] fake-quant kernels at the {len(shapes)} quantizer shapes of "
         f"resnet18_cifar, B={TRAIN_B} ({n_act} activation and {n_w} weight "
-        "elements a step), train/eval/init, real and random data: forward and dX "
-        f"bit-exact; dS/dB worst {worst:.2e} of their term sums (tol 1e-5); "
+        "elements a step), real and random data, the static four in "
+        "train/eval/init and the traced four at the four (eval, init) flag pairs: "
+        f"forward and dX bit-exact; dS/dB worst {worst[False]:.2e} (static) and "
+        f"{worst[True]:.2e} (traced) of their term sums (tol 1e-5); "
         f"max_abs_err {errs}")
 
 
@@ -710,7 +756,8 @@ def _profile_train_step(torch, step, batch, step_ms):
     dev_ms = sum(by_name.values())
     top = sorted(((k[:70], v) for k, v in by_name.items()), key=lambda kv: -kv[1])
     return {"device_ms": dev_ms, "span_ms": span, "busy_share": dev_ms / step_ms,
-            "kernels": n_kernels, "by_category_ms": by_cat, "top": top[:15]}
+            "kernels": n_kernels, "by_category_ms": by_cat, "top": top[:15],
+            "fq_kernels": {e.key: e.count for e in rows if "fq_" in e.key}}
 
 
 def _batchnorm_ms(torch, shapes):
@@ -742,7 +789,7 @@ def phase_train(torch, rec):
     from jaxlsq_torch.parallel import make_train_step
 
     model = _resnet(torch, "cuda", seed=0)
-    step = make_train_step(model, _sgd(torch, model))
+    step = make_train_step(model, _sgd(torch, model), jit=False)
     batches = _image_batches(torch, TRAIN_STEPS + 1, TRAIN_B, seed=3)
     torch.cuda.synchronize()
     train = {}
@@ -810,8 +857,12 @@ def phase_train(torch, rec):
         raise AssertionError(f"non-finite training loss: {train['losses']}")
     for i, counts in enumerate(per_step):
         for k, v in counts.items():
-            if v != 21:
-                raise AssertionError(f"step {i + 1}: {k} ran {v} times, not 21")
+            # in the observer window (steps 1-2) the stem's activation
+            # quantizer reaches no parameter (its input is the image, its
+            # qparams the observer's), so autograd runs no backward for it
+            want = 20 if k == "fq_bwd_pt" and i < 2 else 21
+            if v != want:
+                raise AssertionError(f"step {i + 1}: {k} ran {v} times, not {want}")
 
     # one B = 8 step from the same state on the card and on the CPU plain path
     train["cpu_check"] = _cpu_check(torch, model, step)
@@ -870,7 +921,8 @@ def _cpu_check(torch, model, step):
         if hand_over:
             for n, m in _act_quantizers(cpu_model):
                 m.register_forward_hook(lambda mod, i, o, n=n: take_card(n, mod, o))
-        loss = float(make_train_step(cpu_model, _sgd(torch, cpu_model))(cpu_batch)["loss"])
+        loss = float(make_train_step(cpu_model, _sgd(torch, cpu_model),
+                                     jit=False)(cpu_batch)["loss"])
         return loss, moved
 
     free_loss, _ = cpu_loss(False)
@@ -892,10 +944,201 @@ def _cpu_check(torch, model, step):
             "cpu_loss_without_hand_over": free_loss, "rel_err_without_hand_over": free_rel}
 
 
+def _graph_of(step):
+    """The one CUDA graph a captured step holds, or None before its capture."""
+    entries = [e for e in step.graphs.values() if e is not None]
+    if len(entries) > 1:
+        raise AssertionError(f"{len(entries)} captures for one batch shape")
+    return entries[0][0] if entries else None
+
+
+_FQ_NAME = re.compile(r"fq_(fwd|bwd_pt|bwd_pc|bwd_sum)_kernel(?:<([^>]*)>)?")
+
+
+def _fq_kinds(counts):
+    """A profile's fake-quant kernel counts by kernel and regime (the
+    ``kTraced`` template argument of csrc/fake_quant.cu); an unknown name is
+    kept whole."""
+    out = {}
+    for name, n in counts.items():
+        m = _FQ_NAME.search(name)
+        if m is None:
+            key = name
+        elif m.group(2) is None:
+            key = m.group(1)
+        else:
+            key = m.group(1) + ("/traced" if m.group(2) in ("true", "(bool)1", "1")
+                                else "/static")
+        out[key] = out.get(key, 0) + n
+    return out
+
+
+def phase_train_captured(torch, rec):
+    """Phase 5's leg through ``make_train_step(jit=True)``: one CUDA graph of
+    the whole step, replayed across the observer window's end and a toggle."""
+    from jaxlsq_torch.models import toggles
+    from jaxlsq_torch.parallel import make_train_step
+
+    model = _resnet(torch, "cuda", seed=0)
+    step = make_train_step(model, _sgd(torch, model), jit=True)
+    batches = _image_batches(torch, TRAIN_STEPS + 2, TRAIN_B, seed=3)
+    acts = [m for _, m in _act_quantizers(model)]
+    torch.cuda.synchronize()
+    cap = {}
+    rec["train_captured"] = cap
+    _, _, fq = reset_counts()
+    losses, per_step, graphs, phase = [], [], [], []
+    t_start = None
+    for i, batch in enumerate(batches[:TRAIN_STEPS]):
+        if i == 2:  # steps 3-12: replays, the first one ends the observer window
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        before = dict(fq)
+        losses.append(step(batch)["loss"])
+        per_step.append({k: fq[k] - before[k] for k in FQ_KERNELS + TRACED_KERNELS})
+        graphs.append(_graph_of(step))
+        # the activation quantizers' counters and observer flags, kept on the card
+        phase.append((torch.stack([m.current_batch for m in acts]),
+                      torch.stack([m.observer_enabled for m in acts])))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    timed = TRAIN_STEPS - 2
+    cap.update({"steps_per_s": timed / wall, "images_per_s": timed * TRAIN_B / wall,
+                "step_ms": 1e3 * wall / timed,
+                "launches": {k: fq[k] for k in TRACED_KERNELS},
+                "per_step_launches": per_step,
+                "losses": torch.stack(losses).cpu().tolist(),
+                "act_current_batch": [p[0].cpu().tolist() for p in phase],
+                "act_observer_enabled": [p[1].cpu().tolist() for p in phase]})
+    log(f"[captured] resnet18_cifar B={TRAIN_B}, make_train_step(jit=True): losses "
+        + " ".join(f"{v:.4f}" for v in cap["losses"]))
+    log(f"[captured] steps 3-{TRAIN_STEPS} (graph replays): {cap['steps_per_s']:.2f} "
+        f"steps/s, {cap['images_per_s']:.1f} images/s ({cap['step_ms']:.2f} ms a "
+        f"step); the eager leg of phase 5 in this run: {rec['train']['step_ms']:.2f} "
+        "ms a step")
+    log(f"[captured] launches counted (warm-up + capture; a replay counts none): "
+        f"{cap['launches']}; per step {per_step}")
+    if not all(math.isfinite(v) for v in cap["losses"]):
+        raise AssertionError(f"non-finite captured training loss: {cap['losses']}")
+    for i, counts in enumerate(per_step):
+        want = 21 if i < 2 else 0
+        if any(counts[k] != want for k in TRACED_KERNELS) or any(
+                counts[k] for k in FQ_KERNELS):
+            raise AssertionError(f"captured step {i + 1}: launches {counts}, expected "
+                                 f"{want} of each traced kernel and no static one")
+    if (graphs[0] is not None or graphs[1] is None
+            or any(g is not graphs[1] for g in graphs[1:])):
+        raise AssertionError("the captured leg did not run one graph for steps 2-12")
+    for i, (cb, on) in enumerate(zip(cap["act_current_batch"],
+                                     cap["act_observer_enabled"])):
+        k = i + 1  # the observer window is steps 1-2; step 3 switches to LSQ
+        if set(cb) != {min(k, 3)} or set(on) != {k <= 2}:
+            raise AssertionError(f"step {k}: activation counters {cb}, observer "
+                                 f"flags {on}; the window switch went wrong")
+
+    p = cap["profile"] = _profile_train_step(torch, step, batches[TRAIN_STEPS],
+                                             cap["step_ms"])
+    replay = cap["replay_fq_kernels"] = _fq_kinds(p["fq_kernels"])
+    log(f"[captured] profiled replay: kernels busy {p['device_ms']:.2f} ms "
+        f"({100 * p['busy_share']:.1f}% of an unprofiled replay's "
+        f"{cap['step_ms']:.2f} ms; {p['span_ms']:.2f} ms span behind a sleep kernel), "
+        f"{p['kernels']} kernels; by category: "
+        + "; ".join(f"{k} {v:.2f} ms" for k, v in sorted(p["by_category_ms"].items(),
+                                                         key=lambda kv: -kv[1])))
+    log("[captured] top kernels: " + "; ".join(f"{k} {v:.2f} ms" for k, v in p["top"][:8]))
+    log(f"[captured] fake-quant kernels in the replay: {replay}")
+    want = {"fwd/traced": 42, "bwd_pt/traced": 21, "bwd_pc/traced": 21, "bwd_sum": 42}
+    if replay != want:
+        raise AssertionError(f"the replay ran fake-quant kernels {replay}, not {want}")
+
+    # a toggle between two replays, honoured without a new capture
+    def act_grads_nonzero():
+        return sum(int(m.scale.grad.count_nonzero()) + int(m.shift.grad.count_nonzero())
+                   for m in acts)
+
+    nz_before = act_grads_nonzero()
+    graph = _graph_of(step)
+    toggles.disable_fake_quant_on_act(model)
+    loss = float(step(batches[TRAIN_STEPS + 1])["loss"])
+    nz_after = act_grads_nonzero()
+    cap["toggle"] = {"act_qparam_grads_nonzero_before": nz_before,
+                     "act_qparam_grads_nonzero_after": nz_after, "loss": loss}
+    log(f"[captured] disable_fake_quant_on_act between two replays: nonzero "
+        f"activation qparam gradients {nz_before} -> {nz_after}, loss {loss:.4f}, "
+        "same graph")
+    if not (nz_before > 0 and nz_after == 0 and math.isfinite(loss)
+            and _graph_of(step) is graph and len(step.graphs) == 1
+            and not any(bool(m.fake_quant_enabled) for m in acts)):
+        raise AssertionError(f"the toggle was not honoured by the replay: {cap['toggle']}")
+
+
+def _train_state(model, opt):
+    """Every parameter and buffer of ``model`` and SGD's momentum buffers."""
+    state = {f"model/{k}": v for k, v in model.state_dict().items()}
+    state.update({f"momentum/{n}": opt.state[p]["momentum_buffer"]
+                  for n, p in model.named_parameters()})
+    return state
+
+
+def phase_captured_vs_eager(torch, rec):
+    """The eager and the captured step from one state, cuDNN deterministic:
+    losses and every leaf equal over steps across the window's end and a
+    toggle (a float leaf that is not may differ by 1e-6 of its largest
+    magnitude, and is recorded)."""
+    from jaxlsq_torch.models import toggles
+    from jaxlsq_torch.parallel import make_train_step
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        models = [_resnet(torch, "cuda", seed=0) for _ in range(2)]
+        opts = [_sgd(torch, m) for m in models]
+        steps = [make_train_step(m, o, jit=jit)
+                 for m, o, jit in zip(models, opts, (False, True))]
+        batches = _image_batches(torch, EQUAL_STEPS, TRAIN_B, seed=7)
+        unequal, n_leaves, losses = [], 0, []
+        for i, batch in enumerate(batches):
+            if i == EQUAL_STEPS - 1:
+                for m in models:
+                    toggles.disable_fake_quant_on_act(m)
+            pair = [s(batch)["loss"] for s in steps]
+            losses.append([float(v) for v in pair])
+            states = [{"loss": v, **_train_state(m, o)}
+                      for v, m, o in zip(pair, models, opts)]
+            n_leaves = len(states[0])
+            for name, a in states[0].items():
+                b = states[1][name]
+                if torch.equal(a, b):
+                    continue
+                rel = math.inf
+                if a.is_floating_point() and a.shape == b.shape:
+                    rel = (float((a.double() - b.double()).abs().max())
+                           / max(float(a.abs().max()), 1e-30))
+                unequal.append({"step": i + 1, "leaf": name, "rel": rel})
+        _graph_of(steps[1])  # one capture
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    rec["captured_vs_eager"] = {"steps": EQUAL_STEPS, "leaves": n_leaves,
+                                "losses": losses, "unequal": unequal}
+    log(f"[equal] eager vs captured step from one state, cuDNN deterministic, "
+        f"{EQUAL_STEPS} steps (window end at 3, act fake-quant off at "
+        f"{EQUAL_STEPS}): {n_leaves} leaves a step, {len(unequal)} not bit-equal "
+        f"{unequal[:5]}; losses {losses}")
+    worst = max((u["rel"] for u in unequal), default=0.0)
+    if not worst <= 1e-6:
+        raise AssertionError(f"the captured step left another state than the eager "
+                             f"step: {unequal[:10]}")
+
+
 def phase_fq_times(torch, rec):
-    from jaxlsq_torch.core.golden import golden_backward, golden_forward
+    from jaxlsq_torch.core.golden import (golden_backward, golden_backward_traced,
+                                          golden_forward, golden_forward_traced)
     from jaxlsq_torch.models import default_qconfig
-    from jaxlsq_torch.ops.fake_quant import fake_quant_backward, fake_quant_forward
+    from jaxlsq_torch.ops.fake_quant import (fake_quant_backward,
+                                             fake_quant_backward_traced,
+                                             fake_quant_forward,
+                                             fake_quant_forward_traced)
 
     qc = default_qconfig(8, 8, per_channel_weights=True)
     dev = torch.device("cuda")
@@ -939,16 +1182,30 @@ def phase_fq_times(torch, rec):
                     x, s_l, zp_l, spec.quant_min, spec.quant_max, 1.0)
             return torch.autograd.grad(y, (x, s_l, zp_l), gg)
 
+        flags = torch.zeros(2, device=dev)  # the traced kernels in train mode
         for name, fn, plain_fn, lib_fn, args, lib_args, nbytes, ops in (
                 (f"fq_fwd_{kind}", lambda x: fake_quant_forward(x, s, b, spec),
                  lambda x: golden_forward(x, s, b, spec), lib_fwd, fwd_args,
                  fwd_args, 8 * n, 7 * n),
                 (f"fq_bwd_{kind}", lambda x, gg: fake_quant_backward(gg, x, s, b, spec),
                  lambda x, gg: golden_backward(gg, x, s, b, spec), lib_fwdbwd,
-                 bwd_args, leaves, 12 * n, 20 * n)):
+                 bwd_args, leaves, 12 * n, 20 * n),
+                (f"fq_fwd_{kind}_traced",
+                 lambda x: fake_quant_forward_traced(x, s, b, flags, spec),
+                 lambda x: golden_forward_traced(x, s, b, spec, flags[0], flags[1]),
+                 None, fwd_args, None, 8 * n, 7 * n),
+                (f"fq_bwd_{kind}_traced",
+                 lambda x, gg: fake_quant_backward_traced(gg, x, s, b, flags, spec),
+                 lambda x, gg: golden_backward_traced(gg, x, s, b, spec, flags[0],
+                                                      flags[1]),
+                 None, bwd_args, None, 12 * n, 20 * n)):
             ms, call = measure(torch, fn, args)
             plain, _ = measure(torch, plain_fn, args, reps=20)
-            lib, lib_call = measure(torch, lib_fn, lib_args)
+            if lib_fn is None:  # the same library call, timed above on these inputs
+                static = times[name[:-len("_traced")]]
+                lib, lib_call = static["library_ms"], static["library_call_ms"]
+            else:
+                lib, lib_call = measure(torch, lib_fn, lib_args)
             b_ms, b_by = bound(nbytes, ops)
             times[name] = {"shape": list(shape), "ms": ms, "call_ms": call,
                            "plain_ms": plain, "library_ms": lib,
@@ -991,14 +1248,19 @@ def kernels_line(rec):
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                 "shape": "int8 cache, B=8, H=KVH=16, hd=64, L=2048, t=1, all keys live"})
-    for name, repl in (("fq_fwd_pt", "jaxlsq/ops/pallas_kernels.py:195"),
-                       ("fq_fwd_pc", "jaxlsq/ops/pallas_kernels.py:268"),
-                       ("fq_bwd_pt", "jaxlsq/ops/pallas_kernels.py:202"),
-                       ("fq_bwd_pc", "jaxlsq/ops/pallas_kernels.py:275")):
+    for name, repl, leg in (
+            ("fq_fwd_pt", "jaxlsq/ops/pallas_kernels.py:195", "train"),
+            ("fq_fwd_pc", "jaxlsq/ops/pallas_kernels.py:268", "train"),
+            ("fq_bwd_pt", "jaxlsq/ops/pallas_kernels.py:202", "train"),
+            ("fq_bwd_pc", "jaxlsq/ops/pallas_kernels.py:275", "train"),
+            ("fq_fwd_pt_traced", "jaxlsq/ops/pallas_kernels.py:680", "train_captured"),
+            ("fq_fwd_pc_traced", "jaxlsq/ops/pallas_kernels.py:725", "train_captured"),
+            ("fq_bwd_pt_traced", "jaxlsq/ops/pallas_kernels.py:689", "train_captured"),
+            ("fq_bwd_pc_traced", "jaxlsq/ops/pallas_kernels.py:734", "train_captured")):
         t = rec["times"][name]
         out.append({"name": name, "route": "cuda",
                     "source": "jaxlsq_torch/csrc/fake_quant.cu", "replaces": repl,
-                    "launches": rec["train"]["launches"][name],
+                    "launches": rec[leg]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -1041,6 +1303,8 @@ def main(argv):
     phase_times(torch, rec)
     phase_fq_times(torch, rec)
     phase_train(torch, rec)
+    phase_train_captured(torch, rec)
+    phase_captured_vs_eager(torch, rec)
     rec["wall_s"] = time.time() - t0
     rec["profile_misses"] = PROFILE_MISSES
     rec["waiting_calls"] = WAITING_CALLS

@@ -46,6 +46,19 @@ _SIGNATURES = {
     # tmin, tmax, sym, eval, init, gs, stream
     "jlt_fq_bwd_pc": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                       _F, _I, _I, _I, _F, _P],
+    # x, scale, shift, flags, out, n, qmin, qmax, tmin, tmax, stream
+    "jlt_fq_fwd_pt_traced": [_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
+    # x, scale, shift, flags, out, outer, C, inner, qmin, qmax, tmin, tmax,
+    # stream
+    "jlt_fq_fwd_pc_traced": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
+    # g, x, scale, shift, flags, dx, part, ds, db, n, qmin, qmax, tmin, tmax,
+    # sym, gs, stream
+    "jlt_fq_bwd_pt_traced": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
+                             _F, _I, _F, _P],
+    # g, x, scale, shift, flags, dx, part, ds, db, outer, C, inner, qmin,
+    # qmax, tmin, tmax, sym, gs, stream
+    "jlt_fq_bwd_pc_traced": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+                             _F, _F, _F, _I, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -1,10 +1,12 @@
 """Golden fake-quant math: the numeric contract every other path meets.
 
 Port of ``jaxlsq/core/golden.py``: ``clamp_scale``, ``broadcast_qparams``,
-``effective_grad_scale`` and the forward/backward pair ``golden_forward`` /
-``golden_backward``.  These are the plain versions of the fake-quant CUDA
-kernels (``jaxlsq_torch/ops/fake_quant.py``), which run them for CPU tensors.
-The traced-flag twins wait for the kernels that take the mode as device flags.
+``effective_grad_scale``, the forward/backward pair ``golden_forward`` /
+``golden_backward`` and their traced-flag twins ``golden_forward_traced`` /
+``golden_backward_traced`` (the modes as f32 0/1 device scalars, so one
+program covers every phase).  These are the plain versions of the fake-quant
+CUDA kernels (``jaxlsq_torch/ops/fake_quant.py``), which run them for CPU
+tensors.
 
 ``torch.round`` rounds half to even, like ``jnp.round``.  A per-channel
 ``spec.axis`` may be negative here; it counts from the last axis.
@@ -20,7 +22,8 @@ import torch
 from .spec import QuantSpec
 
 __all__ = ["clamp_scale", "broadcast_qparams", "effective_grad_scale",
-           "golden_forward", "golden_backward"]
+           "golden_forward", "golden_backward", "golden_forward_traced",
+           "golden_backward_traced"]
 
 
 def clamp_scale(scale: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -112,4 +115,63 @@ def golden_backward(grad: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
         gs = effective_grad_scale(spec, n)
         dS = ds_elem.sum().reshape(scale.shape) * gs
         dB = db_elem.sum().reshape(shift.shape) * gs
+    return dX, dS.to(scale.dtype), dB.to(shift.dtype)
+
+
+# The traced-flag twins take eval/init as f32 0/1 scalars (tensors), so the
+# phase is a device value and never a host branch.  For flags in {0, 1} they
+# equal the static functions above.
+
+def golden_forward_traced(x: torch.Tensor, scale: torch.Tensor,
+                          shift: torch.Tensor, spec: QuantSpec, eval_flag,
+                          init_flag) -> torch.Tensor:
+    """``init ? x : fake_quant(x)``; ``eval_flag`` changes only the backward.
+
+    The JAX package's golden blends ``init·x + (1 − init)·fq``; this selects,
+    as its Pallas kernel and the CUDA kernel do.  The two agree for finite x
+    (a blended -0.0 input comes out +0.0)."""
+    del eval_flag
+    s, zp = _prep(x, scale, shift, spec)
+    xq = torch.round(torch.clamp(x / s + zp, spec.quant_min, spec.quant_max))
+    fq = (xq - zp) * s
+    ini = torch.as_tensor(init_flag, dtype=torch.float32, device=x.device).reshape(())
+    return torch.where(ini > 0, x, fq)
+
+
+def golden_backward_traced(grad: torch.Tensor, x: torch.Tensor,
+                           scale: torch.Tensor, shift: torch.Tensor,
+                           spec: QuantSpec, eval_flag, init_flag,
+                           numel: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dX, dS, dB)`` with the modes as flags: ``dX = init ? g : g·mask``;
+    dS/dB are always summed and scaled by ``gs·(1 − eval)``."""
+    s, zp = _prep(x, scale, shift, spec)
+    qmin, qmax = float(spec.quant_min), float(spec.quant_max)
+    ev = torch.as_tensor(eval_flag, dtype=torch.float32, device=x.device).reshape(())
+    ini = torch.as_tensor(init_flag, dtype=torch.float32, device=x.device).reshape(())
+
+    xq = torch.clamp(x / s + zp, qmin, qmax)
+    mask = (qmin < xq) & (xq < qmax)
+    dX = torch.where(ini > 0, grad, grad * mask)
+
+    xfq = (torch.round(xq) - zp) * s
+    geff = torch.where(ini > 0, 2.0 * (xfq - x), grad)
+    db_elem = torch.where(mask, 0.0, geff)
+    if spec.symmetric:
+        db_elem = torch.zeros_like(db_elem)
+    border = torch.where(xq <= qmin, geff * (qmin - zp), geff * (qmax - zp))
+    ds_elem = torch.where(mask, geff * (xfq - x) / s, border)
+
+    n = numel if numel is not None else x.numel()
+    live = 1.0 - ev  # eval zeroes the qparam gradients
+    if spec.per_channel:
+        axis = spec.axis % x.dim()
+        gs = effective_grad_scale(spec, n, x.shape[axis])
+        red = tuple(a for a in range(x.dim()) if a != axis)
+        dS = (ds_elem.sum(dim=red) if red else ds_elem) * (gs * live)
+        dB = (db_elem.sum(dim=red) if red else db_elem) * (gs * live)
+    else:
+        gs = effective_grad_scale(spec, n)
+        dS = ds_elem.sum().reshape(scale.shape) * (gs * live)
+        dB = db_elem.sum().reshape(shift.shape) * (gs * live)
     return dX, dS.to(scale.dtype), dB.to(shift.dtype)

@@ -11,9 +11,22 @@
 // c is the channel: 0 per tensor, (i / inner) % C per channel over the
 // tensor's (outer, C, inner) view, so no transpose copy is made.
 //
-// Replaces the TPU kernels of jaxlsq/ops/pallas_kernels.py: fq_fwd_pt
-// _pt_fwd_kernel (:195), fq_fwd_pc _pc_fwd_kernel (:268), fq_bwd_pt
-// _pt_bwd_kernel (:202) and fq_bwd_pc _pc_bwd_kernel (:275).
+// Each kernel comes in two regimes, one template parameter apart:
+// * static (kTraced = false): eval/init are launch arguments chosen on the
+//   host.  Replaces the TPU kernels of jaxlsq/ops/pallas_kernels.py:
+//   fq_fwd_pt _pt_fwd_kernel (:195), fq_fwd_pc _pc_fwd_kernel (:268),
+//   fq_bwd_pt _pt_bwd_kernel (:202) and fq_bwd_pc _pc_bwd_kernel (:275).
+// * traced (kTraced = true): the modes are read inside the kernel from a
+//   (2,) f32 device tensor flags = [ev, ini], so one captured CUDA graph
+//   serves every QAT phase.  The forward writes ini > 0 ? x : fq(x) (a copy
+//   in init mode); the backward always writes dX (g in init mode, g * m
+//   otherwise) and its partials, and the sum kernel scales by (1 - ev) * gs
+//   after the block-ordered sum.  The flags never decide the grid or the
+//   partials' size.  Replaces fq_fwd_pt_traced _pt_fwd_traced_kernel (:680),
+//   fq_fwd_pc_traced _pc_fwd_traced_kernel (:725), fq_bwd_pt_traced
+//   _pt_bwd_traced_kernel (:689) and fq_bwd_pc_traced _pc_bwd_traced_kernel
+//   (:734).  In train mode (1 - 0) * gs is gs exactly, so dS and dB have the
+//   static kernels' bits.
 //
 // Numerics: the golden functions (jaxlsq_torch/core/golden.py) run each step
 // as its own rounded f32 operation, so every product and sum here is an
@@ -26,7 +39,8 @@
 // What bounds it on an H100: a few operations per 4-byte element, far below
 // the card's operations per byte, so each kernel is bound by its bytes: the
 // forward reads x and writes out (8 B an element), the training backward
-// reads g and x and writes dX (12 B).  The TPU kernels carry dS/dB in an
+// reads g and x and writes dX (12 B); the traced kernels move the same bytes
+// in every mode.  The TPU kernels carry dS/dB in an
 // accumulator resident across their sequential grid; Hopper blocks run in
 // parallel, so each block writes a partial and a second small kernel sums the
 // partials in block order and applies the gradient scale after the sum, as
@@ -68,8 +82,10 @@ __device__ __forceinline__ float fq_value(float x, float s, float zp, const Rang
   return __fmul_rn(__fsub_rn(v, zp), s);
 }
 
-// One element of the backward: writes dX (unless init) and adds its dS/dB
-// terms to the thread's sums (unless eval).
+// One element of the backward: adds its dS/dB terms to the thread's sums
+// (static: unless eval) and writes dX (static: unless init; traced: always,
+// g itself in init mode).
+template <bool kTraced>
 __device__ __forceinline__ void bwd_elem(const float* __restrict__ g,
                                          const float* __restrict__ x,
                                          float* __restrict__ dx, int i, float s,
@@ -77,10 +93,13 @@ __device__ __forceinline__ void bwd_elem(const float* __restrict__ g,
                                          int eval_mode, int init_mode, float& ds,
                                          float& db) {
   const float xv = x[i];
-  const float gv = init_mode ? 0.f : g[i];
+  const float gv = (init_mode && !kTraced) ? 0.f : g[i];
   const float xq = fminf(fmaxf(__fadd_rn(__fdiv_rn(xv, s), zp), r.qmin), r.qmax);
   const bool in = (r.qmin < xq) && (xq < r.qmax);
-  if (!init_mode) dx[i] = __fmul_rn(gv, in ? 1.f : 0.f);
+  if (kTraced)
+    dx[i] = init_mode ? gv : __fmul_rn(gv, in ? 1.f : 0.f);
+  else if (!init_mode)
+    dx[i] = __fmul_rn(gv, in ? 1.f : 0.f);
   if (eval_mode) return;
   const float d = __fsub_rn(__fmul_rn(__fsub_rn(rintf(xq), zp), s), xv);
   const float geff = init_mode ? __fmul_rn(2.f, d) : gv;
@@ -103,38 +122,53 @@ __device__ __forceinline__ void block_sum(float* red, float v) {
   }
 }
 
+// The modes a traced kernel reads from flags = [ev, ini] on the device.
+__device__ __forceinline__ int flag_set(const float* __restrict__ flags, int k) {
+  return flags[k] > 0.f;
+}
+
+// Forward; traced: init mode copies x.
+template <bool kTraced>
 __global__ void __launch_bounds__(kThreads)
 fq_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
-              const float* __restrict__ shift, float* __restrict__ out, int n,
-              int C, int inner, Range r) {
+              const float* __restrict__ shift, const float* __restrict__ flags,
+              float* __restrict__ out, int n, int C, int inner, Range r) {
   const int stride = gridDim.x * kThreads;
+  const int ini = kTraced ? flag_set(flags, 1) : 0;
   if (C == 1) {
     float s, zp;
     load_qparams(scale, shift, 0, r, s, zp);
     for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride)
-      out[i] = fq_value(x[i], s, zp, r);
+      out[i] = ini ? x[i] : fq_value(x[i], s, zp, r);
     return;
   }
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
     float s, zp;
     load_qparams(scale, shift, (i / inner) % C, r, s, zp);
-    out[i] = fq_value(x[i], s, zp, r);
+    out[i] = ini ? x[i] : fq_value(x[i], s, zp, r);
   }
 }
 
 // Per tensor: block b writes part[b] (dS) and part[nblocks + b] (dB).
+// Traced: init_mode comes from flags and eval_mode is 0 (ev acts in the sum).
+template <bool kTraced>
 __global__ void __launch_bounds__(kThreads)
 fq_bwd_pt_kernel(const float* __restrict__ g, const float* __restrict__ x,
                  const float* __restrict__ scale, const float* __restrict__ shift,
-                 float* __restrict__ dx, float* __restrict__ part, int n, Range r,
-                 int sym, int eval_mode, int init_mode) {
+                 const float* __restrict__ flags, float* __restrict__ dx,
+                 float* __restrict__ part, int n, Range r, int sym, int eval_mode,
+                 int init_mode) {
   __shared__ float red[kThreads];
+  if (kTraced) {
+    eval_mode = 0;
+    init_mode = flag_set(flags, 1);
+  }
   float s, zp;
   load_qparams(scale, shift, 0, r, s, zp);
   float ds = 0.f, db = 0.f;
   const int stride = gridDim.x * kThreads;
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride)
-    bwd_elem(g, x, dx, i, s, zp, r, sym, eval_mode, init_mode, ds, db);
+    bwd_elem<kTraced>(g, x, dx, i, s, zp, r, sym, eval_mode, init_mode, ds, db);
   if (eval_mode) return;
   block_sum(red, ds);
   if (threadIdx.x == 0) part[blockIdx.x] = red[0];
@@ -145,13 +179,18 @@ fq_bwd_pt_kernel(const float* __restrict__ g, const float* __restrict__ x,
 
 // Per channel: block b owns channel b / n_chunks, chunk b % n_chunks; writes
 // part[chunk * C + c] (dS) and part[(n_chunks + chunk) * C + c] (dB).
+template <bool kTraced>
 __global__ void __launch_bounds__(kThreads)
 fq_bwd_pc_kernel(const float* __restrict__ g, const float* __restrict__ x,
                  const float* __restrict__ scale, const float* __restrict__ shift,
-                 float* __restrict__ dx, float* __restrict__ part, int outer,
-                 int C, int inner, int n_chunks, Range r, int sym, int eval_mode,
-                 int init_mode) {
+                 const float* __restrict__ flags, float* __restrict__ dx,
+                 float* __restrict__ part, int outer, int C, int inner,
+                 int n_chunks, Range r, int sym, int eval_mode, int init_mode) {
   __shared__ float red[kThreads];
+  if (kTraced) {
+    eval_mode = 0;
+    init_mode = flag_set(flags, 1);
+  }
   const int c = blockIdx.x / n_chunks, chunk = blockIdx.x % n_chunks;
   float s, zp;
   load_qparams(scale, shift, c, r, s, zp);
@@ -161,7 +200,7 @@ fq_bwd_pc_kernel(const float* __restrict__ g, const float* __restrict__ x,
   for (int t = chunk * kPcChunk + threadIdx.x; t < t1; t += kThreads) {
     const int o = t / inner;
     const int i = (o * C + c) * inner + (t - o * inner);
-    bwd_elem(g, x, dx, i, s, zp, r, sym, eval_mode, init_mode, ds, db);
+    bwd_elem<kTraced>(g, x, dx, i, s, zp, r, sym, eval_mode, init_mode, ds, db);
   }
   if (eval_mode) return;
   block_sum(red, ds);
@@ -171,11 +210,14 @@ fq_bwd_pc_kernel(const float* __restrict__ g, const float* __restrict__ x,
   if (threadIdx.x == 0) part[(n_chunks + chunk) * C + c] = red[0];
 }
 
-// Sum the (n_parts, C) partials of dS and of dB in part order, then * gs.
+// Sum the (n_parts, C) partials of dS and of dB in part order, then * gs
+// (traced: * (1 - ev) * gs, with ev read from flags on the device).
 // Per tensor (C == 1) one block sums; per channel one thread per channel.
 __global__ void __launch_bounds__(kThreads)
 fq_bwd_sum_kernel(const float* __restrict__ part, int n_parts, int C, float gs,
-                  float* __restrict__ ds, float* __restrict__ db) {
+                  const float* __restrict__ flags, float* __restrict__ ds,
+                  float* __restrict__ db) {
+  if (flags) gs = __fmul_rn(__fsub_rn(1.f, flags[0]), gs);
   if (C == 1) {
     __shared__ float red[kThreads];
     for (int which = 0; which < 2; ++which) {
@@ -208,6 +250,54 @@ int pc_chunks(int outer, int inner) { return std::max(1, cdiv(outer * inner, kPc
 
 int fwd_blocks(int n) { return std::min(kFwdMaxBlocks, std::max(1, cdiv(n, kThreads))); }
 
+template <bool kTraced>
+int launch_fwd(const void* x, const void* scale, const void* shift,
+               const void* flags, void* out, int outer, int C, int inner,
+               const Range& r, void* stream) {
+  const int n = outer * C * inner;
+  fq_fwd_kernel<kTraced><<<fwd_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)scale, (const float*)shift,
+      (const float*)flags, (float*)out, n, C, inner, r);
+  return (int)cudaGetLastError();
+}
+
+// Static: no partials and no sum in eval mode.  Traced: always both.
+template <bool kTraced>
+int launch_bwd_pt(const void* g, const void* x, const void* scale,
+                  const void* shift, const void* flags, void* dx, void* part,
+                  void* ds, void* db, int n, const Range& r, int sym,
+                  int eval_mode, int init_mode, float gs, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int blocks = pt_blocks(n);
+  fq_bwd_pt_kernel<kTraced><<<blocks, kThreads, 0, st>>>(
+      (const float*)g, (const float*)x, (const float*)scale, (const float*)shift,
+      (const float*)flags, (float*)dx, (float*)part, n, r, sym, eval_mode,
+      init_mode);
+  if (kTraced || !eval_mode)
+    fq_bwd_sum_kernel<<<1, kThreads, 0, st>>>((const float*)part, blocks, 1, gs,
+                                              (const float*)flags, (float*)ds,
+                                              (float*)db);
+  return (int)cudaGetLastError();
+}
+
+template <bool kTraced>
+int launch_bwd_pc(const void* g, const void* x, const void* scale,
+                  const void* shift, const void* flags, void* dx, void* part,
+                  void* ds, void* db, int outer, int C, int inner, const Range& r,
+                  int sym, int eval_mode, int init_mode, float gs, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const int chunks = pc_chunks(outer, inner);
+  fq_bwd_pc_kernel<kTraced><<<C * chunks, kThreads, 0, st>>>(
+      (const float*)g, (const float*)x, (const float*)scale, (const float*)shift,
+      (const float*)flags, (float*)dx, (float*)part, outer, C, inner, chunks, r,
+      sym, eval_mode, init_mode);
+  if (kTraced || !eval_mode)
+    fq_bwd_sum_kernel<<<cdiv(C, kThreads), kThreads, 0, st>>>(
+        (const float*)part, chunks, C, gs, (const float*)flags, (float*)ds,
+        (float*)db);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -222,23 +312,16 @@ int jlt_fq_partials(int outer, int C, int inner, int per_channel) {
 int jlt_fq_fwd_pt(const void* x, const void* scale, const void* shift, void* out,
                   int n, float qmin, float qmax, float tmin, float tmax,
                   void* stream) {
-  const Range r{qmin, qmax, tmin, tmax};
-  fq_fwd_kernel<<<fwd_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)scale, (const float*)shift, (float*)out, n,
-      1, 1, r);
-  return (int)cudaGetLastError();
+  return launch_fwd<false>(x, scale, shift, nullptr, out, 1, 1, n,
+                           Range{qmin, qmax, tmin, tmax}, stream);
 }
 
 // Forward per channel over the (outer, C, inner) view; scale, shift are (C,).
 int jlt_fq_fwd_pc(const void* x, const void* scale, const void* shift, void* out,
                   int outer, int C, int inner, float qmin, float qmax, float tmin,
                   float tmax, void* stream) {
-  const Range r{qmin, qmax, tmin, tmax};
-  const int n = outer * C * inner;
-  fq_fwd_kernel<<<fwd_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)scale, (const float*)shift, (float*)out, n,
-      C, inner, r);
-  return (int)cudaGetLastError();
+  return launch_fwd<false>(x, scale, shift, nullptr, out, outer, C, inner,
+                           Range{qmin, qmax, tmin, tmax}, stream);
 }
 
 // Backward per tensor.  part holds 2 * jlt_fq_partials floats; ds, db are
@@ -247,16 +330,9 @@ int jlt_fq_bwd_pt(const void* g, const void* x, const void* scale,
                   const void* shift, void* dx, void* part, void* ds, void* db,
                   int n, float qmin, float qmax, float tmin, float tmax, int sym,
                   int eval_mode, int init_mode, float gs, void* stream) {
-  const Range r{qmin, qmax, tmin, tmax};
-  cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = pt_blocks(n);
-  fq_bwd_pt_kernel<<<blocks, kThreads, 0, st>>>(
-      (const float*)g, (const float*)x, (const float*)scale, (const float*)shift,
-      (float*)dx, (float*)part, n, r, sym, eval_mode, init_mode);
-  if (!eval_mode)
-    fq_bwd_sum_kernel<<<1, kThreads, 0, st>>>((const float*)part, blocks, 1, gs,
-                                              (float*)ds, (float*)db);
-  return (int)cudaGetLastError();
+  return launch_bwd_pt<false>(g, x, scale, shift, nullptr, dx, part, ds, db, n,
+                              Range{qmin, qmax, tmin, tmax}, sym, eval_mode,
+                              init_mode, gs, stream);
 }
 
 // Backward per channel over the (outer, C, inner) view; ds, db are (C,).
@@ -265,17 +341,45 @@ int jlt_fq_bwd_pc(const void* g, const void* x, const void* scale,
                   int outer, int C, int inner, float qmin, float qmax, float tmin,
                   float tmax, int sym, int eval_mode, int init_mode, float gs,
                   void* stream) {
-  const Range r{qmin, qmax, tmin, tmax};
-  cudaStream_t st = (cudaStream_t)stream;
-  const int chunks = pc_chunks(outer, inner);
-  fq_bwd_pc_kernel<<<C * chunks, kThreads, 0, st>>>(
-      (const float*)g, (const float*)x, (const float*)scale, (const float*)shift,
-      (float*)dx, (float*)part, outer, C, inner, chunks, r, sym, eval_mode,
-      init_mode);
-  if (!eval_mode)
-    fq_bwd_sum_kernel<<<cdiv(C, kThreads), kThreads, 0, st>>>(
-        (const float*)part, chunks, C, gs, (float*)ds, (float*)db);
-  return (int)cudaGetLastError();
+  return launch_bwd_pc<false>(g, x, scale, shift, nullptr, dx, part, ds, db,
+                              outer, C, inner, Range{qmin, qmax, tmin, tmax}, sym,
+                              eval_mode, init_mode, gs, stream);
+}
+
+// The traced twins: flags is a (2,) f32 device tensor [ev, ini]; every
+// output (out; dx, part, ds, db) is written in every mode.
+int jlt_fq_fwd_pt_traced(const void* x, const void* scale, const void* shift,
+                         const void* flags, void* out, int n, float qmin,
+                         float qmax, float tmin, float tmax, void* stream) {
+  return launch_fwd<true>(x, scale, shift, flags, out, 1, 1, n,
+                          Range{qmin, qmax, tmin, tmax}, stream);
+}
+
+int jlt_fq_fwd_pc_traced(const void* x, const void* scale, const void* shift,
+                         const void* flags, void* out, int outer, int C,
+                         int inner, float qmin, float qmax, float tmin,
+                         float tmax, void* stream) {
+  return launch_fwd<true>(x, scale, shift, flags, out, outer, C, inner,
+                          Range{qmin, qmax, tmin, tmax}, stream);
+}
+
+int jlt_fq_bwd_pt_traced(const void* g, const void* x, const void* scale,
+                         const void* shift, const void* flags, void* dx,
+                         void* part, void* ds, void* db, int n, float qmin,
+                         float qmax, float tmin, float tmax, int sym, float gs,
+                         void* stream) {
+  return launch_bwd_pt<true>(g, x, scale, shift, flags, dx, part, ds, db, n,
+                             Range{qmin, qmax, tmin, tmax}, sym, 0, 0, gs, stream);
+}
+
+int jlt_fq_bwd_pc_traced(const void* g, const void* x, const void* scale,
+                         const void* shift, const void* flags, void* dx,
+                         void* part, void* ds, void* db, int outer, int C,
+                         int inner, float qmin, float qmax, float tmin,
+                         float tmax, int sym, float gs, void* stream) {
+  return launch_bwd_pc<true>(g, x, scale, shift, flags, dx, part, ds, db, outer,
+                             C, inner, Range{qmin, qmax, tmin, tmax}, sym, 0, 0,
+                             gs, stream);
 }
 
 }  // extern "C"

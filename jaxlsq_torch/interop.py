@@ -24,7 +24,8 @@ of the port (``QuantResNet``, ``QuantMLP``, or any model of ``QuantConv``,
 ``QuantDense``, ``BatchNorm`` and ``FakeQuantize`` modules named as the flax
 modules are) and out again.  Conv kernels are HWIO there and OIHW here; a
 per-channel conv weight's qparams are the same (C,) vectors (axis 3 there, 0
-here); the quantizers' counters and flags become the host values.
+here); the quantizers' counters, flags and observer count are their
+buffers, of the JAX package's types (int32, bool, int32).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import torch
 from .models.layers import FakeQuantize, QuantConv, QuantDense
 from .models.norm import BatchNorm
 from .observers.minmax import ObserverState
-from .observers.quantizer import HOST_FIELDS, QuantizerState
+from .observers.quantizer import STATE_DTYPES, STATE_FIELDS, QuantizerState
 from .serve.convert import convert
 from .serve.pack import PackedWeight
 
@@ -201,9 +202,9 @@ def load_qat_variables(model, tree: Dict[str, Any]) -> None:
                 scale=get(qp, "scale", path), shift=get(qp, "shift", path),
                 obs=ObserverState(get(obs, "min_val", path),
                                   get(obs, "max_val", path),
-                                  int(np.asarray(obs["seen"]))),
-                **{f: (int if f in ("current_batch", "n_batches") else bool)(
-                    np.asarray(qs[f])) for f in HOST_FIELDS})
+                                  get(obs, "seen", path).to(torch.int32).reshape(())),
+                **{f: get(qs, f, path).to(STATE_DTYPES[f]).reshape(())
+                   for f in STATE_FIELDS})
             for a, b in ((st.scale, mod.scale), (st.obs.min_val, mod.obs_min)):
                 if a.shape != b.shape:
                     raise ValueError(f"{where}: shape {tuple(a.shape)} != {tuple(b.shape)}")
@@ -247,13 +248,10 @@ def qat_variables(model) -> Dict[str, Any]:
 
     for path, mod in _qat_modules(model):
         if isinstance(mod, FakeQuantize):
-            st = mod.quant_state()
-            put("qparams", path, {"qp": {"scale": np_(st.scale), "shift": np_(st.shift)}})
-            qs = {f: np.asarray(getattr(st, f),
-                                np.int32 if f in ("current_batch", "n_batches") else bool)
-                  for f in HOST_FIELDS}
-            qs["obs"] = {"min_val": np_(st.obs.min_val), "max_val": np_(st.obs.max_val),
-                         "seen": np.asarray(st.obs.seen, np.int32)}
+            put("qparams", path, {"qp": {"scale": np_(mod.scale), "shift": np_(mod.shift)}})
+            qs = {f: np_(getattr(mod, f)) for f in STATE_FIELDS}
+            qs["obs"] = {"min_val": np_(mod.obs_min), "max_val": np_(mod.obs_max),
+                         "seen": np_(mod.obs_seen)}
             put("quant_state", path, {"qs": qs})
         elif isinstance(mod, BatchNorm):
             put("params", path, {"scale": np_(mod.scale), "bias": np_(mod.bias)})

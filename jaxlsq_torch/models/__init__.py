@@ -1,6 +1,11 @@
 from .layers import FakeQuantize, QuantConv, QuantDense, QuantEmbed
 from .norm import BatchNorm
 from .qconfig import QConfig, default_qconfig
+from .toggles import (disable_fake_quant, disable_fake_quant_on_act,
+                      disable_observer, disable_observer_on_weights,
+                      enable_fake_quant, enable_fake_quant_on_act,
+                      enable_observer, enable_observer_on_weights,
+                      map_quant_state)
 from .zoo import (BasicBlock, QuantMLP, QuantResNet, QuantTransformerBlock,
                   QuantTransformerLM, init_qat_variables, init_variables,
                   resnet18_cifar)
@@ -8,4 +13,9 @@ from .zoo import (BasicBlock, QuantMLP, QuantResNet, QuantTransformerBlock,
 __all__ = ["QConfig", "default_qconfig", "FakeQuantize", "QuantDense", "QuantConv",
            "QuantEmbed", "BatchNorm", "QuantMLP", "BasicBlock", "QuantResNet",
            "resnet18_cifar", "init_qat_variables", "QuantTransformerBlock",
-           "QuantTransformerLM", "init_variables"]
+           "QuantTransformerLM", "init_variables",
+           "enable_fake_quant", "disable_fake_quant",
+           "enable_observer", "disable_observer",
+           "enable_fake_quant_on_act", "disable_fake_quant_on_act",
+           "enable_observer_on_weights", "disable_observer_on_weights",
+           "map_quant_state"]

@@ -3,11 +3,22 @@
 QAT mode (fake-quant training):
 
 * :class:`FakeQuantize` is one LSQ quantizer as a module: ``scale``/``shift``
-  are ``nn.Parameter``s, the observer range is two buffers, and the phase
-  counters and flags are host values saved through ``get_extra_state``.  An
-  observer writes the parameters in place, under ``no_grad``, before the
-  fake-quant call that uses them, so the optimizer's update lands on top of
-  the observer's values (the JAX package's train-step contract).
+  are ``nn.Parameter``s; the observer state (``obs_min``, ``obs_max``,
+  ``obs_seen``) and the phase counters and flags (``current_batch``,
+  ``n_batches`` int32; ``fake_quant_enabled``, ``observer_enabled``,
+  ``learning_enabled`` bool) are buffers, the JAX package's quant_state, so
+  ``state_dict`` carries them.  The buffers are the one source of truth and
+  every write to them is in place, so a captured CUDA graph keeps reading
+  the model's own state.  An observer writes the parameters in place, under
+  ``no_grad``, in the forward, so the optimizer's update lands on top of the
+  observer's values (the JAX package's train-step contract).
+* It runs one of two regimes: the eager one (``traced`` False) decides the
+  phase on the host from a mirror of the counters and flags, which is
+  refilled from the buffers by one read whenever something other than the
+  eager forward wrote them (a toggle, ``load_state_dict``, the traced
+  regime, a graph replay), and writes back only what changed; the traced one
+  (``traced`` True, set by ``make_train_step(jit=True)``) runs
+  ``LSQQuantizer.forward_traced`` on the buffers themselves.
 * :class:`QuantDense` keeps the JAX package's (K, N) kernel, per-channel
   axis 1; :class:`QuantConv` takes NCHW activations and an OIHW kernel, so
   its weight's per-channel axis is 0 (the JAX package: NHWC, HWIO, axis 3).
@@ -31,7 +42,8 @@ from torch import nn
 
 from .._device import resolve_device
 from ..observers.minmax import ObserverState
-from ..observers.quantizer import HOST_FIELDS, LSQQuantizer, QuantizerState
+from ..observers.quantizer import (STATE_DTYPES, STATE_FIELDS, LSQQuantizer,
+                                   QuantizerState)
 from ..ops.functional import fake_quant
 from ..serve.convert import serving_bits
 from ..serve.matmul import wo_matmul
@@ -39,7 +51,7 @@ from ..serve.pack import PackedWeight
 from .qconfig import QConfig
 
 __all__ = ["FakeQuantize", "QuantDense", "QuantConv", "QuantEmbed",
-           "static_act_quant"]
+           "static_act_quant", "refresh_host_state"]
 
 
 def static_act_quant(x: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
@@ -58,58 +70,106 @@ class FakeQuantize(nn.Module):
     """One LSQ/LSQ+ fake-quantizer (``cfg``) over ``num_channels`` channels.
 
     ``forward(x)`` runs ``cfg``'s phase machine with ``self.training`` as the
-    training flag.  With ``persist_state`` False (``make_eval_step`` sets it)
-    the forward uses what the observer would write but keeps nothing, as the
-    JAX package's eval step discards its mutated collections.
+    training flag, in the traced regime when ``traced`` is set.  With
+    ``persist_state`` False (``make_eval_step`` sets it) the forward uses
+    what the observer would write but keeps nothing, as the JAX package's
+    eval step discards its mutated collections.
     """
 
     def __init__(self, cfg: LSQQuantizer, num_channels: int = 1, device=None):
         super().__init__()
         self.cfg = cfg
-        st = cfg.init(num_channels=num_channels, device=resolve_device(device))
+        st = cfg.init(num_channels=num_channels,
+                      device=resolve_device(device)).on_device()
         self.scale = nn.Parameter(st.scale)
         self.shift = nn.Parameter(st.shift)
         self.register_buffer("obs_min", st.obs.min_val)
         self.register_buffer("obs_max", st.obs.max_val)
-        self._host = {}
-        self._set_host(st)
+        self.register_buffer("obs_seen", st.obs.seen)
+        for f in STATE_FIELDS:
+            self.register_buffer(f, getattr(st, f))
+        self._host = None           # host mirror of the STATE_FIELDS buffers
+        self._host_versions = None  # their version counters when it was filled
         self.persist_state = True
+        self.traced = False
 
-    def _set_host(self, st: QuantizerState) -> None:
-        self._host = {f: getattr(st, f) for f in HOST_FIELDS}
-        self._host["seen"] = st.obs.seen
+    # ----------------------------------------------------- the host mirror
 
-    def quant_state(self) -> QuantizerState:
-        """The current state (scale/shift are the parameters themselves)."""
-        h = self._host
+    def _versions(self):
+        return tuple(getattr(self, f)._version for f in STATE_FIELDS)
+
+    def host_fresh(self) -> bool:
+        """Whether the mirror holds the buffers' values: nothing has written
+        them in place since it was filled (a graph replay bumps no version
+        counter; ``invalidate_host_state`` covers it)."""
+        return self._host is not None and self._host_versions == self._versions()
+
+    def invalidate_host_state(self) -> None:
+        self._host = None
+
+    def _set_host(self, values) -> None:
+        self._host = dict(values)
+        self._host_versions = self._versions()
+
+    def host_state(self) -> dict:
+        """The counters and flags as host values (one read if stale)."""
+        if not self.host_fresh():
+            refresh_host_state([self])
+        return self._host
+
+    # ------------------------------------------------------------- state
+
+    def quant_state(self, traced: bool = False) -> QuantizerState:
+        """The current state: scale/shift are the parameters themselves, the
+        observer state the buffers; the counters and flags are the buffers
+        (``traced``) or the host mirror."""
+        flags = ({f: getattr(self, f) for f in STATE_FIELDS} if traced
+                 else self.host_state())
         return QuantizerState(
             scale=self.scale, shift=self.shift,
-            obs=ObserverState(self.obs_min, self.obs_max, h["seen"]),
-            **{f: h[f] for f in HOST_FIELDS})
+            obs=ObserverState(self.obs_min, self.obs_max, self.obs_seen), **flags)
 
     @torch.no_grad()
     def load_quant_state(self, st: QuantizerState) -> None:
-        """Write ``st`` into the module: parameters and buffers in place."""
+        """Write ``st`` into the module in place.  Host counters and flags
+        are written where they differ from the mirror, which then holds
+        them; device ones are copied, and the mirror goes stale."""
         for dst, src in ((self.scale, st.scale), (self.shift, st.shift),
                          (self.obs_min, st.obs.min_val),
-                         (self.obs_max, st.obs.max_val)):
+                         (self.obs_max, st.obs.max_val),
+                         (self.obs_seen, st.obs.seen)):
             if src is not dst:
                 dst.copy_(src)
-        self._set_host(st)
-
-    def get_extra_state(self):
-        return dict(self._host)
-
-    def set_extra_state(self, state) -> None:
-        self._host = {k: state[k] for k in HOST_FIELDS + ("seen",)}
+        if st.traced:
+            for f in STATE_FIELDS:
+                src, dst = getattr(st, f), getattr(self, f)
+                if src is not dst:
+                    dst.copy_(src)
+            self._host = None
+            return
+        host = self._host if self.host_fresh() else None
+        for f in STATE_FIELDS:
+            if host is None or host[f] != getattr(st, f):
+                getattr(self, f).fill_(getattr(st, f))
+        self._set_host({f: getattr(st, f) for f in STATE_FIELDS})
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.debug_mode:
             return x
+        if self.traced:
+            out, st = self.cfg.forward_traced(self.quant_state(traced=True), x,
+                                              self.training)
+            if self.persist_state:
+                self.load_quant_state(st)
+            return out
         st, modes = self.cfg.advance(self.quant_state(), x, self.training)
         if self.persist_state:
             self.load_quant_state(st)
             scale, shift = self.scale, self.shift
+            if st.observer_enabled and self.cfg.observer is not None:
+                # the observer's qparams replace the parameters' values: no
+                # gradient reaches the parameters, as in the JAX package
+                scale, shift = scale.detach(), shift.detach()
         else:
             scale, shift = st.scale, st.shift
         if modes is None:
@@ -118,11 +178,27 @@ class FakeQuantize(nn.Module):
                           init_mode=modes[1], numel=self.cfg.numel)
 
     def extra_repr(self) -> str:
-        h = self._host
+        h = self.host_state()
         return (f"{self.cfg.otype}, channels={self.scale.shape[0]}, "
                 f"batch {h['current_batch']}/{h['n_batches']}, "
                 f"learning={h['learning_enabled']}, observer={h['observer_enabled']}, "
                 f"fake_quant={h['fake_quant_enabled']}")
+
+
+def refresh_host_state(modules) -> None:
+    """Refill the host mirror of every stale :class:`FakeQuantize` among
+    ``modules`` with one read from each device."""
+    by_device = {}
+    for m in modules:
+        if isinstance(m, FakeQuantize) and not m.host_fresh():
+            by_device.setdefault(m.current_batch.device, []).append(m)
+    for group in by_device.values():
+        vals = torch.stack([getattr(m, f).to(torch.int32) for m in group
+                            for f in STATE_FIELDS]).tolist()
+        for k, m in enumerate(group):
+            row = vals[k * len(STATE_FIELDS):(k + 1) * len(STATE_FIELDS)]
+            m._set_host({f: (bool(v) if STATE_DTYPES[f] == torch.bool else int(v))
+                         for f, v in zip(STATE_FIELDS, row)})
 
 
 def _fake_quantizer(cfg: Optional[LSQQuantizer], channels: int,

@@ -2,9 +2,10 @@
 ``ObserverState``, ``MinMaxObserver``, ``MovingAverageMinMaxObserver`` and
 ``observer_qparams`` of ``jaxlsq/observers/minmax.py``).
 
-The tracked range stays on the device; ``seen`` (the update count, whose
-first value makes the update overwrite) is a host int, so choosing between
-overwrite and average never waits for the card.  MSE, percentile and
+The tracked range and ``seen`` (the update count, int32, whose first value
+makes the update overwrite) stay on the device, and the update chooses
+between overwrite and average with ``torch.where``, as the JAX package does:
+no host read, and no host branch in a captured step.  MSE, percentile and
 histogram observers come later.
 """
 
@@ -23,11 +24,12 @@ __all__ = ["ObserverState", "MinMaxObserver", "MovingAverageMinMaxObserver",
 
 @dataclasses.dataclass(frozen=True)
 class ObserverState:
-    """Tracked range, (1,) per tensor or (C,) per channel, and the update count."""
+    """Tracked range, (1,) per tensor or (C,) per channel, and the update
+    count, a () int32 tensor on the same device."""
 
     min_val: torch.Tensor
     max_val: torch.Tensor
-    seen: int = 0
+    seen: torch.Tensor
 
     def replace(self, **kw) -> "ObserverState":
         return dataclasses.replace(self, **kw)
@@ -45,7 +47,8 @@ class MinMaxObserver:
     def init(self, num_channels: int = 1, device=None) -> ObserverState:
         c = num_channels if self.per_channel else 1
         return ObserverState(torch.zeros(c, device=device),
-                             torch.zeros(c, device=device), 0)
+                             torch.zeros(c, device=device),
+                             torch.zeros((), dtype=torch.int32, device=device))
 
     def _batch_min_max(self, x: torch.Tensor):
         x = x.detach().to(torch.float32)
@@ -57,15 +60,14 @@ class MinMaxObserver:
 
     def update(self, state: ObserverState, x: torch.Tensor) -> ObserverState:
         bmin, bmax = self._batch_min_max(x)
-        if state.seen == 0:
-            new_min, new_max = bmin, bmax
-        elif self.averaging_constant is None:
-            new_min = torch.minimum(state.min_val, bmin)
-            new_max = torch.maximum(state.max_val, bmax)
+        first = state.seen == 0
+        if self.averaging_constant is None:
+            new_min = torch.where(first, bmin, torch.minimum(state.min_val, bmin))
+            new_max = torch.where(first, bmax, torch.maximum(state.max_val, bmax))
         else:
             c = self.averaging_constant
-            new_min = state.min_val + c * (bmin - state.min_val)
-            new_max = state.max_val + c * (bmax - state.max_val)
+            new_min = torch.where(first, bmin, state.min_val + c * (bmin - state.min_val))
+            new_max = torch.where(first, bmax, state.max_val + c * (bmax - state.max_val))
         return ObserverState(new_min, new_max, state.seen + 1)
 
     def calculate_qparams(self, state: ObserverState,

@@ -3,10 +3,12 @@ to serving (port of ``jaxlsq/observers/quantizer.py``).
 
 :class:`LSQQuantizer` is the static configuration; :class:`QuantizerState`
 its runtime state, and every mode switch returns a new state, as in the JAX
-package.  The phase counters and flags are host values (ints and bools), so
-the forward's phase decisions never wait for the card; scale/shift and the
-observer range are device tensors.  The forward is the JAX package's
-concrete (eager) regime, the reference's control flow::
+package.  scale/shift and the observer's range and count are device
+tensors.  The phase counters and flags (``STATE_FIELDS``) take one of two
+forms, and the form picks the regime, as tracers pick it in the JAX package:
+
+* host values (ints and bools): the concrete (eager) regime, the
+  reference's control flow, whose phase decisions never wait for the card::
 
     forward(x, training):
       debug_mode -> x
@@ -24,6 +26,13 @@ concrete (eager) regime, the reference's control flow::
                            init=do_backprop_init and do_full_lsq)
       else: out = x
 
+* () device tensors (int32 counters, bool flags; ``QuantizerState.on_device``):
+  the traced regime, the same decisions as ``torch.where`` on device values,
+  the min/max observer always run and where-merged, and ``fake_quant_traced``
+  with the modes as device flags.  No host branch and no host read, so one
+  captured CUDA graph covers the observer window, the switch to LSQ and any
+  toggle.
+
 Weights get ``n_batches = -1`` (the window never opens) and a static
 mean ± 3σ scale.
 """
@@ -32,19 +41,24 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from ..core.spec import QuantSpec
-from ..ops.functional import fake_quant
+from ..ops.functional import fake_quant, fake_quant_traced
 from .minmax import MinMaxObserver, MovingAverageMinMaxObserver, ObserverState
 
-__all__ = ["LSQQuantizer", "QuantizerState", "convert_shift_to_zp", "HOST_FIELDS"]
+__all__ = ["LSQQuantizer", "QuantizerState", "convert_shift_to_zp",
+           "STATE_FIELDS", "STATE_DTYPES"]
 
-# The state's host values, in the order of the JAX package's quant_state.
-HOST_FIELDS = ("current_batch", "n_batches", "fake_quant_enabled",
-               "observer_enabled", "learning_enabled")
+# The phase counters and flags, in the order of the JAX package's
+# quant_state, and their device types there.
+STATE_FIELDS = ("current_batch", "n_batches", "fake_quant_enabled",
+                "observer_enabled", "learning_enabled")
+STATE_DTYPES = {"current_batch": torch.int32, "n_batches": torch.int32,
+                "fake_quant_enabled": torch.bool, "observer_enabled": torch.bool,
+                "learning_enabled": torch.bool}
 
 
 def convert_shift_to_zp(shift: torch.Tensor, scale: torch.Tensor,
@@ -57,19 +71,32 @@ def convert_shift_to_zp(shift: torch.Tensor, scale: torch.Tensor,
 @dataclasses.dataclass(frozen=True)
 class QuantizerState:
     """Runtime state of one quantizer: (C,) scale/shift and the observer
-    range on the device, the phase counters and flags on the host."""
+    state on the device; the phase counters and flags as host values
+    (concrete regime) or () device tensors (traced regime)."""
 
     scale: torch.Tensor
     shift: torch.Tensor
-    current_batch: int
-    n_batches: int            # -1: the init window never opens
-    fake_quant_enabled: bool
-    observer_enabled: bool
-    learning_enabled: bool
+    current_batch: Union[int, torch.Tensor]
+    n_batches: Union[int, torch.Tensor]   # -1: the init window never opens
+    fake_quant_enabled: Union[bool, torch.Tensor]
+    observer_enabled: Union[bool, torch.Tensor]
+    learning_enabled: Union[bool, torch.Tensor]
     obs: ObserverState
 
     def replace(self, **kw) -> "QuantizerState":
         return dataclasses.replace(self, **kw)
+
+    @property
+    def traced(self) -> bool:
+        return torch.is_tensor(self.current_batch)
+
+    def on_device(self) -> "QuantizerState":
+        """This state in the traced regime: counters and flags as () tensors
+        of the JAX package's types on scale's device."""
+        return self.replace(**{
+            f: torch.as_tensor(getattr(self, f), dtype=STATE_DTYPES[f],
+                               device=self.scale.device).reshape(())
+            for f in STATE_FIELDS})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,7 +181,8 @@ class LSQQuantizer:
                            device=device)
         obs = (self.observer.init(c, device) if self.observer is not None
                else ObserverState(torch.zeros(c, device=device),
-                                  torch.zeros(c, device=device), 0))
+                                  torch.zeros(c, device=device),
+                                  torch.zeros((), dtype=torch.int32, device=device)))
         state = QuantizerState(
             scale=scale, shift=shift, current_batch=0,
             n_batches=-1 if self.otype == "weight" else self.n_batches,
@@ -247,9 +275,51 @@ class LSQQuantizer:
                  training: bool = False) -> Tuple[torch.Tensor, QuantizerState]:
         if self.debug_mode:
             return x, state
+        if state.traced:
+            return self.forward_traced(state, x, training)
         state, modes = self.advance(state, x, training)
         if modes is None:
             return x, state
         out = fake_quant(x, state.scale, state.shift, self.spec,
                          eval_mode=modes[0], init_mode=modes[1], numel=self.numel)
         return out, state
+
+    def forward_traced(self, state: QuantizerState, x: torch.Tensor,
+                       training: bool) -> Tuple[torch.Tensor, QuantizerState]:
+        """The traced regime (the JAX package's ``_forward_traced``): every
+        phase decision is a device value.  A qparam the observer writes is
+        ``where(observer_enabled, observer's, state's)``, so its gradient
+        reaches the state's qparam only where the observer is off."""
+        learning = state.learning_enabled
+        cb, nb = state.current_batch, state.n_batches
+        in_window = learning & (cb <= nb) & bool(training)
+        if self.init_mode == "observer":
+            do_full_lsq = torch.where(in_window, cb == nb, learning)
+            obs_on = state.observer_enabled & ~(in_window & (cb == nb))
+            do_backprop_init = torch.zeros_like(learning)
+        else:
+            do_full_lsq = learning
+            obs_on = state.observer_enabled & ~in_window
+            do_backprop_init = in_window & (cb != nb)
+        state = state.replace(observer_enabled=obs_on,
+                              current_batch=cb + in_window.to(cb.dtype))
+
+        if self.observer is not None:
+            # the min/max update is cheap: always run and where-merged
+            new = self.observer.update(state.obs, x)
+            old = state.obs
+            merged = ObserverState(torch.where(obs_on, new.min_val, old.min_val),
+                                   torch.where(obs_on, new.max_val, old.max_val),
+                                   torch.where(obs_on, new.seen, old.seen))
+            o_scale, o_zp = self.observer.calculate_qparams(merged, self.spec)
+            o_shift = -o_zp.to(torch.float32) * o_scale
+            state = state.replace(obs=merged,
+                                  scale=torch.where(obs_on, o_scale, state.scale),
+                                  shift=torch.where(obs_on, o_shift, state.shift))
+
+        do_backprop_init = do_backprop_init & do_full_lsq
+        out = fake_quant_traced(x, state.scale, state.shift, self.spec,
+                                eval_flag=1.0 - do_full_lsq.to(torch.float32),
+                                init_flag=do_backprop_init.to(torch.float32),
+                                numel=self.numel)
+        return torch.where(state.fake_quant_enabled, out, x), state

@@ -1,11 +1,20 @@
 """LSQ/LSQ+ fake-quant forward and backward kernels (port of
-``jaxlsq/ops/pallas_kernels.py``: ``pallas_forward`` / ``pallas_backward``).
+``jaxlsq/ops/pallas_kernels.py``: ``pallas_forward`` / ``pallas_backward``
+and their traced-flag twins ``pallas_forward_traced`` /
+``pallas_backward_traced``).
 
 * On a CPU tensor each function runs its plain version, the golden math of
   ``core/golden.py``.
 * On a CUDA tensor it launches ``csrc/fake_quant.cu`` (``fq_fwd_pt``,
-  ``fq_fwd_pc``, ``fq_bwd_pt``, ``fq_bwd_pc``) or raises; there is no path
-  from a CUDA tensor to the plain version.  The kernels take f32 only.
+  ``fq_fwd_pc``, ``fq_bwd_pt``, ``fq_bwd_pc``; traced: ``fq_fwd_pt_traced``,
+  ``fq_fwd_pc_traced``, ``fq_bwd_pt_traced``, ``fq_bwd_pc_traced``) or
+  raises; there is no path from a CUDA tensor to the plain version.  The
+  kernels take f32 only.
+* The static functions take the modes as host bools and skip what a mode
+  does not need (no forward launch in init mode, no dS/dB in eval mode).
+  The traced functions take them as ``flags``, a (2,) f32 device tensor
+  ``[eval, init]`` read inside the kernels, and always launch and write
+  every output, so a captured CUDA graph covers every phase.
 
 A per-channel tensor is handed to the kernels as its ``(outer, C, inner)``
 view around ``spec.axis``, so the channel axis is never moved.  The qparams
@@ -20,12 +29,17 @@ from typing import Optional, Tuple
 import torch
 
 from .. import _build
-from ..core.golden import effective_grad_scale, golden_backward, golden_forward
+from ..core.golden import (effective_grad_scale, golden_backward,
+                           golden_backward_traced, golden_forward,
+                           golden_forward_traced)
 from ..core.spec import QuantSpec
 
-__all__ = ["fake_quant_forward", "fake_quant_backward", "LAUNCHES"]
+__all__ = ["fake_quant_forward", "fake_quant_backward",
+           "fake_quant_forward_traced", "fake_quant_backward_traced", "LAUNCHES"]
 
-LAUNCHES = {"fq_fwd_pt": 0, "fq_fwd_pc": 0, "fq_bwd_pt": 0, "fq_bwd_pc": 0}
+LAUNCHES = {"fq_fwd_pt": 0, "fq_fwd_pc": 0, "fq_bwd_pt": 0, "fq_bwd_pc": 0,
+            "fq_fwd_pt_traced": 0, "fq_fwd_pc_traced": 0,
+            "fq_bwd_pt_traced": 0, "fq_bwd_pc_traced": 0}
 
 _MAX_NUMEL = 2 ** 31 - 1  # the kernels index with 32-bit ints
 
@@ -65,6 +79,32 @@ def _range(spec: QuantSpec):
             float(spec.type_min), float(spec.type_max))
 
 
+def _launch_forward(what: str, x: torch.Tensor, scale: torch.Tensor,
+                    shift: torch.Tensor, spec: QuantSpec,
+                    flags: Optional[torch.Tensor]) -> torch.Tensor:
+    """One forward launch on the card: the static kernel, or with ``flags``
+    its traced twin."""
+    _check_cuda(what, x, scale, shift)
+    outer, c, inner = _view3(x, spec)
+    scale, shift = _qparams(scale, shift, c, what)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    name = ("fq_fwd_pc" if spec.per_channel else "fq_fwd_pt") + (
+        "" if flags is None else "_traced")
+    ptrs = [x.data_ptr(), scale.data_ptr(), shift.data_ptr()]
+    if flags is not None:
+        ptrs.append(flags.data_ptr())
+    dims = (outer, c, inner) if spec.per_channel else (x.numel(),)
+    err = getattr(_build.load_library(), "jlt_" + name)(
+        *ptrs, out.data_ptr(), *dims, *_range(spec),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    LAUNCHES[name] += 1
+    _build.check(err, what)
+    return out
+
+
 def fake_quant_forward(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                        spec: QuantSpec, init_mode: bool = False) -> torch.Tensor:
     """Fake-quantized ``x``; ``init_mode`` returns ``x`` itself, no launch."""
@@ -72,26 +112,7 @@ def fake_quant_forward(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor
         return x
     if x.device.type == "cpu":
         return golden_forward(x, scale, shift, spec)
-    _check_cuda("fake_quant_forward", x, scale, shift)
-    outer, c, inner = _view3(x, spec)
-    scale, shift = _qparams(scale, shift, c, "fake_quant_forward")
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    if x.numel() == 0:
-        return out
-    lib = _build.load_library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if spec.per_channel:
-        err = lib.jlt_fq_fwd_pc(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                                out.data_ptr(), outer, c, inner, *_range(spec),
-                                stream)
-        LAUNCHES["fq_fwd_pc"] += 1
-    else:
-        err = lib.jlt_fq_fwd_pt(x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-                                out.data_ptr(), x.numel(), *_range(spec), stream)
-        LAUNCHES["fq_fwd_pt"] += 1
-    _build.check(err, "fake_quant_forward")
-    return out
+    return _launch_forward("fake_quant_forward", x, scale, shift, spec, None)
 
 
 def fake_quant_backward(grad: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
@@ -135,4 +156,67 @@ def fake_quant_backward(grad: torch.Tensor, x: torch.Tensor, scale: torch.Tensor
         err = lib.jlt_fq_bwd_pt(*args, x.numel(), *_range(spec), *flags)
         LAUNCHES["fq_bwd_pt"] += 1
     _build.check(err, "fake_quant_backward")
+    return dx, ds, db
+
+
+def _flags(flags: torch.Tensor, x: torch.Tensor, what: str) -> torch.Tensor:
+    if flags.shape != (2,) or flags.dtype != torch.float32 or flags.device != x.device:
+        raise ValueError(f"{what}: flags must be a (2,) float32 tensor [eval, init] "
+                         f"on {x.device}, got {tuple(flags.shape)} {flags.dtype} "
+                         f"on {flags.device}")
+    return flags.contiguous()
+
+
+def fake_quant_forward_traced(x: torch.Tensor, scale: torch.Tensor,
+                              shift: torch.Tensor, flags: torch.Tensor,
+                              spec: QuantSpec) -> torch.Tensor:
+    """``init ? x : fake_quant(x)`` with ``flags = [eval, init]`` on the
+    device; a new tensor in every mode (one launch)."""
+    if x.device.type == "cpu":
+        return golden_forward_traced(x, scale, shift, spec, flags[0], flags[1])
+    what = "fake_quant_forward_traced"
+    return _launch_forward(what, x, scale, shift, spec, _flags(flags, x, what))
+
+
+def fake_quant_backward_traced(grad: torch.Tensor, x: torch.Tensor,
+                               scale: torch.Tensor, shift: torch.Tensor,
+                               flags: torch.Tensor, spec: QuantSpec,
+                               numel: Optional[int] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dX, dS, dB)`` with ``flags = [eval, init]`` on the device: dX is
+    ``grad`` in init mode and the STE gradient otherwise; dS/dB are scaled
+    by ``gs·(1 − eval)``.  Every output is a new tensor, in every mode."""
+    if x.device.type == "cpu":
+        return golden_backward_traced(grad, x, scale, shift, spec, flags[0],
+                                      flags[1], numel=numel)
+    _check_cuda("fake_quant_backward_traced", x, grad, scale, shift)
+    flags = _flags(flags, x, "fake_quant_backward_traced")
+    if grad.shape != x.shape:
+        raise ValueError(f"fake_quant_backward_traced: grad {tuple(grad.shape)} != "
+                         f"x {tuple(x.shape)}")
+    outer, c, inner = _view3(x, spec)
+    scale, shift = _qparams(scale, shift, c, "fake_quant_backward_traced")
+    x, grad = x.contiguous(), grad.contiguous()
+    dx = torch.empty_like(x)
+    if x.numel() == 0:
+        return dx, torch.zeros_like(scale), torch.zeros_like(shift)
+    ds, db = torch.empty_like(scale), torch.empty_like(shift)
+    lib = _build.load_library()
+    part = torch.empty(2 * lib.jlt_fq_partials(outer, c, inner, int(spec.per_channel)),
+                       dtype=torch.float32, device=x.device)
+    n = numel if numel is not None else x.numel()
+    gs = effective_grad_scale(spec, n, c)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (grad.data_ptr(), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            flags.data_ptr(), dx.data_ptr(), part.data_ptr(), ds.data_ptr(),
+            db.data_ptr())
+    if spec.per_channel:
+        err = lib.jlt_fq_bwd_pc_traced(*args, outer, c, inner, *_range(spec),
+                                       int(spec.symmetric), gs, stream)
+        LAUNCHES["fq_bwd_pc_traced"] += 1
+    else:
+        err = lib.jlt_fq_bwd_pt_traced(*args, x.numel(), *_range(spec),
+                                       int(spec.symmetric), gs, stream)
+        LAUNCHES["fq_bwd_pt_traced"] += 1
+    _build.check(err, "fake_quant_backward_traced")
     return dx, ds, db

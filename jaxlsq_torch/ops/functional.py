@@ -1,12 +1,14 @@
 """Public functional fake-quant with its custom backward (port of
-``jaxlsq/ops/functional.py``: ``fake_quant`` and ``lsq``).
+``jaxlsq/ops/functional.py``: ``fake_quant``, ``lsq`` and
+``fake_quant_traced``).
 
-One ``torch.autograd.Function`` saves the raw ``(x, scale, shift)``, as the
-JAX package's ``custom_vjp`` does, and calls ``ops.fake_quant``: the CUDA
-kernels for CUDA tensors, the golden math for CPU tensors.  The backward is
-``once_differentiable``: unlike the JAX package's golden path, the port has
-no double backward.  ``fake_quant_traced`` (mode flags as device values)
-waits for its kernels.
+Each is one ``torch.autograd.Function`` that saves the raw ``(x, scale,
+shift)``, as the JAX package's ``custom_vjp`` does, and calls
+``ops.fake_quant``: the CUDA kernels for CUDA tensors, the golden math for
+CPU tensors.  ``fake_quant`` takes the modes as host bools;
+``fake_quant_traced`` takes them as device flags, so one program (a captured
+CUDA graph) covers every phase.  The backward is ``once_differentiable``:
+unlike the JAX package's golden path, the port has no double backward.
 """
 
 from __future__ import annotations
@@ -17,9 +19,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from ..core.spec import QuantSpec
-from .fake_quant import fake_quant_backward, fake_quant_forward
+from .fake_quant import (fake_quant_backward, fake_quant_backward_traced,
+                         fake_quant_forward, fake_quant_forward_traced)
 
-__all__ = ["fake_quant", "lsq"]
+__all__ = ["fake_quant", "fake_quant_traced", "lsq"]
 
 
 class _FakeQuant(torch.autograd.Function):
@@ -42,18 +45,27 @@ class _FakeQuant(torch.autograd.Function):
         return dx, ds, db, None, None, None, None
 
 
-def fake_quant(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
-               spec: QuantSpec, *, eval_mode: bool = False,
-               init_mode: bool = False, numel: Optional[int] = None) -> torch.Tensor:
-    """LSQ/LSQ+ fake quantization with learned scale/shift.
+class _FakeQuantTraced(torch.autograd.Function):
 
-    ``scale``/``shift`` are 1-D: (1,) per tensor or (C,) per channel along
-    ``spec.axis``; a (1,) qparam is broadcast to C per channel, and its
-    gradient is summed back.  ``eval_mode``: forward unchanged, STE dX,
-    zero dS/dB.  ``init_mode``: identity forward, dS/dB from
-    ``||x_fq - x||^2`` (LSQ+ backprop init).  ``numel`` overrides
-    ``x.numel()`` in the gradient scale.
-    """
+    @staticmethod
+    def forward(ctx, x, scale, shift, flags, spec, numel):
+        ctx.save_for_backward(x, scale, shift, flags)
+        ctx.cfg = (spec, numel)
+        return fake_quant_forward_traced(x, scale, shift, flags, spec)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        x, scale, shift, flags = ctx.saved_tensors
+        spec, numel = ctx.cfg
+        dx, ds, db = fake_quant_backward_traced(grad, x, scale, shift, flags,
+                                                spec, numel)
+        return dx, ds, db, None, None, None
+
+
+def _checked_qparams(x, scale, shift, spec: QuantSpec):
+    """1-D qparams, a (1,) one broadcast to C per channel (its gradient is
+    summed back)."""
     if scale.dim() != 1 or shift.dim() != 1:
         raise ValueError(
             "scale/shift must be 1-D, even per-tensor; got "
@@ -68,8 +80,38 @@ def fake_quant(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
             raise ValueError(
                 f"per-channel qparams must have size {c} (axis {spec.axis}); "
                 f"got {scale.shape[0]}/{shift.shape[0]}")
+    return scale, shift
+
+
+def fake_quant(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+               spec: QuantSpec, *, eval_mode: bool = False,
+               init_mode: bool = False, numel: Optional[int] = None) -> torch.Tensor:
+    """LSQ/LSQ+ fake quantization with learned scale/shift.
+
+    ``scale``/``shift`` are 1-D: (1,) per tensor or (C,) per channel along
+    ``spec.axis``; a (1,) qparam is broadcast to C per channel, and its
+    gradient is summed back.  ``eval_mode``: forward unchanged, STE dX,
+    zero dS/dB.  ``init_mode``: identity forward, dS/dB from
+    ``||x_fq - x||^2`` (LSQ+ backprop init).  ``numel`` overrides
+    ``x.numel()`` in the gradient scale.
+    """
+    scale, shift = _checked_qparams(x, scale, shift, spec)
     return _FakeQuant.apply(x, scale, shift, spec, bool(eval_mode),
                             bool(init_mode), numel)
+
+
+def fake_quant_traced(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                      spec: QuantSpec, *, eval_flag, init_flag,
+                      numel: Optional[int] = None) -> torch.Tensor:
+    """``fake_quant`` with the modes as f32 0/1 flags: () or (1,) tensors
+    (or numbers) that stay on the device, so no host branch decides the
+    phase and one captured program covers the observer window, backprop
+    init and full LSQ.  The flags get no gradient."""
+    scale, shift = _checked_qparams(x, scale, shift, spec)
+    flags = torch.stack([
+        torch.as_tensor(f, dtype=torch.float32, device=x.device).detach().reshape(())
+        for f in (eval_flag, init_flag)])
+    return _FakeQuantTraced.apply(x, scale, shift, flags, spec, numel)
 
 
 def lsq(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,

@@ -117,6 +117,7 @@ FQ_SPECS = {
                  axis=1),
     "aff_nchw": dict(quant_min=0, quant_max=255, per_channel=True, axis=1),
 }
+STATIC_FQ = ("fq_fwd_pt", "fq_fwd_pc", "fq_bwd_pt", "fq_bwd_pc")
 FQ_SHAPES = {"act": [(64, 3, 32, 32), (64, 512, 4, 4), (64, 512), (3,), (33, 7, 5)],
              "sym": [(64, 64, 32, 32), (1000,)],
              "w_oihw": [(512, 512, 3, 3), (64, 3, 3, 3), (128, 64, 1, 1), (5, 3, 1, 1)],
@@ -242,12 +243,130 @@ def test_resnet_train_step_on_card_matches_cpu(cuda):
             m = QuantResNet(10, qc, stage_sizes=(1, 1), widths=(16, 32), device=dev)
             interop.load_qat_variables(m, start)
             opt = torch.optim.SGD(m.parameters(), lr=1e-2, momentum=0.9)
-            step = make_train_step(m, opt)
+            step = make_train_step(m, opt, jit=False)
             before = dict(LAUNCHES)
             batch = {"image": x.to(dev), "label": y.to(dev)}
             losses[dev] = [float(step(batch)["loss"]) for _ in range(2)]
             if dev == "cuda":
-                assert all(LAUNCHES[k] > before[k] for k in LAUNCHES), LAUNCHES
+                assert all(LAUNCHES[k] > before[k] for k in STATIC_FQ), LAUNCHES
         np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
     finally:
         torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ev,ini", [(0, 0), (1, 0), (0, 1), (1, 1)])
+@pytest.mark.parametrize("name,shape", [(k, s) for k, v in FQ_SHAPES.items() for s in v])
+def test_fake_quant_traced_kernels_match_plain(cuda, name, shape, ev, ini):
+    """The traced kernels (modes read from a device flag tensor) against
+    their plain versions: forward and dX bit-exact, dS/dB within 1e-5 of the
+    sum of |terms|; in train mode dS/dB have the static kernels' bits."""
+    from jaxlsq_torch.core.golden import effective_grad_scale
+    from jaxlsq_torch.ops.fake_quant import (LAUNCHES, fake_quant_backward,
+                                             fake_quant_backward_traced,
+                                             fake_quant_forward_traced)
+
+    spec = QuantSpec(**FQ_SPECS[name])
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + 7)
+    x = torch.randn(shape, device=cuda, generator=g) * 1.5
+    c = shape[spec.axis] if spec.per_channel else 1
+    s = 0.01 + 0.04 * torch.rand(c, device=cuda, generator=g)
+    b = (torch.zeros(c, device=cuda) if spec.symmetric
+         else 0.2 * torch.randn(c, device=cuda, generator=g))
+    gr = torch.randn(shape, device=cuda, generator=g)
+    flags = torch.tensor([float(ev), float(ini)], device=cuda)
+    kind = "pc" if spec.per_channel else "pt"
+    before = dict(LAUNCHES)
+    out = fake_quant_forward_traced(x, s, b, flags, spec)
+    dx, ds, db = fake_quant_backward_traced(gr, x, s, b, flags, spec)
+    torch.cuda.synchronize()
+    assert LAUNCHES[f"fq_fwd_{kind}_traced"] == before[f"fq_fwd_{kind}_traced"] + 1
+    assert LAUNCHES[f"fq_bwd_{kind}_traced"] == before[f"fq_bwd_{kind}_traced"] + 1
+    assert out.data_ptr() != x.data_ptr() and dx.data_ptr() != gr.data_ptr()
+    cpu = [t.cpu() for t in (gr, x, s, b, flags)]
+    ref = fake_quant_forward_traced(cpu[1], cpu[2], cpu[3], cpu[4], spec)
+    rdx, rds, rdb = fake_quant_backward_traced(*cpu, spec)
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(dx.cpu(), rdx)
+    gs = effective_grad_scale(spec, x.numel(), c)
+    sums = _fq_abs_sums(cpu[0], cpu[1], cpu[2], cpu[3], spec, bool(ini), gs)
+    for got, want, tot in ((ds, rds, sums[0]), (db, rdb, sums[1])):
+        err = (got.cpu().double() - want.double()).abs()
+        assert bool((err <= 1e-5 * tot.reshape(err.shape)).all()), (err.max(), tot.max())
+        if ev:
+            assert not got.any()
+    if not ev:
+        _, sds, sdb = fake_quant_backward(gr, x, s, b, spec, False, bool(ini))
+        assert torch.equal(ds, sds) and torch.equal(db, sdb)
+
+
+@pytest.mark.gpu
+def test_captured_step_matches_eager_step_on_card(cuda):
+    """A small QuantResNet's step captured as one CUDA graph
+    (``make_train_step(jit=True)``) against the eager step (``jit=False``)
+    from one state, cuDNN deterministic: five B = 8 steps across the
+    observer window, one graph for all replays, a toggle honoured by a
+    replay; losses, every variable and the momentum buffers equal."""
+    from jaxlsq_torch.models import QuantResNet, toggles
+    from jaxlsq_torch.ops.fake_quant import LAUNCHES
+    from jaxlsq_torch.parallel import make_train_step
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=2)
+        models = [QuantResNet(10, qc, stage_sizes=(1, 1), widths=(16, 32), device=cuda)
+                  for _ in range(2)]
+        interop.load_qat_variables(models[1], interop.qat_variables(models[0]))
+        opts = [torch.optim.SGD(m.parameters(), lr=1e-2, momentum=0.9) for m in models]
+        eager = make_train_step(models[0], opts[0], jit=False)
+        captured = make_train_step(models[1], opts[1], jit=True)
+        r = np.random.RandomState(0)
+        graphs = []
+        for i in range(5):
+            if i == 4:
+                for m in models:
+                    toggles.disable_fake_quant_on_act(m)
+            batch = {"image": torch.from_numpy(r.randn(8, 3, 16, 16).astype(np.float32)).to(cuda),
+                     "label": torch.from_numpy(r.randint(0, 10, size=8)).to(cuda)}
+            before = dict(LAUNCHES)
+            want = eager(batch)["loss"]
+            got = captured(batch)["loss"]
+            torch.cuda.synchronize()
+            if i == 1:  # the capture: one launch of each traced kernel per quantizer
+                n = sum(1 for n_, _ in models[1].named_modules() if n_.endswith("_fq"))
+                assert sum(LAUNCHES[k] - before[k] for k in LAUNCHES
+                           if k.endswith("_traced")) == 2 * n
+            if i >= 1:
+                graphs.append(next(iter(captured.graphs.values()))[0])
+            assert torch.equal(got, want), (i, float(got), float(want))
+            trees = [interop.qat_variables(m) for m in models]
+            for path, v in _leaves(trees[0]):
+                np.testing.assert_array_equal(_get(trees[1], path), v,
+                                              err_msg=f"step {i} {path}")
+        assert len(captured.graphs) == 1 and all(g is graphs[0] for g in graphs)
+        for p0, p1 in zip(models[0].parameters(), models[1].parameters()):
+            assert torch.equal(opts[0].state[p0]["momentum_buffer"],
+                               opts[1].state[p1]["momentum_buffer"])
+        assert not any(bool(m.fake_quant_enabled) for n_, m in models[1].named_modules()
+                       if n_.endswith("act_fq"))
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, prefix + (k,))
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree

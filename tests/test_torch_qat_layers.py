@@ -2,7 +2,9 @@
 same seeded numpy inputs and the same variables (carried across with
 ``interop.load_qat_variables``): ``QuantConv`` at stride 1, at stride 2
 with SAME padding, and as the 1x1 stride-2 downsample; the QAT
-``QuantDense``; and ``BatchNorm`` against flax ``nn.BatchNorm``.
+``QuantDense``; and ``BatchNorm`` against flax ``nn.BatchNorm``.  Then the
+quantizers' device-held counters and flags through ``state_dict`` and
+``interop`` and back.
 
 Each case runs two training calls with ``init_batches=1``: the observer
 window (the activation qparams written by the observer, eval-mode
@@ -213,3 +215,48 @@ def test_batchnorm_matches_flax(shape):
     _close(from_t(got), want, "eval output")
     np.testing.assert_array_equal(variables["batch_stats"]["bn"]["var"],
                                   np.ones(shape[-1], np.float32))
+
+
+@pytest.mark.parametrize("traced", [False, True], ids=["eager", "traced"])
+def test_quant_state_round_trips_in_place(traced):
+    """The counters, flags and observer count are buffers of the JAX
+    package's types (int32, bool, int32): after three training calls (the
+    window's end) in either regime, ``state_dict`` and ``interop`` carry
+    them to a fresh layer exactly, each load writes every buffer in place
+    (a captured graph holds their addresses), and the eager regime's host
+    mirror follows the load."""
+    jqc = jdefault_qconfig(8, 8, per_channel_weights=True, init_batches=2)
+    qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=2)
+    x = np.random.RandomState(5).randn(6, 20).astype(np.float32)
+    variables = jax.tree.map(np.asarray, JQuantDense(12, jqc).init(
+        jax.random.key(0), jnp.asarray(x), training=False))
+    src = QuantDense(20, 12, qc, device="cpu")
+    interop.load_qat_variables(src, np_tree(variables))
+    for m in (src.act_fq, src.weight_fq):
+        m.traced = traced
+    src.train()
+    for _ in range(3):
+        src(torch.from_numpy(x))
+    for m in (src.act_fq, src.weight_fq):
+        assert {m.current_batch.dtype, m.n_batches.dtype, m.obs_seen.dtype} == {torch.int32}
+        assert {m.fake_quant_enabled.dtype, m.observer_enabled.dtype,
+                m.learning_enabled.dtype} == {torch.bool}
+    assert int(src.act_fq.current_batch) == 3 and not bool(src.act_fq.observer_enabled)
+    tree = interop.qat_variables(src)
+    for path, want in _leaves(np_tree(dict(variables["quant_state"]))):
+        assert _get(tree["quant_state"], path).dtype == want.dtype, path
+
+    for load in ("state_dict", "interop"):
+        dst = QuantDense(20, 12, qc, device="cpu")
+        dst.act_fq.host_state()  # a filled mirror, which the load must refresh
+        ptrs = {k: v.data_ptr() for k, v in dst.state_dict().items()}
+        if load == "state_dict":
+            dst.load_state_dict(src.state_dict())
+        else:
+            interop.load_qat_variables(dst, tree)
+        assert {k: v.data_ptr() for k, v in dst.state_dict().items()} == ptrs, load
+        got = interop.qat_variables(dst)
+        for path, want in _leaves(tree):
+            np.testing.assert_array_equal(_get(got, path), want, err_msg=f"{load} {path}")
+        for a, b in ((src.act_fq, dst.act_fq), (src.weight_fq, dst.weight_fq)):
+            assert b.host_state() == a.host_state(), load

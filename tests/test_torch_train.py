@@ -1,4 +1,6 @@
-"""The port's QAT train step against the JAX package's ``make_train_step``:
+"""The port's eager QAT train step (``jit=False``: the quantizers' host phase
+machine and the static fake-quant kernels) against the JAX package's
+``make_train_step``:
 a small ``QuantResNet`` (stages (1, 1), widths (8, 16), 8x8 inputs, B = 4,
 ``init_batches=1``) is created with ``create_train_state`` in JAX, carried
 across with ``interop.load_qat_variables``, and both take three steps of SGD
@@ -30,66 +32,16 @@ import optax
 import torch
 from flax import linen as fnn
 
-from _torch_port import np_tree
+from _torch_port import Recorder, get_path as _get, leaves as _leaves, np_tree
 from jaxlsq.models import QuantResNet as JQuantResNet
 from jaxlsq.models import default_qconfig as jdefault_qconfig
-from jaxlsq.models.layers import FakeQuantize as JFakeQuantize
 from jaxlsq.parallel import create_train_state, make_train_step as jmake_train_step
 from jaxlsq_torch import interop
 from jaxlsq_torch.models import QuantResNet, default_qconfig
-from jaxlsq_torch.models.layers import FakeQuantize
 from jaxlsq_torch.parallel import make_eval_step, make_train_step
 
 B, HW, STEPS = 4, 8, 3
 MAX_MOVED = 1e-4
-
-
-def _leaves(tree, prefix=()):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _leaves(v, prefix + (k,))
-    else:
-        yield prefix, np.asarray(tree)
-
-
-def _get(tree, path):
-    for k in path:
-        tree = tree[k]
-    return tree
-
-
-class _Recorder:
-    """Records each JAX activation quantizer's output while the jitted step
-    runs, and hands it to the port's matching quantizer where a rounding
-    boundary fell the other way."""
-
-    def __init__(self):
-        self.jax_out = {}
-        self.moved = 0
-        self.total = 0
-
-    def intercept(self, next_fun, args, kwargs, context):
-        out = next_fun(*args, **kwargs)
-        mod = context.module
-        if isinstance(mod, JFakeQuantize) and mod.name == "act_fq":
-            path = "/".join(mod.path)
-            jax.debug.callback(
-                lambda v, p=path: self.jax_out.__setitem__(p, np.asarray(v)), out)
-        return out
-
-    def hook(self, path):
-        def fn(mod, inputs, out):
-            want = self.jax_out.pop(path)
-            if want.ndim == 4:
-                want = want.transpose(0, 3, 1, 2)  # NHWC -> NCHW
-            d = torch.from_numpy(np.array(want)) - out.detach()
-            step = float(mod.scale.detach().abs().max())
-            moved = d.abs() > 0.5 * step
-            assert float(d.abs().max()) <= step * (1 + 1e-5), (path, float(d.abs().max()), step)
-            self.moved += int(moved.sum())
-            self.total += out.numel()
-            return out + torch.where(moved, d, torch.zeros_like(d))
-        return fn
 
 
 def test_resnet_trajectory_matches_jax_make_train_step():
@@ -109,11 +61,9 @@ def test_resnet_trajectory_matches_jax_make_train_step():
                         stage_sizes=(1, 1), widths=(8, 16), device="cpu")
     interop.load_qat_variables(model, np_tree({**state.params, **state.model_state}))
     step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-2,
-                                                  momentum=0.9))
-    rec = _Recorder()
-    hooks = [mod.register_forward_hook(rec.hook(name.replace(".", "/")))
-             for name, mod in model.named_modules()
-             if isinstance(mod, FakeQuantize) and name.endswith("act_fq")]
+                                                  momentum=0.9), jit=False)
+    rec = Recorder()
+    hooks = rec.attach(model)
 
     for i in range(STEPS):
         with fnn.intercept_methods(rec.intercept):
