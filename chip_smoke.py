@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the jaxlsq_torch port on one NVIDIA GPU (H100): the serving
-slice, the QAT training slice and its single-program (CUDA-graph) step.
+slice, paged-KV serving of a group-wise int4 LM, the QAT training slice and
+its single-program (CUDA-graph) step.
 
     python3 chip_smoke.py [--record PATH]
 
@@ -11,10 +12,14 @@ exits non-zero on any failure (no phase is caught and skipped):
    for matmuls and cuDNN convolutions;
 2. builds the CUDA kernels from ``jaxlsq_torch/csrc`` and holds each against
    its plain PyTorch version at the main paths' shapes: ``wo8``/``wo4`` at
-   M in {1, 8, 256} over every K x N of the d1024 LM plus an odd K;
+   M in {1, 8, 256} over every K x N of the d1024 LM plus an odd K, and
+   ``wo4g`` (group 128) at the same M and K x N within 1e-4 of max|ref|;
    ``decode_attention`` for every cache carrier, a scalar index at B = 1
    and a per-slot index at B = 8, t in {1, 32}, L in {240, 2048}, and two
-   windows; the four fake-quant kernels at all 42 quantizer shapes of
+   windows; paged attention at B = 8, L = 2048 over permuted tables, page
+   sizes 16, 128 and 1024, every carrier, t = 1 and t = 32 with a 256-key
+   window, within 1e-5 of its plain version and bit-equal to
+   ``decode_attention`` on the gathered cache; the four fake-quant kernels at all 42 quantizer shapes of
    ``resnet18_cifar`` at B = 64 (21 activation inputs, 21 weights), in
    train, eval and init modes, and their four traced twins (modes read
    from a device flag tensor) for the four (eval, init) flag pairs, on
@@ -31,13 +36,27 @@ exits non-zero on any failure (no phase is caught and skipped):
    path's logits against the plain path on the CPU; fails if a kernel of
    the path was never launched; profiles one B = 1 generate for the
    device's busy share and the time by kernel;
-4. times each kernel at the main paths' shapes (L2 flushed by rotating
+4. drives the paged serving path with every launch count reset: the d1024
+   x 4 LM converted with ``weight_group_size=128`` (every dense kernel
+   group-wise int4, the embedding int8; max_len 2048) served by
+   ``PagedDecodeEngine`` (max_batch 8, int8 pools, page 128, 16 pool pages
+   of a dense-equivalent 128) over 16 seeded requests (prompts 4-128, 16-200
+   new tokens), 8 of them on a registered 228-token prefix (a whole page
+   shared, a 100-token partial page copied); fails unless the tokens equal
+   ``DecodeEngine``'s on the same stream, admissions were deferred, prefix
+   pages were shared, and ``wo4g`` and the paged kernel ran and ``wo4``,
+   ``wo8`` and ``decode_attention`` did not; then bench.py's B = 8,
+   L = 2048 paged generate loop beside the dense int8 loop (interleaved
+   rounds, tokens equal) and the paged kernel path's logits within
+   1e-4 of max|ref| of the CPU plain path;
+5. times each kernel at the main paths' shapes (L2 flushed by rotating
    buffer copies): device time from CUDA events around calls issued behind
    a sleep kernel (so they run back to back) and time a call from CUDA
    events around calls issued as the host can, beside its bound, its plain
    version and one PyTorch library call (the traced fake-quant kernels in
-   train mode beside the static ones);
-5. drives the eager training path (``make_train_step(jit=False)``) with
+   train mode beside the static ones; the paged kernel in turns with the
+   dense kernel on the same contents at page sizes 16, 128 and 1024);
+6. drives the eager training path (``make_train_step(jit=False)``) with
    every launch count reset: full-width
    ``resnet18_cifar`` under ``default_qconfig(8, 8, per_channel_weights=True,
    init_batches=2)``, seeded on the card, SGD (lr 1e-2, momentum 0.9),
@@ -51,8 +70,8 @@ exits non-zero on any failure (no phase is caught and skipped):
    boundary fell the other way, the CPU takes the card's activation, at
    most one quant step away, on at most 1e-5 of the elements); the step's
    convolution FLOPs and its BatchNorm layers' device time alone;
-6. drives the captured training path (``make_train_step(jit=True)``) with
-   every launch count reset: phase 5's model, seed, batches and 12 steps
+7. drives the captured training path (``make_train_step(jit=True)``) with
+   every launch count reset: phase 6's model, seed, batches and 12 steps
    (step 1 an eager warm-up, step 2 the capture and its first replay,
    steps 3-12 replays; steps/s and images/s over steps 3-12); fails unless
    every loss is finite, each traced kernel was launched 21 times by the
@@ -61,7 +80,7 @@ exits non-zero on any failure (no phase is caught and skipped):
    3), a profiled replay ran the traced kernels and no static one, and
    ``disable_fake_quant_on_act`` between two replays zeroed the activation
    qparams' gradients without a new capture;
-7. the eager and the captured step from one state, cuDNN deterministic on
+8. the eager and the captured step from one state, cuDNN deterministic on
    both sides, 5 steps across the switch and a toggle: losses, every
    parameter and buffer (qparams, BatchNorm statistics, counters, flags,
    observer state) and SGD's momentum buffers equal.
@@ -71,6 +90,7 @@ Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 record (every check, time and profile) to PATH as JSON.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -83,6 +103,11 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VOCAB, DIM, DEPTH, HEADS, T0 = 8192, 1024, 4, 16, 32
+GROUP = 128  # convert(weight_group_size=) of the grouped-int4 LM
+# PagedDecodeEngine leg: a page of 128 positions, 16 pool pages (an eighth of
+# the dense-equivalent 8 x 2048 / 128 = 128, so admissions defer), a prefix of
+# one whole page plus a 100-token partial page
+PAGE, NUM_PAGES, PREFIX_LEN = 128, 16, 228
 N1, N2 = 16, 208
 WO_SHAPES = {"qkv": (1024, 3072), "proj": (1024, 1024), "mlp_up": (1024, 4096),
              "mlp_down": (4096, 1024), "lm_head": (1024, 8192)}
@@ -99,8 +124,9 @@ def reset_counts():
     from jaxlsq_torch.ops.fake_quant import LAUNCHES as FQ
     from jaxlsq_torch.serve.attention import LAUNCHES as ATTN
     from jaxlsq_torch.serve.matmul import LAUNCHES as MM
+    from jaxlsq_torch.serve.paged import LAUNCHES as PAGED
 
-    for counts in (MM, ATTN, FQ):
+    for counts in (MM, ATTN, FQ, PAGED):
         for k in counts:
             counts[k] = 0
     return MM, ATTN, FQ
@@ -228,7 +254,7 @@ def phase_kernels(torch, rec):
     from jaxlsq_torch.core.spec import QuantSpec
     from jaxlsq_torch.serve.attention import decode_attention, decode_attention_plain
     from jaxlsq_torch.serve.matmul import wo_matmul, wo_matmul_plain
-    from jaxlsq_torch.serve.pack import quantize_weight
+    from jaxlsq_torch.serve.pack import quantize_weight, quantize_weight_grouped
 
     t0 = time.time()
     _build.load_library()
@@ -236,7 +262,8 @@ def phase_kernels(torch, rec):
     log(f"[build] kernels built and loaded in {rec['build_s']:.1f} s")
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    errs = {"wo8": 0.0, "wo4": 0.0, "decode_attention": 0.0}
+    errs = {"wo8": 0.0, "wo4": 0.0, "wo4g": 0.0, "decode_attention": 0.0,
+            "paged_attention": 0.0}
     for bits, name in ((8, "wo8"), (4, "wo4")):
         spec = QuantSpec.weight_default(bits, per_channel=True, axis=1)
         shapes = list(WO_SHAPES.values()) + [(1023, 520)]
@@ -256,6 +283,21 @@ def phase_kernels(torch, rec):
                 if not err <= tol:
                     raise AssertionError(f"{name} disagrees with its plain version")
                 errs[name] = max(errs[name], err)
+    for k, n in WO_SHAPES.values():  # wo4g: the grouped-int4 LM's layers
+        w = torch.randn(k, n, device=dev, generator=g) * k ** -0.5
+        p = quantize_weight_grouped(w, group_size=GROUP)
+        for m in (1, 8, 256):
+            x = torch.randn(m, k, device=dev, generator=g)
+            out = wo_matmul(x, p)
+            ref = wo_matmul_plain(x, p)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            tol = 1e-4 * float(ref.abs().max())
+            log(f"[check] wo4g M={m} K={k} N={n} group {GROUP}: max_abs_err {err:.3e} "
+                f"(tol {tol:.3e})")
+            if not err <= tol:
+                raise AssertionError("wo4g disagrees with its plain version")
+            errs["wo4g"] = max(errs["wo4g"], err)
     hd = 64
     cases = []
     for carrier in ("f32", "bf16", "int8", "int4"):
@@ -286,7 +328,60 @@ def phase_kernels(torch, rec):
         if not err <= tol:
             raise AssertionError("decode_attention disagrees with its plain version")
         errs["decode_attention"] = max(errs["decode_attention"], err)
+    errs["paged_attention"] = _check_paged(torch, g)
     rec["max_abs_err"] = errs
+
+
+def _rand_pool(torch, carrier, b, kvh, length, hd, ps, g):
+    """A paged layer of B slots over ``length`` positions: random rows in
+    every page of the pool, a permuted table, a spare page no slot maps."""
+    from jaxlsq_torch.serve.paged import PagedKVLayer
+
+    pps = -(-length // ps)
+    n_pages = b * pps + 1
+    table = torch.randperm(n_pages, device=g.device, generator=g)[:b * pps]
+    table = table.reshape(b, pps).to(torch.int32)
+    kp, vp = (_rand_cache(torch, carrier, n_pages, kvh, ps, hd, g) for _ in "kv")
+    if isinstance(kp, tuple):
+        return PagedKVLayer(kp=kp[0], vp=vp[0], ks=kp[1], vs=vp[1], table=table,
+                            page_size=ps)
+    return PagedKVLayer(kp=kp, vp=vp, table=table, page_size=ps)
+
+
+def _check_paged(torch, g):
+    """Paged attention at B = 8, L = 2048 against its plain version (within
+    1e-5) and bit-equal to ``decode_attention`` on the gathered cache: page
+    sizes 16, 128, 1024, every carrier, t = 1 with no window and t = 32 with
+    a 256-key window, per-slot positions."""
+    from jaxlsq_torch.serve.attention import decode_attention
+    from jaxlsq_torch.serve.paged import (_gather_dense, paged_attention,
+                                          paged_attention_plain)
+
+    worst = 0.0
+    b, length, hd = 8, 2048, 64
+    for ps in (16, 128, 1024):
+        for carrier in ("f32", "bf16", "int8", "int4"):
+            for t, window in ((1, None), (32, 256)):
+                layer = _rand_pool(torch, carrier, b, HEADS, length, hd, ps, g)
+                q = torch.randn(b, HEADS, t, hd, device=g.device, generator=g)
+                idx = torch.randint(0, length - t + 1, (b,), device=g.device,
+                                    generator=g).to(torch.int32)
+                out = paged_attention(q, layer, idx, window=window)
+                ref = paged_attention_plain(q, layer, idx, window=window)
+                ck, cv = _gather_dense(layer)
+                dense = decode_attention(q, ck, cv, idx, window=window)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                tol = 1e-5 * max(1.0, float(ref.abs().max()))
+                same = bool(torch.equal(out, dense))
+                log(f"[check] paged_attention {carrier} page {ps} B={b} t={t} "
+                    f"L={length} window={window}: max_abs_err {err:.3e} (tol "
+                    f"{tol:.3e}), bit-equal to decode_attention: {same}")
+                if not (err <= tol and same):
+                    raise AssertionError("paged_attention disagrees with its plain "
+                                         "version or with the dense kernel")
+                worst = max(worst, err)
+    return worst
 
 
 def _rand_cache(torch, carrier, b, kvh, length, hd, g):
@@ -301,14 +396,20 @@ def _rand_cache(torch, carrier, b, kvh, length, hd, g):
             torch.rand(b, kvh, length, device=dev, generator=g) * (0.02 if carrier == "int8" else 0.3))
 
 
-def _lm(torch, wbits, max_len, seed):
+def _lm(torch, wbits, max_len, seed, group=None):
+    """The d1024 LM with seeded variables; with ``group`` its QAT tree is
+    converted with ``weight_group_size=group`` (``variables`` is then the
+    converted tree)."""
     from jaxlsq_torch import interop
     from jaxlsq_torch.models import QuantTransformerLM, default_qconfig, init_variables
+    from jaxlsq_torch.serve import convert
 
     qc = default_qconfig(wbits, 8, per_channel_weights=True).for_serving("none")
     model = QuantTransformerLM(VOCAB, DIM, DEPTH, HEADS, qc, max_len=max_len,
                                device="cuda")
     variables = init_variables(model, seed=seed)
+    if group is not None:
+        variables = convert(variables, qc, weight_group_size=group)
     interop.load_variables(model, variables)
     return model, variables, qc
 
@@ -438,11 +539,176 @@ def phase_main(torch, rec):
     del longm
     torch.cuda.synchronize()
     main["wall_s"] = time.time() - t_main
-    rec["launches"] = {**MM, **ATTN}
+    rec["launches"] = {"wo8": MM["wo8"], "wo4": MM["wo4"], **ATTN}
     log(f"[main] kernel launches on the main path: {rec['launches']}")
     for k, v in rec["launches"].items():
         if v <= 0:
             raise AssertionError(f"kernel {k} was never launched on the main path")
+
+
+def _engine_run(eng, reqs, prefix_toks):
+    """Register the prefix, submit ``reqs`` ((prompt, n_new, with prefix)),
+    and return (outputs, wall s, stats)."""
+    eng.warmup()
+    h = eng.register_prefix(prefix_toks)
+    s = time.perf_counter()
+    futs = [eng.submit(p, n, prefix=h if shared else None) for p, n, shared in reqs]
+    outs = [f.result(timeout=600) for f in futs]
+    return outs, time.perf_counter() - s, dict(eng.stats)
+
+
+def _paged_generate(torch, model, prompt, n_new, page_size):
+    """bench.py's paged_generate: prefill a B-row prompt into int8 page pools
+    of the dense-equivalent layout, then greedy decode steps."""
+    from jaxlsq_torch.serve import init_paged_cache, prefill
+
+    cache = init_paged_cache(model, prompt.shape[0], page_size=page_size,
+                             dtype=torch.int8)
+    last, cache, idx = prefill(model, prompt, cache=cache)
+    tok = torch.argmax(last, -1).to(torch.int32)
+    toks = [tok]
+    with torch.no_grad():
+        for i in range(n_new - 1):
+            logits, cache = model(tok[:, None], cache=cache, cache_index=idx + i)
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+            toks.append(tok)
+    return torch.stack(toks, 1)
+
+
+def phase_paged(torch, rec):
+    """The slice's main path: the d1024 x 4 LM converted with
+    ``weight_group_size=128`` (every dense kernel group-wise int4, the
+    embedding int8) served by ``PagedDecodeEngine`` over int8 page pools,
+    held token for token against ``DecodeEngine``; then bench.py's B = 8,
+    L = 2048 paged generate loop beside the dense int8 loop, and the paged
+    kernel path's logits against the CPU plain path."""
+    import numpy as np
+
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.models import QuantTransformerLM
+    from jaxlsq_torch.serve import (DecodeEngine, PagedDecodeEngine,
+                                    init_paged_cache, make_generate, prefill)
+    from jaxlsq_torch.serve.attention import LAUNCHES as ATTN
+    from jaxlsq_torch.serve.matmul import LAUNCHES as MM
+    from jaxlsq_torch.serve.paged import LAUNCHES as PAGED
+
+    dev = torch.device("cuda")
+    paged = {}
+    rec["paged"] = paged
+    model, variables, qc = _lm(torch, 4, 2048, seed=5, group=GROUP)
+    kinds = {n: m.kernel.packed().group_size
+             for n, m in model.named_modules() if hasattr(m, "kernel")}
+    if set(kinds.values()) != {GROUP} or model.tok_emb.embedding.bits != 8:
+        raise AssertionError(f"not every dense kernel is grouped: {kinds}")
+    r = np.random.RandomState(11)
+    prefix = r.randint(0, VOCAB, size=PREFIX_LEN)
+    reqs = [(r.randint(0, VOCAB, size=int(r.randint(4, 129))),
+             int(r.randint(16, 201)), i % 2 == 1) for i in range(16)]
+    kw = dict(max_batch=8, prompt_buckets=(32, 128), cache_dtype=torch.int8)
+    reset_counts()
+    with PagedDecodeEngine(model, num_pages=NUM_PAGES, page_size=PAGE, **kw) as eng:
+        outs, wall, stats = _engine_run(eng, reqs, prefix)
+    torch.cuda.synchronize()
+    launches = {"wo4g": MM["wo4g"], "paged_attention": PAGED["paged_attention"],
+                "wo4": MM["wo4"], "wo8": MM["wo8"],
+                "decode_attention": ATTN["decode_attention"]}
+    paged["launches"] = launches
+    with DecodeEngine(model, **kw) as eng:
+        want, dwall, dstats = _engine_run(eng, reqs, prefix)
+    n_tok = sum(len(o) for o in outs)
+    same = all(np.array_equal(a, b) for a, b in zip(outs, want))
+    paged["engine"] = {
+        "requests": len(reqs), "tokens": n_tok, "wall_s": wall,
+        "tokens_per_s": n_tok / wall, "dense_wall_s": dwall,
+        "dense_tokens_per_s": n_tok / dwall, "steps": stats["steps"],
+        "dense_steps": dstats["steps"], "equal_to_dense": same,
+        **{k: stats[k] for k in ("admissions_deferred", "prefix_pages_shared",
+                                 "window_pages_freed", "admission_chunks")}}
+    e = paged["engine"]
+    log(f"[paged] PagedDecodeEngine, grouped-int4 d1024 x 4 LM, int8 pools "
+        f"(page {PAGE}, {NUM_PAGES} pages of a dense-equivalent "
+        f"{8 * 2048 // PAGE}), {len(reqs)} requests (8 on a {PREFIX_LEN}-token "
+        f"prefix): {n_tok} tokens in {wall:.3f} s ({e['tokens_per_s']:.1f} "
+        f"tokens/s; DecodeEngine {e['dense_tokens_per_s']:.1f}), "
+        f"{e['admissions_deferred']} admissions deferred, "
+        f"{e['prefix_pages_shared']} prefix pages shared; tokens equal to "
+        f"DecodeEngine's: {same}; launches {launches}")
+    if not same:
+        raise AssertionError("PagedDecodeEngine's tokens differ from DecodeEngine's")
+    if not (e["admissions_deferred"] > 0 and e["prefix_pages_shared"] > 0):
+        raise AssertionError(f"no deferral or no shared prefix page: {e}")
+    if not (launches["wo4g"] > 0 and launches["paged_attention"] > 0
+            and launches["wo4"] == 0 and launches["wo8"] == 0
+            and launches["decode_attention"] == 0):
+        raise AssertionError(f"the paged path ran other kernels: {launches}")
+
+    # bench.py's paged_generate beside the dense int8 loop, interleaved
+    prompt = torch.as_tensor(r.randint(0, VOCAB, size=(8, T0)), device=dev)
+    n1, n2 = 16, 80
+    loops = {"dense": lambda n: make_generate(model, T0, n, cache_dtype=torch.int8)(prompt),
+             "paged": lambda n: _paged_generate(torch, model, prompt, n, PAGE)}
+    for f in loops.values():
+        f(n1), f(n2)
+    times = {k: ([], []) for k in loops}
+    for _ in range(3):
+        for k, f in loops.items():
+            for i, n in enumerate((n1, n2)):
+                torch.cuda.synchronize()
+                s = time.perf_counter()
+                f(n).cpu()
+                times[k][i].append(time.perf_counter() - s)
+    tps = {k: 8 * (n2 - n1) / (min(t2) - min(t1)) for k, (t1, t2) in times.items()}
+    same_loop = bool(torch.equal(loops["dense"](n1), loops["paged"](n1)))
+    # kernels a decode step: the profiles' kernel counts over the n2 - n1
+    # extra steps; the larger of two profiles (a lost stretch of records only
+    # lowers a count)
+    per_step = {k: (max(sum(e.count for e in _profiled(torch, lambda: f(n2))[0])
+                        for _ in range(2))
+                    - max(sum(e.count for e in _profiled(torch, lambda: f(n1))[0])
+                          for _ in range(2))) / (n2 - n1)
+                for k, f in loops.items()}
+    paged["generate_b8_L2048"] = {"tokens_per_s": tps, "raw_s": times,
+                                  "paged_over_dense": tps["paged"] / tps["dense"],
+                                  "kernels_per_step": per_step,
+                                  "tokens_equal": same_loop}
+    log(f"[paged] B=8, L=2048 generate loop, grouped-int4 weights, int8 cache "
+        f"(slope {n1}->{n2}, min of 3 interleaved rounds): paged (page {PAGE}) "
+        f"{tps['paged']:.1f} tokens/s, dense {tps['dense']:.1f} tokens/s, ratio "
+        f"{tps['paged'] / tps['dense']:.3f}; kernels a decode step: paged "
+        f"{per_step['paged']:.1f}, dense {per_step['dense']:.1f}; tokens equal: "
+        f"{same_loop}")
+    if not same_loop:
+        raise AssertionError("the paged generate loop's tokens differ from the dense loop's")
+
+    # the paged kernel path against the plain path on the CPU, on f32 pools:
+    # on int8 pools a last-ulp difference upstream can move a round-half
+    # point of the quantize-on-write by a whole step (phase 3 compares on an
+    # f32 cache for the same reason)
+    cpu_model = QuantTransformerLM(VOCAB, DIM, DEPTH, HEADS, qc, max_len=2048,
+                                   device="cpu")
+    interop.load_variables(cpu_model, _to_cpu(torch, variables))
+    toks = torch.as_tensor(r.randint(0, VOCAB, size=(1, 16)))
+    errs = []
+    caches = {d: init_paged_cache(m, 1, page_size=PAGE)
+              for d, m in (("cuda", model), ("cpu", cpu_model))}
+    got, gc, idx = prefill(model, toks.to(dev), cache=caches["cuda"])
+    want, cc, _ = prefill(cpu_model, toks, cache=caches["cpu"])
+    tok = torch.argmax(want, -1).to(torch.int32)[:, None]
+    with torch.no_grad():
+        g2, _ = model(tok.to(dev), cache=gc, cache_index=idx)
+        w2, _ = cpu_model(tok, cache=cc, cache_index=idx)
+    for a, b_ in ((got, want), (g2[:, -1], w2[:, -1])):
+        a = a.cpu()
+        if not torch.isfinite(a).all():
+            raise AssertionError("non-finite logits")
+        err = float((a - b_).abs().max())
+        tol = 1e-4 * float(b_.abs().max())
+        errs.append(err)
+        log(f"[paged] logits vs plain CPU path (paged f32 cache, grouped int4): "
+            f"max_abs_err {err:.3e} (tol {tol:.3e})")
+        if not err <= tol:
+            raise AssertionError("paged kernel-path logits disagree with the plain path")
+    paged["logits_err_vs_cpu"] = max(errs)
 
 
 def _profile_generate(torch, model, prompt):
@@ -472,7 +738,7 @@ def _profile_generate(torch, model, prompt):
 def _to_cpu(torch, tree):
     if isinstance(tree, dict):
         return {k: _to_cpu(torch, v) for k, v in tree.items()}
-    return tree.cpu()
+    return tree.to("cpu")
 
 
 def phase_times(torch, rec):
@@ -482,25 +748,30 @@ def phase_times(torch, rec):
     from jaxlsq_torch.serve.attention import decode_attention, decode_attention_plain
     from jaxlsq_torch.serve.matmul import LAUNCHES as MM
     from jaxlsq_torch.serve.matmul import wo_matmul, wo_matmul_plain
-    from jaxlsq_torch.serve.pack import dequantize_weight, quantize_weight
+    from jaxlsq_torch.serve.pack import (dequantize_weight, quantize_weight,
+                                         quantize_weight_grouped)
 
     saved = dict(MM)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     times = {}
     rec["times"] = times
-    for bits, name in ((8, "wo8"), (4, "wo4")):
+    for bits, name in ((8, "wo8"), (4, "wo4"), (4, "wo4g")):
         spec = QuantSpec.weight_default(bits, per_channel=True, axis=1)
         rows = []
         for layer, (k, n) in WO_SHAPES.items():
             w = torch.randn(k, n, device=dev, generator=g) * k ** -0.5
-            p = quantize_weight(w, w.abs().amax(0) / spec.quant_max,
-                                torch.zeros(n, device=dev), spec, bits=bits)
-            wbytes = p.data.numel() + 8 * n
+            if name == "wo4g":
+                p = quantize_weight_grouped(w, group_size=GROUP)
+            else:
+                p = quantize_weight(w, w.abs().amax(0) / spec.quant_max,
+                                    torch.zeros(n, device=dev), spec, bits=bits)
+            wbytes = p.data.numel() + 4 * p.scale.numel() + 4 * p.zero_point.numel()
             reps = copies_for(wbytes)
-            packs = [p] + [type(p)(p.data.clone(), p.scale.clone(), p.zero_point.clone(),
-                                   bits=p.bits, axis=p.axis, k_axis=p.k_axis,
-                                   orig_shape=p.orig_shape) for _ in range(reps - 1)]
+            packs = [p] + [dataclasses.replace(p, data=p.data.clone(),
+                                               scale=p.scale.clone(),
+                                               zero_point=p.zero_point.clone())
+                           for _ in range(reps - 1)]
             wdq = [dequantize_weight(q) for q in packs[:copies_for(4 * k * n)]]
             for m in (1, 8, 256):
                 x = torch.randn(m, k, device=dev, generator=g)
@@ -564,7 +835,64 @@ def phase_times(torch, rec):
             f"live): {ms * 1e3:.2f} us on the device, {call * 1e3:.2f} us a call (bound {b_ms * 1e3:.2f} us by {b_by}; plain "
             f"{plain * 1e3:.2f} us; SDPA on the f32 cache {lib * 1e3:.2f} us)")
     times["decode_attention"] = rows
+    times["paged_attention"] = _time_paged(torch, g)
     MM.update(saved)
+
+
+def _time_paged(torch, g):
+    """The paged kernel against the dense kernel on the same contents (the
+    gathered cache), int8, B = 8, L = 2048, t = 1, every key live, at page
+    sizes 16, 128 and 1024; each with its plain version and SDPA on the
+    gathered f32 cache."""
+    import torch.nn.functional as F
+
+    from jaxlsq_torch.serve.attention import decode_attention
+    from jaxlsq_torch.serve.paged import (_gather_dense, paged_attention,
+                                          paged_attention_plain)
+
+    b, length, hd, t = 8, 2048, 64, 1
+    dev = g.device
+    rows = []
+    q = torch.randn(b, HEADS, t, hd, device=dev, generator=g)
+    idx = torch.full((b,), length - t, dtype=torch.int32, device=dev)
+    for ps in (16, 128, 1024):
+        one = _rand_pool(torch, "int8", b, HEADS, length, hd, ps, g)
+        nbytes_cache = b * HEADS * length * (hd + 4)  # int8 rows + f32 scales, K or V
+        reps = copies_for(2 * nbytes_cache)
+        layers = [one] + [_rand_pool(torch, "int8", b, HEADS, length, hd, ps, g)
+                          for _ in range(reps - 1)]
+        dense = [_gather_dense(x) for x in layers]
+        # paged and dense in turns, twice: paged, dense, dense, paged
+        pm1, pc = measure(torch, lambda x: paged_attention(q, x, idx), [(x,) for x in layers])
+        dm1, dc = measure(torch, lambda c: decode_attention(q, c[0], c[1], idx),
+                          [(c,) for c in dense])
+        dm2, _ = measure(torch, lambda c: decode_attention(q, c[0], c[1], idx),
+                         [(c,) for c in dense])
+        pm2, _ = measure(torch, lambda x: paged_attention(q, x, idx), [(x,) for x in layers])
+        plain, _ = measure(torch, lambda x: paged_attention_plain(q, x, idx),
+                           [(x,) for x in layers[:2]], reps=10)
+        fcaches = [tuple(e[0].to(torch.float32) * e[1][..., None] for e in c)
+                   for c in dense[:copies_for(2 * 4 * b * HEADS * length * hd)]]
+        lib, _ = measure(torch, lambda c: F.scaled_dot_product_attention(
+            q, c[0], c[1]), [(c,) for c in fcaches])
+        table_bytes = 4 * one.table.numel()
+        nbytes = 2 * nbytes_cache + table_bytes + 2 * q.numel() * 4
+        flops = 4 * b * HEADS * t * length * hd
+        b_ms, b_by = bound(nbytes, flops)
+        ms, dms = min(pm1, pm2), min(dm1, dm2)
+        rows.append({"page_size": ps, "carrier": "int8", "B": b, "L": length, "t": t,
+                     "ms": ms, "ms_runs": [pm1, pm2], "call_ms": pc,
+                     "dense_ms": dms, "dense_ms_runs": [dm1, dm2], "dense_call_ms": dc,
+                     "paged_over_dense": ms / dms, "plain_ms": plain,
+                     "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by,
+                     "bytes": nbytes, "flops": flops})
+        log(f"[time] paged_attention int8 page {ps} B={b} L={length} t={t} (all keys "
+            f"live): {pm1 * 1e3:.2f} / {pm2 * 1e3:.2f} us on the device, dense kernel on "
+            f"the same contents {dm1 * 1e3:.2f} / {dm2 * 1e3:.2f} us (paged/dense "
+            f"{ms / dms:.3f}); bound {b_ms * 1e3:.2f} us by {b_by}; plain "
+            f"{plain * 1e3:.2f} us; SDPA on the f32 cache {lib * 1e3:.2f} us")
+        del layers, dense, fcaches
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -974,7 +1302,7 @@ def _fq_kinds(counts):
 
 
 def phase_train_captured(torch, rec):
-    """Phase 5's leg through ``make_train_step(jit=True)``: one CUDA graph of
+    """Phase 6's leg through ``make_train_step(jit=True)``: one CUDA graph of
     the whole step, replayed across the observer window's end and a toggle."""
     from jaxlsq_torch.models import toggles
     from jaxlsq_torch.parallel import make_train_step
@@ -1014,7 +1342,7 @@ def phase_train_captured(torch, rec):
         + " ".join(f"{v:.4f}" for v in cap["losses"]))
     log(f"[captured] steps 3-{TRAIN_STEPS} (graph replays): {cap['steps_per_s']:.2f} "
         f"steps/s, {cap['images_per_s']:.1f} images/s ({cap['step_ms']:.2f} ms a "
-        f"step); the eager leg of phase 5 in this run: {rec['train']['step_ms']:.2f} "
+        f"step); the eager leg of phase 6 in this run: {rec['train']['step_ms']:.2f} "
         "ms a step")
     log(f"[captured] launches counted (warm-up + capture; a replay counts none): "
         f"{cap['launches']}; per step {per_step}")
@@ -1239,6 +1567,28 @@ def kernels_line(rec):
                     "library_ms": sum(r["library_ms"] for r in rows),
                     "shape": "M=1, sum over qkv/proj/mlp_up/mlp_down/lm_head of "
                              "the d1024 LM (one of each per B=1 decode step)"})
+    rows = [r for r in rec["times"]["wo4g"] if r["M"] == 1]
+    b_ms, b_by = bound(sum(r["bytes"] for r in rows), sum(r["flops"] for r in rows))
+    out.append({"name": "wo4g", "route": "cuda", "source": "jaxlsq_torch/csrc/wo_matmul.cu",
+                "replaces": "jaxlsq/serve/matmul.py:147",
+                "launches": rec["paged"]["launches"]["wo4g"],
+                "max_abs_err": rec["max_abs_err"]["wo4g"],
+                "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": sum(r["library_ms"] for r in rows),
+                "shape": f"M=1, group {GROUP}, sum over qkv/proj/mlp_up/mlp_down/lm_head "
+                         "of the d1024 LM (one of each per B=1 decode step)"})
+    r = next(x for x in rec["times"]["paged_attention"] if x["page_size"] == PAGE)
+    out.append({"name": "paged_attention", "route": "cuda",
+                "source": "jaxlsq_torch/csrc/decode_attention.cu",
+                "replaces": "jaxlsq/serve/paged.py:225",
+                "launches": rec["paged"]["launches"]["paged_attention"],
+                "max_abs_err": rec["max_abs_err"]["paged_attention"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "shape": f"int8 pools, page {PAGE}, B=8, H=KVH=16, hd=64, L=2048, t=1, "
+                         "all keys live"})
     r = rec["times"]["decode_attention"][0]
     out.append({"name": "decode_attention", "route": "cuda",
                 "source": "jaxlsq_torch/csrc/decode_attention.cu",
@@ -1300,6 +1650,7 @@ def main(argv):
     phase_kernels(torch, rec)
     phase_fq_kernels(torch, rec)
     phase_main(torch, rec)
+    phase_paged(torch, rec)
     phase_times(torch, rec)
     phase_fq_times(torch, rec)
     phase_train(torch, rec)

@@ -26,12 +26,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
 # c_void_p: a bare Python int would be passed as a 32-bit int).
 _SIGNATURES = {
-    # x, w, scale, zp, out, part, rowsum, M, K, N, per_channel, int4, stream
-    "jlt_wo_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, w, scale, zp, out, part, rowsum, M, K, N, per_channel, int4,
+    # group_size, stream
+    "jlt_wo_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # q, kd, ks, vd, vs, qpos, out, B, KVH, L, hd, t, gt, window, carrier,
     # scale, stream
     "jlt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, ctypes.c_float, _P],
+    # q, kp, ks, vp, vs, qpos, table, out, B, KVH, ps, pps, hd, t, gt,
+    # window, carrier, scale, stream
+    "jlt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _I, ctypes.c_float, _P],
     # outer, C, inner, per_channel
     "jlt_fq_partials": [_I, _I, _I, _I],
     # x, scale, shift, out, n, qmin, qmax, tmin, tmax, stream

@@ -33,6 +33,21 @@
 // Later work: one block per (b, kv head) is 16 blocks at B = 1, H = 16, far
 // from filling 132 SMs; splitting L across blocks (a second pass combining the
 // partial softmax states) is the known next step.
+//
+// PAGED: the same kernel over page pools through a block table (replaces the
+// TPU kernel jaxlsq/serve/paged.py:paged_attention, launched at :362).  Pools
+// are (P, KVH, ps, hd) (int4: hd / 2 bytes) with (P, KVH, ps) scales; key
+// position kpos of batch row b, kv head h lives at pool row
+// (table[b, kpos / ps] * KVH + h) * ps + kpos % ps (64-bit).  The block reads
+// its table row from device memory into shared memory, 64 row offsets a
+// tile, and everything else (64-key tiles counted from key 0, the window's
+// tile skip, the summation orders, the -1e9 mask) is the dense kernel's, so a
+// paged cache gives the dense kernel's bits on the same contents at any page
+// size: only addresses differ.  L = pages_per_slot * ps.  Entries pointing
+// at a page no row wrote (the engines' dummy page) sit at key positions the
+// causal mask kills.  What bounds it: as the dense kernel, the cache bytes;
+// a page is ps * hd contiguous carrier bytes, so any ps >= 1 streams whole
+// rows.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -58,15 +73,18 @@ __device__ __forceinline__ float load_elem(const void* data, size_t row, int d,
 
 // grid: (B * KVH, ceil(gt / rows)); q/out are (B * KVH, gt, hd) with
 // gt = g * t, row i holding query head i / t at new position i % t.
-template <int CARRIER>
+// PAGED: table (B, pps) int32, page_rows positions a page, L = pps * page_rows.
+template <int CARRIER, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const float* __restrict__ q, const void* __restrict__ kd,
                         const float* __restrict__ ks, const void* __restrict__ vd,
                         const float* __restrict__ vs, const int* __restrict__ qpos,
-                        float* __restrict__ out, int KVH, int L, int hd, int t,
-                        int gt, int rows, int window, float scale) {
+                        const int* __restrict__ table, float* __restrict__ out,
+                        int KVH, int L, int hd, int t, int gt, int rows,
+                        int window, float scale, int page_rows, int pps) {
   constexpr bool kQuant = CARRIER >= 2;
   extern __shared__ float smem[];
+  __shared__ size_t prow[PAGED ? kTile : 1];  // this tile's pool rows
   const int hdp = hd + 1;  // padded K rows: no bank conflicts in the QK loop
   float* qs = smem;                        // rows x hd
   float* ps = qs + rows * hd;              // rows x kTile
@@ -102,17 +120,27 @@ decode_attention_kernel(const float* __restrict__ q, const void* __restrict__ kd
   const int tile_end = last_key / kTile;
   const int tile_begin = min(first_key / kTile, tile_end);
   const size_t cache_row0 = (size_t)bkv * L;
+  const int* trow = PAGED ? table + (size_t)b * pps : nullptr;
+  const int head = bkv % KVH;
 
   for (int tile = tile_begin; tile <= tile_end; ++tile) {
     const int kbase = tile * kTile;
+    // the last tile's row offsets were read before the last tile's post-load
+    // barrier, which every thread has passed: they may be overwritten here
+    if (PAGED && tid < kTile && kbase + tid < L) {
+      const int kpos = kbase + tid;
+      prow[tid] = ((size_t)trow[kpos / page_rows] * KVH + head) * page_rows +
+                  kpos % page_rows;
+    }
     __syncthreads();  // previous tile's readers are done
     for (int i = tid; i < kTile * hd; i += kThreads) {
       const int j = i / hd, d = i % hd;
       const int kpos = kbase + j;
       float kv = 0.f, vv = 0.f;
       if (kpos < L) {
-        kv = load_elem<CARRIER>(kd, cache_row0 + kpos, d, hd);
-        vv = load_elem<CARRIER>(vd, cache_row0 + kpos, d, hd);
+        const size_t row = PAGED ? prow[PAGED ? j : 0] : cache_row0 + kpos;
+        kv = load_elem<CARRIER>(kd, row, d, hd);
+        vv = load_elem<CARRIER>(vd, row, d, hd);
       }
       kt[j * hdp + d] = kv;
       vt[j * hd + d] = vv;
@@ -120,8 +148,9 @@ decode_attention_kernel(const float* __restrict__ q, const void* __restrict__ kd
     if (kQuant) {
       for (int j = tid; j < kTile; j += kThreads) {
         const int kpos = kbase + j;
-        ksc[j] = kpos < L ? ks[cache_row0 + kpos] : 0.f;
-        vsc[j] = kpos < L ? vs[cache_row0 + kpos] : 0.f;
+        const size_t row = PAGED ? prow[PAGED ? j : 0] : cache_row0 + kpos;
+        ksc[j] = kpos < L ? ks[row] : 0.f;
+        vsc[j] = kpos < L ? vs[row] : 0.f;
       }
     }
     __syncthreads();
@@ -190,21 +219,47 @@ size_t smem_bytes(int rows, int hd) {
                           2 * kTile + 3 * (size_t)rows);
 }
 
-template <int CARRIER>
+template <int CARRIER, bool PAGED>
 cudaError_t launch(const float* q, const void* kd, const float* ks,
-                   const void* vd, const float* vs, const int* qpos, float* out,
-                   int B, int KVH, int L, int hd, int t, int gt, int window,
-                   float scale, cudaStream_t stream) {
+                   const void* vd, const float* vs, const int* qpos,
+                   const int* table, float* out, int B, int KVH, int L, int hd,
+                   int t, int gt, int window, float scale, int ps, int pps,
+                   cudaStream_t stream) {
   const int rows = min(gt, kMaxRows);
   const size_t smem = smem_bytes(rows, hd);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_attention_kernel<CARRIER>,
+      decode_attention_kernel<CARRIER, PAGED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(B * KVH, (gt + rows - 1) / rows);
-  decode_attention_kernel<CARRIER><<<grid, kThreads, smem, stream>>>(
-      q, kd, ks, vd, vs, qpos, out, KVH, L, hd, t, gt, rows, window, scale);
+  decode_attention_kernel<CARRIER, PAGED><<<grid, kThreads, smem, stream>>>(
+      q, kd, ks, vd, vs, qpos, table, out, KVH, L, hd, t, gt, rows, window,
+      scale, ps, pps);
   return cudaSuccess;
+}
+
+template <bool PAGED>
+int dispatch(const void* q, const void* kd, const void* ks, const void* vd,
+             const void* vs, const void* qpos, const void* table, void* out,
+             int B, int KVH, int L, int hd, int t, int gt, int window,
+             int carrier, float scale, int ps, int pps, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const float* qf = (const float*)q;
+  const float* ksf = (const float*)ks;
+  const float* vsf = (const float*)vs;
+  const int* qp = (const int*)qpos;
+  const int* tb = (const int*)table;
+  float* o = (float*)out;
+  cudaError_t err;
+  switch (carrier) {
+    case 0: err = launch<0, PAGED>(qf, kd, ksf, vd, vsf, qp, tb, o, B, KVH, L, hd, t, gt, window, scale, ps, pps, s); break;
+    case 1: err = launch<1, PAGED>(qf, kd, ksf, vd, vsf, qp, tb, o, B, KVH, L, hd, t, gt, window, scale, ps, pps, s); break;
+    case 2: err = launch<2, PAGED>(qf, kd, ksf, vd, vsf, qp, tb, o, B, KVH, L, hd, t, gt, window, scale, ps, pps, s); break;
+    case 3: err = launch<3, PAGED>(qf, kd, ksf, vd, vsf, qp, tb, o, B, KVH, L, hd, t, gt, window, scale, ps, pps, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -218,22 +273,20 @@ int jlt_decode_attention(const void* q, const void* kd, const void* ks,
                          const void* vd, const void* vs, const void* qpos,
                          void* out, int B, int KVH, int L, int hd, int t, int gt,
                          int window, int carrier, float scale, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const float* qf = (const float*)q;
-  const float* ksf = (const float*)ks;
-  const float* vsf = (const float*)vs;
-  const int* qp = (const int*)qpos;
-  float* o = (float*)out;
-  cudaError_t err;
-  switch (carrier) {
-    case 0: err = launch<0>(qf, kd, ksf, vd, vsf, qp, o, B, KVH, L, hd, t, gt, window, scale, s); break;
-    case 1: err = launch<1>(qf, kd, ksf, vd, vsf, qp, o, B, KVH, L, hd, t, gt, window, scale, s); break;
-    case 2: err = launch<2>(qf, kd, ksf, vd, vsf, qp, o, B, KVH, L, hd, t, gt, window, scale, s); break;
-    case 3: err = launch<3>(qf, kd, ksf, vd, vsf, qp, o, B, KVH, L, hd, t, gt, window, scale, s); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return dispatch<false>(q, kd, ks, vd, vs, qpos, nullptr, out, B, KVH, L, hd,
+                         t, gt, window, carrier, scale, L, 1, stream);
+}
+
+// The same over page pools: kd/vd (P, KVH, ps, hd or hd / 2), ks/vs
+// (P, KVH, ps), table int32 (B, pps) of pool page ids (the caller keeps them
+// below P).  Returns cudaGetLastError().
+int jlt_paged_attention(const void* q, const void* kd, const void* ks,
+                        const void* vd, const void* vs, const void* qpos,
+                        const void* table, void* out, int B, int KVH, int ps,
+                        int pps, int hd, int t, int gt, int window, int carrier,
+                        float scale, void* stream) {
+  return dispatch<true>(q, kd, ks, vd, vs, qpos, table, out, B, KVH, ps * pps,
+                        hd, t, gt, window, carrier, scale, ps, pps, stream);
 }
 
 }  // extern "C"

@@ -4,8 +4,12 @@
 // whose byte row r holds k = r (low nibble) and k = r + ceil(K/2) (high nibble);
 // s f32 / z int32 per output channel (N,) or per tensor (1,).
 //
+// Group-wise int4 (wo4g): s f32 (G, N), one row per group of gs rows of K,
+// no zero point (symmetric):
+//   out[m, n] = sum_k x[m, k] * w[k, n] * s[k / gs, n]
+//
 // Replaces the TPU kernels jaxlsq/serve/matmul.py:_wo8_kernel (launched at
-// :255) and _wo4_kernel (:317).
+// :255), _wo4_kernel (:317) and _wo4g_kernel (:147, launched at :298).
 //
 // What bounds it on an H100: in the decode regime (M <= 16) every weight byte
 // is used M times, far below the card's ~20 f32 operations per byte of
@@ -27,6 +31,16 @@
 // Large M (prefill) re-reads the weights once per 16 rows; the rows are done in
 // slabs of 256 so the partial-sum workspace stays n_chunks * 256 * N floats.
 //
+// wo4g runs the wo4 blocks: a 128-row chunk's low nibbles (k in [r0, r0 +
+// 128)) and high nibbles (k in [K/2 + r0, ...)) each lie inside one group
+// when gs and K/2 are multiples of 128, so a thread loads its 4 columns of
+// the chunk's two group-scale rows once and multiplies each decoded nibble
+// by its row's scale before the FMAs; the chunk partials then need no
+// epilogue but their chunk-ordered sum.  The wrapper refuses other group
+// sizes.  A first form kept the low- and high-nibble sums in two
+// accumulators and scaled the warp-summed partials: 174 registers a thread,
+// one block an SM, twice wo4's time at M = 256 on an H100 (PERF.md).
+//
 // A first form with one row load in flight per warp took about 20 us per
 // M = 1 call on an H100 whatever the shape (load latency x 32 rows per warp).
 #include <cuda_runtime.h>
@@ -44,12 +58,13 @@ constexpr int kSlab = 256;        // activation rows per launch pair
 
 // One (column tile, K chunk, row tile) block: partial sums of its chunk.
 // part is (n_chunks, mslab, N); rowsum is (n_chunks, mslab) (int4 only).
-template <bool INT4>
+// GROUPED (int4 only): gscale is (G, N); each nibble is scaled by its group.
+template <bool INT4, bool GROUPED>
 __global__ void __launch_bounds__(kThreads)
 wo_partial_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
-                  const int* __restrict__ zp, float* __restrict__ part,
-                  float* __restrict__ rowsum, int M, int K, int N, int KR,
-                  int per_channel) {
+                  const int* __restrict__ zp, const float* __restrict__ gscale,
+                  float* __restrict__ part, float* __restrict__ rowsum, int M,
+                  int K, int N, int KR, int per_channel, int gs) {
   __shared__ float xs[kRows][kChunk];
   __shared__ float xh[INT4 ? kRows : 1][INT4 ? kChunk : 1];
   __shared__ float red[kWarps][kCols];
@@ -79,9 +94,19 @@ wo_partial_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   int zc[4];
   for (int j = 0; j < 4; ++j) {
     const int n = n0 + j;
-    zc[j] = (n < N) ? zp[per_channel ? n : 0] : 0;
+    zc[j] = (n < N && !GROUPED) ? zp[per_channel ? n : 0] : 0;
   }
   const bool vec = ((N & 3) == 0) && (n0 + 3 < N);
+
+  // the chunk's two groups (grouped only): low nibbles k = r0 + r, high
+  // nibbles k = KR + r0 + r
+  float slo[4], shi[4];
+  for (int j = 0; j < 4; ++j) {
+    const int n = n0 + j;
+    const bool live = GROUPED && n < N;
+    slo[j] = live ? gscale[(size_t)(r0 / gs) * N + n] : 0.f;
+    shi[j] = live ? gscale[(size_t)((KR + r0) / gs) * N + n] : 0.f;
+  }
 
   float acc[kRows][4];
 #pragma unroll
@@ -115,6 +140,10 @@ wo_partial_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
           const int v = b[u][j];
           wlo[j] = (float)((int)((unsigned)v << 28) >> 28);  // sign-extended low nibble
           whi[j] = (float)(v >> 4);  // arithmetic shift: sign-extended high nibble
+          if (GROUPED) {
+            wlo[j] *= slo[j];
+            whi[j] *= shi[j];
+          }
         } else {
           wlo[j] = (float)((int)b[u][j] - zc[j]);
           whi[j] = 0.f;
@@ -137,7 +166,7 @@ wo_partial_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   }
 
   // rowsum(x) over this chunk, for the int4 zero-point epilogue
-  if (INT4 && blockIdx.x == 0 && threadIdx.x < mt) {
+  if (INT4 && !GROUPED && blockIdx.x == 0 && threadIdx.x < mt) {
     float s = 0.f;
     for (int r = 0; r < rc; ++r) s += xs[threadIdx.x][r] + xh[threadIdx.x][r];
     rowsum[(size_t)chunk * M + m0 + threadIdx.x] = s;
@@ -162,8 +191,9 @@ wo_partial_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
-// Sum the chunk partials in chunk order and apply the dequant epilogue.
-template <bool INT4>
+// Sum the chunk partials in chunk order and apply the dequant epilogue (the
+// grouped partials are scaled already: their sum is the output).
+template <bool INT4, bool GROUPED>
 __global__ void wo_epilogue_kernel(const float* __restrict__ part,
                                    const float* __restrict__ rowsum,
                                    const float* __restrict__ scale,
@@ -175,6 +205,10 @@ __global__ void wo_epilogue_kernel(const float* __restrict__ part,
   const int m = i / N, n = i % N;
   float acc = 0.f;
   for (int c = 0; c < n_chunks; ++c) acc += part[((size_t)c * M + m) * N + n];
+  if (GROUPED) {
+    out[i] = acc;
+    return;
+  }
   const int ch = per_channel ? n : 0;
   if (INT4) {
     float rs = 0.f;
@@ -184,21 +218,23 @@ __global__ void wo_epilogue_kernel(const float* __restrict__ part,
   out[i] = acc * scale[ch];
 }
 
-template <bool INT4>
+template <bool INT4, bool GROUPED>
 void launch(const float* x, const int8_t* w, const float* scale, const int* zp,
             float* out, float* part, float* rowsum, int M, int K, int N,
-            int per_channel, cudaStream_t stream) {
+            int per_channel, int gs, cudaStream_t stream) {
   const int KR = INT4 ? (K + 1) / 2 : K;
   const int n_chunks = (KR + kChunk - 1) / kChunk;
   for (int ms = 0; ms < M; ms += kSlab) {
     const int mslab = min(kSlab, M - ms);
     dim3 grid((N + kCols - 1) / kCols, n_chunks, (mslab + kRows - 1) / kRows);
-    wo_partial_kernel<INT4><<<grid, kThreads, 0, stream>>>(
-        x + (size_t)ms * K, w, zp, part, rowsum, mslab, K, N, KR, per_channel);
+    wo_partial_kernel<INT4, GROUPED><<<grid, kThreads, 0, stream>>>(
+        x + (size_t)ms * K, w, zp, scale, part, rowsum, mslab, K, N, KR,
+        per_channel, gs);
     const size_t total = (size_t)mslab * N;
-    wo_epilogue_kernel<INT4><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-        part, rowsum, scale, zp, out + (size_t)ms * N, mslab, N, n_chunks,
-        per_channel);
+    wo_epilogue_kernel<INT4, GROUPED>
+        <<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+            part, rowsum, scale, zp, out + (size_t)ms * N, mslab, N, n_chunks,
+            per_channel);
   }
 }
 
@@ -208,19 +244,31 @@ extern "C" {
 
 // Workspace: part holds n_chunks * min(M, 256) * N floats, rowsum
 // n_chunks * min(M, 256) floats, n_chunks = ceil(rows / 128) with rows = K
-// (int8) or ceil(K / 2) (int4).  Returns cudaGetLastError().
+// (int8) or ceil(K / 2) (int4).  group_size > 0 selects wo4g (int4 only, K
+// even, group_size and K / 2 multiples of 128; scale (G, N), zp unread);
+// anything else it refuses with cudaErrorInvalidValue.  Returns
+// cudaGetLastError().
 int jlt_wo_matmul(const void* x, const void* w, const void* scale,
                   const void* zp, void* out, void* part, void* rowsum, int M,
-                  int K, int N, int per_channel, int int4, void* stream) {
+                  int K, int N, int per_channel, int int4, int group_size,
+                  void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (int4)
-    launch<true>((const float*)x, (const int8_t*)w, (const float*)scale,
-                 (const int*)zp, (float*)out, (float*)part, (float*)rowsum, M, K,
-                 N, per_channel, s);
-  else
-    launch<false>((const float*)x, (const int8_t*)w, (const float*)scale,
-                  (const int*)zp, (float*)out, (float*)part, (float*)rowsum, M,
-                  K, N, per_channel, s);
+  const float* xf = (const float*)x;
+  const int8_t* wb = (const int8_t*)w;
+  const float* sf = (const float*)scale;
+  const int* zi = (const int*)zp;
+  if (group_size > 0) {
+    if (!int4 || K % 2 || group_size % kChunk || (K / 2) % kChunk)
+      return (int)cudaErrorInvalidValue;
+    launch<true, true>(xf, wb, sf, zi, (float*)out, (float*)part,
+                       (float*)rowsum, M, K, N, per_channel, group_size, s);
+  } else if (int4) {
+    launch<true, false>(xf, wb, sf, zi, (float*)out, (float*)part,
+                        (float*)rowsum, M, K, N, per_channel, 0, s);
+  } else {
+    launch<false, false>(xf, wb, sf, zi, (float*)out, (float*)part,
+                         (float*)rowsum, M, K, N, per_channel, 0, s);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,8 @@ dicts of numpy arrays (or tensors), and fills a serve-mode
   is not read);
 * a converted tree (``params``/``quantized``) is loaded as it is; each packed
   weight is a ``PackedWeight`` or a dict of its fields (``data``, ``scale``,
-  ``zero_point``, ``bits``, ``axis``, ``k_axis``, ``orig_shape``).
+  ``zero_point``, ``bits``, ``axis``, ``k_axis``, ``orig_shape`` and
+  ``group_size``, whose (G, N) scale a group-wise pack brings along).
 
 Layouts are the JAX package's: dense kernels (K, N); the ``qkv`` columns are
 ``[q | k | v]``; flax LayerNorm ``scale``/``bias`` are the LayerNorm weight
@@ -59,7 +60,8 @@ def _to_torch(tree, device):
                 bits=int(tree["bits"]), axis=int(tree["axis"]),
                 k_axis=int(tree["k_axis"]),
                 orig_shape=tuple(int(d) for d in tree["orig_shape"]),
-                group_size=tree.get("group_size"))
+                group_size=(None if tree.get("group_size") is None
+                            else int(tree["group_size"])))
         return {k: _to_torch(v, device) for k, v in tree.items()}
     if torch.is_tensor(tree):
         return tree.to(device)

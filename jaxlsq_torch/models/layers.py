@@ -215,7 +215,9 @@ def _check_serve(qc: QConfig, what: str) -> None:
 
 class _PackedBuffers(nn.Module):
     """A PackedWeight held as buffers (data, scale, zero_point) plus its
-    static layout fields."""
+    static layout fields.  A group-wise pack (``group_size`` set) brings its
+    own (G, N) scale and (1,) zero point: :meth:`load` re-shapes those two
+    buffers to the pack's, whatever qparams the layer was built for."""
 
     def __init__(self, shape: Sequence[int], bits: int, axis: int, k_axis: int,
                  channels: int, device):
@@ -229,16 +231,18 @@ class _PackedBuffers(nn.Module):
                                                        device=device))
         self.bits, self.axis, self.k_axis = bits, axis, k_axis
         self.orig_shape = tuple(shape)
+        self.channels = channels
+        self.group_size: Optional[int] = None
 
     def packed(self) -> PackedWeight:
         return PackedWeight(self.data, self.scale, self.zero_point, bits=self.bits,
                             axis=self.axis, k_axis=self.k_axis,
-                            orig_shape=self.orig_shape)
+                            orig_shape=self.orig_shape, group_size=self.group_size)
 
     @torch.no_grad()
     def load(self, p: PackedWeight) -> None:
         # a per-tensor pack's axis is meaningless (its spec's placeholder)
-        axis = p.axis if self.scale.numel() > 1 else self.axis
+        axis = p.axis if (self.scale.numel() > 1 or p.group_size) else self.axis
         if (p.bits, axis, p.k_axis, tuple(p.orig_shape)) != (
                 self.bits, self.axis, self.k_axis, self.orig_shape):
             raise ValueError(
@@ -246,9 +250,20 @@ class _PackedBuffers(nn.Module):
                 f"k_axis={p.k_axis}, shape={tuple(p.orig_shape)}) does not match "
                 f"the layer's (bits={self.bits}, axis={self.axis}, "
                 f"k_axis={self.k_axis}, shape={self.orig_shape})")
-        if p.group_size is not None:
-            raise NotImplementedError(
-                "group-wise int4 weights arrive with the grouped-int4 slice")
+        gs = None if p.group_size is None else int(p.group_size)
+        if gs is not None and (len(self.orig_shape) != 2 or self.k_axis != 0
+                               or self.orig_shape[0] % gs):
+            raise ValueError(f"group size {gs} does not tile the layer's "
+                             f"(K, N) = {self.orig_shape}")
+        dev = self.data.device
+        if gs is not None:
+            qshape = ((self.orig_shape[0] // gs, self.orig_shape[1]), (1,))
+        else:
+            qshape = ((self.channels,), (self.channels,))
+        if gs != self.group_size:
+            self.scale = torch.ones(qshape[0], dtype=torch.float32, device=dev)
+            self.zero_point = torch.zeros(qshape[1], dtype=torch.int32, device=dev)
+            self.group_size = gs
         for name in ("data", "scale", "zero_point"):
             buf = getattr(self, name)
             src = torch.as_tensor(getattr(p, name))

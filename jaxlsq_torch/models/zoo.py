@@ -14,14 +14,17 @@ Its modules hold serve-mode buffers (packed kernels from
 * with a cache: the new k/v are written into the cache IN PLACE at
   ``cache_index`` (the JAX package returns a new cache; here the returned
   cache is the same objects, updated) and attention runs through
-  ``serve.attention.decode_attention`` — the CUDA kernel on the card.
+  ``serve.attention.decode_attention`` — the CUDA kernel on the card — or,
+  for a paged cache (``serve.paged.PagedKVLayer`` entries), the writes go
+  through the block table and attention through ``serve.paged.paged_attention``.
 
 Carriers: f32/bf16 caches (new k/v cast to the cache dtype on write, read back
 as f32), and int8/int4 ``(data, scales)`` caches quantized per (b, head,
 position) on write.  A scalar ``cache_index`` (int) is checked against the
-cache length here; a per-slot (B,) index tensor is the caller's to keep in
-range (the engine does), since checking it would stall on the card.
-MoE blocks and paged caches come with later slices and raise.
+cache length here (for a paged cache, pages_per_slot * page_size); a
+per-slot (B,) index tensor is the caller's to keep in range (the engine
+does), since checking it would stall on the card.  MoE blocks come with a
+later slice and raise.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
-from ..serve.attention import MASK, decode_attention
+from ..serve.attention import MASK, _q4, _q8, decode_attention
+from ..serve.paged import PagedKVLayer, paged_attention, paged_update
 from .layers import FakeQuantize, QuantConv, QuantDense, QuantEmbed
 from .norm import BatchNorm
 from .qconfig import QConfig
@@ -66,25 +70,6 @@ def _is_scalar_index(cache_index) -> bool:
         torch.is_tensor(cache_index) and cache_index.dim() == 0)
 
 
-def _q8(a: torch.Tensor):
-    """Per-(b, h, position) symmetric int8, scales floored at f32 tiny."""
-    s = a.abs().amax(dim=-1) / 127.0
-    s = torch.clamp_min(s, torch.finfo(torch.float32).tiny)
-    data = torch.clamp(torch.round(a / s[..., None]), -127, 127)
-    return data.to(torch.int8), s.to(torch.float32)
-
-
-def _q4(a: torch.Tensor):
-    """The same scheme at 4 bits ([-7, 7]), two values per byte along
-    head_dim: low nibble = even index, high nibble = odd index."""
-    s = a.abs().amax(dim=-1) / 7.0
-    s = torch.clamp_min(s, torch.finfo(torch.float32).tiny)
-    data = torch.clamp(torch.round(a / s[..., None]), -7, 7).to(torch.int32)
-    n = data & 0xF
-    packed = n[..., 0::2] | (n[..., 1::2] << 4)
-    return packed.to(torch.uint8), s.to(torch.float32)
-
-
 def _write(c: torch.Tensor, new: torch.Tensor, cache_index, t: int) -> None:
     """Write ``new`` (B, H, t, ...) into cache ``c`` (B, H, L, ...) at
     positions [idx, idx + t) — scalar idx, or per-slot (B,) idx."""
@@ -100,21 +85,28 @@ def _write(c: torch.Tensor, new: torch.Tensor, cache_index, t: int) -> None:
 
 
 def _cached_attention(q, k, v, kv_cache, cache_index, attn_window=None):
-    """Write fresh k/v (B, KVH, t, hd) into a dense cache entry and attend q
-    (B, H, t, hd) to it; returns ``(y, cache_entry)``."""
-    if not (isinstance(kv_cache, (tuple, list)) and len(kv_cache) == 2):
-        raise NotImplementedError(
-            "paged KV caches arrive with the paged-engine slice; the port "
-            "takes dense (k, v) cache entries")
+    """Write fresh k/v (B, KVH, t, hd) into a cache entry (a dense ``(k, v)``
+    pair, or a :class:`PagedKVLayer` written through its block table) and
+    attend q (B, H, t, hd) to it; returns ``(y, cache_entry)``."""
+    paged = isinstance(kv_cache, PagedKVLayer)
+    if not paged and not (isinstance(kv_cache, (tuple, list)) and len(kv_cache) == 2):
+        raise TypeError("a cache entry is a dense (k, v) pair or a PagedKVLayer, "
+                        f"got {type(kv_cache).__name__}")
     t = q.shape[2]
-    ck, cv = kv_cache
-    quantized = isinstance(ck, (tuple, list))
-    length = (ck[0] if quantized else ck).shape[2]
+    if paged:
+        length = kv_cache.length
+    else:
+        ck, cv = kv_cache
+        quantized = isinstance(ck, (tuple, list))
+        length = (ck[0] if quantized else ck).shape[2]
     if _is_scalar_index(cache_index):
         i = int(cache_index)
         if i < 0 or i + t > length:
             raise ValueError(f"cache_index {i} + {t} new positions exceeds the "
                              f"cache length {length}")
+    if paged:
+        layer = paged_update(kv_cache, k, v, cache_index)
+        return paged_attention(q, layer, cache_index, window=attn_window), layer
     if quantized:
         quant = _q4 if ck[0].dtype == torch.uint8 else _q8
         kq, ks = quant(k)

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from .pack import true_div
 
 __all__ = ["decode_attention", "decode_attention_plain", "LAUNCHES", "MASK"]
 
@@ -35,6 +36,33 @@ def _qpos(cache_index, b: int, device) -> torch.Tensor:
         return torch.full((b,), cache_index, dtype=torch.int32, device=device)
     idx = cache_index.to(device=device, dtype=torch.int32)
     return idx.expand(b) if idx.dim() == 0 else idx
+
+
+def _dtype_name(dtype) -> str:
+    """A cache dtype as a name: ``torch.int8`` -> "int8", "int4" as it is."""
+    if isinstance(dtype, str):
+        return dtype
+    return str(dtype).replace("torch.", "")
+
+
+def _q8(a: torch.Tensor):
+    """Quantize-on-write of int8 caches: per-(b, h, position) symmetric int8,
+    scales floored at f32 tiny; the same bits on the card as on the CPU."""
+    s = true_div(a.abs().amax(dim=-1), 127.0)
+    s = torch.clamp_min(s, torch.finfo(torch.float32).tiny)
+    data = torch.clamp(torch.round(a / s[..., None]), -127, 127)
+    return data.to(torch.int8), s.to(torch.float32)
+
+
+def _q4(a: torch.Tensor):
+    """The same scheme at 4 bits ([-7, 7]), two values per byte along
+    head_dim: low nibble = even index, high nibble = odd index."""
+    s = true_div(a.abs().amax(dim=-1), 7.0)
+    s = torch.clamp_min(s, torch.finfo(torch.float32).tiny)
+    data = torch.clamp(torch.round(a / s[..., None]), -7, 7).to(torch.int32)
+    n = data & 0xF
+    packed = n[..., 0::2] | (n[..., 1::2] << 4)
+    return packed.to(torch.uint8), s.to(torch.float32)
 
 
 def _unpack4(p: torch.Tensor, dt) -> torch.Tensor:

@@ -3,7 +3,8 @@
 :func:`convert` walks a QAT variables tree (nested dicts of tensors with the
 JAX package's collection and layer names), folds each weight quantizer's
 (scale, shift) into (scale, zero_point), quantizes + packs the kernels, and
-freezes each activation quantizer's qparams.  Tensor-parallel placement
+freezes each activation quantizer's qparams; ``weight_group_size`` packs the
+int4 dense kernels group-wise instead.  Tensor-parallel placement
 (``shard_packed``/``shard_converted``) comes with the multi-device slice.
 """
 
@@ -16,7 +17,7 @@ import torch
 from ..core.golden import clamp_scale
 from ..core.spec import QuantSpec
 from ..observers.quantizer import convert_shift_to_zp
-from .pack import quantize_weight
+from .pack import quantize_weight, quantize_weight_grouped
 
 __all__ = ["convert", "serving_bits"]
 
@@ -51,10 +52,14 @@ def convert(variables: Dict[str, Any], qconfig, *,
     into serving variables: packed kernels in a 'quantized' collection,
     packed kernels dropped from 'params', 'qparams'/'quant_state' dropped.
     The embedding table is always packed at 8 bits (a row gather needs
-    whole bytes)."""
-    if weight_group_size is not None:
-        raise NotImplementedError(
-            "weight_group_size (group-wise int4) arrives with the grouped-int4 slice")
+    whole bytes).
+
+    ``weight_group_size``: every 2-D ``kernel`` whose serving carrier is int4
+    and whose K divides by it is re-quantized group-wise
+    (:func:`quantize_weight_grouped`); everything else keeps the per-channel
+    fold of its learned qparams."""
+    if weight_group_size is not None and weight_group_size < 1:
+        raise ValueError(f"weight_group_size must be >= 1, got {weight_group_size}")
     params = variables["params"]
     qparams = variables.get("qparams", {})
     quant_state = variables.get("quant_state", {})
@@ -75,8 +80,14 @@ def convert(variables: Dict[str, Any], qconfig, *,
                      if qcfg.weight.spec.per_channel else qcfg.weight.spec)
             wqp = q_tree["weight_fq"]["qp"]
             bits = 8 if wname == "embedding" else serving_bits(wspec)
-            packed = quantize_weight(kernel, wqp["scale"], wqp["shift"], wspec,
-                                     bits=bits)
+            if (weight_group_size is not None and bits == 4
+                    and wname == "kernel" and kernel.dim() == 2
+                    and kernel.shape[0] % weight_group_size == 0):
+                packed = quantize_weight_grouped(
+                    kernel, group_size=weight_group_size, bits=4)
+            else:
+                packed = quantize_weight(kernel, wqp["scale"], wqp["shift"],
+                                         wspec, bits=bits)
             quantized: Dict[str, Any] = {wname: packed}
             if "act_fq" in q_tree and qcfg.activation is not None:
                 ascale, azp = _act_qparams(q_tree["act_fq"]["qp"],

@@ -1,6 +1,6 @@
 """Autoregressive decode on the quantized serving path (port of
-``make_sampler``, ``init_kv_cache``, ``prefill``, ``make_generate`` and
-``DecodeEngine`` from ``jaxlsq/serve/decode.py``).
+``make_sampler``, ``init_kv_cache``, ``prefill``, ``make_generate``,
+``Prefix`` and ``DecodeEngine`` from ``jaxlsq/serve/decode.py``).
 
 Differences from the JAX package, all from PyTorch running eagerly:
 
@@ -14,8 +14,9 @@ Differences from the JAX package, all from PyTorch running eagerly:
   JAX's ``dynamic_update_slice`` clamps a write that runs past the cache,
   the port refuses such requests at ``submit`` and never clamps.
 
-Prefix caching (``register_prefix``), beam search and the speculative
-generators and engines come with a later slice.
+Beam search and the speculative generators and engines come with a later
+slice.  ``PagedDecodeEngine`` (``serve/paged_engine.py``) is this engine over
+page pools.
 """
 
 from __future__ import annotations
@@ -30,8 +31,11 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from .attention import _dtype_name
+from .paged import PagedKVLayer
+
 __all__ = ["init_kv_cache", "prefill", "make_generate", "make_sampler",
-           "DecodeEngine"]
+           "Prefix", "DecodeEngine"]
 
 
 def _greedy(logits: torch.Tensor, generator=None) -> torch.Tensor:
@@ -53,12 +57,6 @@ def make_sampler(temperature: float = 1.0, top_k: Optional[int] = None):
         return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
     return pick
-
-
-def _dtype_name(dtype) -> str:
-    if isinstance(dtype, str):
-        return dtype
-    return str(dtype).replace("torch.", "")
 
 
 def init_kv_cache(model, batch_size: int, *, dtype=torch.float32,
@@ -99,15 +97,17 @@ def init_kv_cache(model, batch_size: int, *, dtype=torch.float32,
 
 
 def _cache_len(cache) -> int:
+    if isinstance(cache[0], PagedKVLayer):
+        return cache[0].length
     lead = cache[0][0]
     return (lead[0] if isinstance(lead, (tuple, list)) else lead).shape[2]
 
 
 @torch.no_grad()
 def prefill(model, tokens: torch.Tensor, *, cache=None, cache_dtype=torch.float32):
-    """Run the prompt (B, t) through the model, filling the cache.  Returns
-    ``(last_logits (B, vocab), cache, index)`` with ``index`` = t, the next
-    write position."""
+    """Run the prompt (B, t) through the model, filling the cache (dense, or
+    paged from ``init_paged_cache``).  Returns ``(last_logits (B, vocab),
+    cache, index)`` with ``index`` = t, the next write position."""
     b, t = tokens.shape
     if cache is None:
         cache = init_kv_cache(model, b, dtype=cache_dtype)
@@ -150,25 +150,48 @@ def make_generate(model, prompt_len: int, n_new: int, *,
 
 
 class _GenRequest:
-    __slots__ = ("prompt", "n_new", "future", "tokens", "slot")
+    __slots__ = ("prompt", "n_new", "future", "tokens", "slot", "prefix",
+                 "pages")
 
-    def __init__(self, prompt: np.ndarray, n_new: int):
+    def __init__(self, prompt: np.ndarray, n_new: int, prefix=None):
         self.prompt = prompt
         self.n_new = n_new
         self.future: Future = Future()
         self.tokens: list = []
         self.slot = -1
+        self.prefix = prefix
+        self.pages = None  # pool pages the request holds (paged engine)
+
+
+class Prefix:
+    """A prefilled, immutable KV prefix (a shared system prompt), built by
+    ``DecodeEngine.register_prefix``: the prefix tokens chunk-prefilled into
+    a private B=1 cache at positions [0, length).  ``submit(suffix,
+    prefix=handle)`` seeds each admission from a copy of it and prefills only
+    the suffix.  ``caches`` holds one slot cache a model the engine drives;
+    ``owner`` is the engine that built it (two engines may hold different
+    weights behind the same cache layout, so a handle never crosses)."""
+
+    __slots__ = ("tokens", "length", "caches", "owner")
+
+    def __init__(self, tokens: np.ndarray, length: int, caches: tuple, owner=None):
+        self.tokens = tokens
+        self.length = length
+        self.caches = caches
+        self.owner = owner
 
 
 class _PendingAdmit:
     """One in-flight chunked admission: the reserved slot, its private B=1
-    cache and the chunk cursor."""
+    cache (for the paged engine, the pools seen through the slot's one-row
+    table), the chunk cursor and ``base``, the first suffix position (0, or
+    the length of the request's Prefix)."""
 
     __slots__ = ("req", "slot", "slot_cache", "chunk_idx", "n_chunks", "padded",
-                 "c", "steps_at_start")
+                 "c", "steps_at_start", "base")
 
     def __init__(self, *, req, slot, slot_cache, n_chunks, padded, c,
-                 steps_at_start):
+                 steps_at_start, base=0):
         self.req = req
         self.slot = slot
         self.slot_cache = slot_cache
@@ -177,6 +200,7 @@ class _PendingAdmit:
         self.padded = padded
         self.c = c
         self.steps_at_start = steps_at_start
+        self.base = base
 
 
 def _map_cache(fn, *caches):
@@ -185,6 +209,12 @@ def _map_cache(fn, *caches):
     if torch.is_tensor(head):
         return fn(*caches)
     return tuple(_map_cache(fn, *parts) for parts in zip(*caches))
+
+
+def _leaves(cache):
+    if torch.is_tensor(cache):
+        return [cache]
+    return [leaf for part in cache for leaf in _leaves(part)]
 
 
 class DecodeEngine:
@@ -200,11 +230,18 @@ class DecodeEngine:
     decode step reads before overwriting them.  Free slots decode parked at
     ``max_len - 1`` and their tokens are dropped.
 
+    Prefix caching: ``register_prefix(tokens)`` prefills a shared prefix
+    once; ``submit(suffix, n_new, prefix=handle)`` starts the admission from
+    a copy of its cache and prefills only the suffix, at positions offset by
+    the prefix length (the same tokens as the concatenated prompt).
+
     Args mirror the JAX package: ``max_batch``, ``prompt_buckets``
     (admission cap), ``cache_dtype``, ``prefill_chunk`` (None = whole-bucket
     chunks), ``max_wait_ms``, ``eos_id``, ``logits_to_token`` and ``rng`` (a
     ``torch.Generator``; set it to call ``logits_to_token(logits, rng)``).
     """
+
+    _EXTRA_STATS: tuple = ()  # counters a subclass adds to ``stats``
 
     def __init__(self, model, *, max_batch: int = 8,
                  prompt_buckets: Sequence[int] = (32, 128),
@@ -224,9 +261,7 @@ class DecodeEngine:
         self._sampled = rng is not None
         self._pick = logits_to_token or _greedy
         self.prefill_chunk = prefill_chunk
-        self._cache = init_kv_cache(model, max_batch, dtype=cache_dtype)
-        self._pos = np.full((max_batch,), self.max_len - 1, np.int64)
-        self._tok = torch.zeros((max_batch,), dtype=torch.int32, device=self.device)
+        self._build_device_state(cache_dtype)
 
         self._queue: "queue.Queue[_GenRequest]" = queue.Queue()
         self._slots: list = [None] * max_batch
@@ -237,9 +272,18 @@ class DecodeEngine:
         self.max_wait_s = max_wait_ms / 1e3
         self.stats = {"requests": 0, "steps": 0, "slot_tokens": 0,
                       "active_token_sum": 0, "admission_chunks": 0,
-                      "admission_interleave": deque(maxlen=1024)}
+                      "admission_interleave": deque(maxlen=1024),
+                      **{k: 0 for k in self._EXTRA_STATS}}
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
+
+    def _build_device_state(self, cache_dtype):
+        """The KV cache, host slot positions and device tokens
+        (``PagedDecodeEngine`` builds page pools instead)."""
+        self._cache = init_kv_cache(self.model, self.max_batch, dtype=cache_dtype)
+        self._pos = np.full((self.max_batch,), self.max_len - 1, np.int64)
+        self._tok = torch.zeros((self.max_batch,), dtype=torch.int32,
+                                device=self.device)
 
     # --------------------------------------------------------------- programs
 
@@ -283,6 +327,37 @@ class DecodeEngine:
         c = self._chunk_len(b)
         return -(-size // c) * c
 
+    def _stage_prompt(self, req: _GenRequest):
+        """(chunk length, chunk count, the prompt zero-padded to whole
+        chunks) of an admission."""
+        b = next(b for b in self.buckets if b >= req.prompt.size)
+        c = self._chunk_len(b)
+        n_chunks = -(-req.prompt.size // c)
+        padded = np.zeros((1, n_chunks * c), np.int32)
+        padded[0, : req.prompt.size] = req.prompt
+        return c, n_chunks, padded
+
+    def _stage_prefix_tokens(self, tokens) -> tuple:
+        """Validate a prefix and pad it to whole chunks of the largest
+        bucket's chunk length, or to one chunk of exactly its length where
+        that padding would write past ``max_len``."""
+        tokens = np.asarray(tokens, np.int32)
+        if tokens.ndim != 1 or tokens.size == 0:
+            raise ValueError("prefix must be a non-empty 1-D token array")
+        if tokens.size >= self.max_len:
+            raise ValueError(f"prefix length {tokens.size} must be < max_len "
+                             f"{self.max_len} (no room left to decode)")
+        with self._lifecycle_lock:
+            if self._stop:
+                raise RuntimeError(f"{type(self).__name__} is closed")
+        c = self._chunk_len(self.buckets[-1])
+        n_chunks = -(-tokens.size // c)
+        if n_chunks * c > self.max_len:
+            c, n_chunks = int(tokens.size), 1
+        padded = np.zeros((1, n_chunks * c), np.int32)
+        padded[0, : tokens.size] = tokens
+        return tokens, padded, c, n_chunks
+
     # -------------------------------------------------------------------- API
 
     @torch.no_grad()
@@ -307,9 +382,41 @@ class DecodeEngine:
             self._pos[:] = self.max_len - 1
             self._tok.zero_()
 
-    def submit(self, prompt, n_new: int) -> Future:
+    @torch.no_grad()
+    def register_prefix(self, tokens) -> Prefix:
+        """Prefill a shared prompt prefix once into a private B=1 cache and
+        return a reusable handle, bound to this engine.  The prefix may be
+        longer than the largest bucket; only ``prefix + suffix + n_new <=
+        max_len`` binds.  Each chunk runs under the engine's state lock, so
+        registering mid-serving interleaves with decode steps."""
+        tokens, padded, c, n_chunks = self._stage_prefix_tokens(tokens)
+        sc = self._slot_cache()
+        for i in range(n_chunks):
+            toks = torch.as_tensor(padded[:, i * c:(i + 1) * c]).to(self.device)
+            with self._state_lock:
+                sc = self._run_chunk(sc, toks, i * c)
+        # rows in [size, n_chunks * c) hold pad garbage that the suffix
+        # admission overwrites before any decode step reads them
+        return Prefix(tokens, int(tokens.size), (sc,), owner=self)
+
+    def _check_prefix(self, prefix, n_models: int):
+        if not isinstance(prefix, Prefix) or len(prefix.caches) != n_models:
+            raise ValueError("prefix must come from this engine kind's "
+                             "register_prefix()")
+        if prefix.owner is not self:
+            raise ValueError("prefix was registered on a different engine; call "
+                             "register_prefix() on this one")
+        want = [tuple(g.shape[1:]) + (g.dtype,) for g in _leaves(self._cache)]
+        got = [tuple(g.shape[1:]) + (g.dtype,) for g in _leaves(prefix.caches[0])]
+        if want != got:
+            raise ValueError("prefix cache layout does not match this engine's "
+                             "(different model/max_len/cache_dtype?)")
+
+    def submit(self, prompt, n_new: int, *, prefix: Optional[Prefix] = None
+               ) -> Future:
         """Queue one request; the Future resolves to an (n_new,) int32 array
-        (shorter when it emits ``eos_id``)."""
+        (shorter when it emits ``eos_id``).  With ``prefix`` (from
+        :meth:`register_prefix`), ``prompt`` is the suffix that continues it."""
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.size == 0:
             raise ValueError("prompt must be a non-empty 1-D token array")
@@ -318,14 +425,19 @@ class DecodeEngine:
         if prompt.size > self.buckets[-1]:
             raise ValueError(f"prompt length {prompt.size} exceeds the largest "
                              f"bucket {self.buckets[-1]}")
-        if prompt.size + n_new > self.max_len:
-            raise ValueError("prompt + n_new exceeds model.max_len")
-        if self._padded_admit_len(prompt.size) > self.max_len:
+        base = 0
+        if prefix is not None:
+            self._check_prefix(prefix, 1)
+            base = prefix.length
+        if base + prompt.size + n_new > self.max_len:
+            raise ValueError("prefix + prompt + n_new exceeds model.max_len")
+        if base + self._padded_admit_len(prompt.size) > self.max_len:
             raise ValueError(
-                "the chunk-padded admission would write past max_len (padded "
-                f"prompt {self._padded_admit_len(prompt.size)} > {self.max_len}); "
-                "lower prefill_chunk or the bucket")
-        req = _GenRequest(prompt, n_new)
+                "the chunk-padded admission would write past max_len (prefix "
+                f"{base} + padded prompt {self._padded_admit_len(prompt.size)} > "
+                f"{self.max_len}); lower prefill_chunk or the bucket, or shorten "
+                "the prefix")
+        req = _GenRequest(prompt, n_new, prefix=prefix)
         with self._lifecycle_lock:
             if self._stop:
                 raise RuntimeError("DecodeEngine is closed")
@@ -339,10 +451,13 @@ class DecodeEngine:
         if not self._thread.is_alive():
             self._fail_pending(RuntimeError("DecodeEngine closed"))
         else:  # dispatcher stuck: cancel so callers do not block
-            for req in (list(self._slots) + [p.req for p in self._pending]
-                        + self._drain_queue()):
-                if req is not None and not req.future.done():
-                    req.future.cancel()
+            self._cancel_pending()
+
+    def _cancel_pending(self):
+        for req in (list(self._slots) + [p.req for p in self._pending]
+                    + self._drain_queue()):
+            if req is not None and not req.future.done():
+                req.future.cancel()
 
     def __enter__(self):
         return self
@@ -379,29 +494,35 @@ class DecodeEngine:
                     and req.tokens[-1] == self.eos_id))
 
     def _start_admit(self, req: _GenRequest, slot: int):
-        b = next(b for b in self.buckets if b >= req.prompt.size)
-        c = self._chunk_len(b)
-        n_chunks = -(-req.prompt.size // c)
-        padded = np.zeros((1, n_chunks * c), np.int32)
-        padded[0, : req.prompt.size] = req.prompt
+        """Reserve the slot and stage the prompt; with a Prefix the slot
+        cache starts as a copy of the prefix's and chunks run at offset
+        positions."""
+        c, n_chunks, padded = self._stage_prompt(req)
+        if req.prefix is not None:
+            base = req.prefix.length
+            slot_cache = _map_cache(torch.clone, req.prefix.caches[0])
+            self.stats["prefix_tokens_reused"] = (
+                self.stats.get("prefix_tokens_reused", 0) + base)
+        else:
+            base, slot_cache = 0, self._slot_cache()
         req.slot = slot
         self._pending.append(_PendingAdmit(
-            req=req, slot=slot, slot_cache=self._slot_cache(), n_chunks=n_chunks,
-            padded=padded, c=c, steps_at_start=self.stats["steps"]))
+            req=req, slot=slot, slot_cache=slot_cache, n_chunks=n_chunks,
+            padded=padded, c=c, steps_at_start=self.stats["steps"], base=base))
 
     def _advance_admission(self, p: _PendingAdmit):
         """Run ONE chunk of the admission at the head of the queue."""
         i = p.chunk_idx
         toks = torch.as_tensor(p.padded[:, i * p.c:(i + 1) * p.c]).to(self.device)
-        start = i * p.c
+        start = p.base + i * p.c
         if i < p.n_chunks - 1:
             p.slot_cache = self._run_chunk(p.slot_cache, toks, start)
             p.chunk_idx += 1
         else:
             first = self._run_final_chunk(p.slot_cache, toks, start,
-                                          p.req.prompt.size, p.slot)
+                                          p.base + p.req.prompt.size, p.slot)
             self._tok[p.slot] = first
-            self._pos[p.slot] = p.req.prompt.size
+            self._pos[p.slot] = p.base + p.req.prompt.size
             p.req.tokens.append(int(first))
             self._slots[p.slot] = p.req
             self._pending.remove(p)

@@ -2,12 +2,16 @@
 ``jaxlsq/serve/matmul.py::wo_matmul``).
 
 ``wo_matmul(x, packed)`` computes ``x @ dequant(packed)`` for a logical
-(K, N) weight with per-channel qparams on N (or (1,) per-tensor).
+(K, N) weight with per-channel qparams on N (or (1,) per-tensor), or with
+group-wise (G, N) scales (``packed.group_size``, int4).
 
 * On a CPU tensor it runs the plain version :func:`wo_matmul_plain`
   (``x @ dequantize_weight(packed)`` in f32).
 * On a CUDA tensor it launches ``csrc/wo_matmul.cu`` (``wo8`` for int8,
-  ``wo4`` for split-half int4) for every M, or raises.
+  ``wo4`` for split-half int4, ``wo4g`` for group-wise int4) for every M, or
+  raises.  ``wo4g`` takes group sizes and K / 2 that are multiples of the
+  kernel's 128-row K chunk (the JAX package's TPU limits do not apply);
+  another grouped pack raises ``ValueError``.
 
 ``LAUNCHES`` counts the kernel launches of each kind.  The int8×int8 paths
 (``static_int8_matmul``, ``dynamic_int8_matmul``) come with a later slice.
@@ -22,7 +26,7 @@ from .pack import PackedWeight, dequantize_weight
 
 __all__ = ["wo_matmul", "wo_matmul_plain", "LAUNCHES"]
 
-LAUNCHES = {"wo8": 0, "wo4": 0}
+LAUNCHES = {"wo8": 0, "wo4": 0, "wo4g": 0}
 
 
 def wo_matmul_plain(x: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
@@ -48,9 +52,20 @@ def _launch(x2d: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
                          f"!= {(rows, n)} for bits={packed.bits}, K={kdim}")
     scale = packed.scale.to(torch.float32).contiguous()
     zp = packed.zero_point.to(torch.int32).contiguous()
-    if scale.numel() not in (1, n) or zp.numel() != scale.numel():
-        raise ValueError("wo_matmul: qparams must be (N,) or (1,)")
+    gs = packed.group_size or 0
     lib = _build.load_library()
+    if gs:
+        chunk = lib.chunk_rows
+        if packed.bits != 4 or kdim % 2 or gs % chunk or (kdim // 2) % chunk:
+            raise ValueError(
+                f"wo_matmul: the wo4g kernel takes int4 packs whose group size "
+                f"and K / 2 are multiples of {chunk} (got bits={packed.bits}, "
+                f"group_size={gs}, K={kdim})")
+        if tuple(scale.shape) != (kdim // gs, n):
+            raise ValueError(f"wo_matmul: group scales {tuple(scale.shape)} "
+                             f"!= {(kdim // gs, n)}")
+    elif scale.numel() not in (1, n) or zp.numel() != scale.numel():
+        raise ValueError("wo_matmul: qparams must be (N,) or (1,)")
     n_chunks = -(-rows // lib.chunk_rows)
     mslab = min(m, lib.slab_rows)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
@@ -63,8 +78,8 @@ def _launch(x2d: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
                             zp.data_ptr(), out.data_ptr(), part_ptr, rowsum_ptr,
                             m, kdim, n,
                             int(scale.numel() == n and n > 1),
-                            int(packed.bits == 4), stream)
-    LAUNCHES["wo4" if packed.bits == 4 else "wo8"] += 1
+                            int(packed.bits == 4), gs, stream)
+    LAUNCHES["wo4g" if gs else "wo4" if packed.bits == 4 else "wo8"] += 1
     _build.check(err, "wo_matmul")
     return out
 
@@ -73,9 +88,6 @@ def wo_matmul(x: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
     """``x @ dequant(packed)`` for x (..., K); returns (..., N) f32."""
     if len(packed.orig_shape) != 2:
         raise ValueError("wo_matmul needs a 2-D (K, N) packed weight")
-    if packed.group_size is not None:
-        raise NotImplementedError(
-            "group-wise int4 weights arrive with the grouped-int4 slice")
     kdim, n = packed.orig_shape
     if x.shape[-1] != kdim:
         raise ValueError(f"wo_matmul: x has K={x.shape[-1]}, weight K={kdim}")

@@ -12,6 +12,10 @@ Quantization matches the fake-quant forward exactly:
 ``w_q = round(clamp(w/s + zp, qmin, qmax))`` with
 ``zp = round(clamp(-shift/s, tmin, tmax))`` and eps-clamped ``s``, so
 ``dequantize_weight(quantize_weight(w)) == golden_forward(w)`` bit for bit.
+
+:func:`quantize_weight_grouped` is the group-wise serving form: one symmetric
+abs-max scale per (K-group, output channel), a (G, N) ``scale`` and
+``group_size`` set, re-quantized from the float weight at convert time.
 """
 
 from __future__ import annotations
@@ -24,8 +28,8 @@ import torch
 from ..core.golden import broadcast_qparams, clamp_scale
 from ..core.spec import QuantSpec
 
-__all__ = ["PackedWeight", "quantize_weight", "dequantize_weight", "pack_int4",
-           "unpack_int4"]
+__all__ = ["PackedWeight", "quantize_weight", "quantize_weight_grouped",
+           "dequantize_weight", "pack_int4", "unpack_int4"]
 
 
 @dataclasses.dataclass
@@ -34,9 +38,10 @@ class PackedWeight:
 
     ``scale`` is (C,) f32 per-channel or (1,) per-tensor; ``zero_point`` the
     matching int32.  ``axis`` is the per-channel axis of the ORIGINAL tensor,
-    ``k_axis`` the contraction axis along which int4 packs.  ``group_size`` is
-    carried for layout compatibility with the JAX package; group-wise packing
-    comes with a later slice.
+    ``k_axis`` the contraction axis along which int4 packs.  With
+    ``group_size`` set (:func:`quantize_weight_grouped`) ``scale`` is (G, N),
+    one row per group of ``group_size`` rows of K, and ``zero_point`` is (1,)
+    zeros (symmetric).
     """
 
     data: torch.Tensor
@@ -52,6 +57,14 @@ class PackedWeight:
         return dataclasses.replace(self, data=self.data.to(device),
                                    scale=self.scale.to(device),
                                    zero_point=self.zero_point.to(device))
+
+
+def true_div(a: torch.Tensor, c: float) -> torch.Tensor:
+    """``a / c`` as an IEEE division on every device: CUDA PyTorch turns a
+    division by a host scalar into a multiplication by its reciprocal, which
+    can differ in the last bit, so a scale computed on the card would
+    quantize differently from the same scale computed on the CPU."""
+    return a / torch.full_like(a, c)
 
 
 def pack_int4(q: torch.Tensor, k_axis: int) -> torch.Tensor:
@@ -116,14 +129,41 @@ def quantize_weight(w: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
                         axis=spec.axis, k_axis=k_axis, orig_shape=tuple(w.shape))
 
 
+def quantize_weight_grouped(w: torch.Tensor, *, group_size: int,
+                            bits: int = 4) -> PackedWeight:
+    """Group-wise symmetric quantization of a dense (K, N) weight:
+    ``s[g, n] = max |w[k, n]| over group g / (2^(bits-1) - 1)`` (floored at
+    f32 eps), ``q = round(clamp(w / s, -qmax, qmax))``.  The learned
+    per-channel LSQ scale is superseded; ``group_size == K`` is per-channel."""
+    if w.dim() != 2:
+        raise ValueError("grouped quantization needs a 2-D (K, N) weight; "
+                         f"got shape {tuple(w.shape)}")
+    if bits not in (8, 4):
+        raise ValueError(f"bits must be 8 or 4, got {bits}")
+    k, n = w.shape
+    if group_size < 1 or k % group_size:
+        raise ValueError(
+            f"group_size {group_size} must divide the contraction dim {k}")
+    qmax = float(2 ** (bits - 1) - 1)
+    wf = w.to(torch.float32)
+    s = true_div(wf.reshape(k // group_size, group_size, n).abs().amax(dim=1), qmax)
+    s = torch.clamp_min(s, torch.finfo(torch.float32).eps)
+    q = torch.round(torch.clamp(wf / s.repeat_interleave(group_size, dim=0),
+                                -qmax, qmax)).to(torch.int8)
+    return PackedWeight(data=pack_int4(q, 0) if bits == 4 else q, scale=s,
+                        zero_point=torch.zeros(1, dtype=torch.int32, device=w.device),
+                        bits=bits, axis=1, k_axis=0, orig_shape=(k, n),
+                        group_size=int(group_size))
+
+
 def dequantize_weight(p: PackedWeight, dtype=torch.float32) -> torch.Tensor:
     """Plain dequant ``(w_q - zp) * s``: the oracle for the fused kernels."""
-    if p.group_size is not None:
-        raise NotImplementedError(
-            "group-wise int4 weights arrive with the grouped-int4 slice")
     q = unpack_int4(p.data, p.k_axis) if p.bits == 4 else p.data
     if p.orig_shape and q.shape[p.k_axis] != p.orig_shape[p.k_axis]:
         q = q.narrow(p.k_axis, 0, p.orig_shape[p.k_axis])  # odd-K pad
+    if p.group_size is not None:  # (G, N) -> (K, N), symmetric (zp == 0)
+        s = p.scale.repeat_interleave(p.group_size, dim=0)
+        return (q.to(torch.float32) * s).to(dtype)
     ndim = len(p.orig_shape)
     per_channel = p.scale.shape[0] > 1 or p.scale.shape[0] == p.orig_shape[p.axis]
     if per_channel and p.scale.shape[0] == p.orig_shape[p.axis]:

@@ -5,9 +5,13 @@ also runs on a machine with only PyTorch:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
-Tolerances: the K-sums of ``wo_matmul`` run in f32 in another order than
-the plain matmul (1e-4 of the output's largest magnitude); attention 1e-5.
+Tolerances: the K-sums of ``wo_matmul`` (``wo8``, ``wo4``, ``wo4g``) run in
+f32 in another order than the plain matmul (1e-4 of the output's largest
+magnitude); attention 1e-5; the paged kernel bit-equal to the dense kernel on
+the gathered cache.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -16,12 +20,15 @@ import torch
 from jaxlsq_torch import interop
 from jaxlsq_torch.core.spec import QuantSpec
 from jaxlsq_torch.models import QuantTransformerLM, default_qconfig, init_variables
-from jaxlsq_torch.serve import DecodeEngine, make_generate
+from jaxlsq_torch.serve import DecodeEngine, convert, make_generate
 from jaxlsq_torch.serve.attention import (LAUNCHES as ATTN_LAUNCHES,
                                           decode_attention, decode_attention_plain)
 from jaxlsq_torch.serve.matmul import LAUNCHES as MM_LAUNCHES
 from jaxlsq_torch.serve.matmul import wo_matmul, wo_matmul_plain
-from jaxlsq_torch.serve.pack import quantize_weight
+from jaxlsq_torch.serve.pack import quantize_weight, quantize_weight_grouped
+from jaxlsq_torch.serve.paged import LAUNCHES as PAGED_LAUNCHES
+from jaxlsq_torch.serve.paged import (PagedKVLayer, _gather_dense, paged_attention,
+                                      paged_attention_plain, paged_update)
 
 
 @pytest.fixture
@@ -86,6 +93,177 @@ def test_decode_attention_kernel_matches_plain(cuda, carrier, b, h, kvh, length,
     torch.cuda.synchronize()
     assert ATTN_LAUNCHES["decode_attention"] == before + 1
     assert float((out - ref).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n,m,gs", [(1024, 3072, 1, 128), (4096, 1024, 8, 128),
+                                      (1024, 8192, 256, 256), (512, 200, 300, 128)])
+def test_wo4g_kernel_matches_plain(cuda, k, n, m, gs):
+    g = torch.Generator(device=cuda).manual_seed(k + m)
+    w = torch.randn(k, n, device=cuda, generator=g) * k ** -0.5
+    p = quantize_weight_grouped(w, group_size=gs)
+    x = torch.randn(m, k, device=cuda, generator=g)
+    before = dict(MM_LAUNCHES)
+    out = wo_matmul(x, p)
+    ref = wo_matmul_plain(x, p)
+    torch.cuda.synchronize()
+    assert MM_LAUNCHES["wo4g"] == before["wo4g"] + 1 and MM_LAUNCHES["wo4"] == before["wo4"]
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,gs,bits", [(256, 64, 4), (384, 128, 4), (256, 128, 8)])
+def test_wo4g_kernel_refuses_what_it_cannot_tile(cuda, k, gs, bits):
+    """A group size or K / 2 off the kernel's 128-row chunks, or an int8
+    grouped pack, raises on the card; nothing falls back."""
+    w = torch.randn(k, 64, device=cuda)
+    p = quantize_weight_grouped(w, group_size=gs, bits=bits)
+    before = dict(MM_LAUNCHES)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        wo_matmul(torch.randn(2, k, device=cuda), p)
+    assert MM_LAUNCHES == before
+
+
+def _pool_layer(carrier, b, kvh, length, hd, ps, g, device, spare=3):
+    """A paged layer over a scrambled table with random rows in every pool
+    page (written or not): B slots of ``length`` positions."""
+    pps = -(-length // ps)
+    n_pages = b * pps + spare
+    table = torch.randperm(n_pages, generator=torch.Generator().manual_seed(ps))[
+        :b * pps].reshape(b, pps).to(torch.int32).to(device)
+    shape = (n_pages, kvh, ps)
+    if carrier in ("f32", "bf16"):
+        dt = torch.float32 if carrier == "f32" else torch.bfloat16
+        pools = [torch.randn(shape + (hd,), device=device, generator=g).to(dt)
+                 for _ in range(2)]
+        return PagedKVLayer(kp=pools[0], vp=pools[1], table=table, page_size=ps)
+    width, lo, hi, dt = ((hd, -127, 128, torch.int8) if carrier == "int8"
+                         else (hd // 2, 0, 256, torch.uint8))
+    data = [torch.randint(lo, hi, shape + (width,), device=device, generator=g).to(dt)
+            for _ in range(2)]
+    scales = [torch.rand(shape, device=device, generator=g) * 0.05 for _ in range(2)]
+    return PagedKVLayer(kp=data[0], vp=data[1], ks=scales[0], vs=scales[1],
+                        table=table, page_size=ps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("carrier", ["f32", "bf16", "int8", "int4"])
+@pytest.mark.parametrize("b,h,kvh,length,ps,t,window", [
+    (8, 16, 16, 2048, 128, 1, None), (8, 16, 16, 2048, 16, 32, 256),
+    (1, 16, 16, 2048, 1024, 1, None), (2, 16, 8, 300, 7, 3, 50)])
+def test_paged_attention_kernel_matches_plain_and_dense(cuda, carrier, b, h, kvh,
+                                                        length, ps, t, window):
+    g = torch.Generator(device=cuda).manual_seed(length + ps + t)
+    hd = 64
+    layer = _pool_layer(carrier, b, kvh, length, hd, ps, g, cuda)
+    q = torch.randn(b, h, t, hd, device=cuda, generator=g)
+    L = layer.length
+    idx = torch.randint(0, L - t + 1, (b,), device=cuda, generator=g).to(torch.int32)
+    before = dict(PAGED_LAUNCHES)
+    out = paged_attention(q, layer, idx, window=window)
+    ref = paged_attention_plain(q, layer, idx, window=window)
+    ck, cv = _gather_dense(layer)
+    dense = decode_attention(q, ck, cv, idx, window=window)
+    torch.cuda.synchronize()
+    assert PAGED_LAUNCHES["paged_attention"] == before["paged_attention"] + 1
+    assert float((out - ref).abs().max()) <= 1e-5
+    assert torch.equal(out, dense)
+
+
+@pytest.mark.gpu
+def test_paged_attention_refuses_what_it_cannot_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    layer = _pool_layer("int8", 2, 4, 64, 64, 16, g, cuda)
+    q = torch.randn(2, 4, 1, 64, device=cuda)
+    idx = torch.zeros(2, dtype=torch.int32, device=cuda)
+    before = dict(PAGED_LAUNCHES)
+    for bad, match in (
+            (dict(table=layer.table.to(torch.int64)), "int32"),
+            (dict(table=layer.table[:1]), "int32"),
+            (dict(ks=None, vs=None), "scale"),
+            (dict(vp=layer.vp.to(torch.int32)), "dtypes")):
+        with pytest.raises(ValueError, match=match):
+            paged_attention(q, dataclasses.replace(layer, **bad), idx)
+    with pytest.raises(ValueError, match="f32 queries"):
+        paged_attention(q.to(torch.bfloat16), layer, idx)
+    with pytest.raises(ValueError, match="device"):
+        paged_attention(q, dataclasses.replace(layer, table=layer.table.cpu()), idx)
+    assert PAGED_LAUNCHES == before
+
+
+@pytest.mark.gpu
+def test_quantize_on_card_gives_the_cpu_bits(cuda):
+    """Group scales and the KV caches' quantize-on-write divide by their
+    qmax as a true division on the card too, so a pack or a cache row has
+    the same bits on the card as on the CPU."""
+    from jaxlsq_torch.serve.attention import _q4, _q8
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    w = torch.randn(1024, 512, device=cuda, generator=g)
+    a, b = quantize_weight_grouped(w, group_size=128), quantize_weight_grouped(
+        w.cpu(), group_size=128)
+    assert torch.equal(a.data.cpu(), b.data) and torch.equal(a.scale.cpu(), b.scale)
+    k = torch.randn(8, 16, 64, 64, device=cuda, generator=g)
+    for quant in (_q8, _q4):
+        (da, sa), (db, sb) = quant(k), quant(k.cpu())
+        assert torch.equal(da.cpu(), db) and torch.equal(sa.cpu(), sb)
+
+
+@pytest.mark.gpu
+def test_paged_update_matches_dense_write_on_card(cuda):
+    """The same rows written through a scrambled table and into a dense
+    cache: the gathered pools hold the dense cache's bytes."""
+    from jaxlsq_torch.models.zoo import _write
+    from jaxlsq_torch.serve.attention import _q8
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    layer = _pool_layer("int8", 2, 4, 64, 64, 16, g, cuda)
+    k = torch.randn(2, 4, 5, 64, device=cuda, generator=g)
+    idx = torch.tensor([3, 40], dtype=torch.int32, device=cuda)
+    paged_update(layer, k, -k, idx)
+    (kd, ks), _ = _gather_dense(layer)
+    dk, dks = kd.clone(), ks.clone()
+    kq, kscale = _q8(k)
+    _write(dk, kq, idx, 5)
+    _write(dks, kscale, idx, 5)
+    assert torch.equal(kd, dk) and torch.equal(ks, dks)
+
+
+@pytest.mark.gpu
+def test_paged_engine_equals_dense_engine_on_card(cuda):
+    """Group-wise int4 weights, int8 pools under-provisioned: the paged
+    engine's tokens equal the dense engine's, through wo4g and the paged
+    kernel (one summation order for every batch and page layout)."""
+    from jaxlsq_torch.serve import PagedDecodeEngine
+
+    m = QuantTransformerLM(256, 256, 2, 4, default_qconfig(4, 8).for_serving(),
+                           max_len=128, device=cuda)
+    interop.load_variables(m, convert(init_variables(m, seed=1), m.qconfig,
+                                      weight_group_size=128))
+    r = np.random.RandomState(0)
+    prefix = r.randint(0, 256, size=20)
+    reqs = [(r.randint(0, 256, size=r.randint(3, 17)), int(r.randint(4, 40)))
+            for _ in range(6)]
+    outs = {}
+    for kind in ("dense", "paged"):
+        before = dict(MM_LAUNCHES), dict(PAGED_LAUNCHES)
+        kw = dict(max_batch=4, prompt_buckets=(8, 16), prefill_chunk=8,
+                  cache_dtype=torch.int8)
+        eng = (DecodeEngine(m, **kw) if kind == "dense" else
+               PagedDecodeEngine(m, num_pages=8, page_size=16, **kw))
+        with eng:
+            h = eng.register_prefix(prefix)
+            futs = [eng.submit(p, n, prefix=h if i % 2 else None)
+                    for i, (p, n) in enumerate(reqs)]
+            outs[kind] = [f.result(timeout=300) for f in futs]
+            stats = dict(eng.stats)
+        assert MM_LAUNCHES["wo4g"] > before[0]["wo4g"]
+        assert MM_LAUNCHES["wo4"] == before[0]["wo4"]
+        if kind == "paged":
+            assert PAGED_LAUNCHES["paged_attention"] > before[1]["paged_attention"]
+            assert stats["admissions_deferred"] > 0 and stats["prefix_pages_shared"] > 0
+    for a, b in zip(outs["dense"], outs["paged"]):
+        np.testing.assert_array_equal(b, a)
 
 
 @pytest.mark.gpu

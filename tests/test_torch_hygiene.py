@@ -22,7 +22,8 @@ MODULES = [
     "jaxlsq_torch.parallel", "jaxlsq_torch.parallel.train",
     "jaxlsq_torch.serve", "jaxlsq_torch.serve.pack", "jaxlsq_torch.serve.convert",
     "jaxlsq_torch.serve.matmul", "jaxlsq_torch.serve.attention",
-    "jaxlsq_torch.serve.decode", "jaxlsq_torch.interop",
+    "jaxlsq_torch.serve.decode", "jaxlsq_torch.serve.paged",
+    "jaxlsq_torch.serve.paged_engine", "jaxlsq_torch.interop",
 ]
 
 

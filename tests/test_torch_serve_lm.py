@@ -200,7 +200,7 @@ def test_unported_paths_raise():
         default_qconfig(8, 8, act_observer="mse")
     tm = QuantTransformerLM(VOCAB, DIM, 1, HEADS, qc.for_serving(), max_len=8,
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="paged"):
+    with pytest.raises(TypeError, match="PagedKVLayer"):
         tm(torch.zeros((1, 1), dtype=torch.int32), cache=(object(),), cache_index=0)
     cache = init_kv_cache(tm, 1)
     with pytest.raises(ValueError, match="max_len"):

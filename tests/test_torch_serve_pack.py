@@ -158,6 +158,6 @@ def _to_torch(tree):
 
 
 def test_convert_rejects_group_size():
-    with pytest.raises(NotImplementedError, match="group"):
+    with pytest.raises(ValueError, match="weight_group_size"):
         convert({"params": {}, "qparams": {}}, default_qconfig(4, 8),
-                weight_group_size=32)
+                weight_group_size=0)
