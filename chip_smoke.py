@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the jaxlsq_torch port on one NVIDIA GPU (H100): the serving
-slice, paged-KV serving of a group-wise int4 LM, the QAT training slice and
-its single-program (CUDA-graph) step.
+slice, paged-KV serving of a group-wise int4 LM, the QAT training slice, its
+single-program (CUDA-graph) step, and long-context LSQ QAT of the LM through
+the flash-attention kernels, then serving the trained LM.
 
     python3 chip_smoke.py [--record PATH]
 
@@ -83,7 +84,31 @@ exits non-zero on any failure (no phase is caught and skipped):
 8. the eager and the captured step from one state, cuDNN deterministic on
    both sides, 5 steps across the switch and a toggle: losses, every
    parameter and buffer (qparams, BatchNorm statistics, counters, flags,
-   observer state) and SGD's momentum buffers equal.
+   observer state) and SGD's momentum buffers equal;
+9. checks (with phase 2) the three flash-attention kernels against their
+   plain versions at (B, H, t, hd) = (2, 8, 4096, 64), (4, 8, 2048, 64) and
+   t in {60, 1000} for hd in {32, 64, 128} (out and lse within 2e-5 of
+   max|ref|, dQ/dK/dV within 1e-4), and the fake-quant kernels at the 19
+   quantizer shapes of the LM below (its real data from one step and
+   random data; the phase 2 gates); then drives the LM path with every
+   launch count reset: ``QuantTransformerLM`` at the widths of
+   docs/measurements/flash_train_tpu.json (vocab 8192, d512, depth 2, 8
+   heads, rope) under ``default_qconfig(8, 8, per_channel_weights=True,
+   init_batches=2)``, SGD (lr 1e-2, momentum 0.9), seeded tokens (labels
+   shifted by one), 8 eager and then 8 captured steps of fresh models under
+   ``'flash'`` and ``'xla'`` at B = 2, t = 4096 and B = 4, t = 2048 (tokens/s
+   over steps 3-8, peak allocated memory, a profiled step of the t = 4096
+   ``'flash'`` legs); fails unless every loss is finite and each flash kernel
+   ran ``depth`` times a step eagerly, ``depth`` times in the warm-up and in
+   the capture and never in a replay; then a B = 1, t = 512 step on the card
+   against the CPU plain path (phase 6's rule), 3 eager and 3 captured
+   steps from one state equal leaf by leaf, ``attn_window=512`` taking the
+   banded path (no flash launch), and train-then-serve: the trained
+   variables into a serve-mode LM (``load_variables``), ``make_generate`` at
+   B = 1, logits within 1e-4 of max|ref| of the CPU plain path, ``wo8`` and
+   ``decode_attention`` launched;
+10. times the flash kernels at the LM's two shapes beside their bounds,
+   plain versions and SDPA (forward, forward + backward).
 
 Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes the full
@@ -117,16 +142,24 @@ FQ_KERNELS = ("fq_fwd_pt", "fq_fwd_pc", "fq_bwd_pt", "fq_bwd_pc")
 TRACED_KERNELS = tuple(f"{k}_traced" for k in FQ_KERNELS)
 FLAG_PAIRS = ((0, 0), (1, 0), (0, 1), (1, 1))  # (eval, init)
 EQUAL_STEPS = 5
+# the long-context QAT leg: docs/measurements/flash_train_tpu.json's LM
+LM_VOCAB, LM_DIM, LM_DEPTH, LM_HEADS, LM_MAX = 8192, 512, 2, 8, 4096
+LM_LEGS = ((2, 4096), (4, 2048))  # (B, t): 8192 tokens a step
+LM_STEPS = 8
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+FLASH_SHAPES = ((2, 8, 4096, 64), (4, 8, 2048, 64), (2, 8, 60, 64), (2, 8, 1000, 64),
+                (2, 8, 60, 32), (2, 8, 1000, 32), (2, 8, 60, 128), (2, 8, 1000, 128))
 
 
 def reset_counts():
     """Every kernel wrapper's launch count to 0; returns the count dicts."""
     from jaxlsq_torch.ops.fake_quant import LAUNCHES as FQ
+    from jaxlsq_torch.ops.flash_attention import LAUNCHES as FLASH
     from jaxlsq_torch.serve.attention import LAUNCHES as ATTN
     from jaxlsq_torch.serve.matmul import LAUNCHES as MM
     from jaxlsq_torch.serve.paged import LAUNCHES as PAGED
 
-    for counts in (MM, ATTN, FQ, PAGED):
+    for counts in (MM, ATTN, FQ, PAGED, FLASH):
         for k in counts:
             counts[k] = 0
     return MM, ATTN, FQ
@@ -1062,13 +1095,15 @@ def _categorise(name):
     n = name.lower()
     if "fq_" in n:
         return "fake_quant"
+    if "flash_" in n:
+        return "flash_attention"
     if any(k in n for k in ("conv", "xmma", "gemm", "cudnn", "wgrad", "dgrad",
                             "implicit", "cutlass", "winograd", "fft", "complex",
                             "flip_filter", "nchw", "nhwc")):
-        return "conv"
+        return "conv_matmul"
     if "multi_tensor_apply" in n:
         return "optimizer"
-    return "other (BatchNorm, ReLU, observers, loss, grad zeroing)"
+    return "other (norms, activations, observers, loss, grad zeroing)"
 
 
 def _profile_train_step(torch, step, batch, step_ms):
@@ -1165,7 +1200,7 @@ def phase_train(torch, rec):
         + "; ".join(f"{k} {v:.2f} ms" for k, v in sorted(p["by_category_ms"].items(),
                                                          key=lambda kv: -kv[1])))
     log("[train] top kernels: " + "; ".join(f"{k} {v:.2f} ms" for k, v in p["top"][:8]))
-    conv_ms = p["by_category_ms"].get("conv", 0.0)
+    conv_ms = p["by_category_ms"].get("conv_matmul", 0.0)
     log(f"[train] convolutions: {train['conv_gflop']:.1f} GFLOP a step forward + "
         f"backward, {train['conv_gflop'] / max(conv_ms, 1e-9):.1f} TFLOP/s over their "
         f"{conv_ms:.2f} ms on the device (f32, TF32 off)")
@@ -1193,7 +1228,9 @@ def phase_train(torch, rec):
                 raise AssertionError(f"step {i + 1}: {k} ran {v} times, not {want}")
 
     # one B = 8 step from the same state on the card and on the CPU plain path
-    train["cpu_check"] = _cpu_check(torch, model, step)
+    train["cpu_check"] = _cpu_check(
+        torch, model, step, _image_batches(torch, 1, CHECK_B, seed=5)[0],
+        lambda: _resnet(torch, "cpu", seed=0), f"[train] B={CHECK_B}")
 
 
 def _act_quantizers(model):
@@ -1203,24 +1240,24 @@ def _act_quantizers(model):
             if isinstance(m, FakeQuantize) and n.endswith("act_fq")]
 
 
-def _cpu_check(torch, model, step):
-    """One B = 8 training step from ``model``'s state on the card and on the
-    CPU plain path; the losses within 1e-3 relative.
+def _cpu_check(torch, model, step, batch, cpu_model, label):
+    """One training step from ``model``'s state on the card (``step``, on
+    ``batch``) and on the CPU plain path (``cpu_model()``, a fresh CPU model
+    of the same kind); the losses within 1e-3 relative.
 
-    The convolutions' sums run in another order on the two devices, so an
-    activation can land on the other side of a rounding boundary and come
-    out one quant step away; each such element moves every later layer a
-    little and flips more of them.  So the CPU step takes the card's
-    activation where the two differ by more than half a quant step, after
-    checking that they differ by at most one step, and fails if more than
-    ``MAX_MOVED_SHARE`` of the elements were taken: a kernel that rounds
+    Matmuls and convolutions run their sums in another order on the two
+    devices, so an activation can land on the other side of a rounding
+    boundary and come out one quant step away; each such element moves every
+    later layer a little and flips more of them.  So the CPU step takes the
+    card's activation where the two differ by more than half a quant step,
+    after checking that they differ by at most one step, and fails if more
+    than ``MAX_MOVED_SHARE`` of the elements were taken: a kernel that rounds
     wrong on a share of its elements fails here.  The loss without that
     hand-over is recorded beside it."""
     from jaxlsq_torch import interop
     from jaxlsq_torch.parallel import make_train_step
 
     state = interop.qat_variables(model)
-    batch = _image_batches(torch, 1, CHECK_B, seed=5)[0]
     cpu_batch = {k: v.cpu() for k, v in batch.items()}
     card_out = {}
     hooks = [m.register_forward_hook(
@@ -1231,8 +1268,8 @@ def _cpu_check(torch, model, step):
         h.remove()
 
     def cpu_loss(hand_over):
-        cpu_model = _resnet(torch, "cpu", seed=0)
-        interop.load_qat_variables(cpu_model, state)
+        cm = cpu_model()
+        interop.load_qat_variables(cm, state)
         moved = [0, 0]
 
         def take_card(n, mod, out):
@@ -1247,17 +1284,16 @@ def _cpu_check(torch, model, step):
             return out + torch.where(far, d, torch.zeros_like(d))
 
         if hand_over:
-            for n, m in _act_quantizers(cpu_model):
+            for n, m in _act_quantizers(cm):
                 m.register_forward_hook(lambda mod, i, o, n=n: take_card(n, mod, o))
-        loss = float(make_train_step(cpu_model, _sgd(torch, cpu_model),
-                                     jit=False)(cpu_batch)["loss"])
+        loss = float(make_train_step(cm, _sgd(torch, cm), jit=False)(cpu_batch)["loss"])
         return loss, moved
 
     free_loss, _ = cpu_loss(False)
     loss, (moved, total) = cpu_loss(True)
     rel = abs(gpu_loss - loss) / abs(loss)
     free_rel = abs(gpu_loss - free_loss) / abs(free_loss)
-    log(f"[train] B={CHECK_B} step from the same state: loss {gpu_loss:.6f} on the "
+    log(f"{label} step from the same state: loss {gpu_loss:.6f} on the "
         f"card, {loss:.6f} on the CPU plain path (rel err {rel:.2e}, tol 1e-3) with "
         f"{moved} of {total} activation elements one quant step apart taken from "
         f"the card (at most {MAX_MOVED_SHARE:g} of them); without that hand-over "
@@ -1408,43 +1444,54 @@ def _train_state(model, opt):
     return state
 
 
+def _steps_equal(torch, models, opts, batches, toggle_at=None):
+    """The eager (``models[0]``) and the captured (``models[1]``) step from one
+    state over ``batches`` (act fake-quant toggled off before step
+    ``toggle_at``): ``(leaves a step, losses, unequal leaves)``; a float leaf
+    that is not bit-equal is recorded with its largest difference over its
+    largest magnitude."""
+    from jaxlsq_torch.models import toggles
+    from jaxlsq_torch.parallel import make_train_step
+
+    steps = [make_train_step(m, o, jit=jit)
+             for m, o, jit in zip(models, opts, (False, True))]
+    unequal, n_leaves, losses = [], 0, []
+    for i, batch in enumerate(batches):
+        if i + 1 == toggle_at:
+            for m in models:
+                toggles.disable_fake_quant_on_act(m)
+        pair = [s(batch)["loss"] for s in steps]
+        losses.append([float(v) for v in pair])
+        states = [{"loss": v, **_train_state(m, o)}
+                  for v, m, o in zip(pair, models, opts)]
+        n_leaves = len(states[0])
+        for name, a in states[0].items():
+            b = states[1][name]
+            if torch.equal(a, b):
+                continue
+            rel = math.inf
+            if a.is_floating_point() and a.shape == b.shape:
+                rel = (float((a.double() - b.double()).abs().max())
+                       / max(float(a.abs().max()), 1e-30))
+            unequal.append({"step": i + 1, "leaf": name, "rel": rel})
+    _graph_of(steps[1])  # one capture
+    return n_leaves, losses, unequal
+
+
 def phase_captured_vs_eager(torch, rec):
     """The eager and the captured step from one state, cuDNN deterministic:
     losses and every leaf equal over steps across the window's end and a
     toggle (a float leaf that is not may differ by 1e-6 of its largest
     magnitude, and is recorded)."""
-    from jaxlsq_torch.models import toggles
-    from jaxlsq_torch.parallel import make_train_step
-
     cudnn = torch.backends.cudnn
     saved = (cudnn.deterministic, cudnn.benchmark)
     cudnn.deterministic, cudnn.benchmark = True, False
     try:
         models = [_resnet(torch, "cuda", seed=0) for _ in range(2)]
         opts = [_sgd(torch, m) for m in models]
-        steps = [make_train_step(m, o, jit=jit)
-                 for m, o, jit in zip(models, opts, (False, True))]
-        batches = _image_batches(torch, EQUAL_STEPS, TRAIN_B, seed=7)
-        unequal, n_leaves, losses = [], 0, []
-        for i, batch in enumerate(batches):
-            if i == EQUAL_STEPS - 1:
-                for m in models:
-                    toggles.disable_fake_quant_on_act(m)
-            pair = [s(batch)["loss"] for s in steps]
-            losses.append([float(v) for v in pair])
-            states = [{"loss": v, **_train_state(m, o)}
-                      for v, m, o in zip(pair, models, opts)]
-            n_leaves = len(states[0])
-            for name, a in states[0].items():
-                b = states[1][name]
-                if torch.equal(a, b):
-                    continue
-                rel = math.inf
-                if a.is_floating_point() and a.shape == b.shape:
-                    rel = (float((a.double() - b.double()).abs().max())
-                           / max(float(a.abs().max()), 1e-30))
-                unequal.append({"step": i + 1, "leaf": name, "rel": rel})
-        _graph_of(steps[1])  # one capture
+        n_leaves, losses, unequal = _steps_equal(
+            torch, models, opts, _image_batches(torch, EQUAL_STEPS, TRAIN_B, seed=7),
+            toggle_at=EQUAL_STEPS)
     finally:
         cudnn.deterministic, cudnn.benchmark = saved
     rec["captured_vs_eager"] = {"steps": EQUAL_STEPS, "leaves": n_leaves,
@@ -1549,6 +1596,397 @@ def phase_fq_times(torch, rec):
         del xs, gs_, leaves, fwd_args, bwd_args
 
 
+# ---------------------------------------------------------------------------
+# long-context LSQ QAT of the transformer LM: the flash-attention kernels
+# ---------------------------------------------------------------------------
+
+def _flash_flops(b, h, t, hd):
+    """Multiply-add operations (x2) of each flash kernel at these shapes,
+    counting the causal triangle's t (t + 1) / 2 (query, key) pairs: the
+    forward does two products a pair (S, PV), dK/dV four (S, dP, dV, dK), dQ
+    three (S, dP, dQ)."""
+    pairs = b * h * t * (t + 1) // 2
+    return {"flash_fwd": 2 * 2 * hd * pairs, "flash_bwd_dkv": 4 * 2 * hd * pairs,
+            "flash_bwd_dq": 3 * 2 * hd * pairs}
+
+
+def _flash_bytes(b, h, t, hd):
+    """Each input read once and each output written once (f32)."""
+    mat, row = 4 * b * h * t * hd, 4 * b * h * t
+    return {"flash_fwd": 3 * mat + mat + row,             # q, k, v -> out, lse
+            "flash_bwd_dkv": 4 * mat + 2 * row + 2 * mat,  # q, k, v, dO, lse, D -> dk, dv
+            "flash_bwd_dq": 4 * mat + 2 * row + mat}       # ... -> dq
+
+
+def _flash_case(torch, b, h, t, hd, g):
+    q, k, v, do = (torch.randn(b, h, t, hd, device="cuda", generator=g) for _ in range(4))
+    return q, k, v, do, hd ** -0.5
+
+
+def phase_flash_kernels(torch, rec):
+    """The three flash kernels against their plain versions on the same
+    inputs: out and lse within 2e-5 of max|ref|, dQ, dK, dV within 1e-4 of
+    max|ref| (the backward kernels get the plain forward's lse and D)."""
+    from jaxlsq_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    errs = {k: 0.0 for k in FLASH_KERNELS}
+    for b, h, t, hd in FLASH_SHAPES:
+        q, k, v, do, sm = _flash_case(torch, b, h, t, hd, g)
+        out, lse = fa.flash_fwd(q, k, v, sm)
+        rout, rlse = fa.flash_fwd_plain(q, k, v, sm)
+        d = (do * rout).sum(-1)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, rlse, d, sm)
+        rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, rlse, d, sm)
+        dq = fa.flash_bwd_dq(q, k, v, do, rlse, d, sm)
+        rdq = fa.flash_bwd_dq_plain(q, k, v, do, rlse, d, sm)
+        torch.cuda.synchronize()
+        line = []
+        for name, got, want, tol in (("flash_fwd", out, rout, 2e-5),
+                                     ("flash_fwd", lse, rlse, 2e-5),
+                                     ("flash_bwd_dq", dq, rdq, 1e-4),
+                                     ("flash_bwd_dkv", dk, rdk, 1e-4),
+                                     ("flash_bwd_dkv", dv, rdv, 1e-4)):
+            err = float((got - want).abs().max())
+            lim = tol * float(want.abs().max())
+            line.append(f"{err:.2e}/{lim:.2e}")
+            if not err <= lim:
+                raise AssertionError(f"{name} disagrees with its plain version at "
+                                     f"{(b, h, t, hd)}: {err} > {lim}")
+            errs[name] = max(errs[name], err)
+        log(f"[check] flash kernels B={b} H={h} t={t} hd={hd}: max_abs_err/tol "
+            f"out {line[0]}, lse {line[1]}, dq {line[2]}, dk {line[3]}, dv {line[4]}")
+        del q, k, v, do, out, rout, dk, rdk, dv, rdv, dq, rdq
+    rec["max_abs_err"].update(errs)
+
+
+def _lm_qat(torch, device, impl, seed=0, window=None):
+    """The flash_train_tpu.json LM: d512, depth 2, 8 heads, vocab 8192, rope,
+    W8A8 QAT with per-channel weights and a two-batch observer window."""
+    from jaxlsq_torch.models import QuantTransformerLM, default_qconfig
+
+    qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=2)
+    return QuantTransformerLM(LM_VOCAB, LM_DIM, LM_DEPTH, LM_HEADS, qc,
+                              max_len=LM_MAX, pos_embedding="rope",
+                              train_attn_impl=impl, attn_window=window,
+                              device=device, seed=seed)
+
+
+def _token_batches(torch, n, b, t, seed):
+    """Seeded token rows, the labels shifted by one."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(n):
+        x = torch.randint(0, LM_VOCAB, (b, t + 1), device="cuda", generator=g)
+        out.append({"input": x[:, :-1].contiguous(), "label": x[:, 1:].contiguous()})
+    return out
+
+
+def phase_lm_fq_kernels(torch, rec):
+    """The fake-quant kernels at the LM's quantizer shapes: every quantizer's
+    input, qparams and incoming gradient from one eager step of the
+    full-width 'flash' LM at B = 2, t = 4096, on that data and on random data
+    of its spread; the static kernels and their traced twins as in phase 2."""
+    from jaxlsq_torch.models.layers import FakeQuantize
+    from jaxlsq_torch.parallel import make_train_step
+
+    model = _lm_qat(torch, "cuda", "flash", seed=1)
+    caps = []
+
+    def hook(name, mod, inputs, out):
+        cap = {"name": name, "x": inputs[0].detach().clone(),
+               "scale": mod.scale.detach().clone(),
+               "shift": mod.shift.detach().clone(), "spec": mod.cfg.spec}
+        caps.append(cap)
+        out.register_hook(lambda g: cap.__setitem__("g", g.detach().clone()))
+
+    handles = [mod.register_forward_hook(lambda m, i, o, name=name: hook(name, m, i, o))
+               for name, mod in model.named_modules() if isinstance(mod, FakeQuantize)]
+    make_train_step(model, _sgd(torch, model), jit=False)(
+        _token_batches(torch, 1, *LM_LEGS[0], seed=12)[0])
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    n_fq = 1 + 8 * LM_DEPTH + 2  # the table, 4 dense layers a block, lm_head
+    if len(caps) != n_fq or any("g" not in c for c in caps):
+        raise AssertionError(f"captured {len(caps)} quantizers, expected {n_fq} with gradients")
+    del model
+    g = torch.Generator(device="cuda").manual_seed(13)
+    errs = {k: 0.0 for k in FQ_KERNELS + TRACED_KERNELS}
+    worst = {False: 0.0, True: 0.0}
+    shapes = []
+    for c in caps:
+        x, grad, spec = c["x"], c["g"], c["spec"]
+        xr = torch.randn(x.shape, device="cuda", generator=g) * x.std() + x.mean()
+        gr = torch.randn(x.shape, device="cuda", generator=g) * grad.std()
+        for traced in (False, True):
+            for xx, gg, data in ((x, grad, "real"), (xr, gr, "random")):
+                worst[traced] = max(worst[traced], _check_fq(
+                    torch, xx, c["scale"], c["shift"], gg, spec, errs,
+                    f"LM {c['name']} {data}", traced))
+        shapes.append({"name": c["name"], "shape": list(x.shape),
+                       "per_channel": spec.per_channel})
+    for k, v in errs.items():
+        rec["max_abs_err"][k] = max(rec["max_abs_err"][k], v)
+    rec["lm_fq_shapes"] = shapes
+    log(f"[check] fake-quant kernels at the {len(shapes)} quantizer shapes of the "
+        f"d{LM_DIM} LM at B={LM_LEGS[0][0]}, t={LM_LEGS[0][1]} "
+        f"({sorted({tuple(r['shape']) for r in shapes})}), real and random data, "
+        "static and traced: forward and dX bit-exact; dS/dB worst "
+        f"{worst[False]:.2e} (static) and {worst[True]:.2e} (traced) of their term "
+        "sums (tol 1e-5)")
+
+
+def _lm_leg(torch, impl, b, t, jit, profile=False):
+    """``LM_STEPS`` steps of a fresh LM: tokens/s over steps 3-8 (past the
+    observer window; for ``jit`` the replays), the leg's own peak of
+    allocated memory (model, optimizer, batches and steps; what earlier legs
+    keep alive is subtracted), the flash launches of each step (gated), and
+    with ``profile`` one more step profiled."""
+    from jaxlsq_torch.ops.flash_attention import LAUNCHES as FA
+    from jaxlsq_torch.parallel import make_train_step
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()  # what earlier legs keep alive
+    torch.cuda.reset_peak_memory_stats()
+    model = _lm_qat(torch, "cuda", impl)
+    step = make_train_step(model, _sgd(torch, model), jit=jit)
+    batches = _token_batches(torch, LM_STEPS + 1, b, t, seed=21)
+    losses, per_step = [], []
+    for i, batch in enumerate(batches[:LM_STEPS]):
+        if i == 2:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        before = dict(FA)
+        losses.append(step(batch)["loss"])
+        per_step.append({k: FA[k] - before[k] for k in FA})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    timed = LM_STEPS - 2
+    leg = {"impl": impl, "B": b, "t": t, "jit": jit,
+           "tokens_per_s": timed * b * t / wall, "step_ms": 1e3 * wall / timed,
+           "peak_allocated_gib": (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+           "losses": torch.stack(losses).cpu().tolist(), "per_step_launches": per_step}
+    log(f"[lm] {impl} {'captured' if jit else 'eager'} B={b} t={t}: "
+        f"{leg['tokens_per_s']:.0f} tokens/s ({leg['step_ms']:.2f} ms a step, steps "
+        f"3-{LM_STEPS}), peak allocated {leg['peak_allocated_gib']:.3f} GiB; losses "
+        + " ".join(f"{v:.4f}" for v in leg["losses"]))
+    if not all(math.isfinite(v) for v in leg["losses"]):
+        raise AssertionError(f"non-finite LM training loss: {leg['losses']}")
+    for i, counts in enumerate(per_step):
+        want = LM_DEPTH if impl == "flash" and (not jit or i < 2) else 0
+        if any(v != want for v in counts.values()):
+            raise AssertionError(f"{impl} step {i + 1} (jit={jit}): flash launches "
+                                 f"{counts}, expected {want} of each")
+    if jit and _graph_of(step) is None:
+        raise AssertionError("the captured LM leg holds no graph")
+    if profile:
+        leg["profile"] = _profile_train_step(torch, step, batches[LM_STEPS],
+                                             leg["step_ms"])
+        p = leg["profile"]
+        log(f"[lm] profiled {impl} {'replay' if jit else 'eager step'} B={b} t={t}: "
+            f"kernels busy {p['device_ms']:.2f} ms ({100 * p['busy_share']:.1f}% of "
+            f"{leg['step_ms']:.2f} ms), {p['kernels']} kernels; by category: "
+            + "; ".join(f"{k} {v:.2f} ms" for k, v in sorted(
+                p["by_category_ms"].items(), key=lambda kv: -kv[1]))
+            + "; top: " + "; ".join(f"{k} {v:.2f} ms" for k, v in p["top"][:6]))
+    return leg, model, step
+
+
+def phase_lm(torch, rec):
+    """The slice's main path: LSQ QAT of the full-width LM under 'flash' and
+    'xla', eager and captured, at B = 2, t = 4096 and B = 4, t = 2048 (8192
+    tokens a step), with every launch count reset before it and read after
+    it; then the card-vs-CPU step, eager = captured, the window's routing and
+    train-then-serve."""
+    from jaxlsq_torch.ops.flash_attention import LAUNCHES as FA
+
+    lm = rec["lm"] = {"legs": []}
+    reset_counts()
+    t_main = time.time()
+    keep = None
+    for b, t in LM_LEGS:
+        for impl in ("flash", "xla"):
+            for jit in (False, True):
+                prof = (b, t) == LM_LEGS[0] and impl == "flash"
+                leg, model, step = _lm_leg(torch, impl, b, t, jit, profile=prof)
+                lm["legs"].append(leg)
+                if prof and not jit:
+                    keep = (model, step)
+                del model, step
+                torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    lm["wall_s"] = time.time() - t_main
+    lm["launches"] = dict(FA)
+    log(f"[lm] flash launches on the LM path: {lm['launches']}")
+    for k, v in lm["launches"].items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was never launched on the LM path")
+    peak = {(x["impl"], x["t"], x["jit"]): x["peak_allocated_gib"] for x in lm["legs"]}
+    lm["xla_over_flash_peak"] = {f"t{t}": peak[("xla", t, False)] / peak[("flash", t, False)]
+                                 for _, t in LM_LEGS}
+    log(f"[lm] peak allocated, eager legs, xla / flash: {lm['xla_over_flash_peak']}")
+
+    model, step = keep
+    lm["cpu_check"] = _cpu_check(
+        torch, model, step, _token_batches(torch, 1, 1, 512, seed=22)[0],
+        lambda: _lm_qat(torch, "cpu", "flash"), "[lm] B=1, t=512")
+    lm["equal"] = _lm_equal(torch)
+    lm["window"] = _lm_window(torch)
+    lm["serve"] = _lm_serve(torch, model)
+
+
+def _lm_equal(torch):
+    """3 eager and 3 captured 'flash' steps of the full-width LM from one
+    state at B = 2, t = 4096, across the observer window: equal leaf by
+    leaf."""
+    from jaxlsq_torch import interop
+
+    models = [_lm_qat(torch, "cuda", "flash", seed=3) for _ in range(2)]
+    interop.load_qat_variables(models[1], interop.qat_variables(models[0]))
+    opts = [_sgd(torch, m) for m in models]
+    n_leaves, losses, unequal = _steps_equal(
+        torch, models, opts, _token_batches(torch, 3, *LM_LEGS[0], seed=23))
+    log(f"[lm] eager vs captured 'flash' steps from one state, B={LM_LEGS[0][0]} "
+        f"t={LM_LEGS[0][1]}, 3 steps (window end at 3): {n_leaves} leaves a step, "
+        f"{len(unequal)} not bit-equal {unequal[:5]}; losses {losses}")
+    if unequal:
+        raise AssertionError(f"the captured LM step left another state than the "
+                             f"eager step: {unequal[:10]}")
+    return {"leaves": n_leaves, "losses": losses}
+
+
+def _lm_window(torch):
+    """'flash' with a 512-key window (< t) takes the banded path: one eager
+    step at B = 2, t = 4096 launches no flash kernel."""
+    from jaxlsq_torch.ops.flash_attention import LAUNCHES as FA
+    from jaxlsq_torch.parallel import make_train_step
+
+    model = _lm_qat(torch, "cuda", "flash", window=512)
+    before = dict(FA)
+    loss = float(make_train_step(model, _sgd(torch, model), jit=False)(
+        _token_batches(torch, 1, *LM_LEGS[0], seed=24)[0])["loss"])
+    launched = {k: FA[k] - before[k] for k in FA}
+    log(f"[lm] attn_window=512 under 'flash', B={LM_LEGS[0][0]} t={LM_LEGS[0][1]}: "
+        f"loss {loss:.4f}, flash launches {launched} (the banded path)")
+    if not (math.isfinite(loss) and not any(launched.values())):
+        raise AssertionError(f"the windowed step ran flash kernels or diverged: "
+                             f"{launched}, {loss}")
+    return {"loss": loss, "flash_launches": launched}
+
+
+def _lm_serve(torch, model):
+    """Train-then-serve: the trained LM's variables (``qat_variables``) into
+    a serve-mode LM (``load_variables`` converts them: int8 per-channel
+    kernels, int8 table), ``make_generate`` at B = 1, and the prefill and
+    one decode step's logits within 1e-4 of max|ref| of the CPU plain path;
+    ``wo8`` and ``decode_attention`` must have launched."""
+    import numpy as np
+
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.models import QuantTransformerLM
+    from jaxlsq_torch.serve import make_generate, prefill
+
+    tree = interop.qat_variables(model)
+    qc = model.qconfig.for_serving("none")
+    served = {}
+    for dev in ("cuda", "cpu"):
+        served[dev] = QuantTransformerLM(LM_VOCAB, LM_DIM, LM_DEPTH, LM_HEADS, qc,
+                                         max_len=T0 + N2, pos_embedding="rope",
+                                         device=dev)
+        interop.load_variables(served[dev], tree)
+    mm, attn, _ = reset_counts()
+    r = np.random.RandomState(9)
+    prompt = torch.as_tensor(r.randint(0, LM_VOCAB, size=(1, T0)), device="cuda")
+    toks = make_generate(served["cuda"], T0, 64)(prompt).cpu().numpy()
+    if toks.shape != (1, 64) or not ((toks >= 0) & (toks < LM_VOCAB)).all():
+        raise AssertionError(f"train-then-serve: bad tokens {toks.shape}")
+    short = torch.as_tensor(r.randint(0, LM_VOCAB, size=(1, 16)))
+    got, cache, idx = prefill(served["cuda"], short.to("cuda"))
+    want, ccache, _ = prefill(served["cpu"], short)
+    tok = torch.argmax(want, -1).to(torch.int32)[:, None]
+    with torch.no_grad():
+        g2, _ = served["cuda"](tok.to("cuda"), cache=cache, cache_index=idx)
+        w2, _ = served["cpu"](tok, cache=ccache, cache_index=idx)
+    errs = []
+    for a, b_ in ((got, want), (g2[:, -1], w2[:, -1])):
+        a = a.cpu()
+        if not torch.isfinite(a).all():
+            raise AssertionError("non-finite served logits")
+        errs.append(float((a - b_).abs().max()))
+        tol = 1e-4 * float(b_.abs().max())
+        if not errs[-1] <= tol:
+            raise AssertionError(f"served logits disagree with the CPU plain path: "
+                                 f"{errs[-1]} > {tol}")
+    launches = {"wo8": mm["wo8"], "decode_attention": attn["decode_attention"]}
+    log(f"[lm] train-then-serve: the trained LM converted (int8 per-channel) and "
+        f"served, make_generate B=1 gave 64 tokens; prefill / decode logits vs the "
+        f"CPU plain path max_abs_err {errs[0]:.3e} / {errs[1]:.3e} (tol 1e-4 of "
+        f"max|ref|); launches {launches}")
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"the served LM did not run wo8 and decode_attention: "
+                             f"{launches}")
+    return {"logits_err_vs_cpu": errs, "launches": launches}
+
+
+def phase_flash_times(torch, rec):
+    """Each flash kernel at the LM's two attention shapes, beside its bound,
+    its plain version and SDPA (the PyTorch library call, forward and forward
+    + backward, timed here only)."""
+    import torch.nn.functional as F
+
+    from jaxlsq_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    rows = []
+    for b, h, t, hd in FLASH_SHAPES[:2]:
+        q, k, v, do, sm = _flash_case(torch, b, h, t, hd, g)
+        sets = [(q, k, v, do)] + [tuple(x.clone() for x in (q, k, v, do))
+                                  for _ in range(copies_for(16 * q.numel()) - 1)]
+        out, lse = fa.flash_fwd(q, k, v, sm)
+        d = (do * out).sum(-1)
+        fns = {"flash_fwd": (lambda q_, k_, v_, do_: fa.flash_fwd(q_, k_, v_, sm),
+                             lambda q_, k_, v_, do_: fa.flash_fwd_plain(q_, k_, v_, sm)),
+               "flash_bwd_dkv": (
+                   lambda q_, k_, v_, do_: fa.flash_bwd_dkv(q_, k_, v_, do_, lse, d, sm),
+                   lambda q_, k_, v_, do_: fa.flash_bwd_dkv_plain(q_, k_, v_, do_, lse, d, sm)),
+               "flash_bwd_dq": (
+                   lambda q_, k_, v_, do_: fa.flash_bwd_dq(q_, k_, v_, do_, lse, d, sm),
+                   lambda q_, k_, v_, do_: fa.flash_bwd_dq_plain(q_, k_, v_, do_, lse, d, sm))}
+        leaves = [tuple(x.clone().requires_grad_(True) for x in s_[:3]) + (s_[3],)
+                  for s_ in sets]
+
+        def sdpa(q_, k_, v_, do_):
+            return F.scaled_dot_product_attention(q_, k_, v_, is_causal=True, scale=sm)
+
+        def sdpa_fwdbwd(q_, k_, v_, do_):
+            return torch.autograd.grad(sdpa(q_, k_, v_, do_), (q_, k_, v_), do_)
+
+        lib_fwd, _ = measure(torch, sdpa, sets, reps=20)
+        lib_fb, _ = measure(torch, sdpa_fwdbwd, leaves, reps=20)
+        flops, nbytes = _flash_flops(b, h, t, hd), _flash_bytes(b, h, t, hd)
+        row = {"B": b, "H": h, "t": t, "hd": hd, "sdpa_fwd_ms": lib_fwd,
+               "sdpa_fwd_bwd_ms": lib_fb}
+        for name, (fn, plain_fn) in fns.items():
+            ms, call = measure(torch, fn, sets, reps=20)
+            plain, _ = measure(torch, plain_fn, sets[:2], reps=4)
+            b_ms, b_by = bound(nbytes[name], flops[name])
+            row[name] = {"ms": ms, "call_ms": call, "plain_ms": plain, "bound_ms": b_ms,
+                         "bound_by": b_by, "flops": flops[name], "bytes": nbytes[name],
+                         "tflops": flops[name] / ms / 1e9}
+            log(f"[time] {name} B={b} H={h} t={t} hd={hd}: {ms:.3f} ms on the device, "
+                f"{call:.3f} ms a call ({row[name]['tflops']:.2f} TFLOP/s; bound "
+                f"{b_ms:.3f} ms by {b_by}; plain {plain:.3f} ms)")
+        row["kernels_fwd_bwd_ms"] = sum(row[k]["ms"] for k in FLASH_KERNELS)
+        log(f"[time] SDPA (f32, causal) B={b} H={h} t={t} hd={hd}: forward "
+            f"{lib_fwd:.3f} ms, forward + backward {lib_fb:.3f} ms; the kernels: "
+            f"forward {row['flash_fwd']['ms']:.3f} ms, forward + backward "
+            f"{row['kernels_fwd_bwd_ms']:.3f} ms")
+        rows.append(row)
+        del sets, leaves, q, k, v, do, out, lse, d
+    rec["times"]["flash"] = rows
+
+
 def kernels_line(rec):
     out = []
     for name, src, repl in (
@@ -1617,6 +2055,25 @@ def kernels_line(rec):
                     "shape": ("x " + "x".join(map(str, t["shape"]))
                               + (", train mode; library: forward + backward"
                                  if "bwd" in name else ""))})
+    r = rec["times"]["flash"][0]
+    for name, repl in (
+            ("flash_fwd", "jaxlsq/models/zoo.py:433 -> upstream "
+                          "jax/experimental/pallas/ops/tpu/flash_attention.py:331"),
+            ("flash_bwd_dkv", "jaxlsq/models/zoo.py:433 -> upstream "
+                              "jax/experimental/pallas/ops/tpu/flash_attention.py:796"),
+            ("flash_bwd_dq", "jaxlsq/models/zoo.py:433 -> upstream "
+                             "jax/experimental/pallas/ops/tpu/flash_attention.py:1146")):
+        t = r[name]
+        out.append({"name": name, "route": "cuda",
+                    "source": "jaxlsq_torch/csrc/flash_attention.cu", "replaces": repl,
+                    "launches": rec["lm"]["launches"][name],
+                    "max_abs_err": rec["max_abs_err"][name],
+                    "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"],
+                    "library_ms": r["sdpa_fwd_ms"] if name == "flash_fwd" else None,
+                    "shape": f"B={r['B']}, H={r['H']}, t={r['t']}, hd={r['hd']}, causal, "
+                             "f32; library: SDPA forward (no single library call "
+                             "computes a backward pass alone)"})
     return out
 
 
@@ -1648,7 +2105,9 @@ def main(argv):
            "cuda": torch.version.cuda}
     t0 = time.time()
     phase_kernels(torch, rec)
+    phase_flash_kernels(torch, rec)
     phase_fq_kernels(torch, rec)
+    phase_lm_fq_kernels(torch, rec)
     phase_main(torch, rec)
     phase_paged(torch, rec)
     phase_times(torch, rec)
@@ -1656,6 +2115,8 @@ def main(argv):
     phase_train(torch, rec)
     phase_train_captured(torch, rec)
     phase_captured_vs_eager(torch, rec)
+    phase_lm(torch, rec)
+    phase_flash_times(torch, rec)
     rec["wall_s"] = time.time() - t0
     rec["profile_misses"] = PROFILE_MISSES
     rec["waiting_calls"] = WAITING_CALLS

@@ -21,9 +21,11 @@ and nothing else.
 :func:`load_qat_variables` and its inverse :func:`qat_variables` carry a QAT
 model's whole state (``params``/``qparams``/``quant_state``/``batch_stats``,
 as ``create_train_state`` or ``model.init`` gives it) into a QAT-mode model
-of the port (``QuantResNet``, ``QuantMLP``, or any model of ``QuantConv``,
-``QuantDense``, ``BatchNorm`` and ``FakeQuantize`` modules named as the flax
-modules are) and out again.  Conv kernels are HWIO there and OIHW here; a
+of the port (``QuantResNet``, ``QuantMLP``, the QAT-mode
+``QuantTransformerLM``, or any model of ``QuantConv``, ``QuantDense``,
+``QuantEmbed``, ``BatchNorm``, ``nn.LayerNorm`` and ``FakeQuantize`` modules
+named as the flax modules are, plus a learned ``pos_emb`` parameter) and out
+again.  Conv kernels are HWIO there and OIHW here; a
 per-channel conv weight's qparams are the same (C,) vectors (axis 3 there, 0
 here); the quantizers' counters, flags and observer count are their
 buffers, of the JAX package's types (int32, bool, int32).
@@ -35,8 +37,9 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch import nn
 
-from .models.layers import FakeQuantize, QuantConv, QuantDense
+from .models.layers import FakeQuantize, QuantConv, QuantDense, QuantEmbed
 from .models.norm import BatchNorm
 from .observers.minmax import ObserverState
 from .observers.quantizer import STATE_DTYPES, STATE_FIELDS, QuantizerState
@@ -174,10 +177,17 @@ def _prune(tree):
 def _qat_modules(model):
     for name, mod in model.named_modules():
         path = tuple(name.split(".")) if name else ()
-        if isinstance(mod, (FakeQuantize, BatchNorm)):
+        if isinstance(mod, (FakeQuantize, BatchNorm, nn.LayerNorm)):
             yield path, mod
-        elif isinstance(mod, (QuantConv, QuantDense)) and getattr(mod, "qat", True):
+        elif (isinstance(mod, (QuantConv, QuantDense, QuantEmbed))
+              and getattr(mod, "qat", True)):
             yield path, mod
+
+
+def _pos_emb(model):
+    """A learned ``pos_emb`` parameter of ``model`` (the LM's), or None."""
+    p = getattr(model, "pos_emb", None)
+    return p if isinstance(p, nn.Parameter) else None
 
 
 @torch.no_grad()
@@ -219,6 +229,19 @@ def load_qat_variables(model, tree: Dict[str, Any]) -> None:
                 _copy(dst, _to_torch(node.pop(key), dev), f"{where}/{key}")
             if p or s:
                 raise ValueError(f"unexpected variables {sorted(p) + sorted(s)} at {where}")
+        elif isinstance(mod, nn.LayerNorm):  # flax LayerNorm: scale, bias
+            p = _pop_node(cols["params"], path, "params")
+            for dst, key in ((mod.weight, "scale"), (mod.bias, "bias")):
+                _copy(dst, _to_torch(_take(p, key, f"params/{where}"), dev),
+                      f"{where}/{key}")
+            if p:
+                raise ValueError(f"unexpected variables {sorted(p)} at {where}")
+        elif isinstance(mod, QuantEmbed):
+            p = cols["params"]
+            for key in path:
+                p = _take_node(p, key, "params", path)
+            _copy(mod.embedding, _to_torch(_take(p, "embedding", f"params/{where}"), dev),
+                  f"{where}/embedding")
         else:
             p = cols["params"]
             for key in path:
@@ -229,6 +252,9 @@ def load_qat_variables(model, tree: Dict[str, Any]) -> None:
             _copy(mod.kernel, k, f"{where}/kernel")
             if mod.bias is not None:
                 _copy(mod.bias, _to_torch(p.pop("bias"), dev), f"{where}/bias")
+    if _pos_emb(model) is not None:
+        _copy(model.pos_emb, _to_torch(_take(cols["params"], "pos_emb", "params"), dev),
+              "pos_emb")
     left = _prune(cols)
     if left:
         raise ValueError(f"unexpected variables {_leftover(left)}")
@@ -258,6 +284,10 @@ def qat_variables(model) -> Dict[str, Any]:
         elif isinstance(mod, BatchNorm):
             put("params", path, {"scale": np_(mod.scale), "bias": np_(mod.bias)})
             put("batch_stats", path, {"mean": np_(mod.mean), "var": np_(mod.var)})
+        elif isinstance(mod, nn.LayerNorm):
+            put("params", path, {"scale": np_(mod.weight), "bias": np_(mod.bias)})
+        elif isinstance(mod, QuantEmbed):
+            put("params", path, {"embedding": np_(mod.embedding)})
         else:
             k = np_(mod.kernel)
             if isinstance(mod, QuantConv):
@@ -265,4 +295,6 @@ def qat_variables(model) -> Dict[str, Any]:
             put("params", path, {"kernel": k})
             if mod.bias is not None:
                 put("params", path, {"bias": np_(mod.bias)})
+    if _pos_emb(model) is not None:
+        cols["params"]["pos_emb"] = np_(model.pos_emb)
     return {c: v for c, v in cols.items() if v}

@@ -23,13 +23,13 @@ QAT mode (fake-quant training):
   axis 1; :class:`QuantConv` takes NCHW activations and an OIHW kernel, so
   its weight's per-channel axis is 0 (the JAX package: NHWC, HWIO, axis 3).
   The matmul and the convolution are plain PyTorch, as the JAX package
-  leaves them to XLA.
+  leaves them to XLA.  :class:`QuantEmbed` fake-quantizes its whole table
+  per row, then gathers.
 
 Serve mode: :class:`QuantDense` holds a packed (K, N) kernel as buffers and
 runs the fused weight-only matmul (``serve.matmul.wo_matmul``);
-:class:`QuantEmbed` (serve mode only) holds an int8 table and dequantizes
-only the gathered rows.  Both are filled by
-:func:`jaxlsq_torch.interop.load_variables`.
+:class:`QuantEmbed` holds an int8 table and dequantizes only the gathered
+rows.  Both are filled by :func:`jaxlsq_torch.interop.load_variables`.
 """
 
 from __future__ import annotations
@@ -204,13 +204,6 @@ def refresh_host_state(modules) -> None:
 def _fake_quantizer(cfg: Optional[LSQQuantizer], channels: int,
                     device) -> Optional[FakeQuantize]:
     return None if cfg is None else FakeQuantize(cfg, channels, device)
-
-
-def _check_serve(qc: QConfig, what: str) -> None:
-    if qc.mode != "serve":
-        raise NotImplementedError(
-            f"{what}: only serve mode is ported so far; its QAT branch arrives "
-            "with a later slice (use qconfig.for_serving())")
 
 
 class _PackedBuffers(nn.Module):
@@ -404,20 +397,37 @@ class QuantConv(nn.Module):
 
 
 class QuantEmbed(nn.Module):
-    """Serve-mode embedding: int8 table (always 8 bit: a row gather needs
-    whole bytes) with per-row (or per-tensor) qparams; only the gathered rows
-    are dequantized."""
+    """Embedding with an LSQ weight-quantized table (per-row qparams: the
+    per-channel axis is 0, the vocab axis).
+
+    QAT mode: an ``nn.Parameter`` table, fake-quantized whole by
+    ``weight_fq``, then the rows gathered with ``F.embedding`` (its CUDA
+    backward sums the rows' gradients without atomics, so a step's result
+    does not depend on the run).  Serve mode: an int8 table (always 8 bit: a
+    row gather needs whole bytes) with per-row (or per-tensor) qparams; only
+    the gathered rows are dequantized."""
 
     def __init__(self, num_embeddings: int, features: int, qconfig: QConfig, *,
                  path: Sequence[str] = (), device=None):
         super().__init__()
         qc = qconfig.resolve(tuple(path))
-        _check_serve(qc, "QuantEmbed")
+        self.qat = qc.mode != "serve"
+        if self.qat:
+            device = resolve_device(device)
+            self.embedding = nn.Parameter(torch.zeros(num_embeddings, features,
+                                                      device=device))
+            self.weight_fq = _fake_quantizer(qc.weight_for_axis(0), num_embeddings,
+                                             device)
+            return
         wspec = qc.required_weight_for_axis(0).spec
         c = num_embeddings if wspec.per_channel else 1
         self.embedding = _PackedBuffers((num_embeddings, features), 8, 0, 0, c, device)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        if self.qat:
+            table = (self.embedding if self.weight_fq is None
+                     else self.weight_fq(self.embedding))
+            return F.embedding(tokens, table)
         p = self.embedding
         rows = p.data[tokens].to(torch.float32)
         if p.scale.shape[0] > 1:

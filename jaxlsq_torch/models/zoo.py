@@ -5,13 +5,22 @@ and :func:`resnet18_cifar`, built from ``QuantDense``/``QuantConv`` and the
 flax-rule ``BatchNorm``; NCHW inputs; :func:`init_qat_variables` draws their
 seeded initial variables.
 
-Serving: the quantized transformer LM (``QuantTransformerBlock``,
-``QuantTransformerLM``, ``_rope`` and the dense-cache ``_cached_attention``).
-Its modules hold serve-mode buffers (packed kernels from
-``jaxlsq_torch.serve.convert``, loaded by ``jaxlsq_torch.interop``) and run:
+The quantized transformer LM (``QuantTransformerBlock``,
+``QuantTransformerLM``, ``_rope`` and the dense-cache ``_cached_attention``)
+in either mode of its qconfig:
 
-* without a cache: the full causal forward, with plain PyTorch attention;
-* with a cache: the new k/v are written into the cache IN PLACE at
+* QAT mode (``qconfig.mode != 'serve'``): trainable kernels, biases,
+  LayerNorm affine and ``pos_emb`` (``nn.Parameter``), LSQ quantizers in
+  every dense layer and the embedding, drawn from ``seed`` by
+  :func:`init_qat_variables`; the full causal forward only (the cache branch
+  of a QAT-mode LM raises).  ``train_attn_impl`` picks the no-cache
+  attention: ``'xla'`` the plain einsum over the (t, t) scores,
+  ``'flash'`` the flash-attention kernels (``ops.flash_attention``), or the
+  banded formulation when a sliding window shorter than t is set.
+* Serve mode: serve-mode buffers (packed kernels from
+  ``jaxlsq_torch.serve.convert``, loaded by ``jaxlsq_torch.interop``).
+  Without a cache: the full causal forward, attention as in QAT mode.
+  With a cache: the new k/v are written into the cache IN PLACE at
   ``cache_index`` (the JAX package returns a new cache; here the returned
   cache is the same objects, updated) and attention runs through
   ``serve.attention.decode_attention`` — the CUDA kernel on the card — or,
@@ -37,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
+from ..ops.flash_attention import flash_attention
 from ..serve.attention import MASK, _q4, _q8, decode_attention
 from ..serve.paged import PagedKVLayer, paged_attention, paged_update
 from .layers import FakeQuantize, QuantConv, QuantDense, QuantEmbed
@@ -126,6 +136,55 @@ def _layer_norm(dim: int, device) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=_LN_EPS, device=device)
 
 
+def _repeat_kv(x: torch.Tensor, g: int) -> torch.Tensor:
+    """(B, KVH, t, hd) -> (B, KVH * g, t, hd), each kv head repeated for its
+    group of g query heads (``jnp.repeat(x, g, axis=1)``).  An expand, so
+    the backward sums the group's gradients with a reduction, not atomics."""
+    b, kvh, t, hd = x.shape
+    return x[:, :, None].expand(b, kvh, g, t, hd).reshape(b, kvh * g, t, hd)
+
+
+def _flash_train_attention(q, k, v):
+    """Causal attention through the flash kernels (``ops.flash_attention``):
+    no (t, t) scores are held, forward or backward.  GQA repeats the kv heads
+    to the query heads first, as the JAX package does; any t."""
+    h, hd = q.shape[1], q.shape[3]
+    if k.shape[1] != h:
+        k, v = (_repeat_kv(x, h // k.shape[1]) for x in (k, v))
+    return flash_attention(q, k, v, 1.0 / math.sqrt(hd))
+
+
+def _banded_train_attention(q, k, v, window: int):
+    """Sliding-window attention with O(t·W) scores (plain PyTorch, as the
+    JAX package's chunked einsums): keys in blocks of W, each query block
+    attends its own and the previous block, masked to ``0 <= qpos - kpos <
+    W``; t padded up to a multiple of W (padded keys are reachable only from
+    padded queries, whose rows are sliced away)."""
+    b, h, t, hd = q.shape
+    if k.shape[1] != h:
+        k, v = (_repeat_kv(x, h // k.shape[1]) for x in (k, v))
+    w = int(window)
+    nb = -(-t // w)
+    pt = nb * w
+    if pt != t:
+        q, k, v = (F.pad(a, (0, 0, 0, pt - t)) for a in (q, k, v))
+    qb, kb, vb = (a.reshape(b, h, nb, w, hd) for a in (q, k, v))
+
+    def with_prev(x):  # (B, H, nb, 2W, hd): [block i-1 | block i]
+        return torch.cat([F.pad(x[:, :, :-1], (0, 0, 0, 0, 1, 0)), x], dim=3)
+
+    k2, v2 = with_prev(kb), with_prev(vb)
+    att = torch.einsum("bhnqd,bhnkd->bhnqk", qb, k2) / math.sqrt(hd)
+    ar = torch.arange(2 * w, device=q.device)
+    kpos = ar[None, :] - w                      # relative to the block's start
+    diff = ar[:w, None] - kpos
+    ok = ((diff >= 0) & (diff < w))[None] & (
+        torch.arange(nb, device=q.device)[:, None, None] * w + kpos[None] >= 0)
+    att = torch.softmax(torch.where(ok[None, None], att, MASK), dim=-1)
+    y = torch.einsum("bhnqk,bhnkd->bhnqd", att, v2).reshape(b, h, pt, hd)
+    return y[:, :, :t] if pt != t else y
+
+
 class QuantTransformerBlock(nn.Module):
     """Pre-LN block: fused q|k|v projection, attention, output projection,
     GELU (tanh form, as flax ``nn.gelu``) MLP — every matmul quantized."""
@@ -133,12 +192,17 @@ class QuantTransformerBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, qconfig: QConfig, *,
                  mlp_ratio: int = 4, num_kv_heads: Optional[int] = None,
                  rope: bool = False, attn_window: Optional[int] = None,
-                 moe_experts: Optional[int] = None, path=(), device=None):
+                 train_attn_impl: str = "xla", moe_experts: Optional[int] = None,
+                 path=(), device=None):
         super().__init__()
         if moe_experts:
             raise NotImplementedError("MoE blocks arrive with the MoE slice")
         if attn_window is not None and attn_window < 1:
             raise ValueError(f"attn_window must be >= 1 or None, got {attn_window}")
+        if train_attn_impl not in ("xla", "flash"):
+            raise ValueError(f"train_attn_impl must be 'xla' or 'flash', "
+                             f"got {train_attn_impl!r}")
+        self.train_attn_impl = train_attn_impl
         kvh = num_kv_heads or num_heads
         if num_heads % kvh:
             raise ValueError(f"num_heads {num_heads} not divisible by num_kv_heads {kvh}")
@@ -157,9 +221,14 @@ class QuantTransformerBlock(nn.Module):
                                    path=path + ("mlp_down",), device=device)
 
     def _attention(self, q, k, v):
-        """No-cache causal attention (plain PyTorch, as the JAX package's
-        einsum path)."""
+        """No-cache causal attention: ``'flash'`` takes the flash kernels, or
+        the banded formulation under a window shorter than t (the JAX
+        package's routing); ``'xla'`` the plain einsum over (t, t) scores."""
         b, h, t, hd = q.shape
+        if self.train_attn_impl == "flash":
+            if self.attn_window is not None and self.attn_window < t:
+                return _banded_train_attention(q, k, v, self.attn_window)
+            return _flash_train_attention(q, k, v)
         g = h // self.kvh
         mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
         if self.attn_window is not None:
@@ -206,19 +275,20 @@ class QuantTransformerBlock(nn.Module):
 
 class QuantTransformerLM(nn.Module):
     """Embedding -> ``depth`` quantized blocks -> LayerNorm -> LM head (no
-    bias).  Serve mode only (pass ``qconfig.for_serving(...)``).
+    bias).  QAT mode (parameters drawn from ``seed``) or serve mode (pass
+    ``qconfig.for_serving(...)``; buffers loaded by ``interop``).
 
-    ``model(tokens)`` gives logits (B, t, vocab); ``model(tokens, cache=...,
-    cache_index=...)`` gives ``(logits, cache)`` with the cache updated in
-    place.  Runs on CUDA unless ``device`` says otherwise; with no card and
-    no ``device``, construction raises.
+    ``model(tokens)`` gives logits (B, t, vocab); in serve mode
+    ``model(tokens, cache=..., cache_index=...)`` gives ``(logits, cache)``
+    with the cache updated in place.  Runs on CUDA unless ``device`` says
+    otherwise; with no card and no ``device``, construction raises.
     """
 
     def __init__(self, vocab: int, dim: int, depth: int, num_heads: int,
                  qconfig: QConfig, *, max_len: int = 256,
                  num_kv_heads: Optional[int] = None, pos_embedding: str = "learned",
-                 attn_window: Optional[int] = None,
-                 moe_experts: Optional[int] = None, device=None):
+                 attn_window: Optional[int] = None, train_attn_impl: str = "xla",
+                 moe_experts: Optional[int] = None, device=None, seed: int = 0):
         super().__init__()
         if pos_embedding not in ("learned", "rope"):
             raise ValueError(f"pos_embedding must be 'learned' or 'rope', "
@@ -230,25 +300,39 @@ class QuantTransformerLM(nn.Module):
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
         self.qconfig, self.max_len = qconfig, max_len
         self.pos_embedding, self.attn_window = pos_embedding, attn_window
+        self.train_attn_impl = train_attn_impl
+        self.qat = qconfig.mode != "serve"
         dev = self.device
         self.tok_emb = QuantEmbed(vocab, dim, qconfig, path=("tok_emb",), device=dev)
         if pos_embedding == "learned":
-            self.register_buffer("pos_emb", torch.zeros(max_len, dim, device=dev))
+            pos = torch.zeros(max_len, dim, device=dev)
+            if self.qat:
+                self.pos_emb = nn.Parameter(pos)
+            else:
+                self.register_buffer("pos_emb", pos)
         for i in range(depth):
             self.add_module(f"block{i}", QuantTransformerBlock(
                 dim, num_heads, qconfig, num_kv_heads=num_kv_heads,
                 rope=pos_embedding == "rope", attn_window=attn_window,
-                path=(f"block{i}",), device=dev))
+                train_attn_impl=train_attn_impl, path=(f"block{i}",), device=dev))
         self.ln_f = _layer_norm(dim, dev)
         self.lm_head = QuantDense(dim, vocab, qconfig, use_bias=False,
                                   path=("lm_head",), device=dev)
-        self.requires_grad_(False)
+        if self.qat:
+            init_qat_variables(self, seed)
+        else:
+            self.requires_grad_(False)
 
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.depth)]
 
     def forward(self, tokens: torch.Tensor, cache=None, cache_index=None):
         b, t = tokens.shape
+        if cache is not None and self.qat:
+            raise NotImplementedError(
+                "a QAT-mode LM has no cache branch yet (prefill on QAT variables "
+                "arrives with a later slice); convert it and decode with a "
+                "serve-mode LM (interop.load_variables)")
         x = self.tok_emb(tokens)
         if self.pos_embedding == "learned":
             if cache is None:
@@ -448,11 +532,12 @@ def resnet18_cifar(num_classes: int, qconfig: QConfig, *, device=None,
 def init_qat_variables(model: nn.Module, seed: int = 0) -> None:
     """Draw ``model``'s QAT variables in place from ``seed`` with flax's
     distributions: lecun-normal kernels (fan-in = all but the output axis),
-    zero biases, BatchNorm scale 1, bias 0, mean 0, var 1; each weight
-    quantizer's static mean ± 3σ scale from its kernel, each activation
-    quantizer's initial state.  Same distributions as flax ``init``, not the
-    same bits; flax's ``init`` also runs one eval-mode forward that feeds
-    the activation observers, which this does not."""
+    zero biases, BatchNorm scale 1, bias 0, mean 0, var 1; LayerNorm scale
+    1, bias 0; normal(0.02) embedding tables and learned ``pos_emb``; each
+    weight quantizer's static mean ± 3σ scale from its kernel or table, each
+    activation quantizer's initial state.  Same distributions as flax
+    ``init``, not the same bits; flax's ``init`` also runs one eval-mode
+    forward that feeds the activation observers, which this does not."""
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -471,8 +556,19 @@ def init_qat_variables(model: nn.Module, seed: int = 0) -> None:
                 fq = mod.act_fq
                 fq.load_quant_state(fq.cfg.init(num_channels=fq.scale.shape[0],
                                                 device=dev))
+        elif isinstance(mod, QuantEmbed) and mod.qat:
+            mod.embedding.copy_(torch.randn(mod.embedding.shape, generator=gen,
+                                            device=dev) * 0.02)
+            if mod.weight_fq is not None:
+                mod.weight_fq.load_quant_state(mod.weight_fq.cfg.init(mod.embedding))
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
         elif isinstance(mod, BatchNorm):
             mod.scale.fill_(1.0)
             mod.bias.zero_()
             mod.mean.zero_()
             mod.var.fill_(1.0)
+        elif isinstance(mod, QuantTransformerLM) and mod.pos_embedding == "learned":
+            mod.pos_emb.copy_(torch.randn(mod.pos_emb.shape, generator=gen,
+                                          device=dev) * 0.02)

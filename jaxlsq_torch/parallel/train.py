@@ -48,8 +48,12 @@ __all__ = ["make_train_step", "make_eval_step", "cross_entropy_loss"]
 
 
 def cross_entropy_loss(logits: torch.Tensor, batch: Dict) -> torch.Tensor:
-    """Mean softmax cross entropy against integer ``batch['label']``."""
-    return F.cross_entropy(logits, batch["label"])
+    """Mean softmax cross entropy over the LAST axis of ``logits`` against
+    integer ``batch['label']`` of the leading shape: (B, C) class logits or
+    (B, t, V) LM logits alike, as optax's
+    ``softmax_cross_entropy_with_integer_labels(...).mean()``."""
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           batch["label"].reshape(-1))
 
 
 def _inputs(batch: Dict) -> torch.Tensor:

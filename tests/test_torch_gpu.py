@@ -8,7 +8,9 @@ also runs on a machine with only PyTorch:
 Tolerances: the K-sums of ``wo_matmul`` (``wo8``, ``wo4``, ``wo4g``) run in
 f32 in another order than the plain matmul (1e-4 of the output's largest
 magnitude); attention 1e-5; the paged kernel bit-equal to the dense kernel on
-the gathered cache.
+the gathered cache; the flash-attention kernels' out and lse 2e-5, dQ/dK/dV
+1e-4 of the largest magnitude (tiled online softmax and sums over t keys in
+another order); captured train steps bit-equal to eager ones.
 """
 
 import dataclasses
@@ -548,3 +550,103 @@ def _get(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,hd", [(2, 8, 1000, 64), (1, 2, 60, 32),
+                                      (1, 2, 257, 128), (2, 4, 64, 64)])
+def test_flash_kernels_match_plain(cuda, b, h, t, hd):
+    """The three flash-attention kernels against their plain versions on the
+    same inputs: out and lse within 2e-5 of max|ref|, dQ/dK/dV within 1e-4
+    of max|ref| (f32 sums over t keys in another order)."""
+    from jaxlsq_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(t + hd)
+    q, k, v, do = (torch.randn(b, h, t, hd, device=cuda, generator=g) for _ in range(4))
+    sm = hd ** -0.5
+    before = dict(fa.LAUNCHES)
+    out, lse = fa.flash_fwd(q, k, v, sm)
+    rout, rlse = fa.flash_fwd_plain(q, k, v, sm)
+    d = (do * rout).sum(-1)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, rlse, d, sm)
+    dq = fa.flash_bwd_dq(q, k, v, do, rlse, d, sm)
+    rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, rlse, d, sm)
+    rdq = fa.flash_bwd_dq_plain(q, k, v, do, rlse, d, sm)
+    torch.cuda.synchronize()
+    assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    for got, want, tol in ((out, rout, 2e-5), (lse, rlse, 2e-5), (dq, rdq, 1e-4),
+                           (dk, rdk, 1e-4), (dv, rdv, 1e-4)):
+        assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.gpu
+def test_flash_attention_autograd_on_card(cuda):
+    """``flash_attention`` through autograd: the same gradients as the plain
+    attention's autograd, and the same bits on a second run."""
+    from jaxlsq_torch.ops.flash_attention import flash_attention, flash_fwd_plain
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v, do = (torch.randn(2, 4, 300, 64, device=cuda, generator=g) for _ in range(4))
+    runs = []
+    for fn in (flash_attention, flash_attention,
+               lambda a, b_, c, s: flash_fwd_plain(a, b_, c, s)[0]):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*leaves, 0.125)
+        out.backward(do)
+        runs.append([out.detach()] + [x.grad for x in leaves])
+    torch.cuda.synchronize()
+    for a, b_ in zip(runs[0], runs[1]):
+        assert torch.equal(a, b_)
+    for a, b_ in zip(runs[0], runs[2]):
+        assert float((a - b_).abs().max()) <= 1e-4 * float(b_.abs().max())
+
+
+@pytest.mark.gpu
+def test_flash_kernels_refuse_what_they_cannot_take(cuda):
+    from jaxlsq_torch.ops.flash_attention import flash_fwd
+
+    x = torch.randn(1, 2, 64, 48, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_fwd(x, x, x, 0.1)
+    x = torch.randn(1, 2, 64, 64, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="f32"):
+        flash_fwd(x, x, x, 0.1)
+
+
+@pytest.mark.gpu
+def test_captured_lm_step_matches_eager_step_on_card(cuda):
+    """A small QAT LM with 'flash' attention: the step captured as one CUDA
+    graph against the eager step from one state, four steps across the
+    two-batch observer window: losses and every variable and momentum buffer
+    equal; the flash kernels launch depth times a step eagerly, depth times
+    in the warm-up and in the capture, never in a replay."""
+    from jaxlsq_torch.ops.flash_attention import LAUNCHES as FA
+    from jaxlsq_torch.parallel import make_train_step
+
+    qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=2)
+    models = [QuantTransformerLM(256, 128, 2, 2, qc, max_len=512, pos_embedding="rope",
+                                 train_attn_impl="flash", device=cuda, seed=i)
+              for i in range(2)]
+    interop.load_qat_variables(models[1], interop.qat_variables(models[0]))
+    opts = [torch.optim.SGD(m.parameters(), lr=1e-2, momentum=0.9) for m in models]
+    eager = make_train_step(models[0], opts[0], jit=False)
+    captured = make_train_step(models[1], opts[1], jit=True)
+    r = np.random.RandomState(0)
+    for i in range(4):
+        toks = torch.from_numpy(r.randint(0, 256, size=(2, 301))).to(cuda)
+        batch = {"input": toks[:, :-1].contiguous(), "label": toks[:, 1:].contiguous()}
+        before = dict(FA)
+        want = eager(batch)["loss"]
+        mid = dict(FA)
+        got = captured(batch)["loss"]
+        torch.cuda.synchronize()
+        assert all(mid[k] - before[k] == 2 for k in FA), (i, FA)
+        assert all(FA[k] - mid[k] == (2 if i < 2 else 0) for k in FA), (i, FA)
+        assert torch.equal(got, want), (i, float(got), float(want))
+        trees = [interop.qat_variables(m) for m in models]
+        for path, v in _leaves(trees[0]):
+            np.testing.assert_array_equal(_get(trees[1], path), v, err_msg=f"step {i} {path}")
+    for p0, p1 in zip(models[0].parameters(), models[1].parameters()):
+        assert torch.equal(opts[0].state[p0]["momentum_buffer"],
+                           opts[1].state[p1]["momentum_buffer"])

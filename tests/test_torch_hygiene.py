@@ -16,6 +16,7 @@ MODULES = [
     "jaxlsq_torch.observers", "jaxlsq_torch.observers.quantizer",
     "jaxlsq_torch.observers.minmax",
     "jaxlsq_torch.ops", "jaxlsq_torch.ops.fake_quant", "jaxlsq_torch.ops.functional",
+    "jaxlsq_torch.ops.flash_attention",
     "jaxlsq_torch.models", "jaxlsq_torch.models.qconfig",
     "jaxlsq_torch.models.layers", "jaxlsq_torch.models.norm",
     "jaxlsq_torch.models.toggles", "jaxlsq_torch.models.zoo",
@@ -52,6 +53,8 @@ def test_entry_points_need_a_device_without_cuda():
         pytest.skip("a CUDA device is present: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         QuantTransformerLM(32, 16, 1, 2, default_qconfig(8, 8).for_serving())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QuantTransformerLM(32, 16, 1, 2, default_qconfig(8, 8), train_attn_impl="flash")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         QuantResNet(10, default_qconfig(8, 8), stage_sizes=(1,), widths=(8,))
     with pytest.raises(RuntimeError, match="device='cpu'"):
