@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the jaxlsq_torch port on one NVIDIA GPU (H100): the serving
 slice, paged-KV serving of a group-wise int4 LM, the QAT training slice, its
-single-program (CUDA-graph) step, and long-context LSQ QAT of the LM through
-the flash-attention kernels, then serving the trained LM.
+single-program (CUDA-graph) step, long-context LSQ QAT of the LM through
+the flash-attention kernels, then serving the trained LM; jaxlsq's headline
+fake-quant fwd+bwd chain through the fused kernel, and the int4 kernel lab.
 
     python3 chip_smoke.py [--record PATH]
 
@@ -26,7 +27,9 @@ exits non-zero on any failure (no phase is caught and skipped):
    from a device flag tensor) for the four (eval, init) flag pairs, on
    random data and on the real activations, weights and gradients of one
    eager training step (forward and dX bit-exact, dS/dB within 1e-5 of the
-   sum of the magnitudes of their terms);
+   sum of the magnitudes of their terms), and the fused fwd+bwd kernels
+   (``fq_fwdbwd_pt``/``_pc``) in train mode at the same shapes and data,
+   bit-equal to the static forward and backward kernels;
 3. drives the serving path with every launch count reset: the d1024 x 4 LM
    of the JAX package's decode benchmark (vocab 8192, 16 heads, max_len
    240, int8 per-channel weights, bf16 cache, seeded random weights) through
@@ -84,7 +87,11 @@ exits non-zero on any failure (no phase is caught and skipped):
 8. the eager and the captured step from one state, cuDNN deterministic on
    both sides, 5 steps across the switch and a toggle: losses, every
    parameter and buffer (qparams, BatchNorm statistics, counters, flags,
-   observer state) and SGD's momentum buffers equal;
+   observer state) and the optimizer's state equal; for phase 7's SGD, and
+   under an lr that changes before every step (the captured side writes
+   Python floats into ``group['lr']``) for SGD (momentum 0.9, weight decay
+   1e-2, ``fused=True``) and AdamW (weight decay 1e-2, ``capturable=True``),
+   whose decay reaches the qparams across the window's end;
 9. checks (with phase 2) the three flash-attention kernels against their
    plain versions at (B, H, t, hd) = (2, 8, 4096, 64), (4, 8, 2048, 64) and
    t in {60, 1000} for hd in {32, 64, 128} (out and lse within 2e-5 of
@@ -108,7 +115,28 @@ exits non-zero on any failure (no phase is caught and skipped):
    B = 1, logits within 1e-4 of max|ref| of the CPU plain path, ``wo8`` and
    ``decode_attention`` launched;
 10. times the flash kernels at the LM's two shapes beside their bounds,
-   plain versions and SDPA (forward, forward + backward).
+   plain versions and SDPA (forward, forward + backward);
+11. jaxlsq's headline chain (bench.py:484-628) with every launch count
+   reset: per tensor (0..255, 64 Mi f32 elements as (65536, 1024), s0 = 0.1,
+   b0 = 0.05) and per channel (the resnet weight spec on an (8192, 8192)
+   weight), out -> y, dX -> g, s and b stepped by 1e-6 of their gradients;
+   fails unless after 8 iterations the fused leg (``fake_quant_fwdbwd``) and
+   the split leg (autograd: ``fq_fwd`` + ``fq_bwd``) agree bit for bit in
+   y, g, s and b, are finite, and each launched only its own kernels, and
+   unless one fused call on the chain's inputs matches the plain pair on the
+   card (out and dX bit-equal, dS/dB within 1e-5 of their term sums); then
+   the split, fused, plain and library legs timed as the slope between 2 and
+   8 iterations (interleaved rounds, min of 5), a one-read-one-write stream
+   probe, GB/s at the canonical 20 B an element, the fused leg's real rate at
+   16 B, and the fused kernel alone beside its bound, the split pair, its
+   plain version and the library's learnable fake quant;
+12. the int4 kernel lab (``jaxlsq_torch.lab.int4_kernel_lab``) at M in {1,
+   16, 128}, K = N = 8192 with every launch count reset: ``wo8``, ``wo4``,
+   ``wo4_bf16`` and ``wo4_native`` against ``wo_matmul_plain`` at their own
+   bits; fails unless ``wo4_bf16`` and ``wo4_native`` are within
+   1e-4·max|ref| of their plain versions and ``wo4_native`` of ``wo4`` on the
+   same values; device time and weight GB/s of each beside the plain
+   versions and ``torch.matmul`` on dequantized f32 and bf16 weights.
 
 Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes the full
@@ -124,9 +152,15 @@ import subprocess
 import sys
 import time
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+# the card's timing method, shared with the kernel labs (fails outside a checkout)
+from jaxlsq_torch.lab.timing import (PROFILE_MISSES, WAITING_CALLS,  # noqa: E402
+                                     device_profile, events_ms, kernel_ms, measure,
+                                     profiled)
+
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
-ROOT = os.path.dirname(os.path.abspath(__file__))
 VOCAB, DIM, DEPTH, HEADS, T0 = 8192, 1024, 4, 16, 32
 GROUP = 128  # convert(weight_group_size=) of the grouped-int4 LM
 # PagedDecodeEngine leg: a page of 128 positions, 16 pool pages (an eighth of
@@ -140,6 +174,7 @@ TRAIN_B, TRAIN_STEPS, CHECK_B = 64, 12, 8
 MAX_MOVED_SHARE = 1e-5  # of a B = CHECK_B step's activation elements (53 of 5,337,088)
 FQ_KERNELS = ("fq_fwd_pt", "fq_fwd_pc", "fq_bwd_pt", "fq_bwd_pc")
 TRACED_KERNELS = tuple(f"{k}_traced" for k in FQ_KERNELS)
+FUSED_KERNELS = ("fq_fwdbwd_pt", "fq_fwdbwd_pc")
 FLAG_PAIRS = ((0, 0), (1, 0), (0, 1), (1, 1))  # (eval, init)
 EQUAL_STEPS = 5
 # the long-context QAT leg: docs/measurements/flash_train_tpu.json's LM
@@ -149,17 +184,25 @@ LM_STEPS = 8
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 FLASH_SHAPES = ((2, 8, 4096, 64), (4, 8, 2048, 64), (2, 8, 60, 64), (2, 8, 1000, 64),
                 (2, 8, 60, 32), (2, 8, 1000, 32), (2, 8, 60, 128), (2, 8, 1000, 128))
+# jaxlsq's headline fwd+bwd chain (bench.py:484-628): 64 Mi f32 elements,
+# per tensor; its per-channel twin on an (out, in) weight of the same size
+CHAIN_SHAPE, CHAIN_PC_SHAPE = (65536, 1024), (8192, 8192)
+CHAIN_K1, CHAIN_K2, CHAIN_ROUNDS = 2, 8, 5
+CANON_BYTES, FUSED_BYTES = 20, 16  # per element: the split pair, the fused pass
+# the int4 kernel lab (examples/_int4_kernel_lab.py) at decode and prefill M
+LAB_MS, LAB_K, LAB_N, LAB_ROUNDS = (1, 16, 128), 8192, 8192, 5
 
 
 def reset_counts():
     """Every kernel wrapper's launch count to 0; returns the count dicts."""
+    from jaxlsq_torch.lab.int4_kernel_lab import LAUNCHES as LAB
     from jaxlsq_torch.ops.fake_quant import LAUNCHES as FQ
     from jaxlsq_torch.ops.flash_attention import LAUNCHES as FLASH
     from jaxlsq_torch.serve.attention import LAUNCHES as ATTN
     from jaxlsq_torch.serve.matmul import LAUNCHES as MM
     from jaxlsq_torch.serve.paged import LAUNCHES as PAGED
 
-    for counts in (MM, ATTN, FQ, PAGED, FLASH):
+    for counts in (MM, ATTN, FQ, PAGED, FLASH, LAB):
         for k in counts:
             counts[k] = 0
     return MM, ATTN, FQ
@@ -172,110 +215,6 @@ def log(*a):
 def bound(nbytes, flops):
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
-
-
-CYCLES_PER_MS = 2.0e6  # the H100's top SM clock; at a lower clock a sleep lasts longer
-PROFILE_MISSES = []  # every profile that lost kernel records, then taken again
-PROFILE_TRIES = 5  # the losses come in stretches of a few sessions: pause, retry
-WAITING_CALLS = []  # timed functions that wait on the device within a call
-
-
-def events_ms(torch, run, sleep_ms=0.0):
-    """``(span ms, host ms)``: the span between CUDA events recorded around
-    ``run()``, and the host's time to issue it.  With ``sleep_ms`` a sleep
-    kernel holds the stream first; while the host issues the run before the
-    sleep ends, the run's kernels then go back to back and the span is their
-    device time with the device's own gaps between kernels and no host gap.
-    No profiler is involved."""
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    if sleep_ms:
-        torch.cuda._sleep(int(sleep_ms * CYCLES_PER_MS))
-    s = time.perf_counter()
-    e0.record()
-    run()
-    e1.record()
-    host_ms = 1e3 * (time.perf_counter() - s)
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1), host_ms
-
-
-def _profiled(torch, run, sleep_ms=0.0):
-    """``(kernel rows, span ms)`` of one ``run()`` under the profiler (CUDA
-    activity only): the ``key_averages`` rows of the kernels the run
-    launched, less the sleep kernel and torch.optim's ``Optimizer.*``
-    annotation (it spans kernels counted already), and the CUDA-event span
-    of the run (``events_ms``)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        span, _ = events_ms(torch, run, sleep_ms)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith("Optimizer.") and "spin_kernel" not in e.key]
-    return rows, span
-
-
-def _ms(rows):
-    return sum(e.self_device_time_total for e in rows) / 1e3
-
-
-def _lost(what, why, **kw):
-    PROFILE_MISSES.append({"what": what, "why": why, **kw})
-    log(f"[profile] {why}: {PROFILE_MISSES[-1]}; profiling again in a second")
-    time.sleep(1.0)
-
-
-def device_profile(torch, run, what, sleep_ms):
-    """``(kernel rows, span ms)`` of one ``run()`` issued behind a
-    ``sleep_ms`` sleep kernel under the profiler.  The profiler on the H100
-    now and then loses a stretch of kernel records (a session sees none or
-    a part of its kernels), so the rows' device time is held against the
-    span of the same run: below half of it, the loss is logged, recorded in
-    ``PROFILE_MISSES`` and the run profiled again a second later (a loss
-    spans a few sessions in a row); the ``PROFILE_TRIES``-th loss fails."""
-    for _ in range(PROFILE_TRIES):
-        rows, span = _profiled(torch, run, sleep_ms)
-        if _ms(rows) >= 0.5 * span:
-            return rows, span
-        _lost(what, "kernel records lost", device_ms=_ms(rows), span_ms=span)
-    raise AssertionError(f"the profiler lost kernel records of {what} "
-                         f"{PROFILE_TRIES} times")
-
-
-def measure(torch, fn, arg_sets, reps=40):
-    """(device ms, call ms) per call, cycling through ``arg_sets`` (copies of
-    the inputs, so the working set exceeds the 50 MB L2).  Call ms: CUDA
-    events around back-to-back calls, which include the host's time to
-    issue each call whenever the host is the slower.  Device ms: the same
-    calls issued behind a sleep kernel three times as long as that, so they
-    run back to back on the device.  A call that waits on the device itself
-    (recorded in ``WAITING_CALLS``) cannot get ahead of the sleep; its
-    device ms is the larger kernel time of two profiles (a lost stretch of
-    records only lowers a reading) that agree within 20%; a pair that does
-    not is recorded in ``PROFILE_MISSES`` and taken again a second later,
-    the ``PROFILE_TRIES``-th fails."""
-    def run():
-        for i in range(reps):
-            fn(*arg_sets[i % len(arg_sets)])
-
-    for a in arg_sets[:3]:
-        fn(*a)
-    call_ms, _ = events_ms(torch, run)
-    sleep_ms = 3 * call_ms + 5
-    dev_ms, host_ms = events_ms(torch, run, sleep_ms)
-    if host_ms < 0.8 * sleep_ms:
-        return dev_ms / reps, call_ms / reps
-    what = getattr(fn, "__qualname__", str(fn))
-    WAITING_CALLS.append(what)
-    for _ in range(PROFILE_TRIES):
-        a, b = (_ms(_profiled(torch, run)[0]) for _ in range(2))
-        if min(a, b) >= 0.8 * max(a, b) > 0:
-            return max(a, b) / reps, call_ms / reps
-        _lost(what, "profiles disagree", device_ms=[a, b])
-    raise AssertionError(f"the profiler lost kernel records of {what} "
-                         f"{PROFILE_TRIES} times")
 
 
 def copies_for(nbytes, floor=160e6):
@@ -695,9 +634,9 @@ def phase_paged(torch, rec):
     # kernels a decode step: the profiles' kernel counts over the n2 - n1
     # extra steps; the larger of two profiles (a lost stretch of records only
     # lowers a count)
-    per_step = {k: (max(sum(e.count for e in _profiled(torch, lambda: f(n2))[0])
+    per_step = {k: (max(sum(e.count for e in profiled(lambda: f(n2))[0])
                         for _ in range(2))
-                    - max(sum(e.count for e in _profiled(torch, lambda: f(n1))[0])
+                    - max(sum(e.count for e in profiled(lambda: f(n1))[0])
                           for _ in range(2))) / (n2 - n1)
                 for k, f in loops.items()}
     paged["generate_b8_L2048"] = {"tokens_per_s": tps, "raw_s": times,
@@ -808,9 +747,9 @@ def phase_times(torch, rec):
             wdq = [dequantize_weight(q) for q in packs[:copies_for(4 * k * n)]]
             for m in (1, 8, 256):
                 x = torch.randn(m, k, device=dev, generator=g)
-                ms, call = measure(torch, wo_matmul, [(x, q) for q in packs])
-                plain, _ = measure(torch, wo_matmul_plain, [(x, q) for q in packs], reps=20)
-                lib, _ = measure(torch, torch.matmul, [(x, wd) for wd in wdq])
+                ms, call = measure(wo_matmul, [(x, q) for q in packs])
+                plain, _ = measure(wo_matmul_plain, [(x, q) for q in packs], reps=20)
+                lib, _ = measure(torch.matmul, [(x, wd) for wd in wdq])
                 b_ms, b_by = bound(4 * m * k + wbytes + 4 * m * n, 2 * m * k * n)
                 rows.append({"layer": layer, "M": m, "K": k, "N": n, "ms": ms,
                              "call_ms": call, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
@@ -835,9 +774,9 @@ def phase_times(torch, rec):
                    _rand_cache(torch, carrier, b, HEADS, length, hd, g))
                   for _ in range(reps)]
         idx = torch.full((b,), length - t, dtype=torch.int32, device=dev)  # all keys live
-        ms, call = measure(torch, lambda ck, cv: decode_attention(q, ck, cv, idx),
+        ms, call = measure(lambda ck, cv: decode_attention(q, ck, cv, idx),
                            caches)
-        plain, _ = measure(torch, lambda ck, cv: decode_attention_plain(q, ck, cv, idx),
+        plain, _ = measure(lambda ck, cv: decode_attention_plain(q, ck, cv, idx),
                            caches[:2], reps=10)
 
         def deq(e):
@@ -854,7 +793,7 @@ def phase_times(torch, rec):
             2 * 4 * b * HEADS * length * hd)]]
         kpos = torch.arange(length, device=dev)
         mask = kpos[None, :] <= (length - t + torch.arange(t, device=dev))[:, None]
-        lib, _ = measure(torch, lambda k_, v_: F.scaled_dot_product_attention(
+        lib, _ = measure(lambda k_, v_: F.scaled_dot_product_attention(
             q, k_, v_, attn_mask=mask), fcaches)
         keys = length  # every key is visible at idx = length - t
         per_key = nbytes_cache // length  # bytes of one position of k (b, heads)
@@ -896,17 +835,17 @@ def _time_paged(torch, g):
                           for _ in range(reps - 1)]
         dense = [_gather_dense(x) for x in layers]
         # paged and dense in turns, twice: paged, dense, dense, paged
-        pm1, pc = measure(torch, lambda x: paged_attention(q, x, idx), [(x,) for x in layers])
-        dm1, dc = measure(torch, lambda c: decode_attention(q, c[0], c[1], idx),
+        pm1, pc = measure(lambda x: paged_attention(q, x, idx), [(x,) for x in layers])
+        dm1, dc = measure(lambda c: decode_attention(q, c[0], c[1], idx),
                           [(c,) for c in dense])
-        dm2, _ = measure(torch, lambda c: decode_attention(q, c[0], c[1], idx),
+        dm2, _ = measure(lambda c: decode_attention(q, c[0], c[1], idx),
                          [(c,) for c in dense])
-        pm2, _ = measure(torch, lambda x: paged_attention(q, x, idx), [(x,) for x in layers])
-        plain, _ = measure(torch, lambda x: paged_attention_plain(q, x, idx),
+        pm2, _ = measure(lambda x: paged_attention(q, x, idx), [(x,) for x in layers])
+        plain, _ = measure(lambda x: paged_attention_plain(q, x, idx),
                            [(x,) for x in layers[:2]], reps=10)
         fcaches = [tuple(e[0].to(torch.float32) * e[1][..., None] for e in c)
                    for c in dense[:copies_for(2 * 4 * b * HEADS * length * hd)]]
-        lib, _ = measure(torch, lambda c: F.scaled_dot_product_attention(
+        lib, _ = measure(lambda c: F.scaled_dot_product_attention(
             q, c[0], c[1]), [(c,) for c in fcaches])
         table_bytes = 4 * one.table.numel()
         nbytes = 2 * nbytes_cache + table_bytes + 2 * q.numel() * 4
@@ -1017,7 +956,8 @@ def _check_fq(torch, x, s, b, g, spec, errs, what, traced=False):
     from jaxlsq_torch.ops.fake_quant import (fake_quant_backward,
                                              fake_quant_backward_traced,
                                              fake_quant_forward,
-                                             fake_quant_forward_traced)
+                                             fake_quant_forward_traced,
+                                             fake_quant_fwdbwd)
 
     kind = ("pc" if spec.per_channel else "pt") + ("_traced" if traced else "")
     gs = effective_grad_scale(spec, x.numel(), s.numel())
@@ -1056,13 +996,24 @@ def _check_fq(torch, x, s, b, g, spec, errs, what, traced=False):
         errs[f"fq_fwd_{kind}"] = max(errs[f"fq_fwd_{kind}"], float((out - ref).abs().max()))
         errs[f"fq_bwd_{kind}"] = max(errs[f"fq_bwd_{kind}"],
                                      float((dx - rdx).abs().max()), e_sums)
+        if traced or eval_mode or init_mode:
+            continue
+        # the fused kernel: the static pair's bits, hence the plain version's
+        fused = fake_quant_fwdbwd(g, x, s, b, spec=spec)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, w) for a, w in zip(fused, (out, dx, ds, db))):
+            raise AssertionError(f"{what}: fq_fwdbwd_{kind} differs from fq_fwd_{kind} "
+                                 f"+ fq_bwd_{kind}")
+        name = f"fq_fwdbwd_{kind}"
+        errs[name] = max(errs[name], float((fused[0] - ref).abs().max()),
+                         float((fused[1] - rdx).abs().max()), e_sums)
     return worst
 
 
 def phase_fq_kernels(torch, rec):
     caps = _capture_step(torch)
     g = torch.Generator(device="cuda").manual_seed(2)
-    errs = {k: 0.0 for k in FQ_KERNELS + TRACED_KERNELS}
+    errs = {k: 0.0 for k in FQ_KERNELS + TRACED_KERNELS + FUSED_KERNELS}
     shapes = []
     worst = {False: 0.0, True: 0.0}
     for c in caps:
@@ -1085,7 +1036,8 @@ def phase_fq_kernels(torch, rec):
     log(f"[check] fake-quant kernels at the {len(shapes)} quantizer shapes of "
         f"resnet18_cifar, B={TRAIN_B} ({n_act} activation and {n_w} weight "
         "elements a step), real and random data, the static four in "
-        "train/eval/init and the traced four at the four (eval, init) flag pairs: "
+        "train/eval/init and the traced four at the four (eval, init) flag pairs, "
+        "the fused two in train mode (bit-equal to the static pair): "
         f"forward and dX bit-exact; dS/dB worst {worst[False]:.2e} (static) and "
         f"{worst[True]:.2e} (traced) of their term sums (tol 1e-5); "
         f"max_abs_err {errs}")
@@ -1107,7 +1059,7 @@ def _categorise(name):
 
 
 def _profile_train_step(torch, step, batch, step_ms):
-    rows, span = device_profile(torch, lambda: step(batch), "the train step",
+    rows, span = device_profile(lambda: step(batch), "the train step",
                                 sleep_ms=2 * step_ms + 5)
     by_name, by_cat, n_kernels = {}, {}, 0
     for e in rows:
@@ -1140,10 +1092,10 @@ def _batchnorm_ms(torch, shapes):
             bn(x).backward(gy)
 
     run()
-    _, host_ms = events_ms(torch, run)
-    rows, span = device_profile(torch, run, "the BatchNorm layers",
+    _, host_ms = events_ms(run)
+    rows, span = device_profile(run, "the BatchNorm layers",
                                 sleep_ms=3 * host_ms + 5)
-    return {"ms": _ms(rows), "span_ms": span,
+    return {"ms": kernel_ms(rows), "span_ms": span,
             "kernels": sum(e.count for e in rows), "layers": len(shapes)}
 
 
@@ -1316,13 +1268,15 @@ def _graph_of(step):
     return entries[0][0] if entries else None
 
 
-_FQ_NAME = re.compile(r"fq_(fwd|bwd_pt|bwd_pc|bwd_sum)_kernel(?:<([^>]*)>)?")
+_FQ_NAME = re.compile(
+    r"fq_(fwd|bwd_pt|bwd_pc|bwd_sum)_kernel(?:<([^,>]*)(?:,\s*([^>]*))?>)?")
+_TRUE = ("true", "(bool)1", "1")
 
 
 def _fq_kinds(counts):
     """A profile's fake-quant kernel counts by kernel and regime (the
-    ``kTraced`` template argument of csrc/fake_quant.cu); an unknown name is
-    kept whole."""
+    ``kTraced`` template argument of csrc/fake_quant.cu; ``/fused`` where
+    the backward's ``kOut`` is set); an unknown name is kept whole."""
     out = {}
     for name, n in counts.items():
         m = _FQ_NAME.search(name)
@@ -1331,8 +1285,9 @@ def _fq_kinds(counts):
         elif m.group(2) is None:
             key = m.group(1)
         else:
-            key = m.group(1) + ("/traced" if m.group(2) in ("true", "(bool)1", "1")
-                                else "/static")
+            key = m.group(1) + ("/traced" if m.group(2).strip() in _TRUE else "/static")
+            if m.group(3) is not None and m.group(3).strip() in _TRUE:
+                key += "/fused"
         out[key] = out.get(key, 0) + n
     return out
 
@@ -1437,19 +1392,24 @@ def phase_train_captured(torch, rec):
 
 
 def _train_state(model, opt):
-    """Every parameter and buffer of ``model`` and SGD's momentum buffers."""
+    """Every parameter and buffer of ``model`` and every tensor of the
+    optimizer's state (SGD's momentum buffers; AdamW's moments and step)."""
+    import torch
+
     state = {f"model/{k}": v for k, v in model.state_dict().items()}
-    state.update({f"momentum/{n}": opt.state[p]["momentum_buffer"]
-                  for n, p in model.named_parameters()})
+    state.update({f"optim/{n}/{k}": v for n, p in model.named_parameters()
+                  for k, v in opt.state[p].items() if torch.is_tensor(v)})
     return state
 
 
-def _steps_equal(torch, models, opts, batches, toggle_at=None):
+def _steps_equal(torch, models, opts, batches, toggle_at=None, schedule=None):
     """The eager (``models[0]``) and the captured (``models[1]``) step from one
     state over ``batches`` (act fake-quant toggled off before step
-    ``toggle_at``): ``(leaves a step, losses, unequal leaves)``; a float leaf
-    that is not bit-equal is recorded with its largest difference over its
-    largest magnitude."""
+    ``toggle_at``; with ``schedule``, the lr set to ``schedule(i)`` before
+    step i: the eager side fills its device lr, the captured side writes a
+    Python float into ``group['lr']``): ``(leaves a step, losses, unequal
+    leaves)``; a float leaf that is not bit-equal is recorded with its
+    largest difference over its largest magnitude."""
     from jaxlsq_torch.models import toggles
     from jaxlsq_torch.parallel import make_train_step
 
@@ -1460,6 +1420,11 @@ def _steps_equal(torch, models, opts, batches, toggle_at=None):
         if i + 1 == toggle_at:
             for m in models:
                 toggles.disable_fake_quant_on_act(m)
+        if schedule is not None:
+            for group in opts[0].param_groups:
+                group["lr"].fill_(schedule(i))
+            for group in opts[1].param_groups:
+                group["lr"] = schedule(i)
         pair = [s(batch)["loss"] for s in steps]
         losses.append([float(v) for v in pair])
         states = [{"loss": v, **_train_state(m, o)}
@@ -1478,32 +1443,57 @@ def _steps_equal(torch, models, opts, batches, toggle_at=None):
     return n_leaves, losses, unequal
 
 
+def _schedule(base):
+    """A decaying lr that changes before every step."""
+    return lambda i: base * (1.0 - 0.15 * i)
+
+
 def phase_captured_vs_eager(torch, rec):
     """The eager and the captured step from one state, cuDNN deterministic:
     losses and every leaf equal over steps across the window's end and a
     toggle (a float leaf that is not may differ by 1e-6 of its largest
-    magnitude, and is recorded)."""
+    magnitude, and is recorded); then the same under an lr that changes
+    before every step, for SGD (momentum 0.9, weight decay 1e-2, fused=True)
+    and AdamW (weight decay 1e-2, capturable=True) with a device lr on both
+    sides: the weight decay reaches the quantizers' qparams across the
+    window's end."""
+    dev = torch.device("cuda")
+    legs = (
+        ("sgd", None, _sgd),
+        ("sgd_fused_wd_schedule", _schedule(1e-2),
+         lambda torch, m: torch.optim.SGD(m.parameters(), lr=torch.tensor(1e-2, device=dev),
+                                          momentum=0.9, weight_decay=1e-2, fused=True)),
+        ("adamw_capturable_wd_schedule", _schedule(1e-3),
+         lambda torch, m: torch.optim.AdamW(m.parameters(),
+                                            lr=torch.tensor(1e-3, device=dev),
+                                            weight_decay=1e-2, capturable=True)))
     cudnn = torch.backends.cudnn
     saved = (cudnn.deterministic, cudnn.benchmark)
     cudnn.deterministic, cudnn.benchmark = True, False
+    out = rec["captured_vs_eager"] = {}
     try:
-        models = [_resnet(torch, "cuda", seed=0) for _ in range(2)]
-        opts = [_sgd(torch, m) for m in models]
-        n_leaves, losses, unequal = _steps_equal(
-            torch, models, opts, _image_batches(torch, EQUAL_STEPS, TRAIN_B, seed=7),
-            toggle_at=EQUAL_STEPS)
+        for name, schedule, make_opt in legs:
+            models = [_resnet(torch, "cuda", seed=0) for _ in range(2)]
+            opts = [make_opt(torch, m) for m in models]
+            n_leaves, losses, unequal = _steps_equal(
+                torch, models, opts, _image_batches(torch, EQUAL_STEPS, TRAIN_B, seed=7),
+                toggle_at=EQUAL_STEPS, schedule=schedule)
+            lrs = [float(g["lr"]) for g in opts[1].param_groups]
+            out[name] = {"steps": EQUAL_STEPS, "leaves": n_leaves, "losses": losses,
+                         "unequal": unequal, "final_lr": lrs}
+            log(f"[equal] {name}: eager vs captured step from one state, cuDNN "
+                f"deterministic, {EQUAL_STEPS} steps (window end at 3, act fake-quant "
+                f"off at {EQUAL_STEPS}): {n_leaves} leaves a step, {len(unequal)} not "
+                f"bit-equal {unequal[:5]}; losses {losses}; captured lr at the end {lrs}")
+            worst = max((u["rel"] for u in unequal), default=0.0)
+            if not worst <= 1e-6:
+                raise AssertionError(f"{name}: the captured step left another state "
+                                     f"than the eager step: {unequal[:10]}")
+            if schedule is not None and lrs != [float(torch.tensor(schedule(EQUAL_STEPS - 1)))]:
+                raise AssertionError(f"{name}: the captured step's lr is {lrs}")
+            del models, opts
     finally:
         cudnn.deterministic, cudnn.benchmark = saved
-    rec["captured_vs_eager"] = {"steps": EQUAL_STEPS, "leaves": n_leaves,
-                                "losses": losses, "unequal": unequal}
-    log(f"[equal] eager vs captured step from one state, cuDNN deterministic, "
-        f"{EQUAL_STEPS} steps (window end at 3, act fake-quant off at "
-        f"{EQUAL_STEPS}): {n_leaves} leaves a step, {len(unequal)} not bit-equal "
-        f"{unequal[:5]}; losses {losses}")
-    worst = max((u["rel"] for u in unequal), default=0.0)
-    if not worst <= 1e-6:
-        raise AssertionError(f"the captured step left another state than the eager "
-                             f"step: {unequal[:10]}")
 
 
 def phase_fq_times(torch, rec):
@@ -1574,13 +1564,13 @@ def phase_fq_times(torch, rec):
                  lambda x, gg: golden_backward_traced(gg, x, s, b, spec, flags[0],
                                                       flags[1]),
                  None, bwd_args, None, 12 * n, 20 * n)):
-            ms, call = measure(torch, fn, args)
-            plain, _ = measure(torch, plain_fn, args, reps=20)
+            ms, call = measure(fn, args)
+            plain, _ = measure(plain_fn, args, reps=20)
             if lib_fn is None:  # the same library call, timed above on these inputs
                 static = times[name[:-len("_traced")]]
                 lib, lib_call = static["library_ms"], static["library_call_ms"]
             else:
-                lib, lib_call = measure(torch, lib_fn, lib_args)
+                lib, lib_call = measure(lib_fn, lib_args)
             b_ms, b_by = bound(nbytes, ops)
             times[name] = {"shape": list(shape), "ms": ms, "call_ms": call,
                            "plain_ms": plain, "library_ms": lib,
@@ -1712,7 +1702,7 @@ def phase_lm_fq_kernels(torch, rec):
         raise AssertionError(f"captured {len(caps)} quantizers, expected {n_fq} with gradients")
     del model
     g = torch.Generator(device="cuda").manual_seed(13)
-    errs = {k: 0.0 for k in FQ_KERNELS + TRACED_KERNELS}
+    errs = {k: 0.0 for k in FQ_KERNELS + TRACED_KERNELS + FUSED_KERNELS}
     worst = {False: 0.0, True: 0.0}
     shapes = []
     for c in caps:
@@ -1732,7 +1722,7 @@ def phase_lm_fq_kernels(torch, rec):
     log(f"[check] fake-quant kernels at the {len(shapes)} quantizer shapes of the "
         f"d{LM_DIM} LM at B={LM_LEGS[0][0]}, t={LM_LEGS[0][1]} "
         f"({sorted({tuple(r['shape']) for r in shapes})}), real and random data, "
-        "static and traced: forward and dX bit-exact; dS/dB worst "
+        "static, traced and fused: forward and dX bit-exact; dS/dB worst "
         f"{worst[False]:.2e} (static) and {worst[True]:.2e} (traced) of their term "
         "sums (tol 1e-5)")
 
@@ -1962,14 +1952,14 @@ def phase_flash_times(torch, rec):
         def sdpa_fwdbwd(q_, k_, v_, do_):
             return torch.autograd.grad(sdpa(q_, k_, v_, do_), (q_, k_, v_), do_)
 
-        lib_fwd, _ = measure(torch, sdpa, sets, reps=20)
-        lib_fb, _ = measure(torch, sdpa_fwdbwd, leaves, reps=20)
+        lib_fwd, _ = measure(sdpa, sets, reps=20)
+        lib_fb, _ = measure(sdpa_fwdbwd, leaves, reps=20)
         flops, nbytes = _flash_flops(b, h, t, hd), _flash_bytes(b, h, t, hd)
         row = {"B": b, "H": h, "t": t, "hd": hd, "sdpa_fwd_ms": lib_fwd,
                "sdpa_fwd_bwd_ms": lib_fb}
         for name, (fn, plain_fn) in fns.items():
-            ms, call = measure(torch, fn, sets, reps=20)
-            plain, _ = measure(torch, plain_fn, sets[:2], reps=4)
+            ms, call = measure(fn, sets, reps=20)
+            plain, _ = measure(plain_fn, sets[:2], reps=4)
             b_ms, b_by = bound(nbytes[name], flops[name])
             row[name] = {"ms": ms, "call_ms": call, "plain_ms": plain, "bound_ms": b_ms,
                          "bound_by": b_by, "flops": flops[name], "bytes": nbytes[name],
@@ -1985,6 +1975,285 @@ def phase_flash_times(torch, rec):
         rows.append(row)
         del sets, leaves, q, k, v, do, out, lse, d
     rec["times"]["flash"] = rows
+
+
+# ---------------------------------------------------------------------------
+# jaxlsq's headline fwd+bwd chain (the fused kernel #5) and the int4 lab (#14)
+# ---------------------------------------------------------------------------
+
+def _chain_specs():
+    from jaxlsq_torch.core.spec import QuantSpec
+    from jaxlsq_torch.models import default_qconfig
+
+    return {"pt": (QuantSpec(quant_min=0, quant_max=255), CHAIN_SHAPE),
+            "pc": (default_qconfig(8, 8, per_channel_weights=True).weight_for_axis(0).spec,
+                   CHAIN_PC_SHAPE)}
+
+
+def _chain_legs(torch, spec):
+    """One fwd+bwd of each leg: ``(y, g, s, b) -> (out, dX, dS, dB)``."""
+    from jaxlsq_torch.core.golden import golden_backward, golden_forward
+    from jaxlsq_torch.ops import fake_quant, fake_quant_fwdbwd
+
+    def split(y, g, s, b):  # autograd: fq_fwd_* then fq_bwd_*
+        y = y.detach().requires_grad_(True)
+        s, b = s.detach().requires_grad_(True), b.detach().requires_grad_(True)
+        out = fake_quant(y, s, b, spec)
+        return (out.detach(), *torch.autograd.grad(out, (y, s, b), g))
+
+    def fused(y, g, s, b):
+        return fake_quant_fwdbwd(g, y, s, b, spec=spec)
+
+    def plain(y, g, s, b):
+        return (golden_forward(y, s, b, spec), *golden_backward(g, y, s, b, spec))
+
+    def library(y, g, s, zp):  # its own float zero point in the shift's slot
+        y = y.detach().requires_grad_(True)
+        s, zp = s.detach().requires_grad_(True), zp.detach().requires_grad_(True)
+        if spec.per_channel:
+            out = torch._fake_quantize_learnable_per_channel_affine(
+                y, s, zp, spec.axis, spec.quant_min, spec.quant_max, 1.0)
+        else:
+            out = torch._fake_quantize_learnable_per_tensor_affine(
+                y, s, zp, spec.quant_min, spec.quant_max, 1.0)
+        return (out.detach(), *torch.autograd.grad(out, (y, s, zp), g))
+
+    return {"split": split, "fused": fused, "plain": plain, "library": library}
+
+
+def _chain(fn, x, g, s0, b0, k):
+    """bench.py's chain: out -> y, dX -> g, s and b stepped by 1e-6 of
+    their gradients, k times."""
+    y, gg, s, b = x, g, s0, b0
+    for _ in range(k):
+        out, dx, ds, db = fn(y, gg, s, b)
+        y, gg, s, b = out, dx, s - 1e-6 * ds, b - 1e-6 * db
+    return y, gg, s, b
+
+
+def _chain_inputs(torch, spec, shape, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, device="cuda", generator=g)
+    gr = torch.randn(shape, device="cuda", generator=g)
+    c = shape[spec.axis] if spec.per_channel else 1
+    if spec.per_channel:  # symmetric weights: ±127 steps of 0.02 cover ±2.5
+        s0, b0 = torch.full((c,), 0.02, device="cuda"), torch.zeros(c, device="cuda")
+    else:  # bench.py's s0 = 0.1, b0 = 0.05
+        s0, b0 = torch.full((1,), 0.1, device="cuda"), torch.full((1,), 0.05, device="cuda")
+    return x, gr, s0, b0
+
+
+def _check_fused_plain(torch, x, g, s, b, spec, kind):
+    """One fq_fwdbwd_* call against the plain pair on the card: out and dX
+    bit-equal, dS/dB within 1e-5 of their term sums (phase 2's rule);
+    returns the largest absolute error."""
+    from jaxlsq_torch.core.golden import (effective_grad_scale, golden_backward,
+                                          golden_forward)
+    from jaxlsq_torch.ops import fake_quant_fwdbwd
+
+    out, dx, ds, db = fake_quant_fwdbwd(g, x, s, b, spec=spec)
+    ref = golden_forward(x, s, b, spec)
+    rdx, rds, rdb = golden_backward(g, x, s, b, spec)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, ref) and torch.equal(dx, rdx)):
+        raise AssertionError(f"chain {kind}: fq_fwdbwd_{kind} out/dX differ from the plain "
+                             f"pair by {float((out - ref).abs().max())}, "
+                             f"{float((dx - rdx).abs().max())}")
+    del out, dx, ref, rdx
+    gs = effective_grad_scale(spec, x.numel(), s.numel())
+    err = 0.0
+    for got, want, tot in zip((ds, db), (rds, rdb),
+                              _fq_term_sums(torch, g, x, s, b, spec, False, gs)):
+        e = (got.double() - want.double()).abs().reshape(tot.shape)
+        if not bool((e <= 1e-5 * tot).all()):
+            raise AssertionError(f"chain {kind}: fq_fwdbwd_{kind} dS/dB off the plain "
+                                 f"pair by {float(e.max())}")
+        err = max(err, float(e.max()))
+    return err
+
+
+def phase_chain(torch, rec):
+    """Phase 11: jaxlsq's headline fake-quant fwd+bwd chain (bench.py:484-628)
+    on the port, per tensor at 64 Mi elements and per channel on an (8192,
+    8192) weight: the split leg (autograd: fq_fwd_* + fq_bwd_*), the fused
+    leg (fq_fwdbwd_*), the plain pair and the library's learnable fake
+    quant, each timed as the slope between 2 and 8 chained iterations
+    (interleaved rounds, min of rounds), beside a one-read-one-write stream
+    probe.  Fails unless after 8 iterations the fused and split legs' y, g,
+    s and b are bit-equal and finite, the fused leg ran fq_fwdbwd_* and the
+    split leg no fused kernel, and unless one fused call on the chain's
+    inputs matches the plain pair (``_check_fused_plain``); that error is
+    the kernels line's ``max_abs_err`` for fq_fwdbwd_*."""
+    from jaxlsq_torch.ops.fake_quant import (fake_quant_backward, fake_quant_forward,
+                                             fake_quant_fwdbwd)
+    from jaxlsq_torch.core.golden import golden_backward, golden_forward
+
+    out = rec["chain"] = {}
+    _, _, fq = reset_counts()
+    finals = {}
+    for kind, (spec, shape) in _chain_specs().items():
+        x, gr, s0, b0 = _chain_inputs(torch, spec, shape, seed=21)
+        legs = _chain_legs(torch, spec)
+        for leg in ("split", "fused"):
+            before = dict(fq)
+            finals[kind, leg] = _chain(legs[leg], x, gr, s0, b0, CHAIN_K2)
+            torch.cuda.synchronize()
+            ran = {k: fq[k] - before[k] for k in fq if fq[k] != before[k]}
+            want = ({f"fq_fwd_{kind}": CHAIN_K2, f"fq_bwd_{kind}": CHAIN_K2} if leg == "split"
+                    else {f"fq_fwdbwd_{kind}": CHAIN_K2})
+            if ran != want:
+                raise AssertionError(f"chain {kind} {leg}: launches {ran}, not {want}")
+        a, b_ = finals[kind, "split"], finals[kind, "fused"]
+        if not all(torch.equal(u, v) for u, v in zip(a, b_)):
+            raise AssertionError(f"chain {kind}: the fused leg's y, g, s, b after "
+                                 f"{CHAIN_K2} iterations differ from the split leg's")
+        if not all(bool(torch.isfinite(t).all()) for t in b_):
+            raise AssertionError(f"chain {kind}: non-finite values")
+    out["launches"] = {k: fq[k] for k in FQ_KERNELS + FUSED_KERNELS}
+    log(f"[chain] {CHAIN_K2} iterations per tensor {CHAIN_SHAPE} and per channel "
+        f"{CHAIN_PC_SHAPE}: fused = split bit for bit (y, g, s, b), finite; launches "
+        f"{out['launches']}")
+    del finals
+
+    times = rec["times"]
+    rec["max_abs_err_quantizer_shapes"] = {k: rec["max_abs_err"][k] for k in FUSED_KERNELS}
+    for kind, (spec, shape) in _chain_specs().items():
+        n = math.prod(shape)
+        x, gr, s0, b0 = _chain_inputs(torch, spec, shape, seed=21)
+        err = rec["max_abs_err"][f"fq_fwdbwd_{kind}"] = _check_fused_plain(
+            torch, x, gr, s0, b0, spec, kind)
+        log(f"[chain] {kind} {shape}: one fq_fwdbwd_{kind} call = the plain pair on the "
+            f"card (out, dX bit-equal; dS/dB within 1e-5 of their term sums, max abs "
+            f"err {err:.3e}; at the quantizer shapes of phase 2 "
+            f"{rec['max_abs_err_quantizer_shapes'][f'fq_fwdbwd_{kind}']:.3e})")
+        zp0 = -b0 / s0  # the library's float zero point for the same grid
+        legs = _chain_legs(torch, spec)
+        args = {leg: (x, gr, s0, zp0 if leg == "library" else b0) for leg in legs}
+
+        def stream(k):
+            y = x
+            for _ in range(k):
+                y = y * 1.000001
+            return y
+
+        runs = {leg: [[], []] for leg in list(legs) + ["stream"]}
+        for _ in range(CHAIN_ROUNDS):
+            for leg, fn in legs.items():
+                for j, k in enumerate((CHAIN_K1, CHAIN_K2)):
+                    runs[leg][j].append(events_ms(
+                        lambda: _chain(fn, *args[leg], k))[0])
+            for j, k in enumerate((CHAIN_K1, CHAIN_K2)):
+                runs["stream"][j].append(events_ms(lambda: stream(k))[0])
+        slope = {leg: max((min(r[1]) - min(r[0])) / (CHAIN_K2 - CHAIN_K1), 1e-9)
+                 for leg, r in runs.items()}
+        achievable = 8 * n / slope["stream"] / 1e6  # GB/s
+        res = {"shape": list(shape), "elements": n, "ms_per_iteration": slope,
+               "achievable_gbps": achievable, "legs": {}}
+        for leg in legs:
+            gbps = CANON_BYTES * n / slope[leg] / 1e6
+            res["legs"][leg] = {"ms": slope[leg], "gbps_20B": gbps,
+                                "frac_of_3.35TB/s": gbps / (HBM_BYTES_PER_S / 1e9),
+                                "frac_of_achievable": gbps / achievable}
+        res["legs"]["fused"]["real_gbps_16B"] = FUSED_BYTES * n / slope["fused"] / 1e6
+        res["bound_ms_20B"] = CANON_BYTES * n / HBM_BYTES_PER_S * 1e3
+        res["bound_ms_16B"] = FUSED_BYTES * n / HBM_BYTES_PER_S * 1e3
+        out[kind] = res
+        log(f"[chain] {kind} {shape}: ms an iteration "
+            + ", ".join(f"{k} {v:.4f}" for k, v in slope.items())
+            + f"; stream {achievable:.1f} GB/s; at 20 B/elem: "
+            + ", ".join(f"{leg} {r['gbps_20B']:.1f} GB/s ({100 * r['frac_of_3.35TB/s']:.1f}% "
+                        f"of 3.35 TB/s, {100 * r['frac_of_achievable']:.1f}% of the stream)"
+                        for leg, r in res["legs"].items())
+            + f"; fused real rate {res['legs']['fused']['real_gbps_16B']:.1f} GB/s "
+            f"(bounds {res['bound_ms_20B']:.3f} ms at 20 B, {res['bound_ms_16B']:.3f} ms "
+            "at 16 B)")
+
+        # the fused kernel alone, for the kernels line
+        s_l, zp_l = s0.clone().requires_grad_(True), zp0.clone().requires_grad_(True)
+        x_l = x.clone().requires_grad_(True)
+
+        def lib(xx, gg):
+            if spec.per_channel:
+                y = torch._fake_quantize_learnable_per_channel_affine(
+                    xx, s_l, zp_l, spec.axis, spec.quant_min, spec.quant_max, 1.0)
+            else:
+                y = torch._fake_quantize_learnable_per_tensor_affine(
+                    xx, s_l, zp_l, spec.quant_min, spec.quant_max, 1.0)
+            return torch.autograd.grad(y, (xx, s_l, zp_l), gg)
+
+        name = f"fq_fwdbwd_{kind}"
+        ms, call = measure(lambda xx, gg: fake_quant_fwdbwd(gg, xx, s0, b0, spec=spec),
+                           [(x, gr)])
+        plain, _ = measure(lambda xx, gg: (golden_forward(xx, s0, b0, spec),
+                                                  golden_backward(gg, xx, s0, b0, spec)),
+                           [(x, gr)], reps=10)
+        split_ms, _ = measure(lambda xx, gg: (fake_quant_forward(xx, s0, b0, spec),
+                                                     fake_quant_backward(gg, xx, s0, b0, spec)),
+                              [(x, gr)])
+        lib_ms, lib_call = measure(lib, [(x_l, gr)])
+        b_ms, b_by = bound(FUSED_BYTES * n, 27 * n)
+        times[name] = {"shape": list(shape), "ms": ms, "call_ms": call, "plain_ms": plain,
+                       "split_ms": split_ms, "library_ms": lib_ms,
+                       "library_call_ms": lib_call, "bound_ms": b_ms, "bound_by": b_by,
+                       "bytes": FUSED_BYTES * n, "ops": 27 * n}
+        log(f"[time] {name} {shape}: {ms * 1e3:.1f} us on the device, {call * 1e3:.1f} us "
+            f"a call (bound {b_ms * 1e3:.1f} us by {b_by}; the split pair fq_fwd_{kind} + "
+            f"fq_bwd_{kind} {split_ms * 1e3:.1f} us; plain {plain * 1e3:.1f} us; "
+            f"library learnable fake quant forward + backward {lib_ms * 1e3:.1f} us)")
+        del x, gr, x_l, args, legs
+
+
+def _lab_bytes(m):
+    """An int4 lab call's bytes: the packed weights, x, out and the scale."""
+    return LAB_K * LAB_N // 2 + 4 * (m * LAB_K + m * LAB_N + LAB_N)
+
+
+def phase_int4_lab(torch, rec):
+    """Phase 12: the int4 kernel lab (``lab.int4_kernel_lab.run_lab``) at
+    M in {1, 16, 128}, K = N = 8192: ``wo8``, ``wo4``, ``wo4_bf16`` and
+    ``wo4_native``, each against ``wo_matmul_plain`` at its own bits, timed
+    beside the plain versions and two library matmuls.  Fails unless
+    ``wo4_bf16`` and ``wo4_native`` are within 1e-4·max|ref| of their plain
+    versions and ``wo4_native`` within that of ``wo4`` on the same values,
+    and both lab kernels ran."""
+    from jaxlsq_torch.lab.int4_kernel_lab import LAUNCHES as LAB
+    from jaxlsq_torch.lab.int4_kernel_lab import run_lab
+
+    reset_counts()
+    res = run_lab(LAB_MS, LAB_K, LAB_N, rounds=LAB_ROUNDS)
+    torch.cuda.synchronize()
+    rec["int4_lab"] = {"K": LAB_K, "N": LAB_N, "results": res, "launches": dict(LAB)}
+    errs = []
+    for m in LAB_MS:
+        r = res[f"M{m}"]
+        errs += [r["int4_bf16"]["rel_err_vs_plain"], r["int4_native"]["rel_err_vs_plain"],
+                 r["int4_native"]["rel_err_vs_int4_cur"]]
+        b_ms, b_by = bound(_lab_bytes(m), 2 * m * LAB_K * LAB_N)
+        r["int4_bound"] = {"ms": b_ms, "by": b_by}
+        log(f"[lab] M={m} K={LAB_K} N={LAB_N} (int4 bound {b_ms * 1e3:.1f} us by {b_by}): "
+            + "; ".join(f"{k} {v['ms'] * 1e3:.1f} us"
+                        + (f" ({v['w_gbps']:.0f} GB/s of weights, err {v['max_rel_err']:.1e} "
+                           "of max|ref| vs wo_matmul_plain)" if "w_gbps" in v else "")
+                        for k, v in r.items()))
+    rec["max_abs_err"]["wo4_bf16"] = max(res[f"M{m}"]["int4_bf16"]["abs_err_vs_plain"]
+                                         for m in LAB_MS)
+    rec["max_abs_err"]["wo4_native"] = max(res[f"M{m}"]["int4_native"]["abs_err_vs_plain"]
+                                           for m in LAB_MS)
+    if not max(errs) <= 1e-4:
+        raise AssertionError(f"the int4 lab kernels disagree: {errs}")
+    if not all(LAB[k] > 0 for k in LAB):
+        raise AssertionError(f"the int4 lab did not launch its kernels: {LAB}")
+    log(f"[lab] wo4_bf16 / wo4_native within {max(errs):.1e} of max|ref| of their plain "
+        f"versions and of wo4; launches {dict(LAB)}")
+    times = rec["times"]
+    for name, key in (("wo4_bf16", "int4_bf16"), ("wo4_native", "int4_native")):
+        r = res["M1"]
+        b_ms, b_by = bound(_lab_bytes(1), 2 * LAB_K * LAB_N)
+        times[name] = {"M": 1, "K": LAB_K, "N": LAB_N, "ms": r[key]["ms"],
+                       "plain_ms": r[f"{key}_plain"]["ms"],
+                       "library_ms": r["lib_matmul_bf16" if name == "wo4_bf16"
+                                       else "lib_matmul_f32"]["ms"],
+                       "bound_ms": b_ms, "bound_by": b_by}
 
 
 def kernels_line(rec):
@@ -2055,6 +2324,29 @@ def kernels_line(rec):
                     "shape": ("x " + "x".join(map(str, t["shape"]))
                               + (", train mode; library: forward + backward"
                                  if "bwd" in name else ""))})
+    for name, repl in (("fq_fwdbwd_pt", "jaxlsq/ops/pallas_kernels.py:607"),
+                       ("fq_fwdbwd_pc", "jaxlsq/ops/pallas_kernels.py:639")):
+        t = rec["times"][name]
+        out.append({"name": name, "route": "cuda",
+                    "source": "jaxlsq_torch/csrc/fake_quant.cu", "replaces": repl,
+                    "launches": rec["chain"]["launches"][name],
+                    "max_abs_err": rec["max_abs_err"][name],
+                    "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                    "shape": ("x " + "x".join(map(str, t["shape"])) + ", train mode; "
+                              "library: learnable fake quant forward + backward")})
+    for name, repl in (("wo4_bf16", "examples/_int4_kernel_lab.py:50"),
+                       ("wo4_native", "examples/_int4_kernel_lab.py:72")):
+        t = rec["times"][name]
+        out.append({"name": name, "route": "cuda",
+                    "source": "jaxlsq_torch/csrc/wo_matmul.cu", "replaces": repl,
+                    "launches": rec["int4_lab"]["launches"][name],
+                    "max_abs_err": rec["max_abs_err"][name],
+                    "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                    "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                    "shape": (f"M=1, K={t['K']}, N={t['N']}; library: torch.matmul on the "
+                              + ("bf16 x and dequantized bf16 weight" if name == "wo4_bf16"
+                                 else "dequantized f32 weight"))})
     r = rec["times"]["flash"][0]
     for name, repl in (
             ("flash_fwd", "jaxlsq/models/zoo.py:433 -> upstream "
@@ -2090,8 +2382,6 @@ def main(argv):
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
-    import jaxlsq_torch  # noqa: F401  (fails outside a checkout)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2117,6 +2407,8 @@ def main(argv):
     phase_captured_vs_eager(torch, rec)
     phase_lm(torch, rec)
     phase_flash_times(torch, rec)
+    phase_chain(torch, rec)
+    phase_int4_lab(torch, rec)
     rec["wall_s"] = time.time() - t0
     rec["profile_misses"] = PROFILE_MISSES
     rec["waiting_calls"] = WAITING_CALLS

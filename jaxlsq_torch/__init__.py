@@ -1,15 +1,18 @@
 """jaxlsq_torch: the PyTorch + CUDA port of jaxlsq (LSQ/LSQ+ quantization).
 
-Two slices so far:
-
-* LSQ QAT training of conv nets: ``ops`` (the fake-quant kernels and
-  ``fake_quant``/``lsq`` with their custom backward), ``observers`` (min/max
-  observers, the quantizer state machine), ``models`` (QAT ``QuantDense``,
-  ``QuantConv``, flax-rule ``BatchNorm``, ``QuantResNet``/``resnet18_cifar``)
-  and ``parallel`` (``make_train_step``, ``make_eval_step``);
+* LSQ QAT training: ``ops`` (the fake-quant kernels, static, traced and
+  fused, ``fake_quant``/``lsq`` with their custom backward, the
+  flash-attention kernels), ``observers`` (min/max observers, the quantizer
+  state machine), ``models`` (QAT ``QuantDense``, ``QuantConv``,
+  ``QuantEmbed``, flax-rule ``BatchNorm``, ``QuantResNet``/``resnet18_cifar``,
+  the QAT-mode LM) and ``parallel`` (``make_train_step``, eager or captured
+  as one CUDA graph, ``make_eval_step``);
 * serving ``QuantTransformerLM`` with int8/int4 weight-only matmuls and
   KV-cache decode: ``serve`` (pack, convert, the ``wo_matmul`` and
-  ``decode_attention`` kernels, ``make_generate``, ``DecodeEngine``);
+  attention kernels, ``make_generate``, ``DecodeEngine``, the paged cache and
+  ``PagedDecodeEngine``);
+* ``lab``: the int4 kernel lab's candidate kernels, timed beside the
+  shipped ones;
 
 and ``interop``, which carries JAX package variables trees across.  The
 kernels are CUDA C++ for sm_90a in ``csrc/``, built at first use; on CPU

@@ -51,6 +51,16 @@ _SIGNATURES = {
     # tmin, tmax, sym, eval, init, gs, stream
     "jlt_fq_bwd_pc": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                       _F, _I, _I, _I, _F, _P],
+    # g, x, scale, shift, out, dx, part, ds, db, n, qmin, qmax, tmin, tmax,
+    # sym, gs, stream
+    "jlt_fq_fwdbwd_pt": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F,
+                         _I, _F, _P],
+    # g, x, scale, shift, out, dx, part, ds, db, outer, C, inner, qmin, qmax,
+    # tmin, tmax, sym, gs, stream
+    "jlt_fq_fwdbwd_pc": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
+                         _F, _F, _I, _F, _P],
+    # x, w, scale, out, part, M, K, N, native, stream
+    "jlt_wo4_lab": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, scale, shift, flags, out, n, qmin, qmax, tmin, tmax, stream
     "jlt_fq_fwd_pt_traced": [_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
     # x, scale, shift, flags, out, outer, C, inner, qmin, qmax, tmin, tmax,

@@ -39,8 +39,8 @@
 // What bounds it on an H100: a few operations per 4-byte element, far below
 // the card's operations per byte, so each kernel is bound by its bytes: the
 // forward reads x and writes out (8 B an element), the training backward
-// reads g and x and writes dX (12 B); the traced kernels move the same bytes
-// in every mode.  The TPU kernels carry dS/dB in an
+// reads g and x and writes dX (12 B), the fused pair 16 B; the traced kernels
+// move the same bytes in every mode.  The TPU kernels carry dS/dB in an
 // accumulator resident across their sequential grid; Hopper blocks run in
 // parallel, so each block writes a partial and a second small kernel sums the
 // partials in block order and applies the gradient scale after the sum, as
@@ -51,6 +51,16 @@
 // it, walked by its threads in the contiguous inner runs (an OIHW weight on
 // axis 0 is one run per channel; a (K, N) kernel on axis 1 has runs of one
 // element, read with a stride of C), and writes one (chunk, C) partial.
+//
+// The fused forward + backward (kOut = true, train mode only): the static
+// backward kernels with one more output, out = (rint(xq) - zp) * s, which the
+// backward computes for dS anyway (dequant() below, the forward's own op
+// sequence).  One pass reads g and x and writes out and dX (16 B an element
+// against the split pair's 20); the grid and the partials are the static
+// backward's, so out has fq_fwd_*'s bits and dX, dS, dB have fq_bwd_*'s.
+// Replaces fq_fwdbwd_pt _pt_fwdbwd (:607, launching _pt_bwd_kernel with
+// emit_out) and fq_fwdbwd_pc _pc_fwdbwd (:639, _pc_bwd_kernel with emit_out)
+// of jaxlsq/ops/pallas_kernels.py.
 #include <cuda_runtime.h>
 #include <algorithm>
 #include <cfloat>
@@ -76,32 +86,43 @@ __device__ __forceinline__ void load_qparams(const float* __restrict__ scale,
   zp = rintf(fminf(fmaxf(__fdiv_rn(-shift[c], s), r.tmin), r.tmax));
 }
 
+// xq = clamp(x / s + zp, qmin, qmax), unrounded.
+__device__ __forceinline__ float clamped(float x, float s, float zp, const Range& r) {
+  return fminf(fmaxf(__fadd_rn(__fdiv_rn(x, s), zp), r.qmin), r.qmax);
+}
+
+// The fake-quantized value (rint(xq) - zp) * s of a clamped xq.
+__device__ __forceinline__ float dequant(float xq, float s, float zp) {
+  return __fmul_rn(__fsub_rn(rintf(xq), zp), s);
+}
+
 __device__ __forceinline__ float fq_value(float x, float s, float zp, const Range& r) {
-  float v = __fadd_rn(__fdiv_rn(x, s), zp);
-  v = rintf(fminf(fmaxf(v, r.qmin), r.qmax));
-  return __fmul_rn(__fsub_rn(v, zp), s);
+  return dequant(clamped(x, s, zp, r), s, zp);
 }
 
 // One element of the backward: adds its dS/dB terms to the thread's sums
 // (static: unless eval) and writes dX (static: unless init; traced: always,
-// g itself in init mode).
-template <bool kTraced>
+// g itself in init mode) and, fused (kOut), the forward's out.
+template <bool kTraced, bool kOut>
 __device__ __forceinline__ void bwd_elem(const float* __restrict__ g,
                                          const float* __restrict__ x,
-                                         float* __restrict__ dx, int i, float s,
+                                         float* __restrict__ dx,
+                                         float* __restrict__ out, int i, float s,
                                          float zp, const Range& r, int sym,
                                          int eval_mode, int init_mode, float& ds,
                                          float& db) {
   const float xv = x[i];
   const float gv = (init_mode && !kTraced) ? 0.f : g[i];
-  const float xq = fminf(fmaxf(__fadd_rn(__fdiv_rn(xv, s), zp), r.qmin), r.qmax);
+  const float xq = clamped(xv, s, zp, r);
   const bool in = (r.qmin < xq) && (xq < r.qmax);
+  const float xfq = dequant(xq, s, zp);
+  if (kOut) out[i] = xfq;
   if (kTraced)
     dx[i] = init_mode ? gv : __fmul_rn(gv, in ? 1.f : 0.f);
   else if (!init_mode)
     dx[i] = __fmul_rn(gv, in ? 1.f : 0.f);
   if (eval_mode) return;
-  const float d = __fsub_rn(__fmul_rn(__fsub_rn(rintf(xq), zp), s), xv);
+  const float d = __fsub_rn(xfq, xv);
   const float geff = init_mode ? __fmul_rn(2.f, d) : gv;
   float dse;
   if (in)
@@ -151,13 +172,13 @@ fq_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
 
 // Per tensor: block b writes part[b] (dS) and part[nblocks + b] (dB).
 // Traced: init_mode comes from flags and eval_mode is 0 (ev acts in the sum).
-template <bool kTraced>
+template <bool kTraced, bool kOut>
 __global__ void __launch_bounds__(kThreads)
 fq_bwd_pt_kernel(const float* __restrict__ g, const float* __restrict__ x,
                  const float* __restrict__ scale, const float* __restrict__ shift,
                  const float* __restrict__ flags, float* __restrict__ dx,
-                 float* __restrict__ part, int n, Range r, int sym, int eval_mode,
-                 int init_mode) {
+                 float* __restrict__ out, float* __restrict__ part, int n, Range r,
+                 int sym, int eval_mode, int init_mode) {
   __shared__ float red[kThreads];
   if (kTraced) {
     eval_mode = 0;
@@ -168,7 +189,8 @@ fq_bwd_pt_kernel(const float* __restrict__ g, const float* __restrict__ x,
   float ds = 0.f, db = 0.f;
   const int stride = gridDim.x * kThreads;
   for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride)
-    bwd_elem<kTraced>(g, x, dx, i, s, zp, r, sym, eval_mode, init_mode, ds, db);
+    bwd_elem<kTraced, kOut>(g, x, dx, out, i, s, zp, r, sym, eval_mode, init_mode,
+                            ds, db);
   if (eval_mode) return;
   block_sum(red, ds);
   if (threadIdx.x == 0) part[blockIdx.x] = red[0];
@@ -179,12 +201,13 @@ fq_bwd_pt_kernel(const float* __restrict__ g, const float* __restrict__ x,
 
 // Per channel: block b owns channel b / n_chunks, chunk b % n_chunks; writes
 // part[chunk * C + c] (dS) and part[(n_chunks + chunk) * C + c] (dB).
-template <bool kTraced>
+template <bool kTraced, bool kOut>
 __global__ void __launch_bounds__(kThreads)
 fq_bwd_pc_kernel(const float* __restrict__ g, const float* __restrict__ x,
                  const float* __restrict__ scale, const float* __restrict__ shift,
                  const float* __restrict__ flags, float* __restrict__ dx,
-                 float* __restrict__ part, int outer, int C, int inner,
+                 float* __restrict__ out, float* __restrict__ part, int outer,
+                 int C, int inner,
                  int n_chunks, Range r, int sym, int eval_mode, int init_mode) {
   __shared__ float red[kThreads];
   if (kTraced) {
@@ -200,7 +223,8 @@ fq_bwd_pc_kernel(const float* __restrict__ g, const float* __restrict__ x,
   for (int t = chunk * kPcChunk + threadIdx.x; t < t1; t += kThreads) {
     const int o = t / inner;
     const int i = (o * C + c) * inner + (t - o * inner);
-    bwd_elem<kTraced>(g, x, dx, i, s, zp, r, sym, eval_mode, init_mode, ds, db);
+    bwd_elem<kTraced, kOut>(g, x, dx, out, i, s, zp, r, sym, eval_mode,
+                            init_mode, ds, db);
   }
   if (eval_mode) return;
   block_sum(red, ds);
@@ -262,17 +286,19 @@ int launch_fwd(const void* x, const void* scale, const void* shift,
 }
 
 // Static: no partials and no sum in eval mode.  Traced: always both.
-template <bool kTraced>
+// kOut (static train mode): out is written too.
+template <bool kTraced, bool kOut = false>
 int launch_bwd_pt(const void* g, const void* x, const void* scale,
                   const void* shift, const void* flags, void* dx, void* part,
                   void* ds, void* db, int n, const Range& r, int sym,
-                  int eval_mode, int init_mode, float gs, void* stream) {
+                  int eval_mode, int init_mode, float gs, void* stream,
+                  void* out = nullptr) {
   cudaStream_t st = (cudaStream_t)stream;
   const int blocks = pt_blocks(n);
-  fq_bwd_pt_kernel<kTraced><<<blocks, kThreads, 0, st>>>(
+  fq_bwd_pt_kernel<kTraced, kOut><<<blocks, kThreads, 0, st>>>(
       (const float*)g, (const float*)x, (const float*)scale, (const float*)shift,
-      (const float*)flags, (float*)dx, (float*)part, n, r, sym, eval_mode,
-      init_mode);
+      (const float*)flags, (float*)dx, (float*)out, (float*)part, n, r, sym,
+      eval_mode, init_mode);
   if (kTraced || !eval_mode)
     fq_bwd_sum_kernel<<<1, kThreads, 0, st>>>((const float*)part, blocks, 1, gs,
                                               (const float*)flags, (float*)ds,
@@ -280,17 +306,18 @@ int launch_bwd_pt(const void* g, const void* x, const void* scale,
   return (int)cudaGetLastError();
 }
 
-template <bool kTraced>
+template <bool kTraced, bool kOut = false>
 int launch_bwd_pc(const void* g, const void* x, const void* scale,
                   const void* shift, const void* flags, void* dx, void* part,
                   void* ds, void* db, int outer, int C, int inner, const Range& r,
-                  int sym, int eval_mode, int init_mode, float gs, void* stream) {
+                  int sym, int eval_mode, int init_mode, float gs, void* stream,
+                  void* out = nullptr) {
   cudaStream_t st = (cudaStream_t)stream;
   const int chunks = pc_chunks(outer, inner);
-  fq_bwd_pc_kernel<kTraced><<<C * chunks, kThreads, 0, st>>>(
+  fq_bwd_pc_kernel<kTraced, kOut><<<C * chunks, kThreads, 0, st>>>(
       (const float*)g, (const float*)x, (const float*)scale, (const float*)shift,
-      (const float*)flags, (float*)dx, (float*)part, outer, C, inner, chunks, r,
-      sym, eval_mode, init_mode);
+      (const float*)flags, (float*)dx, (float*)out, (float*)part, outer, C, inner,
+      chunks, r, sym, eval_mode, init_mode);
   if (kTraced || !eval_mode)
     fq_bwd_sum_kernel<<<cdiv(C, kThreads), kThreads, 0, st>>>(
         (const float*)part, chunks, C, gs, (const float*)flags, (float*)ds,
@@ -344,6 +371,27 @@ int jlt_fq_bwd_pc(const void* g, const void* x, const void* scale,
   return launch_bwd_pc<false>(g, x, scale, shift, nullptr, dx, part, ds, db,
                               outer, C, inner, Range{qmin, qmax, tmin, tmax}, sym,
                               eval_mode, init_mode, gs, stream);
+}
+
+// Fused forward + backward, train mode: out and dx are (n,) like x; part,
+// ds, db as for jlt_fq_bwd_pt.
+int jlt_fq_fwdbwd_pt(const void* g, const void* x, const void* scale,
+                     const void* shift, void* out, void* dx, void* part, void* ds,
+                     void* db, int n, float qmin, float qmax, float tmin,
+                     float tmax, int sym, float gs, void* stream) {
+  return launch_bwd_pt<false, true>(g, x, scale, shift, nullptr, dx, part, ds, db,
+                                    n, Range{qmin, qmax, tmin, tmax}, sym, 0, 0,
+                                    gs, stream, out);
+}
+
+// Fused forward + backward per channel over the (outer, C, inner) view.
+int jlt_fq_fwdbwd_pc(const void* g, const void* x, const void* scale,
+                     const void* shift, void* out, void* dx, void* part, void* ds,
+                     void* db, int outer, int C, int inner, float qmin, float qmax,
+                     float tmin, float tmax, int sym, float gs, void* stream) {
+  return launch_bwd_pc<false, true>(g, x, scale, shift, nullptr, dx, part, ds, db,
+                                    outer, C, inner, Range{qmin, qmax, tmin, tmax},
+                                    sym, 0, 0, gs, stream, out);
 }
 
 // The traced twins: flags is a (2,) f32 device tensor [ev, ini]; every

@@ -43,6 +43,23 @@
 //
 // A first form with one row load in flight per warp took about 20 us per
 // M = 1 call on an H100 whatever the shape (load latency x 32 rows per warp).
+//
+// The int4 kernel lab's two candidates (lab/int4_kernel_lab.py) run these wo4
+// blocks with another staging of x and no zero point (zp == nullptr: no
+// rowsum, no zero-point term), so they differ from wo4 only in what the lab
+// measures:
+//   wo4_bf16:   out[m, n] = s[n] * sum_k bf16(x[m, k]) * w[k, n]
+//     the split-half bytes, x rounded to bf16 (round to nearest even) as it
+//     is staged; a nibble is exact in bf16, so each product is exact in f32
+//     and the sums are f32, as _wo4_bf16_kernel's bf16 dot with an f32
+//     accumulator.  Replaces examples/_int4_kernel_lab.py:_wo4_bf16_kernel
+//     (:50, launched at :106 in run_bf16).
+//   wo4_native: out[m, n] = s[n] * sum_k x[m, k] * w[k, n]
+//     int4 with K contiguous (the port's layout for the lab's jnp.int4 array,
+//     whose bytes it cannot see): byte (r, n) holds k = 2r in its low nibble
+//     and k = 2r + 1 in its high nibble, K even.  Replaces
+//     _wo4_native_kernel (:72, launched at :136 in run_native, plane f32).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,10 +73,16 @@ constexpr int kChunk = 128;       // weight rows (int8) or byte rows (int4) per 
 constexpr int kUnroll = 4;        // weight rows a warp loads before using them
 constexpr int kSlab = 256;        // activation rows per launch pair
 
+// How a block stages its chunk's activations: f32 split halves (wo8, wo4,
+// wo4g), split halves rounded to bf16 (wo4_bf16), K contiguous (wo4_native:
+// byte row r meets x[m, 2r] and x[m, 2r + 1]).
+enum Stage { kStageF32, kStageBf16, kStageKContig };
+
 // One (column tile, K chunk, row tile) block: partial sums of its chunk.
 // part is (n_chunks, mslab, N); rowsum is (n_chunks, mslab) (int4 only).
 // GROUPED (int4 only): gscale is (G, N); each nibble is scaled by its group.
-template <bool INT4, bool GROUPED>
+// rowsum == nullptr (int4, no zero point): no rowsum is written.
+template <bool INT4, bool GROUPED, Stage STAGE = kStageF32>
 __global__ void __launch_bounds__(kThreads)
 wo_partial_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
                   const int* __restrict__ zp, const float* __restrict__ gscale,
@@ -77,14 +100,24 @@ wo_partial_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   const int m0 = blockIdx.z * kRows;
   const int mt = min(kRows, M - m0);
 
-  // stage this chunk's activations (low half; for int4 also the high half)
+  // stage this chunk's activations (low half; for int4 also the high half,
+  // or for K contiguous the even and the odd k)
   for (int i = threadIdx.x; i < kRows * kChunk; i += kThreads) {
     const int m = i / kChunk, r = i % kChunk;
     float lo = 0.f, hi = 0.f;
     if (m < mt && r < rc) {
       const float* row = x + (size_t)(m0 + m) * K;
-      lo = row[r0 + r];
-      if (INT4 && r0 + r + KR < K) hi = row[r0 + r + KR];
+      if (STAGE == kStageKContig) {
+        lo = row[2 * (r0 + r)];
+        hi = row[2 * (r0 + r) + 1];
+      } else {
+        lo = row[r0 + r];
+        if (INT4 && r0 + r + KR < K) hi = row[r0 + r + KR];
+        if (STAGE == kStageBf16) {
+          lo = __bfloat162float(__float2bfloat16_rn(lo));
+          hi = __bfloat162float(__float2bfloat16_rn(hi));
+        }
+      }
     }
     xs[m][r] = lo;
     if (INT4) xh[m][r] = hi;
@@ -94,7 +127,7 @@ wo_partial_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   int zc[4];
   for (int j = 0; j < 4; ++j) {
     const int n = n0 + j;
-    zc[j] = (n < N && !GROUPED) ? zp[per_channel ? n : 0] : 0;
+    zc[j] = (n < N && !INT4) ? zp[per_channel ? n : 0] : 0;
   }
   const bool vec = ((N & 3) == 0) && (n0 + 3 < N);
 
@@ -166,7 +199,7 @@ wo_partial_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
   }
 
   // rowsum(x) over this chunk, for the int4 zero-point epilogue
-  if (INT4 && !GROUPED && blockIdx.x == 0 && threadIdx.x < mt) {
+  if (INT4 && !GROUPED && rowsum && blockIdx.x == 0 && threadIdx.x < mt) {
     float s = 0.f;
     for (int r = 0; r < rc; ++r) s += xs[threadIdx.x][r] + xh[threadIdx.x][r];
     rowsum[(size_t)chunk * M + m0 + threadIdx.x] = s;
@@ -192,7 +225,8 @@ wo_partial_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
 }
 
 // Sum the chunk partials in chunk order and apply the dequant epilogue (the
-// grouped partials are scaled already: their sum is the output).
+// grouped partials are scaled already: their sum is the output; zp ==
+// nullptr: no zero-point term).
 template <bool INT4, bool GROUPED>
 __global__ void wo_epilogue_kernel(const float* __restrict__ part,
                                    const float* __restrict__ rowsum,
@@ -210,7 +244,7 @@ __global__ void wo_epilogue_kernel(const float* __restrict__ part,
     return;
   }
   const int ch = per_channel ? n : 0;
-  if (INT4) {
+  if (INT4 && zp) {
     float rs = 0.f;
     for (int c = 0; c < n_chunks; ++c) rs += rowsum[(size_t)c * M + m];
     acc = acc - rs * (float)zp[ch];
@@ -218,7 +252,7 @@ __global__ void wo_epilogue_kernel(const float* __restrict__ part,
   out[i] = acc * scale[ch];
 }
 
-template <bool INT4, bool GROUPED>
+template <bool INT4, bool GROUPED, Stage STAGE = kStageF32>
 void launch(const float* x, const int8_t* w, const float* scale, const int* zp,
             float* out, float* part, float* rowsum, int M, int K, int N,
             int per_channel, int gs, cudaStream_t stream) {
@@ -227,7 +261,7 @@ void launch(const float* x, const int8_t* w, const float* scale, const int* zp,
   for (int ms = 0; ms < M; ms += kSlab) {
     const int mslab = min(kSlab, M - ms);
     dim3 grid((N + kCols - 1) / kCols, n_chunks, (mslab + kRows - 1) / kRows);
-    wo_partial_kernel<INT4, GROUPED><<<grid, kThreads, 0, stream>>>(
+    wo_partial_kernel<INT4, GROUPED, STAGE><<<grid, kThreads, 0, stream>>>(
         x + (size_t)ms * K, w, zp, scale, part, rowsum, mslab, K, N, KR,
         per_channel, gs);
     const size_t total = (size_t)mslab * N;
@@ -268,6 +302,27 @@ int jlt_wo_matmul(const void* x, const void* w, const void* scale,
   } else {
     launch<false, false>(xf, wb, sf, zi, (float*)out, (float*)part,
                          (float*)rowsum, M, K, N, per_channel, 0, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The int4 lab: x f32 (M, K); w int8 bytes (ceil(K / 2), N) split-half
+// (native = 0, wo4_bf16) or (K / 2, N) K-contiguous (native = 1, wo4_native;
+// odd K: cudaErrorInvalidValue); scale f32 (N,); out f32 (M, N); part as
+// for jlt_wo_matmul's int4.  Returns cudaGetLastError().
+int jlt_wo4_lab(const void* x, const void* w, const void* scale, void* out,
+                void* part, int M, int K, int N, int native, void* stream) {
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const float* xf = (const float*)x;
+  const int8_t* wb = (const int8_t*)w;
+  const float* sf = (const float*)scale;
+  if (native) {
+    if (K % 2) return (int)cudaErrorInvalidValue;
+    launch<true, false, kStageKContig>(xf, wb, sf, nullptr, (float*)out,
+                                       (float*)part, nullptr, M, K, N, 1, 0, s);
+  } else {
+    launch<true, false, kStageBf16>(xf, wb, sf, nullptr, (float*)out,
+                                    (float*)part, nullptr, M, K, N, 1, 0, s);
   }
   return (int)cudaGetLastError();
 }

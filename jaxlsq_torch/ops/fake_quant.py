@@ -1,20 +1,29 @@
 """LSQ/LSQ+ fake-quant forward and backward kernels (port of
-``jaxlsq/ops/pallas_kernels.py``: ``pallas_forward`` / ``pallas_backward``
-and their traced-flag twins ``pallas_forward_traced`` /
-``pallas_backward_traced``).
+``jaxlsq/ops/pallas_kernels.py``: ``pallas_forward`` / ``pallas_backward``,
+their traced-flag twins ``pallas_forward_traced`` /
+``pallas_backward_traced``, and the fused ``pallas_fwdbwd``).
 
 * On a CPU tensor each function runs its plain version, the golden math of
   ``core/golden.py``.
 * On a CUDA tensor it launches ``csrc/fake_quant.cu`` (``fq_fwd_pt``,
   ``fq_fwd_pc``, ``fq_bwd_pt``, ``fq_bwd_pc``; traced: ``fq_fwd_pt_traced``,
-  ``fq_fwd_pc_traced``, ``fq_bwd_pt_traced``, ``fq_bwd_pc_traced``) or
-  raises; there is no path from a CUDA tensor to the plain version.  The
-  kernels take f32 only.
+  ``fq_fwd_pc_traced``, ``fq_bwd_pt_traced``, ``fq_bwd_pc_traced``; fused:
+  ``fq_fwdbwd_pt``, ``fq_fwdbwd_pc``) or raises; there is no path from a
+  CUDA tensor to the plain version.
+* The kernels compute in f32.  A float16 or bfloat16 input (or qparam) is
+  widened to f32 at the boundary, on either device, and the results are
+  narrowed back: out and dX to the input's dtype (round to nearest even),
+  dS/dB to the qparams' dtypes, as the JAX package's Pallas path reads 16-bit
+  inputs as f32 and writes the input's dtype.  float64 runs the plain
+  version on the CPU and is refused on the card.
 * The static functions take the modes as host bools and skip what a mode
   does not need (no forward launch in init mode, no dS/dB in eval mode).
   The traced functions take them as ``flags``, a (2,) f32 device tensor
   ``[eval, init]`` read inside the kernels, and always launch and write
   every output, so a captured CUDA graph covers every phase.
+* ``fake_quant_fwdbwd`` is the forward and the train-mode backward in one
+  pass, for a caller that has the incoming gradient when it runs the
+  forward (a recomputed forward, the fwd+bwd chain of ``chip_smoke.py``).
 
 A per-channel tensor is handed to the kernels as its ``(outer, C, inner)``
 view around ``spec.axis``, so the channel axis is never moved.  The qparams
@@ -35,13 +44,24 @@ from ..core.golden import (effective_grad_scale, golden_backward,
 from ..core.spec import QuantSpec
 
 __all__ = ["fake_quant_forward", "fake_quant_backward",
-           "fake_quant_forward_traced", "fake_quant_backward_traced", "LAUNCHES"]
+           "fake_quant_forward_traced", "fake_quant_backward_traced",
+           "fake_quant_fwdbwd", "LAUNCHES"]
 
 LAUNCHES = {"fq_fwd_pt": 0, "fq_fwd_pc": 0, "fq_bwd_pt": 0, "fq_bwd_pc": 0,
             "fq_fwd_pt_traced": 0, "fq_fwd_pc_traced": 0,
-            "fq_bwd_pt_traced": 0, "fq_bwd_pc_traced": 0}
+            "fq_bwd_pt_traced": 0, "fq_bwd_pc_traced": 0,
+            "fq_fwdbwd_pt": 0, "fq_fwdbwd_pc": 0}
 
 _MAX_NUMEL = 2 ** 31 - 1  # the kernels index with 32-bit ints
+_NARROW = (torch.float16, torch.bfloat16)
+
+
+def _narrow(*ts: torch.Tensor) -> bool:
+    return any(t.dtype in _NARROW for t in ts)
+
+
+def _wide(*ts: torch.Tensor):
+    return tuple(t.to(torch.float32) if t.dtype in _NARROW else t for t in ts)
 
 
 def _view3(x: torch.Tensor, spec: QuantSpec) -> Tuple[int, int, int]:
@@ -58,7 +78,8 @@ def _check_cuda(what: str, x: torch.Tensor, *others: torch.Tensor) -> None:
     for t in (x,) + others:
         if t.dtype != torch.float32:
             raise NotImplementedError(
-                f"{what}: the CUDA kernels take float32, got {t.dtype}")
+                f"{what}: the CUDA kernels take float32 (16-bit inputs are "
+                f"widened to it), got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"{what}: tensors on {t.device} and {x.device}")
     if x.numel() > _MAX_NUMEL:
@@ -72,6 +93,18 @@ def _qparams(scale, shift, c: int, what: str):
         raise ValueError(f"{what}: qparams must have {c} elements, got "
                          f"{scale.numel()}/{shift.numel()}")
     return scale, shift
+
+
+def _checked_pair(what: str, grad: torch.Tensor, x: torch.Tensor,
+                  scale: torch.Tensor, shift: torch.Tensor, spec: QuantSpec):
+    """A backward's inputs on the card, checked and contiguous, and x's
+    ``(outer, C, inner)`` view."""
+    _check_cuda(what, x, grad, scale, shift)
+    if grad.shape != x.shape:
+        raise ValueError(f"{what}: grad {tuple(grad.shape)} != x {tuple(x.shape)}")
+    dims = _view3(x, spec)
+    scale, shift = _qparams(scale, shift, dims[1], what)
+    return grad.contiguous(), x.contiguous(), scale, shift, dims
 
 
 def _range(spec: QuantSpec):
@@ -110,6 +143,8 @@ def fake_quant_forward(x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor
     """Fake-quantized ``x``; ``init_mode`` returns ``x`` itself, no launch."""
     if init_mode:
         return x
+    if _narrow(x, scale, shift):
+        return fake_quant_forward(*_wide(x, scale, shift), spec).to(x.dtype)
     if x.device.type == "cpu":
         return golden_forward(x, scale, shift, spec)
     return _launch_forward("fake_quant_forward", x, scale, shift, spec, None)
@@ -122,22 +157,21 @@ def fake_quant_backward(grad: torch.Tensor, x: torch.Tensor, scale: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dX, dS, dB)``: dX the STE gradient (``grad`` itself in init mode),
     dS/dB reduced to the qparams' shape (zeros in eval mode)."""
+    if _narrow(grad, x, scale, shift):
+        dx, ds, db = fake_quant_backward(*_wide(grad, x, scale, shift), spec,
+                                         eval_mode, init_mode, numel)
+        return dx.to(x.dtype), ds.to(scale.dtype), db.to(shift.dtype)
     if x.device.type == "cpu":
         return golden_backward(grad, x, scale, shift, spec, eval_mode=eval_mode,
                                init_mode=init_mode, numel=numel)
-    _check_cuda("fake_quant_backward", x, grad, scale, shift)
-    if grad.shape != x.shape:
-        raise ValueError(f"fake_quant_backward: grad {tuple(grad.shape)} != x "
-                         f"{tuple(x.shape)}")
-    outer, c, inner = _view3(x, spec)
-    scale, shift = _qparams(scale, shift, c, "fake_quant_backward")
+    grad, x, scale, shift, (outer, c, inner) = _checked_pair(
+        "fake_quant_backward", grad, x, scale, shift, spec)
     if eval_mode or x.numel() == 0:
         ds, db = torch.zeros_like(scale), torch.zeros_like(shift)
         if init_mode or x.numel() == 0:
             return (grad if init_mode else torch.zeros_like(x)), ds, db
     else:
         ds, db = torch.empty_like(scale), torch.empty_like(shift)
-    x, grad = x.contiguous(), grad.contiguous()
     dx = grad if init_mode else torch.empty_like(x)
     lib = _build.load_library()
     n_part = 0 if eval_mode else 2 * lib.jlt_fq_partials(outer, c, inner,
@@ -172,6 +206,9 @@ def fake_quant_forward_traced(x: torch.Tensor, scale: torch.Tensor,
                               spec: QuantSpec) -> torch.Tensor:
     """``init ? x : fake_quant(x)`` with ``flags = [eval, init]`` on the
     device; a new tensor in every mode (one launch)."""
+    if _narrow(x, scale, shift):
+        return fake_quant_forward_traced(*_wide(x, scale, shift), flags,
+                                         spec).to(x.dtype)
     if x.device.type == "cpu":
         return golden_forward_traced(x, scale, shift, spec, flags[0], flags[1])
     what = "fake_quant_forward_traced"
@@ -186,17 +223,16 @@ def fake_quant_backward_traced(grad: torch.Tensor, x: torch.Tensor,
     """``(dX, dS, dB)`` with ``flags = [eval, init]`` on the device: dX is
     ``grad`` in init mode and the STE gradient otherwise; dS/dB are scaled
     by ``gs·(1 − eval)``.  Every output is a new tensor, in every mode."""
+    if _narrow(grad, x, scale, shift):
+        dx, ds, db = fake_quant_backward_traced(*_wide(grad, x, scale, shift),
+                                                flags, spec, numel)
+        return dx.to(x.dtype), ds.to(scale.dtype), db.to(shift.dtype)
     if x.device.type == "cpu":
         return golden_backward_traced(grad, x, scale, shift, spec, flags[0],
                                       flags[1], numel=numel)
-    _check_cuda("fake_quant_backward_traced", x, grad, scale, shift)
+    grad, x, scale, shift, (outer, c, inner) = _checked_pair(
+        "fake_quant_backward_traced", grad, x, scale, shift, spec)
     flags = _flags(flags, x, "fake_quant_backward_traced")
-    if grad.shape != x.shape:
-        raise ValueError(f"fake_quant_backward_traced: grad {tuple(grad.shape)} != "
-                         f"x {tuple(x.shape)}")
-    outer, c, inner = _view3(x, spec)
-    scale, shift = _qparams(scale, shift, c, "fake_quant_backward_traced")
-    x, grad = x.contiguous(), grad.contiguous()
     dx = torch.empty_like(x)
     if x.numel() == 0:
         return dx, torch.zeros_like(scale), torch.zeros_like(shift)
@@ -220,3 +256,46 @@ def fake_quant_backward_traced(grad: torch.Tensor, x: torch.Tensor,
         LAUNCHES["fq_bwd_pt_traced"] += 1
     _build.check(err, "fake_quant_backward_traced")
     return dx, ds, db
+
+
+def fake_quant_fwdbwd(grad: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
+                      shift: torch.Tensor, *, spec: QuantSpec,
+                      numel: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """``(out, dX, dS, dB)``: the train-mode forward and backward in one
+    pass (one launch), equal to ``fake_quant_forward`` and
+    ``fake_quant_backward`` on the same inputs: out and dX bit for bit, and
+    on the card dS/dB too (the same partials in the same order)."""
+    if _narrow(grad, x, scale, shift):
+        out, dx, ds, db = fake_quant_fwdbwd(*_wide(grad, x, scale, shift),
+                                            spec=spec, numel=numel)
+        return (out.to(x.dtype), dx.to(x.dtype), ds.to(scale.dtype),
+                db.to(shift.dtype))
+    if x.device.type == "cpu":
+        return (golden_forward(x, scale, shift, spec),
+                *golden_backward(grad, x, scale, shift, spec, numel=numel))
+    grad, x, scale, shift, (outer, c, inner) = _checked_pair(
+        "fake_quant_fwdbwd", grad, x, scale, shift, spec)
+    out, dx = torch.empty_like(x), torch.empty_like(x)
+    if x.numel() == 0:
+        return out, dx, torch.zeros_like(scale), torch.zeros_like(shift)
+    ds, db = torch.empty_like(scale), torch.empty_like(shift)
+    lib = _build.load_library()
+    part = torch.empty(2 * lib.jlt_fq_partials(outer, c, inner, int(spec.per_channel)),
+                       dtype=torch.float32, device=x.device)
+    gs = effective_grad_scale(spec, numel if numel is not None else x.numel(), c)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (grad.data_ptr(), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            out.data_ptr(), dx.data_ptr(), part.data_ptr(), ds.data_ptr(),
+            db.data_ptr())
+    if spec.per_channel:
+        err = lib.jlt_fq_fwdbwd_pc(*args, outer, c, inner, *_range(spec),
+                                   int(spec.symmetric), gs, stream)
+        LAUNCHES["fq_fwdbwd_pc"] += 1
+    else:
+        err = lib.jlt_fq_fwdbwd_pt(*args, x.numel(), *_range(spec),
+                                   int(spec.symmetric), gs, stream)
+        LAUNCHES["fq_fwdbwd_pt"] += 1
+    _build.check(err, "fake_quant_fwdbwd")
+    return out, dx, ds, db

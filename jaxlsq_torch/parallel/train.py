@@ -4,10 +4,16 @@ without a mesh).
 
 One step is: the training forward (the observers write the quantizers'
 scale/shift in place while they run), the backward, then
-``optimizer.step()``.  So the optimizer's update lands on top of the
-observer-written qparams, the JAX package's train-step contract: while an
-observer drives a quantizer its qparams' gradients are exactly zero, and
-once LSQ learning starts the observer no longer writes.
+``optimizer.step()``.  The update lands on top of the observer-written
+qparams, but is computed from the qparams the step started with, as the JAX
+package's ``apply_updates(observer_params, update(grads, old_params))``:
+the step keeps each observed qparam's value before the forward (``old``) and
+after the backward (``new``), puts ``old`` back for ``optimizer.step()``
+and then writes ``new + (stepped − old)`` where ``new != old``.  So weight
+decay acts on ``old``, as optax's does; where the observer wrote nothing
+(outside the observer window) the result is the optimizer's own, bit for
+bit.  While an observer drives a quantizer its qparams' gradients are
+exactly zero, and once LSQ learning starts the observer no longer writes.
 ``torch.optim.SGD(params, lr, momentum=m)`` keeps the trace ``t = g + m·t``
 and applies ``−lr·t``, first step ``t = g``, as ``optax.sgd(lr,
 momentum=m)`` does.
@@ -25,6 +31,17 @@ momentum=m)`` does.
   observer-window → LSQ switch and the toggles (``models.toggles``) act
   through device flags, without a new capture.  On the CPU there is no
   capture: the same traced program runs eagerly.
+
+  The learning rate stays live across replays where the optimizer reads it
+  from the device: with ``capturable=True`` (Adam, AdamW) or ``fused=True``
+  (SGD), each param group's ``lr`` becomes a 0-d f32 device tensor before
+  the warm-up, and before every replay the group's current value (a Python
+  float a scheduler wrote, or another tensor) is copied into it on the
+  replaying stream.  An optimizer with ``capturable=False`` raises.  Any
+  other (an SGD without ``fused=True``) keeps the lr it was captured with,
+  and a later change to it raises rather than replay the old value.  Every
+  other hyperparameter (momentum, weight decay, betas, ...) is frozen at
+  capture: a change raises before the next replay.
 
 ``accum_steps > 1`` splits the batch's leading axis into that many
 microbatches, run in order (observers and BatchNorm see each one); the
@@ -75,6 +92,21 @@ def _traced(fqs):
             m.traced = False
 
 
+def _flat(params):
+    """The parameters' values as one new flat tensor (one kernel)."""
+    if not params:
+        return None
+    return torch.cat([p.detach().reshape(-1) for p in params])
+
+
+@torch.no_grad()
+def _unflat(params, flat) -> None:
+    """Write ``_flat``'s layout back into the parameters in place."""
+    if params:
+        torch._foreach_copy_(params, [c.view_as(p) for c, p in zip(
+            flat.split([p.numel() for p in params]), params)])
+
+
 def _microbatches(batch: Dict, n: int):
     size = _inputs(batch).shape[0]
     if size % n:
@@ -83,16 +115,90 @@ def _microbatches(batch: Dict, n: int):
     return [{k: v[i * m:(i + 1) * m] for k, v in batch.items()} for i in range(n)]
 
 
+def _reads_device_lr(group: Dict) -> bool:
+    return bool(group.get("capturable")) or bool(group.get("fused"))
+
+
+class _Hyper:
+    """An optimizer's hyperparameters as a captured step holds them: the
+    device ``lr`` of each group that reads one, and the values frozen at
+    capture."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer, device: torch.device):
+        self.opt = optimizer
+        self.lrs = []  # per group: its 0-d f32 device lr, or None (host lr)
+        for group in optimizer.param_groups:
+            if not _reads_device_lr(group):
+                if "capturable" in group:
+                    raise ValueError(
+                        f"make_train_step(jit=True): {type(optimizer).__name__} "
+                        "with capturable=False cannot run inside a captured CUDA "
+                        "graph; construct it with capturable=True")
+                self.lrs.append(None)
+                continue
+            lr = group["lr"]
+            if not (torch.is_tensor(lr) and lr.device == device and lr.dim() == 0
+                    and lr.dtype == torch.float32):
+                lr = torch.tensor(float(lr), dtype=torch.float32, device=device)
+                group["lr"] = lr
+            self.lrs.append(lr)
+        self.frozen = None
+
+    def _held(self, group: Dict, lr) -> Dict:
+        skip = ("params", "initial_lr") + (("lr",) if lr is not None else ())
+        return {k: v for k, v in group.items() if k not in skip}
+
+    def freeze(self) -> None:
+        """Hold the values the graph about to be captured bakes in."""
+        self.frozen = [self._held(g, lr)
+                       for g, lr in zip(self.opt.param_groups, self.lrs)]
+
+    def sync(self) -> None:
+        """Before a replay: raise on a changed frozen value; copy each
+        group's lr into its device tensor (on the current stream)."""
+        groups = self.opt.param_groups
+        if len(groups) != len(self.lrs):
+            raise RuntimeError("make_train_step(jit=True): the optimizer's param "
+                               "groups changed after the step was captured")
+        for i, (group, lr, held) in enumerate(zip(groups, self.lrs, self.frozen)):
+            now = self._held(group, lr)
+            for k in held.keys() | now.keys():
+                a, b = held.get(k), now.get(k)
+                same = a is b if torch.is_tensor(a) or torch.is_tensor(b) else a == b
+                if same:
+                    continue
+                hint = ("construct the optimizer with fused=True (SGD) or "
+                        "capturable=True (Adam, AdamW) so a captured step reads "
+                        "its lr from the device" if k == "lr" else
+                        "only lr may change between replays")
+                raise RuntimeError(
+                    f"make_train_step(jit=True): param group {i}'s {k!r} changed "
+                    f"from {a!r} to {b!r} after the step was captured, and the "
+                    f"graph would replay the old value; {hint}")
+            cur = group["lr"]
+            if lr is not None and cur is not lr:
+                if torch.is_tensor(cur):
+                    lr.copy_(cur.reshape(()))
+                else:
+                    lr.fill_(float(cur))
+                group["lr"] = lr
+
+
 class _CapturedStep:
     """``step(batch)`` of a CUDA model: per batch signature, one eager
     warm-up step, then one capture, then replays."""
 
-    def __init__(self, body: Callable, fqs, device: torch.device):
+    def __init__(self, body: Callable, fqs, device: torch.device,
+                 optimizer: torch.optim.Optimizer):
         self.body, self.fqs, self.device = body, fqs, device
+        self.optimizer = optimizer
+        self.hyper = None  # made at the first call
         self.graphs = {}  # signature -> None (warmed up) or (graph, batch, loss)
 
     def __call__(self, batch: Dict) -> Dict[str, torch.Tensor]:
         key = tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items()))
+        if self.hyper is None:
+            self.hyper = _Hyper(self.optimizer, self.device)
         if key not in self.graphs:
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
@@ -103,12 +209,16 @@ class _CapturedStep:
             return {"loss": loss}
         entry = self.graphs[key]
         if entry is None:
+            if self.hyper.frozen is None:
+                self.hyper.freeze()
+            self.hyper.sync()
             static = {k: v.to(self.device, copy=True) for k, v in batch.items()}
             graph = torch.cuda.CUDAGraph()
             with _traced(self.fqs), torch.cuda.graph(graph):
                 loss = self.body(static)
             entry = self.graphs[key] = (graph, static, loss)
         else:
+            self.hyper.sync()
             for k, v in batch.items():
                 entry[1][k].copy_(v)
         entry[0].replay()
@@ -134,9 +244,21 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     params = [p for group in optimizer.param_groups for p in group["params"]]
     fqs = _quantizers(model)
+    in_opt = {id(p) for p in params}
+    # the qparams an observer may write: in the traced regime every observed
+    # quantizer's (a device flag decides), in the eager one those whose
+    # observer the host mirror shows on (read after refresh_host_state)
+    observed = [m for m in fqs if m.cfg.observer is not None and not m.cfg.debug_mode]
+
+    def observed_qparams():
+        mods = observed if jit else [m for m in observed
+                                     if m.host_state()["observer_enabled"]]
+        return [p for m in mods for p in (m.scale, m.shift) if id(p) in in_opt]
 
     def body(batch: Dict) -> torch.Tensor:
         model.train()
+        qps = observed_qparams()
+        old = _flat(qps)
         if accum_steps == 1:
             loss = loss_fn(model(_inputs(batch)), batch)
             optimizer.zero_grad(set_to_none=True)
@@ -155,7 +277,12 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        new = _flat(qps)
+        _unflat(qps, old)
         optimizer.step()
+        if qps:  # new + update, the update taken at old
+            stepped = _flat(qps)
+            _unflat(qps, torch.where(new == old, stepped, new + (stepped - old)))
         return loss.detach()
 
     if not jit:
@@ -166,7 +293,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
 
     device = next(model.parameters()).device
     if device.type == "cuda":
-        return _CapturedStep(body, fqs, device)
+        return _CapturedStep(body, fqs, device, optimizer)
 
     def traced_step(batch: Dict) -> Dict[str, torch.Tensor]:
         with _traced(fqs):

@@ -370,15 +370,243 @@ def test_fake_quant_kernels_match_plain(cuda, name, shape, eval_mode, init_mode)
 
 @pytest.mark.gpu
 def test_fake_quant_kernels_refuse_other_dtypes(cuda):
-    from jaxlsq_torch.ops.fake_quant import fake_quant_backward, fake_quant_forward
+    """float64 is refused on the card (16-bit inputs are widened to f32 at
+    the boundary: test_fake_quant_sixteen_bit_on_card_matches_cpu)."""
+    from jaxlsq_torch.ops.fake_quant import (fake_quant_backward, fake_quant_forward,
+                                             fake_quant_fwdbwd)
 
     spec = QuantSpec(**FQ_SPECS["act"])
-    x = torch.randn(8, 16, device=cuda, dtype=torch.bfloat16)
+    x = torch.randn(8, 16, device=cuda, dtype=torch.float64)
     s, b = torch.ones(1, device=cuda), torch.zeros(1, device=cuda)
     with pytest.raises(NotImplementedError, match="float32"):
         fake_quant_forward(x, s, b, spec)
     with pytest.raises(NotImplementedError, match="float32"):
         fake_quant_backward(x, x, s, b, spec)
+    with pytest.raises(NotImplementedError, match="float32"):
+        fake_quant_fwdbwd(x, x, s, b, spec=spec)
+
+
+def _fq_case(cuda, name, shape, seed):
+    spec = QuantSpec(**FQ_SPECS[name])
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, device=cuda, generator=g) * 1.5
+    c = shape[spec.axis] if spec.per_channel else 1
+    s = 0.01 + 0.04 * torch.rand(c, device=cuda, generator=g)
+    b = (torch.zeros(c, device=cuda) if spec.symmetric
+         else 0.2 * torch.randn(c, device=cuda, generator=g))
+    gr = torch.randn(shape, device=cuda, generator=g)
+    return spec, x, s, b, gr
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", [(k, s) for k, v in FQ_SHAPES.items() for s in v])
+def test_fake_quant_fwdbwd_matches_split_kernels(cuda, name, shape):
+    """The fused kernel (one launch) against the static forward and
+    backward kernels on the same inputs: out, dX, dS and dB bit-equal (the
+    same grid and partials); out and dX bit-equal to the plain version."""
+    from jaxlsq_torch.ops.fake_quant import (LAUNCHES, fake_quant_backward,
+                                             fake_quant_forward, fake_quant_fwdbwd)
+
+    spec, x, s, b, gr = _fq_case(cuda, name, shape, sum(shape) + 11)
+    kind = "pc" if spec.per_channel else "pt"
+    for numel in (None, 4 * x.numel()):
+        before = dict(LAUNCHES)
+        got = fake_quant_fwdbwd(gr, x, s, b, spec=spec, numel=numel)
+        torch.cuda.synchronize()
+        assert LAUNCHES[f"fq_fwdbwd_{kind}"] == before[f"fq_fwdbwd_{kind}"] + 1
+        assert sum(LAUNCHES.values()) == sum(before.values()) + 1
+        want = (fake_quant_forward(x, s, b, spec),
+                *fake_quant_backward(gr, x, s, b, spec, numel=numel))
+        for a, w in zip(got, want):
+            assert torch.equal(a, w)
+    cpu = [t.cpu() for t in (gr, x, s, b)]
+    rout, rdx, _, _ = fake_quant_fwdbwd(*cpu, spec=spec)
+    assert torch.equal(got[0].cpu(), rout) and torch.equal(got[1].cpu(), rdx)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+@pytest.mark.parametrize("name,shape", [("act", (64, 512, 4, 4)), ("w_oihw", (128, 64, 1, 1))])
+def test_fake_quant_sixteen_bit_on_card_matches_cpu(cuda, name, shape, dtype):
+    """16-bit inputs at every fake-quant entry point on the card: widened
+    to f32, one kernel launch each, out and dX in the input's dtype and
+    bit-equal to the CPU plain path, dS/dB within 1e-4 relative (+1e-5)."""
+    from jaxlsq_torch.ops.fake_quant import (LAUNCHES, fake_quant_backward,
+                                             fake_quant_backward_traced,
+                                             fake_quant_forward,
+                                             fake_quant_forward_traced,
+                                             fake_quant_fwdbwd)
+
+    spec, x, s, b, gr = _fq_case(cuda, name, shape, sum(shape) + 13)
+    dt = getattr(torch, dtype)
+    x, gr = x.to(dt), gr.to(dt)
+    flags = torch.zeros(2, device=cuda)
+    calls = {
+        "forward": lambda *a: (fake_quant_forward(a[1], a[2], a[3], spec),),
+        "backward": lambda *a: fake_quant_backward(*a[:4], spec),
+        "forward_traced": lambda *a: (fake_quant_forward_traced(a[1], a[2], a[3],
+                                                                a[4], spec),),
+        "backward_traced": lambda *a: fake_quant_backward_traced(*a, spec),
+        "fwdbwd": lambda *a: fake_quant_fwdbwd(*a[:4], spec=spec),
+    }
+    for what, fn in calls.items():
+        before = sum(LAUNCHES.values())
+        got = fn(gr, x, s, b, flags)
+        torch.cuda.synchronize()
+        assert sum(LAUNCHES.values()) == before + 1, what
+        want = fn(gr.cpu(), x.cpu(), s.cpu(), b.cpu(), flags.cpu())
+        for i, (a, w) in enumerate(zip(got, want)):
+            if a.shape == x.shape:
+                assert a.dtype == dt and torch.equal(a.cpu(), w), (what, i)
+            else:
+                assert a.dtype == torch.float32
+                np.testing.assert_allclose(a.cpu().numpy(), w.numpy(), rtol=1e-4,
+                                           atol=1e-5, err_msg=what)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n,m", [(8192, 8192, 1), (1024, 1024, 16), (4096, 1024, 130),
+                                   (512, 300, 5), (66, 17, 3)])
+def test_wo4_lab_kernels_match_plain(cuda, k, n, m):
+    """``wo4_bf16`` and ``wo4_native`` against their plain versions within
+    1e-4 of max|ref| (f32 K-sums in another order), and ``wo4_native``
+    against ``wo4`` on the same int4 values within the same bound."""
+    from jaxlsq_torch.lab import int4_kernel_lab as lab
+
+    _, p4, w4, sc, r = lab.lab_weights(k, n, cuda)
+    x = torch.from_numpy(r.randn(m, k).astype(np.float32)).to(cuda)
+    before = dict(lab.LAUNCHES)
+    bf, nat, cur = lab.run_bf16(x, p4), lab.run_native(x, w4, sc), wo_matmul(x, p4)
+    torch.cuda.synchronize()
+    assert lab.LAUNCHES["wo4_bf16"] == before["wo4_bf16"] + 1
+    assert lab.LAUNCHES["wo4_native"] == before["wo4_native"] + 1
+    for got, ref in ((bf, lab.run_bf16_plain(x, p4)),
+                     (nat, lab.run_native_plain(x, w4, sc)), (nat, cur)):
+        tol = 1e-4 * float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_wo4_lab_kernels_take_odd_k_split_half_and_refuse_it_native(cuda):
+    from jaxlsq_torch.lab import int4_kernel_lab as lab
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    k, n = 1023, 520
+    w = torch.randn(k, n, device=cuda, generator=g) * 0.05
+    spec = QuantSpec.make(4, signed=True, symmetric=True, per_channel=True, axis=1)
+    p4 = quantize_weight(w, w.abs().amax(0) / 7, torch.zeros(n, device=cuda), spec,
+                         bits=4)
+    x = torch.randn(7, k, device=cuda, generator=g)
+    ref = lab.run_bf16_plain(x, p4)
+    assert float((lab.run_bf16(x, p4) - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    with pytest.raises(ValueError, match="K even"):
+        lab.pack_native(torch.zeros(k, n, dtype=torch.int8, device=cuda))
+
+
+def _optim_state(opt, model):
+    return {f"{name}/{k}": v for name, p in model.named_parameters()
+            for k, v in opt.state[p].items() if torch.is_tensor(v)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["sgd", "adamw"])
+def test_captured_step_follows_a_changing_lr(cuda, which):
+    """The captured step under an lr that changes before every step, against
+    the eager step of the same Tensor-lr optimizer from one state (cuDNN
+    deterministic): SGD(momentum 0.9, weight decay 1e-2, fused=True) and
+    AdamW(weight decay 1e-2, capturable=True), 5 steps across the observer
+    window.  The captured side's schedule writes Python floats into
+    ``group['lr']``, the eager side fills its lr tensor; losses, every
+    variable and the optimizer state equal."""
+    from jaxlsq_torch.models import QuantResNet
+    from jaxlsq_torch.parallel import make_train_step
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=2)
+        models = [QuantResNet(10, qc, stage_sizes=(1, 1), widths=(16, 32), device=cuda)
+                  for _ in range(2)]
+        interop.load_qat_variables(models[1], interop.qat_variables(models[0]))
+        base = 1e-2 if which == "sgd" else 1e-3
+
+        def make(m):
+            lr = torch.tensor(base, device=cuda)
+            if which == "sgd":
+                return torch.optim.SGD(m.parameters(), lr=lr, momentum=0.9,
+                                       weight_decay=1e-2, fused=True)
+            return torch.optim.AdamW(m.parameters(), lr=lr, weight_decay=1e-2,
+                                     capturable=True)
+
+        opts = [make(m) for m in models]
+        eager = make_train_step(models[0], opts[0], jit=False)
+        captured = make_train_step(models[1], opts[1], jit=True)
+        r = np.random.RandomState(1)
+        for i in range(5):
+            lr = base * (1.0 - 0.15 * i)
+            opts[0].param_groups[0]["lr"].fill_(lr)
+            opts[1].param_groups[0]["lr"] = lr
+            batch = {"image": torch.from_numpy(r.randn(8, 3, 16, 16).astype(np.float32)).to(cuda),
+                     "label": torch.from_numpy(r.randint(0, 10, size=8)).to(cuda)}
+            want = eager(batch)["loss"]
+            got = captured(batch)["loss"]
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (i, float(got), float(want))
+            assert torch.is_tensor(opts[1].param_groups[0]["lr"])
+            assert float(opts[1].param_groups[0]["lr"]) == float(torch.tensor(lr))
+            trees = [interop.qat_variables(m) for m in models]
+            for path, v in _leaves(trees[0]):
+                np.testing.assert_array_equal(_get(trees[1], path), v,
+                                              err_msg=f"step {i} {path}")
+            states = [_optim_state(o, m) for o, m in zip(opts, models)]
+            assert states[0].keys() == states[1].keys()
+            for key, v in states[0].items():
+                assert torch.equal(states[1][key], v), (i, key)
+        assert len(captured.graphs) == 1
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+@pytest.mark.gpu
+def test_captured_step_refuses_stale_hyperparameters(cuda):
+    """A captured step never replays a stale hyperparameter: a changed
+    momentum raises, a changed lr of an optimizer that reads it from the
+    host (SGD without fused=True) raises naming fused=True, and an Adam
+    with capturable=False is refused before anything runs."""
+    from jaxlsq_torch.models import QuantResNet
+    from jaxlsq_torch.parallel import make_train_step
+
+    qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=1)
+    r = np.random.RandomState(2)
+    batch = {"image": torch.from_numpy(r.randn(4, 3, 16, 16).astype(np.float32)).to(cuda),
+             "label": torch.from_numpy(r.randint(0, 10, size=4)).to(cuda)}
+
+    def captured(opt_fn):
+        m = QuantResNet(10, qc, stage_sizes=(1,), widths=(8,), device=cuda)
+        opt = opt_fn(m)
+        step = make_train_step(m, opt, jit=True)
+        step(batch)
+        step(batch)  # the capture
+        return step, opt
+
+    step, opt = captured(lambda m: torch.optim.SGD(m.parameters(), lr=1e-2, momentum=0.9,
+                                                   fused=True))
+    opt.param_groups[0]["lr"] = 5e-3  # read from the device: fine
+    step(batch)
+    opt.param_groups[0]["momentum"] = 0.5
+    with pytest.raises(RuntimeError, match="momentum"):
+        step(batch)
+    step, opt = captured(lambda m: torch.optim.SGD(m.parameters(), lr=1e-2, momentum=0.9))
+    opt.param_groups[0]["lr"] = 5e-3
+    with pytest.raises(RuntimeError, match="fused=True"):
+        step(batch)
+    m = QuantResNet(10, qc, stage_sizes=(1,), widths=(8,), device=cuda)
+    with pytest.raises(ValueError, match="capturable=True"):
+        make_train_step(m, torch.optim.Adam(m.parameters(), lr=1e-3), jit=True)(batch)
 
 
 @pytest.mark.gpu

@@ -25,6 +25,7 @@ MODULES = [
     "jaxlsq_torch.serve.matmul", "jaxlsq_torch.serve.attention",
     "jaxlsq_torch.serve.decode", "jaxlsq_torch.serve.paged",
     "jaxlsq_torch.serve.paged_engine", "jaxlsq_torch.interop",
+    "jaxlsq_torch.lab", "jaxlsq_torch.lab.int4_kernel_lab", "jaxlsq_torch.lab.timing",
 ]
 
 
