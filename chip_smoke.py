@@ -92,30 +92,34 @@ exits non-zero on any failure (no phase is caught and skipped):
    Python floats into ``group['lr']``) for SGD (momentum 0.9, weight decay
    1e-2, ``fused=True``) and AdamW (weight decay 1e-2, ``capturable=True``),
    whose decay reaches the qparams across the window's end;
-9. checks (with phase 2) the three flash-attention kernels against their
-   plain versions at (B, H, t, hd) = (2, 8, 4096, 64), (4, 8, 2048, 64) and
-   t in {60, 1000} for hd in {32, 64, 128} (out and lse within 2e-5 of
-   max|ref|, dQ/dK/dV within 1e-4), and the fake-quant kernels at the 19
-   quantizer shapes of the LM below (its real data from one step and
-   random data; the phase 2 gates); then drives the LM path with every
-   launch count reset: ``QuantTransformerLM`` at the widths of
-   docs/measurements/flash_train_tpu.json (vocab 8192, d512, depth 2, 8
-   heads, rope) under ``default_qconfig(8, 8, per_channel_weights=True,
-   init_batches=2)``, SGD (lr 1e-2, momentum 0.9), seeded tokens (labels
-   shifted by one), 8 eager and then 8 captured steps of fresh models under
-   ``'flash'`` and ``'xla'`` at B = 2, t = 4096 and B = 4, t = 2048 (tokens/s
-   over steps 3-8, peak allocated memory, a profiled step of the t = 4096
-   ``'flash'`` legs); fails unless every loss is finite and each flash kernel
-   ran ``depth`` times a step eagerly, ``depth`` times in the warm-up and in
-   the capture and never in a replay; then a B = 1, t = 512 step on the card
-   against the CPU plain path (phase 6's rule), 3 eager and 3 captured
+9. checks (with phase 2) the two flash-attention kernels (3xTF32 products
+   on the tensor cores; the backward one launch) against their plain
+   versions at (B, H, t, hd) = (2, 8, 4096, 64), (4, 8, 2048, 64) and t in
+   {60, 1000} for hd in {32, 64, 128} (out and lse within 2e-5 of max|ref|,
+   dQ/dK/dV within 1e-4; the backward bit-equal across two runs), and the
+   fake-quant kernels at the 19 quantizer shapes of the LM below (its real
+   data from one step and random data; the phase 2 gates); then drives the
+   LM path with every launch count reset: ``QuantTransformerLM`` at the
+   widths of docs/measurements/flash_train_tpu.json (vocab 8192, d512,
+   depth 2, 8 heads, rope) under ``default_qconfig(8, 8,
+   per_channel_weights=True, init_batches=2)``, SGD (lr 1e-2, momentum
+   0.9), seeded tokens (labels shifted by one), 8 eager and then 8 captured
+   steps of fresh models under ``'flash'`` and ``'xla'`` at B = 2, t = 4096
+   and B = 4, t = 2048 (tokens/s over steps 3-8, peak allocated memory, a
+   profiled step of the t = 4096 ``'flash'`` legs, naming their attention
+   kernels); fails unless every loss is finite and each flash kernel ran
+   ``depth`` times a step eagerly, ``depth`` times in the warm-up and in
+   the capture and never in a replay; then a B = 1, t = 512 step on the
+   card against the CPU plain path (phase 6's rule), 3 eager and 3 captured
    steps from one state equal leaf by leaf, ``attn_window=512`` taking the
    banded path (no flash launch), and train-then-serve: the trained
    variables into a serve-mode LM (``load_variables``), ``make_generate`` at
    B = 1, logits within 1e-4 of max|ref| of the CPU plain path, ``wo8`` and
    ``decode_attention`` launched;
-10. times the flash kernels at the LM's two shapes beside their bounds,
-   plain versions and SDPA (forward, forward + backward);
+10. times the flash kernels at the LM's two shapes beside their bounds
+   (3xTF32 on the tensor cores, and f32 on the CUDA cores), plain versions
+   and SDPA (forward, backward alone, forward + backward; its kernels named
+   from a profile);
 11. jaxlsq's headline chain (bench.py:484-628) with every launch count
    reset: per tensor (0..255, 64 Mi f32 elements as (65536, 1024), s0 = 0.1,
    b0 = 0.05) and per channel (the resnet weight spec on an (8192, 8192)
@@ -161,6 +165,7 @@ from jaxlsq_torch.lab.timing import (PROFILE_MISSES, WAITING_CALLS,  # noqa: E40
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores
 VOCAB, DIM, DEPTH, HEADS, T0 = 8192, 1024, 4, 16, 32
 GROUP = 128  # convert(weight_group_size=) of the grouped-int4 LM
 # PagedDecodeEngine leg: a page of 128 positions, 16 pool pages (an eighth of
@@ -181,7 +186,7 @@ EQUAL_STEPS = 5
 LM_VOCAB, LM_DIM, LM_DEPTH, LM_HEADS, LM_MAX = 8192, 512, 2, 8, 4096
 LM_LEGS = ((2, 4096), (4, 2048))  # (B, t): 8192 tokens a step
 LM_STEPS = 8
-FLASH_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+FLASH_KERNELS = ("flash_fwd", "flash_bwd")
 FLASH_SHAPES = ((2, 8, 4096, 64), (4, 8, 2048, 64), (2, 8, 60, 64), (2, 8, 1000, 64),
                 (2, 8, 60, 32), (2, 8, 1000, 32), (2, 8, 60, 128), (2, 8, 1000, 128))
 # jaxlsq's headline fwd+bwd chain (bench.py:484-628): 64 Mi f32 elements,
@@ -1072,7 +1077,9 @@ def _profile_train_step(torch, step, batch, step_ms):
     top = sorted(((k[:70], v) for k, v in by_name.items()), key=lambda kv: -kv[1])
     return {"device_ms": dev_ms, "span_ms": span, "busy_share": dev_ms / step_ms,
             "kernels": n_kernels, "by_category_ms": by_cat, "top": top[:15],
-            "fq_kernels": {e.key: e.count for e in rows if "fq_" in e.key}}
+            "fq_kernels": {e.key: e.count for e in rows if "fq_" in e.key},
+            "attention_kernels": {k: v for k, v in by_name.items()
+                                  if _categorise(k) == "flash_attention"}}
 
 
 def _batchnorm_ms(torch, shapes):
@@ -1591,21 +1598,33 @@ def phase_fq_times(torch, rec):
 # ---------------------------------------------------------------------------
 
 def _flash_flops(b, h, t, hd):
-    """Multiply-add operations (x2) of each flash kernel at these shapes,
-    counting the causal triangle's t (t + 1) / 2 (query, key) pairs: the
-    forward does two products a pair (S, PV), dK/dV four (S, dP, dV, dK), dQ
-    three (S, dP, dQ)."""
+    """Multiply-add operations (x2) that each flash function needs at these
+    shapes, counting the causal triangle's t (t + 1) / 2 (query, key) pairs:
+    the forward needs two products a pair (S, PV), the backward, given lse
+    and D, five (S, dP, dV, dK, dQ)."""
     pairs = b * h * t * (t + 1) // 2
-    return {"flash_fwd": 2 * 2 * hd * pairs, "flash_bwd_dkv": 4 * 2 * hd * pairs,
-            "flash_bwd_dq": 3 * 2 * hd * pairs}
+    return {"flash_fwd": 2 * 2 * hd * pairs, "flash_bwd": 5 * 2 * hd * pairs}
+
+
+def _flash_flops_executed(b, h, t, hd):
+    """The operations the kernels execute: the backward recomputes S and dP
+    in both of its block roles, seven products a pair (4 + 3)."""
+    pairs = b * h * t * (t + 1) // 2
+    return {"flash_fwd": 2 * 2 * hd * pairs, "flash_bwd": (4 + 3) * 2 * hd * pairs}
 
 
 def _flash_bytes(b, h, t, hd):
     """Each input read once and each output written once (f32)."""
     mat, row = 4 * b * h * t * hd, 4 * b * h * t
     return {"flash_fwd": 3 * mat + mat + row,             # q, k, v -> out, lse
-            "flash_bwd_dkv": 4 * mat + 2 * row + 2 * mat,  # q, k, v, dO, lse, D -> dk, dv
-            "flash_bwd_dq": 4 * mat + 2 * row + mat}       # ... -> dq
+            "flash_bwd": 4 * mat + 2 * row + 3 * mat}     # q, k, v, dO, lse, D -> dq, dk, dv
+
+
+def tc_bound(nbytes, flops):
+    """The least time of a 3xTF32 kernel: three TF32 tensor-core passes a
+    product (f32-class accuracy), or the bytes."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, 3 * flops / TF32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
 def _flash_case(torch, b, h, t, hd, g):
@@ -1614,9 +1633,10 @@ def _flash_case(torch, b, h, t, hd, g):
 
 
 def phase_flash_kernels(torch, rec):
-    """The three flash kernels against their plain versions on the same
+    """The two flash kernels against their plain versions on the same
     inputs: out and lse within 2e-5 of max|ref|, dQ, dK, dV within 1e-4 of
-    max|ref| (the backward kernels get the plain forward's lse and D)."""
+    max|ref| (the backward kernel gets the plain forward's lse and D); the
+    backward's dq, dk, dv bit-equal across two runs."""
     from jaxlsq_torch.ops import flash_attention as fa
 
     g = torch.Generator(device="cuda").manual_seed(8)
@@ -1626,17 +1646,19 @@ def phase_flash_kernels(torch, rec):
         out, lse = fa.flash_fwd(q, k, v, sm)
         rout, rlse = fa.flash_fwd_plain(q, k, v, sm)
         d = (do * rout).sum(-1)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, rlse, d, sm)
-        rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, rlse, d, sm)
-        dq = fa.flash_bwd_dq(q, k, v, do, rlse, d, sm)
-        rdq = fa.flash_bwd_dq_plain(q, k, v, do, rlse, d, sm)
+        dq, dk, dv = fa.flash_bwd(q, k, v, do, rlse, d, sm)
+        again = fa.flash_bwd(q, k, v, do, rlse, d, sm)
+        rdq, rdk, rdv = fa.flash_bwd_plain(q, k, v, do, rlse, d, sm)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b_) for a, b_ in zip((dq, dk, dv), again)):
+            raise AssertionError(f"flash_bwd gave other bits on a second run at "
+                                 f"{(b, h, t, hd)}")
         line = []
         for name, got, want, tol in (("flash_fwd", out, rout, 2e-5),
                                      ("flash_fwd", lse, rlse, 2e-5),
-                                     ("flash_bwd_dq", dq, rdq, 1e-4),
-                                     ("flash_bwd_dkv", dk, rdk, 1e-4),
-                                     ("flash_bwd_dkv", dv, rdv, 1e-4)):
+                                     ("flash_bwd", dq, rdq, 1e-4),
+                                     ("flash_bwd", dk, rdk, 1e-4),
+                                     ("flash_bwd", dv, rdv, 1e-4)):
             err = float((got - want).abs().max())
             lim = tol * float(want.abs().max())
             line.append(f"{err:.2e}/{lim:.2e}")
@@ -1645,8 +1667,9 @@ def phase_flash_kernels(torch, rec):
                                      f"{(b, h, t, hd)}: {err} > {lim}")
             errs[name] = max(errs[name], err)
         log(f"[check] flash kernels B={b} H={h} t={t} hd={hd}: max_abs_err/tol "
-            f"out {line[0]}, lse {line[1]}, dq {line[2]}, dk {line[3]}, dv {line[4]}")
-        del q, k, v, do, out, rout, dk, rdk, dv, rdv, dq, rdq
+            f"out {line[0]}, lse {line[1]}, dq {line[2]}, dk {line[3]}, dv {line[4]}; "
+            "backward bit-equal on a second run")
+        del q, k, v, do, out, rout, dk, rdk, dv, rdv, dq, rdq, again
     rec["max_abs_err"].update(errs)
 
 
@@ -1780,6 +1803,8 @@ def _lm_leg(torch, impl, b, t, jit, profile=False):
             + "; ".join(f"{k} {v:.2f} ms" for k, v in sorted(
                 p["by_category_ms"].items(), key=lambda kv: -kv[1]))
             + "; top: " + "; ".join(f"{k} {v:.2f} ms" for k, v in p["top"][:6]))
+        log(f"[lm] attention kernels of that step: " + "; ".join(
+            f"{k} {v:.3f} ms" for k, v in sorted(p["attention_kernels"].items())))
     return leg, model, step
 
 
@@ -1920,9 +1945,12 @@ def _lm_serve(torch, model):
 
 
 def phase_flash_times(torch, rec):
-    """Each flash kernel at the LM's two attention shapes, beside its bound,
-    its plain version and SDPA (the PyTorch library call, forward and forward
-    + backward, timed here only)."""
+    """Each flash kernel at the LM's two attention shapes, beside its bounds
+    (3xTF32 on the tensor cores, f32 on the CUDA cores), its plain version
+    and SDPA (the PyTorch library call, timed here only): its forward, its
+    backward alone (``autograd.grad`` of an output whose forward ran before
+    the timed region) and forward + backward; SDPA's kernels are named from
+    a profile of one forward + backward."""
     import torch.nn.functional as F
 
     from jaxlsq_torch.ops import flash_attention as fa
@@ -1937,12 +1965,9 @@ def phase_flash_times(torch, rec):
         d = (do * out).sum(-1)
         fns = {"flash_fwd": (lambda q_, k_, v_, do_: fa.flash_fwd(q_, k_, v_, sm),
                              lambda q_, k_, v_, do_: fa.flash_fwd_plain(q_, k_, v_, sm)),
-               "flash_bwd_dkv": (
-                   lambda q_, k_, v_, do_: fa.flash_bwd_dkv(q_, k_, v_, do_, lse, d, sm),
-                   lambda q_, k_, v_, do_: fa.flash_bwd_dkv_plain(q_, k_, v_, do_, lse, d, sm)),
-               "flash_bwd_dq": (
-                   lambda q_, k_, v_, do_: fa.flash_bwd_dq(q_, k_, v_, do_, lse, d, sm),
-                   lambda q_, k_, v_, do_: fa.flash_bwd_dq_plain(q_, k_, v_, do_, lse, d, sm))}
+               "flash_bwd": (
+                   lambda q_, k_, v_, do_: fa.flash_bwd(q_, k_, v_, do_, lse, d, sm),
+                   lambda q_, k_, v_, do_: fa.flash_bwd_plain(q_, k_, v_, do_, lse, d, sm))}
         leaves = [tuple(x.clone().requires_grad_(True) for x in s_[:3]) + (s_[3],)
                   for s_ in sets]
 
@@ -1952,26 +1977,49 @@ def phase_flash_times(torch, rec):
         def sdpa_fwdbwd(q_, k_, v_, do_):
             return torch.autograd.grad(sdpa(q_, k_, v_, do_), (q_, k_, v_), do_)
 
+        def sdpa_bwd(o_, q_, k_, v_, do_):
+            return torch.autograd.grad(o_, (q_, k_, v_), do_, retain_graph=True)
+
         lib_fwd, _ = measure(sdpa, sets, reps=20)
         lib_fb, _ = measure(sdpa_fwdbwd, leaves, reps=20)
+        outs = [(sdpa(*l_),) + l_ for l_ in leaves]
+        lib_bwd, _ = measure(sdpa_bwd, outs, reps=20)
+        del outs
+        # SDPA's kernels named from a profile of one forward + backward; no
+        # time is taken from it, and it is not held against the span: the
+        # profiler on the card recorded none of SDPA's f32 forward kernels
+        prof, _ = profiled(lambda: sdpa_fwdbwd(*leaves[0]), sleep_ms=2 * lib_fb + 5)
+        sdpa_kernels = {e.key: e.self_device_time_total / 1e3 for e in prof}
         flops, nbytes = _flash_flops(b, h, t, hd), _flash_bytes(b, h, t, hd)
+        executed = _flash_flops_executed(b, h, t, hd)
         row = {"B": b, "H": h, "t": t, "hd": hd, "sdpa_fwd_ms": lib_fwd,
-               "sdpa_fwd_bwd_ms": lib_fb}
+               "sdpa_bwd_ms": lib_bwd, "sdpa_fwd_bwd_ms": lib_fb,
+               "sdpa_kernels": sdpa_kernels}
         for name, (fn, plain_fn) in fns.items():
             ms, call = measure(fn, sets, reps=20)
             plain, _ = measure(plain_fn, sets[:2], reps=4)
-            b_ms, b_by = bound(nbytes[name], flops[name])
+            b_ms, b_by = tc_bound(nbytes[name], flops[name])
+            cc_ms, _ = bound(nbytes[name], flops[name])
             row[name] = {"ms": ms, "call_ms": call, "plain_ms": plain, "bound_ms": b_ms,
-                         "bound_by": b_by, "flops": flops[name], "bytes": nbytes[name],
-                         "tflops": flops[name] / ms / 1e9}
+                         "bound_by": b_by, "bound_f32_cuda_cores_ms": cc_ms,
+                         "flops": flops[name], "flops_executed": executed[name],
+                         "bytes": nbytes[name], "tflops": flops[name] / ms / 1e9,
+                         "tflops_executed": executed[name] / ms / 1e9}
             log(f"[time] {name} B={b} H={h} t={t} hd={hd}: {ms:.3f} ms on the device, "
-                f"{call:.3f} ms a call ({row[name]['tflops']:.2f} TFLOP/s; bound "
-                f"{b_ms:.3f} ms by {b_by}; plain {plain:.3f} ms)")
+                f"{call:.3f} ms a call ({row[name]['tflops']:.2f} TFLOP/s of the products "
+                f"the function needs, {row[name]['tflops_executed']:.2f} TFLOP/s of those "
+                f"executed, f32-accurate; bound {b_ms:.3f} ms by {b_by} at 3xTF32 on the "
+                f"tensor cores, {cc_ms:.3f} ms at f32 on the CUDA cores; plain {plain:.3f} ms)")
         row["kernels_fwd_bwd_ms"] = sum(row[k]["ms"] for k in FLASH_KERNELS)
         log(f"[time] SDPA (f32, causal) B={b} H={h} t={t} hd={hd}: forward "
-            f"{lib_fwd:.3f} ms, forward + backward {lib_fb:.3f} ms; the kernels: "
-            f"forward {row['flash_fwd']['ms']:.3f} ms, forward + backward "
+            f"{lib_fwd:.3f} ms, backward alone {lib_bwd:.3f} ms, forward + backward "
+            f"{lib_fb:.3f} ms; the kernels: forward {row['flash_fwd']['ms']:.3f} ms, "
+            f"backward {row['flash_bwd']['ms']:.3f} ms, forward + backward "
             f"{row['kernels_fwd_bwd_ms']:.3f} ms")
+        log("[time] SDPA's kernels as the profiler recorded them (one forward + "
+            "backward): " + "; ".join(
+            f"{k[:90]} {v:.3f} ms" for k, v in sorted(sdpa_kernels.items(),
+                                                      key=lambda kv: -kv[1])))
         rows.append(row)
         del sets, leaves, q, k, v, do, out, lse, d
     rec["times"]["flash"] = rows
@@ -2348,13 +2396,14 @@ def kernels_line(rec):
                               + ("bf16 x and dequantized bf16 weight" if name == "wo4_bf16"
                                  else "dequantized f32 weight"))})
     r = rec["times"]["flash"][0]
-    for name, repl in (
+    for name, repl, lib, what in (
             ("flash_fwd", "jaxlsq/models/zoo.py:433 -> upstream "
-                          "jax/experimental/pallas/ops/tpu/flash_attention.py:331"),
-            ("flash_bwd_dkv", "jaxlsq/models/zoo.py:433 -> upstream "
-                              "jax/experimental/pallas/ops/tpu/flash_attention.py:796"),
-            ("flash_bwd_dq", "jaxlsq/models/zoo.py:433 -> upstream "
-                             "jax/experimental/pallas/ops/tpu/flash_attention.py:1146")):
+                          "jax/experimental/pallas/ops/tpu/flash_attention.py:331",
+             "sdpa_fwd_ms", "SDPA forward"),
+            ("flash_bwd", "jaxlsq/models/zoo.py:433 -> upstream "
+                          "jax/experimental/pallas/ops/tpu/flash_attention.py:796 "
+                          "(dK/dV) and :1146 (dQ)",
+             "sdpa_bwd_ms", "SDPA backward alone (autograd.grad, forward outside)")):
         t = r[name]
         out.append({"name": name, "route": "cuda",
                     "source": "jaxlsq_torch/csrc/flash_attention.cu", "replaces": repl,
@@ -2362,10 +2411,10 @@ def kernels_line(rec):
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"],
-                    "library_ms": r["sdpa_fwd_ms"] if name == "flash_fwd" else None,
+                    "bound_f32_cuda_cores_ms": t["bound_f32_cuda_cores_ms"],
+                    "library_ms": r[lib],
                     "shape": f"B={r['B']}, H={r['H']}, t={r['t']}, hd={r['hd']}, causal, "
-                             "f32; library: SDPA forward (no single library call "
-                             "computes a backward pass alone)"})
+                             f"f32; bound: 3xTF32 on the tensor cores; library: {what}"})
     return out
 
 

@@ -76,10 +76,8 @@ _SIGNATURES = {
                              _F, _F, _F, _I, _F, _P],
     # q, k, v, out, lse, BH, t, hd, sm_scale, stream
     "jlt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    # q, k, v, dout, lse, D, dk, dv, BH, t, hd, sm_scale, stream
-    "jlt_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
-    # q, k, v, dout, lse, D, dq, BH, t, hd, sm_scale, stream
-    "jlt_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # q, k, v, dout, lse, D, dq, dk, dv, BH, t, hd, sm_scale, stream
+    "jlt_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

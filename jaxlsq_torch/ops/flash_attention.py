@@ -10,17 +10,18 @@ many kv heads as query heads (the caller repeats them for GQA) and returns
 (t, t) scores: a ``torch.autograd.Function`` whose forward saves the output
 and the per-row log-sum-exp (B, H, t) and whose backward computes
 ``D = rowsum(dO ∘ O)`` as one plain tensor op (as upstream computes ``di``
-outside its kernels) and then the dK/dV and the dQ passes.
+outside its kernels) and then dQ, dK and dV in one launch.
 
-Each of the three passes is a function here that takes its kernel's plain
-version for CPU tensors and launches its kernel (``csrc/flash_attention.cu``)
-for CUDA tensors or raises; the plain versions are written from the formulas
-(scores, mask, exponentials), not through autograd, so each kernel has its
-own yardstick:
+Each pass is a function here that takes its kernel's plain version for CPU
+tensors and launches its kernel (``csrc/flash_attention.cu``: 3xTF32
+products on the tensor cores) for CUDA tensors or raises; the plain versions
+are written from the formulas (scores, mask, exponentials), not through
+autograd, so each kernel has its own yardstick:
 
 * :func:`flash_fwd` -> (out, lse) — ``flash_fwd`` kernel;
-* :func:`flash_bwd_dkv` -> (dk, dv) — ``flash_bwd_dkv`` kernel;
-* :func:`flash_bwd_dq` -> dq — ``flash_bwd_dq`` kernel.
+* :func:`flash_bwd` -> (dq, dk, dv) — ``flash_bwd`` kernel, one launch with
+  a dK/dV role and a dQ role; its plain version composes
+  :func:`flash_bwd_dkv_plain` and :func:`flash_bwd_dq_plain`.
 
 Any t works (the kernels mask the ragged tail tile).  The kernels take
 head_dim 32, 64 or 128 and raise ``ValueError`` on any other; CPU tensors
@@ -35,11 +36,11 @@ from torch.autograd.function import once_differentiable
 
 from .. import _build
 
-__all__ = ["flash_attention", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq",
-           "flash_fwd_plain", "flash_bwd_dkv_plain", "flash_bwd_dq_plain",
+__all__ = ["flash_attention", "flash_fwd", "flash_bwd", "flash_fwd_plain",
+           "flash_bwd_plain", "flash_bwd_dkv_plain", "flash_bwd_dq_plain",
            "LAUNCHES", "HEAD_DIMS"]
 
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
 HEAD_DIMS = (32, 64, 128)
 
 
@@ -78,6 +79,12 @@ def flash_bwd_dq_plain(q, k, v, do, lse, d, sm_scale: float):
     p = _probs(q, k, lse, sm_scale)
     ds = p * (torch.matmul(do, v.transpose(-1, -2)) - d[..., None])
     return torch.matmul(ds, k) * sm_scale
+
+
+def flash_bwd_plain(q, k, v, do, lse, d, sm_scale: float):
+    """(dq, dk, dv): :func:`flash_bwd_dq_plain` and :func:`flash_bwd_dkv_plain`."""
+    dk, dv = flash_bwd_dkv_plain(q, k, v, do, lse, d, sm_scale)
+    return flash_bwd_dq_plain(q, k, v, do, lse, d, sm_scale), dk, dv
 
 
 def _check(what: str, q: torch.Tensor, *others: torch.Tensor) -> None:
@@ -130,35 +137,21 @@ def flash_fwd(q, k, v, sm_scale: float):
     return out, lse
 
 
-def flash_bwd_dkv(q, k, v, do, lse, d, sm_scale: float):
-    """(dk, dv) of causal attention, given the forward's lse and D = rowsum(dO ∘ O)."""
-    if not _dispatch("flash_bwd_dkv", q):
-        return flash_bwd_dkv_plain(q, k, v, do, lse, d, sm_scale)
-    _check("flash_bwd_dkv", q, k, v, do, lse, d)
+def flash_bwd(q, k, v, do, lse, d, sm_scale: float):
+    """(dq, dk, dv) of causal attention, given the forward's lse and
+    D = rowsum(dO ∘ O)."""
+    if not _dispatch("flash_bwd", q):
+        return flash_bwd_plain(q, k, v, do, lse, d, sm_scale)
+    _check("flash_bwd", q, k, v, do, lse, d)
     b, h, t, hd = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _build.load_library().jlt_flash_bwd_dkv(
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = _build.load_library().jlt_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        d.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, t, hd, float(sm_scale),
-        _stream(q))
-    LAUNCHES["flash_bwd_dkv"] += 1
-    _build.check(err, "flash_bwd_dkv")
-    return dk, dv
-
-
-def flash_bwd_dq(q, k, v, do, lse, d, sm_scale: float):
-    """dq of causal attention, given the forward's lse and D = rowsum(dO ∘ O)."""
-    if not _dispatch("flash_bwd_dq", q):
-        return flash_bwd_dq_plain(q, k, v, do, lse, d, sm_scale)
-    _check("flash_bwd_dq", q, k, v, do, lse, d)
-    b, h, t, hd = q.shape
-    dq = torch.empty_like(q)
-    err = _build.load_library().jlt_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        d.data_ptr(), dq.data_ptr(), b * h, t, hd, float(sm_scale), _stream(q))
-    LAUNCHES["flash_bwd_dq"] += 1
-    _build.check(err, "flash_bwd_dq")
-    return dq
+        d.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, t, hd,
+        float(sm_scale), _stream(q))
+    LAUNCHES["flash_bwd"] += 1
+    _build.check(err, "flash_bwd")
+    return dq, dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -175,8 +168,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
         d = (do * out).sum(dim=-1)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, d, ctx.sm_scale)
-        dq = flash_bwd_dq(q, k, v, do, lse, d, ctx.sm_scale)
+        dq, dk, dv = flash_bwd(q, k, v, do, lse, d, ctx.sm_scale)
         return dq, dk, dv, None
 
 

@@ -10,9 +10,18 @@ seeded numpy inputs (``jaxlsq_torch.ops.flash_attention`` and the routing in
   with one kv head (GQA, kv heads repeated before the call on both sides).
   Outputs within 2e-5, gradients within 5e-4 · max(1, max|ref|) (the
   kernel's tiled online softmax against one softmax, f32).
-* Each plain version (forward, dK/dV, dQ) against autograd of plain
+* Each plain version (forward, backward) against autograd of plain
   attention, in f64, within 1e-12: each is the yardstick its kernel is held
   to on the card.
+* The kernels' numeric design: a torch emulation of their 3xTF32 products
+  (each f32 operand split into a TF32 big part, rounded to nearest on the
+  low 13 mantissa bits, and the remainder truncated to TF32; small.big +
+  big.small, then + big.big) through the whole forward and backward at
+  head_dim 32, 64 and 128 and a ragged t, within a tenth of the card's gates
+  (out and lse 2e-6, dQ/dK/dV 1e-5 of max|ref|) of the f32 plain versions,
+  where one TF32 pass misses the gates themselves.  It does not show the
+  tensor cores' own accumulation (it rounds toward zero); only the card
+  does.
 * ``_banded_train_attention`` (the 'flash' setting under a window shorter
   than t) against jaxlsq's at the four (t, window, kvh) cases of
   tests/test_flash_train.py, output and gradients within 2e-5 (both are
@@ -76,7 +85,7 @@ def test_flash_matches_jax_interpret_kernel(t, kvh):
 
 @pytest.mark.parametrize("t,hd", [(60, 32), (130, 48)])
 def test_plain_versions_match_autograd(t, hd):
-    """Forward, dK/dV and dQ, each written from the formulas, against
+    """Forward and backward, each written from the formulas, against
     autograd of plain softmax attention (f64; any head_dim on the CPU)."""
     r = np.random.RandomState(t)
     q, k, v, do = (torch.from_numpy(r.randn(2, 3, t, hd)) for _ in range(4))
@@ -88,13 +97,70 @@ def test_plain_versions_match_autograd(t, hd):
     ref.backward(do)
     out, lse = fa.flash_fwd(q, k, v, sm)
     d = (do * out).sum(-1)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, d, sm)
-    dq = fa.flash_bwd_dq(q, k, v, do, lse, d, sm)
+    dq, dk, dv = fa.flash_bwd(q, k, v, do, lse, d, sm)
     np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).detach().numpy(),
                                rtol=0, atol=1e-12)
     for got, want in ((out, ref.detach()), (dq, leaves[0].grad), (dk, leaves[1].grad),
                       (dv, leaves[2].grad)):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
+
+
+def _tf32(x):
+    """Round f32 to TF32 (10 mantissa bits): to nearest, ties away from zero,
+    on the low 13 bits, as ``cvt.rna.tf32.f32``."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(x):
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """The kernels' split (``split_tf32`` in csrc/flash_attention.cu) and
+    their order of the three products."""
+    ab, bb = _tf32(a), _tf32(b)
+    a_small, b_small = _tf32_truncated(a - ab), _tf32_truncated(b - bb)
+    return (torch.matmul(a_small, bb) + torch.matmul(ab, b_small)) + torch.matmul(ab, bb)
+
+
+def _mm_tf32(a, b):
+    return torch.matmul(_tf32(a), _tf32(b))
+
+
+def _attention_with(mm, q, k, v, do, sm):
+    """(out, lse, dq, dk, dv) as the kernels compute them, every product
+    through ``mm``; softmax, masks and sums in f32."""
+    t = q.shape[2]
+    s = mm(q, k.transpose(-1, -2)) * sm
+    s = s.masked_fill(~torch.ones(t, t, dtype=torch.bool).tril(), -torch.inf)
+    lse = torch.logsumexp(s, -1)
+    p = torch.exp(s - lse[..., None])
+    out = mm(p, v)
+    ds = p * (mm(do, v.transpose(-1, -2)) - (do * out).sum(-1)[..., None])
+    return (out, lse, mm(ds, k) * sm, mm(ds.transpose(-1, -2), q) * sm,
+            mm(p.transpose(-1, -2), do))
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("t", [60, 1000])
+def test_3xtf32_products_sit_inside_the_card_gates(hd, t):
+    r = np.random.RandomState(hd + t)
+    q, k, v, do = (torch.from_numpy(r.randn(1, 2, t, hd).astype(np.float32))
+                   for _ in range(4))
+    sm = hd ** -0.5
+    out, lse = fa.flash_fwd_plain(q, k, v, sm)
+    d = (do * out).sum(-1)
+    ref = (out, lse) + fa.flash_bwd_plain(q, k, v, do, lse, d, sm)
+    gates = (2e-5, 2e-5, 1e-4, 1e-4, 1e-4)  # chip_smoke phase 2: out, lse, dq, dk, dv
+
+    def rel_errs(mm):
+        return [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(_attention_with(mm, q, k, v, do, sm), ref)]
+
+    three = rel_errs(_mm_3xtf32)
+    assert all(e <= g / 10 for e, g in zip(three, gates)), three
+    one = rel_errs(_mm_tf32)
+    assert one[0] > gates[0] and max(one[2:]) > gates[2], one
 
 
 def test_flash_attention_refuses_unrepeated_kv():

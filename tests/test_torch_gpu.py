@@ -9,8 +9,9 @@ Tolerances: the K-sums of ``wo_matmul`` (``wo8``, ``wo4``, ``wo4g``) run in
 f32 in another order than the plain matmul (1e-4 of the output's largest
 magnitude); attention 1e-5; the paged kernel bit-equal to the dense kernel on
 the gathered cache; the flash-attention kernels' out and lse 2e-5, dQ/dK/dV
-1e-4 of the largest magnitude (tiled online softmax and sums over t keys in
-another order); captured train steps bit-equal to eager ones.
+1e-4 of the largest magnitude (3xTF32 products, tiled online softmax and sums
+over t keys in another order), their backward bit-equal across runs;
+captured train steps bit-equal to eager ones.
 """
 
 import dataclasses
@@ -784,9 +785,9 @@ def _get(tree, path):
 @pytest.mark.parametrize("b,h,t,hd", [(2, 8, 1000, 64), (1, 2, 60, 32),
                                       (1, 2, 257, 128), (2, 4, 64, 64)])
 def test_flash_kernels_match_plain(cuda, b, h, t, hd):
-    """The three flash-attention kernels against their plain versions on the
+    """The two flash-attention kernels against their plain versions on the
     same inputs: out and lse within 2e-5 of max|ref|, dQ/dK/dV within 1e-4
-    of max|ref| (f32 sums over t keys in another order)."""
+    of max|ref| (3xTF32 products, f32 sums over t keys in another order)."""
     from jaxlsq_torch.ops import flash_attention as fa
 
     g = torch.Generator(device=cuda).manual_seed(t + hd)
@@ -796,16 +797,69 @@ def test_flash_kernels_match_plain(cuda, b, h, t, hd):
     out, lse = fa.flash_fwd(q, k, v, sm)
     rout, rlse = fa.flash_fwd_plain(q, k, v, sm)
     d = (do * rout).sum(-1)
-    dk, dv = fa.flash_bwd_dkv(q, k, v, do, rlse, d, sm)
-    dq = fa.flash_bwd_dq(q, k, v, do, rlse, d, sm)
-    rdk, rdv = fa.flash_bwd_dkv_plain(q, k, v, do, rlse, d, sm)
-    rdq = fa.flash_bwd_dq_plain(q, k, v, do, rlse, d, sm)
+    dq, dk, dv = fa.flash_bwd(q, k, v, do, rlse, d, sm)
+    rdq, rdk, rdv = fa.flash_bwd_plain(q, k, v, do, rlse, d, sm)
     torch.cuda.synchronize()
     assert {n: fa.LAUNCHES[n] - before[n] for n in before} == {
-        "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+        "flash_fwd": 1, "flash_bwd": 1}
     for got, want, tol in ((out, rout, 2e-5), (lse, rlse, 2e-5), (dq, rdq, 1e-4),
                            (dk, rdk, 1e-4), (dv, rdv, 1e-4)):
         assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [4096, 1000])
+def test_flash_bwd_is_bit_deterministic(cuda, t):
+    """Two runs of the backward kernel on the same inputs give the same bits
+    in dq, dk and dv: every block sums its own rows in a fixed order."""
+    from jaxlsq_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=cuda).manual_seed(t)
+    q, k, v, do = (torch.randn(2, 8, t, 64, device=cuda, generator=g) for _ in range(4))
+    out, lse = fa.flash_fwd(q, k, v, 0.125)
+    d = (do * out).sum(-1)
+    first = fa.flash_bwd(q, k, v, do, lse, d, 0.125)
+    second = fa.flash_bwd(q, k, v, do, lse, d, 0.125)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+
+
+def _sass_functions(lib_path, cuobjdump):
+    """{mangled kernel name: its SASS} of a built library (``cuobjdump -sass``)."""
+    import subprocess
+
+    text = subprocess.run([cuobjdump, "-sass", lib_path], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+@pytest.mark.gpu
+def test_flash_kernels_use_tensor_cores(cuda):
+    """Every instance of both flash kernels runs its products as TF32 HMMA
+    (the 3xTF32 tensor-core products), as the built library's SASS shows."""
+    import os
+    import shutil
+
+    from jaxlsq_torch import _build
+
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        pytest.skip("the CUDA toolkit has no cuobjdump")
+    funcs = _sass_functions(_build.load_library()._name, cuobjdump)
+    for kernel in ("flash_fwd_kernel", "flash_bwd_kernel"):
+        found = {k: v for k, v in funcs.items() if kernel in k}
+        assert len(found) == len(("hd 32", "hd 64", "hd 128")), (kernel, list(found))
+        for name, sass in found.items():
+            assert any("HMMA" in ln and "TF32" in ln for ln in sass.splitlines()), name
 
 
 @pytest.mark.gpu
