@@ -36,8 +36,9 @@ exits non-zero on any failure (no phase is caught and skipped):
    ``make_generate`` at B = 1 and 8 (tokens/s from the 16 -> 208 token
    slope), ``DecodeEngine`` (8 requests, each checked token for token
    against ``make_generate`` at B = 1), the int4-weight LM at B = 1, and the
-   max_len 2048, B = 8 leg with int8 and int4 caches; checks the kernel
-   path's logits against the plain path on the CPU; fails if a kernel of
+   max_len 2048, B = 8 leg with int8 and int4 caches (and the kernels a
+   decode step launches there); checks the kernel path's logits against the
+   plain path on the CPU; fails if a kernel of
    the path was never launched; profiles one B = 1 generate for the
    device's busy share and the time by kernel;
 4. drives the paged serving path with every launch count reset: the d1024
@@ -59,7 +60,8 @@ exits non-zero on any failure (no phase is caught and skipped):
    events around calls issued as the host can, beside its bound, its plain
    version and one PyTorch library call (the traced fake-quant kernels in
    train mode beside the static ones; the paged kernel in turns with the
-   dense kernel on the same contents at page sizes 16, 128 and 1024);
+   dense kernel on the same contents at page sizes 16, 128 and 1024, and at
+   B = 1, L = 8192; attention also at int8, B = 1, L = 8192);
 6. drives the eager training path (``make_train_step(jit=False)``) with
    every launch count reset: full-width
    ``resnet18_cifar`` under ``default_qconfig(8, 8, per_channel_weights=True,
@@ -511,8 +513,11 @@ def phase_main(torch, rec):
         name = "int8" if cdt is torch.int8 else "int4"
         main[f"decode_tokens_per_s_b8_L2048_{name}kv"] = tps
         main[f"decode_raw_b8_L2048_{name}kv"] = raw
+        per_step = _kernels_per_step(torch, lambda n: make_generate(
+            longm, T0, n, cache_dtype=cdt)(prompt), 16, 80)
+        main[f"kernels_per_step_b8_L2048_{name}kv"] = per_step
         log(f"[main] max_len 2048, B=8, {name} cache: {tps:.1f} tokens/s "
-            "(slope 16->80)")
+            f"(slope 16->80); {per_step:.1f} kernels a decode step")
     del longm
     torch.cuda.synchronize()
     main["wall_s"] = time.time() - t_main
@@ -521,6 +526,16 @@ def phase_main(torch, rec):
     for k, v in rec["launches"].items():
         if v <= 0:
             raise AssertionError(f"kernel {k} was never launched on the main path")
+
+
+def _kernels_per_step(torch, run, n1, n2):
+    """Kernels a decode step: the profiles' kernel counts of ``run(n2)`` less
+    ``run(n1)`` over the n2 - n1 extra steps; the larger of two profiles
+    each (a lost stretch of records only lowers a count)."""
+    def count(n):
+        return max(sum(e.count for e in profiled(lambda: run(n))[0]) for _ in range(2))
+
+    return (count(n2) - count(n1)) / (n2 - n1)
 
 
 def _engine_run(eng, reqs, prefix_toks):
@@ -586,9 +601,7 @@ def phase_paged(torch, rec):
     with PagedDecodeEngine(model, num_pages=NUM_PAGES, page_size=PAGE, **kw) as eng:
         outs, wall, stats = _engine_run(eng, reqs, prefix)
     torch.cuda.synchronize()
-    launches = {"wo4g": MM["wo4g"], "paged_attention": PAGED["paged_attention"],
-                "wo4": MM["wo4"], "wo8": MM["wo8"],
-                "decode_attention": ATTN["decode_attention"]}
+    launches = {"wo4g": MM["wo4g"], **PAGED, "wo4": MM["wo4"], "wo8": MM["wo8"], **ATTN}
     paged["launches"] = launches
     with DecodeEngine(model, **kw) as eng:
         want, dwall, dstats = _engine_run(eng, reqs, prefix)
@@ -615,8 +628,10 @@ def phase_paged(torch, rec):
     if not (e["admissions_deferred"] > 0 and e["prefix_pages_shared"] > 0):
         raise AssertionError(f"no deferral or no shared prefix page: {e}")
     if not (launches["wo4g"] > 0 and launches["paged_attention"] > 0
+            and launches["paged_attention_fold"] == launches["paged_attention"]
             and launches["wo4"] == 0 and launches["wo8"] == 0
-            and launches["decode_attention"] == 0):
+            and launches["decode_attention"] == 0
+            and launches["decode_attention_fold"] == 0):
         raise AssertionError(f"the paged path ran other kernels: {launches}")
 
     # bench.py's paged_generate beside the dense int8 loop, interleaved
@@ -636,14 +651,7 @@ def phase_paged(torch, rec):
                 times[k][i].append(time.perf_counter() - s)
     tps = {k: 8 * (n2 - n1) / (min(t2) - min(t1)) for k, (t1, t2) in times.items()}
     same_loop = bool(torch.equal(loops["dense"](n1), loops["paged"](n1)))
-    # kernels a decode step: the profiles' kernel counts over the n2 - n1
-    # extra steps; the larger of two profiles (a lost stretch of records only
-    # lowers a count)
-    per_step = {k: (max(sum(e.count for e in profiled(lambda: f(n2))[0])
-                        for _ in range(2))
-                    - max(sum(e.count for e in profiled(lambda: f(n1))[0])
-                          for _ in range(2))) / (n2 - n1)
-                for k, f in loops.items()}
+    per_step = {k: _kernels_per_step(torch, f, n1, n2) for k, f in loops.items()}
     paged["generate_b8_L2048"] = {"tokens_per_s": tps, "raw_s": times,
                                   "paged_over_dense": tps["paged"] / tps["dense"],
                                   "kernels_per_step": per_step,
@@ -769,7 +777,8 @@ def phase_times(torch, rec):
     rows = []
     for carrier, b, length, t in (("int8", 8, 2048, 1), ("int4", 8, 2048, 1),
                                   ("bf16", 8, 2048, 1), ("bf16", 1, 240, 1),
-                                  ("bf16", 8, 240, 1), ("bf16", 8, 240, 32)):
+                                  ("bf16", 8, 240, 1), ("bf16", 8, 240, 32),
+                                  ("int8", 1, 8192, 1)):
         q = torch.randn(b, HEADS, t, hd, device=dev, generator=g)
         one = _rand_cache(torch, carrier, b, HEADS, length, hd, g)
         nbytes_cache = sum(x.numel() * x.element_size() for x in
@@ -818,21 +827,21 @@ def phase_times(torch, rec):
 
 def _time_paged(torch, g):
     """The paged kernel against the dense kernel on the same contents (the
-    gathered cache), int8, B = 8, L = 2048, t = 1, every key live, at page
-    sizes 16, 128 and 1024; each with its plain version and SDPA on the
-    gathered f32 cache."""
+    gathered cache), int8, t = 1, every key live: B = 8, L = 2048 at page
+    sizes 16, 128 and 1024, and B = 1, L = 8192 at page 128; each with its
+    plain version and SDPA on the gathered f32 cache."""
     import torch.nn.functional as F
 
     from jaxlsq_torch.serve.attention import decode_attention
     from jaxlsq_torch.serve.paged import (_gather_dense, paged_attention,
                                           paged_attention_plain)
 
-    b, length, hd, t = 8, 2048, 64, 1
+    hd, t = 64, 1
     dev = g.device
     rows = []
-    q = torch.randn(b, HEADS, t, hd, device=dev, generator=g)
-    idx = torch.full((b,), length - t, dtype=torch.int32, device=dev)
-    for ps in (16, 128, 1024):
+    for b, length, ps in ((8, 2048, 16), (8, 2048, 128), (8, 2048, 1024), (1, 8192, 128)):
+        q = torch.randn(b, HEADS, t, hd, device=dev, generator=g)
+        idx = torch.full((b,), length - t, dtype=torch.int32, device=dev)
         one = _rand_pool(torch, "int8", b, HEADS, length, hd, ps, g)
         nbytes_cache = b * HEADS * length * (hd + 4)  # int8 rows + f32 scales, K or V
         reps = copies_for(2 * nbytes_cache)
@@ -2339,6 +2348,7 @@ def kernels_line(rec):
                 "source": "jaxlsq_torch/csrc/decode_attention.cu",
                 "replaces": "jaxlsq/serve/paged.py:225",
                 "launches": rec["paged"]["launches"]["paged_attention"],
+                "fold_launches": rec["paged"]["launches"]["paged_attention_fold"],
                 "max_abs_err": rec["max_abs_err"]["paged_attention"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -2349,6 +2359,7 @@ def kernels_line(rec):
                 "source": "jaxlsq_torch/csrc/decode_attention.cu",
                 "replaces": "jaxlsq/serve/attention.py:63",
                 "launches": rec["launches"]["decode_attention"],
+                "fold_launches": rec["launches"]["decode_attention_fold"],
                 "max_abs_err": rec["max_abs_err"]["decode_attention"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],

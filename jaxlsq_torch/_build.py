@@ -29,14 +29,16 @@ _SIGNATURES = {
     # x, w, scale, zp, out, part, rowsum, M, K, N, per_channel, int4,
     # group_size, stream
     "jlt_wo_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # q, kd, ks, vd, vs, qpos, out, B, KVH, L, hd, t, gt, window, carrier,
-    # scale, stream
-    "jlt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    # x, w, scale, zp, out, M, K, N, per_channel, stream
+    "jlt_wo8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, kd, ks, vd, vs, qpos, out, ws, B, KVH, L, hd, t, gt, window,
+    # carrier, scale, stream
+    "jlt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _I, _I, _I, ctypes.c_float, _P],
-    # q, kp, ks, vp, vs, qpos, table, out, B, KVH, ps, pps, hd, t, gt,
+    # q, kp, ks, vp, vs, qpos, table, out, ws, B, KVH, ps, pps, hd, t, gt,
     # window, carrier, scale, stream
-    "jlt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _I, ctypes.c_float, _P],
+    "jlt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # outer, C, inner, per_channel
     "jlt_fq_partials": [_I, _I, _I, _I],
     # x, scale, shift, out, n, qmin, qmax, tmin, tmax, stream
@@ -145,10 +147,12 @@ def load_library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            lib.jlt_wo_chunk_rows.restype = ctypes.c_int
-            lib.jlt_wo_slab_rows.restype = ctypes.c_int
+            for name in ("jlt_wo_chunk_rows", "jlt_wo_slab_rows",
+                         "jlt_attention_span_keys"):
+                getattr(lib, name).restype = ctypes.c_int
             lib.chunk_rows = lib.jlt_wo_chunk_rows()
             lib.slab_rows = lib.jlt_wo_slab_rows()
+            lib.span_keys = lib.jlt_attention_span_keys()
             _lib = lib
     return _lib
 

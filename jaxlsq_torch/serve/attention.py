@@ -10,9 +10,12 @@ are attended (and, with a window W, only those > cache_index + row - W).
 
 * On CPU tensors it runs :func:`decode_attention_plain`, the einsum
   formulation of ``_decode_attention_xla`` (the models' own program).
-* On CUDA tensors it launches ``csrc/decode_attention.cu`` or raises.
+* On CUDA tensors it launches ``csrc/decode_attention.cu`` or raises: a
+  kernel that walks the cache in 256-key spans, one block each, and a light
+  kernel that folds the spans' softmax states in span order (a workspace of
+  ``B * KVH * ceil(L / 256) * g * t * (hd + 2)`` floats between them).
 
-``LAUNCHES`` counts the kernel's launches.
+``LAUNCHES`` counts the span kernel's launches and the fold's.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from .pack import true_div
 
 __all__ = ["decode_attention", "decode_attention_plain", "LAUNCHES", "MASK"]
 
-LAUNCHES = {"decode_attention": 0}
+LAUNCHES = {"decode_attention": 0, "decode_attention_fold": 0}
 MASK = -1e9  # additive mask value, as the JAX package's attention
 
 
@@ -108,6 +111,14 @@ def decode_attention_plain(q, ck, cv, cache_index, window: Optional[int] = None)
 _CARRIERS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.uint8: 3}
 
 
+def span_workspace(lib, bkv: int, length: int, gt: int, hd: int, device):
+    """The kernels' span states: (m, l) and acc[hd] of each of ``gt`` rows a
+    (batch, kv head) and 256-key span of the ``length`` keys."""
+    spans = -(-length // lib.span_keys)
+    return torch.empty((bkv * spans * gt * (hd + 2),), dtype=torch.float32,
+                       device=device)
+
+
 def _launch(q, ck, cv, cache_index, window):
     b, h, t, hd = q.shape
     quantized = isinstance(ck, (tuple, list))
@@ -146,12 +157,15 @@ def _launch(q, ck, cv, cache_index, window):
     qpos = _qpos(cache_index, b, dev).contiguous()
     out = torch.empty_like(qc)
     lib = _build.load_library()
+    gt = (h // kvh) * t
+    ws = span_workspace(lib, b * kvh, length, gt, hd, dev)
     err = lib.jlt_decode_attention(
         qc.data_ptr(), kd.data_ptr(), ks_ptr, vd.data_ptr(), vs_ptr,
-        qpos.data_ptr(), out.data_ptr(), b, kvh, length, hd, t, (h // kvh) * t,
+        qpos.data_ptr(), out.data_ptr(), ws.data_ptr(), b, kvh, length, hd, t, gt,
         0 if window is None else int(window), carrier, 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["decode_attention"] += 1
+    LAUNCHES["decode_attention_fold"] += 1
     _build.check(err, "decode_attention")
     return out
 

@@ -9,9 +9,12 @@ group-wise (G, N) scales (``packed.group_size``, int4).
   (``x @ dequantize_weight(packed)`` in f32).
 * On a CUDA tensor it launches ``csrc/wo_matmul.cu`` (``wo8`` for int8,
   ``wo4`` for split-half int4, ``wo4g`` for group-wise int4) for every M, or
-  raises.  ``wo4g`` takes group sizes and K / 2 that are multiples of the
-  kernel's 128-row K chunk (the JAX package's TPU limits do not apply);
-  another grouped pack raises ``ValueError``.
+  raises.  ``wo8`` is one launch with no workspace, summed in one order for
+  every M (32-row K slices, folded in slice order); ``wo4``/``wo4g`` are a
+  partial-sum kernel and an epilogue over a workspace.  ``wo4g`` takes
+  group sizes and K / 2 that are multiples of the kernel's 128-row K chunk
+  (the JAX package's TPU limits do not apply); another grouped pack raises
+  ``ValueError``.
 
 ``LAUNCHES`` counts the kernel launches of each kind.  The int8×int8 paths
 (``static_int8_matmul``, ``dynamic_int8_matmul``) come with a later slice.
@@ -66,20 +69,27 @@ def _launch(x2d: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
                              f"!= {(kdim // gs, n)}")
     elif scale.numel() not in (1, n) or zp.numel() != scale.numel():
         raise ValueError("wo_matmul: qparams must be (N,) or (1,)")
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    per_channel = int(scale.numel() == n and n > 1)
+    if packed.bits == 8 and not gs:
+        err = lib.jlt_wo8(x2d.data_ptr(), data.data_ptr(), scale.data_ptr(),
+                          zp.data_ptr(), out.data_ptr(), m, kdim, n, per_channel,
+                          stream)
+        LAUNCHES["wo8"] += 1
+        _build.check(err, "wo_matmul")
+        return out
     n_chunks = -(-rows // lib.chunk_rows)
     mslab = min(m, lib.slab_rows)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
     # one workspace: chunk partials (n_chunks, mslab, N), then row sums
     work = torch.empty((n_chunks * mslab * (n + 1),), dtype=torch.float32, device=dev)
     part_ptr = work.data_ptr()
     rowsum_ptr = part_ptr + 4 * n_chunks * mslab * n
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.jlt_wo_matmul(x2d.data_ptr(), data.data_ptr(), scale.data_ptr(),
                             zp.data_ptr(), out.data_ptr(), part_ptr, rowsum_ptr,
-                            m, kdim, n,
-                            int(scale.numel() == n and n > 1),
-                            int(packed.bits == 4), gs, stream)
-    LAUNCHES["wo4g" if gs else "wo4" if packed.bits == 4 else "wo8"] += 1
+                            m, kdim, n, per_channel, int(packed.bits == 4), gs,
+                            stream)
+    LAUNCHES["wo4g" if gs else "wo4"] += 1
     _build.check(err, "wo_matmul")
     return out
 

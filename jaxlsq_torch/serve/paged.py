@@ -14,16 +14,17 @@ prefix is shared by pointing several tables at the same pages.
   caches hold identical bytes for the same tokens.
 * :func:`paged_attention` attends through the table: on CPU tensors the plain
   version :func:`paged_attention_plain` (gather to the dense layout, then
-  ``decode_attention_plain``); on CUDA tensors the paged variant of
-  ``csrc/decode_attention.cu``, which gives the dense kernel's bits on the
-  same contents at any page size, or raises.
+  ``decode_attention_plain``); on CUDA tensors the paged instance of
+  ``csrc/decode_attention.cu``'s span kernel (the dense kernel's body, only
+  the row addresses differ) and its fold, which give the dense kernel's bits
+  on the same contents at any page size, or raises.
 * :class:`PageAllocator` is the engines' host-side page bookkeeping.
 
 Differences from the JAX package: one table tensor is shared by every layer
 (the JAX package gives each layer its own copy only so that a donated cache
 holds no buffer twice); pools are updated in place; ``page_size`` has no
 tiling meaning on the card (the kernel reads whole rows through the table at
-any page size).  ``LAUNCHES`` counts the paged kernel's launches.
+any page size).  ``LAUNCHES`` counts the paged span kernel's launches and its fold's.
 """
 
 from __future__ import annotations
@@ -37,13 +38,13 @@ import torch
 
 from .. import _build
 from .attention import (_CARRIERS, _dtype_name, _q4, _q8, _qpos,
-                        decode_attention_plain)
+                        decode_attention_plain, span_workspace)
 
 __all__ = ["PagedKVLayer", "init_paged_cache", "with_table", "paged_update",
            "paged_attention", "paged_attention_plain", "PageAllocator",
            "LAUNCHES"]
 
-LAUNCHES = {"paged_attention": 0}
+LAUNCHES = {"paged_attention": 0, "paged_attention_fold": 0}
 
 
 @dataclasses.dataclass
@@ -244,13 +245,16 @@ def _launch(q, layer: PagedKVLayer, cache_index, window):
     qpos = _qpos(cache_index, b, dev).contiguous()
     out = torch.empty_like(qc)
     lib = _build.load_library()
+    gt = (h // kvh) * t
+    ws = span_workspace(lib, b * kvh, layer.length, gt, hd, dev)
     err = lib.jlt_paged_attention(
         qc.data_ptr(), kp.data_ptr(), ks_ptr, vp.data_ptr(), vs_ptr,
-        qpos.data_ptr(), tb.data_ptr(), out.data_ptr(), b, kvh, ps,
-        table.shape[1], hd, t, (h // kvh) * t,
+        qpos.data_ptr(), tb.data_ptr(), out.data_ptr(), ws.data_ptr(), b, kvh, ps,
+        table.shape[1], hd, t, gt,
         0 if window is None else int(window), carrier, 1.0 / math.sqrt(hd),
         torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES["paged_attention"] += 1
+    LAUNCHES["paged_attention_fold"] += 1
     _build.check(err, "paged_attention")
     return out
 

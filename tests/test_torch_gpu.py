@@ -174,6 +174,127 @@ def test_paged_attention_kernel_matches_plain_and_dense(cuda, carrier, b, h, kvh
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(1023, 1032), (1024, 1032), (4096, 1032), (8192, 1032),
+                                 (1024, 3072), (1024, 8192)])
+def test_wo8_rows_same_bits_at_every_m(cuda, k, n):
+    """wo8 sums every output in one order (32-row K slices folded in slice
+    order), so a row's bits do not depend on M or on the form that M picks
+    (M = 1, 8, 17 split; 100, 256, 300 tiled: at N = 1032 the 32 tile with
+    its K over a cluster of 8, 4, 4 blocks; N = 3072 / 8192 the 64 / 128
+    tile at M = 256) or on the run; one launch a call; within 1e-4 of
+    plain.  N = 1032: 16-byte rows, a ragged last column tile."""
+    from jaxlsq_torch.serve.pack import PackedWeight
+
+    g = torch.Generator(device=cuda).manual_seed(k + n)
+    p = PackedWeight(
+        data=torch.randint(-128, 128, (k, n), device=cuda, generator=g).to(torch.int8),
+        scale=torch.rand(n, device=cuda, generator=g) * 1e-2 + 1e-3,
+        zero_point=torch.randint(-5, 6, (n,), device=cuda, generator=g).to(torch.int32),
+        bits=8, axis=1, k_axis=0, orig_shape=(k, n))
+    x = torch.randn(300, k, device=cuda, generator=g)
+    full = wo_matmul(x, p)
+    ref = wo_matmul_plain(x, p)
+    for m in (1, 8, 17, 100, 256, 300):
+        before = MM_LAUNCHES["wo8"]
+        out = wo_matmul(x[:m], p)
+        torch.cuda.synchronize()
+        assert MM_LAUNCHES["wo8"] == before + 1
+        assert torch.equal(out, full[:m]), m
+    assert torch.equal(wo_matmul(x, p), full)
+    assert float((full - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def _attention_pair(carrier, b, kvh, length, hd, ps, g, device):
+    """A paged layer over a permuted table and its gathered dense cache."""
+    layer = _pool_layer(carrier, b, kvh, length, hd, ps, g, device)
+    return layer, _gather_dense(layer)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("carrier", ["f32", "bf16", "int8", "int4"])
+@pytest.mark.parametrize("length,window,ps", [(2048, None, 128), (2047, 300, 7),
+                                              (1100, 64, 16)])
+def test_attention_rows_same_bits_across_batch_and_chunks(cuda, carrier, length,
+                                                          window, ps):
+    """A row of the split-L kernels gets the same bits at B = 8 as at B = 1,
+    and t = 32 in one call the same bits as four calls of 8, dense and paged
+    (paged bit-equal to dense)."""
+    g = torch.Generator(device=cuda).manual_seed(length + ps)
+    b, h, kvh, hd, t = 8, 8, 4, 64, 32
+    layer, (ck, cv) = _attention_pair(carrier, b, kvh, length, hd, ps, g, cuda)
+    L = layer.length
+    q = torch.randn(b, h, t, hd, device=cuda, generator=g)
+    idx = torch.randint(0, min(L, length) - t + 1, (b,), device=cuda,
+                        generator=g).to(torch.int32)
+    for kind, run in (("dense", lambda q_, sl, i: decode_attention(
+                          q_, _slot(ck, sl), _slot(cv, sl), i, window=window)),
+                      ("paged", lambda q_, sl, i: paged_attention(
+                          q_, dataclasses.replace(layer, table=layer.table[sl]), i,
+                          window=window))):
+        full = run(q, slice(None), idx)
+        for s in (0, 5):
+            one = run(q[s:s + 1], slice(s, s + 1), idx[s:s + 1])
+            assert torch.equal(one, full[s:s + 1]), (kind, s)
+        parts = [run(q[:, :, 8 * i:8 * i + 8].contiguous(), slice(None), idx + 8 * i)
+                 for i in range(4)]
+        assert torch.equal(torch.cat(parts, dim=2), full), kind
+        if kind == "dense":
+            dense = full
+    assert torch.equal(full, dense)
+    ref = decode_attention_plain(q, ck, cv, idx, window=window)
+    assert float((dense - ref).abs().max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
+
+
+def _slot(c, sl):
+    return (c[0][sl], c[1][sl]) if isinstance(c, tuple) else c[sl]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("carrier", ["f32", "bf16", "int8", "int4"])
+@pytest.mark.parametrize("length,t,window,ps", [
+    (8192, 1, None, 128), (8192, 4, None, 16), (2047, 1, 300, 7), (2047, 3, 300, 16),
+    (2047, 1, 300, 128)])
+def test_split_attention_long_and_windowed(cuda, carrier, length, t, window, ps):
+    """L = 8192 (32 spans) and a 300-key window over L = 2047 that skips whole
+    spans: paged bit-equal to dense and within 1e-5 of the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(length + t + ps)
+    b, h, kvh, hd = 2, 16, 8, 64
+    layer, (ck, cv) = _attention_pair(carrier, b, kvh, length, hd, ps, g, cuda)
+    q = torch.randn(b, h, t, hd, device=cuda, generator=g)
+    idx = torch.tensor([length - t, length // 2], dtype=torch.int32, device=cuda)
+    before = dict(ATTN_LAUNCHES), dict(PAGED_LAUNCHES)
+    dense = decode_attention(q, ck, cv, idx, window=window)
+    paged = paged_attention(q, layer, idx, window=window)
+    ref = decode_attention_plain(q, ck, cv, idx, window=window)
+    torch.cuda.synchronize()
+    assert ATTN_LAUNCHES["decode_attention"] == before[0]["decode_attention"] + 1
+    assert PAGED_LAUNCHES["paged_attention"] == before[1]["paged_attention"] + 1
+    assert ATTN_LAUNCHES["decode_attention_fold"] == before[0]["decode_attention_fold"] + 1
+    assert PAGED_LAUNCHES["paged_attention_fold"] == before[1]["paged_attention_fold"] + 1
+    assert torch.equal(paged, dense)
+    assert float((dense - ref).abs().max()) <= 1e-5 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [40, 33, 100, 128])
+def test_split_attention_other_head_dims(cuda, hd):
+    """Head dims that are not a multiple of 16 bytes take narrower copies;
+    every carrier within 1e-5 of plain (int4 at even hd)."""
+    g = torch.Generator(device=cuda).manual_seed(hd)
+    for carrier in ("f32", "bf16", "int8", "int4"):
+        if carrier == "int4" and hd % 2:
+            continue
+        layer, (ck, cv) = _attention_pair(carrier, 2, 2, 600, hd, 16, g, cuda)
+        q = torch.randn(2, 4, 2, hd, device=cuda, generator=g)
+        idx = torch.tensor([598, 300], dtype=torch.int32, device=cuda)
+        dense = decode_attention(q, ck, cv, idx)
+        paged = paged_attention(q, layer, idx)
+        ref = decode_attention_plain(q, ck, cv, idx)
+        assert torch.equal(paged, dense), carrier
+        assert float((dense - ref).abs().max()) <= 1e-5 * max(1.0, float(ref.abs().max())), carrier
+
+
+@pytest.mark.gpu
 def test_paged_attention_refuses_what_it_cannot_take(cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
     layer = _pool_layer("int8", 2, 4, 64, 64, 16, g, cuda)
