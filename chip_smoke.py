@@ -37,8 +37,8 @@ exits non-zero on any failure (no phase is caught and skipped):
    slope), ``DecodeEngine`` (8 requests, each checked token for token
    against ``make_generate`` at B = 1), the int4-weight LM at B = 1, and the
    max_len 2048, B = 8 leg with int8 and int4 caches (and the kernels a
-   decode step launches there); checks the kernel path's logits against the
-   plain path on the CPU; fails if a kernel of
+   decode step launches in the int4 and the B = 8 legs); checks the kernel
+   path's logits against the plain path on the CPU; fails if a kernel of
    the path was never launched; profiles one B = 1 generate for the
    device's busy share and the time by kernel;
 4. drives the paged serving path with every launch count reset: the d1024
@@ -61,7 +61,8 @@ exits non-zero on any failure (no phase is caught and skipped):
    version and one PyTorch library call (the traced fake-quant kernels in
    train mode beside the static ones; the paged kernel in turns with the
    dense kernel on the same contents at page sizes 16, 128 and 1024, and at
-   B = 1, L = 8192; attention also at int8, B = 1, L = 8192);
+   B = 1, L = 8192; attention also at int8, B = 1, L = 8192; ``wo4g`` also
+   at K = N = 8192, M = 1, beside phase 12's ``wo4``);
 6. drives the eager training path (``make_train_step(jit=False)``) with
    every launch count reset: full-width
    ``resnet18_cifar`` under ``default_qconfig(8, 8, per_channel_weights=True,
@@ -501,7 +502,11 @@ def phase_main(torch, rec):
     tps, _, raw = _slope_tps(torch, model4, 1, prompt, torch.bfloat16)
     main["decode_tokens_per_s_b1_int4"] = tps
     main["decode_raw_b1_int4"] = raw
-    log(f"[main] make_generate int4 weights, bf16 cache, B=1: {tps:.1f} tokens/s")
+    per_step = _kernels_per_step(torch, lambda n: make_generate(
+        model4, T0, n, cache_dtype=torch.bfloat16)(prompt), 16, 80)
+    main["kernels_per_step_b1_int4"] = per_step
+    log(f"[main] make_generate int4 weights, bf16 cache, B=1: {tps:.1f} tokens/s; "
+        f"{per_step:.1f} kernels a decode step")
     del model4
 
     # max_len 2048, B = 8, int8 and int4 caches, short generate
@@ -729,49 +734,19 @@ def _to_cpu(torch, tree):
 def phase_times(torch, rec):
     import torch.nn.functional as F
 
-    from jaxlsq_torch.core.spec import QuantSpec
     from jaxlsq_torch.serve.attention import decode_attention, decode_attention_plain
     from jaxlsq_torch.serve.matmul import LAUNCHES as MM
-    from jaxlsq_torch.serve.matmul import wo_matmul, wo_matmul_plain
-    from jaxlsq_torch.serve.pack import (dequantize_weight, quantize_weight,
-                                         quantize_weight_grouped)
 
     saved = dict(MM)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     times = {}
     rec["times"] = times
-    for bits, name in ((8, "wo8"), (4, "wo4"), (4, "wo4g")):
-        spec = QuantSpec.weight_default(bits, per_channel=True, axis=1)
-        rows = []
-        for layer, (k, n) in WO_SHAPES.items():
-            w = torch.randn(k, n, device=dev, generator=g) * k ** -0.5
-            if name == "wo4g":
-                p = quantize_weight_grouped(w, group_size=GROUP)
-            else:
-                p = quantize_weight(w, w.abs().amax(0) / spec.quant_max,
-                                    torch.zeros(n, device=dev), spec, bits=bits)
-            wbytes = p.data.numel() + 4 * p.scale.numel() + 4 * p.zero_point.numel()
-            reps = copies_for(wbytes)
-            packs = [p] + [dataclasses.replace(p, data=p.data.clone(),
-                                               scale=p.scale.clone(),
-                                               zero_point=p.zero_point.clone())
-                           for _ in range(reps - 1)]
-            wdq = [dequantize_weight(q) for q in packs[:copies_for(4 * k * n)]]
-            for m in (1, 8, 256):
-                x = torch.randn(m, k, device=dev, generator=g)
-                ms, call = measure(wo_matmul, [(x, q) for q in packs])
-                plain, _ = measure(wo_matmul_plain, [(x, q) for q in packs], reps=20)
-                lib, _ = measure(torch.matmul, [(x, wd) for wd in wdq])
-                b_ms, b_by = bound(4 * m * k + wbytes + 4 * m * n, 2 * m * k * n)
-                rows.append({"layer": layer, "M": m, "K": k, "N": n, "ms": ms,
-                             "call_ms": call, "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                             "bound_by": b_by, "bytes": 4 * m * k + wbytes + 4 * m * n,
-                             "flops": 2 * m * k * n})
-                log(f"[time] {name} {layer} M={m} K={k} N={n}: {ms * 1e3:.2f} us on "
-                    f"the device, {call * 1e3:.2f} us a call (bound {b_ms * 1e3:.2f} us by {b_by}; plain {plain * 1e3:.2f} us; "
-                    f"torch.matmul on the dequantized f32 weight {lib * 1e3:.2f} us)")
-        times[name] = rows
+    for name in ("wo8", "wo4", "wo4g"):
+        times[name] = [row for layer, (k, n) in WO_SHAPES.items()
+                       for row in _time_wo(torch, name, layer, k, n, (1, 8, 256), g)]
+    # the int4 kernels at the lab's K = N = 8192 (phase 12 times wo4 there too)
+    times["wo4g_k8192"] = _time_wo(torch, "wo4g", "k8192", LAB_K, LAB_N, (1,), g)
 
     hd = 64
     rows = []
@@ -823,6 +798,47 @@ def phase_times(torch, rec):
     times["decode_attention"] = rows
     times["paged_attention"] = _time_paged(torch, g)
     MM.update(saved)
+
+
+def _time_wo(torch, name, layer, k, n, ms, g):
+    """``wo_matmul`` ("wo8", "wo4" or "wo4g" at group GROUP) on a seeded
+    (k, n) weight at each M in ``ms``: device and call time, bound, plain
+    version and ``torch.matmul`` on the dequantized f32 weight."""
+    from jaxlsq_torch.core.spec import QuantSpec
+    from jaxlsq_torch.serve.matmul import wo_matmul, wo_matmul_plain
+    from jaxlsq_torch.serve.pack import (dequantize_weight, quantize_weight,
+                                         quantize_weight_grouped)
+
+    dev = torch.device("cuda")
+    bits = 8 if name == "wo8" else 4
+    w = torch.randn(k, n, device=dev, generator=g) * k ** -0.5
+    if name == "wo4g":
+        p = quantize_weight_grouped(w, group_size=GROUP)
+    else:
+        spec = QuantSpec.weight_default(bits, per_channel=True, axis=1)
+        p = quantize_weight(w, w.abs().amax(0) / spec.quant_max,
+                            torch.zeros(n, device=dev), spec, bits=bits)
+    wbytes = p.data.numel() + 4 * p.scale.numel() + 4 * p.zero_point.numel()
+    packs = [p] + [dataclasses.replace(p, data=p.data.clone(), scale=p.scale.clone(),
+                                       zero_point=p.zero_point.clone())
+                   for _ in range(copies_for(wbytes) - 1)]
+    wdq = [dequantize_weight(q) for q in packs[:copies_for(4 * k * n)]]
+    rows = []
+    for m in ms:
+        x = torch.randn(m, k, device=dev, generator=g)
+        t, call = measure(wo_matmul, [(x, q) for q in packs])
+        plain, _ = measure(wo_matmul_plain, [(x, q) for q in packs], reps=20)
+        lib, _ = measure(torch.matmul, [(x, wd) for wd in wdq])
+        nbytes = 4 * m * k + wbytes + 4 * m * n
+        b_ms, b_by = bound(nbytes, 2 * m * k * n)
+        rows.append({"layer": layer, "M": m, "K": k, "N": n, "ms": t, "call_ms": call,
+                     "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+                     "bound_by": b_by, "bytes": nbytes, "flops": 2 * m * k * n})
+        log(f"[time] {name} {layer} M={m} K={k} N={n}: {t * 1e3:.2f} us on the device, "
+            f"{call * 1e3:.2f} us a call (bound {b_ms * 1e3:.2f} us by {b_by}; plain "
+            f"{plain * 1e3:.2f} us; torch.matmul on the dequantized f32 weight "
+            f"{lib * 1e3:.2f} us)")
+    return rows
 
 
 def _time_paged(torch, g):

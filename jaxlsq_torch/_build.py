@@ -26,11 +26,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
 # c_void_p: a bare Python int would be passed as a 32-bit int).
 _SIGNATURES = {
-    # x, w, scale, zp, out, part, rowsum, M, K, N, per_channel, int4,
-    # group_size, stream
-    "jlt_wo_matmul": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, w, scale, zp, out, M, K, N, per_channel, stream
     "jlt_wo8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, scale, zp, out, M, K, N, per_channel, group_size, stream
+    "jlt_wo4": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, kd, ks, vd, vs, qpos, out, ws, B, KVH, L, hd, t, gt, window,
     # carrier, scale, stream
     "jlt_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -148,10 +147,9 @@ def load_library() -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             for name in ("jlt_wo_chunk_rows", "jlt_wo_slab_rows",
-                         "jlt_attention_span_keys"):
+                         "jlt_wo4_group_rows", "jlt_attention_span_keys"):
                 getattr(lib, name).restype = ctypes.c_int
-            lib.chunk_rows = lib.jlt_wo_chunk_rows()
-            lib.slab_rows = lib.jlt_wo_slab_rows()
+            lib.group_rows = lib.jlt_wo4_group_rows()
             lib.span_keys = lib.jlt_attention_span_keys()
             _lib = lib
     return _lib

@@ -11,8 +11,9 @@ Two candidate int4 designs, measured at serving shapes beside the shipped
   its low nibble and row ``2k + 1`` in its high nibble; odd K raises), one
   f32 product per K step, times the per-column scale.
 
-On a CUDA tensor ``run_bf16``/``run_native`` launch ``wo4``'s blocks in
-``csrc/wo_matmul.cu`` with the lab's staging of x and no zero point
+On a CUDA tensor ``run_bf16``/``run_native`` launch the int4 kernels' first
+design in ``csrc/wo_matmul.cu`` (chunked blocks, partials and an epilogue
+over a workspace) with the lab's staging of x and no zero point
 (``jlt_wo4_lab``) or raise; on a CPU tensor they run their plain versions
 :func:`run_bf16_plain` and :func:`run_native_plain`.  ``LAUNCHES`` counts
 the launches.

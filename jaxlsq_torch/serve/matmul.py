@@ -9,11 +9,15 @@ group-wise (G, N) scales (``packed.group_size``, int4).
   (``x @ dequantize_weight(packed)`` in f32).
 * On a CUDA tensor it launches ``csrc/wo_matmul.cu`` (``wo8`` for int8,
   ``wo4`` for split-half int4, ``wo4g`` for group-wise int4) for every M, or
-  raises.  ``wo8`` is one launch with no workspace, summed in one order for
-  every M (32-row K slices, folded in slice order); ``wo4``/``wo4g`` are a
-  partial-sum kernel and an epilogue over a workspace.  ``wo4g`` takes
-  group sizes and K / 2 that are multiples of the kernel's 128-row K chunk
-  (the JAX package's TPU limits do not apply); another grouped pack raises
+  raises.  Each is one launch with no workspace (the wrapper allocates only
+  ``out``), on one kernel body templated on the weight format, and sums in
+  one order for every M: 32-row slices of the weight's rows (int4: byte
+  rows, each giving its low nibble's term and then its high nibble's, k = r
+  and k = r + ceil(K/2)), each an fmaf chain from +0 of exact f32 factors
+  (``(w - z)``, the zero point applied to each byte or nibble; ``wo4g``
+  ``w * s[k // gs]``), folded in slice order, times ``s`` (not ``wo4g``).
+  ``wo4g`` takes group sizes and K / 2 that are multiples of 128 (the JAX
+  package's TPU limits do not apply); another grouped pack raises
   ``ValueError``.
 
 ``LAUNCHES`` counts the kernel launches of each kind.  The int8×int8 paths
@@ -58,11 +62,11 @@ def _launch(x2d: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
     gs = packed.group_size or 0
     lib = _build.load_library()
     if gs:
-        chunk = lib.chunk_rows
-        if packed.bits != 4 or kdim % 2 or gs % chunk or (kdim // 2) % chunk:
+        align = lib.group_rows
+        if packed.bits != 4 or kdim % 2 or gs % align or (kdim // 2) % align:
             raise ValueError(
                 f"wo_matmul: the wo4g kernel takes int4 packs whose group size "
-                f"and K / 2 are multiples of {chunk} (got bits={packed.bits}, "
+                f"and K / 2 are multiples of {align} (got bits={packed.bits}, "
                 f"group_size={gs}, K={kdim})")
         if tuple(scale.shape) != (kdim // gs, n):
             raise ValueError(f"wo_matmul: group scales {tuple(scale.shape)} "
@@ -72,24 +76,15 @@ def _launch(x2d: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     per_channel = int(scale.numel() == n and n > 1)
-    if packed.bits == 8 and not gs:
-        err = lib.jlt_wo8(x2d.data_ptr(), data.data_ptr(), scale.data_ptr(),
-                          zp.data_ptr(), out.data_ptr(), m, kdim, n, per_channel,
-                          stream)
-        LAUNCHES["wo8"] += 1
-        _build.check(err, "wo_matmul")
-        return out
-    n_chunks = -(-rows // lib.chunk_rows)
-    mslab = min(m, lib.slab_rows)
-    # one workspace: chunk partials (n_chunks, mslab, N), then row sums
-    work = torch.empty((n_chunks * mslab * (n + 1),), dtype=torch.float32, device=dev)
-    part_ptr = work.data_ptr()
-    rowsum_ptr = part_ptr + 4 * n_chunks * mslab * n
-    err = lib.jlt_wo_matmul(x2d.data_ptr(), data.data_ptr(), scale.data_ptr(),
-                            zp.data_ptr(), out.data_ptr(), part_ptr, rowsum_ptr,
-                            m, kdim, n, per_channel, int(packed.bits == 4), gs,
-                            stream)
-    LAUNCHES["wo4g" if gs else "wo4"] += 1
+    args = (x2d.data_ptr(), data.data_ptr(), scale.data_ptr(), zp.data_ptr(),
+            out.data_ptr(), m, kdim, n, per_channel)
+    if packed.bits == 8:
+        err = lib.jlt_wo8(*args, stream)
+        name = "wo8"
+    else:
+        err = lib.jlt_wo4(*args, gs, stream)
+        name = "wo4g" if gs else "wo4"
+    LAUNCHES[name] += 1
     _build.check(err, "wo_matmul")
     return out
 

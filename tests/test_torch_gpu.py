@@ -204,6 +204,47 @@ def test_wo8_rows_same_bits_at_every_m(cuda, k, n):
     assert float((full - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,k,n,per_channel,gs", [
+    ("wo4", 1023, 1032, True, None), ("wo4", 1024, 1032, False, None),
+    ("wo4", 4096, 1032, True, None), ("wo4", 1024, 3072, True, None),
+    ("wo4", 1024, 8192, True, None), ("wo4g", 1024, 1032, True, 128),
+    ("wo4g", 1024, 1032, True, 256), ("wo4g", 4096, 1032, True, 128),
+    ("wo4g", 1024, 8192, True, 128), ("wo4g", 8192, 1032, True, 256)])
+def test_wo4_rows_same_bits_at_every_m(cuda, kind, k, n, per_channel, gs):
+    """wo4 and wo4g sum every output in one order (32-byte-row slices, each
+    byte row's low nibble and then its high nibble, folded in slice order),
+    so a row's bits do not depend on M or on the form that M picks (M = 1,
+    8, 17 split; 100, 256, 300 tiled) or on the run; one launch a call;
+    within 1e-4 of plain.  Random bytes (for odd K the last byte row's high
+    nibble too, which both sides drop), a nonzero zero point (wo4), N = 1032
+    a ragged last column tile."""
+    from jaxlsq_torch.serve.pack import PackedWeight
+
+    g = torch.Generator(device=cuda).manual_seed(k + n + (gs or 0))
+    c = n if per_channel and not gs else 1
+    p = PackedWeight(
+        data=torch.randint(-128, 128, ((k + 1) // 2, n), device=cuda,
+                           generator=g).to(torch.int8),
+        scale=(torch.rand((k // gs, n) if gs else (c,), device=cuda, generator=g)
+               * 1e-2 + 1e-3),
+        zero_point=(torch.zeros(1, dtype=torch.int32, device=cuda) if gs else
+                    (torch.randint(1, 6, (c,), device=cuda, generator=g)
+                     * (1 - 2 * (torch.arange(c, device=cuda) % 2))).to(torch.int32)),
+        bits=4, axis=1, k_axis=0, orig_shape=(k, n), group_size=gs)
+    x = torch.randn(300, k, device=cuda, generator=g)
+    full = wo_matmul(x, p)
+    ref = wo_matmul_plain(x, p)
+    for m in (1, 8, 17, 100, 256, 300):
+        before = dict(MM_LAUNCHES)
+        out = wo_matmul(x[:m], p)
+        torch.cuda.synchronize()
+        assert MM_LAUNCHES == {**before, kind: before[kind] + 1}
+        assert torch.equal(out, full[:m]), m
+    assert torch.equal(wo_matmul(x, p), full)
+    assert float((full - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
 def _attention_pair(carrier, b, kvh, length, hd, ps, g, device):
     """A paged layer over a permuted table and its gathered dense cache."""
     layer = _pool_layer(carrier, b, kvh, length, hd, ps, g, device)

@@ -1,5 +1,6 @@
 """jaxlsq_torch stands alone: importing every module of the port (and the
-card's scripts, chip_smoke.py and profiler_check.py) loads neither jax nor the jaxlsq package, and the entry
+card's scripts, chip_smoke.py, profiler_check.py and wo_compare.py) loads
+neither jax nor the jaxlsq package, and the entry
 points refuse to fall back to the CPU when no device was asked for."""
 
 import os
@@ -36,6 +37,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "runpy.run_path('profiler_check.py', run_name='not_main')\n"
+        "runpy.run_path('wo_compare.py', run_name='not_main')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'jaxlsq'))\n"
         "assert not bad, bad\n"
