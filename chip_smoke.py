@@ -142,8 +142,11 @@ exits non-zero on any failure (no phase is caught and skipped):
    ``wo4_bf16`` and ``wo4_native`` against ``wo_matmul_plain`` at their own
    bits; fails unless ``wo4_bf16`` and ``wo4_native`` are within
    1e-4·max|ref| of their plain versions and ``wo4_native`` of ``wo4`` on the
-   same values; device time and weight GB/s of each beside the plain
-   versions and ``torch.matmul`` on dequantized f32 and bf16 weights.
+   same values, and unless every row of both lab kernels is the same bits at
+   M = 1, 16 and 128; device time and weight GB/s of each beside the plain
+   versions, ``torch.matmul`` on dequantized f32 and bf16 weights and the
+   lab kernels' tensor-core bounds (one bf16 pass for ``wo4_bf16``, three
+   for ``wo4_native``).
 
 Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes the full
@@ -169,6 +172,7 @@ from jaxlsq_torch.lab.timing import (PROFILE_MISSES, WAITING_CALLS,  # noqa: E40
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM dense bf16 on the tensor cores
 VOCAB, DIM, DEPTH, HEADS, T0 = 8192, 1024, 4, 16, 32
 GROUP = 128  # convert(weight_group_size=) of the grouped-int4 LM
 # PagedDecodeEngine leg: a page of 128 positions, 16 pool pages (an eighth of
@@ -2281,6 +2285,18 @@ def _lab_bytes(m):
     return LAB_K * LAB_N // 2 + 4 * (m * LAB_K + m * LAB_N + LAB_N)
 
 
+def lab_bound(m, passes):
+    """The least time of an int4 lab call on the tensor cores: its bytes, or
+    ``passes`` bf16 passes of 2 M K N (wo4_bf16 one, wo4_native three)."""
+    tb = _lab_bytes(m) / HBM_BYTES_PER_S * 1e3
+    tf = passes * 2 * m * LAB_K * LAB_N / BF16_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+LAB_KERNELS = (("wo4_bf16", "int4_bf16", 1, "lib_matmul_bf16"),
+               ("wo4_native", "int4_native", 3, "lib_matmul_f32"))
+
+
 def phase_int4_lab(torch, rec):
     """Phase 12: the int4 kernel lab (``lab.int4_kernel_lab.run_lab``) at
     M in {1, 16, 128}, K = N = 8192: ``wo8``, ``wo4``, ``wo4_bf16`` and
@@ -2288,7 +2304,8 @@ def phase_int4_lab(torch, rec):
     beside the plain versions and two library matmuls.  Fails unless
     ``wo4_bf16`` and ``wo4_native`` are within 1e-4·max|ref| of their plain
     versions and ``wo4_native`` within that of ``wo4`` on the same values,
-    and both lab kernels ran."""
+    every row of both is the same bits at every M, and both lab kernels
+    ran."""
     from jaxlsq_torch.lab.int4_kernel_lab import LAUNCHES as LAB
     from jaxlsq_torch.lab.int4_kernel_lab import run_lab
 
@@ -2303,30 +2320,40 @@ def phase_int4_lab(torch, rec):
                  r["int4_native"]["rel_err_vs_int4_cur"]]
         b_ms, b_by = bound(_lab_bytes(m), 2 * m * LAB_K * LAB_N)
         r["int4_bound"] = {"ms": b_ms, "by": b_by}
-        log(f"[lab] M={m} K={LAB_K} N={LAB_N} (int4 bound {b_ms * 1e3:.1f} us by {b_by}): "
+        log(f"[lab] M={m} K={LAB_K} N={LAB_N} (int4 f32 CUDA-core bound {b_ms * 1e3:.1f} us "
+            f"by {b_by}; tensor-core bounds "
+            + ", ".join(f"{name} {lab_bound(m, ps)[0] * 1e3:.1f} us"
+                        for name, _, ps, _ in LAB_KERNELS) + "): "
             + "; ".join(f"{k} {v['ms'] * 1e3:.1f} us"
                         + (f" ({v['w_gbps']:.0f} GB/s of weights, err {v['max_rel_err']:.1e} "
                            "of max|ref| vs wo_matmul_plain)" if "w_gbps" in v else "")
-                        for k, v in r.items()))
+                        for k, v in r.items() if isinstance(v, dict) and "ms" in v))
     rec["max_abs_err"]["wo4_bf16"] = max(res[f"M{m}"]["int4_bf16"]["abs_err_vs_plain"]
                                          for m in LAB_MS)
     rec["max_abs_err"]["wo4_native"] = max(res[f"M{m}"]["int4_native"]["abs_err_vs_plain"]
                                            for m in LAB_MS)
     if not max(errs) <= 1e-4:
         raise AssertionError(f"the int4 lab kernels disagree: {errs}")
+    if not all(res["rows_same_bits"].values()):
+        raise AssertionError(f"the int4 lab kernels' rows change with M: "
+                             f"{res['rows_same_bits']}")
     if not all(LAB[k] > 0 for k in LAB):
         raise AssertionError(f"the int4 lab did not launch its kernels: {LAB}")
     log(f"[lab] wo4_bf16 / wo4_native within {max(errs):.1e} of max|ref| of their plain "
-        f"versions and of wo4; launches {dict(LAB)}")
+        f"versions and of wo4, every row the same bits at M = {LAB_MS}; launches "
+        f"{dict(LAB)}")
     times = rec["times"]
-    for name, key in (("wo4_bf16", "int4_bf16"), ("wo4_native", "int4_native")):
-        r = res["M1"]
-        b_ms, b_by = bound(_lab_bytes(1), 2 * LAB_K * LAB_N)
-        times[name] = {"M": 1, "K": LAB_K, "N": LAB_N, "ms": r[key]["ms"],
-                       "plain_ms": r[f"{key}_plain"]["ms"],
-                       "library_ms": r["lib_matmul_bf16" if name == "wo4_bf16"
-                                       else "lib_matmul_f32"]["ms"],
-                       "bound_ms": b_ms, "bound_by": b_by}
+    for name, key, passes, lib in LAB_KERNELS:
+        rows = []
+        for m in LAB_MS:
+            r = res[f"M{m}"]
+            b_ms, b_by = lab_bound(m, passes)
+            rows.append({"M": m, "K": LAB_K, "N": LAB_N, "ms": r[key]["ms"],
+                         "plain_ms": r[f"{key}_plain"]["ms"], "library_ms": r[lib]["ms"],
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "bound_f32_cuda_cores_ms": bound(_lab_bytes(m),
+                                                          2 * m * LAB_K * LAB_N)[0]})
+        times[name] = rows
 
 
 def kernels_line(rec):
@@ -2412,14 +2439,21 @@ def kernels_line(rec):
                               "library: learnable fake quant forward + backward")})
     for name, repl in (("wo4_bf16", "examples/_int4_kernel_lab.py:50"),
                        ("wo4_native", "examples/_int4_kernel_lab.py:72")):
-        t = rec["times"][name]
+        rows = rec["times"][name]
+        t = rows[0]  # M = 1; every M in by_m
         out.append({"name": name, "route": "cuda",
-                    "source": "jaxlsq_torch/csrc/wo_matmul.cu", "replaces": repl,
+                    "source": "jaxlsq_torch/csrc/int4_lab.cu", "replaces": repl,
                     "launches": rec["int4_lab"]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                    "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                    "shape": (f"M=1, K={t['K']}, N={t['N']}; library: torch.matmul on the "
+                    "bound_by": t["bound_by"],
+                    "bound_f32_cuda_cores_ms": t["bound_f32_cuda_cores_ms"],
+                    "library_ms": t["library_ms"], "by_m": rows,
+                    "shape": (f"M={t['M']} (by_m: M={', '.join(str(r['M']) for r in rows)}), "
+                              f"K={t['K']}, N={t['N']}; bound: "
+                              + ("one bf16 tensor-core pass" if name == "wo4_bf16"
+                                 else "three bf16 tensor-core passes")
+                              + "; library: torch.matmul on the "
                               + ("bf16 x and dequantized bf16 weight" if name == "wo4_bf16"
                                  else "dequantized f32 weight"))})
     r = rec["times"]["flash"][0]

@@ -60,8 +60,8 @@ _SIGNATURES = {
     # tmin, tmax, sym, gs, stream
     "jlt_fq_fwdbwd_pc": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
                          _F, _F, _I, _F, _P],
-    # x, w, scale, out, part, M, K, N, native, stream
-    "jlt_wo4_lab": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, scale, out, M, K, N, native, stream
+    "jlt_int4_lab": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, scale, shift, flags, out, n, qmin, qmax, tmin, tmax, stream
     "jlt_fq_fwd_pt_traced": [_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
     # x, scale, shift, flags, out, outer, C, inner, qmin, qmax, tmin, tmax,
@@ -146,8 +146,7 @@ def load_library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            for name in ("jlt_wo_chunk_rows", "jlt_wo_slab_rows",
-                         "jlt_wo4_group_rows", "jlt_attention_span_keys"):
+            for name in ("jlt_wo4_group_rows", "jlt_attention_span_keys"):
                 getattr(lib, name).restype = ctypes.c_int
             lib.group_rows = lib.jlt_wo4_group_rows()
             lib.span_keys = lib.jlt_attention_span_keys()

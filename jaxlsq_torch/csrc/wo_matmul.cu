@@ -82,28 +82,6 @@
 // of 2 x 4 a thread take the K slices in rounds over a cluster of up to 8
 // blocks (slice j * C + r to block r), which fold each round's C consecutive
 // partials in slice order: the same bits again.
-//
-// ---- the int4 lab (wo4_bf16, wo4_native): the chunked blocks ----
-//
-// The lab's two candidates (lab/int4_kernel_lab.py) keep the int4 kernels'
-// first design, an in-run baseline for the body above: a block owns 128
-// output columns (a warp's 32 lanes x 4 adjacent columns) and one 128-row
-// chunk of K, its 8 warps take the chunk's rows in turn (four row loads in
-// flight per warp) against 16 activation rows staged in shared memory, and
-// writes partials to a workspace; a second kernel sums them in chunk order
-// and applies the scale.  Large M re-reads the weights once per 16 rows, in
-// slabs of 256 rows (a launch pair each).  No zero point:
-//   wo4_bf16:   out[m, n] = s[n] * sum_k bf16(x[m, k]) * w[k, n]
-//     the split-half bytes, x rounded to bf16 (round to nearest even) as it
-//     is staged; a nibble is exact in bf16, so each product is exact in f32
-//     and the sums are f32, as _wo4_bf16_kernel's bf16 dot with an f32
-//     accumulator.  Replaces examples/_int4_kernel_lab.py:_wo4_bf16_kernel
-//     (:50, launched at :106 in run_bf16).
-//   wo4_native: out[m, n] = s[n] * sum_k x[m, k] * w[k, n]
-//     int4 with K contiguous (the port's layout for the lab's jnp.int4 array,
-//     whose bytes it cannot see): byte (r, n) holds k = 2r in its low nibble
-//     and k = 2r + 1 in its high nibble, K even.  Replaces
-//     _wo4_native_kernel (:72, launched at :136 in run_native, plane f32).
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -780,153 +758,6 @@ cudaError_t launch_wo(const WoArgs& a, cudaStream_t stream) {
   return launch_tiled<FMT, 32, 32, 2, 4>(a, tc, stream);
 }
 
-// --------------------------------------------------------- the int4 lab ----
-
-constexpr int kCols = 128;        // output columns per block (32 lanes x 4)
-constexpr int kWarps = 8;         // warps sharing a K chunk
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 16;         // activation rows per block
-constexpr int kChunk = 128;       // byte rows per block
-constexpr int kUnroll = 4;        // byte rows a warp loads before using them
-constexpr int kSlab = 256;        // activation rows per launch pair
-
-// How a block stages its chunk's activations: split halves rounded to bf16
-// (wo4_bf16), K contiguous (wo4_native: byte row r meets x[m, 2r] and
-// x[m, 2r + 1]).
-enum Stage { kStageBf16, kStageKContig };
-
-// One (column tile, K chunk, row tile) block: partial sums of its chunk,
-// part (n_chunks, mslab, N).
-template <Stage STAGE>
-__global__ void __launch_bounds__(kThreads)
-wo_partial_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
-                  float* __restrict__ part, int M, int K, int N, int KR) {
-  __shared__ float xs[kRows][kChunk];
-  __shared__ float xh[kRows][kChunk];
-  __shared__ float red[kWarps][kCols];
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n0 = blockIdx.x * kCols + lane * 4;
-  const int chunk = blockIdx.y;
-  const int r0 = chunk * kChunk;
-  const int rc = min(kChunk, KR - r0);
-  const int m0 = blockIdx.z * kRows;
-  const int mt = min(kRows, M - m0);
-
-  // stage this chunk's activations (the low and the high half, or for K
-  // contiguous the even and the odd k)
-  for (int i = threadIdx.x; i < kRows * kChunk; i += kThreads) {
-    const int m = i / kChunk, r = i % kChunk;
-    float lo = 0.f, hi = 0.f;
-    if (m < mt && r < rc) {
-      const float* row = x + (size_t)(m0 + m) * K;
-      if (STAGE == kStageKContig) {
-        lo = row[2 * (r0 + r)];
-        hi = row[2 * (r0 + r) + 1];
-      } else {
-        lo = __bfloat162float(__float2bfloat16_rn(row[r0 + r]));
-        if (r0 + r + KR < K) hi = __bfloat162float(__float2bfloat16_rn(row[r0 + r + KR]));
-      }
-    }
-    xs[m][r] = lo;
-    xh[m][r] = hi;
-  }
-  __syncthreads();
-
-  const bool vec = ((N & 3) == 0) && (n0 + 3 < N);
-  float acc[kRows][4];
-#pragma unroll
-  for (int m = 0; m < kRows; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
-
-  // Each warp takes rows warp, warp + 8, ... of the chunk, in that order; it
-  // issues kUnroll row loads before using any, so their latencies overlap.
-  for (int rb = warp; rb < rc; rb += kWarps * kUnroll) {
-    int8_t b[kUnroll][4];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int r = rb + u * kWarps;
-      const int8_t* wrow = w + (size_t)(r0 + r) * N + n0;
-      if (r < rc && vec) {
-        const char4 c = *reinterpret_cast<const char4*>(wrow);
-        b[u][0] = c.x; b[u][1] = c.y; b[u][2] = c.z; b[u][3] = c.w;
-      } else {
-        for (int j = 0; j < 4; ++j) b[u][j] = (r < rc && n0 + j < N) ? wrow[j] : 0;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int r = rb + u * kWarps;
-      if (r >= rc) break;
-      float wlo[4], whi[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int v = b[u][j];
-        wlo[j] = (float)((int)((unsigned)v << 28) >> 28);  // sign-extended low nibble
-        whi[j] = (float)(v >> 4);  // arithmetic shift: sign-extended high nibble
-      }
-#pragma unroll
-      for (int m = 0; m < kRows; ++m) {
-        if (m < mt) {
-          const float xl = xs[m][r];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xl, wlo[j], acc[m][j]);
-          const float xu = xh[m][r];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[m][j] = fmaf(xu, whi[j], acc[m][j]);
-        }
-      }
-    }
-  }
-
-  // sum the 8 warps' partials, in warp order, one row at a time
-#pragma unroll
-  for (int m = 0; m < kRows; ++m) {
-    if (m >= mt) break;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) red[warp][lane * 4 + j] = acc[m][j];
-    __syncthreads();
-    if (threadIdx.x < kCols) {
-      const int n = blockIdx.x * kCols + threadIdx.x;
-      if (n < N) {
-        float s = 0.f;
-        for (int q = 0; q < kWarps; ++q) s += red[q][threadIdx.x];
-        part[((size_t)chunk * M + m0 + m) * N + n] = s;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Sum the chunk partials in chunk order, times the column's scale.
-__global__ void wo_epilogue_kernel(const float* __restrict__ part,
-                                   const float* __restrict__ scale,
-                                   float* __restrict__ out, int M, int N, int n_chunks) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)M * N) return;
-  const int m = i / N, n = i % N;
-  float acc = 0.f;
-  for (int c = 0; c < n_chunks; ++c) acc += part[((size_t)c * M + m) * N + n];
-  out[i] = acc * scale[n];
-}
-
-template <Stage STAGE>
-void launch_lab(const float* x, const int8_t* w, const float* scale, float* out,
-                float* part, int M, int K, int N, cudaStream_t stream) {
-  const int KR = (K + 1) / 2;
-  const int n_chunks = (KR + kChunk - 1) / kChunk;
-  for (int ms = 0; ms < M; ms += kSlab) {
-    const int mslab = min(kSlab, M - ms);
-    dim3 grid((N + kCols - 1) / kCols, n_chunks, (mslab + kRows - 1) / kRows);
-    wo_partial_kernel<STAGE><<<grid, kThreads, 0, stream>>>(x + (size_t)ms * K, w, part,
-                                                            mslab, K, N, KR);
-    const size_t total = (size_t)mslab * N;
-    wo_epilogue_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-        part, scale, out + (size_t)ms * N, mslab, N, n_chunks);
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -968,29 +799,6 @@ int jlt_wo4(const void* x, const void* w, const void* scale, const void* zp,
 }
 
 int jlt_wo4_group_rows() { return kGroupRows; }
-
-// The int4 lab: x f32 (M, K); w int8 bytes (ceil(K / 2), N) split-half
-// (native = 0, wo4_bf16) or (K / 2, N) K-contiguous (native = 1, wo4_native;
-// odd K: cudaErrorInvalidValue); scale f32 (N,); out f32 (M, N); part holds
-// n_chunks * min(M, 256) * N floats, n_chunks = ceil(byte rows / 128).
-// Returns cudaGetLastError().
-int jlt_wo4_lab(const void* x, const void* w, const void* scale, void* out,
-                void* part, int M, int K, int N, int native, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const float* xf = (const float*)x;
-  const int8_t* wb = (const int8_t*)w;
-  const float* sf = (const float*)scale;
-  if (native) {
-    if (K % 2) return (int)cudaErrorInvalidValue;
-    launch_lab<kStageKContig>(xf, wb, sf, (float*)out, (float*)part, M, K, N, s);
-  } else {
-    launch_lab<kStageBf16>(xf, wb, sf, (float*)out, (float*)part, M, K, N, s);
-  }
-  return (int)cudaGetLastError();
-}
-
-int jlt_wo_chunk_rows() { return kChunk; }
-int jlt_wo_slab_rows() { return kSlab; }
 
 const char* jlt_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -11,10 +11,11 @@ Two candidate int4 designs, measured at serving shapes beside the shipped
   its low nibble and row ``2k + 1`` in its high nibble; odd K raises), one
   f32 product per K step, times the per-column scale.
 
-On a CUDA tensor ``run_bf16``/``run_native`` launch the int4 kernels' first
-design in ``csrc/wo_matmul.cu`` (chunked blocks, partials and an epilogue
-over a workspace) with the lab's staging of x and no zero point
-(``jlt_wo4_lab``) or raise; on a CPU tensor they run their plain versions
+On a CUDA tensor ``run_bf16``/``run_native`` launch the tensor-core kernel
+of ``csrc/int4_lab.cu`` (``jlt_int4_lab``: int4 decoded to bf16 in
+registers, mma.sync with f32 accumulators, one launch a call, no workspace,
+one summation order for every M; ``wo4_native`` splits x into three exact
+bf16 parts) or raise; on a CPU tensor they run their plain versions
 :func:`run_bf16_plain` and :func:`run_native_plain`.  ``LAUNCHES`` counts
 the launches.
 
@@ -107,13 +108,9 @@ def _launch(name: str, x2d: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    lib = _build.load_library()
-    chunk, slab = lib.jlt_wo_chunk_rows(), lib.jlt_wo_slab_rows()
-    part = torch.empty(-(-rows // chunk) * min(m, slab) * n, dtype=torch.float32,
-                       device=dev)
-    err = lib.jlt_wo4_lab(x2d.data_ptr(), w.data_ptr(), scale.data_ptr(),
-                          out.data_ptr(), part.data_ptr(), m, k, n, int(native),
-                          torch.cuda.current_stream(dev).cuda_stream)
+    err = _build.load_library().jlt_int4_lab(
+        x2d.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n,
+        int(native), torch.cuda.current_stream(dev).cuda_stream)
     LAUNCHES[name] += 1
     _build.check(err, name)
     return out
@@ -176,7 +173,8 @@ def run_lab(ms: Iterable[int], k: int = 8192, n: int = 8192,
     versions and ``wo4_native``'s against ``wo4`` on the same values, and the
     device ms and weight GB/s of every variant, of the two plain versions
     and of two library matmuls on dequantized weights (f32; bf16 x and
-    weights, bf16 out)."""
+    weights, bf16 out); and ``rows_same_bits``: whether each lab kernel
+    gives the first M rows of one draw the same bits at every M."""
     dev, reps = torch.device("cuda"), 20
     p8, p4, w4, sc, r = lab_weights(k, n, dev)
     copies = max(1, math.ceil(160e6 / (k * n / 2)))  # rotate past the L2
@@ -218,6 +216,13 @@ def run_lab(ms: Iterable[int], k: int = 8192, n: int = 8192,
             out[name] = {"ms": min(measure(fn, args, max(2, reps // 4))[0]
                                    for _ in range(max(1, rounds // 2)))}
         results[f"M{m}"] = out
+    # one order for every M: the first rows of one draw, at each M
+    x = torch.from_numpy(r.randn(max(ms), k).astype(np.float32)).to(dev)
+    kernels = {"wo4_bf16": lambda xx: run_bf16(xx, p4),
+               "wo4_native": lambda xx: run_native(xx, w4, sc)}
+    full = {name: fn(x) for name, fn in kernels.items()}
+    results["rows_same_bits"] = {f"{name}_M{m}": bool(torch.equal(fn(x[:m]), full[name][:m]))
+                                 for name, fn in kernels.items() for m in ms}
     return results
 
 

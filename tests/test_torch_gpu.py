@@ -666,6 +666,79 @@ def test_wo4_lab_kernels_take_odd_k_split_half_and_refuse_it_native(cuda):
         lab.pack_native(torch.zeros(k, n, dtype=torch.int8, device=cuda))
 
 
+def _lab_weights(k, n, device, seed):
+    """Random int4 bytes for both lab layouts (split-half ``PackedWeight``,
+    and K-contiguous bytes where K is even) and a (n,) scale."""
+    from jaxlsq_torch.serve.pack import PackedWeight
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    scale = torch.rand(n, device=device, generator=g) * 1e-2 + 1e-3
+    p4 = PackedWeight(
+        data=torch.randint(-128, 128, ((k + 1) // 2, n), device=device,
+                           generator=g).to(torch.int8),
+        scale=scale, zero_point=torch.zeros(n, dtype=torch.int32, device=device),
+        bits=4, axis=1, k_axis=0, orig_shape=(k, n))
+    w4 = (torch.randint(-128, 128, (k // 2, n), device=device, generator=g).to(torch.int8)
+          if k % 2 == 0 else None)
+    x = torch.randn(130, k, device=device, generator=g)
+    return p4, w4, scale, x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(8192, 1032), (1023, 520), (66, 17), (4096, 300),
+                                 (1024, 8192)])
+def test_int4_lab_rows_same_bits_at_every_m(cuda, k, n):
+    """``wo4_bf16`` and ``wo4_native`` sum every output in one order
+    (128-byte-row slices on the tensor cores, folded in slice order), so a
+    row's bits do not depend on M or on the form M picks (M = 1, 8, 16 the
+    decode form, its K over a cluster; 128, 130 the tiled form) or on the
+    run; one launch a call; within 1e-4 of max|ref| of the plain versions.
+    Random bytes (odd K: the last byte row's dead high nibble too), ragged
+    column tiles (N = 17, 300, 520, 1032)."""
+    from jaxlsq_torch.lab import int4_kernel_lab as lab
+
+    p4, w4, sc, x = _lab_weights(k, n, cuda, k + n)
+    kinds = {"wo4_bf16": lambda xx: lab.run_bf16(xx, p4)}
+    plain = {"wo4_bf16": lab.run_bf16_plain(x, p4)}
+    if w4 is not None:
+        kinds["wo4_native"] = lambda xx: lab.run_native(xx, w4, sc)
+        plain["wo4_native"] = lab.run_native_plain(x, w4, sc)
+    full = {name: fn(x) for name, fn in kinds.items()}
+    for m in (1, 8, 16, 128, 130):
+        for name, fn in kinds.items():
+            before = dict(lab.LAUNCHES)
+            out = fn(x[:m])
+            torch.cuda.synchronize()
+            assert lab.LAUNCHES == {**before, name: before[name] + 1}
+            assert torch.equal(out, full[name][:m]), (name, m)
+    for name, fn in kinds.items():
+        assert torch.equal(fn(x), full[name])
+        ref = plain[name]
+        assert float((full[name] - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), name
+
+
+@pytest.mark.gpu
+def test_int4_lab_rows_same_bits_across_cluster_sizes(cuda):
+    """The decode form splits K over a cluster whose size follows the
+    column tiles: at K = 4096 (16 slices) the full N = 34816 (272 tiles of
+    128, more than the card holds at once in clusters of two) takes one
+    block a tile, its first 1032 columns (9 tiles) a cluster of two; both
+    give the same bits in those columns, and so does the tiled form (M =
+    128)."""
+    from jaxlsq_torch.lab import int4_kernel_lab as lab
+    from jaxlsq_torch.serve.pack import PackedWeight
+
+    k, n, part = 4096, 34816, 1032
+    p4, w4, sc, x = _lab_weights(k, n, cuda, 7)
+    q4 = PackedWeight(p4.data[:, :part].contiguous(), sc[:part].contiguous(),
+                      p4.zero_point[:part], 4, 1, 0, (k, part))
+    v4 = w4[:, :part].contiguous()
+    for m in (1, 16, 128):
+        assert torch.equal(lab.run_bf16(x[:m], p4)[:, :part], lab.run_bf16(x[:m], q4)), m
+        assert torch.equal(lab.run_native(x[:m], w4, sc)[:, :part],
+                           lab.run_native(x[:m], v4, sc[:part])), m
+
+
 def _optim_state(opt, model):
     return {f"{name}/{k}": v for name, p in model.named_parameters()
             for k, v in opt.state[p].items() if torch.is_tensor(v)}
@@ -1022,6 +1095,28 @@ def test_flash_kernels_use_tensor_cores(cuda):
         assert len(found) == len(("hd 32", "hd 64", "hd 128")), (kernel, list(found))
         for name, sass in found.items():
             assert any("HMMA" in ln and "TF32" in ln for ln in sass.splitlines()), name
+
+
+@pytest.mark.gpu
+def test_int4_lab_kernels_use_tensor_cores(cuda):
+    """Every instance of the int4 lab's two forms (``csrc/int4_lab.cu``: the
+    decode form at 1 and 2 n8 tiles, the tiled form, each for both stagings)
+    runs its products as bf16 HMMA, as the built library's SASS shows."""
+    import os
+    import shutil
+
+    from jaxlsq_torch import _build
+
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        pytest.skip("the CUDA toolkit has no cuobjdump")
+    funcs = _sass_functions(_build.load_library()._name, cuobjdump)
+    found = {k: v for k, v in funcs.items()
+             if "lab_decode_kernel" in k or "lab_tiled_kernel" in k}
+    assert len(found) == 2 * (2 + 1), list(found)
+    for name, sass in found.items():
+        assert any("HMMA" in ln and "BF16" in ln for ln in sass.splitlines()), name
 
 
 @pytest.mark.gpu
