@@ -62,7 +62,10 @@ exits non-zero on any failure (no phase is caught and skipped):
    train mode beside the static ones; the paged kernel in turns with the
    dense kernel on the same contents at page sizes 16, 128 and 1024, and at
    B = 1, L = 8192; attention also at int8, B = 1, L = 8192; ``wo4g`` also
-   at K = N = 8192, M = 1, beside phase 12's ``wo4``);
+   at K = N = 8192, M = 1, beside phase 12's ``wo4``; ``wo8``/``wo4``
+   beside their tensor-core bound, three bf16 passes, with the f32
+   CUDA-core bound beside it, and each ``wo*``'s sums over the five d1024
+   shapes at M = 1, 8 and 256 beside ``torch.matmul``'s);
 6. drives the eager training path (``make_train_step(jit=False)``) with
    every launch count reset: full-width
    ``resnet18_cifar`` under ``default_qconfig(8, 8, per_channel_weights=True,
@@ -720,7 +723,9 @@ def _profile_generate(torch, model, prompt):
     n_kernels = 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.key[:60]] = e.self_device_time_total / 1e3
+            # instances of one template share the truncated name: summed
+            key = e.key[:60]
+            by_name[key] = by_name.get(key, 0.0) + e.self_device_time_total / 1e3
             n_kernels += e.count
     dev_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
@@ -749,6 +754,12 @@ def phase_times(torch, rec):
     for name in ("wo8", "wo4", "wo4g"):
         times[name] = [row for layer, (k, n) in WO_SHAPES.items()
                        for row in _time_wo(torch, name, layer, k, n, (1, 8, 256), g)]
+        for m in (1, 8, 256):
+            rows = [r for r in times[name] if r["M"] == m]
+            log(f"[time] {name} M={m}, sum over the five d1024 shapes: "
+                f"{sum(r['ms'] for r in rows) * 1e3:.2f} us on the device (bound "
+                f"{sum(r['bound_ms'] for r in rows) * 1e3:.2f} us; torch.matmul "
+                f"{sum(r['library_ms'] for r in rows) * 1e3:.2f} us)")
     # the int4 kernels at the lab's K = N = 8192 (phase 12 times wo4 there too)
     times["wo4g_k8192"] = _time_wo(torch, "wo4g", "k8192", LAB_K, LAB_N, (1,), g)
 
@@ -804,10 +815,21 @@ def phase_times(torch, rec):
     MM.update(saved)
 
 
+def wo_bound(name, nbytes, flops):
+    """The least time of a ``wo*`` call: ``wo8`` and ``wo4`` three bf16
+    tensor-core passes (x in three exact parts) or the bytes, ``wo4g`` f32
+    on the CUDA cores or the bytes."""
+    if name == "wo4g":
+        return bound(nbytes, flops)
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, 3 * flops / BF16_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
 def _time_wo(torch, name, layer, k, n, ms, g):
     """``wo_matmul`` ("wo8", "wo4" or "wo4g" at group GROUP) on a seeded
-    (k, n) weight at each M in ``ms``: device and call time, bound, plain
-    version and ``torch.matmul`` on the dequantized f32 weight."""
+    (k, n) weight at each M in ``ms``: device and call time, bound
+    (:func:`wo_bound`, beside the f32 CUDA-core bound), plain version and
+    ``torch.matmul`` on the dequantized f32 weight."""
     from jaxlsq_torch.core.spec import QuantSpec
     from jaxlsq_torch.serve.matmul import wo_matmul, wo_matmul_plain
     from jaxlsq_torch.serve.pack import (dequantize_weight, quantize_weight,
@@ -834,12 +856,15 @@ def _time_wo(torch, name, layer, k, n, ms, g):
         plain, _ = measure(wo_matmul_plain, [(x, q) for q in packs], reps=20)
         lib, _ = measure(torch.matmul, [(x, wd) for wd in wdq])
         nbytes = 4 * m * k + wbytes + 4 * m * n
-        b_ms, b_by = bound(nbytes, 2 * m * k * n)
+        b_ms, b_by = wo_bound(name, nbytes, 2 * m * k * n)
+        f32_ms = bound(nbytes, 2 * m * k * n)[0]
         rows.append({"layer": layer, "M": m, "K": k, "N": n, "ms": t, "call_ms": call,
                      "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-                     "bound_by": b_by, "bytes": nbytes, "flops": 2 * m * k * n})
+                     "bound_by": b_by, "bound_f32_cuda_cores_ms": f32_ms, "bytes": nbytes,
+                     "flops": 2 * m * k * n})
         log(f"[time] {name} {layer} M={m} K={k} N={n}: {t * 1e3:.2f} us on the device, "
-            f"{call * 1e3:.2f} us a call (bound {b_ms * 1e3:.2f} us by {b_by}; plain "
+            f"{call * 1e3:.2f} us a call (bound {b_ms * 1e3:.2f} us by {b_by}, f32 CUDA "
+            f"cores {f32_ms * 1e3:.2f} us; plain "
             f"{plain * 1e3:.2f} us; torch.matmul on the dequantized f32 weight "
             f"{lib * 1e3:.2f} us)")
     return rows
@@ -2364,16 +2389,22 @@ def kernels_line(rec):
         rows = [r for r in rec["times"][name] if r["M"] == 1]
         nbytes = sum(r["bytes"] for r in rows)
         flops = sum(r["flops"] for r in rows)
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = wo_bound(name, nbytes, flops)
         out.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                     "launches": rec["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": sum(r["ms"] for r in rows),
                     "plain_ms": sum(r["plain_ms"] for r in rows),
                     "bound_ms": b_ms, "bound_by": b_by,
+                    "bound_f32_cuda_cores_ms": bound(nbytes, flops)[0],
                     "library_ms": sum(r["library_ms"] for r in rows),
+                    "by_m": {m: {k: sum(r[k] for r in rec["times"][name] if r["M"] == m)
+                                 for k in ("ms", "bound_ms", "library_ms")}
+                             for m in (1, 8, 256)},
                     "shape": "M=1, sum over qkv/proj/mlp_up/mlp_down/lm_head of "
-                             "the d1024 LM (one of each per B=1 decode step)"})
+                             "the d1024 LM (one of each per B=1 decode step); by_m: "
+                             "the sums at M=1, 8, 256; bound: three bf16 tensor-core "
+                             "passes or the bytes"})
     rows = [r for r in rec["times"]["wo4g"] if r["M"] == 1]
     b_ms, b_by = bound(sum(r["bytes"] for r in rows), sum(r["flops"] for r in rows))
     out.append({"name": "wo4g", "route": "cuda", "source": "jaxlsq_torch/csrc/wo_matmul.cu",

@@ -10,15 +10,20 @@ group-wise (G, N) scales (``packed.group_size``, int4).
 * On a CUDA tensor it launches ``csrc/wo_matmul.cu`` (``wo8`` for int8,
   ``wo4`` for split-half int4, ``wo4g`` for group-wise int4) for every M, or
   raises.  Each is one launch with no workspace (the wrapper allocates only
-  ``out``), on one kernel body templated on the weight format, and sums in
-  one order for every M: 32-row slices of the weight's rows (int4: byte
-  rows, each giving its low nibble's term and then its high nibble's, k = r
-  and k = r + ceil(K/2)), each an fmaf chain from +0 of exact f32 factors
-  (``(w - z)``, the zero point applied to each byte or nibble; ``wo4g``
-  ``w * s[k // gs]``), folded in slice order, times ``s`` (not ``wo4g``).
-  ``wo4g`` takes group sizes and K / 2 that are multiples of 128 (the JAX
-  package's TPU limits do not apply); another grouped pack raises
-  ``ValueError``.
+  ``out``) and sums in one order for every M.
+  ``wo8`` and ``wo4`` run on the tensor cores (``csrc/mma_bf16.cuh``, bf16
+  ``mma.sync``): x split exactly into three bf16 parts, the factor
+  ``(w - z)`` an exact bf16 (zero points in the int8 carrier's range, as
+  ``_fold_qparams`` clamps them), so every product is exact; the k values
+  (int4: byte row r's low nibble k = r, its high nibble k = r + ceil(K/2))
+  cut into slices of 64, each slice the tensor cores' chain from +0, the
+  even slices left-folded in order into one f32 lane and the odd ones into
+  another, ``out = (lane0 + lane1) * s``.
+  ``wo4g`` runs f32 FMAs: 32-byte-row slices, each byte row's low nibble's
+  term and then its high nibble's, an fmaf chain from +0 of exact f32
+  factors ``w * s[k // gs]``, folded in slice order.  It takes group sizes
+  and K / 2 that are multiples of 128 (the JAX package's TPU limits do not
+  apply); another grouped pack raises ``ValueError``.
 
 ``LAUNCHES`` counts the kernel launches of each kind.  The int8×int8 paths
 (``static_int8_matmul``, ``dynamic_int8_matmul``) come with a later slice.

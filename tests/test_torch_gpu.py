@@ -6,8 +6,9 @@ also runs on a machine with only PyTorch:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
 Tolerances: the K-sums of ``wo_matmul`` (``wo8``, ``wo4``, ``wo4g``) run in
-f32 in another order than the plain matmul (1e-4 of the output's largest
-magnitude); attention 1e-5; the paged kernel bit-equal to the dense kernel on
+f32 in another order than the plain matmul (``wo8``/``wo4`` with exact
+products on the tensor cores; 1e-4 of the output's largest magnitude);
+attention 1e-5; the paged kernel bit-equal to the dense kernel on
 the gathered cache; the flash-attention kernels' out and lse 2e-5, dQ/dK/dV
 1e-4 of the largest magnitude (3xTF32 products, tiled online softmax and sums
 over t keys in another order), their backward bit-equal across runs;
@@ -177,12 +178,14 @@ def test_paged_attention_kernel_matches_plain_and_dense(cuda, carrier, b, h, kvh
 @pytest.mark.parametrize("k,n", [(1023, 1032), (1024, 1032), (4096, 1032), (8192, 1032),
                                  (1024, 3072), (1024, 8192)])
 def test_wo8_rows_same_bits_at_every_m(cuda, k, n):
-    """wo8 sums every output in one order (32-row K slices folded in slice
-    order), so a row's bits do not depend on M or on the form that M picks
-    (M = 1, 8, 17 split; 100, 256, 300 tiled: at N = 1032 the 32 tile with
-    its K over a cluster of 8, 4, 4 blocks; N = 3072 / 8192 the 64 / 128
-    tile at M = 256) or on the run; one launch a call; within 1e-4 of
-    plain.  N = 1032: 16-byte rows, a ragged last column tile."""
+    """wo8 sums every output in one order on the tensor cores (x as three
+    exact bf16 parts, exact (w - z) factors, 64-row K slices each the tensor
+    cores' chain, the even and the odd slices folded in slice order into two
+    f32 lanes, then added), so a row's bits do not depend on M or on the
+    form that M picks (M = 1, 8, 16 the decode form, its K over a cluster;
+    17, 100, 256, 300 the tiled form: 16-row tiles at N = 1032, 64-row
+    tiles at N = 8192, M = 256) or on the run; one launch a call; within
+    1e-4 of plain.  N = 1032: 16-byte rows, a ragged last column tile."""
     from jaxlsq_torch.serve.pack import PackedWeight
 
     g = torch.Generator(device=cuda).manual_seed(k + n)
@@ -194,7 +197,7 @@ def test_wo8_rows_same_bits_at_every_m(cuda, k, n):
     x = torch.randn(300, k, device=cuda, generator=g)
     full = wo_matmul(x, p)
     ref = wo_matmul_plain(x, p)
-    for m in (1, 8, 17, 100, 256, 300):
+    for m in (1, 8, 16, 17, 100, 256, 300):
         before = MM_LAUNCHES["wo8"]
         out = wo_matmul(x[:m], p)
         torch.cuda.synchronize()
@@ -212,13 +215,16 @@ def test_wo8_rows_same_bits_at_every_m(cuda, k, n):
     ("wo4g", 1024, 1032, True, 256), ("wo4g", 4096, 1032, True, 128),
     ("wo4g", 1024, 8192, True, 128), ("wo4g", 8192, 1032, True, 256)])
 def test_wo4_rows_same_bits_at_every_m(cuda, kind, k, n, per_channel, gs):
-    """wo4 and wo4g sum every output in one order (32-byte-row slices, each
-    byte row's low nibble and then its high nibble, folded in slice order),
-    so a row's bits do not depend on M or on the form that M picks (M = 1,
-    8, 17 split; 100, 256, 300 tiled) or on the run; one launch a call;
-    within 1e-4 of plain.  Random bytes (for odd K the last byte row's high
-    nibble too, which both sides drop), a nonzero zero point (wo4), N = 1032
-    a ragged last column tile."""
+    """wo4 sums every output in one order on the tensor cores (wo8's: 64-k
+    slices of a k-step's low then high nibbles, x as three exact bf16 parts,
+    exact (v - z) factors, two f32 lanes of slices folded in slice order);
+    wo4g in its f32 order (32-byte-row slices, each byte row's low nibble
+    and then its high nibble, folded in slice order).  So a row's bits do
+    not depend on M or on the form that M picks (wo4: M = 1, 8, 16 decode,
+    17, 100, 256, 300 tiled; wo4g: 1, 8, 16, 17 split, 100, 256, 300 tiled)
+    or on the run; one launch a call; within 1e-4 of plain.  Random bytes
+    (for odd K the last byte row's high nibble too, which both sides drop),
+    a nonzero zero point (wo4), N = 1032 a ragged last column tile."""
     from jaxlsq_torch.serve.pack import PackedWeight
 
     g = torch.Generator(device=cuda).manual_seed(k + n + (gs or 0))
@@ -235,7 +241,7 @@ def test_wo4_rows_same_bits_at_every_m(cuda, kind, k, n, per_channel, gs):
     x = torch.randn(300, k, device=cuda, generator=g)
     full = wo_matmul(x, p)
     ref = wo_matmul_plain(x, p)
-    for m in (1, 8, 17, 100, 256, 300):
+    for m in (1, 8, 16, 17, 100, 256, 300):
         before = dict(MM_LAUNCHES)
         out = wo_matmul(x[:m], p)
         torch.cuda.synchronize()
@@ -243,6 +249,84 @@ def test_wo4_rows_same_bits_at_every_m(cuda, kind, k, n, per_channel, gs):
         assert torch.equal(out, full[:m]), m
     assert torch.equal(wo_matmul(x, p), full)
     assert float((full - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(1024, 1032), (4095, 520)])
+def test_wo8_extreme_bytes_and_zero_points(cuda, k, n):
+    """wo8 with bytes at -128 and 127 beside random ones and zero points at
+    the int8 carrier's ends (-128, 127) and between, per channel: w - z
+    spans [-255, 255], every factor exact in bf16; within 1e-4 of plain at
+    M on both sides of the form threshold, and a row's bits at every M."""
+    from jaxlsq_torch.serve.pack import PackedWeight
+
+    g = torch.Generator(device=cuda).manual_seed(k)
+    data = torch.randint(-128, 128, (k, n), device=cuda, generator=g)
+    ends = torch.randint(0, 3, (k, n), device=cuda, generator=g)
+    data = torch.where(ends == 0, -128, torch.where(ends == 1, 127, data)).to(torch.int8)
+    zp = torch.randint(-128, 128, (n,), device=cuda, generator=g)
+    zp[0::4], zp[1::4] = -128, 127
+    p = PackedWeight(data=data, scale=torch.rand(n, device=cuda, generator=g) * 1e-3 + 1e-4,
+                     zero_point=zp.to(torch.int32), bits=8, axis=1, k_axis=0,
+                     orig_shape=(k, n))
+    x = torch.randn(40, k, device=cuda, generator=g)
+    full = wo_matmul(x, p)
+    ref = wo_matmul_plain(x, p)
+    assert float((full - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    for m in (1, 16, 17):
+        out = wo_matmul(x[:m], p)
+        assert float((out - ref[:m]).abs().max()) <= 1e-4 * float(ref[:m].abs().max()), m
+        assert torch.equal(out, full[:m]), m
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_wo_rows_same_bits_across_cluster_sizes(cuda, bits):
+    """wo8 and wo4's decode form splits K over a cluster whose size follows
+    the column tiles: at K = 4096 (64 slices) the full N = 34816 (272 tiles
+    of 128, more than the card holds at once in clusters of two) takes one
+    block a tile, its first 1032 columns (9 tiles) a larger cluster; both
+    give the same bits in those columns at M = 1 and 16, and so does the
+    tiled form at M = 17."""
+    from jaxlsq_torch.serve.pack import PackedWeight
+
+    k, n, part = 4096, 34816, 1032
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    rows = k if bits == 8 else k // 2
+    data = torch.randint(-128, 128, (rows, n), device=cuda, generator=g).to(torch.int8)
+    scale = torch.rand(n, device=cuda, generator=g) * 1e-2 + 1e-3
+    zp = torch.randint(-5, 6, (n,), device=cuda, generator=g).to(torch.int32)
+    p = PackedWeight(data, scale, zp, bits, 1, 0, (k, n))
+    q = PackedWeight(data[:, :part].contiguous(), scale[:part].contiguous(),
+                     zp[:part].contiguous(), bits, 1, 0, (k, part))
+    x = torch.randn(17, k, device=cuda, generator=g)
+    for m in (1, 16, 17):
+        assert torch.equal(wo_matmul(x[:m], p)[:, :part], wo_matmul(x[:m], q)), m
+
+
+@pytest.mark.gpu
+def test_wo_kernels_use_tensor_cores(cuda):
+    """Every instance of wo8 and wo4's two forms (``csrc/wo_matmul.cu`` on
+    ``csrc/mma_bf16.cuh``: the decode form at 2 n8 tiles of rows on
+    64-column tiles of 8 warps, at 1 n8 tile on 64-column tiles of 8 and 4
+    warps and, wo4 only, 128-column tiles of 8; the tiled form at 64- and
+    16-row tiles) runs its products as bf16 HMMA, as the built library's
+    SASS shows."""
+    import os
+    import shutil
+
+    from jaxlsq_torch import _build
+
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        pytest.skip("the CUDA toolkit has no cuobjdump")
+    funcs = _sass_functions(_build.load_library()._name, cuobjdump)
+    found = {k: v for k, v in funcs.items()
+             if "wo_mma_decode_kernel" in k or "wo_mma_tiled_kernel" in k}
+    assert len(found) == (3 + 2) + (4 + 2), list(found)
+    for name, sass in found.items():
+        assert any("HMMA" in ln and "BF16" in ln for ln in sass.splitlines()), name
 
 
 def _attention_pair(carrier, b, kvh, length, hd, ps, g, device):

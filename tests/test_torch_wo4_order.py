@@ -1,13 +1,18 @@
-"""The int4 weight-only matmul's summation order (``wo4``/``wo4g`` in
-``csrc/wo_matmul.cu``), emulated in torch on the CPU: 32-byte-row slices of
-the split-half pack, each an fmaf chain from +0 that takes a byte row's low
-nibble (k = r) and then its high nibble (k = r + ceil(K/2)), the factors
-exact f32 values (``(w - z)`` decoded from the nibble as the kernel decodes
-it; ``wo4g`` that times the group's scale), the slice partials folded in
-slice order from +0, times the scale (not ``wo4g``).
+"""The int4 weight-only matmuls' summation orders (``csrc/wo_matmul.cu``),
+emulated in torch on the CPU.
+
+``wo4g``: 32-byte-row slices of the split-half pack, each an fmaf chain from
++0 that takes a byte row's low nibble (k = r) and then its high nibble (k =
+r + ceil(K/2)), the factors exact f32 values (the nibble decoded as the
+kernel decodes it, times the group's scale), the slice partials folded in
+slice order from +0.  ``wo4``: the tensor-core order of ``tests/_wo_mma.py``
+(three exact bf16 parts of x, exact ``w - z`` factors decoded as bf16,
+64-k slices, the even and the odd slices folded into two f32 lanes, times
+the scale).
 
 * the nibble decode bit for bit against ``float(w - z)`` (numpy, every
-  nibble in both halves of a byte, every 4-bit zero point);
+  nibble in both halves of a byte, every 4-bit zero point; ``wo4``'s bf16
+  decode);
 * the emulation against ``wo_matmul_plain`` and against the JAX package's
   ``wo_matmul(..., impl="pallas", interpret=True, precision=HIGHEST)`` at
   rtol = atol = 1e-5 (f32 sums in other orders): ``wo4`` per channel with a
@@ -33,6 +38,7 @@ from jaxlsq.serve.matmul import wo_matmul as j_wo_matmul
 from jaxlsq.serve.pack import quantize_weight as j_quantize
 from jaxlsq.serve.pack import quantize_weight_grouped as j_qwg
 
+import _wo_mma
 from jaxlsq_torch.core.spec import QuantSpec
 from jaxlsq_torch.serve.matmul import wo_matmul_plain
 from jaxlsq_torch.serve.pack import (dequantize_weight, quantize_weight,
@@ -41,7 +47,7 @@ from jaxlsq_torch.serve.pack import (dequantize_weight, quantize_weight,
 SLICE = 32
 MS = (1, 5, 40)
 TOL = dict(rtol=1e-5, atol=1e-5)
-MANT = 8388616  # 2^23 + 8: a biased nibble's float, less the bias
+MANT = 8388616  # 2^23 + 8: a biased nibble's float, less the bias (wo4g)
 # name: (K, N, group size or None, per-channel, zero points nonzero); the
 # JAX package's kernel is traced once for each (K, N, group size)
 CASES = {"wo4_pc_zp": (131, 24, None, True, True),
@@ -50,26 +56,15 @@ CASES = {"wo4_pc_zp": (131, 24, None, True, True),
          "wo4g_256": (512, 40, 256, True, False)}
 
 
-def _decode_np(word, high, z):
-    """The kernel's factor for each byte of uint32 words: the nibble ^ 8 as
-    the low mantissa bits of 2^23 (xor, shift, mask, byte permute), less
-    2^23 + 8 + z, in f32."""
-    t = word ^ np.uint32(0x88888888)
-    nib = ((t >> np.uint32(4)) if high else t) & np.uint32(0x0F0F0F0F)
-    out = []
-    for j in range(4):
-        bits = ((nib >> np.uint32(8 * j)) & np.uint32(0xFF)) | np.uint32(0x4B000000)
-        out.append(bits.view(np.float32) - np.float32(MANT + z))
-    return np.stack(out, -1)
-
-
 @pytest.mark.parametrize("z", range(-8, 8))
 def test_nibble_decode_is_exact(z):
-    b = np.arange(256, dtype=np.uint8)
-    word = b.reshape(64, 4).view("<u4")[:, 0]  # byte j of word i is b[4i + j]
-    q = b.view(np.int8).astype(np.int32)
-    for high, want in ((False, ((q << 28) >> 28)), (True, q >> 4)):
-        got = _decode_np(word, high, z).reshape(256)
+    """wo4's bf16 decode (the nibble ^ 8 in the mantissa of 16.0, less 24 +
+    z) of each byte's low nibble (at bits 0-3) and high nibble (shifted
+    down), for all 256 bytes."""
+    b = np.arange(256, dtype=np.uint32)
+    q = b.astype(np.uint8).view(np.int8).astype(np.int32)
+    for shift, want in ((0, ((q << 28) >> 28)), (4, q >> 4)):
+        got, _ = _wo_mma.nibbles_zp(b >> np.uint32(shift), z)
         np.testing.assert_array_equal(got.view(np.uint32),
                                       (want - z).astype(np.float32).view(np.uint32))
 
@@ -90,27 +85,34 @@ def _fmaf(a, b, c):
 
 def _factors(p):
     """(lo, hi): the f32 factors of each byte row's low and high nibble,
-    (ceil(K/2), N) each, as the kernel decodes them; the odd-K pad nibble's
-    factor 0."""
+    (ceil(K/2), N) each, as the kernel decodes them (wo4g: the f32 decode
+    times the group's scale; wo4: the bf16 decode less the zero point); the
+    odd-K pad nibble's factor 0."""
     k, n = p.orig_shape
     kr = (k + 1) // 2
+    if not p.group_size:
+        b = (p.data.to(torch.int32) & 0xFF).numpy().astype(np.uint32)
+        z = np.broadcast_to(p.zero_point.to(torch.int32).numpy(), b.shape)
+        lo, hi = [torch.from_numpy(_wo_mma.nibbles_zp(b >> np.uint32(sh), z)[0])
+                  for sh in (0, 4)]
+        if k % 2:
+            hi[-1] = 0.0
+        return lo, hi
     t = (p.data.to(torch.int32) & 0xFF) ^ 0x88
-    z = (torch.zeros(1, dtype=torch.int32) if p.group_size
-         else p.zero_point.to(torch.int32))
-    zc = (MANT + z).to(torch.float32)
+    zc = torch.tensor(MANT, dtype=torch.float32)
     lo, hi = [((nib | 0x4B000000).view(torch.float32) - zc)
               for nib in (t & 0xF, (t >> 4) & 0xF)]
-    if p.group_size:
-        s = p.scale.to(torch.float32)
-        lo = lo * s[torch.arange(kr) // p.group_size]
-        hi = hi * s[(torch.arange(kr) + kr) // p.group_size]
-    if k % 2:
-        hi[-1] = 0.0
+    s = p.scale.to(torch.float32)
+    lo = lo * s[torch.arange(kr) // p.group_size]
+    hi = hi * s[(torch.arange(kr) + kr) // p.group_size]
     return lo, hi
 
 
 def emulate(x, p):
-    """The kernel's order on f32 x (M, K) and an int4 pack."""
+    """The kernel's order on f32 x (M, K) and an int4 pack (wo4: the
+    tensor-core order of ``tests/_wo_mma.py``)."""
+    if not p.group_size:
+        return _wo_mma.emulate(x, p)
     k, n = p.orig_shape
     kr = (k + 1) // 2
     rows = -(-kr // SLICE) * SLICE
@@ -128,9 +130,7 @@ def emulate(x, p):
             acc = _fmaf(xl[:, r:r + 1], lo[r:r + 1], acc)
             acc = _fmaf(xh[:, r:r + 1], hi[r:r + 1], acc)
         total = total + acc
-    if p.group_size:
-        return total
-    return total * p.scale.to(torch.float32)
+    return total
 
 
 @functools.lru_cache(maxsize=None)
