@@ -59,7 +59,8 @@ exits non-zero on any failure (no phase is caught and skipped):
    a sleep kernel (so they run back to back) and time a call from CUDA
    events around calls issued as the host can, beside its bound, its plain
    version and one PyTorch library call (the traced fake-quant kernels in
-   train mode beside the static ones; the paged kernel in turns with the
+   train mode beside the static ones, the per-channel ones also on the LM
+   head's (512, 8192) weight on axis 1; the paged kernel in turns with the
    dense kernel on the same contents at page sizes 16, 128 and 1024, and at
    B = 1, L = 8192; attention also at int8, B = 1, L = 8192; ``wo4g`` also
    at K = N = 8192, M = 1, beside phase 12's ``wo4``; ``wo8``/``wo4``
@@ -1330,7 +1331,7 @@ def _graph_of(step):
 
 
 _FQ_NAME = re.compile(
-    r"fq_(fwd|bwd_pt|bwd_pc|bwd_sum)_kernel(?:<([^,>]*)(?:,\s*([^>]*))?>)?")
+    r"fq_(fwd|bwd_pt|bwd_pc|bwd_sum)(?:_runs|_rows)?_kernel(?:<([^,>]*)(?:,\s*([^,>]*))?)?")
 _TRUE = ("true", "(bool)1", "1")
 
 
@@ -1427,7 +1428,9 @@ def phase_train_captured(torch, rec):
                                                          key=lambda kv: -kv[1])))
     log("[captured] top kernels: " + "; ".join(f"{k} {v:.2f} ms" for k, v in p["top"][:8]))
     log(f"[captured] fake-quant kernels in the replay: {replay}")
-    want = {"fwd/traced": 42, "bwd_pt/traced": 21, "bwd_pc/traced": 21, "bwd_sum": 42}
+    # the per-tensor backward sums its partials in a second kernel; the
+    # per-channel one is one kernel
+    want = {"fwd/traced": 42, "bwd_pt/traced": 21, "bwd_pc/traced": 21, "bwd_sum": 21}
     if replay != want:
         raise AssertionError(f"the replay ran fake-quant kernels {replay}, not {want}")
 
@@ -1570,12 +1573,16 @@ def phase_fq_times(torch, rec):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(4)
     times = rec["times"]
-    for kind, shape, spec in (("pt", (64, 64, 32, 32), qc.activation.spec),
-                              ("pc", (512, 512, 3, 3), qc.weight_for_axis(0).spec)):
+    # the table's shapes, then the LM head's (K, N) weight on axis 1 (its
+    # records' names end in "_kn")
+    for kind, shape, spec, tag in (
+            ("pt", (64, 64, 32, 32), qc.activation.spec, ""),
+            ("pc", (512, 512, 3, 3), qc.weight_for_axis(0).spec, ""),
+            ("pc", (LM_DIM, LM_VOCAB), qc.weight_for_axis(1).spec, "_kn")):
         n = math.prod(shape)
-        c = shape[0] if spec.per_channel else 1
-        if spec.per_channel:  # weights ~ lecun-normal, symmetric
-            sd = (shape[1] * shape[2] * shape[3]) ** -0.5
+        c = shape[spec.axis] if spec.per_channel else 1
+        if spec.per_channel:  # weights ~ lecun-normal over the fan-in, symmetric
+            sd = (n // c) ** -0.5
             s = torch.full((c,), 4 * sd / spec.quant_max, device=dev)
             b = torch.zeros(c, device=dev)
         else:  # unit activations over the 0..qmax range
@@ -1591,7 +1598,7 @@ def phase_fq_times(torch, rec):
         if spec.per_channel:
             def lib_fwd(x):
                 return torch._fake_quantize_learnable_per_channel_affine(
-                    x, s, zp, 0, spec.quant_min, spec.quant_max, 1.0)
+                    x, s, zp, spec.axis, spec.quant_min, spec.quant_max, 1.0)
         else:
             def lib_fwd(x):
                 return torch._fake_quantize_learnable_per_tensor_affine(
@@ -1602,7 +1609,7 @@ def phase_fq_times(torch, rec):
         def lib_fwdbwd(x, gg):
             if spec.per_channel:
                 y = torch._fake_quantize_learnable_per_channel_affine(
-                    x, s_l, zp_l, 0, spec.quant_min, spec.quant_max, 1.0)
+                    x, s_l, zp_l, spec.axis, spec.quant_min, spec.quant_max, 1.0)
             else:
                 y = torch._fake_quantize_learnable_per_tensor_affine(
                     x, s_l, zp_l, spec.quant_min, spec.quant_max, 1.0)
@@ -1628,12 +1635,13 @@ def phase_fq_times(torch, rec):
             ms, call = measure(fn, args)
             plain, _ = measure(plain_fn, args, reps=20)
             if lib_fn is None:  # the same library call, timed above on these inputs
-                static = times[name[:-len("_traced")]]
+                static = times[name[:-len("_traced")] + tag]
                 lib, lib_call = static["library_ms"], static["library_call_ms"]
             else:
                 lib, lib_call = measure(lib_fn, lib_args)
             b_ms, b_by = bound(nbytes, ops)
-            times[name] = {"shape": list(shape), "ms": ms, "call_ms": call,
+            name += tag
+            times[name] = {"shape": list(shape), "axis": spec.axis, "ms": ms, "call_ms": call,
                            "plain_ms": plain, "library_ms": lib,
                            "library_call_ms": lib_call, "bound_ms": b_ms,
                            "bound_by": b_by, "bytes": nbytes, "ops": ops}
@@ -2448,15 +2456,21 @@ def kernels_line(rec):
             ("fq_bwd_pt_traced", "jaxlsq/ops/pallas_kernels.py:689", "train_captured"),
             ("fq_bwd_pc_traced", "jaxlsq/ops/pallas_kernels.py:734", "train_captured")):
         t = rec["times"][name]
+        kn = rec["times"].get(name + "_kn")  # per channel: also a (K, N) weight on axis 1
         out.append({"name": name, "route": "cuda",
                     "source": "jaxlsq_torch/csrc/fake_quant.cu", "replaces": repl,
                     "launches": rec[leg]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                    **({"axis1": {k: kn[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                                     "bound_by", "library_ms")}}
+                       if kn else {}),
                     "shape": ("x " + "x".join(map(str, t["shape"]))
                               + (", train mode; library: forward + backward"
-                                 if "bwd" in name else ""))})
+                                 if "bwd" in name else "")
+                              + ("; axis1: the same at the LM head's weight" if kn
+                                 else ""))})
     for name, repl in (("fq_fwdbwd_pt", "jaxlsq/ops/pallas_kernels.py:607"),
                        ("fq_fwdbwd_pc", "jaxlsq/ops/pallas_kernels.py:639")):
         t = rec["times"][name]

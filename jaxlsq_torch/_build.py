@@ -38,8 +38,8 @@ _SIGNATURES = {
     # window, carrier, scale, stream
     "jlt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, ctypes.c_float, _P],
-    # outer, C, inner, per_channel
-    "jlt_fq_partials": [_I, _I, _I, _I],
+    # n (per tensor)
+    "jlt_fq_partials": [_I],
     # x, scale, shift, out, n, qmin, qmax, tmin, tmax, stream
     "jlt_fq_fwd_pt": [_P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
     # x, scale, shift, out, outer, C, inner, qmin, qmax, tmin, tmax, stream
@@ -48,18 +48,18 @@ _SIGNATURES = {
     # eval, init, gs, stream
     "jlt_fq_bwd_pt": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I,
                       _I, _I, _F, _P],
-    # g, x, scale, shift, dx, part, ds, db, outer, C, inner, qmin, qmax,
-    # tmin, tmax, sym, eval, init, gs, stream
-    "jlt_fq_bwd_pc": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                      _F, _I, _I, _I, _F, _P],
+    # g, x, scale, shift, dx, ds, db, outer, C, inner, warps, cluster, qmin,
+    # qmax, tmin, tmax, sym, eval, init, gs, stream
+    "jlt_fq_bwd_pc": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                      _F, _F, _I, _I, _I, _F, _P],
     # g, x, scale, shift, out, dx, part, ds, db, n, qmin, qmax, tmin, tmax,
     # sym, gs, stream
     "jlt_fq_fwdbwd_pt": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F,
                          _I, _F, _P],
-    # g, x, scale, shift, out, dx, part, ds, db, outer, C, inner, qmin, qmax,
-    # tmin, tmax, sym, gs, stream
-    "jlt_fq_fwdbwd_pc": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F,
-                         _F, _F, _I, _F, _P],
+    # g, x, scale, shift, out, dx, ds, db, outer, C, inner, warps, cluster,
+    # qmin, qmax, tmin, tmax, sym, gs, stream
+    "jlt_fq_fwdbwd_pc": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                         _F, _F, _F, _I, _F, _P],
     # x, w, scale, out, M, K, N, native, stream
     "jlt_int4_lab": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, scale, shift, flags, out, n, qmin, qmax, tmin, tmax, stream
@@ -71,10 +71,10 @@ _SIGNATURES = {
     # sym, gs, stream
     "jlt_fq_bwd_pt_traced": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
                              _F, _I, _F, _P],
-    # g, x, scale, shift, flags, dx, part, ds, db, outer, C, inner, qmin,
-    # qmax, tmin, tmax, sym, gs, stream
-    "jlt_fq_bwd_pc_traced": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
-                             _F, _F, _F, _I, _F, _P],
+    # g, x, scale, shift, flags, dx, ds, db, outer, C, inner, warps,
+    # cluster, qmin, qmax, tmin, tmax, sym, gs, stream
+    "jlt_fq_bwd_pc_traced": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _F, _F, _F, _F, _I, _F, _P],
     # q, k, v, out, lse, BH, t, hd, sm_scale, stream
     "jlt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # q, k, v, dout, lse, D, dq, dk, dv, BH, t, hd, sm_scale, stream

@@ -28,6 +28,9 @@ their traced-flag twins ``pallas_forward_traced`` /
 A per-channel tensor is handed to the kernels as its ``(outer, C, inner)``
 view around ``spec.axis``, so the channel axis is never moved.  The qparams
 stay on the device.  ``LAUNCHES`` counts the kernel launches of each kind.
+A per-channel backward is one launch with no workspace, in the order that
+:func:`pc_plan` fixes from the shape; a per-tensor one is two (partials,
+then their sum).
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ from ..core.spec import QuantSpec
 
 __all__ = ["fake_quant_forward", "fake_quant_backward",
            "fake_quant_forward_traced", "fake_quant_backward_traced",
-           "fake_quant_fwdbwd", "LAUNCHES"]
+           "fake_quant_fwdbwd", "pc_plan", "LAUNCHES"]
 
 LAUNCHES = {"fq_fwd_pt": 0, "fq_fwd_pc": 0, "fq_bwd_pt": 0, "fq_bwd_pc": 0,
             "fq_fwd_pt_traced": 0, "fq_fwd_pc_traced": 0,
@@ -54,6 +57,15 @@ LAUNCHES = {"fq_fwd_pt": 0, "fq_fwd_pc": 0, "fq_bwd_pt": 0, "fq_bwd_pc": 0,
 
 _MAX_NUMEL = 2 ** 31 - 1  # the kernels index with 32-bit ints
 _NARROW = (torch.float16, torch.bfloat16)
+# The per-channel backward's plan (csrc/fake_quant.cu): a block is 8 warps.
+# Runs: a channel takes more warps while a lane keeps at least one group of
+# 4 elements, more blocks of a cluster while a lane keeps _CLUSTER_GROUPS.
+# Rows: the rows go over more blocks of a cluster while a warp keeps
+# _WARP_ROWS.  A cluster grows only while the blocks are fewer than _FILL.
+# (Measured on the H100: sums over resnet18_cifar's weights and the LM's
+# (K, N) weights, PERF.md §6.)
+_BLOCK_WARPS, _MAX_CLUSTER = 8, 8
+_CLUSTER_GROUPS, _WARP_ROWS, _FILL = 4, 4, 264
 
 
 def _narrow(*ts: torch.Tensor) -> bool:
@@ -105,6 +117,30 @@ def _checked_pair(what: str, grad: torch.Tensor, x: torch.Tensor,
     dims = _view3(x, spec)
     scale, shift = _qparams(scale, shift, dims[1], what)
     return grad.contiguous(), x.contiguous(), scale, shift, dims
+
+
+def pc_plan(outer: int, c: int, inner: int) -> Tuple[int, int]:
+    """``(warps, cluster)`` of the per-channel backward over the ``(outer,
+    c, inner)`` view, from the shape alone; it fixes which lanes, warps and
+    blocks sum which elements of a channel, so the summation order (the
+    note at the top of ``csrc/fake_quant.cu``).  Runs (``inner > 1``):
+    ``warps`` warps of a block take a channel, or with ``cluster > 1`` the 8
+    warps of each of ``cluster`` blocks.  Rows (``inner == 1``): the 8 warps
+    of each of ``cluster`` blocks walk the rows of a strip of channels."""
+    if inner == 1:
+        strips, cluster = -(-c // 32), 1
+        while (cluster < _MAX_CLUSTER and strips * cluster < _FILL
+               and outer >= 2 * cluster * _BLOCK_WARPS * _WARP_ROWS):
+            cluster *= 2
+        return _BLOCK_WARPS, cluster
+    groups = -(-outer * inner // 4)
+    warps, cluster = 1, 1
+    while warps < _BLOCK_WARPS and groups >= 2 * warps * 32:
+        warps *= 2
+    while (warps == _BLOCK_WARPS and cluster < _MAX_CLUSTER and c * cluster < _FILL
+           and groups >= 2 * cluster * _BLOCK_WARPS * 32 * _CLUSTER_GROUPS):
+        cluster *= 2
+    return warps, cluster
 
 
 def _range(spec: QuantSpec):
@@ -174,20 +210,21 @@ def fake_quant_backward(grad: torch.Tensor, x: torch.Tensor, scale: torch.Tensor
         ds, db = torch.empty_like(scale), torch.empty_like(shift)
     dx = grad if init_mode else torch.empty_like(x)
     lib = _build.load_library()
-    n_part = 0 if eval_mode else 2 * lib.jlt_fq_partials(outer, c, inner,
-                                                        int(spec.per_channel))
-    part = torch.empty(max(n_part, 1), dtype=torch.float32, device=x.device)
     n = numel if numel is not None else x.numel()
     gs = effective_grad_scale(spec, n, c)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    args = (grad.data_ptr(), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            dx.data_ptr(), part.data_ptr(), ds.data_ptr(), db.data_ptr())
+    ptrs = (grad.data_ptr(), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            dx.data_ptr())
     flags = (int(spec.symmetric), int(eval_mode), int(init_mode), gs, stream)
     if spec.per_channel:
-        err = lib.jlt_fq_bwd_pc(*args, outer, c, inner, *_range(spec), *flags)
+        err = lib.jlt_fq_bwd_pc(*ptrs, ds.data_ptr(), db.data_ptr(), outer, c, inner,
+                                *pc_plan(outer, c, inner), *_range(spec), *flags)
         LAUNCHES["fq_bwd_pc"] += 1
     else:
-        err = lib.jlt_fq_bwd_pt(*args, x.numel(), *_range(spec), *flags)
+        n_part = 0 if eval_mode else 2 * lib.jlt_fq_partials(x.numel())
+        part = torch.empty(max(n_part, 1), dtype=torch.float32, device=x.device)
+        err = lib.jlt_fq_bwd_pt(*ptrs, part.data_ptr(), ds.data_ptr(), db.data_ptr(),
+                                x.numel(), *_range(spec), *flags)
         LAUNCHES["fq_bwd_pt"] += 1
     _build.check(err, "fake_quant_backward")
     return dx, ds, db
@@ -238,20 +275,21 @@ def fake_quant_backward_traced(grad: torch.Tensor, x: torch.Tensor,
         return dx, torch.zeros_like(scale), torch.zeros_like(shift)
     ds, db = torch.empty_like(scale), torch.empty_like(shift)
     lib = _build.load_library()
-    part = torch.empty(2 * lib.jlt_fq_partials(outer, c, inner, int(spec.per_channel)),
-                       dtype=torch.float32, device=x.device)
     n = numel if numel is not None else x.numel()
     gs = effective_grad_scale(spec, n, c)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    args = (grad.data_ptr(), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            flags.data_ptr(), dx.data_ptr(), part.data_ptr(), ds.data_ptr(),
-            db.data_ptr())
+    ptrs = (grad.data_ptr(), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            flags.data_ptr(), dx.data_ptr())
     if spec.per_channel:
-        err = lib.jlt_fq_bwd_pc_traced(*args, outer, c, inner, *_range(spec),
+        err = lib.jlt_fq_bwd_pc_traced(*ptrs, ds.data_ptr(), db.data_ptr(), outer, c,
+                                       inner, *pc_plan(outer, c, inner), *_range(spec),
                                        int(spec.symmetric), gs, stream)
         LAUNCHES["fq_bwd_pc_traced"] += 1
     else:
-        err = lib.jlt_fq_bwd_pt_traced(*args, x.numel(), *_range(spec),
+        part = torch.empty(2 * lib.jlt_fq_partials(x.numel()), dtype=torch.float32,
+                           device=x.device)
+        err = lib.jlt_fq_bwd_pt_traced(*ptrs, part.data_ptr(), ds.data_ptr(),
+                                       db.data_ptr(), x.numel(), *_range(spec),
                                        int(spec.symmetric), gs, stream)
         LAUNCHES["fq_bwd_pt_traced"] += 1
     _build.check(err, "fake_quant_backward_traced")
@@ -266,7 +304,7 @@ def fake_quant_fwdbwd(grad: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
     """``(out, dX, dS, dB)``: the train-mode forward and backward in one
     pass (one launch), equal to ``fake_quant_forward`` and
     ``fake_quant_backward`` on the same inputs: out and dX bit for bit, and
-    on the card dS/dB too (the same partials in the same order)."""
+    on the card dS/dB too (the same grid and summation order)."""
     if _narrow(grad, x, scale, shift):
         out, dx, ds, db = fake_quant_fwdbwd(*_wide(grad, x, scale, shift),
                                             spec=spec, numel=numel)
@@ -282,20 +320,21 @@ def fake_quant_fwdbwd(grad: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
         return out, dx, torch.zeros_like(scale), torch.zeros_like(shift)
     ds, db = torch.empty_like(scale), torch.empty_like(shift)
     lib = _build.load_library()
-    part = torch.empty(2 * lib.jlt_fq_partials(outer, c, inner, int(spec.per_channel)),
-                       dtype=torch.float32, device=x.device)
     gs = effective_grad_scale(spec, numel if numel is not None else x.numel(), c)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    args = (grad.data_ptr(), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            out.data_ptr(), dx.data_ptr(), part.data_ptr(), ds.data_ptr(),
-            db.data_ptr())
+    ptrs = (grad.data_ptr(), x.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+            out.data_ptr(), dx.data_ptr())
     if spec.per_channel:
-        err = lib.jlt_fq_fwdbwd_pc(*args, outer, c, inner, *_range(spec),
+        err = lib.jlt_fq_fwdbwd_pc(*ptrs, ds.data_ptr(), db.data_ptr(), outer, c, inner,
+                                   *pc_plan(outer, c, inner), *_range(spec),
                                    int(spec.symmetric), gs, stream)
         LAUNCHES["fq_fwdbwd_pc"] += 1
     else:
-        err = lib.jlt_fq_fwdbwd_pt(*args, x.numel(), *_range(spec),
-                                   int(spec.symmetric), gs, stream)
+        part = torch.empty(2 * lib.jlt_fq_partials(x.numel()), dtype=torch.float32,
+                           device=x.device)
+        err = lib.jlt_fq_fwdbwd_pt(*ptrs, part.data_ptr(), ds.data_ptr(), db.data_ptr(),
+                                   x.numel(), *_range(spec), int(spec.symmetric), gs,
+                                   stream)
         LAUNCHES["fq_fwdbwd_pt"] += 1
     _build.check(err, "fake_quant_fwdbwd")
     return out, dx, ds, db

@@ -548,7 +548,7 @@ STATIC_FQ = ("fq_fwd_pt", "fq_fwd_pc", "fq_bwd_pt", "fq_bwd_pc")
 FQ_SHAPES = {"act": [(64, 3, 32, 32), (64, 512, 4, 4), (64, 512), (3,), (33, 7, 5)],
              "sym": [(64, 64, 32, 32), (1000,)],
              "w_oihw": [(512, 512, 3, 3), (64, 3, 3, 3), (128, 64, 1, 1), (5, 3, 1, 1)],
-             "w_kn": [(512, 10), (33, 300)],
+             "w_kn": [(512, 10), (33, 300), (512, 8192)],
              "aff_nchw": [(8, 16, 5, 5)]}
 
 
@@ -930,20 +930,129 @@ def test_captured_step_refuses_stale_hyperparameters(cuda):
 
 
 @pytest.mark.gpu
-def test_fake_quant_kernels_are_deterministic(cuda):
+@pytest.mark.parametrize("name,shape", [("w_oihw", (512, 512, 3, 3)),
+                                        ("w_kn", (512, 8192))])
+def test_fake_quant_kernels_are_deterministic(cuda, name, shape):
     """The grid depends on the shape alone: the same input gives the same
-    bits on every run."""
+    bits on every run (an OIHW weight on axis 0 and a (K, N) one on axis 1)."""
     from jaxlsq_torch.ops.fake_quant import fake_quant_backward
 
-    spec = QuantSpec(**FQ_SPECS["w_oihw"])
+    spec = QuantSpec(**FQ_SPECS[name])
+    c = shape[spec.axis]
     g = torch.Generator(device=cuda).manual_seed(3)
-    x = torch.randn(512, 512, 3, 3, device=cuda, generator=g) * 0.02
+    x = torch.randn(shape, device=cuda, generator=g) * 0.02
     gr = torch.randn(x.shape, device=cuda, generator=g)
-    s, b = torch.full((512,), 2e-4, device=cuda), torch.zeros(512, device=cuda)
+    s, b = torch.full((c,), 2e-4, device=cuda), torch.zeros(c, device=cuda)
     first = fake_quant_backward(gr, x, s, b, spec)
     for _ in range(3):
         again = fake_quant_backward(gr, x, s, b, spec)
         assert all(torch.equal(a, b_) for a, b_ in zip(first, again))
+
+
+# the per-channel backward's order cases (tests/test_torch_fq_pc_order.py):
+# runs at 1, 2, 4 and 8 warps a channel and over a cluster, rows over 1, 2
+# and 8 blocks, and the table's two shapes
+PC_ORDER_CASES = [("w_oihw", (64, 256, 3, 3)), ("aff_oihw", (16, 1024, 3, 3)),
+                  ("w_oihw", (64, 64, 3, 3)), ("aff_oihw", (64, 32, 3, 3)),
+                  ("w_oihw", (64, 3, 3, 3)),
+                  ("aff_oihw", (5, 3, 1, 1)), ("aff_nchw", (8, 16, 5, 5)),
+                  ("w_kn", (512, 10)), ("aff_kn", (33, 300)), ("aff_kn", (128, 8192)),
+                  ("w_kn", (256, 512)), ("w_oihw", (512, 512, 3, 3)),
+                  ("w_kn", (512, 8192))]
+PC_ORDER_SPECS = {**FQ_SPECS,
+                  "aff_oihw": dict(quant_min=0, quant_max=255, per_channel=True, axis=0),
+                  "aff_kn": dict(quant_min=0, quant_max=127, per_channel=True, axis=1)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", PC_ORDER_CASES)
+def test_fake_quant_pc_backward_has_the_emulated_bits(cuda, name, shape):
+    """dS/dB of ``fq_bwd_pc`` (train and init mode), ``fq_bwd_pc_traced``
+    (the four flag pairs) and ``fq_fwdbwd_pc`` equal the CPU emulation of the
+    kernels' order (``tests/_fq_pc_order.py``) bit for bit, on contiguous
+    inputs and on 4-byte-aligned ones (the 16-byte loads switched off); the
+    order never depends on the load width."""
+    import _fq_pc_order as em
+    from jaxlsq_torch.ops.fake_quant import (fake_quant_backward,
+                                             fake_quant_backward_traced,
+                                             fake_quant_fwdbwd)
+
+    spec = QuantSpec(**PC_ORDER_SPECS[name])
+    g = torch.Generator(device=cuda).manual_seed(sum(shape) + 17)
+    c = shape[spec.axis]
+    n = int(np.prod(shape))
+    # one buffer, the tensors at element offsets 0 and 1
+    xbuf = torch.randn(n + 1, device=cuda, generator=g) * 1.5
+    gbuf = torch.randn(n + 1, device=cuda, generator=g)
+    s = 0.01 + 0.04 * torch.rand(c, device=cuda, generator=g)
+    b = (torch.zeros(c, device=cuda) if spec.symmetric
+         else 0.2 * torch.randn(c, device=cuda, generator=g))
+    for off in (0, 1):
+        x, gr = xbuf[off:off + n].view(shape), gbuf[off:off + n].view(shape)
+        cpu = [t.cpu() for t in (gr, x, s, b)]
+        for init in (False, True):
+            want = em.backward_sums(*cpu, spec, init)
+            _, ds, db = fake_quant_backward(gr, x, s, b, spec, init_mode=init)
+            assert torch.equal(ds.cpu(), want[0]) and torch.equal(db.cpu(), want[1])
+        for ev, ini in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            flags = torch.tensor([float(ev), float(ini)], device=cuda)
+            want = em.backward_sums(*cpu, spec, bool(ini), ev=ev)
+            _, ds, db = fake_quant_backward_traced(gr, x, s, b, flags, spec)
+            assert torch.equal(ds.cpu(), want[0]) and torch.equal(db.cpu(), want[1])
+        want = em.backward_sums(*cpu, spec)
+        _, _, ds, db = fake_quant_fwdbwd(gr, x, s, b, spec=spec)
+        assert torch.equal(ds.cpu(), want[0]) and torch.equal(db.cpu(), want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", [("w_oihw", (512, 512, 3, 3)),
+                                        ("w_oihw", (64, 3, 3, 3)),
+                                        ("aff_oihw", (16, 1024, 3, 3)),
+                                        ("w_kn", (512, 8192)), ("w_kn", (512, 10))])
+def test_fake_quant_pc_backward_is_one_kernel(cuda, name, shape):
+    """Each per-channel backward call (static, traced, fused) is one kernel
+    on the profiler's record and allocates its outputs only (no workspace).
+    The profiler on the card now and then loses a stretch of kernel
+    records: a record with fewer kernels is taken again, up to five times."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from jaxlsq_torch.ops.fake_quant import (fake_quant_backward,
+                                             fake_quant_backward_traced,
+                                             fake_quant_fwdbwd)
+
+    spec = QuantSpec(**PC_ORDER_SPECS[name])
+    c = shape[spec.axis]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(shape, device=cuda, generator=g)
+    gr = torch.randn(shape, device=cuda, generator=g)
+    s, b = torch.full((c,), 0.02, device=cuda), torch.zeros(c, device=cuda)
+    flags = torch.zeros(2, device=cuda)
+    calls = {"fq_bwd_pc": (lambda: fake_quant_backward(gr, x, s, b, spec), 3),
+             "fq_bwd_pc_traced": (lambda: fake_quant_backward_traced(gr, x, s, b, flags,
+                                                                     spec), 3),
+             "fq_fwdbwd_pc": (lambda: fake_quant_fwdbwd(gr, x, s, b, spec=spec), 4)}
+    reps = 5
+    for what, (fn, n_out) in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        fn()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_stats()["allocation.all.allocated"] - before == n_out, what
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            if len(kernels) >= reps:
+                break
+            time.sleep(1.0)
+        assert len(kernels) == reps, (what, [e.name for e in kernels])
+        assert all("fq_bwd_pc_" in e.name for e in kernels), (what, kernels[0].name)
 
 
 @pytest.mark.gpu

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time the weight-only matmul kernels (``wo8``, ``wo4``, ``wo4g``), or with
-``--lab`` the int4 lab's two kernels (``wo4_bf16``, ``wo4_native``), of two
-checkouts of this repo on one card, in turns (first, second, second, first),
-so that two versions are compared within one run on one card:
+``--lab`` the int4 lab's two kernels (``wo4_bf16``, ``wo4_native``), or with
+``--fq`` the per-channel fake-quant backward (``fq_bwd_pc``,
+``fq_bwd_pc_traced``, ``fq_fwdbwd_pc``), of two checkouts of this repo on
+one card, in turns (first, second, second, first), so that two versions are
+compared within one run on one card:
 
-    python3 wo_compare.py FIRST_DIR SECOND_DIR [--lab] [--out PATH]
+    python3 wo_compare.py FIRST_DIR SECOND_DIR [--lab | --fq] [--out PATH]
 
 Each turn is a process of its own that imports the checkout's
 ``jaxlsq_torch`` (building its kernels) and times them with this file's
@@ -17,11 +19,21 @@ shapes, each shape at M = 256, K = N = 8192) and writes every row to
 kernels on the lab's seeded weights (``lab_weights``, rotated past the L2)
 at M = 1, 16 and 128, K = N = 8192, timed by this checkout's
 ``chip_smoke.measure``; one summary line a turn (µs by kernel and M).
+``--fq``: each checkout's ``ops.fake_quant`` in train mode on seeded
+lecun-normal weights (the resnet weight spec, ``s = 4 sd / 127``), rotated
+past the L2: ``fq_bwd_pc`` and ``fq_bwd_pc_traced`` at (512, 512, 3, 3) on
+axis 0, at (512, 8192) on axis 1, and summed over the 21 per-channel
+weights of ``resnet18_cifar`` and the 9 (K, N) weights of the d512 LM
+(this checkout's models, built once on the CPU); ``fq_fwdbwd_pc`` on
+phase 11's (8192, 8192) chain inputs; as controls, the per-tensor
+``fq_bwd_pt`` at (64, 64, 32, 32) and ``fq_fwdbwd_pt`` on the per-tensor
+chain inputs; one summary line a turn (µs).
 """
 
 import argparse
 import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
@@ -54,7 +66,76 @@ def lab_rows(torch, chip_smoke):
     return rows
 
 
-def turn(tree, lab=False):
+def fq_weight_shapes():
+    """This checkout's per-channel layer weights: {"resnet": [(shape, axis),
+    ...], "lm": [...]}: ``resnet18_cifar``'s 21 and the d512 LM's 9 (K, N)
+    ones on axis 1 (its embedding table, a lookup, has no ``kernel``)."""
+    import torch
+
+    import chip_smoke
+
+    return {key: [(list(mod.kernel.shape), mod.weight_fq.cfg.spec.axis)
+                  for mod in model.modules()
+                  if getattr(mod, "weight_fq", None) is not None and hasattr(mod, "kernel")
+                  and mod.weight_fq.cfg.spec.per_channel]
+            for key, model in (("resnet", chip_smoke._resnet(torch, "cpu", 0)),
+                               ("lm", chip_smoke._lm_qat(torch, "cpu", "xla")))}
+
+
+def fq_rows(torch, chip_smoke, weights):
+    """The checkout's per-channel fake-quant backward: {case: {kernel: ms}}
+    (the sums' cases also list each shape's ms)."""
+    from jaxlsq_torch.models import default_qconfig
+    from jaxlsq_torch.ops.fake_quant import (fake_quant_backward,
+                                             fake_quant_backward_traced,
+                                             fake_quant_fwdbwd)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    flags = torch.zeros(2, device=dev)  # train mode
+    qc = default_qconfig(8, 8, per_channel_weights=True)
+
+    def time_pair(shape, axis):
+        spec = qc.weight_for_axis(axis).spec
+        n, c = math.prod(shape), shape[axis]
+        sd = (n // c) ** -0.5
+        s, b = torch.full((c,), 4 * sd / spec.quant_max, device=dev), torch.zeros(c, device=dev)
+        args = [(torch.randn(shape, device=dev, generator=g) * sd,
+                 torch.randn(shape, device=dev, generator=g))
+                for _ in range(chip_smoke.copies_for(12 * n))]
+        fns = {"fq_bwd_pc": lambda x, gg: fake_quant_backward(gg, x, s, b, spec),
+               "fq_bwd_pc_traced": lambda x, gg: fake_quant_backward_traced(gg, x, s, b,
+                                                                            flags, spec)}
+        return {k: min(chip_smoke.measure(fn, args)[0] for _ in range(3))
+                for k, fn in fns.items()}
+
+    rows = {"oihw_512x512x3x3": time_pair((512, 512, 3, 3), 0),
+            "kn_512x8192": time_pair((512, 8192), 1)}
+    for key, shapes in weights.items():
+        per = [{"shape": shape, "axis": axis, **time_pair(tuple(shape), axis)}
+               for shape, axis in shapes]
+        rows[key] = {k: sum(r[k] for r in per) for k in ("fq_bwd_pc", "fq_bwd_pc_traced")}
+        rows[key]["shapes"] = per
+    for kind, key in (("pc", "chain_8192x8192"), ("pt", "chain_65536x1024")):
+        spec, shape = chip_smoke._chain_specs()[kind]
+        x, gr, s0, b0 = chip_smoke._chain_inputs(torch, spec, shape, seed=21)
+        rows[key] = {f"fq_fwdbwd_{kind}": min(chip_smoke.measure(
+            lambda xx, gg: fake_quant_fwdbwd(gg, xx, s0, b0, spec=spec), [(x, gr)])[0]
+            for _ in range(3))}
+        del x, gr
+    spec = qc.activation.spec  # the table's per-tensor activation
+    s = torch.full((1,), 6.0 / spec.quant_max, device=dev)
+    b = -s * (spec.quant_max // 2)
+    n = 64 * 64 * 32 * 32
+    args = [(torch.randn(64, 64, 32, 32, device=dev, generator=g),
+             torch.randn(64, 64, 32, 32, device=dev, generator=g))
+            for _ in range(chip_smoke.copies_for(12 * n))]
+    rows["act_64x64x32x32"] = {"fq_bwd_pt": min(chip_smoke.measure(
+        lambda x, gg: fake_quant_backward(gg, x, s, b, spec), args)[0] for _ in range(3))}
+    return rows
+
+
+def turn(tree, lab=False, fq_weights=None):
     """One checkout's rows: {kind: [row, ...]}."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -73,6 +154,8 @@ def turn(tree, lab=False):
     _build.load_library()
     if lab:
         return lab_rows(torch, chip_smoke)
+    if fq_weights is not None:
+        return fq_rows(torch, chip_smoke, fq_weights)
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
     for kind in KINDS:
@@ -83,6 +166,9 @@ def turn(tree, lab=False):
 
 
 def summary(rows):
+    if "chain_8192x8192" in rows:
+        return {case: {k: 1e3 * v for k, v in r.items() if k != "shapes"}
+                for case, r in rows.items()}
     if "wo4_bf16" in rows:
         return {kind: {f"M{r['M']}_us": 1e3 * r["ms"] for r in rs} for kind, rs in rows.items()}
     out = {}
@@ -101,10 +187,14 @@ def main(argv):
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     ap.add_argument("--lab", action="store_true",
                     help="time the int4 lab kernels instead of wo8/wo4/wo4g")
+    ap.add_argument("--fq", action="store_true",
+                    help="time the per-channel fake-quant backward instead")
+    ap.add_argument("--fq-weights", help=argparse.SUPPRESS)
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     if args.turn:
-        print(json.dumps(turn(args.turn, args.lab)))
+        weights = json.loads(args.fq_weights) if args.fq_weights else None
+        print(json.dumps(turn(args.turn, args.lab, weights)))
         return 0
     if len(args.trees) != 2:
         ap.error("give two checkouts")
@@ -113,10 +203,13 @@ def main(argv):
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"[card] {smi}", flush=True)
     first, second = args.trees
-    record = {"card": smi, "lab": args.lab, "turns": []}
+    record = {"card": smi, "lab": args.lab, "fq": args.fq, "turns": []}
+    extra = ["--lab"] if args.lab else []
+    if args.fq:
+        extra = ["--fq-weights", json.dumps(fq_weight_shapes())]
     for tree in (first, second, second, first):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", tree]
-                              + (["--lab"] if args.lab else []), capture_output=True, text=True)
+                              + extra, capture_output=True, text=True)
         if proc.returncode:
             raise SystemExit(f"wo_compare: the turn of {tree} failed:\n{proc.stderr}")
         rows = json.loads(proc.stdout.strip().splitlines()[-1])
