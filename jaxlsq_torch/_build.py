@@ -38,23 +38,21 @@ _SIGNATURES = {
     # window, carrier, scale, stream
     "jlt_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, ctypes.c_float, _P],
-    # n (per tensor)
-    "jlt_fq_partials": [_I],
     # x, scale, shift, out, n, qmin, qmax, tmin, tmax, stream
     "jlt_fq_fwd_pt": [_P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
     # x, scale, shift, out, outer, C, inner, qmin, qmax, tmin, tmax, stream
     "jlt_fq_fwd_pc": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
-    # g, x, scale, shift, dx, part, ds, db, n, qmin, qmax, tmin, tmax, sym,
+    # g, x, scale, shift, dx, ds, db, n, slot, qmin, qmax, tmin, tmax, sym,
     # eval, init, gs, stream
-    "jlt_fq_bwd_pt": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _I,
+    "jlt_fq_bwd_pt": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I,
                       _I, _I, _F, _P],
     # g, x, scale, shift, dx, ds, db, outer, C, inner, warps, cluster, qmin,
     # qmax, tmin, tmax, sym, eval, init, gs, stream
     "jlt_fq_bwd_pc": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
                       _F, _F, _I, _I, _I, _F, _P],
-    # g, x, scale, shift, out, dx, part, ds, db, n, qmin, qmax, tmin, tmax,
+    # g, x, scale, shift, out, dx, ds, db, n, slot, qmin, qmax, tmin, tmax,
     # sym, gs, stream
-    "jlt_fq_fwdbwd_pt": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F,
+    "jlt_fq_fwdbwd_pt": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F,
                          _I, _F, _P],
     # g, x, scale, shift, out, dx, ds, db, outer, C, inner, warps, cluster,
     # qmin, qmax, tmin, tmax, sym, gs, stream
@@ -67,9 +65,9 @@ _SIGNATURES = {
     # x, scale, shift, flags, out, outer, C, inner, qmin, qmax, tmin, tmax,
     # stream
     "jlt_fq_fwd_pc_traced": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
-    # g, x, scale, shift, flags, dx, part, ds, db, n, qmin, qmax, tmin, tmax,
+    # g, x, scale, shift, flags, dx, ds, db, n, slot, qmin, qmax, tmin, tmax,
     # sym, gs, stream
-    "jlt_fq_bwd_pt_traced": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
+    "jlt_fq_bwd_pt_traced": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,
                              _F, _I, _F, _P],
     # g, x, scale, shift, flags, dx, ds, db, outer, C, inner, warps,
     # cluster, qmin, qmax, tmin, tmax, sym, gs, stream
@@ -146,10 +144,12 @@ def load_library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            for name in ("jlt_wo4_group_rows", "jlt_attention_span_keys"):
+            for name in ("jlt_wo4_group_rows", "jlt_attention_span_keys",
+                         "jlt_fq_pt_slots"):
                 getattr(lib, name).restype = ctypes.c_int
             lib.group_rows = lib.jlt_wo4_group_rows()
             lib.span_keys = lib.jlt_attention_span_keys()
+            lib.pt_slots = lib.jlt_fq_pt_slots()
             _lib = lib
     return _lib
 

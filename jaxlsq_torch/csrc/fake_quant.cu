@@ -41,10 +41,46 @@
 // reads g and x and writes dX (12 B), the fused pair 16 B; the traced kernels
 // move the same bytes in every mode.  The TPU kernels carry dS/dB in an
 // accumulator resident across their sequential grid; Hopper blocks run in
-// parallel.  Per tensor, each block writes a partial and a second small
-// kernel sums the partials in block order and applies the gradient scale
-// after the sum, as golden does.  The grids depend on the shape alone (never
-// on the SM count), so an input gives the same bits on every run.
+// parallel.  Every grid and summation order depends on the shape alone (never
+// on the SM count or the load width), so an input gives the same bits on
+// every run, and the gradient scale is applied after the sum, as golden does.
+//
+// Per tensor the backward is one launch with no workspace.  x is cut into
+// tiles of kPtTile = 2,048 elements; B = tiles / 4 blocks, within [512,
+// 2048] and at most one a tile (pt_blocks), block b taking tiles b, b + B,
+// ... in turn.  In a tile, lane t of the block's 256 takes the groups of 4
+// elements at 4 (256 j + t), j = 0, 1 (a warp reads 512 contiguous bytes a
+// group).  The groups reach shared memory by cp.async, a ring of 2 slots a
+// lane, each refilled with the block's next tile once computed, so the
+// bytes in flight hold no registers and run across tiles; the qparams are
+// read while the first copies fly, and dX (and out) are stored with
+// evict-first hints.  (Measured on the H100, PERF.md §6: staging in
+// registers, 4 groups a lane, held 60-80 registers and took 26.5 us at 4 Mi
+// elements; 4-group tiles or a flat 1,024 or 2,048 blocks 22-24 us; a flat
+// 512 blocks made the 64 Mi chain slower.)  A lane sums its elements in
+// ascending index from +0; then the shuffle tree over the warp's 32 lanes
+// (v[l] += v[l + h], h = 16 .. 1) and tree8 over the block's 8 warps give
+// block b's partial.  The block stores its (dS, dB) pair in a slot, then
+// draws a ticket: an acquire-release atomicInc on the slot's counter (a
+// fence before and after a plain one took 0.5 us more a call), which wraps
+// the counter to 0 at the last ticket, ready for the next call.  The block
+// that draws the last ticket folds the B partials: thread t takes partials
+// t + 256 q, q = 0 .. 7 (+0 past B), by the pairwise tree over q (v[q] +=
+// v[q + h], h = 4, 2, 1), then the shuffle tree over a warp's lanes and
+// tree8 over the warps.  No float atomics: the bits do not depend on which
+// block comes last.  16-byte copies and stores where g, x, dX (and out) are
+// 16-byte aligned, else 4-byte ones: only how a group is read changes, never
+// which lane sums which element in which order.  Static eval mode writes dX
+// only: no partials, no ticket.
+// Calls in flight at once: the slots (a counter and 2 x kPtMaxBlocks floats
+// each) are this library's zero-initialised __device__ memory, so a call
+// allocates and clears nothing.  Calls queued on one stream run one after
+// another and share that stream's slot; the wrapper gives every stream of a
+// device its own slot (ops/fake_quant.py _pt_slot, at most kPtSlots streams,
+// then it raises), so calls on two streams never share one.  A captured CUDA
+// graph keeps the slot of the stream it was captured on and runs its calls in
+// order on every replay; so a replay must not overlap another replay of a
+// graph captured on that stream, or an eager call queued on it.
 //
 // Per channel the backward is one launch with no workspace.  The plan
 // (warps, cluster) comes from the shape alone (ops/fake_quant.py pc_plan)
@@ -97,8 +133,13 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPtItems = 8;        // elements a thread takes per block, per tensor
-constexpr int kPtMaxBlocks = 1024; // per-tensor backward partials
+constexpr int kPtGroups = 2;                      // per tensor: groups of 4 a lane takes a tile
+constexpr int kPtTile = kThreads * 4 * kPtGroups;  // 2,048 elements
+constexpr int kPtTilesABlock = 4;                  // per tensor: tiles a block takes ...
+constexpr int kPtMinBlocks = 512;                  // ... unless that leaves fewer blocks
+constexpr int kPtMaxBlocks = 2048;                 // per tensor: blocks, hence partials
+constexpr int kPtFold = kPtMaxBlocks / kThreads;   // partials a thread folds
+constexpr int kPtSlots = 128;                      // per tensor: streams a device
 constexpr int kFwdMaxBlocks = 4096;
 constexpr int kRunBatch = 2;       // per channel, runs: groups of 4 a lane has in flight
 constexpr int kRowBatch = 8;       // per channel, rows: rows a lane has in flight
@@ -146,33 +187,9 @@ __device__ __forceinline__ void add_terms(float xv, float gv, float xq, bool in,
   if (!sym && !in) db = __fadd_rn(db, geff);
 }
 
-// One element of the backward: adds its dS/dB terms to the thread's sums
-// (static: unless eval) and writes dX (static: unless init; traced: always,
-// g itself in init mode) and, fused (kOut), the forward's out.
-template <bool kTraced, bool kOut>
-__device__ __forceinline__ void bwd_elem(const float* __restrict__ g,
-                                         const float* __restrict__ x,
-                                         float* __restrict__ dx,
-                                         float* __restrict__ out, int i, float s,
-                                         float zp, const Range& r, int sym,
-                                         int eval_mode, int init_mode, float& ds,
-                                         float& db) {
-  const float xv = x[i];
-  const float gv = (init_mode && !kTraced) ? 0.f : g[i];
-  const float xq = clamped(xv, s, zp, r);
-  const bool in = (r.qmin < xq) && (xq < r.qmax);
-  const float xfq = dequant(xq, s, zp);
-  if (kOut) out[i] = xfq;
-  if (kTraced)
-    dx[i] = init_mode ? gv : __fmul_rn(gv, in ? 1.f : 0.f);
-  else if (!init_mode)
-    dx[i] = __fmul_rn(gv, in ? 1.f : 0.f);
-  if (eval_mode) return;
-  add_terms(xv, gv, xq, in, xfq, s, zp, r, sym, init_mode, ds, db);
-}
-
-// bwd_elem on values: dX's value (g * m; traced init mode: g itself) and the
-// forward's out returned, for a caller that loads and stores them itself.
+// One element of the backward: dX's value (g * m; traced init mode: g
+// itself) and the forward's out returned, its dS/dB terms added to the
+// running sums (not in eval mode).
 template <bool kTraced>
 __device__ __forceinline__ void bwd_val(float xv, float gv, float s, float zp,
                                         const Range& r, int sym, int eval_mode,
@@ -183,16 +200,6 @@ __device__ __forceinline__ void bwd_val(float xv, float gv, float s, float zp,
   outv = dequant(xq, s, zp);
   dxv = (kTraced && init_mode) ? gv : __fmul_rn(gv, in ? 1.f : 0.f);
   if (!eval_mode) add_terms(xv, gv, xq, in, outv, s, zp, r, sym, init_mode, ds, db);
-}
-
-// Fixed-order tree sum of one value per thread; the result is in red[0].
-__device__ __forceinline__ void block_sum(float* red, float v) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int off = kThreads / 2; off > 0; off >>= 1) {
-    if (threadIdx.x < off) red[threadIdx.x] = __fadd_rn(red[threadIdx.x], red[threadIdx.x + off]);
-    __syncthreads();
-  }
 }
 
 // The modes a traced kernel reads from flags = [ev, ini] on the device.
@@ -222,35 +229,6 @@ fq_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
-// Per tensor: block b writes part[b] (dS) and part[nblocks + b] (dB).
-// Traced: init_mode comes from flags and eval_mode is 0 (ev acts in the sum).
-template <bool kTraced, bool kOut>
-__global__ void __launch_bounds__(kThreads)
-fq_bwd_pt_kernel(const float* __restrict__ g, const float* __restrict__ x,
-                 const float* __restrict__ scale, const float* __restrict__ shift,
-                 const float* __restrict__ flags, float* __restrict__ dx,
-                 float* __restrict__ out, float* __restrict__ part, int n, Range r,
-                 int sym, int eval_mode, int init_mode) {
-  __shared__ float red[kThreads];
-  if (kTraced) {
-    eval_mode = 0;
-    init_mode = flag_set(flags, 1);
-  }
-  float s, zp;
-  load_qparams(scale, shift, 0, r, s, zp);
-  float ds = 0.f, db = 0.f;
-  const int stride = gridDim.x * kThreads;
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride)
-    bwd_elem<kTraced, kOut>(g, x, dx, out, i, s, zp, r, sym, eval_mode, init_mode,
-                            ds, db);
-  if (eval_mode) return;
-  block_sum(red, ds);
-  if (threadIdx.x == 0) part[blockIdx.x] = red[0];
-  __syncthreads();
-  block_sum(red, db);
-  if (threadIdx.x == 0) part[gridDim.x + blockIdx.x] = red[0];
-}
-
 // dS/dB's scale after the sum: gs, or traced (1 - ev) * gs, ev from flags.
 template <bool kTraced>
 __device__ __forceinline__ float grad_scale(const float* __restrict__ flags, float gs) {
@@ -272,6 +250,164 @@ __device__ __forceinline__ float warp_tree(float v) {
 #pragma unroll
   for (int h = 16; h > 0; h >>= 1) v = __fadd_rn(v, __shfl_down_sync(0xffffffffu, v, h));
   return v;
+}
+
+// The per-tensor backward's slots (the note at the top): slot k's ticket
+// counter and its blocks' (dS, dB) partials.
+__device__ unsigned int pt_ticket[kPtSlots];
+__device__ float pt_part[kPtSlots][2][kPtMaxBlocks];
+
+// Copies src[i .. i + 4) (+0 past n) to the shared-memory group at dst
+// with cp.async: the bytes are in flight without holding registers.  V = 4:
+// one 16-byte copy (src 16-byte aligned), else four 4-byte ones.
+template <int V>
+__device__ __forceinline__ void stage_group(float4* dst, const float* __restrict__ src,
+                                            unsigned i, unsigned n) {
+  const unsigned sa = (unsigned)__cvta_generic_to_shared(dst);
+  if (V == 4) {
+    const unsigned left = i < n ? min(4u, n - i) : 0u;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
+                 "l"(src + (left ? i : 0u)), "r"(4u * left) : "memory");
+  } else {
+#pragma unroll
+    for (unsigned e = 0; e < 4; ++e) {
+      const bool ok = i + e < n;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sa + 4 * e),
+                   "l"(src + (ok ? i + e : 0u)), "r"(ok ? 4u : 0u) : "memory");
+    }
+  }
+}
+
+// Per tensor (the order in the note at the top).  Block b takes tiles b, b +
+// B, ...  A lane's kPtGroups groups of x and g are a ring in shared memory
+// (its own slots, so no barrier): slot j holds group j of the tile at hand
+// and, once computed, is refilled with group j of the block's next tile, so
+// copies stay in flight across tiles without holding registers.  V = 4: a
+// group is one 16-byte copy and one 16-byte store (every pointer 16-byte
+// aligned).  Traced: init_mode comes from flags and eval_mode is 0 (ev acts
+// in the scale after the sum).
+template <bool kTraced, bool kOut, int V>
+__global__ void __launch_bounds__(kThreads)
+fq_bwd_pt_kernel(const float* __restrict__ g, const float* __restrict__ x,
+                 const float* __restrict__ scale, const float* __restrict__ shift,
+                 const float* __restrict__ flags, float* __restrict__ dx,
+                 float* __restrict__ out, float* __restrict__ ds_out,
+                 float* __restrict__ db_out, unsigned n, int slot, Range r, int sym,
+                 int eval_mode, int init_mode, float gs) {
+  __shared__ float4 xs[kPtGroups][kThreads], gsh[kPtGroups][kThreads];
+  __shared__ float wsum[2][kWarps];  // the warps' sums
+  __shared__ bool last;
+  if (kTraced) {
+    eval_mode = 0;
+    init_mode = flag_set(flags, 1);
+  }
+  const bool use_g = kTraced || !init_mode;  // static init mode reads no g, writes no dX
+  const unsigned tiles = (n + kPtTile - 1) / kPtTile;
+  // copy group j of `tile` (none past the last tile) into slot j, one
+  // commit group a call, so the oldest of kPtGroups pending is slot j's
+  auto fill = [&](unsigned tile, int j) {
+    if (tile < tiles) {
+      const unsigned i = tile * kPtTile + 4 * (j * kThreads + threadIdx.x);
+      stage_group<V>(&xs[j][threadIdx.x], x, i, n);
+      if (use_g) stage_group<V>(&gsh[j][threadIdx.x], g, i, n);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+#pragma unroll
+  for (int j = 0; j < kPtGroups; ++j) fill(blockIdx.x, j);
+  float s, zp, ds = 0.f, db = 0.f;
+  load_qparams(scale, shift, 0, r, s, zp);  // while the first copies are in flight
+  for (unsigned tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+#pragma unroll
+    for (int j = 0; j < kPtGroups; ++j) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kPtGroups - 1) : "memory");
+      const unsigned i = tile * kPtTile + 4 * (j * kThreads + threadIdx.x);
+      const float4 xa = xs[j][threadIdx.x];
+      const float4 ga = use_g ? gsh[j][threadIdx.x] : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float xv[4] = {xa.x, xa.y, xa.z, xa.w}, gv[4] = {ga.x, ga.y, ga.z, ga.w};
+      float xq[4], xfq[4], dxv[4];
+      bool in[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        xq[e] = clamped(xv[e], s, zp, r);
+        in[e] = (r.qmin < xq[e]) && (xq[e] < r.qmax);
+        xfq[e] = dequant(xq[e], s, zp);
+        dxv[e] = (kTraced && init_mode) ? gv[e] : __fmul_rn(gv[e], in[e] ? 1.f : 0.f);
+      }
+      // out and dX stored before the dS/dB arithmetic
+      if (V == 4 && i + 3 < n) {
+        if (use_g) __stcs(reinterpret_cast<float4*>(dx + i), make_float4(dxv[0], dxv[1], dxv[2], dxv[3]));
+        if (kOut) __stcs(reinterpret_cast<float4*>(out + i), make_float4(xfq[0], xfq[1], xfq[2], xfq[3]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (i + e >= n) break;
+          if (use_g) __stcs(dx + i + e, dxv[e]);
+          if (kOut) __stcs(out + i + e, xfq[e]);
+        }
+      }
+      if (!eval_mode) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (i + e < n)
+            add_terms(xv[e], gv[e], xq[e], in[e], xfq[e], s, zp, r, sym, init_mode, ds, db);
+      }
+      fill(tile + gridDim.x, j);  // after the slot's values are used
+    }
+  }
+  if (eval_mode) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  ds = warp_tree(ds);
+  db = warp_tree(db);
+  if (lane == 0) {
+    wsum[0][warp] = ds;
+    wsum[1][warp] = db;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float p[8], q[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      p[k] = wsum[0][k];
+      q[k] = wsum[1][k];
+    }
+    pt_part[slot][0][blockIdx.x] = tree8(p);
+    pt_part[slot][1][blockIdx.x] = tree8(q);
+    // the ticket (atomicInc, wrapping to 0 at the last): its release orders
+    // these partials before it, its acquire the other blocks' before the fold
+    unsigned ticket;
+    asm volatile("atom.acq_rel.gpu.inc.u32 %0, [%1], %2;\n"
+                 : "=r"(ticket) : "l"(&pt_ticket[slot]), "r"(gridDim.x - 1) : "memory");
+    last = ticket == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  float v[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float p[kPtFold];
+#pragma unroll
+    for (int k = 0; k < kPtFold; ++k) {
+      const unsigned b = threadIdx.x + k * kThreads;
+      p[k] = b < gridDim.x ? __ldcg(&pt_part[slot][h][b]) : 0.f;
+    }
+#pragma unroll
+    for (int w = kPtFold / 2; w > 0; w >>= 1)
+#pragma unroll
+      for (int k = 0; k < w; ++k) p[k] = __fadd_rn(p[k], p[k + w]);
+    v[h] = warp_tree(p[0]);
+  }
+  if (lane == 0) {  // thread 0 read wsum before the barrier above
+    wsum[0][warp] = v[0];
+    wsum[1][warp] = v[1];
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    float p[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) p[k] = wsum[threadIdx.x][k];
+    (threadIdx.x ? db_out : ds_out)[0] = __fmul_rn(tree8(p), grad_scale<kTraced>(flags, gs));
+  }
 }
 
 // A cluster of cs > 1 blocks, each with its partials in part[0..n): rank 0's
@@ -471,28 +607,14 @@ fq_bwd_pc_rows_kernel(const float* __restrict__ g, const float* __restrict__ x,
   if (cc < C) (threadIdx.x >= 32 ? db_out : ds_out)[cc] = __fmul_rn(v, grad_scale<kTraced>(flags, gs));
 }
 
-// Sum the n_parts per-tensor partials of dS (part[0..n_parts)) and of dB
-// (part[n_parts..2 n_parts)) in part order, then * gs (traced: * (1 - ev) *
-// gs, with ev read from flags on the device); one block.
-__global__ void __launch_bounds__(kThreads)
-fq_bwd_sum_kernel(const float* __restrict__ part, int n_parts, float gs,
-                  const float* __restrict__ flags, float* __restrict__ ds,
-                  float* __restrict__ db) {
-  if (flags) gs = __fmul_rn(__fsub_rn(1.f, flags[0]), gs);
-  __shared__ float red[kThreads];
-  for (int which = 0; which < 2; ++which) {
-    const float* p = part + which * n_parts;
-    float a = 0.f;
-    for (int k = threadIdx.x; k < n_parts; k += kThreads) a = __fadd_rn(a, p[k]);
-    block_sum(red, a);
-    if (threadIdx.x == 0) (which ? db : ds)[0] = __fmul_rn(red[0], gs);
-    __syncthreads();
-  }
-}
-
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-int pt_blocks(int n) { return std::min(kPtMaxBlocks, std::max(1, cdiv(n, kThreads * kPtItems))); }
+// Per tensor: tiles / kPtTilesABlock blocks, within [kPtMinBlocks,
+// kPtMaxBlocks] and at most one a tile.
+int pt_blocks(int n) {
+  const int tiles = std::max(1, cdiv(n, kPtTile));
+  return std::min(tiles, std::min(kPtMaxBlocks, std::max(kPtMinBlocks, tiles / kPtTilesABlock)));
+}
 
 int fwd_blocks(int n) { return std::min(kFwdMaxBlocks, std::max(1, cdiv(n, kThreads))); }
 
@@ -507,24 +629,21 @@ int launch_fwd(const void* x, const void* scale, const void* shift,
   return (int)cudaGetLastError();
 }
 
-// Static: no partials and no sum in eval mode.  Traced: always both.
-// kOut (static train mode): out is written too.
+// One launch in the stream's slot (16-byte loads where every pointer
+// allows).  kOut (static train mode): out is written too.
 template <bool kTraced, bool kOut = false>
 int launch_bwd_pt(const void* g, const void* x, const void* scale,
-                  const void* shift, const void* flags, void* dx, void* part,
-                  void* ds, void* db, int n, const Range& r, int sym,
-                  int eval_mode, int init_mode, float gs, void* stream,
-                  void* out = nullptr) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int blocks = pt_blocks(n);
-  fq_bwd_pt_kernel<kTraced, kOut><<<blocks, kThreads, 0, st>>>(
+                  const void* shift, const void* flags, void* dx, void* ds, void* db,
+                  int n, int slot, const Range& r, int sym, int eval_mode,
+                  int init_mode, float gs, void* stream, void* out = nullptr) {
+  if (n < 1 || slot < 0 || slot >= kPtSlots) return (int)cudaErrorInvalidValue;
+  const uintptr_t ptrs = (uintptr_t)g | (uintptr_t)x | (uintptr_t)dx | (uintptr_t)out;
+  auto kernel = ptrs % 16 == 0 ? fq_bwd_pt_kernel<kTraced, kOut, 4>
+                               : fq_bwd_pt_kernel<kTraced, kOut, 1>;
+  kernel<<<pt_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)g, (const float*)x, (const float*)scale, (const float*)shift,
-      (const float*)flags, (float*)dx, (float*)out, (float*)part, n, r, sym,
-      eval_mode, init_mode);
-  if (kTraced || !eval_mode)
-    fq_bwd_sum_kernel<<<1, kThreads, 0, st>>>((const float*)part, blocks, gs,
-                                              (const float*)flags, (float*)ds,
-                                              (float*)db);
+      (const float*)flags, (float*)dx, (float*)out, (float*)ds, (float*)db,
+      (unsigned)n, slot, r, sym, eval_mode, init_mode, gs);
   return (int)cudaGetLastError();
 }
 
@@ -579,8 +698,8 @@ int launch_bwd_pc(const void* g, const void* x, const void* scale,
 
 extern "C" {
 
-// Floats of partials the per-tensor backward needs: 2 * jlt_fq_partials(n).
-int jlt_fq_partials(int n) { return pt_blocks(n); }
+// Streams a device the per-tensor backward keeps apart: its slots.
+int jlt_fq_pt_slots() { return kPtSlots; }
 
 // Forward per tensor (scale, shift are (1,)).  Returns cudaGetLastError().
 int jlt_fq_fwd_pt(const void* x, const void* scale, const void* shift, void* out,
@@ -598,13 +717,14 @@ int jlt_fq_fwd_pc(const void* x, const void* scale, const void* shift, void* out
                            Range{qmin, qmax, tmin, tmax}, stream);
 }
 
-// Backward per tensor.  part holds 2 * jlt_fq_partials floats; ds, db are
-// (1,).  dx is not written in init mode, part/ds/db not in eval mode.
+// Backward per tensor, one launch in slot `slot` (0 .. jlt_fq_pt_slots() - 1,
+// one a stream); ds, db are (1,).  dx is not written in init mode, ds/db not
+// in eval mode.
 int jlt_fq_bwd_pt(const void* g, const void* x, const void* scale,
-                  const void* shift, void* dx, void* part, void* ds, void* db,
-                  int n, float qmin, float qmax, float tmin, float tmax, int sym,
+                  const void* shift, void* dx, void* ds, void* db, int n, int slot,
+                  float qmin, float qmax, float tmin, float tmax, int sym,
                   int eval_mode, int init_mode, float gs, void* stream) {
-  return launch_bwd_pt<false>(g, x, scale, shift, nullptr, dx, part, ds, db, n,
+  return launch_bwd_pt<false>(g, x, scale, shift, nullptr, dx, ds, db, n, slot,
                               Range{qmin, qmax, tmin, tmax}, sym, eval_mode,
                               init_mode, gs, stream);
 }
@@ -622,15 +742,15 @@ int jlt_fq_bwd_pc(const void* g, const void* x, const void* scale,
                               sym, eval_mode, init_mode, gs, stream);
 }
 
-// Fused forward + backward, train mode: out and dx are (n,) like x; part,
-// ds, db as for jlt_fq_bwd_pt.
+// Fused forward + backward, train mode: out and dx are (n,) like x; ds,
+// db and the slot as for jlt_fq_bwd_pt.
 int jlt_fq_fwdbwd_pt(const void* g, const void* x, const void* scale,
-                     const void* shift, void* out, void* dx, void* part, void* ds,
-                     void* db, int n, float qmin, float qmax, float tmin,
+                     const void* shift, void* out, void* dx, void* ds, void* db,
+                     int n, int slot, float qmin, float qmax, float tmin,
                      float tmax, int sym, float gs, void* stream) {
-  return launch_bwd_pt<false, true>(g, x, scale, shift, nullptr, dx, part, ds, db,
-                                    n, Range{qmin, qmax, tmin, tmax}, sym, 0, 0,
-                                    gs, stream, out);
+  return launch_bwd_pt<false, true>(g, x, scale, shift, nullptr, dx, ds, db, n, slot,
+                                    Range{qmin, qmax, tmin, tmax}, sym, 0, 0, gs,
+                                    stream, out);
 }
 
 // Fused forward + backward per channel over the (outer, C, inner) view, the
@@ -647,7 +767,7 @@ int jlt_fq_fwdbwd_pc(const void* g, const void* x, const void* scale,
 }
 
 // The traced twins: flags is a (2,) f32 device tensor [ev, ini]; every
-// output (out; dx, ds, db; the per-tensor part) is written in every mode.
+// output (out; dx, ds, db) is written in every mode.
 int jlt_fq_fwd_pt_traced(const void* x, const void* scale, const void* shift,
                          const void* flags, void* out, int n, float qmin,
                          float qmax, float tmin, float tmax, void* stream) {
@@ -664,11 +784,10 @@ int jlt_fq_fwd_pc_traced(const void* x, const void* scale, const void* shift,
 }
 
 int jlt_fq_bwd_pt_traced(const void* g, const void* x, const void* scale,
-                         const void* shift, const void* flags, void* dx,
-                         void* part, void* ds, void* db, int n, float qmin,
-                         float qmax, float tmin, float tmax, int sym, float gs,
-                         void* stream) {
-  return launch_bwd_pt<true>(g, x, scale, shift, flags, dx, part, ds, db, n,
+                         const void* shift, const void* flags, void* dx, void* ds,
+                         void* db, int n, int slot, float qmin, float qmax,
+                         float tmin, float tmax, int sym, float gs, void* stream) {
+  return launch_bwd_pt<true>(g, x, scale, shift, flags, dx, ds, db, n, slot,
                              Range{qmin, qmax, tmin, tmax}, sym, 0, 0, gs, stream);
 }
 

@@ -28,14 +28,16 @@ their traced-flag twins ``pallas_forward_traced`` /
 A per-channel tensor is handed to the kernels as its ``(outer, C, inner)``
 view around ``spec.axis``, so the channel axis is never moved.  The qparams
 stay on the device.  ``LAUNCHES`` counts the kernel launches of each kind.
-A per-channel backward is one launch with no workspace, in the order that
-:func:`pc_plan` fixes from the shape; a per-tensor one is two (partials,
-then their sum).
+Every backward is one launch with no workspace: per channel in the order
+that :func:`pc_plan` fixes from the shape; per tensor its blocks' partials
+folded by the block that finishes last, in the stream's slot of the
+library's memory (:func:`_pt_slot`).
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -143,6 +145,29 @@ def pc_plan(outer: int, c: int, inner: int) -> Tuple[int, int]:
     return warps, cluster
 
 
+_pt_slots: dict = {}  # (device index, stream) -> the per-tensor backward's slot
+_pt_slots_lock = threading.Lock()
+
+
+def _pt_slot(lib, x: torch.Tensor, stream: int) -> int:
+    """The slot (ticket counter and partials, ``csrc/fake_quant.cu``) of the
+    per-tensor backward on ``stream``: one a stream of a device, so calls on
+    two streams at once never share one; calls queued on one stream run in
+    order.  A CUDA graph keeps the slot of the stream it was captured on.
+    Raises past the library's ``lib.pt_slots`` streams a device."""
+    key = (x.device.index, stream)
+    with _pt_slots_lock:
+        slot = _pt_slots.get(key)
+        if slot is None:
+            slot = sum(1 for k in _pt_slots if k[0] == key[0])
+            if slot >= lib.pt_slots:
+                raise RuntimeError(
+                    f"per-tensor fake-quant backward: more than {lib.pt_slots} "
+                    f"streams on {x.device}; each needs a slot of its own")
+            _pt_slots[key] = slot
+    return slot
+
+
 def _range(spec: QuantSpec):
     return (float(spec.quant_min), float(spec.quant_max),
             float(spec.type_min), float(spec.type_max))
@@ -221,10 +246,8 @@ def fake_quant_backward(grad: torch.Tensor, x: torch.Tensor, scale: torch.Tensor
                                 *pc_plan(outer, c, inner), *_range(spec), *flags)
         LAUNCHES["fq_bwd_pc"] += 1
     else:
-        n_part = 0 if eval_mode else 2 * lib.jlt_fq_partials(x.numel())
-        part = torch.empty(max(n_part, 1), dtype=torch.float32, device=x.device)
-        err = lib.jlt_fq_bwd_pt(*ptrs, part.data_ptr(), ds.data_ptr(), db.data_ptr(),
-                                x.numel(), *_range(spec), *flags)
+        err = lib.jlt_fq_bwd_pt(*ptrs, ds.data_ptr(), db.data_ptr(), x.numel(),
+                                _pt_slot(lib, x, stream), *_range(spec), *flags)
         LAUNCHES["fq_bwd_pt"] += 1
     _build.check(err, "fake_quant_backward")
     return dx, ds, db
@@ -286,10 +309,8 @@ def fake_quant_backward_traced(grad: torch.Tensor, x: torch.Tensor,
                                        int(spec.symmetric), gs, stream)
         LAUNCHES["fq_bwd_pc_traced"] += 1
     else:
-        part = torch.empty(2 * lib.jlt_fq_partials(x.numel()), dtype=torch.float32,
-                           device=x.device)
-        err = lib.jlt_fq_bwd_pt_traced(*ptrs, part.data_ptr(), ds.data_ptr(),
-                                       db.data_ptr(), x.numel(), *_range(spec),
+        err = lib.jlt_fq_bwd_pt_traced(*ptrs, ds.data_ptr(), db.data_ptr(), x.numel(),
+                                       _pt_slot(lib, x, stream), *_range(spec),
                                        int(spec.symmetric), gs, stream)
         LAUNCHES["fq_bwd_pt_traced"] += 1
     _build.check(err, "fake_quant_backward_traced")
@@ -330,11 +351,9 @@ def fake_quant_fwdbwd(grad: torch.Tensor, x: torch.Tensor, scale: torch.Tensor,
                                    int(spec.symmetric), gs, stream)
         LAUNCHES["fq_fwdbwd_pc"] += 1
     else:
-        part = torch.empty(2 * lib.jlt_fq_partials(x.numel()), dtype=torch.float32,
-                           device=x.device)
-        err = lib.jlt_fq_fwdbwd_pt(*ptrs, part.data_ptr(), ds.data_ptr(), db.data_ptr(),
-                                   x.numel(), *_range(spec), int(spec.symmetric), gs,
-                                   stream)
+        err = lib.jlt_fq_fwdbwd_pt(*ptrs, ds.data_ptr(), db.data_ptr(), x.numel(),
+                                   _pt_slot(lib, x, stream), *_range(spec),
+                                   int(spec.symmetric), gs, stream)
         LAUNCHES["fq_fwdbwd_pt"] += 1
     _build.check(err, "fake_quant_fwdbwd")
     return out, dx, ds, db

@@ -931,14 +931,15 @@ def test_captured_step_refuses_stale_hyperparameters(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("name,shape", [("w_oihw", (512, 512, 3, 3)),
-                                        ("w_kn", (512, 8192))])
+                                        ("w_kn", (512, 8192)), ("act", (64, 64, 32, 32))])
 def test_fake_quant_kernels_are_deterministic(cuda, name, shape):
     """The grid depends on the shape alone: the same input gives the same
-    bits on every run (an OIHW weight on axis 0 and a (K, N) one on axis 1)."""
+    bits on every run (an OIHW weight on axis 0, a (K, N) one on axis 1 and
+    a per-tensor activation)."""
     from jaxlsq_torch.ops.fake_quant import fake_quant_backward
 
     spec = QuantSpec(**FQ_SPECS[name])
-    c = shape[spec.axis]
+    c = shape[spec.axis] if spec.per_channel else 1
     g = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn(shape, device=cuda, generator=g) * 0.02
     gr = torch.randn(x.shape, device=cuda, generator=g)
@@ -1004,35 +1005,15 @@ def test_fake_quant_pc_backward_has_the_emulated_bits(cuda, name, shape):
         assert torch.equal(ds.cpu(), want[0]) and torch.equal(db.cpu(), want[1])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("name,shape", [("w_oihw", (512, 512, 3, 3)),
-                                        ("w_oihw", (64, 3, 3, 3)),
-                                        ("aff_oihw", (16, 1024, 3, 3)),
-                                        ("w_kn", (512, 8192)), ("w_kn", (512, 10))])
-def test_fake_quant_pc_backward_is_one_kernel(cuda, name, shape):
-    """Each per-channel backward call (static, traced, fused) is one kernel
-    on the profiler's record and allocates its outputs only (no workspace).
-    The profiler on the card now and then loses a stretch of kernel
+def _one_kernel_a_call(calls, kernel):
+    """Each of ``calls`` ({what: (fn, outputs)}) allocates its outputs only
+    (no workspace) and is one kernel, named ``kernel...``, on the profiler's
+    record.  The profiler on the card now and then loses a stretch of kernel
     records: a record with fewer kernels is taken again, up to five times."""
     import time
 
     from torch.profiler import ProfilerActivity, profile
 
-    from jaxlsq_torch.ops.fake_quant import (fake_quant_backward,
-                                             fake_quant_backward_traced,
-                                             fake_quant_fwdbwd)
-
-    spec = QuantSpec(**PC_ORDER_SPECS[name])
-    c = shape[spec.axis]
-    g = torch.Generator(device=cuda).manual_seed(5)
-    x = torch.randn(shape, device=cuda, generator=g)
-    gr = torch.randn(shape, device=cuda, generator=g)
-    s, b = torch.full((c,), 0.02, device=cuda), torch.zeros(c, device=cuda)
-    flags = torch.zeros(2, device=cuda)
-    calls = {"fq_bwd_pc": (lambda: fake_quant_backward(gr, x, s, b, spec), 3),
-             "fq_bwd_pc_traced": (lambda: fake_quant_backward_traced(gr, x, s, b, flags,
-                                                                     spec), 3),
-             "fq_fwdbwd_pc": (lambda: fake_quant_fwdbwd(gr, x, s, b, spec=spec), 4)}
     reps = 5
     for what, (fn, n_out) in calls.items():
         fn()
@@ -1052,7 +1033,199 @@ def test_fake_quant_pc_backward_is_one_kernel(cuda, name, shape):
                 break
             time.sleep(1.0)
         assert len(kernels) == reps, (what, [e.name for e in kernels])
-        assert all("fq_bwd_pc_" in e.name for e in kernels), (what, kernels[0].name)
+        assert all(kernel in e.name for e in kernels), (what, kernels[0].name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", [("w_oihw", (512, 512, 3, 3)),
+                                        ("w_oihw", (64, 3, 3, 3)),
+                                        ("aff_oihw", (16, 1024, 3, 3)),
+                                        ("w_kn", (512, 8192)), ("w_kn", (512, 10))])
+def test_fake_quant_pc_backward_is_one_kernel(cuda, name, shape):
+    """Each per-channel backward call (static, traced, fused) is one kernel
+    on the profiler's record and allocates its outputs only (no workspace)."""
+    from jaxlsq_torch.ops.fake_quant import (fake_quant_backward,
+                                             fake_quant_backward_traced,
+                                             fake_quant_fwdbwd)
+
+    spec = QuantSpec(**PC_ORDER_SPECS[name])
+    c = shape[spec.axis]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(shape, device=cuda, generator=g)
+    gr = torch.randn(shape, device=cuda, generator=g)
+    s, b = torch.full((c,), 0.02, device=cuda), torch.zeros(c, device=cuda)
+    flags = torch.zeros(2, device=cuda)
+    _one_kernel_a_call(
+        {"fq_bwd_pc": (lambda: fake_quant_backward(gr, x, s, b, spec), 3),
+         "fq_bwd_pc_traced": (lambda: fake_quant_backward_traced(gr, x, s, b, flags,
+                                                                 spec), 3),
+         "fq_fwdbwd_pc": (lambda: fake_quant_fwdbwd(gr, x, s, b, spec=spec), 4)},
+        "fq_bwd_pc_")
+
+
+# the per-tensor backward's order cases (tests/test_torch_fq_pt_order.py):
+# one tile and less, a block a tile up to 512 tiles, then several tiles a
+# block (uneven at 4,198,404), the table's activation and the LM's largest
+# (2,048 blocks)
+PT_ORDER_SPECS = {**FQ_SPECS, "aff": dict(quant_min=0, quant_max=255)}
+PT_ORDER_CASES = [("act", (3,)), ("act", (33, 7, 5)), ("sym", (4097,)),
+                  ("act", (64, 512)), ("act", (64, 3, 32, 32)), ("aff", (64, 512, 4, 4)),
+                  ("act", (64, 64, 32, 32)), ("sym", (4198404,)), ("aff", (8192, 2048))]
+
+
+def _pt_case(cuda, name, shape, seed):
+    spec = QuantSpec(**PT_ORDER_SPECS[name])
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    s = 0.01 + 0.04 * torch.rand(1, device=cuda, generator=g)
+    b = (torch.zeros(1, device=cuda) if spec.symmetric
+         else 0.2 * torch.randn(1, device=cuda, generator=g))
+    return spec, s, b, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", PT_ORDER_CASES)
+def test_fake_quant_pt_backward_has_the_emulated_bits(cuda, name, shape):
+    """dS/dB of ``fq_bwd_pt`` (train and init mode), ``fq_bwd_pt_traced``
+    (the four flag pairs) and ``fq_fwdbwd_pt`` equal the CPU emulation of the
+    kernels' order (``tests/_fq_pt_order.py``) bit for bit, on 16-byte-aligned
+    inputs and at a 1-element offset (the 4-byte loads); the order never
+    depends on the load width."""
+    import _fq_pt_order as em
+    from jaxlsq_torch.ops.fake_quant import (fake_quant_backward,
+                                             fake_quant_backward_traced,
+                                             fake_quant_fwdbwd)
+
+    spec, s, b, g = _pt_case(cuda, name, shape, sum(shape) + 19)
+    n = int(np.prod(shape))
+    # one buffer, the tensors at element offsets 0 and 1
+    xbuf = torch.randn(n + 1, device=cuda, generator=g) * 1.5
+    gbuf = torch.randn(n + 1, device=cuda, generator=g)
+    for off in (0, 1):
+        x, gr = xbuf[off:off + n].view(shape), gbuf[off:off + n].view(shape)
+        cpu = [t.cpu() for t in (gr, x, s, b)]
+        want = {(ev, ini): em.backward_sums(*cpu, spec, bool(ini), ev=ev)
+                for ev in (0, 1) for ini in (0, 1)}
+        for init in (False, True):
+            _, ds, db = fake_quant_backward(gr, x, s, b, spec, init_mode=init)
+            w = want[0, int(init)]
+            assert torch.equal(ds.cpu(), w[0]) and torch.equal(db.cpu(), w[1]), (off, init)
+        for (ev, ini), w in want.items():
+            flags = torch.tensor([float(ev), float(ini)], device=cuda)
+            _, ds, db = fake_quant_backward_traced(gr, x, s, b, flags, spec)
+            assert torch.equal(ds.cpu(), w[0]) and torch.equal(db.cpu(), w[1]), (off, ev, ini)
+        _, _, ds, db = fake_quant_fwdbwd(gr, x, s, b, spec=spec)
+        w = want[0, 0]
+        assert torch.equal(ds.cpu(), w[0]) and torch.equal(db.cpu(), w[1]), off
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", [("act", (64, 64, 32, 32)), ("act", (64, 512)),
+                                        ("sym", (4198404,))])
+def test_fake_quant_pt_backward_is_one_kernel(cuda, name, shape):
+    """Each per-tensor backward call (static, traced, fused) is one kernel
+    on the profiler's record (no sum kernel) and allocates its outputs only
+    (no workspace, no memset)."""
+    from jaxlsq_torch.ops.fake_quant import (fake_quant_backward,
+                                             fake_quant_backward_traced,
+                                             fake_quant_fwdbwd)
+
+    spec, s, b, g = _pt_case(cuda, name, shape, 5)
+    x = torch.randn(shape, device=cuda, generator=g)
+    gr = torch.randn(shape, device=cuda, generator=g)
+    flags = torch.zeros(2, device=cuda)
+    _one_kernel_a_call(
+        {"fq_bwd_pt": (lambda: fake_quant_backward(gr, x, s, b, spec), 3),
+         "fq_bwd_pt_traced": (lambda: fake_quant_backward_traced(gr, x, s, b, flags,
+                                                                 spec), 3),
+         "fq_fwdbwd_pt": (lambda: fake_quant_fwdbwd(gr, x, s, b, spec=spec), 4)},
+        "fq_bwd_pt_kernel")
+
+
+def _pt_calls(spec, s, b, flags):
+    """Two back-to-back per-tensor backward calls of different sizes (the
+    traced kernel at 512 blocks of 4 tiles, the static one at 16 blocks of
+    one), then a fused one."""
+    from jaxlsq_torch.ops.fake_quant import (fake_quant_backward,
+                                             fake_quant_backward_traced,
+                                             fake_quant_fwdbwd)
+
+    def run(big, small, gbig, gsmall):
+        return (*fake_quant_backward_traced(gbig, big, s, b, flags, spec),
+                *fake_quant_backward(gsmall, small, s, b, spec),
+                *fake_quant_fwdbwd(gsmall, small, s, b, spec=spec))
+    return run
+
+
+@pytest.mark.gpu
+def test_fake_quant_pt_backward_replays_give_the_eager_bits(cuda):
+    """A captured CUDA graph of per-tensor backward calls of different sizes
+    (each folding in its capture stream's slot), replayed ten times on new
+    data, gives the eager calls' bits every time: each call's ticket counter
+    is back at 0 for the next."""
+    spec, s, b, g = _pt_case(cuda, "act", (1,), 23)
+    flags = torch.zeros(2, device=cuda)
+    run = _pt_calls(spec, s, b, flags)
+    shapes = ((64, 64, 32, 32), (64, 512))
+    ins = [torch.randn(shp, device=cuda, generator=g) for _ in (0, 1) for shp in shapes]
+    big, small, gbig, gsmall = ins
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(big, small, gbig, gsmall)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run(big, small, gbig, gsmall)
+    for i in range(10):
+        for t in ins:
+            t.copy_(torch.randn(t.shape, device=cuda, generator=g) * (1 + i / 4))
+        graph.replay()
+        want = run(big, small, gbig, gsmall)
+        torch.cuda.synchronize()
+        for k, (a, w) in enumerate(zip(outs, want)):
+            assert torch.equal(a, w), (i, k)
+
+
+@pytest.mark.gpu
+def test_fake_quant_pt_backward_on_two_streams_at_once(cuda):
+    """Calls queued on two streams at once (behind a sleep kernel on each,
+    so that they overlap) take a slot a stream and give the bits of the
+    same calls on one stream."""
+    import importlib
+
+    from jaxlsq_torch import _build
+
+    fq = importlib.import_module("jaxlsq_torch.ops.fake_quant")
+
+    spec, s, b, g = _pt_case(cuda, "sym", (1,), 29)
+    flags = torch.zeros(2, device=cuda)
+    run = _pt_calls(spec, s, b, flags)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    assert streams[0].cuda_stream != streams[1].cuda_stream
+    # run's arguments: the large x, the small x, their incoming gradients
+    data = [[torch.randn(shp, device=cuda, generator=g)
+             for _ in (0, 1) for shp in ((64, 64, 32, 32), (64, 512))] for _ in range(8)]
+    want = [run(*d) for d in data]
+    torch.cuda.synchronize()
+    got = [[], []]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    for k, st in enumerate(streams):
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(2_000_000)
+    for rep in range(4):
+        for k, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                for d in data[k::2]:
+                    got[k].append(run(*d))
+    torch.cuda.synchronize()
+    lib = _build.load_library()
+    slots = {fq._pt_slot(lib, s, st.cuda_stream) for st in streams}
+    assert len(slots) == 2
+    for k in (0, 1):
+        for j, outs in enumerate(got[k]):
+            for a, w in zip(outs, want[k + 2 * (j % 4)]):
+                assert torch.equal(a, w), (k, j)
 
 
 @pytest.mark.gpu

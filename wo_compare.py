@@ -19,15 +19,20 @@ shapes, each shape at M = 256, K = N = 8192) and writes every row to
 kernels on the lab's seeded weights (``lab_weights``, rotated past the L2)
 at M = 1, 16 and 128, K = N = 8192, timed by this checkout's
 ``chip_smoke.measure``; one summary line a turn (µs by kernel and M).
-``--fq``: each checkout's ``ops.fake_quant`` in train mode on seeded
-lecun-normal weights (the resnet weight spec, ``s = 4 sd / 127``), rotated
-past the L2: ``fq_bwd_pc`` and ``fq_bwd_pc_traced`` at (512, 512, 3, 3) on
+``--fq``: each checkout's ``ops.fake_quant`` in train mode, inputs rotated
+past the L2.  The per-tensor backward: ``fq_bwd_pt`` and
+``fq_bwd_pt_traced`` on unit-normal activations (the activation spec, ``s
+= 6 / 127``) at (64, 64, 32, 32), and summed over the 21 activation
+quantizers' inputs of ``resnet18_cifar`` at B = 64 and the 9 of the d512 LM
+at 8192 tokens (this checkout's models, run once on the CPU at a small
+batch, the batch dimensions then set to the real ones); ``fq_fwdbwd_pt`` on
+phase 11's per-tensor chain inputs (65536 x 1024).  The per-channel
+backward on seeded lecun-normal weights (the resnet weight spec, ``s = 4
+sd / 127``): ``fq_bwd_pc`` and ``fq_bwd_pc_traced`` at (512, 512, 3, 3) on
 axis 0, at (512, 8192) on axis 1, and summed over the 21 per-channel
-weights of ``resnet18_cifar`` and the 9 (K, N) weights of the d512 LM
-(this checkout's models, built once on the CPU); ``fq_fwdbwd_pc`` on
-phase 11's (8192, 8192) chain inputs; as controls, the per-tensor
-``fq_bwd_pt`` at (64, 64, 32, 32) and ``fq_fwdbwd_pt`` on the per-tensor
-chain inputs; one summary line a turn (µs).
+weights of ``resnet18_cifar`` and the 9 (K, N) weights of the d512 LM;
+``fq_fwdbwd_pc`` on the (8192, 8192) chain inputs.  One summary line a
+turn (µs).
 """
 
 import argparse
@@ -82,9 +87,35 @@ def fq_weight_shapes():
                                ("lm", chip_smoke._lm_qat(torch, "cpu", "xla")))}
 
 
-def fq_rows(torch, chip_smoke, weights):
-    """The checkout's per-channel fake-quant backward: {case: {kernel: ms}}
-    (the sums' cases also list each shape's ms)."""
+def fq_act_shapes():
+    """This checkout's activation quantizers' input shapes: {"resnet_act":
+    [shape, ...], "lm_act": [...]}: ``resnet18_cifar``'s 21 at B = 64 and
+    the d512 LM's 9 at B = 2, t = 4096, from one forward at a small batch
+    (B = 2; B = 1, t = 8) with the batch dimensions then set."""
+    import torch
+
+    import chip_smoke
+
+    out = {}
+    for key, model, inp, lead in (
+            ("resnet_act", chip_smoke._resnet(torch, "cpu", 0), torch.zeros(2, 3, 32, 32),
+             (chip_smoke.TRAIN_B,)),
+            ("lm_act", chip_smoke._lm_qat(torch, "cpu", "xla"),
+             torch.zeros(1, 8, dtype=torch.long), chip_smoke.LM_LEGS[0])):
+        shapes = []
+        hooks = [m.register_forward_hook(lambda m, i, o: shapes.append(list(i[0].shape)))
+                 for _, m in chip_smoke._act_quantizers(model)]
+        with torch.no_grad():
+            model(inp)
+        for h in hooks:
+            h.remove()
+        out[key] = [list(lead) + shp[len(lead):] for shp in shapes]
+    return out
+
+
+def fq_rows(torch, chip_smoke, shapes):
+    """The checkout's fake-quant backward: {case: {kernel: ms}} (the sums'
+    cases also list each shape's ms)."""
     from jaxlsq_torch.models import default_qconfig
     from jaxlsq_torch.ops.fake_quant import (fake_quant_backward,
                                              fake_quant_backward_traced,
@@ -109,11 +140,31 @@ def fq_rows(torch, chip_smoke, weights):
         return {k: min(chip_smoke.measure(fn, args)[0] for _ in range(3))
                 for k, fn in fns.items()}
 
-    rows = {"oihw_512x512x3x3": time_pair((512, 512, 3, 3), 0),
-            "kn_512x8192": time_pair((512, 8192), 1)}
-    for key, shapes in weights.items():
+    act = qc.activation.spec  # the table's per-tensor activation
+    s_act = torch.full((1,), 6.0 / act.quant_max, device=dev)
+    b_act = -s_act * (act.quant_max // 2)
+
+    def time_pt(shape):
+        n = math.prod(shape)
+        args = [(torch.randn(shape, device=dev, generator=g),
+                 torch.randn(shape, device=dev, generator=g))
+                for _ in range(chip_smoke.copies_for(12 * n))]
+        fns = {"fq_bwd_pt": lambda x, gg: fake_quant_backward(gg, x, s_act, b_act, act),
+               "fq_bwd_pt_traced": lambda x, gg: fake_quant_backward_traced(
+                   gg, x, s_act, b_act, flags, act)}
+        return {k: min(chip_smoke.measure(fn, args)[0] for _ in range(3))
+                for k, fn in fns.items()}
+
+    rows = {"act_64x64x32x32": time_pt((64, 64, 32, 32))}
+    for key in ("resnet_act", "lm_act"):
+        per = [{"shape": shape, **time_pt(tuple(shape))} for shape in shapes[key]]
+        rows[key] = {k: sum(r[k] for r in per) for k in ("fq_bwd_pt", "fq_bwd_pt_traced")}
+        rows[key]["shapes"] = per
+    rows["oihw_512x512x3x3"] = time_pair((512, 512, 3, 3), 0)
+    rows["kn_512x8192"] = time_pair((512, 8192), 1)
+    for key in ("resnet", "lm"):
         per = [{"shape": shape, "axis": axis, **time_pair(tuple(shape), axis)}
-               for shape, axis in shapes]
+               for shape, axis in shapes[key]]
         rows[key] = {k: sum(r[k] for r in per) for k in ("fq_bwd_pc", "fq_bwd_pc_traced")}
         rows[key]["shapes"] = per
     for kind, key in (("pc", "chain_8192x8192"), ("pt", "chain_65536x1024")):
@@ -123,19 +174,10 @@ def fq_rows(torch, chip_smoke, weights):
             lambda xx, gg: fake_quant_fwdbwd(gg, xx, s0, b0, spec=spec), [(x, gr)])[0]
             for _ in range(3))}
         del x, gr
-    spec = qc.activation.spec  # the table's per-tensor activation
-    s = torch.full((1,), 6.0 / spec.quant_max, device=dev)
-    b = -s * (spec.quant_max // 2)
-    n = 64 * 64 * 32 * 32
-    args = [(torch.randn(64, 64, 32, 32, device=dev, generator=g),
-             torch.randn(64, 64, 32, 32, device=dev, generator=g))
-            for _ in range(chip_smoke.copies_for(12 * n))]
-    rows["act_64x64x32x32"] = {"fq_bwd_pt": min(chip_smoke.measure(
-        lambda x, gg: fake_quant_backward(gg, x, s, b, spec), args)[0] for _ in range(3))}
     return rows
 
 
-def turn(tree, lab=False, fq_weights=None):
+def turn(tree, lab=False, fq_shapes=None):
     """One checkout's rows: {kind: [row, ...]}."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -154,8 +196,8 @@ def turn(tree, lab=False, fq_weights=None):
     _build.load_library()
     if lab:
         return lab_rows(torch, chip_smoke)
-    if fq_weights is not None:
-        return fq_rows(torch, chip_smoke, fq_weights)
+    if fq_shapes is not None:
+        return fq_rows(torch, chip_smoke, fq_shapes)
     g = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
     for kind in KINDS:
@@ -188,13 +230,13 @@ def main(argv):
     ap.add_argument("--lab", action="store_true",
                     help="time the int4 lab kernels instead of wo8/wo4/wo4g")
     ap.add_argument("--fq", action="store_true",
-                    help="time the per-channel fake-quant backward instead")
-    ap.add_argument("--fq-weights", help=argparse.SUPPRESS)
+                    help="time the fake-quant backward instead")
+    ap.add_argument("--fq-shapes", help=argparse.SUPPRESS)
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     if args.turn:
-        weights = json.loads(args.fq_weights) if args.fq_weights else None
-        print(json.dumps(turn(args.turn, args.lab, weights)))
+        shapes = json.loads(args.fq_shapes) if args.fq_shapes else None
+        print(json.dumps(turn(args.turn, args.lab, shapes)))
         return 0
     if len(args.trees) != 2:
         ap.error("give two checkouts")
@@ -206,7 +248,7 @@ def main(argv):
     record = {"card": smi, "lab": args.lab, "fq": args.fq, "turns": []}
     extra = ["--lab"] if args.lab else []
     if args.fq:
-        extra = ["--fq-weights", json.dumps(fq_weight_shapes())]
+        extra = ["--fq-shapes", json.dumps({**fq_weight_shapes(), **fq_act_shapes()})]
     for tree in (first, second, second, first):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--turn", tree]
                               + extra, capture_output=True, text=True)
