@@ -1007,10 +1007,33 @@ def _fq_term_sums(torch, g, x, s, b, spec, init_mode, gs):
     return ds.sum(dim=red) * abs(gs), db.sum(dim=red) * abs(gs)
 
 
+def _same_bits(torch, got, want):
+    """NaN where ``want`` has NaN, every other element bit-equal."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan])
+
+
+def _sum_err(torch, got, want, tot):
+    """The finite sums' largest error and whether every sum passes: NaN and
+    ±inf where ``want`` has them, a finite sum equal or within 1e-5 of its
+    term sum (eval mode's zeros have a NaN term sum where a qparam is
+    NaN)."""
+    got, want = got.double().reshape(tot.shape), want.double().reshape(tot.shape)
+    fin = torch.isfinite(want)
+    odd = ~fin & ~torch.isnan(want)
+    same = (torch.equal(torch.isnan(got), torch.isnan(want))
+            and torch.equal(got[odd], want[odd]))
+    err = torch.where(fin, got - want, torch.zeros_like(want)).abs()
+    ok = same and bool(((err == 0) | (err <= 1e-5 * tot) | ~fin).all())
+    rel = torch.where(fin & (err > 0), err / tot.clamp_min(1e-30), torch.zeros_like(err))
+    return ok, float(err.max()), float(rel.max())
+
+
 def _check_fq(torch, x, s, b, g, spec, errs, what, traced=False):
     """The static kernels (train/eval/init modes) or their traced twins (the
     four flag pairs) against their plain versions on the card: forward and
-    dX bit-exact, dS/dB within 1e-5 of their term sums."""
+    dX bit-exact (NaN where the plain has NaN), dS/dB within 1e-5 of their
+    term sums (NaN and ±inf where the plain has them)."""
     from jaxlsq_torch.core.golden import (effective_grad_scale, golden_backward,
                                           golden_backward_traced, golden_forward,
                                           golden_forward_traced)
@@ -1039,39 +1062,63 @@ def _check_fq(torch, x, s, b, g, spec, errs, what, traced=False):
             rdx, rds, rdb = golden_backward(g, x, s, b, spec, eval_mode=eval_mode,
                                             init_mode=init_mode)
         torch.cuda.synchronize()
-        if not (torch.equal(out, ref) and torch.equal(dx, rdx)):
+        if not (_same_bits(torch, out, ref) and _same_bits(torch, dx, rdx)):
             raise AssertionError(
                 f"{what}: fq {kind} forward/dX not bit-exact (eval={eval_mode}, "
-                f"init={init_mode}): {float((out - ref).abs().max())}, "
-                f"{float((dx - rdx).abs().max())}")
+                f"init={init_mode}): {float((out - ref).abs().nan_to_num(1.0).max())}, "
+                f"{float((dx - rdx).abs().nan_to_num(1.0).max())}")
         tot_s, tot_b = _fq_term_sums(torch, g, x, s, b, spec, init_mode, gs)
         e_sums = 0.0
         for got, want, tot in ((ds, rds, tot_s), (db, rdb, tot_b)):
-            err = (got.double() - want.double()).abs().reshape(tot.shape)
-            if not bool((err <= 1e-5 * tot).all()):
-                raise AssertionError(f"{what}: fq {kind} dS/dB off by "
-                                     f"{float(err.max())} (eval={eval_mode}, "
+            ok, err, rel = _sum_err(torch, got, want, tot)
+            if not ok:
+                raise AssertionError(f"{what}: fq {kind} dS/dB off by {err} or not "
+                                     f"NaN/inf where the plain is (eval={eval_mode}, "
                                      f"init={init_mode})")
-            e_sums = max(e_sums, float(err.max()))
-            worst = max(worst, float((err / tot.clamp_min(1e-30)).max()))
-        errs[f"fq_fwd_{kind}"] = max(errs[f"fq_fwd_{kind}"], float((out - ref).abs().max()))
-        errs[f"fq_bwd_{kind}"] = max(errs[f"fq_bwd_{kind}"],
-                                     float((dx - rdx).abs().max()), e_sums)
+            e_sums = max(e_sums, err)
+            worst = max(worst, rel)
+        errs[f"fq_fwd_{kind}"] = max(errs[f"fq_fwd_{kind}"], _bits_err(torch, out, ref))
+        errs[f"fq_bwd_{kind}"] = max(errs[f"fq_bwd_{kind}"], _bits_err(torch, dx, rdx), e_sums)
         if traced or eval_mode or init_mode:
             continue
         # the fused kernel: the static pair's bits, hence the plain version's
         fused = fake_quant_fwdbwd(g, x, s, b, spec=spec)
         torch.cuda.synchronize()
-        if not all(torch.equal(a, w) for a, w in zip(fused, (out, dx, ds, db))):
+        if not all(_same_bits(torch, a, w) for a, w in zip(fused, (out, dx, ds, db))):
             raise AssertionError(f"{what}: fq_fwdbwd_{kind} differs from fq_fwd_{kind} "
                                  f"+ fq_bwd_{kind}")
         name = f"fq_fwdbwd_{kind}"
-        errs[name] = max(errs[name], float((fused[0] - ref).abs().max()),
-                         float((fused[1] - rdx).abs().max()), e_sums)
+        errs[name] = max(errs[name], _bits_err(torch, fused[0], ref),
+                         _bits_err(torch, fused[1], rdx), e_sums)
     return worst
 
 
+def _bits_err(torch, got, want):
+    """The largest |got - want| over the elements where both are finite."""
+    fin = torch.isfinite(got) & torch.isfinite(want)
+    return float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def _nan_case(torch, shape, spec, g):
+    """x (normal, sd 1.5) with NaN, +inf and -inf spread over it, g, and
+    qparams; per channel, channel 1's scale and channel 2's shift NaN."""
+    n = math.prod(shape)
+    c = shape[spec.axis] if spec.per_channel else 1
+    s = 0.01 + 0.04 * torch.rand(c, device="cuda", generator=g)
+    b = (torch.zeros(c, device="cuda") if spec.symmetric
+         else 0.2 * torch.randn(c, device="cuda", generator=g))
+    x = torch.randn(n, device="cuda", generator=g) * 1.5
+    picks = torch.randperm(n, device="cuda", generator=g)[:3 * max(2, n // 64)]
+    specials = torch.tensor([float("nan"), float("inf"), -float("inf")], device="cuda")
+    x[picks] = specials[torch.arange(picks.numel(), device="cuda") % 3]
+    if spec.per_channel:
+        s[1], b[2] = float("nan"), float("nan")
+    return x.view(shape), torch.randn(shape, device="cuda", generator=g), s, b
+
+
 def phase_fq_kernels(torch, rec):
+    from jaxlsq_torch.models import default_qconfig
+
     caps = _capture_step(torch)
     g = torch.Generator(device="cuda").manual_seed(2)
     errs = {k: 0.0 for k in FQ_KERNELS + TRACED_KERNELS + FUSED_KERNELS}
@@ -1088,6 +1135,16 @@ def phase_fq_kernels(torch, rec):
                     f"{c['name']} {data}", traced))
         shapes.append({"name": c["name"], "shape": list(x.shape),
                        "per_channel": spec.per_channel, "numel": x.numel()})
+    # one NaN/±inf tensor a kernel: an activation per tensor, a weight on
+    # axis 0 (runs) and one on axis 1 (rows), NaN qparams per channel
+    qc = default_qconfig(8, 8, per_channel_weights=True)
+    nan_cases = (((64, 64, 8, 8), qc.activation.spec),
+                 ((128, 64, 3, 3), qc.weight_for_axis(0).spec),
+                 ((512, 1536), qc.weight_for_axis(1).spec))
+    for shape, spec in nan_cases:
+        x, grad, s, b = _nan_case(torch, shape, spec, g)
+        for traced in (False, True):
+            _check_fq(torch, x, s, b, grad, spec, errs, f"NaN/inf {shape}", traced)
     rec["max_abs_err"].update(errs)
     rec["fq_shapes"] = shapes
     rec["fq_worst_sum_rel_err"] = worst[False]
@@ -1098,9 +1155,11 @@ def phase_fq_kernels(torch, rec):
         f"resnet18_cifar, B={TRAIN_B} ({n_act} activation and {n_w} weight "
         "elements a step), real and random data, the static four in "
         "train/eval/init and the traced four at the four (eval, init) flag pairs, "
-        "the fused two in train mode (bit-equal to the static pair): "
-        f"forward and dX bit-exact; dS/dB worst {worst[False]:.2e} (static) and "
-        f"{worst[True]:.2e} (traced) of their term sums (tol 1e-5); "
+        "the fused two in train mode (bit-equal to the static pair), then each "
+        f"on a NaN/inf tensor at {[list(sh) for sh, _ in nan_cases]} (NaN qparams "
+        "per channel): forward and dX bit-exact (NaN where the plain has NaN); "
+        f"dS/dB worst {worst[False]:.2e} (static) and {worst[True]:.2e} (traced) "
+        "of their term sums (tol 1e-5; NaN and inf where the plain has them); "
         f"max_abs_err {errs}")
 
 
@@ -1332,14 +1391,16 @@ def _graph_of(step):
 
 
 _FQ_NAME = re.compile(
-    r"fq_(fwd|bwd_pt|bwd_pc|bwd_sum)(?:_runs|_rows)?_kernel(?:<([^,>]*)(?:,\s*([^,>]*))?)?")
+    r"fq_(fwd|bwd_pt|bwd_pc|bwd_sum)(?:_pc)?(?:_runs|_rows)?_kernel"
+    r"(?:<([^,>]*)(?:,\s*([^,>]*))?)?")
 _TRUE = ("true", "(bool)1", "1")
 
 
 def _fq_kinds(counts):
     """A profile's fake-quant kernel counts by kernel and regime (the
     ``kTraced`` template argument of csrc/fake_quant.cu; ``/fused`` where
-    the backward's ``kOut`` is set); an unknown name is kept whole."""
+    the backward's ``kOut`` is set; the per-channel forward counts as
+    ``fwd``); an unknown name is kept whole."""
     out = {}
     for name, n in counts.items():
         m = _FQ_NAME.search(name)
@@ -1349,7 +1410,7 @@ def _fq_kinds(counts):
             key = m.group(1)
         else:
             key = m.group(1) + ("/traced" if m.group(2).strip() in _TRUE else "/static")
-            if m.group(3) is not None and m.group(3).strip() in _TRUE:
+            if m.group(1) != "fwd" and m.group(3) is not None and m.group(3).strip() in _TRUE:
                 key += "/fused"
         out[key] = out.get(key, 0) + n
     return out

@@ -40,8 +40,8 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # x, scale, shift, out, n, qmin, qmax, tmin, tmax, stream
     "jlt_fq_fwd_pt": [_P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
-    # x, scale, shift, out, outer, C, inner, qmin, qmax, tmin, tmax, stream
-    "jlt_fq_fwd_pc": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
+    # x, scale, shift, out, outer, C, inner, span, qmin, qmax, tmin, tmax, stream
+    "jlt_fq_fwd_pc": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
     # g, x, scale, shift, dx, ds, db, n, slot, qmin, qmax, tmin, tmax, sym,
     # eval, init, gs, stream
     "jlt_fq_bwd_pt": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _I,
@@ -62,9 +62,9 @@ _SIGNATURES = {
     "jlt_int4_lab": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, scale, shift, flags, out, n, qmin, qmax, tmin, tmax, stream
     "jlt_fq_fwd_pt_traced": [_P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _P],
-    # x, scale, shift, flags, out, outer, C, inner, qmin, qmax, tmin, tmax,
-    # stream
-    "jlt_fq_fwd_pc_traced": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
+    # x, scale, shift, flags, out, outer, C, inner, span, qmin, qmax, tmin,
+    # tmax, stream
+    "jlt_fq_fwd_pc_traced": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F, _P],
     # g, x, scale, shift, flags, dx, ds, db, n, slot, qmin, qmax, tmin, tmax,
     # sym, gs, stream
     "jlt_fq_bwd_pt_traced": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F,

@@ -33,7 +33,11 @@
 // divisions are IEEE (no fast math), and rintf rounds half to even as
 // torch.round does.  The forward and dX are therefore bit-exact; dS and dB
 // differ from a torch.sum only in summation order.  The qparams are read from
-// device memory: no host sync.
+// device memory: no host sync.  The three clamps (s, zp, xq) pass a NaN
+// through, as torch.clamp and jnp.clip do (max.NaN/min.NaN below; fminf/
+// fmaxf would turn it into a bound): a NaN x gives a NaN out, takes the qmax
+// branch of dS (xq <= qmin is false) and no dX; a NaN scale or shift makes
+// its channel's out and dS NaN.  A sum carries NaN and inf in any order.
 //
 // What bounds it on an H100: a few operations per 4-byte element, far below
 // the card's operations per byte, so each kernel is bound by its bytes: the
@@ -112,6 +116,33 @@
 // is ever -0 (each starts at +0; an exact zero sum rounds to +0), so a tree
 // padded with +0 to 8 entries is the tree of its power-of-two entries.
 //
+// The forward per channel is one launch of warp-sized work items over the
+// same (outer, C, inner) view; the item's channel, s and zp are worked out
+// once an item (one IEEE division for zp), never once an element, and each
+// lane issues all its loads of an item before it computes, then computes
+// and stores only the item's elements.  The plan (span) comes from the
+// shape alone (ops/fake_quant.py fwd_plan); an elementwise result cannot
+// depend on the mapping, so only the bytes in flight and the work an item
+// decide it.
+// * runs (inner > 1): item w is piece w % pieces of run w / pieces, channel
+//   (w / pieces) % C; a piece is `span` elements (128, a group of 4 a lane,
+//   or on a large tensor 256, two; at most the run), a run's last piece
+//   what is left.  16-byte loads and stores where inner % 4 == 0 and x, out
+//   are 16-byte aligned (lane l takes groups l and l + 32), else 4-byte ones
+//   (lane l the elements l + 32 k); a warp reads 512 contiguous bytes an
+//   access.
+// * rows (inner == 1, x is (K, C)): lanes sit on neighbouring channels, 4 a
+//   lane when C % 4 == 0 (16-byte accesses where aligned), else 1; item w
+//   is strip w % strips of 32 lanes and `span` = 2 rows from (w / strips) *
+//   span, both in flight at once.
+// (Measured on the H100, PERF.md §6: longer items, 4-16 elements a lane on
+// rows and 256 on runs, were slower on all but the largest tensors, and
+// computing a short item's absent elements cost a small tensor ~0.5 us.)
+// Static out is fq(x); traced reads ini = flags[1] > 0 and writes x itself in
+// init mode through the same accesses, so every mode moves the same bytes.
+// Stores carry the evict-first hint.  Per tensor the forward stays one
+// grid-stride loop of 4-byte accesses over at most kFwdMaxBlocks blocks.
+//
 // The fused forward + backward (kOut = true, train mode only): the static
 // backward kernels with one more output, out = (rint(xq) - zp) * s, which the
 // backward computes for dS anyway (dequant() below, the forward's own op
@@ -140,7 +171,10 @@ constexpr int kPtMinBlocks = 512;                  // ... unless that leaves few
 constexpr int kPtMaxBlocks = 2048;                 // per tensor: blocks, hence partials
 constexpr int kPtFold = kPtMaxBlocks / kThreads;   // partials a thread folds
 constexpr int kPtSlots = 128;                      // per tensor: streams a device
-constexpr int kFwdMaxBlocks = 4096;
+constexpr int kFwdMaxBlocks = 4096;  // per tensor: the forward's grid-stride loop
+constexpr int kFwdGroups = 2;        // per channel, runs: groups of 4 a lane takes at most
+constexpr int kFwdRound = 32 * 4 * kFwdGroups;  // ... so a piece is at most 256 elements
+constexpr int kFwdRows = 2;          // per channel, rows: rows a lane takes at most
 constexpr int kRunBatch = 2;       // per channel, runs: groups of 4 a lane has in flight
 constexpr int kRowBatch = 8;       // per channel, rows: rows a lane has in flight
 
@@ -148,17 +182,37 @@ struct Range {
   float qmin, qmax, tmin, tmax;
 };
 
+// max and min that return NaN when an input is NaN (PTX .NaN, sm_80 on):
+// fmaxf/fminf's IEEE maxNum/minNum would return the other input.  On
+// numbers they are fmaxf/fminf, one instruction each as those are.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// clamp(v, lo, hi) as torch.clamp and jnp.clip: a NaN v stays NaN.
+__device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
+  return min_nan(max_nan(v, lo), hi);
+}
+
 __device__ __forceinline__ void load_qparams(const float* __restrict__ scale,
                                              const float* __restrict__ shift,
                                              int c, const Range& r, float& s,
                                              float& zp) {
-  s = fmaxf(fabsf(scale[c]), FLT_EPSILON);
-  zp = rintf(fminf(fmaxf(__fdiv_rn(-shift[c], s), r.tmin), r.tmax));
+  s = max_nan(fabsf(scale[c]), FLT_EPSILON);
+  zp = rintf(clamp_nan(__fdiv_rn(-shift[c], s), r.tmin, r.tmax));
 }
 
 // xq = clamp(x / s + zp, qmin, qmax), unrounded.
 __device__ __forceinline__ float clamped(float x, float s, float zp, const Range& r) {
-  return fminf(fmaxf(__fadd_rn(__fdiv_rn(x, s), zp), r.qmin), r.qmax);
+  return clamp_nan(__fadd_rn(__fdiv_rn(x, s), zp), r.qmin, r.qmax);
 }
 
 // The fake-quantized value (rint(xq) - zp) * s of a clamped xq.
@@ -207,25 +261,131 @@ __device__ __forceinline__ int flag_set(const float* __restrict__ flags, int k) 
   return flags[k] > 0.f;
 }
 
-// Forward; traced: init mode copies x.
+// Forward per tensor; traced: init mode copies x.
 template <bool kTraced>
 __global__ void __launch_bounds__(kThreads)
 fq_fwd_kernel(const float* __restrict__ x, const float* __restrict__ scale,
               const float* __restrict__ shift, const float* __restrict__ flags,
-              float* __restrict__ out, int n, int C, int inner, Range r) {
+              float* __restrict__ out, int n, Range r) {
   const int stride = gridDim.x * kThreads;
   const int ini = kTraced ? flag_set(flags, 1) : 0;
-  if (C == 1) {
-    float s, zp;
-    load_qparams(scale, shift, 0, r, s, zp);
-    for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride)
-      out[i] = ini ? x[i] : fq_value(x[i], s, zp, r);
-    return;
-  }
-  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride) {
-    float s, zp;
-    load_qparams(scale, shift, (i / inner) % C, r, s, zp);
+  float s, zp;
+  load_qparams(scale, shift, 0, r, s, zp);
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n; i += stride)
     out[i] = ini ? x[i] : fq_value(x[i], s, zp, r);
+}
+
+// Forward per channel, runs (inner > 1; the mapping in the note at the top):
+// warp w = 8 * blockIdx.x + warp takes piece w % pieces of run w / pieces.
+// V = 4: lane l's groups of 4 at 4 (l + 32 j), one 16-byte access each
+// (inner % 4 == 0, x and out 16-byte aligned); V = 1: its elements l + 32 k.
+template <bool kTraced, int V>
+__global__ void __launch_bounds__(kThreads)
+fq_fwd_pc_runs_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+                      const float* __restrict__ shift, const float* __restrict__ flags,
+                      float* __restrict__ out, int runs, int C, int inner, int span,
+                      int pieces, Range r) {
+  constexpr int kE = 4 * kFwdGroups;  // elements a lane takes
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int run = w / pieces;
+  if (run >= runs) return;
+  const int p = w - run * pieces;
+  const int start = p * span, len = min(span, inner - start);
+  const float* __restrict__ xs = x + (run * inner + start);
+  float* __restrict__ os = out + (run * inner + start);
+  float v[kE];
+  if (V == 4) {
+#pragma unroll
+    for (int j = 0; j < kFwdGroups; ++j) {
+      const int e = 4 * (lane + 32 * j);
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < len) a = *reinterpret_cast<const float4*>(xs + e);
+      v[4 * j] = a.x; v[4 * j + 1] = a.y; v[4 * j + 2] = a.z; v[4 * j + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kE; ++k) {
+      const int e = lane + 32 * k;
+      v[k] = e < len ? xs[e] : 0.f;
+    }
+  }
+  const int ini = kTraced ? flag_set(flags, 1) : 0;
+  float s = 0.f, zp = 0.f;
+  if (!ini) load_qparams(scale, shift, run % C, r, s, zp);  // after the loads
+  // only the elements of the piece are computed and stored
+  if (V == 4) {
+#pragma unroll
+    for (int j = 0; j < kFwdGroups; ++j) {
+      const int e = 4 * (lane + 32 * j);
+      if (e >= len) continue;
+      float* u = v + 4 * j;
+      if (!ini)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) u[t] = fq_value(u[t], s, zp, r);
+      __stcs(reinterpret_cast<float4*>(os + e), make_float4(u[0], u[1], u[2], u[3]));
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kE; ++k) {
+      const int e = lane + 32 * k;
+      if (e < len) __stcs(os + e, ini ? v[k] : fq_value(v[k], s, zp, r));
+    }
+  }
+}
+
+// Forward per channel, rows (inner == 1, x is (K, C); the mapping in the
+// note at the top): warp w takes strip w % strips, rows (w / strips) * kR
+// .. + kR.  L = 4 channels a lane (C % 4 == 0); V = 4 one 16-byte access a
+// row (x and out 16-byte aligned), else four 4-byte ones.  L = 1: one
+// channel a lane.
+template <bool kTraced, int L, int V>
+__global__ void __launch_bounds__(kThreads)
+fq_fwd_pc_rows_kernel(const float* __restrict__ x, const float* __restrict__ scale,
+                      const float* __restrict__ shift, const float* __restrict__ flags,
+                      float* __restrict__ out, int K, int C, int strips, Range r) {
+  constexpr int kR = kFwdRows;
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int q = w % strips, k0 = (w / strips) * kR;
+  const int c0 = (32 * q + lane) * L;
+  if (k0 >= K || c0 >= C) return;
+  const int kend = min(K, k0 + kR);
+  float v[kR][L];
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    const int k = k0 + j;
+    if constexpr (V == 4) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (k < kend) a = *reinterpret_cast<const float4*>(x + (k * C + c0));
+      v[j][0] = a.x; v[j][1] = a.y; v[j][2] = a.z; v[j][3] = a.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < L; ++e) v[j][e] = k < kend ? x[k * C + c0 + e] : 0.f;
+    }
+  }
+  const int ini = kTraced ? flag_set(flags, 1) : 0;
+  float s[L], zp[L];
+#pragma unroll
+  for (int e = 0; e < L; ++e) {  // after the loads
+    s[e] = zp[e] = 0.f;
+    if (!ini) load_qparams(scale, shift, c0 + e, r, s[e], zp[e]);
+  }
+  // only the item's rows are computed and stored
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    const int k = k0 + j;
+    if (k >= kend) break;
+    if (!ini)
+#pragma unroll
+      for (int e = 0; e < L; ++e) v[j][e] = fq_value(v[j][e], s[e], zp[e], r);
+    float* __restrict__ orow = out + (k * C + c0);
+    if constexpr (V == 4) {
+      __stcs(reinterpret_cast<float4*>(orow), make_float4(v[j][0], v[j][1], v[j][2], v[j][3]));
+    } else {
+#pragma unroll
+      for (int e = 0; e < L; ++e) __stcs(orow + e, v[j][e]);
+    }
   }
 }
 
@@ -619,13 +779,51 @@ int pt_blocks(int n) {
 int fwd_blocks(int n) { return std::min(kFwdMaxBlocks, std::max(1, cdiv(n, kThreads))); }
 
 template <bool kTraced>
-int launch_fwd(const void* x, const void* scale, const void* shift,
-               const void* flags, void* out, int outer, int C, int inner,
-               const Range& r, void* stream) {
-  const int n = outer * C * inner;
+int launch_fwd_pt(const void* x, const void* scale, const void* shift,
+                  const void* flags, void* out, int n, const Range& r, void* stream) {
   fq_fwd_kernel<kTraced><<<fwd_blocks(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)scale, (const float*)shift,
-      (const float*)flags, (float*)out, n, C, inner, r);
+      (const float*)flags, (float*)out, n, r);
+  return (int)cudaGetLastError();
+}
+
+// Per channel: one launch, runs or rows by the view, with fwd_plan's span
+// (16-byte accesses where the layout and x, out allow).
+template <bool kTraced>
+int launch_fwd_pc(const void* x, const void* scale, const void* shift,
+                  const void* flags, void* out, int outer, int C, int inner, int span,
+                  const Range& r, void* stream) {
+  const float *xp = (const float*)x, *sp = (const float*)scale, *hp = (const float*)shift,
+              *fp = (const float*)flags;
+  float* op = (float*)out;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool aligned = ((uintptr_t)x | (uintptr_t)out) % 16 == 0;
+  if (outer < 1 || C < 1 || inner < 1) return (int)cudaErrorInvalidValue;
+  if (inner == 1) {
+    const int lanes_c = C % 4 == 0 ? 4 : 1;  // channels a lane
+    if (span != kFwdRows) return (int)cudaErrorInvalidValue;
+    const int strips = cdiv(C, 32 * lanes_c);
+    const int blocks = (int)(((long long)strips * cdiv(outer, span) + kWarps - 1) / kWarps);
+    if (lanes_c == 1)
+      fq_fwd_pc_rows_kernel<kTraced, 1, 1><<<blocks, kThreads, 0, st>>>(
+          xp, sp, hp, fp, op, outer, C, strips, r);
+    else if (aligned)
+      fq_fwd_pc_rows_kernel<kTraced, 4, 4><<<blocks, kThreads, 0, st>>>(
+          xp, sp, hp, fp, op, outer, C, strips, r);
+    else
+      fq_fwd_pc_rows_kernel<kTraced, 4, 1><<<blocks, kThreads, 0, st>>>(
+          xp, sp, hp, fp, op, outer, C, strips, r);
+  } else {
+    if (span < 4 || span % 4 != 0 || span > kFwdRound) return (int)cudaErrorInvalidValue;
+    const int pieces = cdiv(inner, span), runs = outer * C;
+    const int blocks = (int)(((long long)runs * pieces + kWarps - 1) / kWarps);
+    if (aligned && inner % 4 == 0)
+      fq_fwd_pc_runs_kernel<kTraced, 4><<<blocks, kThreads, 0, st>>>(
+          xp, sp, hp, fp, op, runs, C, inner, span, pieces, r);
+    else
+      fq_fwd_pc_runs_kernel<kTraced, 1><<<blocks, kThreads, 0, st>>>(
+          xp, sp, hp, fp, op, runs, C, inner, span, pieces, r);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -705,16 +903,17 @@ int jlt_fq_pt_slots() { return kPtSlots; }
 int jlt_fq_fwd_pt(const void* x, const void* scale, const void* shift, void* out,
                   int n, float qmin, float qmax, float tmin, float tmax,
                   void* stream) {
-  return launch_fwd<false>(x, scale, shift, nullptr, out, 1, 1, n,
-                           Range{qmin, qmax, tmin, tmax}, stream);
+  return launch_fwd_pt<false>(x, scale, shift, nullptr, out, n,
+                              Range{qmin, qmax, tmin, tmax}, stream);
 }
 
-// Forward per channel over the (outer, C, inner) view; scale, shift are (C,).
+// Forward per channel over the (outer, C, inner) view, one launch, the span
+// of fwd_plan; scale, shift are (C,).
 int jlt_fq_fwd_pc(const void* x, const void* scale, const void* shift, void* out,
-                  int outer, int C, int inner, float qmin, float qmax, float tmin,
-                  float tmax, void* stream) {
-  return launch_fwd<false>(x, scale, shift, nullptr, out, outer, C, inner,
-                           Range{qmin, qmax, tmin, tmax}, stream);
+                  int outer, int C, int inner, int span, float qmin, float qmax,
+                  float tmin, float tmax, void* stream) {
+  return launch_fwd_pc<false>(x, scale, shift, nullptr, out, outer, C, inner, span,
+                              Range{qmin, qmax, tmin, tmax}, stream);
 }
 
 // Backward per tensor, one launch in slot `slot` (0 .. jlt_fq_pt_slots() - 1,
@@ -771,16 +970,16 @@ int jlt_fq_fwdbwd_pc(const void* g, const void* x, const void* scale,
 int jlt_fq_fwd_pt_traced(const void* x, const void* scale, const void* shift,
                          const void* flags, void* out, int n, float qmin,
                          float qmax, float tmin, float tmax, void* stream) {
-  return launch_fwd<true>(x, scale, shift, flags, out, 1, 1, n,
-                          Range{qmin, qmax, tmin, tmax}, stream);
+  return launch_fwd_pt<true>(x, scale, shift, flags, out, n,
+                             Range{qmin, qmax, tmin, tmax}, stream);
 }
 
 int jlt_fq_fwd_pc_traced(const void* x, const void* scale, const void* shift,
                          const void* flags, void* out, int outer, int C,
-                         int inner, float qmin, float qmax, float tmin,
+                         int inner, int span, float qmin, float qmax, float tmin,
                          float tmax, void* stream) {
-  return launch_fwd<true>(x, scale, shift, flags, out, outer, C, inner,
-                          Range{qmin, qmax, tmin, tmax}, stream);
+  return launch_fwd_pc<true>(x, scale, shift, flags, out, outer, C, inner, span,
+                             Range{qmin, qmax, tmin, tmax}, stream);
 }
 
 int jlt_fq_bwd_pt_traced(const void* g, const void* x, const void* scale,

@@ -28,6 +28,8 @@ their traced-flag twins ``pallas_forward_traced`` /
 A per-channel tensor is handed to the kernels as its ``(outer, C, inner)``
 view around ``spec.axis``, so the channel axis is never moved.  The qparams
 stay on the device.  ``LAUNCHES`` counts the kernel launches of each kind.
+The per-channel forward is one launch of warp-sized work items whose span
+:func:`fwd_plan` fixes from the shape.
 Every backward is one launch with no workspace: per channel in the order
 that :func:`pc_plan` fixes from the shape; per tensor its blocks' partials
 folded by the block that finishes last, in the stream's slot of the
@@ -50,7 +52,7 @@ from ..core.spec import QuantSpec
 
 __all__ = ["fake_quant_forward", "fake_quant_backward",
            "fake_quant_forward_traced", "fake_quant_backward_traced",
-           "fake_quant_fwdbwd", "pc_plan", "LAUNCHES"]
+           "fake_quant_fwdbwd", "pc_plan", "fwd_plan", "LAUNCHES"]
 
 LAUNCHES = {"fq_fwd_pt": 0, "fq_fwd_pc": 0, "fq_bwd_pt": 0, "fq_bwd_pc": 0,
             "fq_fwd_pt_traced": 0, "fq_fwd_pc_traced": 0,
@@ -68,6 +70,10 @@ _NARROW = (torch.float16, torch.bfloat16)
 # (K, N) weights, PERF.md §6.)
 _BLOCK_WARPS, _MAX_CLUSTER = 8, 8
 _CLUSTER_GROUPS, _WARP_ROWS, _FILL = 4, 4, 264
+# The per-channel forward's items (csrc/fake_quant.cu): runs, a piece of 128
+# elements a warp (a group of 4 a lane), 256 (two) past _FWD_BIG items;
+# rows, 2 rows a warp.  (Measured on the H100, PERF.md §6.)
+_FWD_PIECE, _FWD_BIG, _FWD_ROWS = 128, 1 << 16, 2
 
 
 def _narrow(*ts: torch.Tensor) -> bool:
@@ -145,6 +151,20 @@ def pc_plan(outer: int, c: int, inner: int) -> Tuple[int, int]:
     return warps, cluster
 
 
+def fwd_plan(outer: int, c: int, inner: int) -> int:
+    """``span`` of the per-channel forward over the ``(outer, c, inner)``
+    view, from the shape alone: a warp's work item.  Runs (``inner > 1``):
+    a piece of one ``(o, c)`` run of ``span`` elements (128, or 256 when
+    the items would be more than ``_FWD_BIG``; a multiple of 4, at most the
+    run), the run's last piece what is left.  Rows (``inner == 1``): 2 rows
+    of a strip of 32 lanes, each lane on 4 neighbouring channels when ``c %
+    4 == 0``, else on one."""
+    if inner == 1:
+        return _FWD_ROWS
+    big = outer * c * -(-inner // _FWD_PIECE) > _FWD_BIG
+    return min(_FWD_PIECE * (2 if big else 1), 4 * -(-inner // 4))
+
+
 _pt_slots: dict = {}  # (device index, stream) -> the per-tensor backward's slot
 _pt_slots_lock = threading.Lock()
 
@@ -190,7 +210,8 @@ def _launch_forward(what: str, x: torch.Tensor, scale: torch.Tensor,
     ptrs = [x.data_ptr(), scale.data_ptr(), shift.data_ptr()]
     if flags is not None:
         ptrs.append(flags.data_ptr())
-    dims = (outer, c, inner) if spec.per_channel else (x.numel(),)
+    dims = ((outer, c, inner, fwd_plan(outer, c, inner)) if spec.per_channel
+            else (x.numel(),))
     err = getattr(_build.load_library(), "jlt_" + name)(
         *ptrs, out.data_ptr(), *dims, *_range(spec),
         torch.cuda.current_stream(x.device).cuda_stream)

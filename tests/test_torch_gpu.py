@@ -547,9 +547,10 @@ FQ_SPECS = {
 STATIC_FQ = ("fq_fwd_pt", "fq_fwd_pc", "fq_bwd_pt", "fq_bwd_pc")
 FQ_SHAPES = {"act": [(64, 3, 32, 32), (64, 512, 4, 4), (64, 512), (3,), (33, 7, 5)],
              "sym": [(64, 64, 32, 32), (1000,)],
-             "w_oihw": [(512, 512, 3, 3), (64, 3, 3, 3), (128, 64, 1, 1), (5, 3, 1, 1)],
-             "w_kn": [(512, 10), (33, 300), (512, 8192)],
-             "aff_nchw": [(8, 16, 5, 5)]}
+             "w_oihw": [(512, 512, 3, 3), (64, 3, 3, 3), (128, 64, 1, 1), (5, 3, 1, 1),
+                        (16, 64, 3, 3), (1,)],
+             "w_kn": [(512, 10), (33, 300), (512, 8192), (17, 12), (40, 1)],
+             "aff_nchw": [(8, 16, 5, 5), (3, 7, 4, 4), (2, 1, 4098)]}
 
 
 def _fq_abs_sums(g, x, s, b, spec, init_mode, gs):
@@ -1063,6 +1064,119 @@ def test_fake_quant_pc_backward_is_one_kernel(cuda, name, shape):
         "fq_bwd_pc_")
 
 
+# the per-channel forward's layouts (tests/test_torch_fq_fwd_plan.py): runs
+# at inner % 4 == 0 and not, pieces of a run, C = 1, outer > 1; rows at a
+# channel a lane and four, partial strips; the table's two shapes; 9 Mi
+# elements (256-element pieces)
+PC_FWD_CASES = [("w_oihw", (64, 3, 3, 3)), ("w_oihw", (16, 64, 3, 3)),
+                ("aff_oihw", (4, 300, 2, 2)), ("aff_oihw", (3, 5000)),
+                ("aff_nchw", (2, 1, 4098)), ("aff_nchw", (8, 16, 5, 5)),
+                ("aff_nchw", (3, 7, 4, 4)), ("w_kn", (512, 10)), ("aff_kn", (33, 300)),
+                ("w_kn", (17, 12)), ("aff_kn", (40, 1)), ("w_oihw", (1,)),
+                ("w_oihw", (128, 64, 1, 1)), ("w_oihw", (512, 512, 3, 3)),
+                ("w_kn", (512, 8192)), ("w_oihw", (9000, 1000))]
+
+
+def _pc_fwd_inputs(cuda, name, shape, seed, off=0):
+    """x on its channels' round-half points (k + 0.5) s, k within and beyond
+    the range, as a view at element ``off`` of a buffer (off = 1: 4-byte
+    aligned), and its qparams."""
+    spec = QuantSpec(**PC_ORDER_SPECS[name])
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n = int(np.prod(shape))
+    c = shape[spec.axis]
+    s = 0.01 + 0.04 * torch.rand(c, device=cuda, generator=g)
+    b = (torch.zeros(c, device=cuda) if spec.symmetric
+         else 0.2 * torch.randn(c, device=cuda, generator=g))
+    k = torch.randint(-400, 400, (n,), device=cuda, generator=g).float() + 0.5
+    inner = int(np.prod(shape[spec.axis + 1:]))
+    buf = torch.empty(n + 1, device=cuda)
+    buf[off:off + n] = k * s[(torch.arange(n, device=cuda) // inner) % c]
+    return spec, buf[off:off + n].view(shape), s, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", PC_FWD_CASES)
+def test_fake_quant_pc_forward_matches_plain_at_every_layout(cuda, name, shape):
+    """``fq_fwd_pc`` and ``fq_fwd_pc_traced`` (the four flag pairs) bit-equal
+    to ``golden_forward(_traced)`` at the runs and rows layouts, on 16-byte
+    and 4-byte aligned views of one buffer (offset by one element), on
+    round-half points and beyond the range; one launch a call."""
+    from jaxlsq_torch.core.golden import golden_forward, golden_forward_traced
+    from jaxlsq_torch.ops.fake_quant import (LAUNCHES, fake_quant_forward,
+                                             fake_quant_forward_traced)
+
+    for off in (0, 1):
+        spec, x, s, b = _pc_fwd_inputs(cuda, name, shape, sum(shape) + 37, off)
+        before = dict(LAUNCHES)
+        out = fake_quant_forward(x, s, b, spec)
+        torch.cuda.synchronize()
+        assert LAUNCHES["fq_fwd_pc"] == before["fq_fwd_pc"] + 1
+        assert sum(LAUNCHES.values()) == sum(before.values()) + 1
+        assert torch.equal(out, golden_forward(x, s, b, spec)), off
+        assert torch.equal(out.cpu(), golden_forward(x.cpu(), s.cpu(), b.cpu(), spec)), off
+        for ev, ini in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            flags = torch.tensor([float(ev), float(ini)], device=cuda)
+            got = fake_quant_forward_traced(x, s, b, flags, spec)
+            want = golden_forward_traced(x, s, b, spec, flags[0], flags[1])
+            assert torch.equal(got, want), (off, ev, ini)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,shape", [("w_oihw", (512, 512, 3, 3)),
+                                        ("w_oihw", (64, 3, 3, 3)),
+                                        ("w_kn", (512, 8192)), ("w_kn", (512, 10))])
+def test_fake_quant_pc_forward_is_one_kernel(cuda, name, shape):
+    """Each per-channel forward call (static, traced) is one kernel on the
+    profiler's record and allocates its output only."""
+    from jaxlsq_torch.ops.fake_quant import (fake_quant_forward,
+                                             fake_quant_forward_traced)
+
+    spec, x, s, b = _pc_fwd_inputs(cuda, name, shape, 41)
+    flags = torch.zeros(2, device=cuda)
+    _one_kernel_a_call(
+        {"fq_fwd_pc": (lambda: fake_quant_forward(x, s, b, spec), 1),
+         "fq_fwd_pc_traced": (lambda: fake_quant_forward_traced(x, s, b, flags, spec), 1)},
+        "fq_fwd_pc_")
+
+
+@pytest.mark.gpu
+def test_fake_quant_pc_forward_replays_give_the_eager_bits(cuda):
+    """A captured CUDA graph of per-channel forward calls (runs and rows,
+    static and traced), replayed on new data and flags, gives the eager
+    calls' bits every time."""
+    from jaxlsq_torch.ops.fake_quant import (fake_quant_forward,
+                                             fake_quant_forward_traced)
+
+    cases = [_pc_fwd_inputs(cuda, name, shape, 43 + k, off) for k, (name, shape, off) in
+             enumerate((("w_oihw", (128, 64, 3, 3), 0), ("w_kn", (512, 1536), 0),
+                        ("aff_nchw", (8, 16, 5, 5), 1)))]
+    flags = torch.zeros(2, device=cuda)
+
+    def run():
+        return [f for spec, x, s, b in cases
+                for f in (fake_quant_forward(x, s, b, spec),
+                          fake_quant_forward_traced(x, s, b, flags, spec))]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = run()
+    g = torch.Generator(device=cuda).manual_seed(47)
+    for i in range(6):
+        for _, x, _, _ in cases:
+            x.copy_(torch.randn(x.shape, device=cuda, generator=g) * (0.5 + i))
+        flags.copy_(torch.tensor([float(i % 2), float(i // 3 % 2)]))
+        graph.replay()
+        want = run()
+        torch.cuda.synchronize()
+        for k, (a, w) in enumerate(zip(outs, want)):
+            assert torch.equal(a, w), (i, k)
+
+
 # the per-tensor backward's order cases (tests/test_torch_fq_pt_order.py):
 # one tile and less, a block a tile up to 512 tiles, then several tiles a
 # block (uneven at 4,198,404), the table's activation and the LM's largest
@@ -1555,3 +1669,106 @@ def test_captured_lm_step_matches_eager_step_on_card(cuda):
     for p0, p1 in zip(models[0].parameters(), models[1].parameters()):
         assert torch.equal(opts[0].state[p0]["momentum_buffer"],
                            opts[1].state[p1]["momentum_buffer"])
+
+
+# NaN and ±inf: every fake-quant kernel passes a NaN through its clamps as
+# the plain version (torch.clamp) and jaxlsq (jnp.clip) do
+NAN_CASES = [("act", (33, 7, 5)), ("sym", (64, 512)), ("w_oihw", (64, 3, 3, 3)),
+             ("w_oihw", (16, 64, 3, 3)), ("w_kn", (512, 10)), ("w_kn", (33, 300)),
+             ("aff_nchw", (8, 16, 5, 5))]
+
+
+def _nan_inputs(cuda, name, shape, qp, seed):
+    """x with NaN, +inf and -inf spread over it (every channel gets some)
+    in one buffer one element longer (for the 4-byte-aligned view), and the
+    qparams with a NaN scale or shift in one channel (or the one qparam)."""
+    spec = QuantSpec(**FQ_SPECS[name])
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n = int(np.prod(shape))
+    xbuf = torch.randn(n + 1, device=cuda, generator=g) * 1.5
+    gbuf = torch.randn(n + 1, device=cuda, generator=g)
+    picks = torch.randperm(n + 1, device=cuda, generator=g)[:3 * max(2, n // 40)]
+    specials = torch.tensor([float("nan"), float("inf"), -float("inf")], device=cuda)
+    xbuf[picks] = specials[torch.arange(picks.numel(), device=cuda) % 3]
+    c = shape[spec.axis] if spec.per_channel else 1
+    s = 0.01 + 0.04 * torch.rand(c, device=cuda, generator=g)
+    b = (torch.zeros(c, device=cuda) if spec.symmetric
+         else 0.2 * torch.randn(c, device=cuda, generator=g))
+    if qp != "finite":
+        (s if qp == "nan_scale" else b)[min(1, c - 1)] = float("nan")
+    return spec, xbuf, gbuf, s, b, n
+
+
+def _same_bits_or_nan(got, want):
+    """NaN in the same places, every other element bit-equal."""
+    got = got.cpu()
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan])
+
+
+def _sums_close(got, want, tot):
+    """NaN and ±inf where the plain sum has them; the finite sums equal or
+    within 1e-5 of the sum of |terms| (eval mode's zeros have a NaN term
+    sum where a qparam is NaN)."""
+    got, want = got.cpu().double(), want.double()
+    nan, fin = torch.isnan(want), torch.isfinite(want)
+    if not (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got[~fin & ~nan], want[~fin & ~nan])):
+        return False
+    err = (got[fin] - want[fin]).abs()
+    return bool(((err == 0) | (err <= 1e-5 * tot.reshape(want.shape)[fin])).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("qp", ["finite", "nan_scale", "nan_shift"])
+@pytest.mark.parametrize("name,shape", NAN_CASES)
+def test_fake_quant_kernels_pass_nan_and_inf(cuda, name, shape, qp):
+    """Every static (train, eval, init), traced (the four flag pairs) and
+    fused fake-quant kernel on x holding NaN, +inf and -inf, with a NaN
+    scale or shift, at 16- and 4-byte alignment, against the plain version:
+    out and dX NaN in the same places and every other element bit-equal;
+    dS/dB NaN and inf where the plain has them, else within 1e-5 of their
+    term sums.  fminf/fmaxf alone would turn a NaN x into qmin (a finite
+    out, dS on the qmin branch) and a NaN scale into FLT_EPSILON."""
+    from jaxlsq_torch.core.golden import effective_grad_scale
+    from jaxlsq_torch.ops.fake_quant import (fake_quant_backward,
+                                             fake_quant_backward_traced,
+                                             fake_quant_forward,
+                                             fake_quant_forward_traced,
+                                             fake_quant_fwdbwd)
+
+    spec, xbuf, gbuf, s, b, n = _nan_inputs(cuda, name, shape, qp, sum(shape) + 31)
+    c = s.numel()
+    gs = effective_grad_scale(spec, n, c)
+    for off in (0, 1):
+        x, gr = xbuf[off:off + n].view(shape), gbuf[off:off + n].view(shape)
+        cpu = [t.cpu() for t in (gr, x, s, b)]
+        assert bool(torch.isnan(cpu[1]).any() and torch.isinf(cpu[1]).any())
+        for eval_mode, init_mode in ((False, False), (True, False), (False, True)):
+            out = fake_quant_forward(x, s, b, spec, init_mode)
+            got = fake_quant_backward(gr, x, s, b, spec, eval_mode, init_mode)
+            ref = fake_quant_forward(*cpu[1:], spec, init_mode)
+            want = fake_quant_backward(*cpu, spec, eval_mode, init_mode)
+            tot = _fq_abs_sums(*cpu, spec, init_mode, gs)
+            what = (off, eval_mode, init_mode)
+            assert _same_bits_or_nan(out, ref), what
+            assert _same_bits_or_nan(got[0], want[0]), what
+            assert _sums_close(got[1], want[1], tot[0]), what
+            assert _sums_close(got[2], want[2], tot[1]), what
+            if not (eval_mode or init_mode):
+                fout, fdx, fds, fdb = fake_quant_fwdbwd(gr, x, s, b, spec=spec)
+                assert _same_bits_or_nan(fout, ref) and _same_bits_or_nan(fdx, want[0])
+                assert _sums_close(fds, want[1], tot[0]), what
+                assert _sums_close(fdb, want[2], tot[1]), what
+        for ev, ini in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            flags = torch.tensor([float(ev), float(ini)], device=cuda)
+            out = fake_quant_forward_traced(x, s, b, flags, spec)
+            got = fake_quant_backward_traced(gr, x, s, b, flags, spec)
+            ref = fake_quant_forward_traced(*cpu[1:], flags.cpu(), spec)
+            want = fake_quant_backward_traced(*cpu, flags.cpu(), spec)
+            tot = _fq_abs_sums(*cpu, spec, bool(ini), gs)
+            what = (off, ev, ini)
+            assert _same_bits_or_nan(out, ref), what
+            assert _same_bits_or_nan(got[0], want[0]), what
+            assert _sums_close(got[1], want[1], tot[0]), what
+            assert _sums_close(got[2], want[2], tot[1]), what

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time the weight-only matmul kernels (``wo8``, ``wo4``, ``wo4g``), or with
 ``--lab`` the int4 lab's two kernels (``wo4_bf16``, ``wo4_native``), or with
-``--fq`` the per-channel fake-quant backward (``fq_bwd_pc``,
-``fq_bwd_pc_traced``, ``fq_fwdbwd_pc``), of two checkouts of this repo on
+``--fq`` the fake-quant kernels (forward, backward and fused, per tensor
+and per channel), of two checkouts of this repo on
 one card, in turns (first, second, second, first), so that two versions are
 compared within one run on one card:
 
@@ -22,13 +22,15 @@ at M = 1, 16 and 128, K = N = 8192, timed by this checkout's
 ``--fq``: each checkout's ``ops.fake_quant`` in train mode, inputs rotated
 past the L2.  The per-tensor backward: ``fq_bwd_pt`` and
 ``fq_bwd_pt_traced`` on unit-normal activations (the activation spec, ``s
-= 6 / 127``) at (64, 64, 32, 32), and summed over the 21 activation
+= 6 / 127``) at (64, 64, 32, 32) (there also the per-tensor forward
+``fq_fwd_pt`` and ``fq_fwd_pt_traced``), and summed over the 21 activation
 quantizers' inputs of ``resnet18_cifar`` at B = 64 and the 9 of the d512 LM
 at 8192 tokens (this checkout's models, run once on the CPU at a small
 batch, the batch dimensions then set to the real ones); ``fq_fwdbwd_pt`` on
 phase 11's per-tensor chain inputs (65536 x 1024).  The per-channel
 backward on seeded lecun-normal weights (the resnet weight spec, ``s = 4
-sd / 127``): ``fq_bwd_pc`` and ``fq_bwd_pc_traced`` at (512, 512, 3, 3) on
+sd / 127``): ``fq_bwd_pc`` and ``fq_bwd_pc_traced``, and the forward
+``fq_fwd_pc`` and ``fq_fwd_pc_traced``, at (512, 512, 3, 3) on
 axis 0, at (512, 8192) on axis 1, and summed over the 21 per-channel
 weights of ``resnet18_cifar`` and the 9 (K, N) weights of the d512 LM;
 ``fq_fwdbwd_pc`` on the (8192, 8192) chain inputs.  One summary line a
@@ -114,17 +116,23 @@ def fq_act_shapes():
 
 
 def fq_rows(torch, chip_smoke, shapes):
-    """The checkout's fake-quant backward: {case: {kernel: ms}} (the sums'
+    """The checkout's fake-quant kernels: {case: {kernel: ms}} (the sums'
     cases also list each shape's ms)."""
     from jaxlsq_torch.models import default_qconfig
     from jaxlsq_torch.ops.fake_quant import (fake_quant_backward,
                                              fake_quant_backward_traced,
+                                             fake_quant_forward,
+                                             fake_quant_forward_traced,
                                              fake_quant_fwdbwd)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
     flags = torch.zeros(2, device=dev)  # train mode
     qc = default_qconfig(8, 8, per_channel_weights=True)
+
+    def best(fns, args):
+        return {k: min(chip_smoke.measure(fn, args)[0] for _ in range(3))
+                for k, fn in fns.items()}
 
     def time_pair(shape, axis):
         spec = qc.weight_for_axis(axis).spec
@@ -134,17 +142,18 @@ def fq_rows(torch, chip_smoke, shapes):
         args = [(torch.randn(shape, device=dev, generator=g) * sd,
                  torch.randn(shape, device=dev, generator=g))
                 for _ in range(chip_smoke.copies_for(12 * n))]
-        fns = {"fq_bwd_pc": lambda x, gg: fake_quant_backward(gg, x, s, b, spec),
-               "fq_bwd_pc_traced": lambda x, gg: fake_quant_backward_traced(gg, x, s, b,
-                                                                            flags, spec)}
-        return {k: min(chip_smoke.measure(fn, args)[0] for _ in range(3))
-                for k, fn in fns.items()}
+        return best({
+            "fq_fwd_pc": lambda x, gg: fake_quant_forward(x, s, b, spec),
+            "fq_fwd_pc_traced": lambda x, gg: fake_quant_forward_traced(x, s, b, flags, spec),
+            "fq_bwd_pc": lambda x, gg: fake_quant_backward(gg, x, s, b, spec),
+            "fq_bwd_pc_traced": lambda x, gg: fake_quant_backward_traced(gg, x, s, b, flags,
+                                                                         spec)}, args)
 
     act = qc.activation.spec  # the table's per-tensor activation
     s_act = torch.full((1,), 6.0 / act.quant_max, device=dev)
     b_act = -s_act * (act.quant_max // 2)
 
-    def time_pt(shape):
+    def time_pt(shape, fwd=False):
         n = math.prod(shape)
         args = [(torch.randn(shape, device=dev, generator=g),
                  torch.randn(shape, device=dev, generator=g))
@@ -152,10 +161,13 @@ def fq_rows(torch, chip_smoke, shapes):
         fns = {"fq_bwd_pt": lambda x, gg: fake_quant_backward(gg, x, s_act, b_act, act),
                "fq_bwd_pt_traced": lambda x, gg: fake_quant_backward_traced(
                    gg, x, s_act, b_act, flags, act)}
-        return {k: min(chip_smoke.measure(fn, args)[0] for _ in range(3))
-                for k, fn in fns.items()}
+        if fwd:
+            fns = {"fq_fwd_pt": lambda x, gg: fake_quant_forward(x, s_act, b_act, act),
+                   "fq_fwd_pt_traced": lambda x, gg: fake_quant_forward_traced(
+                       x, s_act, b_act, flags, act), **fns}
+        return best(fns, args)
 
-    rows = {"act_64x64x32x32": time_pt((64, 64, 32, 32))}
+    rows = {"act_64x64x32x32": time_pt((64, 64, 32, 32), fwd=True)}
     for key in ("resnet_act", "lm_act"):
         per = [{"shape": shape, **time_pt(tuple(shape))} for shape in shapes[key]]
         rows[key] = {k: sum(r[k] for r in per) for k in ("fq_bwd_pt", "fq_bwd_pt_traced")}
@@ -165,7 +177,8 @@ def fq_rows(torch, chip_smoke, shapes):
     for key in ("resnet", "lm"):
         per = [{"shape": shape, "axis": axis, **time_pair(tuple(shape), axis)}
                for shape, axis in shapes[key]]
-        rows[key] = {k: sum(r[k] for r in per) for k in ("fq_bwd_pc", "fq_bwd_pc_traced")}
+        rows[key] = {k: sum(r[k] for r in per) for k in (
+            "fq_fwd_pc", "fq_fwd_pc_traced", "fq_bwd_pc", "fq_bwd_pc_traced")}
         rows[key]["shapes"] = per
     for kind, key in (("pc", "chain_8192x8192"), ("pt", "chain_65536x1024")):
         spec, shape = chip_smoke._chain_specs()[kind]
@@ -230,7 +243,7 @@ def main(argv):
     ap.add_argument("--lab", action="store_true",
                     help="time the int4 lab kernels instead of wo8/wo4/wo4g")
     ap.add_argument("--fq", action="store_true",
-                    help="time the fake-quant backward instead")
+                    help="time the fake-quant kernels instead")
     ap.add_argument("--fq-shapes", help=argparse.SUPPRESS)
     ap.add_argument("--out")
     args = ap.parse_args(argv)
