@@ -151,7 +151,24 @@ exits non-zero on any failure (no phase is caught and skipped):
    M = 1, 16 and 128; device time and weight GB/s of each beside the plain
    versions, ``torch.matmul`` on dequantized f32 and bf16 weights and the
    lab kernels' tensor-core bounds (one bf16 pass for ``wo4_bf16``, three
-   for ``wo4_native``).
+   for ``wo4_native``);
+13. conv-net train-then-serve: full-width ``mobilenetv2_cifar`` (36
+   classes) at B = 128 on the grating task of examples/accuracy_parity.py
+   (drawn on the card), under combo1200's qconfig with a 20-batch window:
+   the static and traced fake-quant kernels at its 46 quantizer shapes on
+   one eager step's real data (phase 2's gates); then, every launch count
+   reset, the eager (30 steps) and captured (50 steps) legs under AdamW
+   (weight decay 1e-4, ``capturable=True``) and the protocol's cosine lr,
+   images/s past the window, launches a step, a profiled replay's kernels
+   by kind; ``reestimate_batch_stats`` over 20 batches (fails unless every
+   quantizer tensor is unchanged and every BatchNorm moved); convert and
+   serve at w8a8 and w4a8 on 2,000 images (logits within 1e-4 of max|ref| of
+   the QAT model's eval logits, every dequantized pack bit-equal to its
+   fake-quantized weight, the classifier through ``wo8``/``wo4``); one B = 8
+   step against the CPU plain path (phase 6's rule); eager = captured from
+   one state over 5 steps across a 2-batch window (phase 8's rule); and
+   ``wo8``/``wo4`` at M = 2,000, K = 256 and 512, N = 36 against
+   ``wo_matmul_plain`` (1e-4 of max|ref|).
 
 Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes the full
@@ -175,6 +192,7 @@ from jaxlsq_torch.lab.timing import (PROFILE_MISSES, WAITING_CALLS,  # noqa: E40
                                      profiled)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
+F32_EPS = 2.0 ** -23
 F32_FLOPS = 67e12           # H100 SXM f32 outside the tensor cores
 TF32_FLOPS = 495e12         # H100 SXM dense TF32 on the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM dense bf16 on the tensor cores
@@ -208,6 +226,12 @@ CHAIN_K1, CHAIN_K2, CHAIN_ROUNDS = 2, 8, 5
 CANON_BYTES, FUSED_BYTES = 20, 16  # per element: the split pair, the fused pass
 # the int4 kernel lab (examples/_int4_kernel_lab.py) at decode and prefill M
 LAB_MS, LAB_K, LAB_N, LAB_ROUNDS = (1, 16, 128), 8192, 8192, 5
+# conv-net train-then-serve: mobilenetv2_cifar on the grating task of
+# examples/accuracy_parity.py (36 classes, 32x32x3), 22 convs and the
+# classifier, a weight and an activation quantizer each
+MNV2_B, MNV2_CLASSES, MNV2_QUANTIZERS = 128, 36, 46
+MNV2_WINDOW, MNV2_TIMED, MNV2_EAGER_TIMED = 20, 30, 10
+MNV2_PROTOCOL_STEPS, MNV2_BN_BATCHES, MNV2_EVAL_N = 1500, 20, 2000
 
 
 def reset_counts():
@@ -952,12 +976,20 @@ def _sgd(torch, model):
 
 def _capture_step(torch):
     """One eager training step of a fresh resnet18_cifar at B = 64, with
-    every quantizer's input, qparams and incoming gradient captured by
-    hooks."""
+    every quantizer's input, qparams and incoming gradient captured."""
+    caps = _capture_quantizers(torch, _resnet(torch, "cuda", seed=1),
+                               _image_batches(torch, 1, TRAIN_B, seed=11)[0])
+    if len(caps) != 42:
+        raise AssertionError(f"captured {len(caps)} quantizers, expected 42 with gradients")
+    return caps
+
+
+def _capture_quantizers(torch, model, batch):
+    """One eager SGD step of ``model`` on ``batch``, with every quantizer's
+    input, qparams and incoming gradient captured by hooks."""
     from jaxlsq_torch.models.layers import FakeQuantize
     from jaxlsq_torch.parallel import make_train_step
 
-    model = _resnet(torch, "cuda", seed=1)
     caps = []
 
     def hook(name, mod, inputs, out):
@@ -970,7 +1002,6 @@ def _capture_step(torch):
     handles = [mod.register_forward_hook(
         lambda m, i, o, name=name: hook(name, m, i, o))
         for name, mod in model.named_modules() if isinstance(mod, FakeQuantize)]
-    batch = _image_batches(torch, 1, TRAIN_B, seed=11)[0]
     # in the observer window the stem's qparams take no gradient, so only
     # an image that does gives the stem's quantizer an incoming gradient
     batch["image"].requires_grad_(True)
@@ -978,8 +1009,8 @@ def _capture_step(torch):
     torch.cuda.synchronize()
     for h in handles:
         h.remove()
-    if len(caps) != 42 or any("g" not in c for c in caps):
-        raise AssertionError(f"captured {len(caps)} quantizers, expected 42 with gradients")
+    if any("g" not in c for c in caps):
+        raise AssertionError("a quantizer's output took no gradient")
     return caps
 
 
@@ -1324,7 +1355,8 @@ def _cpu_check(torch, model, step, batch, cpu_model, label):
     boundary and come out one quant step away; each such element moves every
     later layer a little and flips more of them.  So the CPU step takes the
     card's activation where the two differ by more than half a quant step,
-    after checking that they differ by at most one step, and fails if more
+    after checking that they differ by at most one step (and the two levels'
+    f32 rounding), and fails if more
     than ``MAX_MOVED_SHARE`` of the elements were taken: a kernel that rounds
     wrong on a share of its elements fails here.  The loss without that
     hand-over is recorded beside it."""
@@ -1350,7 +1382,11 @@ def _cpu_check(torch, model, step, batch, cpu_model, label):
             d = card_out[n] - out.detach()
             q = float(mod.scale.detach().abs().max())
             far = d.abs() > 0.5 * q
-            if float(d.abs().max()) > q * (1 + 1e-5):
+            # two adjacent levels (k - zp) * s differ by s up to the f32
+            # rounding of each: an ulp of the largest level, 255 s at 8 bits
+            # over the full range
+            slack = 1e-5 * q + 2 * F32_EPS * float(out.detach().abs().max())
+            if float(d.abs().max()) > q + slack:
                 raise AssertionError(f"{n}: card and CPU activations differ by "
                                      f"{float(d.abs().max())}, more than a quant step {q}")
             moved[0] += int(far.sum())
@@ -2451,6 +2487,321 @@ def phase_int4_lab(torch, rec):
         times[name] = rows
 
 
+# ---------------------------------------------------------------------------
+# conv-net train-then-serve: mobilenetv2_cifar on the grating task
+# ---------------------------------------------------------------------------
+
+def _mnv2(torch, device, wbits=8, window=MNV2_WINDOW):
+    """Full-width mobilenetv2_cifar (36 classes) under combo1200's qconfig
+    (examples/recipe_sweep.py:168; w4a8 at :234) with an observer window of
+    ``window`` batches."""
+    from jaxlsq_torch.models import default_qconfig, mobilenetv2_cifar
+
+    qc = default_qconfig(wbits, 8, per_channel_weights=True, init_batches=window,
+                         reduce_range=False)
+    return mobilenetv2_cifar(MNV2_CLASSES, qc, device=device, seed=0)
+
+
+def _grating_batches(torch, n, b, seed):
+    from jaxlsq_torch.lab.accuracy_parity import make_batch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [dict(zip(("image", "label"), make_batch(b, g, "cuda"))) for _ in range(n)]
+
+
+def _adamw(torch, model):
+    """The protocol's optimizer: AdamW with optax's weight decay, its lr on
+    the card (a captured step reads it there)."""
+    return torch.optim.AdamW(model.parameters(), lr=torch.tensor(3e-3, device="cuda"),
+                             weight_decay=1e-4, capturable=True)
+
+
+def _quantizer_state(model):
+    from jaxlsq_torch.models.layers import FakeQuantize
+
+    return {f"{n}.{k}": v.detach().clone() for n, m in model.named_modules()
+            if isinstance(m, FakeQuantize)
+            for k, v in list(m.named_parameters()) + list(m.named_buffers())}
+
+
+def _mnv2_leg(torch, jit, steps, timed, fq, kernels):
+    """``steps`` steps of a fresh w8a8 mobilenetv2_cifar at B = MNV2_B under
+    the protocol's optimizer and cosine lr; images/s over the last ``timed``
+    (past the observer window); the launches of ``kernels`` a step."""
+    from jaxlsq_torch.lab.accuracy_parity import cosine_lr
+    from jaxlsq_torch.parallel import make_train_step
+
+    model = _mnv2(torch, "cuda")
+    opt = _adamw(torch, model)
+    step = make_train_step(model, opt, jit=jit)
+    batches = _grating_batches(torch, steps + 1, MNV2_B, seed=21)
+    torch.cuda.synchronize()
+    losses, per_step, t_start = [], [], None
+    for i, batch in enumerate(batches[:steps]):
+        if i == steps - timed:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        for group in opt.param_groups:
+            group["lr"] = cosine_lr(i, MNV2_PROTOCOL_STEPS)
+        before = dict(fq)
+        losses.append(step(batch)["loss"])
+        per_step.append({k: fq[k] - before[k] for k in kernels})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    leg = {"steps": steps, "timed_steps": timed, "step_ms": 1e3 * wall / timed,
+           "images_per_s": timed * MNV2_B / wall,
+           "losses": torch.stack(losses).cpu().tolist(), "per_step_launches": per_step}
+    if not all(math.isfinite(v) for v in leg["losses"]):
+        raise AssertionError(f"non-finite mobilenetv2 loss: {leg['losses']}")
+    return model, step, batches[steps], leg
+
+
+def _mnv2_serve(torch, model, wbits, images, mm, fq):
+    """The trained variables through convert into a serve-mode
+    mobilenetv2_cifar (``load_variables``): its logits on ``images`` within
+    1e-4 of max|ref| of the QAT model's eval logits on the same variables,
+    every layer's dequantized pack bit-equal to its fake-quantized weight,
+    and the classifier through wo8/wo4 (and no fake-quant kernel)."""
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.models import QuantConv, QuantDense, mobilenetv2_cifar
+    from jaxlsq_torch.ops.fake_quant import fake_quant_forward
+    from jaxlsq_torch.parallel import make_eval_step
+    from jaxlsq_torch.serve.pack import dequantize_weight
+
+    served = mobilenetv2_cifar(MNV2_CLASSES, model.qconfig.for_serving("static"),
+                               device="cuda")
+    interop.load_variables(served, interop.qat_variables(model))
+    served.eval()
+    want = make_eval_step(model)({"image": images})
+    before_mm, before_fq = dict(mm), dict(fq)
+    with torch.no_grad():
+        got = served(images)
+    torch.cuda.synchronize()
+    launches = {k: mm[k] - before_mm[k] for k in mm}
+    fq_launches = sum(fq[k] - before_fq[k] for k in fq)
+    err = float((got - want).abs().max())
+    tol = 1e-4 * float(want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    packs_equal = 0
+    layers = dict(served.named_modules())
+    for name, mod in model.named_modules():
+        if isinstance(mod, (QuantConv, QuantDense)):
+            wf = mod.weight_fq
+            fq_w = fake_quant_forward(mod.kernel.detach(), wf.scale.detach(),
+                                      wf.shift.detach(), wf.cfg.spec)
+            deq = dequantize_weight(layers[name].kernel.packed())
+            if isinstance(mod, QuantConv):
+                deq = deq.permute(3, 2, 0, 1)
+            if not torch.equal(deq, fq_w):
+                raise AssertionError(f"w{wbits}a8 {name}: dequant(pack(w)) != fake_quant(w)")
+            packs_equal += 1
+    kernel = "wo8" if wbits == 8 else "wo4"
+    out = {"logits_err": err, "tol": tol, "top1_agreement": agree,
+           "launches": launches, "fake_quant_launches": fq_launches,
+           "packs_bit_equal": packs_equal}
+    log(f"[convnet] served w{wbits}a8 mobilenetv2_cifar on {images.shape[0]} images: "
+        f"logits vs the QAT model's eval logits max_abs_err {err:.3e} (tol {tol:.3e}), "
+        f"argmax agreement {agree:.4f}; {packs_equal} packs dequantize to the "
+        f"fake-quantized weights bit for bit; launches {launches}")
+    if not (err <= tol and torch.isfinite(got).all()):
+        raise AssertionError(f"w{wbits}a8 served logits disagree: {err} > {tol}")
+    if launches[kernel] != 1 or fq_launches:
+        raise AssertionError(f"w{wbits}a8: the served classifier ran {launches}, "
+                             f"{fq_launches} fake-quant launches")
+    return out
+
+
+def _classifier_kernels(torch, rec):
+    """wo8 (w8a8) and wo4 (w4a8) at the classifier's shape against
+    wo_matmul_plain: M = 2,000, K = 256 (mobilenetv2's head) and 512
+    (resnet18's), N = 36, within 1e-4 of max|ref|."""
+    from jaxlsq_torch.core.spec import QuantSpec
+    from jaxlsq_torch.serve.matmul import wo_matmul, wo_matmul_plain
+    from jaxlsq_torch.serve.pack import quantize_weight
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    out = {}
+    for k in (256, 512):
+        w = torch.randn(k, MNV2_CLASSES, device="cuda", generator=g) * k ** -0.5
+        x = torch.randn(MNV2_EVAL_N, k, device="cuda", generator=g)
+        for bits, name in ((8, "wo8"), (4, "wo4")):
+            spec = QuantSpec.weight_default(bits, per_channel=True, axis=1,
+                                            reduce_range=False)
+            p = quantize_weight(w, w.abs().amax(0) / spec.quant_max,
+                                torch.zeros(MNV2_CLASSES, device="cuda"), spec, bits=bits)
+            got, ref = wo_matmul(x, p), wo_matmul_plain(x, p)
+            err = float((got - ref).abs().max())
+            tol = 1e-4 * float(ref.abs().max())
+            out[f"{name} K={k}"] = err
+            if not err <= tol:
+                raise AssertionError(f"{name} at M={MNV2_EVAL_N}, K={k}, N={MNV2_CLASSES}: "
+                                     f"{err} > {tol}")
+            rec["max_abs_err"][name] = max(rec["max_abs_err"][name], err)
+    log(f"[convnet] the classifier's kernels at M={MNV2_EVAL_N}, N={MNV2_CLASSES} against "
+        f"wo_matmul_plain (tol 1e-4 of max|ref|): {out}")
+    return out
+
+
+def phase_convnet(torch, rec):
+    """Conv-net train-then-serve: full-width mobilenetv2_cifar at B = 128 on
+    the grating task under combo1200's qconfig (a 20-batch window): the
+    fake-quant kernels at its 46 quantizer shapes; the eager and captured
+    training legs (images/s, launches a step, a profiled replay); one B = 8
+    step against the CPU plain path; eager = captured from one state; BN
+    re-estimation; convert and serve at w8a8 and w4a8; the classifier's
+    kernels."""
+    from jaxlsq_torch.lab.accuracy_parity import cosine_lr, make_batch
+    from jaxlsq_torch.models import BatchNorm
+    from jaxlsq_torch.parallel import make_train_step
+    from jaxlsq_torch.utils import reestimate_batch_stats
+
+    t0 = time.time()
+    out = rec["convnet"] = {}
+    # the kernels on one eager step's real activations, weights and gradients
+    model = _mnv2(torch, "cuda")
+    caps = _capture_quantizers(torch, model, _grating_batches(torch, 1, MNV2_B, 31)[0])
+    if len(caps) != MNV2_QUANTIZERS:
+        raise AssertionError(f"mobilenetv2_cifar has {len(caps)} quantizers, not "
+                             f"{MNV2_QUANTIZERS}")
+    del model
+    errs = {k: 0.0 for k in FQ_KERNELS + TRACED_KERNELS + FUSED_KERNELS}
+    worst = {False: 0.0, True: 0.0}
+    for c in caps:
+        for traced in (False, True):
+            worst[traced] = max(worst[traced], _check_fq(
+                torch, c["x"], c["scale"], c["shift"], c["g"], c["spec"], errs,
+                f"mobilenetv2 {c['name']}", traced))
+    for k, v in errs.items():
+        rec["max_abs_err"][k] = max(rec["max_abs_err"][k], v)
+    shapes = [{"name": c["name"], "shape": list(c["x"].shape),
+               "per_channel": c["spec"].per_channel} for c in caps]
+    out["fq_shapes"] = shapes
+    big = max(math.prod(r["shape"]) for r in shapes)
+    log(f"[convnet] fake-quant kernels at mobilenetv2_cifar's {len(shapes)} quantizer "
+        f"shapes at B={MNV2_B} (largest {big} elements; depthwise weights "
+        f"{sorted({tuple(r['shape']) for r in shapes if r['shape'][1:] == [1, 3, 3]})}), "
+        "one eager step's real data, static and traced: forward and dX bit-exact; "
+        f"dS/dB worst {worst[False]:.2e} / {worst[True]:.2e} of their term sums (tol 1e-5)")
+    del caps
+
+    # the main path, every count reset: eager and captured training, BN
+    # re-estimation, convert and serve
+    mm, _, fq = reset_counts()
+    eager_model, _, _, eager = _mnv2_leg(torch, False, MNV2_WINDOW + MNV2_EAGER_TIMED,
+                                         MNV2_EAGER_TIMED, fq, FQ_KERNELS)
+    for i, counts in enumerate(eager["per_step_launches"]):
+        for k, v in counts.items():
+            # in the window the stem's activation quantizer reaches no parameter
+            want = MNV2_QUANTIZERS // 2 - (k == "fq_bwd_pt" and i < MNV2_WINDOW)
+            if v != want:
+                raise AssertionError(f"eager step {i + 1}: {k} ran {v} times, not {want}")
+    model, step, spare, cap = _mnv2_leg(torch, True, MNV2_WINDOW + MNV2_TIMED,
+                                        MNV2_TIMED, fq, FQ_KERNELS + TRACED_KERNELS)
+    for i, counts in enumerate(cap["per_step_launches"]):
+        want = MNV2_QUANTIZERS // 2 if i < 2 else 0
+        if (any(counts[k] != want for k in TRACED_KERNELS)
+                or any(counts[k] for k in FQ_KERNELS)):
+            raise AssertionError(f"captured step {i + 1}: launches {counts}")
+    _graph_of(step)
+    p = cap["profile"] = _profile_train_step(torch, step, spare, cap["step_ms"])
+    cap["replay_fq_kernels"] = _fq_kinds(p["fq_kernels"])
+    want_kinds = {"fwd/traced": MNV2_QUANTIZERS, "bwd_pt/traced": MNV2_QUANTIZERS // 2,
+                  "bwd_pc/traced": MNV2_QUANTIZERS // 2}
+    out.update({"eager": {k: v for k, v in eager.items() if k != "per_step_launches"},
+                "captured": {k: v for k, v in cap.items() if k != "per_step_launches"},
+                "eager_launches_a_step": eager["per_step_launches"][-1],
+                "captured_launches_warmup_capture": cap["per_step_launches"][:2]})
+    log(f"[convnet] mobilenetv2_cifar B={MNV2_B}, combo1200 (window {MNV2_WINDOW}), "
+        f"AdamW cosine: eager {eager['images_per_s']:.1f} images/s "
+        f"({eager['step_ms']:.2f} ms a step over steps {MNV2_WINDOW + 1}-"
+        f"{eager['steps']}), captured {cap['images_per_s']:.1f} images/s "
+        f"({cap['step_ms']:.2f} ms a replay over steps {MNV2_WINDOW + 1}-{cap['steps']}); "
+        f"eager launches a step {eager['per_step_launches'][-1]}")
+    log(f"[convnet] profiled replay: kernels busy {p['device_ms']:.2f} ms "
+        f"({100 * p['busy_share']:.1f}% of a replay), {p['kernels']} kernels; by "
+        "category: " + "; ".join(f"{k} {v:.2f} ms" for k, v in sorted(
+            p["by_category_ms"].items(), key=lambda kv: -kv[1]))
+        + f"; fake-quant kernels by kind {cap['replay_fq_kernels']}")
+    if cap["replay_fq_kernels"] != want_kinds:
+        raise AssertionError(f"the replay ran fake-quant kernels "
+                             f"{cap['replay_fq_kernels']}, not {want_kinds}")
+
+    # BatchNorm re-estimation: only the BatchNorm statistics move
+    before = _quantizer_state(model)
+    stats = {n: m.mean.clone() for n, m in model.named_modules()
+             if isinstance(m, BatchNorm)}
+    g = torch.Generator(device="cuda").manual_seed(777)
+    reestimate_batch_stats(model, (make_batch(MNV2_B, g, "cuda")[0]
+                                   for _ in range(MNV2_BN_BATCHES)))
+    after = _quantizer_state(model)
+    same = all(torch.equal(after[k], v) for k, v in before.items())
+    moved = sum(not torch.equal(m.mean, stats[n]) for n, m in model.named_modules()
+                if n in stats)
+    out["bn_reestimation"] = {"batches": MNV2_BN_BATCHES, "quantizer_tensors": len(before),
+                              "unchanged": same, "batchnorms_moved": moved,
+                              "batchnorms": len(stats)}
+    log(f"[convnet] reestimate_batch_stats over {MNV2_BN_BATCHES} batches: "
+        f"{len(before)} quantizer tensors unchanged: {same}; BatchNorm means moved "
+        f"{moved} of {len(stats)}")
+    if not (same and moved == len(stats)):
+        raise AssertionError(f"BN re-estimation: {out['bn_reestimation']}")
+
+    # convert and serve at w8a8 (the captured leg's model) and w4a8
+    images = make_batch(MNV2_EVAL_N, torch.Generator(device="cuda").manual_seed(99),
+                        "cuda")[0]
+    out["serve_w8a8"] = _mnv2_serve(torch, model, 8, images, mm, fq)
+    w4 = _mnv2(torch, "cuda", wbits=4)
+    opt4 = _adamw(torch, w4)
+    step4 = make_train_step(w4, opt4, jit=True)
+    for i, batch in enumerate(_grating_batches(torch, MNV2_WINDOW + 2, MNV2_B, seed=41)):
+        for group in opt4.param_groups:
+            group["lr"] = cosine_lr(i, MNV2_PROTOCOL_STEPS)
+        step4(batch)
+    out["serve_w4a8"] = _mnv2_serve(torch, w4, 4, images, mm, fq)
+    out["launches"] = {k: fq[k] for k in FQ_KERNELS + TRACED_KERNELS}
+    out["launches"].update({k: mm[k] for k in ("wo8", "wo4")})
+    log(f"[convnet] launches on the path: {out['launches']}")
+    missing = [k for k, v in out["launches"].items() if not v]
+    if missing:
+        raise AssertionError(f"kernels of the conv-net path never launched: {missing}")
+    del w4, opt4, step4, step
+
+    # one B = 8 step from the eager leg's state on the card and on the CPU
+    out["cpu_check"] = _cpu_check(
+        torch, eager_model, make_train_step(eager_model, _sgd(torch, eager_model), jit=False),
+        _grating_batches(torch, 1, CHECK_B, seed=51)[0], lambda: _mnv2(torch, "cpu"),
+        f"[convnet] B={CHECK_B}")
+    del eager_model, model
+
+    # eager = captured from one state (cuDNN deterministic), across the window's
+    # end (a 2-batch window here), the cosine lr on the card
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        models = [_mnv2(torch, "cuda", window=2) for _ in range(2)]
+        opts = [_adamw(torch, m) for m in models]
+        sched = lambda i: cosine_lr(i, EQUAL_STEPS + 1)  # noqa: E731
+        n_leaves, losses, unequal = _steps_equal(
+            torch, models, opts, _grating_batches(torch, EQUAL_STEPS, MNV2_B, seed=61),
+            schedule=sched)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    out["captured_vs_eager"] = {"steps": EQUAL_STEPS, "leaves": n_leaves,
+                                "losses": losses, "unequal": unequal}
+    worst = max((u["rel"] for u in unequal), default=0.0)
+    log(f"[convnet] eager vs captured step from one state, cuDNN deterministic, "
+        f"{EQUAL_STEPS} steps (window end at 3), capturable AdamW under the cosine lr: "
+        f"{n_leaves} leaves a step, {len(unequal)} not bit-equal {unequal[:5]}")
+    if not worst <= 1e-6:
+        raise AssertionError(f"mobilenetv2: the captured step left another state than "
+                             f"the eager step: {unequal[:10]}")
+    del models, opts
+    out["classifier_kernels"] = _classifier_kernels(torch, rec)
+    out["wall_s"] = time.time() - t0
+    log(f"[convnet] phase 13 took {out['wall_s']:.1f} s")
+
+
 def kernels_line(rec):
     out = []
     for name, src, repl in (
@@ -2462,6 +2813,7 @@ def kernels_line(rec):
         b_ms, b_by = wo_bound(name, nbytes, flops)
         out.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                     "launches": rec["launches"][name],
+                    "convnet_launches": rec["convnet"]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": sum(r["ms"] for r in rows),
                     "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -2522,6 +2874,7 @@ def kernels_line(rec):
         out.append({"name": name, "route": "cuda",
                     "source": "jaxlsq_torch/csrc/fake_quant.cu", "replaces": repl,
                     "launches": rec[leg]["launches"][name],
+                    "convnet_launches": rec["convnet"]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -2626,6 +2979,7 @@ def main(argv):
     phase_flash_times(torch, rec)
     phase_chain(torch, rec)
     phase_int4_lab(torch, rec)
+    phase_convnet(torch, rec)
     rec["wall_s"] = time.time() - t0
     rec["profile_misses"] = PROFILE_MISSES
     rec["waiting_calls"] = WAITING_CALLS

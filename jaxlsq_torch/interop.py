@@ -1,34 +1,42 @@
 """Carry JAX package variables trees into the port's models and back.
 
-:func:`load_variables` takes the tree ``QuantTransformerLM.init`` (or
-training, or ``jaxlsq.serve.convert``) produced in the JAX package, as nested
-dicts of numpy arrays (or tensors), and fills a serve-mode
-:class:`jaxlsq_torch.models.QuantTransformerLM`:
+:func:`load_variables` takes the tree the JAX package's ``model.init`` (or
+training, or ``jaxlsq.serve.convert``) produced, as nested dicts of numpy
+arrays (or tensors), and fills a serve-mode model of the port: the
+:class:`jaxlsq_torch.models.QuantTransformerLM`, or a conv net
+(``QuantResNet``, ``QuantMobileNetV2``, ``QuantCNN``, or any model of
+``QuantConv``, ``QuantDense`` and ``BatchNorm`` modules named as the flax
+modules are):
 
-* a QAT-mode tree (``params``/``qparams``[/``quant_state``]) is first passed
-  through the port's own :func:`jaxlsq_torch.serve.convert` (``quant_state``
-  is not read);
-* a converted tree (``params``/``quantized``) is loaded as it is; each packed
-  weight is a ``PackedWeight`` or a dict of its fields (``data``, ``scale``,
-  ``zero_point``, ``bits``, ``axis``, ``k_axis``, ``orig_shape`` and
-  ``group_size``, whose (G, N) scale a group-wise pack brings along).
+* a QAT-mode tree (``params``/``qparams``[/``quant_state``/``batch_stats``])
+  is first passed through the port's own :func:`jaxlsq_torch.serve.convert`
+  (``quant_state`` is not read);
+* a converted tree (``params``/``quantized``[/``batch_stats``]) is loaded as
+  it is; each packed weight is a ``PackedWeight`` or a dict of its fields
+  (``data``, ``scale``, ``zero_point``, ``bits``, ``axis``, ``k_axis``,
+  ``orig_shape`` and ``group_size``, whose (G, N) scale a group-wise pack
+  brings along).
 
-Layouts are the JAX package's: dense kernels (K, N); the ``qkv`` columns are
-``[q | k | v]``; flax LayerNorm ``scale``/``bias`` are the LayerNorm weight
-and bias; ``lm_head`` has no bias.  Every buffer of the model must be given,
-and nothing else.
+Layouts are the JAX package's: dense kernels (K, N); conv kernels packed
+HWIO, per-channel axis 3, int4 pairs along the in axis (the layer keeps the
+pack as it is and permutes the dequantized kernel to OIHW); the ``qkv``
+columns are ``[q | k | v]``; flax LayerNorm ``scale``/``bias`` are the
+LayerNorm weight and bias; BatchNorm's ``scale``/``bias`` are in ``params``
+and its ``mean``/``var`` in ``batch_stats``; ``lm_head`` has no bias.  Every
+buffer of the model must be given, and nothing else.
 
 :func:`load_qat_variables` and its inverse :func:`qat_variables` carry a QAT
 model's whole state (``params``/``qparams``/``quant_state``/``batch_stats``,
 as ``create_train_state`` or ``model.init`` gives it) into a QAT-mode model
-of the port (``QuantResNet``, ``QuantMLP``, the QAT-mode
-``QuantTransformerLM``, or any model of ``QuantConv``, ``QuantDense``,
-``QuantEmbed``, ``BatchNorm``, ``nn.LayerNorm`` and ``FakeQuantize`` modules
-named as the flax modules are, plus a learned ``pos_emb`` parameter) and out
-again.  Conv kernels are HWIO there and OIHW here; a
-per-channel conv weight's qparams are the same (C,) vectors (axis 3 there, 0
-here); the quantizers' counters, flags and observer count are their
-buffers, of the JAX package's types (int32, bool, int32).
+of the port (``QuantResNet``, ``QuantMobileNetV2``, ``QuantCNN``,
+``QuantMLP``, the QAT-mode ``QuantTransformerLM``, or any model of
+``QuantConv``, ``QuantDense``, ``QuantEmbed``, ``BatchNorm``,
+``nn.LayerNorm`` and ``FakeQuantize`` modules named as the flax modules are,
+plus a learned ``pos_emb`` parameter) and out again.  Conv kernels are HWIO
+there and OIHW here (a depthwise (3, 3, 1, C) there is (C, 1, 3, 3) here);
+a per-channel conv weight's qparams are the same (C,) vectors (axis 3
+there, 0 here); the quantizers' counters, flags and observer count are
+their buffers, of the JAX package's types (int32, bool, int32).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ from torch import nn
 
 from .models.layers import FakeQuantize, QuantConv, QuantDense, QuantEmbed
 from .models.norm import BatchNorm
+from .models.zoo import QuantTransformerLM
 from .observers.minmax import ObserverState
 from .observers.quantizer import STATE_DTYPES, STATE_FIELDS, QuantizerState
 from .serve.convert import convert
@@ -83,7 +92,7 @@ def _copy(dst: torch.Tensor, src: torch.Tensor, path: str) -> None:
     dst.copy_(src.to(dst.dtype))
 
 
-def _dense(layer, p, q, path):
+def _packed_layer(layer, p, q, path):
     layer.kernel.load(_take(q, "kernel", f"quantized/{path}"))
     if layer.aspec is not None:
         _copy(layer.act_scale, _take(q, "act_scale", f"quantized/{path}"),
@@ -110,18 +119,30 @@ def _leftover(tree, path=""):
 
 @torch.no_grad()
 def load_variables(model, variables: Dict[str, Any]) -> None:
-    """Load a JAX-package variables tree (QAT-mode or converted) into ``model``."""
+    """Load a JAX-package variables tree (QAT-mode or converted) into the
+    serve-mode ``model``."""
     # quant_state holds observer counters (training state) and, for
-    # DenseGeneral layers, flattening markers; the LM has no DenseGeneral
+    # DenseGeneral layers, flattening markers; no model here has DenseGeneral
     tree = _to_torch({k: v for k, v in variables.items() if k != "quant_state"},
                      model.device)
     if "qparams" in tree:
         tree = convert(tree, model.qconfig)
     params = tree.pop("params")
     quant = tree.pop("quantized")
+    stats = tree.pop("batch_stats", {})
     if tree:
         raise ValueError(f"unexpected collections {sorted(tree)}")
+    if isinstance(model, QuantTransformerLM):
+        _load_lm(model, params, quant)
+    else:
+        _load_net(model, params, quant, stats)
+    left = (_leftover(params, "params") + _leftover(quant, "quantized")
+            + _leftover(stats, "batch_stats"))
+    if left:
+        raise ValueError(f"unexpected variables {left}")
 
+
+def _load_lm(model, params, quant) -> None:
     model.tok_emb.embedding.load(
         _take(_take(quant, "tok_emb", "quantized"), "embedding", "quantized/tok_emb"))
     params.pop("tok_emb", None)  # converted embedding leaves an empty node
@@ -134,17 +155,45 @@ def load_variables(model, variables: Dict[str, Any]) -> None:
         _layer_norm(blk.ln1, _take(p, "ln1", f"params/{name}"), f"{name}/ln1")
         _layer_norm(blk.ln2, _take(p, "ln2", f"params/{name}"), f"{name}/ln2")
         for sub in ("qkv", "proj", "mlp_up", "mlp_down"):
-            _dense(getattr(blk, sub), p.pop(sub, {}),
+            _packed_layer(getattr(blk, sub), p.pop(sub, {}),
                    _take(q, sub, f"quantized/{name}"), f"{name}/{sub}")
         left = _leftover(p, f"params/{name}") + _leftover(q, f"quantized/{name}")
         if left:
             raise ValueError(f"unexpected variables {left}")
     _layer_norm(model.ln_f, _take(params, "ln_f", "params"), "ln_f")
-    _dense(model.lm_head, params.pop("lm_head", {}),
+    _packed_layer(model.lm_head, params.pop("lm_head", {}),
            _take(quant, "lm_head", "quantized"), "lm_head")
-    left = _leftover(params, "params") + _leftover(quant, "quantized")
-    if left:
-        raise ValueError(f"unexpected variables {left}")
+
+
+def _load_net(model, params, quant, stats) -> None:
+    """A serve-mode conv net: each layer's pack and activation qparams from
+    ``quantized``, its bias from ``params``; each BatchNorm's affine from
+    ``params`` and its running statistics from ``batch_stats``."""
+    for name, mod in model.named_modules():
+        path = tuple(name.split("."))
+        where = "/".join(path)
+        if isinstance(mod, (QuantConv, QuantDense)):
+            if mod.qat:
+                raise ValueError(f"{where} is a QAT-mode layer: load_variables fills "
+                                 "a serve-mode model (load_qat_variables a QAT one)")
+            p = {} if mod.bias is None else _pop_node(params, path, "params")
+            q = _pop_node(quant, path, "quantized")
+            _packed_layer(mod, p, q, where)
+            left = _leftover(p, f"params/{where}") + _leftover(q, f"quantized/{where}")
+            if left:
+                raise ValueError(f"unexpected variables {left}")
+        elif isinstance(mod, BatchNorm):
+            _batch_norm(mod, _pop_node(params, path, "params"),
+                        _pop_node(stats, path, "batch_stats"), where)
+
+
+def _batch_norm(mod, p, s, where) -> None:
+    dev = mod.mean.device
+    for dst, node, key in ((mod.scale, p, "scale"), (mod.bias, p, "bias"),
+                           (mod.mean, s, "mean"), (mod.var, s, "var")):
+        _copy(dst, _to_torch(_take(node, key, where), dev), f"{where}/{key}")
+    if p or s:
+        raise ValueError(f"unexpected variables {sorted(p) + sorted(s)} at {where}")
 
 
 def _pop_node(tree: Dict[str, Any], path, collection: str):
@@ -222,13 +271,8 @@ def load_qat_variables(model, tree: Dict[str, Any]) -> None:
                     raise ValueError(f"{where}: shape {tuple(a.shape)} != {tuple(b.shape)}")
             mod.load_quant_state(st)
         elif isinstance(mod, BatchNorm):
-            p = _pop_node(cols["params"], path, "params")
-            s = _pop_node(cols["batch_stats"], path, "batch_stats")
-            for dst, node, key in ((mod.scale, p, "scale"), (mod.bias, p, "bias"),
-                                   (mod.mean, s, "mean"), (mod.var, s, "var")):
-                _copy(dst, _to_torch(node.pop(key), dev), f"{where}/{key}")
-            if p or s:
-                raise ValueError(f"unexpected variables {sorted(p) + sorted(s)} at {where}")
+            _batch_norm(mod, _pop_node(cols["params"], path, "params"),
+                        _pop_node(cols["batch_stats"], path, "batch_stats"), where)
         elif isinstance(mod, nn.LayerNorm):  # flax LayerNorm: scale, bias
             p = _pop_node(cols["params"], path, "params")
             for dst, key in ((mod.weight, "scale"), (mod.bias, "bias")):

@@ -1,0 +1,329 @@
+"""jaxlsq's QAT accuracy protocol on the port (port of
+``examples/accuracy_parity.py`` with ``examples/recipe_sweep.py``'s
+recommended recipes and its BatchNorm re-estimation).
+
+The task is jaxlsq's procedural grating problem: 36 orientation classes 5
+degrees apart on 32x32x3 images, with frequency, phase, amplitude, a
+background gradient, a tint and noise as nuisances.  :func:`grating_draws`
+draws its random inputs from a ``torch.Generator`` on the device (the JAX
+package's distributions, not its bits) and :func:`grating_images` is the pure
+formula of ``make_batch`` on them, NCHW.
+
+Per seed, every config trains from the same initial weights (seed 0, as the
+JAX package's ``create_train_state`` uses one key) on the same sequence of
+batches, with ``AdamW(lr, weight_decay=1e-4)`` (optax's ``adamw`` default
+decay) under the cosine schedule ``3e-3 * 0.5 * (1 + cos(pi * min(i, steps)
+/ steps))`` written into the optimizer before step i, through
+``make_train_step(jit=True)``: on the card one CUDA graph of the step whose
+lr is read from the device (``capturable=True``).  Before training, one
+eval-mode forward on a batch of its own feeds the activation observers, as
+flax's ``init`` does.  The eval set is a fixed 20,000 images a seed, in
+chunks of 2,000, shared by every config of the seed.  A QAT row records
+three top-1s: ``top1`` (the QAT model in eval mode), ``top1_served`` (the
+trained variables through ``serve.convert`` into the serve-mode model under
+``for_serving('static')``: packed kernels, static activation quantization,
+the classifier through ``wo8``/``wo4``) and ``top1_bnreest`` (the QAT model
+after ``reestimate_batch_stats`` over 400 batches), each with its paired
+delta against the seed's float model and its McNemar sigma; the summary is
+the mean over seeds with its 95% t-interval.  On the card::
+
+    python3 -m jaxlsq_torch.lab.accuracy_parity --models mobilenetv2 \\
+        --recipe combo1200 --seeds 3 [--seed-start S] [--steps 1500] [--out PATH]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import time
+from typing import Callable, Dict, Iterator, Sequence
+
+import numpy as np
+import torch
+
+from .. import interop
+from .._device import resolve_device
+from ..models import QConfig, default_qconfig
+from ..models.zoo import mobilenetv2_cifar, resnet18_cifar
+from ..parallel import make_eval_step, make_train_step
+from ..utils import reestimate_batch_stats
+
+__all__ = ["N_CLASSES", "SIZE", "EVAL_N", "EVAL_CHUNK", "BN_BATCHES", "T95",
+           "grating_draws", "grating_images", "make_batch", "cosine_lr", "recipe",
+           "paired_delta", "summarize", "run_seed", "main"]
+
+N_CLASSES = 36       # 5 degrees apart
+SIZE = 32
+EVAL_N = 20_000
+EVAL_CHUNK = 2_000
+BN_BATCHES = 400     # examples/recipe_sweep.py's --bn-batches
+BASE_LR, WEIGHT_DECAY = 3e-3, 1e-4
+# two-sided t critical values at 95% for df = n - 1 (the JAX package's table)
+T95 = {1: 12.706, 2: 4.303, 3: 3.182, 4: 2.776, 5: 2.571}
+MODELS = {"resnet18": resnet18_cifar, "mobilenetv2": mobilenetv2_cifar}
+
+
+def grating_draws(n: int, generator: torch.Generator, device) -> Dict[str, torch.Tensor]:
+    """The random inputs of ``n`` grating images, as ``make_batch`` draws
+    them: labels, the orientation's standard-normal jitter, frequency in
+    [2, 6), phase in [0, 2 pi), amplitude in [0.15, 1), the background
+    gradient's (n, 2, 1, 1) slopes (0.5 x normal), the (n, 3, 1, 1) tint in
+    [0.7, 1.3) and the (n, 3, 32, 32) standard-normal noise."""
+    def uniform(shape, lo, hi):
+        return lo + (hi - lo) * torch.rand(shape, generator=generator, device=device)
+
+    def normal(shape):
+        return torch.randn(shape, generator=generator, device=device)
+
+    return {"labels": torch.randint(0, N_CLASSES, (n,), generator=generator,
+                                    device=device),
+            "theta_noise": normal((n,)),
+            "freq": uniform((n,), 2.0, 6.0),
+            "phase": uniform((n,), 0.0, 2 * math.pi),
+            "amp": uniform((n,), 0.15, 1.0),
+            "gxy": 0.5 * normal((n, 2, 1, 1)),
+            "tint": uniform((n, 3, 1, 1), 0.7, 1.3),
+            "noise": normal((n, 3, SIZE, SIZE))}
+
+
+def grating_images(d: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``make_batch``'s formula on the draws ``d``, in its order of
+    operations: the (n, 3, 32, 32) f32 images."""
+    ar = torch.arange(SIZE, device=d["freq"].device, dtype=torch.float32) / SIZE
+    xx, yy = ar[None, :], ar[:, None]
+    theta = d["labels"].to(torch.float32) * (math.pi / N_CLASSES) + 0.02 * d["theta_noise"]
+    u = (torch.cos(theta)[:, None, None] * xx[None]
+         + torch.sin(theta)[:, None, None] * yy[None])
+    g = d["amp"][:, None, None] * torch.sin(
+        2 * math.pi * d["freq"][:, None, None] * u + d["phase"][:, None, None])
+    bg = d["gxy"][:, 0] * xx[None] + d["gxy"][:, 1] * yy[None]
+    return (g + bg)[:, None] * d["tint"] + 1.15 * d["noise"]
+
+
+def make_batch(n: int, generator: torch.Generator, device):
+    """``n`` grating images (n, 3, 32, 32) and their int64 labels."""
+    d = grating_draws(n, generator, device)
+    return grating_images(d), d["labels"]
+
+
+def cosine_lr(i: int, steps: int, base: float = BASE_LR) -> float:
+    """optax's ``cosine_decay_schedule(base, steps)`` at update count ``i``."""
+    return base * 0.5 * (1.0 + math.cos(math.pi * min(i, steps) / steps))
+
+
+def recipe(name: str) -> QConfig:
+    """``float`` (no quantizer), or a recommended recipe of
+    ``examples/recipe_sweep.py``: ``combo1200`` (w8a8, :168) and
+    ``combo1200_4`` (w4a8, :234)."""
+    if name == "float":
+        return QConfig()
+    bits = {"combo1200": (8, 8), "combo1200_4": (4, 8)}
+    if name not in bits:
+        raise ValueError(f"unknown recipe {name!r}; one of float, {', '.join(bits)}")
+    return default_qconfig(*bits[name], per_channel_weights=True, init_batches=1200,
+                           reduce_range=False)
+
+
+def paired_delta(pred_a: np.ndarray, pred_b: np.ndarray, labels: np.ndarray):
+    """top1(a) - top1(b) on the same samples, and its paired sigma
+    ``sqrt(n01 + n10 - (n01 - n10)^2 / n) / n`` over the disagreements."""
+    a = pred_a == labels
+    b = pred_b == labels
+    n = labels.size
+    n01 = int(np.sum(a & ~b))
+    n10 = int(np.sum(~a & b))
+    delta = (n01 - n10) / n
+    sigma = float(np.sqrt(max(n01 + n10 - (n01 - n10) ** 2 / n, 0))) / n
+    return delta, sigma
+
+
+def summarize(results: Dict, name: str, seeds: Sequence[int],
+              cfgs: Sequence[str] = ("w8a8", "w4a8"),
+              suffixes: Sequence[str] = ("", "_served")) -> None:
+    """Across-seed mean and 95% CI half-width of each config's paired delta
+    against float, with the BASELINE bar's two flags, written into
+    ``results[f"{name}/summary/{cfg}{suffix}"]`` as the JAX package does."""
+    for cfg in cfgs:
+        for suffix in suffixes:
+            key = cfg + suffix
+            deltas = [results[f"{name}/seed{s}/paired"][key]["delta"] for s in seeds
+                      if key in results[f"{name}/seed{s}/paired"]]
+            if not deltas:
+                continue
+            m = float(np.mean(deltas))
+            if len(deltas) > 1:
+                sd = float(np.std(deltas, ddof=1))
+                half = T95.get(len(deltas) - 1, 2.0) * sd / np.sqrt(len(deltas))
+            else:
+                sd, half = 0.0, float("nan")
+            results[f"{name}/summary/{key}"] = {
+                "mean_delta_vs_float": round(m, 5),
+                "ci95_half_width": round(half, 5),
+                "per_seed_deltas": [round(d, 5) for d in deltas],
+                # the bar guards against degradation: the CI's lower edge
+                # must not cross -0.1%
+                "no_degradation_beyond_0.1pct": bool(m - half >= -0.001),
+                "within_0.1pct_band": bool(abs(m) + half <= 0.001),
+            }
+
+
+def _generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def train(model_fn: Callable, qc: QConfig, steps: int, batch: int, seed: int,
+          device) -> Dict:
+    """One config's training run: returns the model and its optimizer, the
+    last loss, the lr written before each step, and the seconds and images/s
+    of the steps."""
+    model = model_fn(qc)
+    x0, _ = make_batch(batch, _generator(seed + 999, device), device)
+    model.eval()
+    with torch.no_grad():  # flax's init: one eval forward feeds the observers
+        model(x0)
+    on_card = torch.device(device).type == "cuda"
+    opt = torch.optim.AdamW(model.parameters(), lr=BASE_LR, weight_decay=WEIGHT_DECAY,
+                            capturable=on_card)
+    step = make_train_step(model, opt, jit=True)
+    gen = _generator(seed, device)
+    lrs, loss = [], None
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        x, y = make_batch(batch, gen, device)
+        lr = cosine_lr(i, steps)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        lrs.append(lr)
+        loss = step({"image": x, "label": y})["loss"]
+    loss = float(loss)
+    secs = time.perf_counter() - t0
+    return {"model": model, "optimizer": opt, "loss": loss, "lrs": lrs,
+            "train_s": secs, "images_per_s": steps * batch / secs}
+
+
+def eval_batches(seed: int, device, n: int = EVAL_N,
+                 chunk: int = EVAL_CHUNK) -> Iterator:
+    """The seed's fixed eval set, chunk by chunk (each chunk from its own
+    generator, so every config sees the same images)."""
+    for i in range(n // chunk):
+        yield make_batch(chunk, _generator(1_000_000 + 1000 * seed + i, device), device)
+
+
+@torch.no_grad()
+def predictions(fn: Callable, seed: int, device, n: int = EVAL_N,
+                chunk: int = EVAL_CHUNK):
+    """argmax predictions of ``fn(images)`` and the labels over the eval set."""
+    preds, labels = [], []
+    for x, y in eval_batches(seed, device, n, chunk):
+        preds.append(fn(x).argmax(-1).cpu().numpy())
+        labels.append(y.cpu().numpy())
+    return np.concatenate(preds), np.concatenate(labels)
+
+
+def run_seed(model_name: str, recipe_name: str, seed: int, results: Dict, *,
+             steps: int = 1500, batch: int = 128, device=None, eval_n: int = EVAL_N,
+             eval_chunk: int = EVAL_CHUNK, bn_batches: int = BN_BATCHES,
+             log: Callable = lambda line: print(line, flush=True)) -> Dict:
+    """Train float and ``recipe_name`` on one data seed, evaluate both on the
+    seed's fixed eval set (the QAT model raw, served and after BatchNorm
+    re-estimation) and record the rows and the paired deltas in ``results``;
+    returns the seed's record."""
+    dev = resolve_device(device)
+    model_fn = MODELS[model_name]
+    prefix = f"{model_name}/seed{seed}"
+    preds = {}
+    labels = None
+    for cfg in ("float", recipe_name):
+        qc = recipe(cfg)
+        run = train(lambda q: model_fn(N_CLASSES, q, device=dev, seed=0), qc,
+                    steps, batch, seed, dev)
+        model = run["model"]
+        evaluate = make_eval_step(model)
+        p, labels = predictions(lambda x: evaluate({"image": x}), seed, dev, eval_n,
+                                eval_chunk)
+        preds[cfg] = p
+        row = {"train_loss": round(run["loss"], 4), "top1": round(float((p == labels).mean()), 5),
+               "train_s": round(run["train_s"], 1),
+               "images_per_s": round(run["images_per_s"], 1), "steps_ran": steps}
+        if qc.weight is not None:
+            # served: the raw trained variables through convert (load_variables)
+            smodel = model_fn(N_CLASSES, qc.for_serving("static"), device=dev)
+            interop.load_variables(smodel, interop.qat_variables(model))
+            smodel.eval()
+            preds[cfg + "_served"], _ = predictions(smodel, seed, dev, eval_n, eval_chunk)
+            row["top1_served"] = round(float((preds[cfg + "_served"] == labels).mean()), 5)
+            # BatchNorm re-estimation over bn_batches calibration batches
+            bgen = _generator(777_000 + seed, dev)
+            reestimate_batch_stats(model, (make_batch(batch, bgen, dev)[0]
+                                           for _ in range(bn_batches)))
+            preds[cfg + "_bnreest"], _ = predictions(lambda x: evaluate({"image": x}),
+                                                     seed, dev, eval_n, eval_chunk)
+            row["top1_bnreest"] = round(float((preds[cfg + "_bnreest"] == labels).mean()), 5)
+            row["bn_batches"] = bn_batches
+        results[f"{prefix}/{cfg}"] = row
+        log(json.dumps({"row": f"{prefix}/{cfg}", **row}))
+        del model, run
+    paired = {}
+    for key in (recipe_name, recipe_name + "_bnreest", recipe_name + "_served"):
+        d, sg = paired_delta(preds[key], preds["float"], labels)
+        paired[key] = {"delta": round(d, 5), "paired_sigma": round(sg, 6)}
+    results[f"{prefix}/paired"] = paired
+    return {k: v for k, v in results.items() if k.startswith(prefix + "/")}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--models", default="mobilenetv2",
+                    help="comma-separated: resnet18, mobilenetv2")
+    ap.add_argument("--recipe", default="combo1200", help="combo1200 or combo1200_4")
+    ap.add_argument("--steps", type=int, default=1500)
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--seeds", type=int, default=3)
+    ap.add_argument("--seed-start", type=int, default=1)
+    ap.add_argument("--bn-batches", type=int, default=BN_BATCHES)
+    ap.add_argument("--out", default=None, help="also write the whole record here (JSON)")
+    args = ap.parse_args(argv)
+    recipe(args.recipe)  # an unknown name fails before any training
+    if not torch.cuda.is_available():
+        print("accuracy_parity: no CUDA device; the protocol runs on the card",
+              flush=True)
+        return 2
+    import subprocess
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    results = {
+        "task": (f"procedural {N_CLASSES}-orientation grating classification (5 deg "
+                 "apart), 32x32x3, drawn on the device from torch.Generator"),
+        "train": (f"{args.steps} steps x B{args.batch}, AdamW(wd {WEIGHT_DECAY}) cosine "
+                  f"{BASE_LR}, make_train_step(jit=True)"),
+        "eval": (f"{EVAL_N} held-out samples a seed, the same for every config; "
+                 f"BatchNorm re-estimation over {args.bn_batches} batches"),
+        "recipe": args.recipe, "card": card, "torch": torch.__version__,
+        "device": torch.cuda.get_device_name(0),
+    }
+    print(json.dumps({"card": card}), flush=True)
+    seeds = list(range(args.seed_start, args.seed_start + args.seeds))
+    for name in args.models.split(","):
+        for seed in seeds:
+            rec = run_seed(name, args.recipe, seed, results, steps=args.steps,
+                           batch=args.batch, device="cuda", bn_batches=args.bn_batches)
+            print(json.dumps({"seed": seed, "model": name, **rec}), flush=True)
+        summarize(results, name, seeds, cfgs=(args.recipe,),
+                  suffixes=("", "_bnreest", "_served"))
+        print(json.dumps({k: v for k, v in results.items()
+                          if k.startswith(f"{name}/summary/")}), flush=True)
+        if args.out:
+            with open(args.out, "w") as f:  # after each model
+                json.dump(results, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,13 +6,15 @@ from .toggles import (disable_fake_quant, disable_fake_quant_on_act,
                       enable_fake_quant, enable_fake_quant_on_act,
                       enable_observer, enable_observer_on_weights,
                       map_quant_state)
-from .zoo import (BasicBlock, QuantMLP, QuantResNet, QuantTransformerBlock,
+from .zoo import (BasicBlock, InvertedResidual, QuantCNN, QuantMLP,
+                  QuantMobileNetV2, QuantResNet, QuantTransformerBlock,
                   QuantTransformerLM, init_qat_variables, init_variables,
-                  resnet18_cifar)
+                  mobilenetv2_cifar, resnet18_cifar)
 
 __all__ = ["QConfig", "default_qconfig", "FakeQuantize", "QuantDense", "QuantConv",
-           "QuantEmbed", "BatchNorm", "QuantMLP", "BasicBlock", "QuantResNet",
-           "resnet18_cifar", "init_qat_variables", "QuantTransformerBlock",
+           "QuantEmbed", "BatchNorm", "QuantMLP", "QuantCNN", "BasicBlock",
+           "QuantResNet", "resnet18_cifar", "InvertedResidual", "QuantMobileNetV2",
+           "mobilenetv2_cifar", "init_qat_variables", "QuantTransformerBlock",
            "QuantTransformerLM", "init_variables",
            "enable_fake_quant", "disable_fake_quant",
            "enable_observer", "disable_observer",

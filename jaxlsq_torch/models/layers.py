@@ -28,12 +28,17 @@ QAT mode (fake-quant training):
 
 Serve mode: :class:`QuantDense` holds a packed (K, N) kernel as buffers and
 runs the fused weight-only matmul (``serve.matmul.wo_matmul``);
-:class:`QuantEmbed` holds an int8 table and dequantizes only the gathered
-rows.  Both are filled by :func:`jaxlsq_torch.interop.load_variables`.
+:class:`QuantConv` holds its kernel packed in the JAX package's HWIO layout
+(per-channel axis 3, int4 along the in axis 2), dequantizes it at each
+forward and runs the convolution (plain PyTorch, as the JAX package's
+``conv_general_dilated``); :class:`QuantEmbed` holds an int8 table and
+dequantizes only the gathered rows.  All three are filled by
+:func:`jaxlsq_torch.interop.load_variables`.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
@@ -47,18 +52,21 @@ from ..observers.quantizer import (STATE_DTYPES, STATE_FIELDS, LSQQuantizer,
 from ..ops.functional import fake_quant
 from ..serve.convert import serving_bits
 from ..serve.matmul import wo_matmul
-from ..serve.pack import PackedWeight
+from ..serve.pack import PackedWeight, dequantize_weight
 from .qconfig import QConfig
 
 __all__ = ["FakeQuantize", "QuantDense", "QuantConv", "QuantEmbed",
-           "static_act_quant", "refresh_host_state"]
+           "static_act_quant", "refresh_host_state", "quant_state_frozen"]
 
 
 def static_act_quant(x: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
-                     aspec) -> torch.Tensor:
-    """Frozen fake-quant of an activation with converted qparams."""
+                     aspec, axis: int = -1) -> torch.Tensor:
+    """Frozen fake-quant of an activation with converted qparams; per-channel
+    qparams lie along ``axis`` (the last for a dense input, 1 for NCHW)."""
     if scale.shape[0] > 1:
-        s = scale.reshape((1,) * (x.dim() - 1) + (-1,))
+        shape = [1] * x.dim()
+        shape[axis] = -1
+        s = scale.reshape(shape)
     else:
         s = scale.reshape(())
     z = zp.to(x.dtype).reshape(s.shape)
@@ -201,6 +209,21 @@ def refresh_host_state(modules) -> None:
                          for f, v in zip(STATE_FIELDS, row)})
 
 
+@contextlib.contextmanager
+def quant_state_frozen(modules):
+    """While open, every :class:`FakeQuantize` among ``modules`` runs its
+    forward as it would but keeps no state (``persist_state`` off): the JAX
+    package's apply with the quantizers' collections not mutable."""
+    fqs = [m for m in modules if isinstance(m, FakeQuantize)]
+    for m in fqs:
+        m.persist_state = False
+    try:
+        yield
+    finally:
+        for m in fqs:
+            m.persist_state = True
+
+
 def _fake_quantizer(cfg: Optional[LSQQuantizer], channels: int,
                     device) -> Optional[FakeQuantize]:
     return None if cfg is None else FakeQuantize(cfg, channels, device)
@@ -266,6 +289,19 @@ class _PackedBuffers(nn.Module):
             buf.copy_(src.to(buf.dtype))
 
 
+def _serve_act_qparams(mod: nn.Module, qc: QConfig, in_features: int, device) -> None:
+    """A serve-mode layer's ``act_mode``, activation spec and converted
+    activation qparams (``act_scale``/``act_zp`` buffers, per input channel
+    or per tensor), when its config quantizes activations."""
+    mod.act_mode = qc.act_mode
+    mod.aspec = qc.activation.spec if qc.activation is not None else None
+    if mod.aspec is not None:
+        ac = in_features if mod.aspec.per_channel else 1
+        mod.register_buffer("act_scale", torch.ones(ac, dtype=torch.float32,
+                                                    device=device))
+        mod.register_buffer("act_zp", torch.zeros(ac, dtype=torch.int32, device=device))
+
+
 class QuantDense(nn.Module):
     """Dense layer, kernel (K, N) with per-channel axis 1, as the JAX package.
 
@@ -298,14 +334,7 @@ class QuantDense(nn.Module):
         c = features if wspec.per_channel else 1
         self.kernel = _PackedBuffers((in_features, features), serving_bits(wspec),
                                      1, 0, c, device)
-        self.act_mode = qc.act_mode
-        self.aspec = qc.activation.spec if qc.activation is not None else None
-        if self.aspec is not None:
-            ac = in_features if self.aspec.per_channel else 1
-            self.register_buffer("act_scale", torch.ones(ac, dtype=torch.float32,
-                                                         device=device))
-            self.register_buffer("act_zp", torch.zeros(ac, dtype=torch.int32,
-                                                       device=device))
+        _serve_act_qparams(self, qc, in_features, device)
         self.bias = (nn.Parameter(torch.zeros(features, device=device),
                                   requires_grad=False) if use_bias else None)
 
@@ -334,13 +363,20 @@ def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
 
 
 class QuantConv(nn.Module):
-    """QAT 2-D convolution with LSQ weight and input-activation quantizers.
+    """2-D convolution with LSQ weight and input-activation quantizers.
 
-    NCHW activations (the activation quantizer's per-channel axis is 1) and
-    an OIHW ``kernel`` (the weight quantizer's per-channel axis is 0).
+    NCHW activations (the activation quantizer's per-channel axis is 1).
+    QAT mode: an OIHW ``kernel`` parameter (the weight quantizer's
+    per-channel axis is 0).  Serve mode: the kernel packed as the JAX
+    package packs it, HWIO with per-channel axis 3 and int4 pairs along the
+    in axis 2 (an odd in-axis pads one row), dequantized at each forward and
+    permuted to OIHW; ``act_mode='static'`` fake-quantizes the input with the
+    converted qparams first, ``'none'`` leaves it; ``'dynamic'`` raises
+    ``ValueError`` as in the JAX package, and ``'static_int8'`` (the
+    int8 x int8 convolution) raises ``NotImplementedError``.
     ``padding``: 'SAME' (XLA's rule, see :func:`same_padding`), 'VALID', or
     ``((top, bottom), (left, right))``; it is applied after the activation's
-    fake quantization, as the JAX package pads inside the convolution.
+    quantization, as the JAX package pads inside the convolution.
     """
 
     def __init__(self, in_features: int, features: int,
@@ -351,10 +387,6 @@ class QuantConv(nn.Module):
                  path: Sequence[str] = (), device=None):
         super().__init__()
         qc = qconfig.resolve(tuple(path))
-        if qc.mode == "serve":
-            raise NotImplementedError(
-                "QuantConv: serve mode (packed conv weights) arrives with a "
-                "later slice; only QAT mode is ported")
         if in_features % feature_group_count:
             raise ValueError(f"in_features {in_features} is not a multiple of "
                              f"feature_group_count {feature_group_count}")
@@ -366,13 +398,32 @@ class QuantConv(nn.Module):
             raise ValueError(f"padding must be 'SAME', 'VALID' or pairs, got {padding!r}")
         self.padding = padding
         self.groups = feature_group_count
-        self.act_fq = _fake_quantizer(qc.activation_for_axis(1), in_features, device)
-        self.kernel = nn.Parameter(torch.zeros(
-            features, in_features // feature_group_count, self.kh, self.kw,
-            device=device))
-        self.weight_fq = _fake_quantizer(qc.weight_for_axis(0), features, device)
-        self.bias = (nn.Parameter(torch.zeros(features, device=device))
-                     if use_bias else None)
+        self.qat = qc.mode != "serve"
+        if self.qat:
+            self.act_fq = _fake_quantizer(qc.activation_for_axis(1), in_features,
+                                          device)
+            self.kernel = nn.Parameter(torch.zeros(
+                features, in_features // feature_group_count, self.kh, self.kw,
+                device=device))
+            self.weight_fq = _fake_quantizer(qc.weight_for_axis(0), features, device)
+            self.bias = (nn.Parameter(torch.zeros(features, device=device))
+                         if use_bias else None)
+            return
+        if qc.act_mode == "dynamic":
+            raise ValueError("act_mode='dynamic' is not supported for conv layers; "
+                             "use 'static' or 'none' for models containing QuantConv")
+        if qc.act_mode == "static_int8":
+            raise NotImplementedError(
+                "act_mode 'static_int8' (the int8 x int8 convolution) arrives "
+                "with the static/dynamic int8 slice")
+        wspec = qc.required_weight_for_axis(3).spec
+        c = features if wspec.per_channel else 1
+        self.kernel = _PackedBuffers(
+            (self.kh, self.kw, in_features // feature_group_count, features),
+            serving_bits(wspec), 3, 2, c, device)
+        _serve_act_qparams(self, qc, in_features, device)
+        self.bias = (nn.Parameter(torch.zeros(features, device=device),
+                                  requires_grad=False) if use_bias else None)
 
     def _pads(self, h: int, w: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
         if self.padding == "SAME":
@@ -384,9 +435,14 @@ class QuantConv(nn.Module):
         return (int(t), int(b)), (int(l), int(r))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.act_fq is not None:
-            x = self.act_fq(x)
-        w = self.kernel if self.weight_fq is None else self.weight_fq(self.kernel)
+        if self.qat:
+            if self.act_fq is not None:
+                x = self.act_fq(x)
+            w = self.kernel if self.weight_fq is None else self.weight_fq(self.kernel)
+        else:
+            if self.aspec is not None and self.act_mode == "static":
+                x = static_act_quant(x, self.act_scale, self.act_zp, self.aspec, axis=1)
+            w = dequantize_weight(self.kernel.packed(), x.dtype).permute(3, 2, 0, 1)
         (t, b), (l, r) = self._pads(x.shape[2], x.shape[3])
         if t == b and l == r:
             pad = (t, l)

@@ -1,9 +1,13 @@
 """Model zoo (port of ``jaxlsq/models/zoo.py``).
 
-QAT conv nets: :class:`QuantMLP`, :class:`BasicBlock`, :class:`QuantResNet`
-and :func:`resnet18_cifar`, built from ``QuantDense``/``QuantConv`` and the
-flax-rule ``BatchNorm``; NCHW inputs; :func:`init_qat_variables` draws their
-seeded initial variables.
+Conv nets: :class:`QuantMLP`, :class:`QuantCNN`, :class:`BasicBlock`,
+:class:`QuantResNet`, :func:`resnet18_cifar`, :class:`InvertedResidual`,
+:class:`QuantMobileNetV2` and :func:`mobilenetv2_cifar`, built from
+``QuantDense``/``QuantConv`` and the flax-rule ``BatchNorm``, with the JAX
+package's submodule names (its variables' paths); NCHW inputs.  In QAT mode
+:func:`init_qat_variables` draws their seeded initial variables; in serve
+mode (``qconfig.for_serving(...)``) their packed kernels, activation qparams,
+biases and BatchNorm variables are loaded by ``jaxlsq_torch.interop``.
 
 The quantized transformer LM (``QuantTransformerBlock``,
 ``QuantTransformerLM``, ``_rope`` and the dense-cache ``_cached_attention``)
@@ -39,7 +43,7 @@ later slice and raise.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -53,7 +57,8 @@ from .layers import FakeQuantize, QuantConv, QuantDense, QuantEmbed
 from .norm import BatchNorm
 from .qconfig import QConfig
 
-__all__ = ["QuantMLP", "BasicBlock", "QuantResNet", "resnet18_cifar",
+__all__ = ["QuantMLP", "QuantCNN", "BasicBlock", "QuantResNet", "resnet18_cifar",
+           "InvertedResidual", "QuantMobileNetV2", "mobilenetv2_cifar",
            "init_qat_variables", "QuantTransformerBlock", "QuantTransformerLM",
            "init_variables"]
 
@@ -455,6 +460,44 @@ class QuantMLP(nn.Module):
         return self.head(x)
 
 
+def _init_or_freeze(model: nn.Module, qconfig: QConfig, seed: int) -> None:
+    """A QAT-mode net draws its variables from ``seed``; a serve-mode one
+    takes no gradient and waits for ``interop.load_variables``."""
+    if qconfig.mode != "serve":
+        init_qat_variables(model, seed)
+    else:
+        model.requires_grad_(False)
+
+
+class QuantCNN(nn.Module):
+    """Small conv net: per width a 3x3 ``conv_{i}`` (with bias), relu and a
+    2x2 average pool, then the ``head`` over the features flattened in the
+    JAX package's NHWC order, so its (K, N) kernel carries across as it is.
+    ``image_size`` (square) fixes the head's K, which flax infers."""
+
+    def __init__(self, num_classes: int, qconfig: QConfig, *,
+                 widths: Sequence[int] = (32, 64), in_channels: int = 3,
+                 image_size: int = 32, device=None, seed: int = 0):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.qconfig = qconfig
+        self.widths = tuple(widths)
+        cin, size = in_channels, image_size
+        for i, w in enumerate(self.widths):
+            self.add_module(f"conv_{i}", QuantConv(cin, w, (3, 3), qconfig,
+                                                   path=(f"conv_{i}",),
+                                                   device=self.device))
+            cin, size = w, size // 2
+        self.head = QuantDense(cin * size * size, num_classes, qconfig,
+                               path=("head",), device=self.device)
+        _init_or_freeze(self, qconfig, seed)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(len(self.widths)):
+            x = F.avg_pool2d(F.relu(getattr(self, f"conv_{i}")(x)), 2, 2)
+        return self.head(x.permute(0, 2, 3, 1).reshape(x.shape[0], -1))
+
+
 class BasicBlock(nn.Module):
     """ResNet-v1 basic block: conv1 (3x3, ``strides``) → bn1 → relu → conv2
     → bn2, plus the residual, a 1x1 ``downsample`` conv and ``bn_down`` when
@@ -498,6 +541,7 @@ class QuantResNet(nn.Module):
                  in_channels: int = 3, device=None, seed: int = 0):
         super().__init__()
         self.device = resolve_device(device)
+        self.qconfig = qconfig
         dev = self.device
         self.stem = QuantConv(in_channels, widths[0], (3, 3), qconfig,
                               use_bias=False, path=("stem",), device=dev)
@@ -513,7 +557,7 @@ class QuantResNet(nn.Module):
                 self.block_names.append(name)
                 cin = w
         self.head = QuantDense(cin, num_classes, qconfig, path=("head",), device=dev)
-        init_qat_variables(self, seed)
+        _init_or_freeze(self, qconfig, seed)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn_stem(self.stem(x)))
@@ -526,6 +570,94 @@ def resnet18_cifar(num_classes: int, qconfig: QConfig, *, device=None,
                    seed: int = 0) -> QuantResNet:
     """ResNet-18 for 32x32 inputs: stages (2, 2, 2, 2), widths 64-512."""
     return QuantResNet(num_classes, qconfig, device=device, seed=seed)
+
+
+class InvertedResidual(nn.Module):
+    """MobileNetV2 inverted-residual block: a 1x1 ``expand`` conv (when the
+    ratio is not 1) → ``bn_expand`` → relu6, a 3x3 ``depthwise`` conv
+    (``feature_group_count == hidden``: an OIHW kernel (hidden, 1, 3, 3),
+    per-channel axis 0) → ``bn_dw`` → relu6, a 1x1 ``project`` conv →
+    ``bn_proj``, plus the input when stride 1 keeps the width."""
+
+    def __init__(self, in_features: int, features: int, qconfig: QConfig, *,
+                 strides: int = 1, expand: int = 6, path: Sequence[str] = (),
+                 device=None):
+        super().__init__()
+        path = tuple(path)
+        hidden = in_features * expand
+        self.expand = self.bn_expand = None
+        if expand != 1:
+            self.expand = QuantConv(in_features, hidden, (1, 1), qconfig, use_bias=False,
+                                    path=path + ("expand",), device=device)
+            self.bn_expand = BatchNorm(hidden, device=device)
+        self.depthwise = QuantConv(hidden, hidden, (3, 3), qconfig, strides=strides,
+                                   use_bias=False, feature_group_count=hidden,
+                                   path=path + ("depthwise",), device=device)
+        self.bn_dw = BatchNorm(hidden, device=device)
+        self.project = QuantConv(hidden, features, (1, 1), qconfig, use_bias=False,
+                                 path=path + ("project",), device=device)
+        self.bn_proj = BatchNorm(features, device=device)
+        self.residual = strides == 1 and in_features == features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x
+        if self.expand is not None:
+            y = F.relu6(self.bn_expand(self.expand(y)))
+        y = F.relu6(self.bn_dw(self.depthwise(y)))
+        y = self.bn_proj(self.project(y))
+        return y + x if self.residual else y
+
+
+class QuantMobileNetV2(nn.Module):
+    """MobileNetV2-class network with the CIFAR stem: ``stem`` (3x3) →
+    ``bn_stem`` → relu6, the ``stage{si}_block{bi}`` inverted residuals of
+    ``stages`` ((expand, features, repeats, stride) each; the stride on a
+    stage's first block), ``head_conv`` (1x1) → ``bn_head`` → relu6, the
+    spatial mean and the ``classifier``.  Takes NCHW images, returns logits
+    (B, num_classes); runs on CUDA unless ``device`` says otherwise."""
+
+    def __init__(self, num_classes: int, qconfig: QConfig, *,
+                 stages: Sequence[Tuple[int, int, int, int]] = (
+                     (1, 16, 1, 1), (6, 24, 2, 1), (6, 32, 2, 2), (6, 64, 2, 2)),
+                 stem_width: int = 32, head_width: int = 256, in_channels: int = 3,
+                 device=None, seed: int = 0):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.qconfig = qconfig
+        dev = self.device
+        self.stem = QuantConv(in_channels, stem_width, (3, 3), qconfig, use_bias=False,
+                              path=("stem",), device=dev)
+        self.bn_stem = BatchNorm(stem_width, device=dev)
+        self.block_names = []
+        cin = stem_width
+        for si, (e, f, r, st) in enumerate(stages):
+            for bi in range(r):
+                name = f"stage{si}_block{bi}"
+                self.add_module(name, InvertedResidual(
+                    cin, f, qconfig, strides=st if bi == 0 else 1, expand=e,
+                    path=(name,), device=dev))
+                self.block_names.append(name)
+                cin = f
+        self.head_conv = QuantConv(cin, head_width, (1, 1), qconfig, use_bias=False,
+                                   path=("head_conv",), device=dev)
+        self.bn_head = BatchNorm(head_width, device=dev)
+        self.classifier = QuantDense(head_width, num_classes, qconfig,
+                                     path=("classifier",), device=dev)
+        _init_or_freeze(self, qconfig, seed)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu6(self.bn_stem(self.stem(x)))
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+        x = F.relu6(self.bn_head(self.head_conv(x)))
+        return self.classifier(x.mean(dim=(2, 3)))
+
+
+def mobilenetv2_cifar(num_classes: int, qconfig: QConfig, *, device=None,
+                      seed: int = 0) -> QuantMobileNetV2:
+    """MobileNetV2 for 32x32 inputs at the JAX package's widths: stem 32,
+    stages (1, 16, 1, 1), (6, 24, 2, 1), (6, 32, 2, 2), (6, 64, 2, 2), head 256."""
+    return QuantMobileNetV2(num_classes, qconfig, device=device, seed=seed)
 
 
 @torch.no_grad()

@@ -59,7 +59,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.layers import FakeQuantize, refresh_host_state
+from ..models.layers import FakeQuantize, quant_state_frozen, refresh_host_state
 
 __all__ = ["make_train_step", "make_eval_step", "cross_entropy_loss"]
 
@@ -301,17 +301,6 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     return traced_step
 
 
-@contextlib.contextmanager
-def _quant_state_frozen(fqs):
-    for m in fqs:
-        m.persist_state = False
-    try:
-        yield
-    finally:
-        for m in fqs:
-            m.persist_state = True
-
-
 def make_eval_step(model: nn.Module):
     """``step(batch) -> logits``: the eval-mode forward with no gradient, and
     nothing of the quantizers' state kept, as the JAX package's eval step
@@ -323,7 +312,7 @@ def make_eval_step(model: nn.Module):
         model.eval()
         refresh_host_state(fqs)
         try:
-            with torch.no_grad(), _quant_state_frozen(fqs):
+            with torch.no_grad(), quant_state_frozen(fqs):
                 return model(_inputs(batch))
         finally:
             model.train(was_training)

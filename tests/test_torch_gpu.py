@@ -1772,3 +1772,208 @@ def test_fake_quant_kernels_pass_nan_and_inf(cuda, name, shape, qp):
             assert _same_bits_or_nan(got[0], want[0]), what
             assert _sums_close(got[1], want[1], tot[0]), what
             assert _sums_close(got[2], want[2], tot[1]), what
+
+
+# ---------------------------------------------------------------------------
+# mobilenetv2_cifar: conv-net train-then-serve
+# ---------------------------------------------------------------------------
+
+MNV2_B, MNV2_QUANTIZERS = 128, 46
+
+
+def _mnv2(device, wbits=8, window=20):
+    """Full-width mobilenetv2_cifar (36 classes) under combo1200's qconfig
+    with an observer window of ``window`` batches."""
+    from jaxlsq_torch.models import mobilenetv2_cifar
+
+    qc = default_qconfig(wbits, 8, per_channel_weights=True, init_batches=window,
+                         reduce_range=False)
+    return mobilenetv2_cifar(36, qc, device=device, seed=0)
+
+
+@pytest.fixture(scope="module")
+def mnv2_quantizers():
+    """``(name, shape, spec)`` of mobilenetv2_cifar's quantizers at B = 128,
+    read from one forward at B = 1 on the CPU."""
+    from jaxlsq_torch.models.layers import FakeQuantize
+
+    model = _mnv2("cpu")
+    found = []
+    hooks = [m.register_forward_hook(
+        lambda mod, i, o, n=n: found.append((n, tuple(i[0].shape), mod.cfg.spec)))
+        for n, m in model.named_modules() if isinstance(m, FakeQuantize)]
+    model.eval()
+    with torch.no_grad():
+        model(torch.zeros(1, 3, 32, 32))
+    for h in hooks:
+        h.remove()
+    return [(n, (MNV2_B,) + shape[1:] if n.endswith("act_fq") else shape, spec)
+            for n, shape, spec in found]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("index", range(MNV2_QUANTIZERS))
+def test_fake_quant_kernels_at_mnv2_shapes(cuda, mnv2_quantizers, index):
+    """Every static and traced fake-quant kernel at one of mobilenetv2_cifar's
+    46 quantizer shapes (the depthwise (C, 1, 3, 3) weights' runs of 9, the
+    pointwise (out, in, 1, 1) ones, the classifier's (256, 36) on axis 1,
+    activations up to 128 x 144 x 32 x 32) against its plain version on the
+    card, train and eval mode and the traced flags: forward and dX
+    bit-exact, dS/dB within 1e-5 of the sum of |terms|."""
+    from jaxlsq_torch.core.golden import (effective_grad_scale, golden_backward,
+                                          golden_backward_traced, golden_forward,
+                                          golden_forward_traced)
+    from jaxlsq_torch.ops.fake_quant import (LAUNCHES, fake_quant_backward,
+                                             fake_quant_backward_traced,
+                                             fake_quant_forward,
+                                             fake_quant_forward_traced)
+
+    assert len(mnv2_quantizers) == MNV2_QUANTIZERS
+    name, shape, spec = mnv2_quantizers[index]
+    g = torch.Generator(device=cuda).manual_seed(index)
+    c = shape[spec.axis] if spec.per_channel else 1
+    x = torch.randn(shape, device=cuda, generator=g) * (1.5 if c == 1 else 0.1)
+    s = (0.01 + 0.04 * torch.rand(c, device=cuda, generator=g)) * (1 if c == 1 else 0.05)
+    b = (torch.zeros(c, device=cuda) if spec.symmetric
+         else 0.2 * torch.randn(c, device=cuda, generator=g))
+    gr = torch.randn(shape, device=cuda, generator=g)
+    kind = "pc" if spec.per_channel else "pt"
+    gs = effective_grad_scale(spec, x.numel(), c)
+    sums = _fq_abs_sums(gr, x, s, b, spec, False, gs)
+    for ev in (False, True):
+        flags = torch.tensor([float(ev), 0.0], device=cuda)
+        before = dict(LAUNCHES)
+        got = [(fake_quant_forward(x, s, b, spec),
+                *fake_quant_backward(gr, x, s, b, spec, ev)),
+               (fake_quant_forward_traced(x, s, b, flags, spec),
+                *fake_quant_backward_traced(gr, x, s, b, flags, spec))]
+        want = [(golden_forward(x, s, b, spec),
+                 *golden_backward(gr, x, s, b, spec, eval_mode=ev)),
+                (golden_forward_traced(x, s, b, spec, flags[0], flags[1]),
+                 *golden_backward_traced(gr, x, s, b, spec, flags[0], flags[1]))]
+        torch.cuda.synchronize()
+        for k in (f"fq_fwd_{kind}", f"fq_bwd_{kind}", f"fq_fwd_{kind}_traced",
+                  f"fq_bwd_{kind}_traced"):
+            assert LAUNCHES[k] == before[k] + 1, k
+        for (out, dx, ds, db), (rout, rdx, rds, rdb) in zip(got, want):
+            assert torch.equal(out, rout) and torch.equal(dx, rdx), (name, ev)
+            for a, w, tot in ((ds, rds, sums[0]), (db, rdb, sums[1])):
+                err = (a.double() - w.double()).abs()
+                assert bool((err <= 1e-5 * tot.reshape(err.shape)).all()), (name, ev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("k", [256, 512])
+@pytest.mark.parametrize("m", [1, 2000])
+def test_wo_kernels_at_the_classifier_shape(cuda, bits, k, m):
+    """``wo8``/``wo4`` at the served classifier's N = 36 (not a multiple of
+    the kernels' vector width), K = 256 (mobilenetv2's head) and 512
+    (resnet18's), against ``wo_matmul_plain`` within 1e-4 of max|ref|."""
+    g = torch.Generator(device=cuda).manual_seed(k + m + bits)
+    spec = QuantSpec.weight_default(bits, per_channel=True, axis=1, reduce_range=False)
+    w = torch.randn(k, 36, device=cuda, generator=g) * k ** -0.5
+    p = quantize_weight(w, w.abs().amax(0) / spec.quant_max, torch.zeros(36, device=cuda),
+                        spec, bits=bits)
+    x = torch.randn(m, k, device=cuda, generator=g)
+    key = "wo4" if bits == 4 else "wo8"
+    before = MM_LAUNCHES[key]
+    out = wo_matmul(x, p)
+    ref = wo_matmul_plain(x, p)
+    torch.cuda.synchronize()
+    assert MM_LAUNCHES[key] == before + 1 and out.shape == (m, 36)
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wbits", [8, 4])
+def test_served_mnv2_on_card_matches_cpu(cuda, wbits):
+    """A served mobilenetv2_cifar (``for_serving('static')``, the variables
+    of a QAT model whose observers saw one batch) on the card against the
+    CPU plain path: each layer, given the card's input, within 1e-4 of
+    max|ref| of the CPU layer's output; the logits end to end within 1e-2
+    of max|ref| (a layer's sum in another order can put an activation of the
+    next layer one quant step away, and at a random init the logits are
+    small: 5e-4 of 0.14 on the card); the classifier through wo8/wo4 once."""
+    from jaxlsq_torch.lab.accuracy_parity import make_batch
+    from jaxlsq_torch.models import QuantConv, QuantDense, mobilenetv2_cifar
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        qat = _mnv2("cpu", wbits)
+        x, _ = make_batch(32, torch.Generator().manual_seed(3), "cpu")
+        qat.eval()
+        with torch.no_grad():
+            qat(x)  # the activation observers see one batch
+        tree = interop.qat_variables(qat)
+        served = {}
+        for dev in ("cuda", "cpu"):
+            served[dev] = mobilenetv2_cifar(36, qat.qconfig.for_serving("static"),
+                                            device=dev)
+            interop.load_variables(served[dev], tree)
+            served[dev].eval()
+        seen = {}
+        hooks = [m.register_forward_hook(
+            lambda mod, i, o, n=n: seen.__setitem__(n, (i[0].cpu(), o.cpu())))
+            for n, m in served["cuda"].named_modules()
+            if isinstance(m, (QuantConv, QuantDense))]
+        key = "wo8" if wbits == 8 else "wo4"
+        before = MM_LAUNCHES[key]
+        with torch.no_grad():
+            got = served["cuda"](x.to(cuda)).cpu()
+            want = served["cpu"](x)
+            layers = dict(served["cpu"].named_modules())
+            for n, (inp, out) in seen.items():
+                ref = layers[n](inp)
+                assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), n
+        for h in hooks:
+            h.remove()
+        assert MM_LAUNCHES[key] == before + 1 and len(seen) == 23
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 1e-2 * float(want.abs().max())
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.gpu
+def test_captured_mnv2_step_matches_eager_step_on_card(cuda):
+    """mobilenetv2_cifar's step captured as one CUDA graph against the eager
+    step from one state, cuDNN deterministic: four B = 16 steps across a
+    2-batch observer window under AdamW (weight decay 1e-4,
+    ``capturable=True``) and the protocol's cosine lr on the card; losses,
+    every variable and the optimizer's moments equal."""
+    from jaxlsq_torch.lab.accuracy_parity import cosine_lr, make_batch
+    from jaxlsq_torch.parallel import make_train_step
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        models = [_mnv2(cuda, window=2) for _ in range(2)]
+        opts = [torch.optim.AdamW(m.parameters(), lr=torch.tensor(3e-3, device=cuda),
+                                  weight_decay=1e-4, capturable=True) for m in models]
+        steps = [make_train_step(m, o, jit=j) for m, o, j in zip(models, opts, (False, True))]
+        g = torch.Generator(device=cuda).manual_seed(5)
+        for i in range(4):
+            x, y = make_batch(16, g, cuda)
+            for group in opts[0].param_groups:
+                group["lr"].fill_(cosine_lr(i, 8))
+            for group in opts[1].param_groups:
+                group["lr"] = cosine_lr(i, 8)
+            losses = [s({"image": x, "label": y})["loss"] for s in steps]
+            torch.cuda.synchronize()
+            assert torch.equal(losses[0], losses[1]), (i, losses)
+            trees = [interop.qat_variables(m) for m in models]
+            for path, v in _leaves(trees[0]):
+                np.testing.assert_array_equal(_get(trees[1], path), v,
+                                              err_msg=f"step {i} {path}")
+        assert len(steps[1].graphs) == 1
+        for p0, p1 in zip(models[0].parameters(), models[1].parameters()):
+            for k in ("exp_avg", "exp_avg_sq"):
+                assert torch.equal(opts[0].state[p0][k], opts[1].state[p1][k]), k
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags

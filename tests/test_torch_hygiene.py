@@ -27,6 +27,7 @@ MODULES = [
     "jaxlsq_torch.serve.decode", "jaxlsq_torch.serve.paged",
     "jaxlsq_torch.serve.paged_engine", "jaxlsq_torch.interop",
     "jaxlsq_torch.lab", "jaxlsq_torch.lab.int4_kernel_lab", "jaxlsq_torch.lab.timing",
+    "jaxlsq_torch.lab.accuracy_parity", "jaxlsq_torch.utils", "jaxlsq_torch.utils.bn",
 ]
 
 
@@ -49,8 +50,8 @@ def test_port_imports_no_jax():
 
 
 def test_entry_points_need_a_device_without_cuda():
-    from jaxlsq_torch.models import (QuantMLP, QuantResNet, QuantTransformerLM,
-                                     default_qconfig)
+    from jaxlsq_torch.models import (QuantCNN, QuantMLP, QuantMobileNetV2, QuantResNet,
+                                     QuantTransformerLM, default_qconfig)
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -62,6 +63,13 @@ def test_entry_points_need_a_device_without_cuda():
         QuantResNet(10, default_qconfig(8, 8), stage_sizes=(1,), widths=(8,))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         QuantMLP(8, (4,), default_qconfig(8, 8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QuantMobileNetV2(10, default_qconfig(8, 8), stages=((1, 8, 1, 1),))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QuantMobileNetV2(10, default_qconfig(8, 8).for_serving("static"),
+                         stages=((1, 8, 1, 1),))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QuantCNN(10, default_qconfig(8, 8), widths=(8,))
     model = QuantResNet(10, default_qconfig(8, 8), stage_sizes=(1,), widths=(8,),
                         device="cpu")
     assert all(p.device.type == "cpu" for p in model.parameters())
