@@ -170,6 +170,25 @@ exits non-zero on any failure (no phase is caught and skipped):
    ``wo8``/``wo4`` at M = 2,000, K = 256 and 512, N = 36 against
    ``wo_matmul_plain`` (1e-4 of max|ref|).
 
+14. the expensive observers on full-width ``mobilenetv2_cifar`` at B = 128:
+   ``mse_range``, ``hist_update`` and ``hist_search`` (``csrc/observers.cu``)
+   against their plain versions at its 23 activation shapes on one step's
+   real data and at ragged sizes (the MSE kernel per tensor and per
+   channel: the chosen candidate the plain one's, or within 1e-5 of its
+   least error; a fresh histogram's counts exact, a widened one's bins
+   within 1e-6 of its mass, and the same ranges; the search's range and trips the plain loop's on the CPU), each
+   the same bits on a rerun and silent with its gate off, and timed there
+   beside its bound and its plain version; then, every launch count reset,
+   the captured step under ``qat_optimizer(AdamW(capturable=True))`` for the
+   min/max, MSE, percentile and histogram configs (a 20-batch window; the
+   observer kernels launched 23 times in the warm-up and in the capture and
+   never by a replay), a post-window replay of each in turns (fails if the
+   MSE config's is more than 5% over the min/max one's), eager = captured
+   from one state over 5 steps across a 2-batch window for each expensive
+   observer, ``calibrate`` over 20 batches then convert and serve at w8a8
+   (phase 13's logits rule), and a B = 8 step against the CPU plain path
+   (phase 6's rule) for each.
+
 Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes the full
 record (every check, time and profile) to PATH as JSON.
@@ -232,6 +251,12 @@ LAB_MS, LAB_K, LAB_N, LAB_ROUNDS = (1, 16, 128), 8192, 8192, 5
 MNV2_B, MNV2_CLASSES, MNV2_QUANTIZERS = 128, 36, 46
 MNV2_WINDOW, MNV2_TIMED, MNV2_EAGER_TIMED = 20, 30, 10
 MNV2_PROTOCOL_STEPS, MNV2_BN_BATCHES, MNV2_EVAL_N = 1500, 20, 2000
+# the expensive observers (phase 14): their kernels, ragged sizes for them,
+# and the post-window replays timed a config
+OBS_KINDS = ("mse", "percentile", "histogram")
+OBS_KERNELS = ("mse_range", "hist_update", "hist_search")
+OBS_RAGGED = ((3, 7, 13, 17), (1000003,), (5, 3, 1, 1), (257,))
+OBS_TIMED = 20
 
 
 def reset_counts():
@@ -239,11 +264,12 @@ def reset_counts():
     from jaxlsq_torch.lab.int4_kernel_lab import LAUNCHES as LAB
     from jaxlsq_torch.ops.fake_quant import LAUNCHES as FQ
     from jaxlsq_torch.ops.flash_attention import LAUNCHES as FLASH
+    from jaxlsq_torch.ops.observers import LAUNCHES as OBS
     from jaxlsq_torch.serve.attention import LAUNCHES as ATTN
     from jaxlsq_torch.serve.matmul import LAUNCHES as MM
     from jaxlsq_torch.serve.paged import LAUNCHES as PAGED
 
-    for counts in (MM, ATTN, FQ, PAGED, FLASH, LAB):
+    for counts in (MM, ATTN, FQ, PAGED, FLASH, LAB, OBS):
         for k in counts:
             counts[k] = 0
     return MM, ATTN, FQ
@@ -1564,14 +1590,17 @@ def _train_state(model, opt):
     return state
 
 
-def _steps_equal(torch, models, opts, batches, toggle_at=None, schedule=None):
+def _steps_equal(torch, models, opts, batches, toggle_at=None, schedule=None,
+                 counts=None, per_step=None):
     """The eager (``models[0]``) and the captured (``models[1]``) step from one
     state over ``batches`` (act fake-quant toggled off before step
     ``toggle_at``; with ``schedule``, the lr set to ``schedule(i)`` before
-    step i: the eager side fills its device lr, the captured side writes a
-    Python float into ``group['lr']``): ``(leaves a step, losses, unequal
-    leaves)``; a float leaf that is not bit-equal is recorded with its
-    largest difference over its largest magnitude."""
+    step i: the eager side fills its device lr (or writes a float where the
+    lr is one), the captured side writes a Python float into
+    ``group['lr']``): ``(leaves a step, losses, unequal leaves)``; a float
+    leaf that is not bit-equal is recorded with its largest difference over
+    its largest magnitude.  With ``counts`` (a launch-count dict) each step's
+    launches on the eager and the captured side go into ``per_step``."""
     from jaxlsq_torch.models import toggles
     from jaxlsq_torch.parallel import make_train_step
 
@@ -1584,10 +1613,19 @@ def _steps_equal(torch, models, opts, batches, toggle_at=None, schedule=None):
                 toggles.disable_fake_quant_on_act(m)
         if schedule is not None:
             for group in opts[0].param_groups:
-                group["lr"].fill_(schedule(i))
+                if torch.is_tensor(group["lr"]):
+                    group["lr"].fill_(schedule(i))
+                else:
+                    group["lr"] = schedule(i)
             for group in opts[1].param_groups:
                 group["lr"] = schedule(i)
-        pair = [s(batch)["loss"] for s in steps]
+        pair = []
+        for side, s in zip(("eager", "captured"), steps):
+            before = dict(counts or {})
+            pair.append(s(batch)["loss"])
+            if counts is not None:
+                per_step.append({"step": i + 1, "side": side,
+                                 **{k: counts[k] - before[k] for k in counts}})
         losses.append([float(v) for v in pair])
         states = [{"loss": v, **_train_state(m, o)}
                   for v, m, o in zip(pair, models, opts)]
@@ -2802,6 +2840,439 @@ def phase_convnet(torch, rec):
     log(f"[convnet] phase 13 took {out['wall_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the expensive observers: MSE, percentile and histogram on mobilenetv2_cifar
+# ---------------------------------------------------------------------------
+
+def _mnv2_obs(torch, device, kind, window=MNV2_WINDOW):
+    """Full-width mobilenetv2_cifar under ``default_qconfig(8, 8,
+    per_channel_weights=True, act_observer=kind)`` with a ``window``-batch
+    observer window (examples/recipe_sweep.py's mse and histogram recipes:
+    20 batches, the 7-bit activation range)."""
+    from jaxlsq_torch.models import default_qconfig, mobilenetv2_cifar
+
+    qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=window,
+                         act_observer=kind)
+    return mobilenetv2_cifar(MNV2_CLASSES, qc, device=device, seed=0)
+
+
+def _qat_adamw(torch, model):
+    """``qat_optimizer`` over AdamW (weight decay 1e-4, ``capturable=True``)
+    and the quantizer SGD (momentum 0.9, fused), each lr a tensor on the card
+    (a captured step reads it there; an eager step given a Python float
+    takes torch.optim's other arithmetic for it)."""
+    from jaxlsq_torch.parallel import qat_optimizer
+
+    return qat_optimizer(
+        model,
+        lambda ps: torch.optim.AdamW(ps, lr=torch.tensor(3e-3, device="cuda"),
+                                     weight_decay=1e-4, capturable=True),
+        lambda ps: torch.optim.SGD(ps, lr=torch.tensor(0.01, device="cuda"),
+                                   momentum=0.9, fused=True))
+
+
+def _obs_input(torch, shape, seed):
+    """ReLU-like values with a few far outliers (a ragged case)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.relu(torch.randn(shape, device="cuda", generator=g))
+    flat = x.view(-1)
+    idx = torch.randint(0, flat.numel(), (max(1, flat.numel() // 4000),), device="cuda",
+                        generator=g)
+    flat[idx] = 12.0 + 4 * torch.rand(idx.numel(), device="cuda", generator=g)
+    return x
+
+
+def _check_mse(torch, x, spec, per_channel):
+    """``mse_range`` against ``mse_range_plain`` on the card: the same
+    candidate, or one whose plain error is within 1e-5 of the least; the same
+    bits on a rerun; the gate false leaves every output untouched.  Returns
+    the largest relative excess of a chosen candidate's plain error and the
+    count of candidates that differ from the plain choice."""
+    from jaxlsq_torch.ops.observers import linspace, mse_range, mse_range_plain
+
+    if per_channel:
+        red = tuple(a for a in range(x.dim()) if a != 1)
+        bmin, bmax = x.amin(dim=red), x.amax(dim=red)
+    else:
+        bmin, bmax = x.amin().reshape(1), x.amax().reshape(1)
+    c = bmin.numel()
+    runs = []
+    for _ in range(2):
+        errs = torch.empty(c, 64, device="cuda")
+        best = torch.empty(c, dtype=torch.int32, device="cuda")
+        out = mse_range(x, bmin, bmax, spec, per_channel, 1, errs=errs, best=best)
+        runs.append((out[0].clone(), out[1].clone(), errs, best))
+    _, _, perrs, pbest = mse_range_plain(x, bmin, bmax, spec, per_channel, 1)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(runs[0], runs[1])):
+        raise AssertionError(f"mse_range {tuple(x.shape)}: a rerun gave other bits")
+    kbest = runs[0][3].long()
+    picked = perrs.gather(1, kbest[:, None])[:, 0]
+    least = perrs.min(dim=1).values
+    excess = ((picked - least) / least.clamp_min(1e-30)).double()
+    ok = (kbest == pbest) | (excess <= 1e-5)
+    # every candidate's error: sums in another order; one element at another
+    # level moves a small tensor's error by far more
+    rel = ((runs[0][2] - perrs).abs() / perrs.abs().clamp_min(1e-30)).max()
+    if not float(rel) <= 1e-3:
+        raise AssertionError(f"mse_range {tuple(x.shape)}: errors {float(rel)} off the plain")
+    if not bool(ok.all()):
+        raise AssertionError(f"mse_range {tuple(x.shape)}: candidates {kbest.tolist()} "
+                             f"against the plain {pbest.tolist()} (excess {excess.max()})")
+    gate = torch.zeros((), dtype=torch.bool, device="cuda")
+    sentinel = [torch.full((c,), -7.0, device="cuda"), torch.full((c,), -9.0, device="cuda")]
+    errs = torch.full((c, 64), 3.0, device="cuda")
+    best = torch.full((c,), 5, dtype=torch.int32, device="cuda")
+    mse_range(x, bmin, bmax, spec, per_channel, 1, gate=gate, out=sentinel, errs=errs,
+              best=best)
+    torch.cuda.synchronize()
+    if not bool((sentinel[0] == -7).all() and (sentinel[1] == -9).all()
+                and (errs == 3).all() and (best == 5).all()):
+        raise AssertionError(f"mse_range {tuple(x.shape)}: the gate off wrote an output")
+    err = float((runs[0][0] - bmin * linspace(1 / 64, 1.0, 64).to(x.device)[pbest])
+                .abs().max())
+    return float(excess.max()), int((kbest != pbest).sum()), err
+
+
+def _check_hist(torch, x1, x2, iters_out):
+    """``hist_update`` (x1 into a fresh histogram, then x2, which widens the
+    range) and ``hist_search`` on both histograms, against the plain versions
+    on the CPU: the fresh histogram's integer counts exact, the widened
+    one's bins within 1e-6 of the mass, the same chosen range (and trips);
+    the same bits on a rerun; the gate false leaves every output untouched.
+    Returns the bins' largest error over the mass."""
+    from jaxlsq_torch.observers import HistogramObserver
+    from jaxlsq_torch.ops.observers import (hist_search, hist_search_plain, hist_update,
+                                            hist_update_plain)
+
+    obs = HistogramObserver()
+    st = obs.init(1, "cuda")
+    worst = 0.0
+    hists = []
+    for x in (x1, x2):
+        nmin = torch.where(st.seen == 0, x.amin().reshape(1),
+                           torch.minimum(st.min_val, x.amin().reshape(1)))
+        nmax = torch.where(st.seen == 0, x.amax().reshape(1),
+                           torch.maximum(st.max_val, x.amax().reshape(1)))
+        got = [hist_update(x, st.histogram, st.min_val, st.max_val, nmin, nmax, st.seen)
+               for _ in range(2)]
+        want = hist_update_plain(x.cpu(), st.histogram.cpu(), st.min_val.cpu(),
+                                 st.max_val.cpu(), nmin.cpu(), nmax.cpu(), st.seen.cpu())
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], got[1]):
+            raise AssertionError(f"hist_update {tuple(x.shape)}: a rerun gave other bits")
+        mass = max(float(want.sum()), 1.0)
+        err = float((got[0].cpu() - want).abs().max()) / mass
+        worst = max(worst, err)
+        # into a fresh histogram both count in integers: exact
+        if not (torch.equal(got[0].cpu(), want) if not hists else err <= 1e-6):
+            raise AssertionError(f"hist_update {tuple(x.shape)}: bins {err} of the mass off")
+        st = st.replace(min_val=nmin, max_val=nmax, histogram=got[0], seen=st.seen + 1)
+        hists.append(st)
+    for h in hists:
+        iters = torch.zeros(2, dtype=torch.int32, device="cuda")
+        rng = [hist_search(h.histogram, h.min_val, h.max_val, 256, iters=iters)
+               for _ in range(2)]
+        prng, counts = hist_search_plain(h.histogram.cpu(), h.min_val.cpu(),
+                                         h.max_val.cpu(), 256)
+        torch.cuda.synchronize()
+        if not (torch.equal(rng[0], rng[1]) and torch.equal(rng[0].cpu(), prng)
+                and tuple(iters.tolist()) == counts):
+            raise AssertionError(f"hist_search {tuple(x1.shape)}: {rng[0].tolist()} "
+                                 f"{iters.tolist()} against the plain {prng.tolist()} {counts}")
+        iters_out.append(counts)
+    gate = torch.zeros((), dtype=torch.bool, device="cuda")
+    out = torch.full((2048,), -1.0, device="cuda")
+    h = hists[0]
+    hist_update(x2, h.histogram, h.min_val, h.max_val, hists[1].min_val, hists[1].max_val,
+                h.seen, gate=gate, out=out)
+    rout = torch.full((2,), -2.0, device="cuda")
+    iters = torch.full((2,), -3, dtype=torch.int32, device="cuda")
+    hist_search(h.histogram, h.min_val, h.max_val, 256, gate=gate, out=rout, iters=iters)
+    torch.cuda.synchronize()
+    if not bool((out == -1).all() and (rout == -2).all() and (iters == -3).all()):
+        raise AssertionError("hist kernels: the gate off wrote an output")
+    return worst
+
+
+def _time_obs_kernels(torch, acts, spec):
+    """Device ms of K1 (per tensor), K2 and K3 at each activation shape,
+    their plain versions' ms at the largest shape, and each shape's bound."""
+    from jaxlsq_torch.observers import HistogramObserver
+    from jaxlsq_torch.ops.observers import (hist_search, hist_search_plain, hist_update,
+                                            hist_update_plain, mse_range, mse_range_plain)
+
+    rows = []
+    for x in acts:
+        n = x.numel()
+        bmin, bmax = x.amin().reshape(1), x.amax().reshape(1)
+        sets = [(x.clone(), bmin, bmax) for _ in range(copies_for(4 * n, 120e6))]
+        k1, _ = measure(lambda a, lo, hi: mse_range(a, lo, hi, spec), sets, reps=10)
+        st = HistogramObserver().init(1, "cuda")
+        st = HistogramObserver().update(st, x)
+        nmin, nmax = st.min_val * 1.25, st.max_val * 1.25
+        k2, _ = measure(lambda a: hist_update(a, st.histogram, st.min_val, st.max_val,
+                                              nmin, nmax, st.seen),
+                        [(a,) for a, _, _ in sets], reps=10)
+        iters = torch.zeros(2, dtype=torch.int32, device="cuda")
+        k3, _ = measure(lambda h: hist_search(h, st.min_val, st.max_val, 256, iters=iters),
+                        [(st.histogram,)], reps=5)
+        trips, scored = iters.tolist()
+        # K1: per element and candidate a divide, an add, max, min, rint, sub,
+        # mul, sub, mul, add; K2: ~8 operations an element; K3: ~45 a bin a
+        # scored trip, two binary searches a trip
+        rows.append({"shape": list(x.shape), "elements": n, "mse_range_ms": k1,
+                     "hist_update_ms": k2, "hist_search_ms": k3,
+                     "hist_search_trips": trips, "hist_search_scored": scored,
+                     "bounds": {"mse_range": bound(4 * n + 16, 640 * n),
+                                "hist_update": bound(4 * n + 16 * 2048, 8 * n),
+                                "hist_search": bound(8 * 2048 + 16,
+                                                     45 * 2048 * scored + 66 * trips)}})
+    big = max(acts, key=lambda t: t.numel())
+    bmin, bmax = big.amin().reshape(1), big.amax().reshape(1)
+    plain = {}
+    plain["mse_range"], _ = measure(lambda a: mse_range_plain(a, bmin, bmax, spec),
+                                    [(big,)], reps=2)
+    st = HistogramObserver().update(HistogramObserver().init(1, "cuda"), big)
+    nmin, nmax = st.min_val * 1.25, st.max_val * 1.25
+    plain["hist_update"], _ = measure(
+        lambda a: hist_update_plain(a, st.histogram, st.min_val, st.max_val, nmin, nmax,
+                                    st.seen), [(big,)], reps=3)
+    h, lo, hi = st.histogram.cpu(), st.min_val.cpu(), st.max_val.cpu()
+    t0 = time.perf_counter()
+    hist_search_plain(h, lo, hi, 256)
+    plain["hist_search"] = 1e3 * (time.perf_counter() - t0)
+    return rows, plain
+
+
+def _obs_leg(torch, kind, steps, obs):
+    """``steps`` captured steps of a fresh mobilenetv2 under ``kind`` and
+    ``qat_optimizer``: the model, the step, a spare batch, the launches a
+    step and the ms a replay in the window (steps 3 to the window's end)."""
+    from jaxlsq_torch.lab.accuracy_parity import cosine_lr
+    from jaxlsq_torch.parallel import make_train_step
+
+    model = _mnv2_obs(torch, "cuda", kind)
+    opt = _qat_adamw(torch, model)
+    step = make_train_step(model, opt, jit=True)
+    batches = _grating_batches(torch, steps + 1, MNV2_B, seed=71)
+    per_step, losses = [], []
+    torch.cuda.synchronize()
+    t0 = None
+    for i, batch in enumerate(batches[:steps]):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if i == MNV2_WINDOW:
+            torch.cuda.synchronize()
+            window_ms = 1e3 * (time.perf_counter() - t0) / (MNV2_WINDOW - 2)
+        for group in opt.param_groups:
+            group["lr"] = cosine_lr(i, MNV2_PROTOCOL_STEPS)
+        before = dict(obs)
+        losses.append(step(batch)["loss"])
+        per_step.append({k: obs[k] - before[k] for k in OBS_KERNELS})
+    torch.cuda.synchronize()
+    losses = torch.stack(losses).cpu().tolist()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite mobilenetv2 loss under {kind}: {losses}")
+    _graph_of(step)
+    return model, step, batches[steps], {"per_step": per_step, "window_replay_ms": window_ms,
+                                         "losses": losses}
+
+
+def phase_observers(torch, rec):
+    """The expensive observers on full-width mobilenetv2_cifar at B = 128
+    (phase 14): K1-K3 against their plain versions at its 23 activation
+    shapes on one step's real data and at ragged sizes; the captured step
+    under each observer and the min/max one across the window's end (the
+    launches, a post-window replay's ms beside the min/max config's, in
+    turns); eager = captured; calibrate, convert and serve; a B = 8 step
+    against the CPU."""
+    from jaxlsq_torch.core.spec import QuantSpec
+    from jaxlsq_torch.lab.accuracy_parity import cosine_lr, make_batch
+    from jaxlsq_torch.models import calibrate, toggles
+    from jaxlsq_torch.ops.observers import LAUNCHES as OBS
+    from jaxlsq_torch.parallel import make_train_step
+
+    t0 = time.time()
+    out = rec["observers"] = {}
+    spec = QuantSpec.activation_default(8, reduce_range=True)
+    # K1-K3 on one eager step's real activations and at ragged sizes
+    caps = _capture_quantizers(torch, _mnv2_obs(torch, "cuda", "minmax"),
+                               _grating_batches(torch, 1, MNV2_B, 81)[0])
+    acts = [c["x"] for c in caps if c["name"].endswith("act_fq")]
+    del caps
+    if len(acts) != MNV2_QUANTIZERS // 2:
+        raise AssertionError(f"{len(acts)} activation quantizers, not {MNV2_QUANTIZERS // 2}")
+    ragged = [_obs_input(torch, shape, seed=i) for i, shape in enumerate(OBS_RAGGED)]
+    checks = {"mse_pt_excess": 0.0, "mse_pc_excess": 0.0, "mse_other_candidate": 0,
+              "mse_err": 0.0, "hist_mass_err": 0.0, "search_trips": []}
+    for i, x in enumerate(acts + ragged):
+        for pc in (False, True):
+            ex, other, err = _check_mse(torch, x if x.dim() == 4 or not pc else
+                                        x.reshape(1, 1, -1), spec, pc)
+            key = "mse_pc_excess" if pc else "mse_pt_excess"
+            checks[key] = max(checks[key], ex)
+            checks["mse_other_candidate"] += other
+            if not pc:
+                checks["mse_err"] = max(checks["mse_err"], err)
+        # a second batch that widens the range both ways
+        checks["hist_mass_err"] = max(checks["hist_mass_err"], _check_hist(
+            torch, x, x * 1.3 - 0.2, checks["search_trips"]))
+    for k, v in (("mse_range", checks["mse_err"]), ("hist_update", checks["hist_mass_err"]),
+                 ("hist_search", 0.0)):
+        rec["max_abs_err"][k] = v
+    out["checks"] = checks
+    trips = [t for t, _ in checks["search_trips"][:2 * len(acts)]]
+    log(f"[observers] K1-K3 against their plain versions at mobilenetv2_cifar's "
+        f"{len(acts)} activation shapes (one step's real data) and {len(ragged)} ragged "
+        f"sizes: mse_range per tensor and per channel, the chosen candidate's plain "
+        f"error at most {checks['mse_pt_excess']:.2e} / {checks['mse_pc_excess']:.2e} "
+        f"above the least ({checks['mse_other_candidate']} other candidates, tol 1e-5); "
+        f"hist_update's fresh counts exact and widened bins within "
+        f"{checks['hist_mass_err']:.2e} of the mass (tol 1e-6), "
+        f"hist_search the plain range and trips exactly (trips {min(trips)}-{max(trips)}"
+        f" on the real activations); every kernel the same bits on a rerun and silent "
+        "with the gate off")
+
+    # times at the real shapes
+    rows, plain = _time_obs_kernels(torch, acts, spec)
+    big = max(rows, key=lambda r: r["elements"])
+    out["times"] = {"rows": rows, "plain_ms_largest": plain, "largest": big["shape"],
+                    "sum_ms": {k: sum(r[k + "_ms"] for r in rows) for k in OBS_KERNELS},
+                    "sum_bound_ms": {k: sum(r["bounds"][k][0] for r in rows)
+                                     for k in OBS_KERNELS}}
+    log(f"[observers] at {big['shape']}: mse_range {1e3 * big['mse_range_ms']:.1f} us "
+        f"(bound {1e3 * big['bounds']['mse_range'][0]:.1f}, {big['bounds']['mse_range'][1]}"
+        f"), hist_update {1e3 * big['hist_update_ms']:.1f} us (bound "
+        f"{1e3 * big['bounds']['hist_update'][0]:.1f}), hist_search "
+        f"{1e3 * big['hist_search_ms']:.1f} us ({big['hist_search_trips']} trips, "
+        f"{big['hist_search_scored']} scored); over the 23 shapes "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in out["times"]["sum_ms"].items())
+        + f"; plain at the largest: {plain}")
+
+    # the main path, every count reset: the captured step under each config
+    reset_counts()
+    legs = {}
+    for kind in ("minmax",) + OBS_KINDS:
+        model, step, spare, leg = _obs_leg(torch, kind, MNV2_WINDOW + 4, OBS)
+        legs[kind] = (model, step, spare, leg)
+    out["launches"] = dict(OBS)
+    for kind, (_, _, _, leg) in legs.items():
+        want = {"minmax": {}, "percentile": {}, "mse": {"mse_range": 23},
+                "histogram": {"hist_update": 23, "hist_search": 23}}[kind]
+        for i, counts in enumerate(leg["per_step"]):
+            for k in OBS_KERNELS:
+                w = want.get(k, 0) if i < 2 else 0
+                if counts[k] != w:
+                    raise AssertionError(f"{kind} captured step {i + 1}: {k} ran "
+                                         f"{counts[k]} times, not {w}")
+    # a post-window replay of each config, in turns, the min of two rounds
+    order = ("minmax",) + OBS_KINDS
+    replay = {k: [] for k in order}
+    for kinds in (order, order[::-1]):
+        for kind in kinds:
+            _, step, spare, _ = legs[kind]
+            span, _ = events_ms(lambda: [step(spare) for _ in range(OBS_TIMED)])
+            replay[kind].append(span / OBS_TIMED)
+    post = {k: min(v) for k, v in replay.items()}
+    out["replay_ms"] = {"post_window": post, "rounds": replay,
+                        "window": {k: legs[k][3]["window_replay_ms"] for k in order}}
+    log("[observers] captured mobilenetv2 B=128 under qat_optimizer(AdamW): a replay in "
+        "the window (steps 3-20) " + ", ".join(
+            f"{k} {legs[k][3]['window_replay_ms']:.2f} ms" for k in order)
+        + "; past the window (min of 2 rounds of " + str(OBS_TIMED) + ") " + ", ".join(
+            f"{k} {v:.3f} ms" for k, v in post.items())
+        + f"; launches {out['launches']}")
+    if not post["mse"] <= 1.05 * post["minmax"]:
+        raise AssertionError(f"the MSE config's post-window replay {post['mse']:.3f} ms is "
+                             f"more than 5% over the min/max one's {post['minmax']:.3f} ms")
+    missing = [k for k, v in out["launches"].items() if not v]
+    if missing:
+        raise AssertionError(f"observer kernels never launched on the path: {missing}")
+    del legs, model, step, spare
+
+    # eager = captured from one state over 5 steps across a 2-batch window
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    out["captured_vs_eager"] = {}
+    try:
+        for kind in OBS_KINDS:
+            models = [_mnv2_obs(torch, "cuda", kind, window=2) for _ in range(2)]
+            opts = [_qat_adamw(torch, m) for m in models]
+            per_step = []
+            n_leaves, losses, unequal = _steps_equal(
+                torch, models, opts, _grating_batches(torch, EQUAL_STEPS, MNV2_B, seed=91),
+                schedule=lambda i: cosine_lr(i, EQUAL_STEPS + 1), counts=OBS,
+                per_step=per_step)
+            out["captured_vs_eager"][kind] = {"leaves": n_leaves, "losses": losses,
+                                              "unequal": unequal, "launches": per_step}
+            worst = max((u["rel"] for u in unequal), default=0.0)
+            log(f"[observers] {kind}: eager vs captured from one state, {EQUAL_STEPS} steps "
+                f"across a 2-batch window: {n_leaves} leaves a step, {len(unequal)} not "
+                f"bit-equal {unequal[:3]}; launches a step "
+                + str([{k: v for k, v in r.items() if k in OBS_KERNELS} for r in per_step]))
+            if not worst <= 1e-6:
+                raise AssertionError(f"{kind}: the captured step left another state")
+            del models, opts
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+    # calibrate over 20 batches, then convert and serve at w8a8
+    images = make_batch(MNV2_EVAL_N, torch.Generator(device="cuda").manual_seed(99),
+                        "cuda")[0]
+    mm, _, fq = reset_counts()
+    out["calibrate_serve"] = {}
+    for kind in OBS_KINDS:
+        model = _mnv2_obs(torch, "cuda", kind)
+        g = torch.Generator(device="cuda").manual_seed(101)
+        before = dict(OBS)
+        calibrate(model, [make_batch(MNV2_B, g, "cuda")[0] for _ in range(MNV2_BN_BATCHES)])
+        toggles.disable_observer(model)  # the eval logits use the calibrated qparams
+        served = _mnv2_serve(torch, model, 8, images, mm, fq)
+        served["calibrate_launches"] = {k: OBS[k] - before[k] for k in OBS_KERNELS}
+        out["calibrate_serve"][kind] = served
+        del model
+    # one B = 8 step on the card and on the CPU plain path, in the window
+    out["cpu_check"] = {}
+    for kind in OBS_KINDS:
+        model = _mnv2_obs(torch, "cuda", kind)
+        out["cpu_check"][kind] = _cpu_check(
+            torch, model, make_train_step(model, _sgd(torch, model), jit=False),
+            _grating_batches(torch, 1, CHECK_B, seed=111)[0],
+            lambda kind=kind: _mnv2_obs(torch, "cpu", kind), f"[observers] {kind} B={CHECK_B}")
+        del model
+    out["wall_s"] = time.time() - t0
+    log(f"[observers] phase 14 took {out['wall_s']:.1f} s")
+
+
+def _obs_kernels_line(rec):
+    o = rec["observers"]
+    big = max(o["times"]["rows"], key=lambda r: r["elements"])
+    out = []
+    for name, repl in (
+            ("mse_range", "none (port-only; jaxlsq runs MSEObserver._best_range, "
+                          "jaxlsq/observers/minmax.py:145, as XLA behind a lax.cond)"),
+            ("hist_update", "none (port-only; jaxlsq/observers/histogram.py:123 "
+                            "HistogramObserver.update, XLA)"),
+            ("hist_search", "none (port-only; jaxlsq/observers/histogram.py:184 "
+                            "_search, an XLA while_loop)")):
+        b_ms, b_by = big["bounds"][name]
+        out.append({"name": name, "route": "cuda", "source": "jaxlsq_torch/csrc/observers.cu",
+                    "replaces": repl, "launches": o["launches"][name],
+                    "max_abs_err": rec["max_abs_err"][name], "ms": big[name + "_ms"],
+                    "plain_ms": o["times"]["plain_ms_largest"][name], "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": None,
+                    "step_sum_ms": o["times"]["sum_ms"][name],
+                    "step_sum_bound_ms": o["times"]["sum_bound_ms"][name],
+                    "shape": "x " + "x".join(map(str, big["shape"])) + " (mobilenetv2's "
+                             "largest activation, one step's real data); step_sum: the 23 "
+                             "activations" + ("; plain: on the CPU (a host loop)"
+                                              if name == "hist_search" else "")})
+    return out
+
+
 def kernels_line(rec):
     out = []
     for name, src, repl in (
@@ -2936,6 +3407,7 @@ def kernels_line(rec):
                     "library_ms": r[lib],
                     "shape": f"B={r['B']}, H={r['H']}, t={r['t']}, hd={r['hd']}, causal, "
                              f"f32; bound: 3xTF32 on the tensor cores; library: {what}"})
+    out.extend(_obs_kernels_line(rec))
     return out
 
 
@@ -2980,6 +3452,7 @@ def main(argv):
     phase_chain(torch, rec)
     phase_int4_lab(torch, rec)
     phase_convnet(torch, rec)
+    phase_observers(torch, rec)
     rec["wall_s"] = time.time() - t0
     rec["profile_misses"] = PROFILE_MISSES
     rec["waiting_calls"] = WAITING_CALLS

@@ -73,6 +73,15 @@ _SIGNATURES = {
     # cluster, qmin, qmax, tmin, tmax, sym, gs, stream
     "jlt_fq_bwd_pc_traced": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                              _F, _F, _F, _F, _I, _F, _P],
+    # x, bmin, bmax, gate, part, tickets, out_min, out_max, errs, best, C,
+    # inner, n, bpc, chunk, qmin, qmax, sym, zp_sym, stream
+    "jlt_mse_range": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                      _F, _I, _F, _P],
+    # x, n, hist, omin, omax, nmin, nmax, seen, gate, work, out, bins, u,
+    # blocks, stream
+    "jlt_hist_update": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # hist, min, max, gate, out, iters, bins, dst_nbins, stream
+    "jlt_hist_search": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # q, k, v, out, lse, BH, t, hd, sm_scale, stream
     "jlt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # q, k, v, dout, lse, D, dq, dk, dv, BH, t, hd, sm_scale, stream
@@ -145,11 +154,12 @@ def load_library() -> ctypes.CDLL:
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             for name in ("jlt_wo4_group_rows", "jlt_attention_span_keys",
-                         "jlt_fq_pt_slots"):
+                         "jlt_fq_pt_slots", "jlt_hist_max_bins"):
                 getattr(lib, name).restype = ctypes.c_int
             lib.group_rows = lib.jlt_wo4_group_rows()
             lib.span_keys = lib.jlt_attention_span_keys()
             lib.pt_slots = lib.jlt_fq_pt_slots()
+            lib.hist_max_bins = lib.jlt_hist_max_bins()
             _lib = lib
     return _lib
 

@@ -36,7 +36,8 @@ plus a learned ``pos_emb`` parameter) and out again.  Conv kernels are HWIO
 there and OIHW here (a depthwise (3, 3, 1, C) there is (C, 1, 3, 3) here);
 a per-channel conv weight's qparams are the same (C,) vectors (axis 3
 there, 0 here); the quantizers' counters, flags and observer count are
-their buffers, of the JAX package's types (int32, bool, int32).
+their buffers, of the JAX package's types (int32, bool, int32), and a
+histogram observer's ``histogram`` its ``obs_hist`` buffer.
 """
 
 from __future__ import annotations
@@ -50,7 +51,6 @@ from torch import nn
 from .models.layers import FakeQuantize, QuantConv, QuantDense, QuantEmbed
 from .models.norm import BatchNorm
 from .models.zoo import QuantTransformerLM
-from .observers.minmax import ObserverState
 from .observers.quantizer import STATE_DTYPES, STATE_FIELDS, QuantizerState
 from .serve.convert import convert
 from .serve.pack import PackedWeight
@@ -258,15 +258,16 @@ def load_qat_variables(model, tree: Dict[str, Any]) -> None:
         if isinstance(mod, FakeQuantize):
             qp = _pop_node(cols["qparams"], path, "qparams")["qp"]
             qs = _pop_node(cols["quant_state"], path, "quant_state")["qs"]
-            obs = qs["obs"]
+            bufs = mod.obs_buffers()
+            obs = {f: get(qs["obs"], f, path) for f in bufs}
+            obs["seen"] = obs["seen"].to(torch.int32).reshape(())
             st = QuantizerState(
                 scale=get(qp, "scale", path), shift=get(qp, "shift", path),
-                obs=ObserverState(get(obs, "min_val", path),
-                                  get(obs, "max_val", path),
-                                  get(obs, "seen", path).to(torch.int32).reshape(())),
+                obs=mod.obs_type(**obs),
                 **{f: get(qs, f, path).to(STATE_DTYPES[f]).reshape(())
                    for f in STATE_FIELDS})
-            for a, b in ((st.scale, mod.scale), (st.obs.min_val, mod.obs_min)):
+            shapes = [(st.scale, mod.scale)] + [(obs[f], b) for f, b in bufs.items()]
+            for a, b in shapes:
                 if a.shape != b.shape:
                     raise ValueError(f"{where}: shape {tuple(a.shape)} != {tuple(b.shape)}")
             mod.load_quant_state(st)
@@ -322,8 +323,7 @@ def qat_variables(model) -> Dict[str, Any]:
         if isinstance(mod, FakeQuantize):
             put("qparams", path, {"qp": {"scale": np_(mod.scale), "shift": np_(mod.shift)}})
             qs = {f: np_(getattr(mod, f)) for f in STATE_FIELDS}
-            qs["obs"] = {"min_val": np_(mod.obs_min), "max_val": np_(mod.obs_max),
-                         "seen": np_(mod.obs_seen)}
+            qs["obs"] = {f: np_(b) for f, b in mod.obs_buffers().items()}
             put("quant_state", path, {"qs": qs})
         elif isinstance(mod, BatchNorm):
             put("params", path, {"scale": np_(mod.scale), "bias": np_(mod.bias)})

@@ -1,6 +1,6 @@
 """jaxlsq's QAT accuracy protocol on the port (port of
-``examples/accuracy_parity.py`` with ``examples/recipe_sweep.py``'s
-recommended recipes and its BatchNorm re-estimation).
+``examples/accuracy_parity.py`` with ``examples/recipe_sweep.py``'s recipes
+and its BatchNorm re-estimation).
 
 The task is jaxlsq's procedural grating problem: 36 orientation classes 5
 degrees apart on 32x32x3 images, with frequency, phase, amplitude, a
@@ -11,13 +11,18 @@ formula of ``make_batch`` on them, NCHW.
 
 Per seed, every config trains from the same initial weights (seed 0, as the
 JAX package's ``create_train_state`` uses one key) on the same sequence of
-batches, with ``AdamW(lr, weight_decay=1e-4)`` (optax's ``adamw`` default
-decay) under the cosine schedule ``3e-3 * 0.5 * (1 + cos(pi * min(i, steps)
-/ steps))`` written into the optimizer before step i, through
-``make_train_step(jit=True)``: on the card one CUDA graph of the step whose
-lr is read from the device (``capturable=True``).  Before training, one
-eval-mode forward on a batch of its own feeds the activation observers, as
-flax's ``init`` does.  The eval set is a fixed 20,000 images a seed, in
+batches, with its recipe's optimizer (:func:`recipe`: ``AdamW(lr,
+weight_decay=1e-4)``, optax's ``adamw`` default decay, or the
+``qat_optimizer`` partitions of ``sgdq_tx``/``adamq_tx``) under the cosine
+schedule ``3e-3 * 0.5 * (1 + cos(pi * min(i, steps) / steps))`` written into
+every param group before step i, through ``make_train_step(jit=True)``: on
+the card one CUDA graph of the step whose lr is read from the device
+(``capturable=True``, ``fused=True``).  Before training, one eval-mode
+forward on a batch of its own feeds the activation observers, as flax's
+``init`` does; then the recipe's state function (``set_static_estimate``)
+and its warm start (``calibrate`` over 20 batches, then learning on and the
+observers off, as ``train_one`` does).  One float model a seed is shared by
+every recipe of the seed.  The eval set is a fixed 20,000 images a seed, in
 chunks of 2,000, shared by every config of the seed.  A QAT row records
 three top-1s: ``top1`` (the QAT model in eval mode), ``top1_served`` (the
 trained variables through ``serve.convert`` into the serve-mode model under
@@ -28,30 +33,34 @@ delta against the seed's float model and its McNemar sigma; the summary is
 the mean over seeds with its 95% t-interval.  On the card::
 
     python3 -m jaxlsq_torch.lab.accuracy_parity --models mobilenetv2 \\
-        --recipe combo1200 --seeds 3 [--seed-start S] [--steps 1500] [--out PATH]
+        --recipe combo1200[,mse,...] --seeds 3 [--seed-start S] [--steps 1500] \\
+        [--out PATH]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import time
-from typing import Callable, Dict, Iterator, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import interop
 from .._device import resolve_device
-from ..models import QConfig, default_qconfig
+from ..models import QConfig, calibrate, default_qconfig, map_quant_state
+from ..models.calibrate import set_static_estimate
 from ..models.zoo import mobilenetv2_cifar, resnet18_cifar
-from ..parallel import make_eval_step, make_train_step
+from ..observers import MovingAverageMinMaxObserver
+from ..parallel import make_eval_step, make_train_step, qat_optimizer
 from ..utils import reestimate_batch_stats
 
 __all__ = ["N_CLASSES", "SIZE", "EVAL_N", "EVAL_CHUNK", "BN_BATCHES", "T95",
-           "grating_draws", "grating_images", "make_batch", "cosine_lr", "recipe",
-           "paired_delta", "summarize", "run_seed", "main"]
+           "grating_draws", "grating_images", "make_batch", "cosine_lr", "Recipe",
+           "recipe", "recipe_names", "paired_delta", "summarize", "run_seed", "main"]
 
 N_CLASSES = 36       # 5 degrees apart
 SIZE = 32
@@ -59,6 +68,7 @@ EVAL_N = 20_000
 EVAL_CHUNK = 2_000
 BN_BATCHES = 400     # examples/recipe_sweep.py's --bn-batches
 BASE_LR, WEIGHT_DECAY = 3e-3, 1e-4
+WARM_BATCHES = 20    # recipe_sweep.py: the *_warm recipes' calibration batches
 # two-sided t critical values at 95% for df = n - 1 (the JAX package's table)
 T95 = {1: 12.706, 2: 4.303, 3: 3.182, 4: 2.776, 5: 2.571}
 MODELS = {"resnet18": resnet18_cifar, "mobilenetv2": mobilenetv2_cifar}
@@ -112,17 +122,128 @@ def cosine_lr(i: int, steps: int, base: float = BASE_LR) -> float:
     return base * 0.5 * (1.0 + math.cos(math.pi * min(i, steps) / steps))
 
 
-def recipe(name: str) -> QConfig:
-    """``float`` (no quantizer), or a recommended recipe of
-    ``examples/recipe_sweep.py``: ``combo1200`` (w8a8, :168) and
-    ``combo1200_4`` (w4a8, :234)."""
+def default_tx(model, on_card: bool) -> torch.optim.Optimizer:
+    """``recipe_sweep.py``'s ``default_tx``: AdamW (optax's default decay)
+    over every parameter."""
+    return torch.optim.AdamW(model.parameters(), lr=BASE_LR, weight_decay=WEIGHT_DECAY,
+                             capturable=on_card)
+
+
+def _adamw(on_card: bool):
+    return lambda ps: torch.optim.AdamW(ps, lr=BASE_LR, weight_decay=WEIGHT_DECAY,
+                                        capturable=on_card)
+
+
+def sgdq_tx(model, on_card: bool) -> torch.optim.Optimizer:
+    """``sgdq_tx``: the weights on AdamW, the qparams on SGD (momentum 0.9,
+    the same cosine lr), through ``qat_optimizer``'s clip and scale floor."""
+    return qat_optimizer(model, _adamw(on_card), lambda ps: torch.optim.SGD(
+        ps, lr=BASE_LR, momentum=0.9, fused=on_card))
+
+
+def adamq_tx(model, on_card: bool) -> torch.optim.Optimizer:
+    """``adamq_tx``: the weights on AdamW, the qparams on Adam, guarded."""
+    return qat_optimizer(model, _adamw(on_card), lambda ps: torch.optim.Adam(
+        ps, lr=BASE_LR, capturable=on_card))
+
+
+@dataclasses.dataclass(frozen=True)
+class Recipe:
+    """A recipe of ``recipe_sweep.py``: its qconfig, its optimizer
+    (``optimizer(model, on_card)``), a function of the model run before
+    training (``set_static_estimate``) and its warm-start batch count."""
+
+    qconfig: QConfig
+    optimizer: Callable = default_tx
+    state_fn: Optional[Callable] = None
+    warm_batches: int = 0
+
+
+def _with_observer(qc: QConfig) -> QConfig:
+    """A moving-average min/max observer on a learnable-mode activation
+    quantizer, so the warm start's ``calibrate`` has something to drive."""
+    return dataclasses.replace(qc, activation=dataclasses.replace(
+        qc.activation, observer=MovingAverageMinMaxObserver()))
+
+
+def _recipes() -> Dict[str, object]:
+    """``recipes()`` and ``recipes_w4a8()`` of ``recipe_sweep.py``
+    (:125-250) by name: a Recipe, or the ROADMAP item that brings it."""
+    def dq(wbits=8, window=20, **kw):
+        return default_qconfig(wbits, 8, per_channel_weights=True, init_batches=window,
+                               **kw)
+
+    base = dq()
+    combo = dq(window=100, reduce_range=False)
+    learn = dq(window=100, init_mode="learnable")
+    learn_full = dq(window=100, init_mode="learnable", reduce_range=False)
+    no_dw_act = {"depthwise": dataclasses.replace(base, activation=None)}
+    out = {
+        "base": Recipe(base),
+        "noact": Recipe(dataclasses.replace(base, activation=None)),
+        "noweight": Recipe(dataclasses.replace(base, weight=None)),
+        "learnable": Recipe(learn),
+        "mse": Recipe(dq(act_observer="mse")),
+        "histogram": Recipe(dq(act_observer="histogram")),
+        "window100": Recipe(dq(window=100)),
+        "full8": Recipe(dq(reduce_range=False)),
+        "dwfloat": Recipe(base.with_overrides(no_dw_act)),
+        "combo": Recipe(combo),
+        "combo_dw": Recipe(combo.with_overrides(
+            {"depthwise": dataclasses.replace(combo, activation=None)})),
+        "window400": Recipe(dq(window=400)),
+        "combo400": Recipe(dq(window=400, reduce_range=False)),
+        "sgdq": Recipe(base, sgdq_tx),
+        "learnable_sgdq": Recipe(learn, sgdq_tx),
+        "combo_sgdq": Recipe(combo, sgdq_tx),
+        "combo400_sgdq": Recipe(dq(window=400, reduce_range=False), sgdq_tx),
+        "window1200": Recipe(dq(window=1200)),
+        "combo1200": Recipe(dq(window=1200, reduce_range=False)),
+        "static": Recipe(base, default_tx, set_static_estimate),
+        "static_full8": Recipe(dq(reduce_range=False), default_tx, set_static_estimate),
+        "learnable_clip": Recipe(learn, sgdq_tx),
+        "learnable_adamq": Recipe(learn, adamq_tx),
+        "combo_learnable": Recipe(learn_full, adamq_tx),
+        "percentile1200": Recipe(dq(window=1200, act_observer="percentile")),
+        "learnable_warm": Recipe(_with_observer(learn), sgdq_tx,
+                                 warm_batches=WARM_BATCHES),
+        "combo_learnable_warm": Recipe(_with_observer(learn_full), sgdq_tx,
+                                       warm_batches=WARM_BATCHES),
+        # recipes_w4a8
+        "base4": Recipe(dq(4)),
+        "full8_4": Recipe(dq(4, reduce_range=False)),
+        "window1200_4": Recipe(dq(4, window=1200)),
+        "combo1200_4": Recipe(dq(4, window=1200, reduce_range=False)),
+        "learnable4": Recipe(dq(4, window=100, init_mode="learnable"), adamq_tx),
+    }
+    for name in ("distill", "distill_static", "distill_percentile", "distill4"):
+        out[name] = ("distillation_loss and the float teacher", 3)
+    for name in ("mp4_48", "mp4_56"):
+        out[name] = ("plan_mixed_precision", 7)
+    return out
+
+
+def recipe_names() -> Sequence[str]:
+    """Every recipe name ``recipe`` knows, ``float`` first."""
+    return ["float"] + list(_recipes())
+
+
+def recipe(name: str) -> Recipe:
+    """``float`` (no quantizer, ``default_tx``), or a recipe of
+    ``examples/recipe_sweep.py``'s ``recipes()`` and ``recipes_w4a8()``
+    (:125-250).  The distillation and mixed-precision recipes raise
+    ``NotImplementedError``: their pieces are ROADMAP queue A items 3 and 7."""
     if name == "float":
-        return QConfig()
-    bits = {"combo1200": (8, 8), "combo1200_4": (4, 8)}
-    if name not in bits:
-        raise ValueError(f"unknown recipe {name!r}; one of float, {', '.join(bits)}")
-    return default_qconfig(*bits[name], per_channel_weights=True, init_batches=1200,
-                           reduce_range=False)
+        return Recipe(QConfig())
+    table = _recipes()
+    if name not in table:
+        raise ValueError(f"unknown recipe {name!r}; one of {', '.join(recipe_names())}")
+    r = table[name]
+    if not isinstance(r, Recipe):
+        piece, item = r
+        raise NotImplementedError(f"recipe {name!r} needs {piece}, which the port does "
+                                  f"not have yet (ROADMAP queue A item {item})")
+    return r
 
 
 def paired_delta(pred_a: np.ndarray, pred_b: np.ndarray, labels: np.ndarray):
@@ -172,19 +293,28 @@ def _generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def train(model_fn: Callable, qc: QConfig, steps: int, batch: int, seed: int,
+def train(model_fn: Callable, rec: Recipe, steps: int, batch: int, seed: int,
           device) -> Dict:
-    """One config's training run: returns the model and its optimizer, the
-    last loss, the lr written before each step, and the seconds and images/s
-    of the steps."""
-    model = model_fn(qc)
+    """One recipe's training run: returns the model and its optimizer, the
+    last loss, the lr written before each step, and the seconds and
+    images/s of the steps."""
+    model = model_fn(rec.qconfig)
     x0, _ = make_batch(batch, _generator(seed + 999, device), device)
     model.eval()
     with torch.no_grad():  # flax's init: one eval forward feeds the observers
         model(x0)
+    if rec.state_fn is not None:
+        rec.state_fn(model)
+    if rec.warm_batches:
+        # statistics first: the observers calibrate the ranges, then the
+        # learnable window refines them
+        wgen = _generator(555_000 + seed, device)
+        calibrate(model, [make_batch(batch, wgen, device)[0]
+                          for _ in range(rec.warm_batches)])
+        map_quant_state(model, lambda qs: {**qs, "learning_enabled": True,
+                                           "observer_enabled": False})
     on_card = torch.device(device).type == "cuda"
-    opt = torch.optim.AdamW(model.parameters(), lr=BASE_LR, weight_decay=WEIGHT_DECAY,
-                            capturable=on_card)
+    opt = rec.optimizer(model, on_card)
     step = make_train_step(model, opt, jit=True)
     gen = _generator(seed, device)
     lrs, loss = [], None
@@ -223,22 +353,26 @@ def predictions(fn: Callable, seed: int, device, n: int = EVAL_N,
     return np.concatenate(preds), np.concatenate(labels)
 
 
-def run_seed(model_name: str, recipe_name: str, seed: int, results: Dict, *,
+def run_seed(model_name: str, recipe_names, seed: int, results: Dict, *,
              steps: int = 1500, batch: int = 128, device=None, eval_n: int = EVAL_N,
              eval_chunk: int = EVAL_CHUNK, bn_batches: int = BN_BATCHES,
              log: Callable = lambda line: print(line, flush=True)) -> Dict:
-    """Train float and ``recipe_name`` on one data seed, evaluate both on the
-    seed's fixed eval set (the QAT model raw, served and after BatchNorm
-    re-estimation) and record the rows and the paired deltas in ``results``;
-    returns the seed's record."""
+    """Train float once and each of ``recipe_names`` (a name, a
+    comma-separated string or a sequence) on one data seed, evaluate each on
+    the seed's fixed eval set (a QAT model raw, served and after BatchNorm
+    re-estimation) and record the rows and the paired deltas against the
+    seed's float model in ``results``; returns the seed's record."""
+    names = recipe_names.split(",") if isinstance(recipe_names, str) else list(recipe_names)
     dev = resolve_device(device)
     model_fn = MODELS[model_name]
     prefix = f"{model_name}/seed{seed}"
     preds = {}
     labels = None
-    for cfg in ("float", recipe_name):
-        qc = recipe(cfg)
-        run = train(lambda q: model_fn(N_CLASSES, q, device=dev, seed=0), qc,
+    paired = results.setdefault(f"{prefix}/paired", {})
+    for cfg in ["float"] + names:
+        rec = recipe(cfg)
+        qc = rec.qconfig
+        run = train(lambda q: model_fn(N_CLASSES, q, device=dev, seed=0), rec,
                     steps, batch, seed, dev)
         model = run["model"]
         evaluate = make_eval_step(model)
@@ -255,6 +389,7 @@ def run_seed(model_name: str, recipe_name: str, seed: int, results: Dict, *,
             smodel.eval()
             preds[cfg + "_served"], _ = predictions(smodel, seed, dev, eval_n, eval_chunk)
             row["top1_served"] = round(float((preds[cfg + "_served"] == labels).mean()), 5)
+        if qc.weight is not None or qc.activation is not None:
             # BatchNorm re-estimation over bn_batches calibration batches
             bgen = _generator(777_000 + seed, dev)
             reestimate_batch_stats(model, (make_batch(batch, bgen, dev)[0]
@@ -266,11 +401,12 @@ def run_seed(model_name: str, recipe_name: str, seed: int, results: Dict, *,
         results[f"{prefix}/{cfg}"] = row
         log(json.dumps({"row": f"{prefix}/{cfg}", **row}))
         del model, run
-    paired = {}
-    for key in (recipe_name, recipe_name + "_bnreest", recipe_name + "_served"):
-        d, sg = paired_delta(preds[key], preds["float"], labels)
-        paired[key] = {"delta": round(d, 5), "paired_sigma": round(sg, 6)}
-    results[f"{prefix}/paired"] = paired
+        if cfg == "float":
+            continue
+        for key in (cfg, cfg + "_bnreest", cfg + "_served"):
+            if key in preds:
+                d, sg = paired_delta(preds.pop(key), preds["float"], labels)
+                paired[key] = {"delta": round(d, 5), "paired_sigma": round(sg, 6)}
     return {k: v for k, v in results.items() if k.startswith(prefix + "/")}
 
 
@@ -278,7 +414,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--models", default="mobilenetv2",
                     help="comma-separated: resnet18, mobilenetv2")
-    ap.add_argument("--recipe", default="combo1200", help="combo1200 or combo1200_4")
+    ap.add_argument("--recipe", default="combo1200",
+                    help="comma-separated recipes of examples/recipe_sweep.py, e.g. "
+                         "combo1200,mse,histogram,percentile1200,static,sgdq")
     ap.add_argument("--steps", type=int, default=1500)
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--seeds", type=int, default=3)
@@ -286,7 +424,9 @@ def main(argv=None) -> int:
     ap.add_argument("--bn-batches", type=int, default=BN_BATCHES)
     ap.add_argument("--out", default=None, help="also write the whole record here (JSON)")
     args = ap.parse_args(argv)
-    recipe(args.recipe)  # an unknown name fails before any training
+    names = args.recipe.split(",")
+    for name in names:  # an unknown or unported name fails before any training
+        recipe(name)
     if not torch.cuda.is_available():
         print("accuracy_parity: no CUDA device; the protocol runs on the card",
               flush=True)
@@ -301,8 +441,9 @@ def main(argv=None) -> int:
     results = {
         "task": (f"procedural {N_CLASSES}-orientation grating classification (5 deg "
                  "apart), 32x32x3, drawn on the device from torch.Generator"),
-        "train": (f"{args.steps} steps x B{args.batch}, AdamW(wd {WEIGHT_DECAY}) cosine "
-                  f"{BASE_LR}, make_train_step(jit=True)"),
+        "train": (f"{args.steps} steps x B{args.batch}, each recipe's optimizer "
+                  f"(AdamW wd {WEIGHT_DECAY}, or the sgdq/adamq partitions) under the "
+                  f"cosine {BASE_LR}, make_train_step(jit=True)"),
         "eval": (f"{EVAL_N} held-out samples a seed, the same for every config; "
                  f"BatchNorm re-estimation over {args.bn_batches} batches"),
         "recipe": args.recipe, "card": card, "torch": torch.__version__,
@@ -312,10 +453,13 @@ def main(argv=None) -> int:
     seeds = list(range(args.seed_start, args.seed_start + args.seeds))
     for name in args.models.split(","):
         for seed in seeds:
-            rec = run_seed(name, args.recipe, seed, results, steps=args.steps,
+            rec = run_seed(name, names, seed, results, steps=args.steps,
                            batch=args.batch, device="cuda", bn_batches=args.bn_batches)
             print(json.dumps({"seed": seed, "model": name, **rec}), flush=True)
-        summarize(results, name, seeds, cfgs=(args.recipe,),
+            if args.out:
+                with open(args.out, "w") as f:  # after each seed
+                    json.dump(results, f, indent=1)
+        summarize(results, name, seeds, cfgs=names,
                   suffixes=("", "_bnreest", "_served"))
         print(json.dumps({k: v for k, v in results.items()
                           if k.startswith(f"{name}/summary/")}), flush=True)

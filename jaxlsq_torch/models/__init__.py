@@ -1,3 +1,4 @@
+from .calibrate import calibrate, enable_param_learning_all, set_static_estimate
 from .layers import FakeQuantize, QuantConv, QuantDense, QuantEmbed
 from .norm import BatchNorm
 from .qconfig import QConfig, default_qconfig
@@ -20,4 +21,5 @@ __all__ = ["QConfig", "default_qconfig", "FakeQuantize", "QuantDense", "QuantCon
            "enable_observer", "disable_observer",
            "enable_fake_quant_on_act", "disable_fake_quant_on_act",
            "enable_observer_on_weights", "disable_observer_on_weights",
-           "map_quant_state"]
+           "map_quant_state", "calibrate", "set_static_estimate",
+           "enable_param_learning_all"]

@@ -4,7 +4,8 @@ QAT mode (fake-quant training):
 
 * :class:`FakeQuantize` is one LSQ quantizer as a module: ``scale``/``shift``
   are ``nn.Parameter``s; the observer state (``obs_min``, ``obs_max``,
-  ``obs_seen``) and the phase counters and flags (``current_batch``,
+  ``obs_seen``, and ``obs_hist`` for a histogram observer only) and the
+  phase counters and flags (``current_batch``,
   ``n_batches`` int32; ``fake_quant_enabled``, ``observer_enabled``,
   ``learning_enabled`` bool) are buffers, the JAX package's quant_state, so
   ``state_dict`` carries them.  The buffers are the one source of truth and
@@ -39,14 +40,14 @@ dequantizes only the gathered rows.  All three are filled by
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Sequence, Tuple, Union
+import dataclasses
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
-from ..observers.minmax import ObserverState
 from ..observers.quantizer import (STATE_DTYPES, STATE_FIELDS, LSQQuantizer,
                                    QuantizerState)
 from ..ops.functional import fake_quant
@@ -84,6 +85,11 @@ class FakeQuantize(nn.Module):
     eval step discards its mutated collections.
     """
 
+    # the observer state's fields and the buffers that hold them (a
+    # histogram observer's ``histogram`` only where it has one)
+    OBS_BUFFERS = {"min_val": "obs_min", "max_val": "obs_max", "seen": "obs_seen",
+                   "histogram": "obs_hist"}
+
     def __init__(self, cfg: LSQQuantizer, num_channels: int = 1, device=None):
         super().__init__()
         self.cfg = cfg
@@ -91,9 +97,11 @@ class FakeQuantize(nn.Module):
                       device=resolve_device(device)).on_device()
         self.scale = nn.Parameter(st.scale)
         self.shift = nn.Parameter(st.shift)
-        self.register_buffer("obs_min", st.obs.min_val)
-        self.register_buffer("obs_max", st.obs.max_val)
-        self.register_buffer("obs_seen", st.obs.seen)
+        self.obs_type = type(st.obs)
+        fields = {f.name for f in dataclasses.fields(st.obs)}
+        for f, buf in self.OBS_BUFFERS.items():
+            if f in fields:
+                self.register_buffer(buf, getattr(st.obs, f))
         for f in STATE_FIELDS:
             self.register_buffer(f, getattr(st, f))
         self._host = None           # host mirror of the STATE_FIELDS buffers
@@ -127,25 +135,29 @@ class FakeQuantize(nn.Module):
 
     # ------------------------------------------------------------- state
 
+    def obs_buffers(self) -> Dict[str, torch.Tensor]:
+        """The observer state's buffers, keyed by its fields."""
+        fields = {f.name for f in dataclasses.fields(self.obs_type)}
+        return {f: getattr(self, buf) for f, buf in self.OBS_BUFFERS.items()
+                if f in fields}
+
     def quant_state(self, traced: bool = False) -> QuantizerState:
         """The current state: scale/shift are the parameters themselves, the
         observer state the buffers; the counters and flags are the buffers
         (``traced``) or the host mirror."""
         flags = ({f: getattr(self, f) for f in STATE_FIELDS} if traced
                  else self.host_state())
-        return QuantizerState(
-            scale=self.scale, shift=self.shift,
-            obs=ObserverState(self.obs_min, self.obs_max, self.obs_seen), **flags)
+        obs = self.obs_type(**self.obs_buffers())
+        return QuantizerState(scale=self.scale, shift=self.shift, obs=obs, **flags)
 
     @torch.no_grad()
     def load_quant_state(self, st: QuantizerState) -> None:
         """Write ``st`` into the module in place.  Host counters and flags
         are written where they differ from the mirror, which then holds
         them; device ones are copied, and the mirror goes stale."""
-        for dst, src in ((self.scale, st.scale), (self.shift, st.shift),
-                         (self.obs_min, st.obs.min_val),
-                         (self.obs_max, st.obs.max_val),
-                         (self.obs_seen, st.obs.seen)):
+        pairs = [(self.scale, st.scale), (self.shift, st.shift)]
+        pairs += [(buf, getattr(st.obs, f)) for f, buf in self.obs_buffers().items()]
+        for dst, src in pairs:
             if src is not dst:
                 dst.copy_(src)
         if st.traced:

@@ -13,6 +13,8 @@ import dataclasses
 from typing import Optional
 
 from ..core.spec import QuantSpec
+from ..observers.histogram import HistogramObserver
+from ..observers.minmax import MSEObserver, PercentileObserver
 from ..observers.quantizer import LSQQuantizer
 
 __all__ = ["QConfig", "default_qconfig"]
@@ -98,13 +100,21 @@ def default_qconfig(
     learn_params: bool = True,
 ) -> QConfig:
     """Symmetric signed weights + affine unsigned activations, optionally
-    range-narrowed by one bit.  Only the 'minmax' activation observer (a
-    moving-average min/max) is ported so far."""
-    if act_observer != "minmax":
-        if act_observer in ("mse", "histogram", "percentile"):
-            raise NotImplementedError(
-                f"act_observer {act_observer!r} arrives with a later training "
-                "slice of the port (only the min/max observers are ported)")
+    range-narrowed by one bit, observer- or learnable-init activations over
+    ``init_batches``.  ``act_observer``: 'minmax' (a moving-average min/max),
+    'mse' (the MSE-minimizing range search, given the activation spec),
+    'histogram' (torch.ao's running histogram and its range search) or
+    'percentile' (the 99.99th-percentile range)."""
+    aspec = QuantSpec.activation_default(act_bits, reduce_range=reduce_range)
+    if act_observer == "mse":
+        obs = MSEObserver(spec=aspec, per_channel=aspec.per_channel, axis=aspec.axis)
+    elif act_observer == "histogram":
+        obs = HistogramObserver()
+    elif act_observer == "percentile":
+        obs = PercentileObserver(per_channel=aspec.per_channel, axis=aspec.axis)
+    elif act_observer == "minmax":
+        obs = None
+    else:
         raise ValueError(f"unknown act_observer {act_observer!r}")
     wq = LSQQuantizer(
         spec=QuantSpec.weight_default(weight_bits, per_channel=per_channel_weights,
@@ -113,10 +123,11 @@ def default_qconfig(
         learn_params=learn_params,
     )
     aq = LSQQuantizer(
-        spec=QuantSpec.activation_default(act_bits, reduce_range=reduce_range),
+        spec=aspec,
         otype="activation",
         init_mode=init_mode,
         n_batches=init_batches,
+        observer=obs,
         learn_params=learn_params,
     )
     return QConfig(weight=wq, activation=aq)

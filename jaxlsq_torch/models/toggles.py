@@ -30,9 +30,6 @@ __all__ = [
     "map_quant_state",
 ]
 
-_OBS = {"min_val": "obs_min", "max_val": "obs_max", "seen": "obs_seen"}
-
-
 @torch.no_grad()
 def _write(dst: torch.Tensor, value) -> None:
     if value is dst:
@@ -49,22 +46,23 @@ def map_quant_state(model: nn.Module,
     """Apply ``fn`` to every quantizer's state in ``model``.  ``fn`` takes
     the JAX package's quant_state dict (``current_batch``, ``n_batches``,
     the three ``*_enabled`` flags and ``obs`` = {``min_val``, ``max_val``,
-    ``seen``}) holding the module's buffers, and returns the new dict; each
-    entry it changed (a tensor or a number) is written into its buffer in
-    place.  ``name_filter`` restricts to quantizers whose module path has
+    ``seen``, and a histogram observer's ``histogram``}) holding the
+    module's buffers, and returns the new dict; each entry it changed (a
+    tensor or a number) is written into its buffer in place.  ``name_filter`` restricts to quantizers whose module path has
     that name (e.g. 'act_fq' or 'weight_fq')."""
     for name, mod in model.named_modules():
         if not isinstance(mod, FakeQuantize):
             continue
         if name_filter is not None and name_filter not in name.split("."):
             continue
+        obs = mod.obs_buffers()
         qs = {f: getattr(mod, f) for f in STATE_FIELDS}
-        qs["obs"] = {k: getattr(mod, b) for k, b in _OBS.items()}
+        qs["obs"] = dict(obs)
         new = fn(dict(qs))
         for f in STATE_FIELDS:
             _write(getattr(mod, f), new[f])
-        for k, b in _OBS.items():
-            _write(getattr(mod, b), new["obs"][k])
+        for k, b in obs.items():
+            _write(b, new["obs"][k])
     return model
 
 

@@ -28,10 +28,12 @@ forms, and the form picks the regime, as tracers pick it in the JAX package:
 
 * () device tensors (int32 counters, bool flags; ``QuantizerState.on_device``):
   the traced regime, the same decisions as ``torch.where`` on device values,
-  the min/max observer always run and where-merged, and ``fake_quant_traced``
-  with the modes as device flags.  No host branch and no host read, so one
-  captured CUDA graph covers the observer window, the switch to LSQ and any
-  toggle.
+  the observer handed ``observer_enabled`` as the gate that an expensive
+  one's kernels read on the card (the JAX package's ``lax.cond``; the
+  min/max update ignores it) and its result where-merged, and
+  ``fake_quant_traced`` with the modes as device flags.  No host branch and
+  no host read, so one captured CUDA graph covers the observer window, the
+  switch to LSQ and any toggle.
 
 Weights get ``n_batches = -1`` (the window never opens) and a static
 mean ± 3σ scale.
@@ -47,7 +49,9 @@ import torch
 
 from ..core.spec import QuantSpec
 from ..ops.functional import fake_quant, fake_quant_traced
-from .minmax import MinMaxObserver, MovingAverageMinMaxObserver, ObserverState
+from .histogram import HistogramObserver, HistogramObserverState
+from .minmax import (MinMaxObserver, MovingAverageMinMaxObserver, MSEObserver,
+                     ObserverState, PercentileObserver)
 
 __all__ = ["LSQQuantizer", "QuantizerState", "convert_shift_to_zp",
            "STATE_FIELDS", "STATE_DTYPES"]
@@ -59,6 +63,17 @@ STATE_FIELDS = ("current_batch", "n_batches", "fake_quant_enabled",
 STATE_DTYPES = {"current_batch": torch.int32, "n_batches": torch.int32,
                 "fake_quant_enabled": torch.bool, "observer_enabled": torch.bool,
                 "learning_enabled": torch.bool}
+
+
+Observer = Union[MinMaxObserver, MSEObserver, PercentileObserver, HistogramObserver]
+ObsState = Union[ObserverState, HistogramObserverState]
+
+
+def _where_state(cond: torch.Tensor, new: ObsState, old: ObsState) -> ObsState:
+    """Each field of the observer state ``new`` where ``cond``, else ``old``'s."""
+    return dataclasses.replace(old, **{
+        f.name: torch.where(cond, getattr(new, f.name), getattr(old, f.name))
+        for f in dataclasses.fields(old)})
 
 
 def convert_shift_to_zp(shift: torch.Tensor, scale: torch.Tensor,
@@ -81,7 +96,7 @@ class QuantizerState:
     fake_quant_enabled: Union[bool, torch.Tensor]
     observer_enabled: Union[bool, torch.Tensor]
     learning_enabled: Union[bool, torch.Tensor]
-    obs: ObserverState
+    obs: ObsState
 
     def replace(self, **kw) -> "QuantizerState":
         return dataclasses.replace(self, **kw)
@@ -118,7 +133,7 @@ class LSQQuantizer:
     n_batches: int = 1000
     init_scale: float = 1.0
     init_shift: float = 0.0
-    observer: Optional[MinMaxObserver] = None
+    observer: Optional[Observer] = None
     learn_params: bool = True
     debug_mode: bool = False
     numel: Optional[int] = None
@@ -305,15 +320,14 @@ class LSQQuantizer:
                               current_batch=cb + in_window.to(cb.dtype))
 
         if self.observer is not None:
-            # the min/max update is cheap: always run and where-merged
-            new = self.observer.update(state.obs, x)
-            old = state.obs
-            merged = ObserverState(torch.where(obs_on, new.min_val, old.min_val),
-                                   torch.where(obs_on, new.max_val, old.max_val),
-                                   torch.where(obs_on, new.seen, old.seen))
-            o_scale, o_zp = self.observer.calculate_qparams(merged, self.spec)
+            # the JAX package's lax.cond: an expensive observer's kernels read
+            # obs_on on the card and write nothing when it is off (the
+            # percentile's sort runs anyway; the min/max update ignores the
+            # gate), and the where-merge keeps the old state and qparams
+            new = self.observer.update(state.obs, x, gate=obs_on)
+            o_scale, o_zp = self.observer.calculate_qparams(new, self.spec, gate=obs_on)
             o_shift = -o_zp.to(torch.float32) * o_scale
-            state = state.replace(obs=merged,
+            state = state.replace(obs=_where_state(obs_on, new, state.obs),
                                   scale=torch.where(obs_on, o_scale, state.scale),
                                   shift=torch.where(obs_on, o_shift, state.shift))
 

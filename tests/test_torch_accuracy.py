@@ -120,13 +120,13 @@ def test_cosine_lr_follows_optax_over_a_run():
 
 
 def test_recipes_are_recipe_sweeps():
-    qc = ap.recipe("combo1200_4")
+    qc = ap.recipe("combo1200_4").qconfig
     assert (qc.weight.spec.quant_min, qc.weight.spec.quant_max) == (-8, 7)
     assert (qc.activation.spec.quant_min, qc.activation.spec.quant_max) == (0, 255)
     assert qc.activation.n_batches == 1200 and qc.weight.spec.per_channel
-    assert ap.recipe("float").weight is None
+    assert ap.recipe("float").qconfig.weight is None
     with pytest.raises(ValueError, match="unknown recipe"):
-        ap.recipe("combo")
+        ap.recipe("combo9")
 
 
 def test_run_seed_at_a_toy_size(monkeypatch):

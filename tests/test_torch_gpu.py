@@ -1977,3 +1977,171 @@ def test_captured_mnv2_step_matches_eager_step_on_card(cuda):
     finally:
         (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = flags
+
+
+# --------------------------------------------------- the observer kernels
+
+OBS_SHAPES = [(128, 144, 32, 32), (3, 7, 13, 17), (257, 1, 1), (1000003,)]
+
+
+def _obs_input(shape, cuda, seed):
+    """ReLU-like activations with a few far outliers."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.relu(torch.randn(shape, device=cuda, generator=g))
+    flat = x.view(-1)
+    idx = torch.randint(0, flat.numel(), (max(1, flat.numel() // 4000),), device=cuda,
+                        generator=g)
+    flat[idx] = 12.0 + 4 * torch.rand(idx.numel(), device=cuda, generator=g)
+    return x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("shape", OBS_SHAPES[:3])
+def test_mse_range_kernel_matches_plain(cuda, shape, per_channel):
+    """``mse_range`` against ``mse_range_plain`` on the card: the same
+    candidate, or one whose plain error is within 1e-5 of the least; the
+    same bits on a rerun; with the gate false every output untouched."""
+    from jaxlsq_torch.ops.observers import LAUNCHES, mse_range, mse_range_plain
+
+    spec = QuantSpec.activation_default(8, reduce_range=True)
+    x = _obs_input(shape, cuda, seed=len(shape))
+    if per_channel:
+        red = tuple(a for a in range(x.dim()) if a != 1)
+        bmin, bmax = x.amin(dim=red), x.amax(dim=red)
+    else:
+        bmin, bmax = x.amin().reshape(1), x.amax().reshape(1)
+    c = bmin.numel()
+    runs = []
+    for _ in range(2):
+        errs = torch.empty(c, 64, device=cuda)
+        best = torch.empty(c, dtype=torch.int32, device=cuda)
+        before = LAUNCHES["mse_range"]
+        out = mse_range(x, bmin, bmax, spec, per_channel, 1, errs=errs, best=best)
+        assert LAUNCHES["mse_range"] == before + 1
+        runs.append((out[0].clone(), out[1].clone(), errs, best))
+    _, _, perrs, pbest = mse_range_plain(x, bmin, bmax, spec, per_channel, 1)
+    torch.cuda.synchronize()
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    kbest = runs[0][3].long()
+    picked = perrs.gather(1, kbest[:, None])[:, 0]
+    least = perrs.min(dim=1).values
+    assert bool(((kbest == pbest) | (picked <= least * (1 + 1e-5))).all())
+    # sums in another order (one element at another level moves far more)
+    assert float(((runs[0][2] - perrs).abs() / perrs.clamp_min(1e-30)).max()) <= 1e-3
+    # the gate: false leaves every output as it was
+    gate = torch.zeros((), dtype=torch.bool, device=cuda)
+    sentinel = [torch.full((c,), -7.0, device=cuda), torch.full((c,), -9.0, device=cuda)]
+    errs = torch.full((c, 64), 3.0, device=cuda)
+    best = torch.full((c,), 5, dtype=torch.int32, device=cuda)
+    mse_range(x, bmin, bmax, spec, per_channel, 1, gate=gate, out=sentinel, errs=errs,
+              best=best)
+    torch.cuda.synchronize()
+    assert bool((sentinel[0] == -7).all() and (sentinel[1] == -9).all())
+    assert bool((errs == 3).all() and (best == 5).all())
+
+
+def _hist_state(x, cuda, bins=2048):
+    from jaxlsq_torch.observers import HistogramObserver
+
+    obs = HistogramObserver(bins=bins)
+    st = obs.init(1, cuda)
+    return obs, obs.update(st, x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", OBS_SHAPES)
+def test_hist_kernels_match_plain(cuda, shape):
+    """``hist_update`` (a first batch, then one that widens the range) and
+    ``hist_search`` against their plain versions (on the CPU): the bins within
+    1e-6 of the histogram's mass, the same range, the same chosen range; the
+    same bits on a rerun; with the gate false every output untouched."""
+    from jaxlsq_torch.ops.observers import (hist_search, hist_search_plain, hist_update,
+                                            hist_update_plain)
+
+    x1 = _obs_input(shape, cuda, seed=7)
+    x2 = _obs_input(shape, cuda, seed=8) * 1.7 - 0.3
+    obs, st = _hist_state(x1, cuda)
+    cpu = [t.cpu() for t in (st.histogram, st.min_val, st.max_val, st.seen)]
+    nmin = torch.minimum(st.min_val, x2.amin().reshape(1))
+    nmax = torch.maximum(st.max_val, x2.amax().reshape(1))
+    got = [hist_update(x2, st.histogram, st.min_val, st.max_val, nmin, nmax, st.seen)
+           for _ in range(2)]
+    want = hist_update_plain(x2.cpu(), cpu[0], cpu[1], cpu[2], nmin.cpu(), nmax.cpu(), cpu[3])
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], got[1])
+    mass = float(want.sum())
+    assert float((got[0].cpu() - want).abs().max()) <= 1e-6 * mass
+    for h, lo, hi in ((st.histogram, st.min_val, st.max_val), (got[0], nmin, nmax)):
+        iters = torch.zeros(2, dtype=torch.int32, device=cuda)
+        rng = [hist_search(h, lo, hi, 256, iters=iters) for _ in range(2)]
+        prng, counts = hist_search_plain(h.cpu(), lo.cpu(), hi.cpu(), 256)
+        torch.cuda.synchronize()
+        assert torch.equal(rng[0], rng[1])
+        assert torch.equal(rng[0].cpu(), prng), (rng[0], prng)
+        assert tuple(iters.tolist()) == counts
+    gate = torch.zeros((), dtype=torch.bool, device=cuda)
+    out = torch.full((2048,), -1.0, device=cuda)
+    hist_update(x2, st.histogram, st.min_val, st.max_val, nmin, nmax, st.seen, gate=gate,
+                out=out)
+    rout = torch.full((2,), -2.0, device=cuda)
+    iters = torch.full((2,), -3, dtype=torch.int32, device=cuda)
+    hist_search(st.histogram, st.min_val, st.max_val, 256, gate=gate, out=rout, iters=iters)
+    torch.cuda.synchronize()
+    assert bool((out == -1).all() and (rout == -2).all() and (iters == -3).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mse", "percentile", "histogram"])
+def test_captured_step_with_expensive_observer_matches_eager(cuda, kind):
+    """A narrow mobilenetv2 under each expensive observer: the step captured
+    as one CUDA graph against the eager step from one state, cuDNN
+    deterministic, four B = 16 steps across a 2-batch window under
+    ``qat_optimizer``: losses and every variable equal; the observer kernels
+    launched in the window only on the eager side."""
+    from jaxlsq_torch.lab.accuracy_parity import make_batch
+    from jaxlsq_torch.models import QuantMobileNetV2
+    from jaxlsq_torch.ops.observers import LAUNCHES
+    from jaxlsq_torch.parallel import make_train_step, qat_optimizer
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=2,
+                             act_observer=kind)
+        models = [QuantMobileNetV2(36, qc, stages=((1, 8, 1, 1), (6, 16, 2, 2)),
+                                   stem_width=8, head_width=32, device=cuda, seed=0)
+                  for _ in range(2)]
+        # each lr a tensor on the card on both sides, as the captured step
+        # holds it (torch.optim takes other arithmetic for a Python float)
+        opts = [qat_optimizer(
+            m, lambda ps: torch.optim.AdamW(ps, lr=torch.tensor(1e-3, device=cuda),
+                                            weight_decay=1e-4, capturable=True),
+            lambda ps: torch.optim.SGD(ps, lr=torch.tensor(0.01, device=cuda),
+                                       momentum=0.9, fused=True)) for m in models]
+        steps = [make_train_step(m, o, jit=j) for m, o, j in zip(models, opts, (False, True))]
+        g = torch.Generator(device=cuda).manual_seed(5)
+        eager_launches = []
+        for i in range(4):
+            x, y = make_batch(16, g, cuda)
+            before = sum(LAUNCHES.values())
+            loss0 = steps[0]({"image": x, "label": y})["loss"]
+            eager_launches.append(sum(LAUNCHES.values()) - before)
+            loss1 = steps[1]({"image": x, "label": y})["loss"]
+            torch.cuda.synchronize()
+            assert torch.equal(loss0, loss1), (i, loss0, loss1)
+            trees = [interop.qat_variables(m) for m in models]
+            for path, v in _leaves(trees[0]):
+                np.testing.assert_array_equal(_get(trees[1], path), v,
+                                              err_msg=f"step {i} {path}")
+        assert len(steps[1].graphs) == 1
+        n_act = sum(1 for n, _ in models[0].named_modules() if n.endswith("act_fq"))
+        per_call = {"mse": 1, "percentile": 0, "histogram": 2}[kind]
+        assert eager_launches == [per_call * n_act] * 2 + [0, 0], eager_launches
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags

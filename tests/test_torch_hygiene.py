@@ -15,13 +15,13 @@ MODULES = [
     "jaxlsq_torch", "jaxlsq_torch._build", "jaxlsq_torch._device",
     "jaxlsq_torch.core", "jaxlsq_torch.core.spec", "jaxlsq_torch.core.golden",
     "jaxlsq_torch.observers", "jaxlsq_torch.observers.quantizer",
-    "jaxlsq_torch.observers.minmax",
+    "jaxlsq_torch.observers.minmax", "jaxlsq_torch.observers.histogram",
     "jaxlsq_torch.ops", "jaxlsq_torch.ops.fake_quant", "jaxlsq_torch.ops.functional",
-    "jaxlsq_torch.ops.flash_attention",
-    "jaxlsq_torch.models", "jaxlsq_torch.models.qconfig",
+    "jaxlsq_torch.ops.flash_attention", "jaxlsq_torch.ops.observers",
+    "jaxlsq_torch.models", "jaxlsq_torch.models.qconfig", "jaxlsq_torch.models.calibrate",
     "jaxlsq_torch.models.layers", "jaxlsq_torch.models.norm",
     "jaxlsq_torch.models.toggles", "jaxlsq_torch.models.zoo",
-    "jaxlsq_torch.parallel", "jaxlsq_torch.parallel.train",
+    "jaxlsq_torch.parallel", "jaxlsq_torch.parallel.train", "jaxlsq_torch.parallel.optim",
     "jaxlsq_torch.serve", "jaxlsq_torch.serve.pack", "jaxlsq_torch.serve.convert",
     "jaxlsq_torch.serve.matmul", "jaxlsq_torch.serve.attention",
     "jaxlsq_torch.serve.decode", "jaxlsq_torch.serve.paged",

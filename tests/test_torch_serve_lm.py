@@ -198,8 +198,8 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="int8"):
         QuantTransformerLM(VOCAB, DIM, 1, HEADS, qc.for_serving("dynamic"),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        default_qconfig(8, 8, act_observer="mse")
+    with pytest.raises(ValueError, match="unknown act_observer"):
+        default_qconfig(8, 8, act_observer="kl")
     tm = QuantTransformerLM(VOCAB, DIM, 1, HEADS, qc.for_serving(), max_len=8,
                             device="cpu")
     with pytest.raises(TypeError, match="PagedKVLayer"):
