@@ -3,7 +3,8 @@
 slice, paged-KV serving of a group-wise int4 LM, the QAT training slice, its
 single-program (CUDA-graph) step, long-context LSQ QAT of the LM through
 the flash-attention kernels, then serving the trained LM; jaxlsq's headline
-fake-quant fwd+bwd chain through the fused kernel, and the int4 kernel lab.
+fake-quant fwd+bwd chain through the fused kernel, the int4 kernel lab, the
+conv nets' train-then-serve, the observers, and a stock third-party model.
 
     python3 chip_smoke.py [--record PATH]
 
@@ -188,6 +189,27 @@ exits non-zero on any failure (no phase is caught and skipped):
    observer, ``calibrate`` over 20 batches then convert and serve at w8a8
    (phase 13's logits rule), and a B = 8 step against the CPU plain path
    (phase 6's rule) for each.
+15. third-party models: a full-width stock ResNet-18 written from
+   ``torch.nn`` alone (``jaxlsq_torch/lab/stock_resnet.py``) through
+   ``quantize_model`` under __graft_entry__.py's qconfig with a 2-batch
+   window: the fake-quant kernels at its 42 quantizer shapes (the Linear
+   head's (10, 512) weight per channel on axis 0 among them) on one eager
+   step's real data, static and traced, by phase 13's rule; the 21 swapped
+   layers, the stock keys kept, a float state dict missing only quantizer
+   keys; then, every launch count reset, 12 eager
+   and 12 captured steps at B = 64 (the launches a step, ms a step and a
+   replay, profiles by category beside phases 6-7's hand-built resnet, the
+   stock BatchNorms alone against the port's flax-rule ones), a B = 8 step
+   against the CPU plain path (phase 6's rule), eager = captured over 5
+   steps (phase 8's rule), a checkpoint at step 2 restored by
+   ``restore_or_init`` into a fresh model and optimizer that then capture
+   and run 3 more steps equal to the uninterrupted run in every leaf,
+   captured steps under ``distillation_loss`` against the float stock model
+   (its ms beside the plain replay's, a B = 8 step against the CPU, the
+   teacher unchanged), convert and serve at w8a8 and w4a8 (phase 13's
+   logits rule, the head through ``wo8``/``wo4`` by the counts and the
+   profiler), and ``reestimate_batch_stats`` (every stock BatchNorm moved,
+   no quantizer tensor changed).
 
 Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes the full
@@ -257,6 +279,10 @@ OBS_KINDS = ("mse", "percentile", "histogram")
 OBS_KERNELS = ("mse_range", "hist_update", "hist_search")
 OBS_RAGGED = ((3, 7, 13, 17), (1000003,), (5, 3, 1, 1), (257,))
 OBS_TIMED = 20
+# third-party models (phase 15): a stock ResNet-18 swapped by quantize_model,
+# its 20 convolutions and head quantized; a 2-batch observer window
+STOCK_SWAPPED, STOCK_WINDOW, STOCK_EVAL_N = 21, 2, 2000
+STOCK_DISTILL_STEPS, CKPT_K, CKPT_M = 8, 2, 3
 
 
 def reset_counts():
@@ -1226,6 +1252,8 @@ def _categorise(name):
         return "fake_quant"
     if "flash_" in n:
         return "flash_attention"
+    if any(k in n for k in ("bn_fw", "bn_bw", "batch_norm", "batchnorm")):
+        return "batch_norm"
     if any(k in n for k in ("conv", "xmma", "gemm", "cudnn", "wgrad", "dgrad",
                             "implicit", "cutlass", "winograd", "fft", "complex",
                             "flip_filter", "nchw", "nhwc")):
@@ -1254,13 +1282,18 @@ def _profile_train_step(torch, step, batch, step_ms):
                                   if _categorise(k) == "flash_attention"}}
 
 
-def _batchnorm_ms(torch, shapes):
+def _batchnorm_ms(torch, shapes, make=None):
     """Device ms and kernels of the BatchNorm layers' forward and backward
-    in training mode at ``shapes``, on fresh layers and random inputs."""
+    in training mode at ``shapes``, on fresh layers (the port's flax-rule
+    ``BatchNorm``, or ``make(channels)``) and random inputs."""
     from jaxlsq_torch.models import BatchNorm
 
+    if make is None:
+        def make(c):
+            return BatchNorm(c, device="cuda")
+
     g = torch.Generator(device="cuda").manual_seed(6)
-    layers = [(BatchNorm(shp[1], device="cuda"),
+    layers = [(make(shp[1]),
                torch.randn(shp, device="cuda", generator=g).requires_grad_(True),
                torch.randn(shp, device="cuda", generator=g)) for shp in shapes]
 
@@ -1371,7 +1404,7 @@ def _act_quantizers(model):
             if isinstance(m, FakeQuantize) and n.endswith("act_fq")]
 
 
-def _cpu_check(torch, model, step, batch, cpu_model, label):
+def _cpu_check(torch, model, step, batch, cpu_model, label, cpu_loss_fn=None):
     """One training step from ``model``'s state on the card (``step``, on
     ``batch``) and on the CPU plain path (``cpu_model()``, a fresh CPU model
     of the same kind); the losses within 1e-3 relative.
@@ -1385,7 +1418,8 @@ def _cpu_check(torch, model, step, batch, cpu_model, label):
     f32 rounding), and fails if more
     than ``MAX_MOVED_SHARE`` of the elements were taken: a kernel that rounds
     wrong on a share of its elements fails here.  The loss without that
-    hand-over is recorded beside it."""
+    hand-over is recorded beside it.  ``cpu_loss_fn()``, when given, makes
+    the CPU step's loss function (default: cross entropy)."""
     from jaxlsq_torch import interop
     from jaxlsq_torch.parallel import make_train_step
 
@@ -1422,7 +1456,8 @@ def _cpu_check(torch, model, step, batch, cpu_model, label):
         if hand_over:
             for n, m in _act_quantizers(cm):
                 m.register_forward_hook(lambda mod, i, o, n=n: take_card(n, mod, o))
-        loss = float(make_train_step(cm, _sgd(torch, cm), jit=False)(cpu_batch)["loss"])
+        kw = {} if cpu_loss_fn is None else {"loss_fn": cpu_loss_fn()}
+        loss = float(make_train_step(cm, _sgd(torch, cm), jit=False, **kw)(cpu_batch)["loss"])
         return loss, moved
 
     free_loss, _ = cpu_loss(False)
@@ -3247,6 +3282,346 @@ def phase_observers(torch, rec):
     log(f"[observers] phase 14 took {out['wall_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# third-party models: a stock ResNet-18 swapped by quantize_model
+# ---------------------------------------------------------------------------
+
+def _stock(torch, seed=0, device="cuda"):
+    """A full-width StockResNet18 (torch.nn only, 10 classes) from ``seed``."""
+    from jaxlsq_torch.lab.stock_resnet import stock_resnet18
+
+    return stock_resnet18(10, seed=seed).to(device)
+
+
+def _stock_qc(wbits=8):
+    """__graft_entry__.py's qconfig (per-channel weights), a 2-batch window."""
+    from jaxlsq_torch.models import default_qconfig
+
+    return default_qconfig(wbits, 8, per_channel_weights=True, init_batches=STOCK_WINDOW)
+
+
+def _swap(torch, stock, device="cuda", wbits=8, serve=False):
+    from jaxlsq_torch.models import quantize_model
+
+    qc = _stock_qc(wbits)
+    return quantize_model(stock, qc.for_serving("static") if serve else qc, device=device)
+
+
+def _train_leg(torch, step, batches, fq, kernels, skip=STOCK_WINDOW):
+    """``step`` over ``batches``: ms a step and images/s past the first
+    ``skip`` steps, the losses, the launches of ``kernels`` a step."""
+    torch.cuda.synchronize()
+    losses, per_step, t_start = [], [], None
+    for i, batch in enumerate(batches):
+        if i == skip:
+            torch.cuda.synchronize()
+            t_start = time.perf_counter()
+        before = dict(fq)
+        losses.append(step(batch)["loss"])
+        per_step.append({k: fq[k] - before[k] for k in kernels})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    timed = len(batches) - skip
+    leg = {"steps": len(batches), "step_ms": 1e3 * wall / timed,
+           "images_per_s": timed * batches[0]["image"].shape[0] / wall,
+           "losses": torch.stack(losses).cpu().tolist(), "per_step_launches": per_step}
+    if not all(math.isfinite(v) for v in leg["losses"]):
+        raise AssertionError(f"non-finite training loss: {leg['losses']}")
+    return leg
+
+
+def _categories(p):
+    return "; ".join(f"{k} {v:.2f} ms" for k, v in sorted(p["by_category_ms"].items(),
+                                                        key=lambda kv: -kv[1]))
+
+
+def _stock_serve(torch, model, stock, wbits, images, mm, fq):
+    """``qat_variables`` of the QAT ``model`` through ``convert`` into
+    ``quantize_model(stock, qc.for_serving('static'))`` (``load_variables``):
+    its logits on ``images`` within 1e-4 of max|ref| of the QAT model's eval
+    logits, the head through wo8/wo4 by the counts and by the profiler, and
+    no fake-quant launch."""
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.models import QuantDense
+    from jaxlsq_torch.parallel import make_eval_step
+    from jaxlsq_torch.serve import convert
+
+    served = _swap(torch, stock, wbits=wbits, serve=True)
+    interop.load_variables(served, convert(interop.qat_variables(model), _stock_qc(wbits)))
+    served.eval()
+    if not isinstance(served.head, QuantDense):
+        raise AssertionError("the served head is not a packed layer")
+    want = make_eval_step(model)({"image": images})
+    before_mm, before_fq = dict(mm), dict(fq)
+    with torch.no_grad():
+        got = served(images)
+        torch.cuda.synchronize()
+        launches = {k: mm[k] - before_mm[k] for k in mm}
+        fq_launches = sum(fq[k] - before_fq[k] for k in fq)
+        rows, _ = device_profile(lambda: served(images), f"the served w{wbits}a8 forward",
+                                 sleep_ms=20)
+    wo_rows = {e.key[:60]: e.count for e in rows if "wo_mma" in e.key}
+    err = float((got - want).abs().max())
+    tol = 1e-4 * float(want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    kernel = "wo8" if wbits == 8 else "wo4"
+    out = {"logits_err": err, "tol": tol, "top1_agreement": agree, "launches": launches,
+           "fake_quant_launches": fq_launches, "profiled_wo_kernels": wo_rows}
+    log(f"[third-party] served w{wbits}a8 stock resnet18 on {images.shape[0]} images: "
+        f"logits vs the QAT model's eval logits max_abs_err {err:.3e} (tol {tol:.3e}), "
+        f"argmax agreement {agree:.4f}; launches {launches}; the profiler's wo kernels "
+        f"{wo_rows}")
+    if not (err <= tol and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"w{wbits}a8 served logits disagree: {err} > {tol}")
+    if launches[kernel] != 1 or fq_launches or sum(wo_rows.values()) != 1:
+        raise AssertionError(f"w{wbits}a8: the served head ran {launches}, the profiler "
+                             f"saw {wo_rows}, {fq_launches} fake-quant launches")
+    return out
+
+
+def phase_third_party(torch, rec):
+    """Third-party models: a full-width stock ResNet-18 (``lab/stock_resnet.py``,
+    torch.nn only) through ``quantize_model`` at B = 64: the fake-quant kernels
+    at its quantizer shapes against their plain versions; the swap; eager and
+    captured QAT across the window beside phases 6-7's hand-built resnet, a
+    B = 8 step against the CPU plain path, eager = captured; distillation from
+    the float stock model; checkpoint and resume; convert and serve at w8a8
+    and w4a8; BN re-estimation of the stock BatchNorms."""
+    import tempfile
+
+    from torch import nn
+
+    from jaxlsq_torch.models.quantize import QuantConv2d, QuantLinear
+    from jaxlsq_torch.parallel import distillation_loss, make_eval_step, make_train_step
+    from jaxlsq_torch.utils import reestimate_batch_stats, restore_or_init, save_checkpoint
+
+    t0 = time.time()
+    out = rec["third_party"] = {}
+    stock = _stock(torch)
+    # the kernels at the swapped model's 42 quantizer shapes (the head's (10, 512)
+    # weight per channel on axis 0 among them), one eager step's real data
+    caps = _capture_quantizers(torch, _swap(torch, stock),
+                               _image_batches(torch, 1, TRAIN_B, seed=11)[0])
+    if len(caps) != 2 * STOCK_SWAPPED:
+        raise AssertionError(f"captured {len(caps)} quantizers, expected "
+                             f"{2 * STOCK_SWAPPED} with gradients")
+    errs = {k: 0.0 for k in FQ_KERNELS + TRACED_KERNELS + FUSED_KERNELS}
+    worst = {False: 0.0, True: 0.0}
+    for c in caps:
+        for traced in (False, True):
+            worst[traced] = max(worst[traced], _check_fq(
+                torch, c["x"], c["scale"], c["shift"], c["g"], c["spec"], errs,
+                f"stock resnet18 {c['name']}", traced))
+    for k, v in errs.items():
+        rec["max_abs_err"][k] = max(rec["max_abs_err"][k], v)
+    out["fq_shapes"] = [{"name": c["name"], "shape": list(c["x"].shape),
+                         "per_channel": c["spec"].per_channel,
+                         "axis": c["spec"].axis if c["spec"].per_channel else None}
+                        for c in caps]
+    head = [r for r in out["fq_shapes"] if r["name"] == "head.weight_fq"]
+    if [(r["shape"], r["axis"]) for r in head] != [([10, 512], 0)]:
+        raise AssertionError(f"the head's weight quantizer was captured as {head}")
+    log(f"[third-party] fake-quant kernels at the swapped stock resnet18's {len(caps)} "
+        f"quantizer shapes at B={TRAIN_B} (the head's weight {head[0]['shape']} per channel "
+        "on axis 0), one eager step's real data, static and traced: forward and dX "
+        f"bit-exact; dS/dB worst {worst[False]:.2e} / {worst[True]:.2e} of their term "
+        "sums (tol 1e-5)")
+    del caps
+
+    mm, _, fq = reset_counts()
+    # (a) the swap: 21 layers, the stock names and layouts, the stock untouched
+    stock_sd = {k: v.clone() for k, v in stock.state_dict().items()}
+    model = _swap(torch, stock)
+    swapped = [n for n, m in model.named_modules() if isinstance(m, (QuantConv2d, QuantLinear))]
+    keys = [k for k in model.state_dict() if "_fq." not in k]
+    res = _swap(torch, stock).load_state_dict(stock.state_dict(), strict=False)
+    out["swap"] = {"swapped": len(swapped), "stock_keys_kept": keys == list(stock_sd),
+                   "missing_quantizer_keys": len(res.missing_keys),
+                   "unexpected": list(res.unexpected_keys)}
+    log(f"[third-party] quantize_model(StockResNet18): {out['swap']}")
+    if (len(swapped) != STOCK_SWAPPED or keys != list(stock_sd) or res.unexpected_keys
+            or not res.missing_keys or not all("_fq." in k for k in res.missing_keys)):
+        raise AssertionError(f"the swap went wrong: {out['swap']}")
+
+    # (b) eager and captured QAT at B = 64 across the window
+    batches = _image_batches(torch, TRAIN_STEPS + 1, TRAIN_B, seed=3)
+    step = make_train_step(model, _sgd(torch, model), jit=False)
+    eager = _train_leg(torch, step, batches[:TRAIN_STEPS], fq, FQ_KERNELS)
+    for i, counts in enumerate(eager["per_step_launches"]):
+        for k, v in counts.items():
+            want = STOCK_SWAPPED - (k == "fq_bwd_pt" and i < STOCK_WINDOW)
+            if v != want:
+                raise AssertionError(f"eager step {i + 1}: {k} ran {v} times, not {want}")
+    eager["profile"] = _profile_train_step(torch, step, batches[TRAIN_STEPS], eager["step_ms"])
+    out["cpu_check"] = _cpu_check(
+        torch, model, step, _image_batches(torch, 1, CHECK_B, seed=5)[0],
+        lambda: _swap(torch, _stock(torch, device="cpu"), device="cpu"),
+        f"[third-party] B={CHECK_B}")
+    del model, step
+    cmodel = _swap(torch, stock)
+    cstep = make_train_step(cmodel, _sgd(torch, cmodel), jit=True)
+    cap = _train_leg(torch, cstep, batches[:TRAIN_STEPS], fq, FQ_KERNELS + TRACED_KERNELS)
+    for i, counts in enumerate(cap["per_step_launches"]):
+        want = STOCK_SWAPPED if i < 2 else 0
+        if any(counts[k] != want for k in TRACED_KERNELS) or any(counts[k] for k in FQ_KERNELS):
+            raise AssertionError(f"captured step {i + 1}: launches {counts}")
+    _graph_of(cstep)
+    p = cap["profile"] = _profile_train_step(torch, cstep, batches[TRAIN_STEPS], cap["step_ms"])
+    kinds = cap["replay_fq_kernels"] = _fq_kinds(p["fq_kernels"])
+    want_kinds = {"fwd/traced": 2 * STOCK_SWAPPED, "bwd_pt/traced": STOCK_SWAPPED,
+                  "bwd_pc/traced": STOCK_SWAPPED}
+    bn_shapes = []
+    hooks = [m.register_forward_hook(lambda mod, i, o: bn_shapes.append(tuple(i[0].shape)))
+             for m in cmodel.modules() if isinstance(m, nn.BatchNorm2d)]
+    make_eval_step(cmodel)(batches[0])  # keeps no state
+    for h in hooks:
+        h.remove()
+    bn = _batchnorm_ms(torch, bn_shapes,
+                       make=lambda c: nn.BatchNorm2d(c).to("cuda"))
+    hand_e, hand_c = rec["train"], rec["train_captured"]
+    out.update({"eager": {k: v for k, v in eager.items() if k != "per_step_launches"},
+                "captured": {k: v for k, v in cap.items() if k != "per_step_launches"},
+                "eager_launches_a_step": eager["per_step_launches"][-1],
+                "batchnorm": bn, "hand_built": {
+                    "eager_step_ms": hand_e["step_ms"], "replay_ms": hand_c["step_ms"],
+                    "eager_kernels": hand_e["profile"]["kernels"],
+                    "replay_kernels": hand_c["profile"]["kernels"],
+                    "eager_by_category_ms": hand_e["profile"]["by_category_ms"],
+                    "replay_by_category_ms": hand_c["profile"]["by_category_ms"],
+                    "batchnorm": hand_e["batchnorm"]}})
+    log(f"[third-party] stock resnet18 B={TRAIN_B}: eager {eager['step_ms']:.2f} ms a step "
+        f"(hand-built resnet18_cifar, phase 6: {hand_e['step_ms']:.2f}), a replay "
+        f"{cap['step_ms']:.2f} ms (phase 7: {hand_c['step_ms']:.2f}); losses "
+        + " ".join(f"{v:.4f}" for v in cap["losses"]))
+    log(f"[third-party] profiled eager step: {eager['profile']['kernels']} kernels, "
+        f"{eager['profile']['device_ms']:.2f} ms busy: {_categories(eager['profile'])}; "
+        f"hand-built: {hand_e['profile']['kernels']} kernels: {_categories(hand_e['profile'])}")
+    log(f"[third-party] profiled replay: {p['kernels']} kernels, {p['device_ms']:.2f} ms "
+        f"busy ({100 * p['busy_share']:.1f}%): {_categories(p)}; hand-built: "
+        f"{hand_c['profile']['kernels']} kernels: {_categories(hand_c['profile'])}; "
+        f"fake-quant kinds {kinds}")
+    log(f"[third-party] the {len(bn_shapes)} stock BatchNorm2d layers alone (cuDNN), forward "
+        f"+ backward at B={TRAIN_B}: {bn['ms']:.2f} ms on the device, {bn['kernels']} "
+        f"kernels; the port's flax-rule BatchNorm at the same shapes (phase 6): "
+        f"{hand_e['batchnorm']['ms']:.2f} ms, {hand_e['batchnorm']['kernels']} kernels")
+    if kinds != want_kinds:
+        raise AssertionError(f"the replay ran fake-quant kernels {kinds}, not {want_kinds}")
+
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        models = [_swap(torch, stock) for _ in range(2)]
+        n_leaves, losses, unequal = _steps_equal(
+            torch, models, [_sgd(torch, m) for m in models],
+            _image_batches(torch, EQUAL_STEPS, TRAIN_B, seed=7))
+        out["captured_vs_eager"] = {"steps": EQUAL_STEPS, "leaves": n_leaves,
+                                    "losses": losses, "unequal": unequal}
+        log(f"[third-party] eager vs captured step from one state, cuDNN deterministic, "
+            f"{EQUAL_STEPS} steps (window end at 3): {n_leaves} leaves a step, "
+            f"{len(unequal)} not bit-equal {unequal[:5]}")
+        if not max((u["rel"] for u in unequal), default=0.0) <= 1e-6:
+            raise AssertionError(f"the captured step left another state than the eager "
+                                 f"step: {unequal[:10]}")
+        del models
+
+        # (d) checkpoint at step k, restore_or_init a fresh model and optimizer,
+        # capture, m more steps: the uninterrupted run's k + m in every leaf
+        cb = _image_batches(torch, CKPT_K + CKPT_M, TRAIN_B, seed=13)
+        umodel = _swap(torch, stock)
+        uopt = _sgd(torch, umodel)
+        ustep = make_train_step(umodel, uopt, jit=True)
+        with tempfile.TemporaryDirectory() as d:
+            for i, b in enumerate(cb):
+                if i == CKPT_K:
+                    save_checkpoint(d, {"model": umodel, "optimizer": uopt}, CKPT_K)
+                ustep(b)
+
+            def init():
+                m = _swap(torch, _stock(torch, seed=1))
+                return {"model": m, "optimizer": _sgd(torch, m)}
+
+            state, got = restore_or_init(d, init)
+        rstep = make_train_step(state["model"], state["optimizer"], jit=True)
+        for b in cb[CKPT_K:]:
+            rstep(b)
+        want_state = _train_state(umodel, uopt)
+        got_state = _train_state(state["model"], state["optimizer"])
+        diff = sorted(k for k in want_state if k not in got_state
+                      or not torch.equal(want_state[k], got_state[k]))
+        out["checkpoint"] = {"k": CKPT_K, "m": CKPT_M, "restored_step": got,
+                             "leaves": len(want_state), "unequal": diff}
+        log(f"[third-party] checkpoint at step {CKPT_K}, restore_or_init (step {got}) into a "
+            f"fresh model and optimizer, captured, {CKPT_M} more steps: {len(want_state)} "
+            f"leaves, {len(diff)} unlike the uninterrupted run's {diff[:5]}")
+        if got != CKPT_K or diff or len(got_state) != len(want_state):
+            raise AssertionError(f"the resumed run differs: {out['checkpoint']}")
+        del umodel, uopt, ustep, state, rstep
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+    # (c) distillation from the float stock model, captured
+    teacher = stock.eval()
+    dmodel = _swap(torch, stock)
+    dstep = make_train_step(dmodel, _sgd(torch, dmodel), jit=True,
+                            loss_fn=distillation_loss(teacher, alpha=0.5, temperature=2.0))
+    dleg = _train_leg(torch, dstep, _image_batches(torch, STOCK_DISTILL_STEPS, TRAIN_B, 17),
+                      fq, ())
+    cpu_teacher = _stock(torch, device="cpu").eval()
+    dcheck = _cpu_check(
+        torch, dmodel, dstep, _image_batches(torch, 1, CHECK_B, seed=19)[0],
+        lambda: _swap(torch, _stock(torch, device="cpu"), device="cpu"),
+        f"[third-party] distilled B={CHECK_B}",
+        cpu_loss_fn=lambda: distillation_loss(cpu_teacher, alpha=0.5, temperature=2.0))
+    changed = [k for k, v in stock.state_dict().items() if not torch.equal(v, stock_sd[k])]
+    out["distill"] = {"step_ms": dleg["step_ms"], "replay_ms": cap["step_ms"],
+                      "overhead_ms": dleg["step_ms"] - cap["step_ms"],
+                      "losses": dleg["losses"], "cpu_check": dcheck,
+                      "teacher_changed": changed}
+    log(f"[third-party] distillation_loss(stock.eval(), alpha=0.5, T=2), captured: "
+        f"{dleg['step_ms']:.2f} ms a replay against {cap['step_ms']:.2f} without "
+        f"(+{dleg['step_ms'] - cap['step_ms']:.2f} ms: the teacher's forward); teacher "
+        f"leaves changed: {changed}")
+    if changed:
+        raise AssertionError(f"the teacher changed: {changed}")
+    del dmodel, dstep
+
+    # (e) convert and serve at w8a8 (the captured leg's model) and w4a8
+    images = torch.randn(STOCK_EVAL_N, 3, 32, 32, device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(99))
+    out["serve_w8a8"] = _stock_serve(torch, cmodel, stock, 8, images, mm, fq)
+    m4 = _swap(torch, stock, wbits=4)
+    step4 = make_train_step(m4, _sgd(torch, m4), jit=True)
+    for b in _image_batches(torch, STOCK_WINDOW + 2, TRAIN_B, seed=41):
+        step4(b)
+    out["serve_w4a8"] = _stock_serve(torch, m4, stock, 4, images, mm, fq)
+    del m4, step4
+
+    # BN re-estimation: the stock BatchNorm statistics move, no quantizer tensor
+    before = _quantizer_state(cmodel)
+    bns = {n: m.running_mean.clone() for n, m in cmodel.named_modules()
+           if isinstance(m, nn.BatchNorm2d)}
+    reestimate_batch_stats(cmodel, (b["image"] for b in _image_batches(torch, 20, TRAIN_B, 23)))
+    after = _quantizer_state(cmodel)
+    same = all(torch.equal(v, after[k]) for k, v in before.items())
+    moved = sum(not torch.equal(m.running_mean, bns[n]) for n, m in cmodel.named_modules()
+                if n in bns)
+    out["bn_reestimation"] = {"quantizer_tensors": len(before), "unchanged": same,
+                              "batchnorms_moved": moved, "batchnorms": len(bns)}
+    log(f"[third-party] reestimate_batch_stats over 20 batches: {out['bn_reestimation']}")
+    if not (same and moved == len(bns)):
+        raise AssertionError(f"BN re-estimation: {out['bn_reestimation']}")
+
+    out["launches"] = {k: fq[k] for k in FQ_KERNELS + TRACED_KERNELS}
+    out["launches"].update({k: mm[k] for k in ("wo8", "wo4")})
+    log(f"[third-party] launches on the path: {out['launches']}")
+    missing = [k for k, v in out["launches"].items() if not v]
+    if missing:
+        raise AssertionError(f"kernels of the third-party path never launched: {missing}")
+    out["wall_s"] = time.time() - t0
+    log(f"[third-party] phase 15 took {out['wall_s']:.1f} s")
+
+
 def _obs_kernels_line(rec):
     o = rec["observers"]
     big = max(o["times"]["rows"], key=lambda r: r["elements"])
@@ -3285,6 +3660,7 @@ def kernels_line(rec):
         out.append({"name": name, "route": "cuda", "source": src, "replaces": repl,
                     "launches": rec["launches"][name],
                     "convnet_launches": rec["convnet"]["launches"][name],
+                    "third_party_launches": rec["third_party"]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": sum(r["ms"] for r in rows),
                     "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -3346,6 +3722,7 @@ def kernels_line(rec):
                     "source": "jaxlsq_torch/csrc/fake_quant.cu", "replaces": repl,
                     "launches": rec[leg]["launches"][name],
                     "convnet_launches": rec["convnet"]["launches"][name],
+                    "third_party_launches": rec["third_party"]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -3453,6 +3830,7 @@ def main(argv):
     phase_int4_lab(torch, rec)
     phase_convnet(torch, rec)
     phase_observers(torch, rec)
+    phase_third_party(torch, rec)
     rec["wall_s"] = time.time() - t0
     rec["profile_misses"] = PROFILE_MISSES
     rec["waiting_calls"] = WAITING_CALLS

@@ -4,6 +4,8 @@ rather than carrying on on the CPU."""
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 
@@ -15,3 +17,11 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' explicitly to run "
             "the plain PyTorch path on the CPU")
     return torch.device("cuda")
+
+
+def device_of(module) -> torch.device:
+    """The device of ``module``'s first parameter or buffer (the CPU for a
+    module that holds neither)."""
+    for t in itertools.chain(module.parameters(), module.buffers()):
+        return t.device
+    return torch.device("cpu")

@@ -4,13 +4,14 @@
 training, or ``jaxlsq.serve.convert``) produced, as nested dicts of numpy
 arrays (or tensors), and fills a serve-mode model of the port: the
 :class:`jaxlsq_torch.models.QuantTransformerLM`, or a conv net
-(``QuantResNet``, ``QuantMobileNetV2``, ``QuantCNN``, or any model of
-``QuantConv``, ``QuantDense`` and ``BatchNorm`` modules named as the flax
-modules are):
+(``QuantResNet``, ``QuantMobileNetV2``, ``QuantCNN``, a stock model swapped
+by ``models.quantize_model`` in serve mode, or any model of ``QuantConv``,
+``QuantDense``, ``QuantDenseGeneral``, ``QuantEmbed`` and BatchNorm modules
+named as the flax modules are):
 
 * a QAT-mode tree (``params``/``qparams``[/``quant_state``/``batch_stats``])
   is first passed through the port's own :func:`jaxlsq_torch.serve.convert`
-  (``quant_state`` is not read);
+  (``quant_state`` is read only for the ``dg_flat`` markers);
 * a converted tree (``params``/``quantized``[/``batch_stats``]) is loaded as
   it is; each packed weight is a ``PackedWeight`` or a dict of its fields
   (``data``, ``scale``, ``zero_point``, ``bits``, ``axis``, ``k_axis``,
@@ -38,6 +39,15 @@ a per-channel conv weight's qparams are the same (C,) vectors (axis 3
 there, 0 here); the quantizers' counters, flags and observer count are
 their buffers, of the JAX package's types (int32, bool, int32), and a
 histogram observer's ``histogram`` its ``obs_hist`` buffer.
+
+Stock layers (``quantize_model``'s QAT twins and the layers it leaves float)
+carry as the JAX package's stock flax layers: a Linear's (N, K) ``weight`` is
+the (K, N) ``kernel`` transposed, a Conv2d's OIHW ``weight`` the HWIO
+``kernel``, an Embedding's ``weight`` the ``embedding``; a stock
+``nn.BatchNorm*d``'s ``weight``/``bias`` are flax's ``scale``/``bias`` and its
+``running_mean``/``running_var`` the ``batch_stats`` ``mean``/``var``.  A
+``QuantDenseGeneral`` keeps the stock ``(*in_dims, *features)`` kernel, and
+its ``dg_flat`` marker is in ``quant_state``.
 """
 
 from __future__ import annotations
@@ -47,9 +57,13 @@ from typing import Any, Dict
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.modules.batchnorm import _BatchNorm
 
-from .models.layers import FakeQuantize, QuantConv, QuantDense, QuantEmbed
+from ._device import device_of
+from .models.layers import (FakeQuantize, QuantConv, QuantDense, QuantDenseGeneral,
+                            QuantEmbed)
 from .models.norm import BatchNorm
+from .models.quantize import QuantConv2d, QuantEmbedding, QuantLinear
 from .models.zoo import QuantTransformerLM
 from .observers.quantizer import STATE_DTYPES, STATE_FIELDS, QuantizerState
 from .serve.convert import convert
@@ -120,13 +134,14 @@ def _leftover(tree, path=""):
 @torch.no_grad()
 def load_variables(model, variables: Dict[str, Any]) -> None:
     """Load a JAX-package variables tree (QAT-mode or converted) into the
-    serve-mode ``model``."""
-    # quant_state holds observer counters (training state) and, for
-    # DenseGeneral layers, flattening markers; no model here has DenseGeneral
-    tree = _to_torch({k: v for k, v in variables.items() if k != "quant_state"},
-                     model.device)
+    serve-mode ``model``.  A QAT-mode tree is converted under
+    ``model.qconfig`` (its ``quant_state`` read only for the ``dg_flat``
+    markers of ``QuantDenseGeneral`` layers); a ``quantize_model`` copy holds
+    no qconfig and takes the tree converted: ``convert(tree, qc)``."""
+    tree = _to_torch(dict(variables), device_of(model))
     if "qparams" in tree:
         tree = convert(tree, model.qconfig)
+    tree.pop("quant_state", None)
     params = tree.pop("params")
     quant = tree.pop("quantized")
     stats = tree.pop("batch_stats", {})
@@ -166,34 +181,98 @@ def _load_lm(model, params, quant) -> None:
 
 
 def _load_net(model, params, quant, stats) -> None:
-    """A serve-mode conv net: each layer's pack and activation qparams from
+    """A serve-mode net (the port's conv nets, or a stock model swapped by
+    ``quantize_model``): each packed layer's pack and activation qparams from
     ``quantized``, its bias from ``params``; each BatchNorm's affine from
-    ``params`` and its running statistics from ``batch_stats``."""
+    ``params`` and its running statistics from ``batch_stats``; a layer left
+    float (a ``skip`` of ``quantize_model``) and a LayerNorm from
+    ``params``."""
     for name, mod in model.named_modules():
         path = tuple(name.split("."))
         where = "/".join(path)
-        if isinstance(mod, (QuantConv, QuantDense)):
+        if isinstance(mod, (QuantConv, QuantDense, QuantDenseGeneral, QuantEmbed)):
             if mod.qat:
                 raise ValueError(f"{where} is a QAT-mode layer: load_variables fills "
                                  "a serve-mode model (load_qat_variables a QAT one)")
-            p = {} if mod.bias is None else _pop_node(params, path, "params")
             q = _pop_node(quant, path, "quantized")
-            _packed_layer(mod, p, q, where)
+            if isinstance(mod, QuantEmbed):
+                mod.embedding.load(_take(q, "embedding", f"quantized/{where}"))
+                p = {}
+            else:
+                p = {} if mod.bias is None else _pop_node(params, path, "params")
+                _packed_layer(mod, p, q, where)
             left = _leftover(p, f"params/{where}") + _leftover(q, f"quantized/{where}")
             if left:
                 raise ValueError(f"unexpected variables {left}")
-        elif isinstance(mod, BatchNorm):
-            _batch_norm(mod, _pop_node(params, path, "params"),
-                        _pop_node(stats, path, "batch_stats"), where)
+        elif isinstance(mod, (BatchNorm, _BatchNorm)):
+            _batch_norm(mod, params, stats, path)
+        elif isinstance(mod, nn.LayerNorm) or type(mod) in _FLOAT_LAYERS:
+            _float_layer(mod, _pop_node(params, path, "params"), where)
 
 
-def _batch_norm(mod, p, s, where) -> None:
-    dev = mod.mean.device
-    for dst, node, key in ((mod.scale, p, "scale"), (mod.bias, p, "bias"),
-                           (mod.mean, s, "mean"), (mod.var, s, "var")):
-        _copy(dst, _to_torch(_take(node, key, where), dev), f"{where}/{key}")
-    if p or s:
-        raise ValueError(f"unexpected variables {sorted(p) + sorted(s)} at {where}")
+# stock layers that carry float parameters as the JAX package's stock ones do
+_FLOAT_LAYERS = (nn.Linear, nn.Conv2d, nn.Embedding)
+
+
+def _bn_tensors(mod):
+    """A BatchNorm's tensors by the JAX package's names: the port's flax-rule
+    ``BatchNorm``, or a stock ``nn.BatchNorm*d`` (weight/bias are flax's
+    scale/bias, running_mean/running_var its batch_stats mean/var; torch's
+    ``num_batches_tracked`` has no counterpart and is not carried)."""
+    if isinstance(mod, BatchNorm):
+        return {"scale": mod.scale, "bias": mod.bias}, {"mean": mod.mean, "var": mod.var}
+    p = {"scale": mod.weight, "bias": mod.bias} if mod.affine else {}
+    s = ({"mean": mod.running_mean, "var": mod.running_var}
+         if mod.track_running_stats else {})
+    return p, s
+
+
+def _batch_norm(mod, params, stats, path) -> None:
+    """A BatchNorm's affine from the ``params`` collection and its running
+    statistics from ``batch_stats``, each node popped at ``path``."""
+    where = "/".join(path)
+    for tensors, col, name in zip(_bn_tensors(mod), (params, stats),
+                                  ("params", "batch_stats")):
+        if not tensors:
+            continue
+        node = _pop_node(col, path, name)
+        for key, dst in tensors.items():
+            _copy(dst, _to_torch(_take(node, key, where), dst.device), f"{where}/{key}")
+        if node:
+            raise ValueError(f"unexpected variables {sorted(node)} at {name}/{where}")
+
+
+def _weight_views(mod):
+    """A layer's weight tensor, its params key in the JAX package and the
+    maps from the JAX package's layout to the port's and back: a Linear's
+    (N, K) weight is the (K, N) kernel transposed, a Conv2d's OIHW weight the
+    HWIO kernel, an embedding table the same array."""
+    ident = (lambda a: a, lambda a: a)
+    if isinstance(mod, (QuantEmbed, QuantEmbedding, nn.Embedding)):
+        return (mod.embedding if isinstance(mod, QuantEmbed) else mod.weight,
+                "embedding", *ident)
+    if isinstance(mod, (QuantConv, QuantConv2d, nn.Conv2d)):
+        w = mod.kernel if isinstance(mod, QuantConv) else mod.weight
+        return (w, "kernel", lambda a: a.permute(3, 2, 0, 1),  # HWIO <-> OIHW
+                lambda a: a.transpose(2, 3, 1, 0))
+    if isinstance(mod, (QuantLinear, nn.Linear)):
+        return mod.weight, "kernel", lambda a: a.T, lambda a: a.T
+    return mod.kernel, "kernel", *ident  # QuantDense, QuantDenseGeneral
+
+
+def _float_layer(mod, p, where) -> None:
+    """A float layer's weight (and bias), or a LayerNorm's scale and bias."""
+    if isinstance(mod, nn.LayerNorm):
+        triples = ((mod.weight, "scale", None), (mod.bias, "bias", None))
+    else:
+        w, key, from_jax, _ = _weight_views(mod)
+        triples = ((w, key, from_jax), (getattr(mod, "bias", None), "bias", None))
+    for dst, key, fn in triples:
+        if dst is not None:
+            src = _to_torch(_take(p, key, f"params/{where}"), dst.device)
+            _copy(dst, src if fn is None else fn(src), f"{where}/{key}")
+    if p:
+        raise ValueError(f"unexpected variables {sorted(p)} at params/{where}")
 
 
 def _pop_node(tree: Dict[str, Any], path, collection: str):
@@ -223,13 +302,18 @@ def _prune(tree):
     return {k: v for k, v in out.items() if v != {}}
 
 
+_KERNEL_LAYERS = (QuantConv, QuantDense, QuantDenseGeneral, QuantEmbed, QuantLinear,
+                  QuantConv2d, QuantEmbedding)
+
+
 def _qat_modules(model):
     for name, mod in model.named_modules():
         path = tuple(name.split(".")) if name else ()
-        if isinstance(mod, (FakeQuantize, BatchNorm, nn.LayerNorm)):
+        if isinstance(mod, (FakeQuantize, BatchNorm, _BatchNorm, nn.LayerNorm)):
             yield path, mod
-        elif (isinstance(mod, (QuantConv, QuantDense, QuantEmbed))
-              and getattr(mod, "qat", True)):
+        elif isinstance(mod, _KERNEL_LAYERS) and getattr(mod, "qat", True):
+            yield path, mod
+        elif type(mod) in _FLOAT_LAYERS:
             yield path, mod
 
 
@@ -243,7 +327,7 @@ def _pos_emb(model):
 def load_qat_variables(model, tree: Dict[str, Any]) -> None:
     """Load a JAX-package QAT variables tree into the QAT-mode ``model``.
     Every variable of the model must be given, and nothing else."""
-    dev = next(model.parameters()).device
+    dev = device_of(model)
     tree = _copy_dicts(tree)  # nodes are popped as they are loaded
     cols = {c: tree.pop(c, {}) for c in ("params", "qparams", "quant_state",
                                          "batch_stats")}
@@ -252,6 +336,12 @@ def load_qat_variables(model, tree: Dict[str, Any]) -> None:
 
     def get(node, key, path):
         return _to_torch(_take_node(node, key, "", path), dev)
+
+    def node_at(col, path):
+        node = cols[col]
+        for key in path:
+            node = _take_node(node, key, col, path)
+        return node
 
     for path, mod in _qat_modules(model):
         where = "/".join(path)
@@ -271,32 +361,24 @@ def load_qat_variables(model, tree: Dict[str, Any]) -> None:
                 if a.shape != b.shape:
                     raise ValueError(f"{where}: shape {tuple(a.shape)} != {tuple(b.shape)}")
             mod.load_quant_state(st)
-        elif isinstance(mod, BatchNorm):
-            _batch_norm(mod, _pop_node(cols["params"], path, "params"),
-                        _pop_node(cols["batch_stats"], path, "batch_stats"), where)
-        elif isinstance(mod, nn.LayerNorm):  # flax LayerNorm: scale, bias
-            p = _pop_node(cols["params"], path, "params")
-            for dst, key in ((mod.weight, "scale"), (mod.bias, "bias")):
-                _copy(dst, _to_torch(_take(p, key, f"params/{where}"), dev),
-                      f"{where}/{key}")
-            if p:
-                raise ValueError(f"unexpected variables {sorted(p)} at {where}")
-        elif isinstance(mod, QuantEmbed):
-            p = cols["params"]
-            for key in path:
-                p = _take_node(p, key, "params", path)
-            _copy(mod.embedding, _to_torch(_take(p, "embedding", f"params/{where}"), dev),
-                  f"{where}/embedding")
+        elif isinstance(mod, (BatchNorm, _BatchNorm)):
+            _batch_norm(mod, cols["params"], cols["batch_stats"], path)
+        elif isinstance(mod, nn.LayerNorm):
+            _float_layer(mod, _pop_node(cols["params"], path, "params"), where)
         else:
-            p = cols["params"]
-            for key in path:
-                p = _take_node(p, key, "params", path)
-            k = _to_torch(p.pop("kernel"), dev)
-            if isinstance(mod, QuantConv):
-                k = k.permute(3, 2, 0, 1)  # HWIO -> OIHW
-            _copy(mod.kernel, k, f"{where}/kernel")
-            if mod.bias is not None:
-                _copy(mod.bias, _to_torch(p.pop("bias"), dev), f"{where}/bias")
+            p = node_at("params", path)
+            w, key, from_jax, _ = _weight_views(mod)
+            _copy(w, from_jax(_to_torch(_take(p, key, f"params/{where}"), dev)),
+                  f"{where}/{key}")
+            if getattr(mod, "bias", None) is not None:
+                _copy(mod.bias, _to_torch(_take(p, "bias", f"params/{where}"), dev),
+                      f"{where}/bias")
+            if isinstance(mod, QuantDenseGeneral):
+                flat = _to_torch(_take(node_at("quant_state", path), "dg_flat",
+                                       f"quant_state/{where}"), dev)
+                if flat.tolist() != mod.dg_flat.tolist():
+                    raise ValueError(f"{where}/dg_flat: {flat.tolist()} != "
+                                     f"{mod.dg_flat.tolist()}")
     if _pos_emb(model) is not None:
         _copy(model.pos_emb, _to_torch(_take(cols["params"], "pos_emb", "params"), dev),
               "pos_emb")
@@ -325,20 +407,21 @@ def qat_variables(model) -> Dict[str, Any]:
             qs = {f: np_(getattr(mod, f)) for f in STATE_FIELDS}
             qs["obs"] = {f: np_(b) for f, b in mod.obs_buffers().items()}
             put("quant_state", path, {"qs": qs})
-        elif isinstance(mod, BatchNorm):
-            put("params", path, {"scale": np_(mod.scale), "bias": np_(mod.bias)})
-            put("batch_stats", path, {"mean": np_(mod.mean), "var": np_(mod.var)})
+        elif isinstance(mod, (BatchNorm, _BatchNorm)):
+            tp, ts = _bn_tensors(mod)
+            if tp:
+                put("params", path, {k: np_(v) for k, v in tp.items()})
+            if ts:
+                put("batch_stats", path, {k: np_(v) for k, v in ts.items()})
         elif isinstance(mod, nn.LayerNorm):
             put("params", path, {"scale": np_(mod.weight), "bias": np_(mod.bias)})
-        elif isinstance(mod, QuantEmbed):
-            put("params", path, {"embedding": np_(mod.embedding)})
         else:
-            k = np_(mod.kernel)
-            if isinstance(mod, QuantConv):
-                k = k.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-            put("params", path, {"kernel": k})
-            if mod.bias is not None:
+            w, key, _, to_jax = _weight_views(mod)
+            put("params", path, {key: to_jax(np_(w))})
+            if getattr(mod, "bias", None) is not None:
                 put("params", path, {"bias": np_(mod.bias)})
+            if isinstance(mod, QuantDenseGeneral):
+                put("quant_state", path, {"dg_flat": np_(mod.dg_flat)})
     if _pos_emb(model) is not None:
         cols["params"]["pos_emb"] = np_(model.pos_emb)
     return {c: v for c, v in cols.items() if v}

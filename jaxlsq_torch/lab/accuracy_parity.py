@@ -22,8 +22,10 @@ forward on a batch of its own feeds the activation observers, as flax's
 ``init`` does; then the recipe's state function (``set_static_estimate``)
 and its warm start (``calibrate`` over 20 batches, then learning on and the
 observers off, as ``train_one`` does).  One float model a seed is shared by
-every recipe of the seed.  The eval set is a fixed 20,000 images a seed, in
-chunks of 2,000, shared by every config of the seed.  A QAT row records
+every recipe of the seed, and it is the teacher of the ``distill*`` recipes
+(``distillation_loss``, alpha 0.5, T 2.0, as the sweep's loop).  The eval
+set is a fixed 20,000 images a seed, in chunks of 2,000, shared by every
+config of the seed.  A QAT row records
 three top-1s: ``top1`` (the QAT model in eval mode), ``top1_served`` (the
 trained variables through ``serve.convert`` into the serve-mode model under
 ``for_serving('static')``: packed kernels, static activation quantization,
@@ -55,7 +57,8 @@ from ..models import QConfig, calibrate, default_qconfig, map_quant_state
 from ..models.calibrate import set_static_estimate
 from ..models.zoo import mobilenetv2_cifar, resnet18_cifar
 from ..observers import MovingAverageMinMaxObserver
-from ..parallel import make_eval_step, make_train_step, qat_optimizer
+from ..parallel import (cross_entropy_loss, distillation_loss, make_eval_step,
+                        make_train_step, qat_optimizer)
 from ..utils import reestimate_batch_stats
 
 __all__ = ["N_CLASSES", "SIZE", "EVAL_N", "EVAL_CHUNK", "BN_BATCHES", "T95",
@@ -69,6 +72,7 @@ EVAL_CHUNK = 2_000
 BN_BATCHES = 400     # examples/recipe_sweep.py's --bn-batches
 BASE_LR, WEIGHT_DECAY = 3e-3, 1e-4
 WARM_BATCHES = 20    # recipe_sweep.py: the *_warm recipes' calibration batches
+DISTILL_ALPHA, DISTILL_T = 0.5, 2.0  # recipe_sweep.py's distillation_loss arguments
 # two-sided t critical values at 95% for df = n - 1 (the JAX package's table)
 T95 = {1: 12.706, 2: 4.303, 3: 3.182, 4: 2.776, 5: 2.571}
 MODELS = {"resnet18": resnet18_cifar, "mobilenetv2": mobilenetv2_cifar}
@@ -151,12 +155,14 @@ def adamq_tx(model, on_card: bool) -> torch.optim.Optimizer:
 class Recipe:
     """A recipe of ``recipe_sweep.py``: its qconfig, its optimizer
     (``optimizer(model, on_card)``), a function of the model run before
-    training (``set_static_estimate``) and its warm-start batch count."""
+    training (``set_static_estimate``), its warm-start batch count and
+    whether it distills from the seed's float model."""
 
     qconfig: QConfig
     optimizer: Callable = default_tx
     state_fn: Optional[Callable] = None
     warm_batches: int = 0
+    distill: bool = False
 
 
 def _with_observer(qc: QConfig) -> QConfig:
@@ -215,9 +221,14 @@ def _recipes() -> Dict[str, object]:
         "window1200_4": Recipe(dq(4, window=1200)),
         "combo1200_4": Recipe(dq(4, window=1200, reduce_range=False)),
         "learnable4": Recipe(dq(4, window=100, init_mode="learnable"), adamq_tx),
+        # the float teacher's KL term on combo1200, static, percentile1200 and
+        # combo1200_4
+        "distill": Recipe(dq(window=1200, reduce_range=False), distill=True),
+        "distill_static": Recipe(base, default_tx, set_static_estimate, distill=True),
+        "distill_percentile": Recipe(dq(window=1200, act_observer="percentile"),
+                                     distill=True),
+        "distill4": Recipe(dq(4, window=1200, reduce_range=False), distill=True),
     }
-    for name in ("distill", "distill_static", "distill_percentile", "distill4"):
-        out[name] = ("distillation_loss and the float teacher", 3)
     for name in ("mp4_48", "mp4_56"):
         out[name] = ("plan_mixed_precision", 7)
     return out
@@ -231,8 +242,8 @@ def recipe_names() -> Sequence[str]:
 def recipe(name: str) -> Recipe:
     """``float`` (no quantizer, ``default_tx``), or a recipe of
     ``examples/recipe_sweep.py``'s ``recipes()`` and ``recipes_w4a8()``
-    (:125-250).  The distillation and mixed-precision recipes raise
-    ``NotImplementedError``: their pieces are ROADMAP queue A items 3 and 7."""
+    (:125-250).  The mixed-precision recipes raise ``NotImplementedError``:
+    their piece is ROADMAP queue A item 7."""
     if name == "float":
         return Recipe(QConfig())
     table = _recipes()
@@ -294,10 +305,12 @@ def _generator(seed: int, device) -> torch.Generator:
 
 
 def train(model_fn: Callable, rec: Recipe, steps: int, batch: int, seed: int,
-          device) -> Dict:
-    """One recipe's training run: returns the model and its optimizer, the
-    last loss, the lr written before each step, and the seconds and
-    images/s of the steps."""
+          device, teacher: Optional[torch.nn.Module] = None) -> Dict:
+    """One recipe's training run (a ``distill`` recipe against ``teacher``):
+    returns the model and its optimizer, the last loss, the lr written
+    before each step, and the seconds and images/s of the steps."""
+    if rec.distill and teacher is None:
+        raise ValueError("a distillation recipe needs the float teacher")
     model = model_fn(rec.qconfig)
     x0, _ = make_batch(batch, _generator(seed + 999, device), device)
     model.eval()
@@ -315,7 +328,9 @@ def train(model_fn: Callable, rec: Recipe, steps: int, batch: int, seed: int,
                                            "observer_enabled": False})
     on_card = torch.device(device).type == "cuda"
     opt = rec.optimizer(model, on_card)
-    step = make_train_step(model, opt, jit=True)
+    loss_fn = (distillation_loss(teacher, alpha=DISTILL_ALPHA, temperature=DISTILL_T)
+               if rec.distill else cross_entropy_loss)
+    step = make_train_step(model, opt, loss_fn=loss_fn, jit=True)
     gen = _generator(seed, device)
     lrs, loss = [], None
     if on_card:
@@ -368,12 +383,13 @@ def run_seed(model_name: str, recipe_names, seed: int, results: Dict, *,
     prefix = f"{model_name}/seed{seed}"
     preds = {}
     labels = None
+    teacher = None
     paired = results.setdefault(f"{prefix}/paired", {})
     for cfg in ["float"] + names:
         rec = recipe(cfg)
         qc = rec.qconfig
         run = train(lambda q: model_fn(N_CLASSES, q, device=dev, seed=0), rec,
-                    steps, batch, seed, dev)
+                    steps, batch, seed, dev, teacher)
         model = run["model"]
         evaluate = make_eval_step(model)
         p, labels = predictions(lambda x: evaluate({"image": x}), seed, dev, eval_n,
@@ -400,6 +416,8 @@ def run_seed(model_name: str, recipe_names, seed: int, results: Dict, *,
             row["bn_batches"] = bn_batches
         results[f"{prefix}/{cfg}"] = row
         log(json.dumps({"row": f"{prefix}/{cfg}", **row}))
+        if cfg == "float" and any(recipe(n).distill for n in names):
+            teacher = model
         del model, run
         if cfg == "float":
             continue

@@ -1,7 +1,8 @@
 from .calibrate import calibrate, enable_param_learning_all, set_static_estimate
-from .layers import FakeQuantize, QuantConv, QuantDense, QuantEmbed
+from .layers import FakeQuantize, QuantConv, QuantDense, QuantDenseGeneral, QuantEmbed, sow_loss
 from .norm import BatchNorm
 from .qconfig import QConfig, default_qconfig
+from .quantize import QuantConv2d, QuantEmbedding, QuantLinear, quantize_model
 from .toggles import (disable_fake_quant, disable_fake_quant_on_act,
                       disable_observer, disable_observer_on_weights,
                       enable_fake_quant, enable_fake_quant_on_act,
@@ -13,7 +14,8 @@ from .zoo import (BasicBlock, InvertedResidual, QuantCNN, QuantMLP,
                   mobilenetv2_cifar, resnet18_cifar)
 
 __all__ = ["QConfig", "default_qconfig", "FakeQuantize", "QuantDense", "QuantConv",
-           "QuantEmbed", "BatchNorm", "QuantMLP", "QuantCNN", "BasicBlock",
+           "QuantEmbed", "QuantDenseGeneral", "sow_loss", "quantize_model", "QuantLinear",
+           "QuantConv2d", "QuantEmbedding", "BatchNorm", "QuantMLP", "QuantCNN", "BasicBlock",
            "QuantResNet", "resnet18_cifar", "InvertedResidual", "QuantMobileNetV2",
            "mobilenetv2_cifar", "init_qat_variables", "QuantTransformerBlock",
            "QuantTransformerLM", "init_variables",

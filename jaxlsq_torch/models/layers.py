@@ -25,7 +25,11 @@ QAT mode (fake-quant training):
   its weight's per-channel axis is 0 (the JAX package: NHWC, HWIO, axis 3).
   The matmul and the convolution are plain PyTorch, as the JAX package
   leaves them to XLA.  :class:`QuantEmbed` fake-quantizes its whole table
-  per row, then gathers.
+  per row, then gathers.  :class:`QuantDenseGeneral` contracts several axes
+  on a flattened (K, N) view of its stock-layout kernel.
+* :func:`sow_loss` records an extra term of the training objective (the JAX
+  package's ``losses`` collection); ``make_train_step`` adds the terms of
+  its forward (:func:`collect_losses`).
 
 Serve mode: :class:`QuantDense` holds a packed (K, N) kernel as buffers and
 runs the fused weight-only matmul (``serve.matmul.wo_matmul``);
@@ -33,14 +37,17 @@ runs the fused weight-only matmul (``serve.matmul.wo_matmul``);
 (per-channel axis 3, int4 along the in axis 2), dequantizes it at each
 forward and runs the convolution (plain PyTorch, as the JAX package's
 ``conv_general_dilated``); :class:`QuantEmbed` holds an int8 table and
-dequantizes only the gathered rows.  All three are filled by
+dequantizes only the gathered rows; :class:`QuantDenseGeneral` runs its
+packed (K, N) view as :class:`QuantDense`.  All four are filled by
 :func:`jaxlsq_torch.interop.load_variables`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import dataclasses
+import math
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
@@ -56,8 +63,9 @@ from ..serve.matmul import wo_matmul
 from ..serve.pack import PackedWeight, dequantize_weight
 from .qconfig import QConfig
 
-__all__ = ["FakeQuantize", "QuantDense", "QuantConv", "QuantEmbed",
-           "static_act_quant", "refresh_host_state", "quant_state_frozen"]
+__all__ = ["FakeQuantize", "QuantDense", "QuantDenseGeneral", "QuantConv", "QuantEmbed",
+           "conv2d_padded", "qat_conv2d", "qat_embed", "static_act_quant", "refresh_host_state",
+           "quant_state_frozen", "collect_losses", "sow_loss"]
 
 
 def static_act_quant(x: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
@@ -236,6 +244,33 @@ def quant_state_frozen(modules):
             m.persist_state = True
 
 
+# the list of the innermost open collect_losses, or None
+_LOSS_TERMS: contextvars.ContextVar = contextvars.ContextVar("loss_terms", default=None)
+
+
+@contextlib.contextmanager
+def collect_losses():
+    """While open, each term a module records with :func:`sow_loss` is
+    appended to the yielded list: the JAX package's ``losses`` collection,
+    mutable in a training apply.  Outside it a recorded term is dropped, as
+    flax drops a write to a collection that is not mutable."""
+    terms: list = []
+    token = _LOSS_TERMS.set(terms)
+    try:
+        yield terms
+    finally:
+        _LOSS_TERMS.reset(token)
+
+
+def sow_loss(value: torch.Tensor) -> None:
+    """Record ``value`` (a weighted term, its sum counts) as a part of the
+    training objective: ``make_train_step`` adds the terms recorded in the
+    current forward to the loss.  Any other forward drops it."""
+    terms = _LOSS_TERMS.get()
+    if terms is not None:
+        terms.append(value)
+
+
 def _fake_quantizer(cfg: Optional[LSQQuantizer], channels: int,
                     device) -> Optional[FakeQuantize]:
     return None if cfg is None else FakeQuantize(cfg, channels, device)
@@ -338,17 +373,8 @@ class QuantDense(nn.Module):
             self.bias = (nn.Parameter(torch.zeros(features, device=device))
                          if use_bias else None)
             return
-        if qc.act_mode not in ("none", "static"):
-            raise NotImplementedError(
-                f"act_mode {qc.act_mode!r} (int8 x int8 matmuls) arrives with "
-                "the static/dynamic int8 slice")
-        wspec = qc.required_weight_for_axis(1).spec
-        c = features if wspec.per_channel else 1
-        self.kernel = _PackedBuffers((in_features, features), serving_bits(wspec),
-                                     1, 0, c, device)
-        _serve_act_qparams(self, qc, in_features, device)
-        self.bias = (nn.Parameter(torch.zeros(features, device=device),
-                                  requires_grad=False) if use_bias else None)
+        _serve_dense(self, qc, in_features, features, (features,), use_bias,
+                     resolve_device(device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.qat:
@@ -357,12 +383,97 @@ class QuantDense(nn.Module):
             w = self.kernel if self.weight_fq is None else self.weight_fq(self.kernel)
             y = torch.matmul(x, w)
             return y if self.bias is None else y + self.bias
-        if self.aspec is not None and self.act_mode == "static":
-            x = static_act_quant(x, self.act_scale, self.act_zp, self.aspec)
-        y = wo_matmul(x, self.kernel.packed())
-        if self.bias is not None:
-            y = y + self.bias
-        return y.to(x.dtype)
+        return _serve_dense_forward(self, x)
+
+
+def _serve_dense(mod: nn.Module, qc: QConfig, k: int, n: int, bias_shape, use_bias: bool,
+                 device) -> None:
+    """A serve-mode dense layer's buffers: the packed (K, N) ``kernel``
+    (per-channel axis 1), the activation qparams over K and the bias."""
+    if qc.act_mode not in ("none", "static"):
+        raise NotImplementedError(
+            f"act_mode {qc.act_mode!r} (int8 x int8 matmuls) arrives with "
+            "the static/dynamic int8 slice")
+    wspec = qc.required_weight_for_axis(1).spec
+    mod.kernel = _PackedBuffers((k, n), serving_bits(wspec), 1, 0,
+                                n if wspec.per_channel else 1, device)
+    _serve_act_qparams(mod, qc, k, device)
+    mod.bias = (nn.Parameter(torch.zeros(bias_shape, device=device), requires_grad=False)
+                if use_bias else None)
+
+
+def _serve_dense_forward(mod: nn.Module, x: torch.Tensor, shape=None) -> torch.Tensor:
+    """``wo_matmul`` of x (or its frozen fake-quant, ``act_mode='static'``)
+    with the packed kernel, reshaped to ``shape`` when given, plus the bias,
+    in x's dtype."""
+    if mod.aspec is not None and mod.act_mode == "static":
+        x = static_act_quant(x, mod.act_scale, mod.act_zp, mod.aspec)
+    y = wo_matmul(x, mod.kernel.packed())
+    if shape is not None:
+        y = y.reshape(shape)
+    if mod.bias is not None:
+        y = y + mod.bias
+    return y.to(x.dtype)
+
+
+class QuantDenseGeneral(nn.Module):
+    """The JAX package's ``QuantDenseGeneral``: contracts the input's
+    ``axis`` (an int or a tuple, of sizes ``in_dims``; torch infers no
+    shapes) against a kernel of the stock layout ``(*in_dims, *features)``,
+    bias ``features``.  The contracted axes move to the back in the given
+    order and flatten to K, the rest keep their order, so the quantized
+    compute runs on the (K, N) view as a :class:`QuantDense`: the activation
+    quantizer over the flattened input's last axis, the weight quantizer per
+    channel over N (axis 1).  In QAT mode the ``dg_flat`` buffer (int32 (K,
+    N)) tells ``serve.convert`` to pack that view; serve mode holds the
+    packed (K, N) kernel and runs ``wo_matmul``.  No ``batch_dims``."""
+
+    def __init__(self, in_dims: Union[int, Sequence[int]],
+                 features: Union[int, Sequence[int]], qconfig: QConfig, *,
+                 axis: Union[int, Sequence[int]] = -1, use_bias: bool = True,
+                 path: Sequence[str] = (), device=None):
+        super().__init__()
+        self.in_dims = (in_dims,) if isinstance(in_dims, int) else tuple(in_dims)
+        self.features = (features,) if isinstance(features, int) else tuple(features)
+        self.axis = (axis,) if isinstance(axis, int) else tuple(axis)
+        if len(self.axis) != len(self.in_dims):
+            raise ValueError(f"axis {self.axis} and in_dims {self.in_dims} differ in length")
+        k, n = math.prod(self.in_dims), math.prod(self.features)
+        qc = qconfig.resolve(tuple(path))
+        device = resolve_device(device)
+        self.qat = qc.mode != "serve"
+        if not self.qat:
+            _serve_dense(self, qc, k, n, self.features, use_bias, device)
+            return
+        self.act_fq = _fake_quantizer(qc.activation_for_axis(-1), k, device)
+        self.kernel = nn.Parameter(torch.zeros(self.in_dims + self.features, device=device))
+        self.weight_fq = _fake_quantizer(qc.weight_for_axis(1), n, device)
+        self.bias = (nn.Parameter(torch.zeros(self.features, device=device))
+                     if use_bias else None)
+        self.register_buffer("dg_flat", torch.tensor([k, n], dtype=torch.int32,
+                                                     device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        nd, na = x.dim(), len(self.axis)
+        axis = tuple(a % nd for a in self.axis)
+        if len(set(axis)) != na:
+            raise ValueError(f"QuantDenseGeneral: duplicate axis in {self.axis}")
+        if tuple(x.shape[a] for a in axis) != self.in_dims:
+            raise ValueError(f"QuantDenseGeneral: input dims {tuple(x.shape)} at axis "
+                             f"{self.axis} are not {self.in_dims}")
+        x2 = torch.movedim(x, axis, tuple(range(nd - na, nd)))
+        lead = tuple(x2.shape[:nd - na])
+        x2 = x2.reshape(lead + (-1,))
+        shape = lead + self.features
+        if not self.qat:
+            return _serve_dense_forward(self, x2, shape)
+        if self.act_fq is not None:
+            x2 = self.act_fq(x2)
+        k2 = self.kernel.reshape(x2.shape[-1], -1)
+        if self.weight_fq is not None:
+            k2 = self.weight_fq(k2)
+        y = torch.matmul(x2, k2).reshape(shape)
+        return y if self.bias is None else y + self.bias
 
 
 def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
@@ -437,31 +548,46 @@ class QuantConv(nn.Module):
         self.bias = (nn.Parameter(torch.zeros(features, device=device),
                                   requires_grad=False) if use_bias else None)
 
-    def _pads(self, h: int, w: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
-        if self.padding == "SAME":
-            return (same_padding(h, self.kh, self.strides[0]),
-                    same_padding(w, self.kw, self.strides[1]))
-        if self.padding == "VALID":
-            return (0, 0), (0, 0)
-        (t, b), (l, r) = self.padding
-        return (int(t), int(b)), (int(l), int(r))
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.qat:
-            if self.act_fq is not None:
-                x = self.act_fq(x)
-            w = self.kernel if self.weight_fq is None else self.weight_fq(self.kernel)
-        else:
-            if self.aspec is not None and self.act_mode == "static":
-                x = static_act_quant(x, self.act_scale, self.act_zp, self.aspec, axis=1)
-            w = dequantize_weight(self.kernel.packed(), x.dtype).permute(3, 2, 0, 1)
-        (t, b), (l, r) = self._pads(x.shape[2], x.shape[3])
-        if t == b and l == r:
-            pad = (t, l)
-        else:
-            x = F.pad(x, (l, r, t, b))
-            pad = 0
-        return F.conv2d(x, w, self.bias, self.strides, pad, 1, self.groups)
+            return qat_conv2d(self, x, self.kernel, self.strides, self.padding, self.groups)
+        if self.aspec is not None and self.act_mode == "static":
+            x = static_act_quant(x, self.act_scale, self.act_zp, self.aspec, axis=1)
+        w = dequantize_weight(self.kernel.packed(), x.dtype).permute(3, 2, 0, 1)
+        return conv2d_padded(x, w, self.bias, self.strides, self.padding, self.groups)
+
+
+def qat_conv2d(mod: nn.Module, x: torch.Tensor, w: torch.Tensor,
+               strides: Tuple[int, int], padding, groups: int) -> torch.Tensor:
+    """The QAT convolution of ``QuantConv`` and ``quantize_model``'s
+    ``QuantConv2d``: ``mod.act_fq`` on NCHW ``x`` (axis 1), ``mod.weight_fq``
+    on the OIHW ``w`` (axis 0), then :func:`conv2d_padded` with ``mod.bias``."""
+    if mod.act_fq is not None:
+        x = mod.act_fq(x)
+    if mod.weight_fq is not None:
+        w = mod.weight_fq(w)
+    return conv2d_padded(x, w, mod.bias, strides, padding, groups)
+
+
+def conv2d_padded(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+                  strides: Tuple[int, int], padding, groups: int) -> torch.Tensor:
+    """``F.conv2d`` of NCHW ``x`` and OIHW ``w`` with ``padding`` 'SAME'
+    (XLA's rule, :func:`same_padding`), 'VALID' or ``((top, bottom), (left,
+    right))``; an uneven pad goes through ``F.pad`` first."""
+    kh, kw = w.shape[2], w.shape[3]
+    if padding == "SAME":
+        (t, b), (l, r) = (same_padding(x.shape[2], kh, strides[0]),
+                          same_padding(x.shape[3], kw, strides[1]))
+    elif padding == "VALID":
+        t = b = l = r = 0
+    else:
+        (t, b), (l, r) = ((int(p0), int(p1)) for p0, p1 in padding)
+    if t == b and l == r:
+        pad = (t, l)
+    else:
+        x = F.pad(x, (l, r, t, b))
+        pad = 0
+    return F.conv2d(x, w, bias, strides, pad, 1, groups)
 
 
 class QuantEmbed(nn.Module):
@@ -489,13 +615,12 @@ class QuantEmbed(nn.Module):
             return
         wspec = qc.required_weight_for_axis(0).spec
         c = num_embeddings if wspec.per_channel else 1
-        self.embedding = _PackedBuffers((num_embeddings, features), 8, 0, 0, c, device)
+        self.embedding = _PackedBuffers((num_embeddings, features), 8, 0, 0, c,
+                                        resolve_device(device))
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         if self.qat:
-            table = (self.embedding if self.weight_fq is None
-                     else self.weight_fq(self.embedding))
-            return F.embedding(tokens, table)
+            return qat_embed(self, tokens, self.embedding)
         p = self.embedding
         rows = p.data[tokens].to(torch.float32)
         if p.scale.shape[0] > 1:
@@ -504,3 +629,13 @@ class QuantEmbed(nn.Module):
         else:
             s, z = p.scale, p.zero_point
         return (rows - z.to(torch.float32)) * s
+
+
+def qat_embed(mod: nn.Module, tokens: torch.Tensor, table: torch.Tensor,
+              padding_idx: Optional[int] = None) -> torch.Tensor:
+    """The QAT lookup of ``QuantEmbed`` and ``quantize_model``'s
+    ``QuantEmbedding``: the whole ``table`` through ``mod.weight_fq`` (per
+    row), then the rows gathered."""
+    if mod.weight_fq is not None:
+        table = mod.weight_fq(table)
+    return F.embedding(tokens, table, padding_idx)

@@ -48,6 +48,13 @@ microbatches, run in order (observers and BatchNorm see each one); the
 gradients are summed in ``.grad`` and divided by ``accum_steps``, the loss
 is the mean of the microbatch losses, and one update lands on the last
 observer-written qparams.
+
+The objective of a forward is ``loss_fn(logits, batch)`` plus the terms its
+modules recorded with ``models.layers.sow_loss`` in that forward (the JAX
+package's ``losses`` collection; each term's sum counts, and a term of an
+earlier forward never does); under ``accum_steps`` each microbatch's own,
+under capture inside the graph.  :func:`distillation_loss` builds a
+``loss_fn`` that adds a KL term against a frozen float teacher.
 """
 
 from __future__ import annotations
@@ -59,9 +66,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.layers import FakeQuantize, quant_state_frozen, refresh_host_state
+from ..models.layers import (FakeQuantize, collect_losses, quant_state_frozen,
+                             refresh_host_state)
 
-__all__ = ["make_train_step", "make_eval_step", "cross_entropy_loss"]
+__all__ = ["make_train_step", "make_eval_step", "cross_entropy_loss",
+           "distillation_loss"]
 
 
 def cross_entropy_loss(logits: torch.Tensor, batch: Dict) -> torch.Tensor:
@@ -71,6 +80,35 @@ def cross_entropy_loss(logits: torch.Tensor, batch: Dict) -> torch.Tensor:
     ``softmax_cross_entropy_with_integer_labels(...).mean()``."""
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            batch["label"].reshape(-1))
+
+
+def distillation_loss(teacher: nn.Module, *, alpha: float = 0.5,
+                      temperature: float = 2.0,
+                      hard_loss: Callable = cross_entropy_loss) -> Callable:
+    """A ``loss_fn`` for :func:`make_train_step` (the JAX package's
+    ``distillation_loss``): ``alpha * hard_loss(logits, batch) + (1 - alpha)
+    * T² * KL(softmax(teacher / T) || softmax(student / T))``, the KL as
+    ``sum(exp(p_t) * (p_t - p_s))`` over the last axis of the log-softmaxes
+    at T, meaned over the rest.  The teacher (on the student's device) runs
+    its eval forward on the batch's 'input' or 'image' with no gradient and
+    nothing of its state kept (``make_eval_step``); it is in no optimizer.
+    ``alpha == 1`` runs no teacher forward.  Under ``make_train_step(jit=True)``
+    on the card the teacher's forward is captured in the step's graph."""
+    if not 0.0 <= alpha <= 1.0:
+        raise ValueError(f"alpha must be in [0, 1], got {alpha}")
+    t = float(temperature)
+    teacher_logits = make_eval_step(teacher)
+
+    def loss_fn(logits: torch.Tensor, batch: Dict) -> torch.Tensor:
+        loss = alpha * hard_loss(logits, batch) if alpha > 0.0 else 0.0
+        if alpha == 1.0:
+            return loss
+        p_t = F.log_softmax(teacher_logits(batch) / t, dim=-1)
+        p_s = F.log_softmax(logits / t, dim=-1)
+        kl = torch.sum(torch.exp(p_t) * (p_t - p_s), dim=-1).mean()
+        return loss + (1.0 - alpha) * (t * t) * kl
+
+    return loss_fn
 
 
 def _inputs(batch: Dict) -> torch.Tensor:
@@ -255,19 +293,30 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                                      if m.host_state()["observer_enabled"]]
         return [p for m in mods for p in (m.scale, m.shift) if id(p) in in_opt]
 
+    def objective(batch: Dict) -> torch.Tensor:
+        with collect_losses() as terms:
+            out = model(_inputs(batch))
+        loss = loss_fn(out, batch)
+        if terms:  # the JAX package's reduce(add, sums, zeros) over 'losses'
+            aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+            for term in terms:
+                aux = aux + term.sum()
+            loss = loss + aux
+        return loss
+
     def body(batch: Dict) -> torch.Tensor:
         model.train()
         qps = observed_qparams()
         old = _flat(qps)
         if accum_steps == 1:
-            loss = loss_fn(model(_inputs(batch)), batch)
+            loss = objective(batch)
             optimizer.zero_grad(set_to_none=True)
             loss.backward()
         else:
             optimizer.zero_grad(set_to_none=True)
             losses = []
             for mb in _microbatches(batch, accum_steps):
-                loss = loss_fn(model(_inputs(mb)), mb)
+                loss = objective(mb)
                 loss.backward()
                 losses.append(loss.detach())
             loss = torch.stack(losses).mean()

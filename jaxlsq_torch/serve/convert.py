@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Tuple
 
+import numpy as np
 import torch
 
 from ..core.golden import clamp_scale
@@ -46,6 +47,14 @@ def _weight_axis_for(kernel: torch.Tensor) -> int:
     return kernel.dim() - 1
 
 
+def _tensors(tree):
+    """``tree`` with its numpy leaves as tensors (``interop.qat_variables``
+    gives numpy arrays, as the JAX package's trees hold)."""
+    if isinstance(tree, dict):
+        return {k: _tensors(v) for k, v in tree.items()}
+    return torch.from_numpy(tree) if isinstance(tree, np.ndarray) else tree
+
+
 def convert(variables: Dict[str, Any], qconfig, *,
             weight_group_size: int = None) -> Dict[str, Any]:
     """Convert QAT variables ('params', 'qparams', optional 'quant_state')
@@ -60,6 +69,7 @@ def convert(variables: Dict[str, Any], qconfig, *,
     fold of its learned qparams."""
     if weight_group_size is not None and weight_group_size < 1:
         raise ValueError(f"weight_group_size must be >= 1, got {weight_group_size}")
+    variables = _tensors(variables)
     params = variables["params"]
     qparams = variables.get("qparams", {})
     quant_state = variables.get("quant_state", {})

@@ -127,6 +127,31 @@ def test_recipes_are_recipe_sweeps():
     assert ap.recipe("float").qconfig.weight is None
     with pytest.raises(ValueError, match="unknown recipe"):
         ap.recipe("combo9")
+    d4 = ap.recipe("distill4")
+    assert d4.distill and d4.qconfig == qc and not ap.recipe("combo1200_4").distill
+
+
+def test_run_seed_distills_from_the_seeds_float_model(monkeypatch):
+    seen = []
+
+    def narrow(num_classes, qc, device=None, seed=0):
+        model = QuantMobileNetV2(num_classes, qc, stages=((1, 8, 1, 1),), stem_width=8,
+                                 head_width=16, device=device, seed=seed)
+        seen.append(model)
+        return model
+
+    real = ap.distillation_loss
+    teachers = []
+    monkeypatch.setitem(ap.MODELS, "mobilenetv2", narrow)
+    monkeypatch.setattr(ap, "distillation_loss",
+                        lambda t, **kw: teachers.append((t, kw)) or real(t, **kw))
+    rec = ap.run_seed("mobilenetv2", "distill", 5, {}, steps=2, batch=4, device="cpu",
+                      eval_n=8, eval_chunk=4, bn_batches=2, log=lambda line: None)
+    assert sorted(rec["mobilenetv2/seed5/paired"]) == ["distill", "distill_bnreest",
+                                                       "distill_served"]
+    assert [t for t, _ in teachers] == [seen[0]]  # the float model of the seed
+    assert teachers[0][1] == {"alpha": 0.5, "temperature": 2.0}
+    assert seen[0].stem.weight_fq is None  # float: no quantizer
 
 
 def test_run_seed_at_a_toy_size(monkeypatch):

@@ -399,9 +399,8 @@ def test_every_recipe_matches_the_sweep(sweep):
     table = {**sweep.recipes(), **sweep.recipes_w4a8()}
     assert set(table) | {"float"} == set(ap.recipe_names())
     for name, entry in table.items():
-        if name.startswith("distill") or name.startswith("mp4_"):
-            item = 3 if name.startswith("distill") else 7
-            with pytest.raises(NotImplementedError, match=f"item {item}"):
+        if name.startswith("mp4_"):
+            with pytest.raises(NotImplementedError, match="item 7"):
                 ap.recipe(name)
             continue
         qc, *rest = entry if isinstance(entry, tuple) else (entry,)
@@ -412,22 +411,35 @@ def test_every_recipe_matches_the_sweep(sweep):
         state_fn = rest[1].__name__ if len(rest) > 1 else None
         assert (rec.state_fn.__name__ if rec.state_fn else None) == state_fn, name
         assert rec.warm_batches == (20 if name.endswith("_warm") else 0), name
+        assert rec.distill == name.startswith("distill"), name
     assert ap.recipe("float").qconfig.weight is None
     with pytest.raises(ValueError, match="unknown recipe"):
         ap.recipe("combo9")
 
 
-@pytest.mark.parametrize("name", ["sgdq", "learnable_warm", "static", "mse"])
+@pytest.mark.parametrize("name", ["sgdq", "learnable_warm", "static", "mse",
+                                  "distill_static"])
 def test_recipes_train_at_a_toy_size(name):
     """A few steps of each kind of recipe through the lab's ``train`` on the
-    CPU: the optimizer partition, the warm start, the static estimate."""
-    run = ap.train(lambda qc: QuantCNN(ap.N_CLASSES, qc, widths=(4,), device="cpu"),
-                   ap.recipe(name), 3, 2, seed=1, device="cpu")
+    CPU: the optimizer partition, the warm start, the static estimate, the
+    float teacher (untouched by the distilled run)."""
+    def model_fn(qc):
+        return QuantCNN(ap.N_CLASSES, qc, widths=(4,), device="cpu")
+
+    teacher = None
+    if ap.recipe(name).distill:
+        with pytest.raises(ValueError, match="teacher"):
+            ap.train(model_fn, ap.recipe(name), 1, 2, seed=1, device="cpu")
+        teacher = ap.train(model_fn, ap.recipe("float"), 2, 2, seed=1, device="cpu")["model"]
+        before = {k: v.clone() for k, v in teacher.state_dict().items()}
+    run = ap.train(model_fn, ap.recipe(name), 3, 2, seed=1, device="cpu", teacher=teacher)
+    if teacher is not None:
+        assert all(torch.equal(v, before[k]) for k, v in teacher.state_dict().items())
     assert np.isfinite(run["loss"])
     opt = run["optimizer"]
     assert all(float(g["lr"]) == run["lrs"][-1] for g in opt.param_groups)
     fqs = [m for m in run["model"].modules() if isinstance(m, FakeQuantize)]
-    if name == "static":
+    if name.endswith("static"):
         assert not any(m.host_state()["learning_enabled"] for m in fqs)
     if name == "learnable_warm":
         acts = [m for m in fqs if m.cfg.otype == "activation"]

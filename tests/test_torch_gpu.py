@@ -1820,14 +1820,6 @@ def test_fake_quant_kernels_at_mnv2_shapes(cuda, mnv2_quantizers, index):
     activations up to 128 x 144 x 32 x 32) against its plain version on the
     card, train and eval mode and the traced flags: forward and dX
     bit-exact, dS/dB within 1e-5 of the sum of |terms|."""
-    from jaxlsq_torch.core.golden import (effective_grad_scale, golden_backward,
-                                          golden_backward_traced, golden_forward,
-                                          golden_forward_traced)
-    from jaxlsq_torch.ops.fake_quant import (LAUNCHES, fake_quant_backward,
-                                             fake_quant_backward_traced,
-                                             fake_quant_forward,
-                                             fake_quant_forward_traced)
-
     assert len(mnv2_quantizers) == MNV2_QUANTIZERS
     name, shape, spec = mnv2_quantizers[index]
     g = torch.Generator(device=cuda).manual_seed(index)
@@ -1837,6 +1829,24 @@ def test_fake_quant_kernels_at_mnv2_shapes(cuda, mnv2_quantizers, index):
     b = (torch.zeros(c, device=cuda) if spec.symmetric
          else 0.2 * torch.randn(c, device=cuda, generator=g))
     gr = torch.randn(shape, device=cuda, generator=g)
+    _fq_kernels_match_plain(cuda, x, s, b, gr, spec, name)
+
+
+def _fq_kernels_match_plain(cuda, x, s, b, gr, spec, name):
+    """The static and traced fake-quant kernels of ``spec``'s kind on ``x``
+    (qparams ``s``, ``b``; incoming gradient ``gr``) against the plain
+    versions on the card, train and eval mode and the traced flags, each
+    launch counted: forward and dX bit-exact, dS/dB within 1e-5 of the sum
+    of |terms|."""
+    from jaxlsq_torch.core.golden import (effective_grad_scale, golden_backward,
+                                          golden_backward_traced, golden_forward,
+                                          golden_forward_traced)
+    from jaxlsq_torch.ops.fake_quant import (LAUNCHES, fake_quant_backward,
+                                             fake_quant_backward_traced,
+                                             fake_quant_forward,
+                                             fake_quant_forward_traced)
+
+    c = s.numel()
     kind = "pc" if spec.per_channel else "pt"
     gs = effective_grad_scale(spec, x.numel(), c)
     sums = _fq_abs_sums(gr, x, s, b, spec, False, gs)
@@ -2145,3 +2155,173 @@ def test_captured_step_with_expensive_observer_matches_eager(cuda, kind):
     finally:
         (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = flags
+
+
+# ------------------------------------- third-party models (quantize_model)
+
+def _stock_qc(wbits=8):
+    return default_qconfig(wbits, 8, per_channel_weights=True, init_batches=2)
+
+
+def _swapped_stock(device, seed=0, **kw):
+    """A narrow StockResNet18 (torch.nn only) swapped by quantize_model."""
+    from jaxlsq_torch.lab.stock_resnet import stock_resnet18
+    from jaxlsq_torch.models import quantize_model
+
+    return quantize_model(stock_resnet18(10, seed=seed, **kw), _stock_qc(), device=device)
+
+
+STOCK_NARROW = dict(widths=(16, 32), stage_sizes=(1, 1))
+SWAPPED_LAYERS = {
+    "linear": (lambda: torch.nn.Linear(512, 10), (64, 512)),
+    "conv2d": (lambda: torch.nn.Conv2d(64, 128, 3, padding=1), (64, 64, 16, 16)),
+    "embedding": (lambda: torch.nn.Embedding(8192, 64), None),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", list(SWAPPED_LAYERS))
+def test_swapped_layer_kernels_match_plain(cuda, kind):
+    """A stock layer swapped by quantize_model on the card: its weight
+    quantizer (per channel over axis 0: a Linear's (10, 512), a Conv2d's
+    (128, 64, 3, 3), an Embedding's (8192, 64) rows) on its own weight and
+    qparams takes the CUDA kernel in the layer's forward (counted), and the
+    fake-quant kernels there and at its activation's shape (per tensor)
+    match their plain versions: forward and dX bit-exact, dS/dB within 1e-5
+    of the sum of |terms|."""
+    from jaxlsq_torch.models import quantize_model
+    from jaxlsq_torch.ops.fake_quant import LAUNCHES
+
+    make, act_shape = SWAPPED_LAYERS[kind]
+    layer = quantize_model(torch.nn.Sequential(make()), _stock_qc(), device=cuda)[0]
+    w = layer.weight.detach()
+    before = LAUNCHES["fq_fwd_pc"]
+    layer.train()
+    with torch.no_grad():
+        if act_shape is None:
+            layer(torch.randint(0, 8192, (4, 7), device=cuda))
+        else:
+            layer(torch.randn(act_shape, device=cuda))
+    torch.cuda.synchronize()
+    assert LAUNCHES["fq_fwd_pc"] == before + 1
+    g = torch.Generator(device=cuda).manual_seed(3)
+    fq = layer.weight_fq
+    assert fq.cfg.spec.per_channel and fq.cfg.spec.axis == 0
+    assert fq.scale.shape == (w.shape[0],)
+    _fq_kernels_match_plain(cuda, w, fq.scale.detach(), fq.shift.detach(),
+                            torch.randn(w.shape, device=cuda, generator=g), fq.cfg.spec,
+                            f"{kind} weight")
+    if act_shape is not None:
+        spec = layer.act_fq.cfg.spec
+        x = torch.relu(torch.randn(act_shape, device=cuda, generator=g))
+        s = torch.full((1,), 0.02, device=cuda)
+        b = torch.full((1,), -0.1, device=cuda)
+        _fq_kernels_match_plain(cuda, x, s, b, torch.randn(act_shape, device=cuda,
+                                                           generator=g), spec,
+                                f"{kind} activation")
+
+
+def _deterministic():
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    return flags
+
+
+def _restore_flags(flags):
+    (torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic,
+     torch.backends.cudnn.benchmark) = flags
+
+
+def _stock_batches(cuda, n, seed, b=16):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [{"image": torch.randn(b, 3, 32, 32, device=cuda, generator=g),
+             "label": torch.randint(0, 10, (b,), device=cuda, generator=g)}
+            for _ in range(n)]
+
+
+def _state_equal(a, b, what):
+    sa, sb = a.state_dict(), b.state_dict()
+    assert sa.keys() == sb.keys()
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), (what, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("distill", [False, True])
+def test_captured_stock_resnet_step_matches_eager_on_card(cuda, distill):
+    """A narrow StockResNet18 swapped by quantize_model, its step captured
+    as one CUDA graph against the eager step from one state, cuDNN
+    deterministic: four B = 16 SGD steps across the 2-batch window, the
+    losses, every parameter and buffer (the stock BatchNorms' statistics
+    too) equal; with ``distillation_loss`` against the float stock model,
+    whose forward the graph holds, the teacher bit for bit unchanged."""
+    from jaxlsq_torch.lab.stock_resnet import stock_resnet18
+    from jaxlsq_torch.parallel import distillation_loss, make_train_step
+
+    flags = _deterministic()
+    try:
+        teacher = stock_resnet18(10, **STOCK_NARROW).to(cuda).eval()
+        before = {k: v.clone() for k, v in teacher.state_dict().items()}
+        kw = {"loss_fn": distillation_loss(teacher)} if distill else {}
+        models = [_swapped_stock(cuda, **STOCK_NARROW) for _ in range(2)]
+        steps = [make_train_step(m, torch.optim.SGD(m.parameters(), lr=1e-2, momentum=0.9),
+                                 jit=j, **kw) for m, j in zip(models, (False, True))]
+        for i, batch in enumerate(_stock_batches(cuda, 4, 5)):
+            losses = [s(batch)["loss"] for s in steps]
+            torch.cuda.synchronize()
+            assert torch.equal(losses[0], losses[1]), (i, losses)
+            _state_equal(models[0], models[1], f"step {i}")
+        assert len(steps[1].graphs) == 1
+        for k, v in teacher.state_dict().items():
+            assert torch.equal(v, before[k]), k
+        assert not teacher.training
+    finally:
+        _restore_flags(flags)
+
+
+@pytest.mark.gpu
+def test_checkpoint_restored_after_a_capture_resumes_bit_for_bit(cuda, tmp_path):
+    """A checkpoint restored into a model and an optimizer whose step was
+    already captured (capturable AdamW, its lr a device tensor): the graph
+    replays on the restored tensors, so 3 more steps equal the uninterrupted
+    run's steps 3-5 in every parameter, buffer and optimizer tensor."""
+    from jaxlsq_torch.parallel import make_train_step
+    from jaxlsq_torch.utils import restore_checkpoint, save_checkpoint
+
+    def opt(m):
+        return torch.optim.AdamW(m.parameters(), lr=torch.tensor(1e-3, device=cuda),
+                                 weight_decay=1e-2, capturable=True)
+
+    flags = _deterministic()
+    try:
+        batches = _stock_batches(cuda, 5, 7)
+        model = _swapped_stock(cuda, **STOCK_NARROW)
+        o = opt(model)
+        step = make_train_step(model, o, jit=True)
+        for i, batch in enumerate(batches):
+            if i == 2:
+                save_checkpoint(str(tmp_path), {"model": model, "optimizer": o}, 2)
+            step(batch)
+        other = _swapped_stock(cuda, seed=3, **STOCK_NARROW)
+        oo = opt(other)
+        ostep = make_train_step(other, oo, jit=True)
+        for batch in _stock_batches(cuda, 2, 8):  # warm-up and capture
+            ostep(batch)
+        graph = [e for e in ostep.graphs.values() if e is not None][0][0]
+        held = [t for p in other.parameters() for t in oo.state[p].values()]
+        restore_checkpoint(str(tmp_path), {"model": other, "optimizer": oo})
+        assert all(a is b for a, b in zip(held, [t for p in other.parameters()
+                                                 for t in oo.state[p].values()]))
+        for batch in batches[2:]:
+            ostep(batch)
+        assert [e for e in ostep.graphs.values() if e is not None][0][0] is graph
+        torch.cuda.synchronize()
+        _state_equal(model, other, "resumed")
+        for p, q in zip(model.parameters(), other.parameters()):
+            for k in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(o.state[p][k], oo.state[q][k]), k
+    finally:
+        _restore_flags(flags)

@@ -20,14 +20,15 @@ MODULES = [
     "jaxlsq_torch.ops.flash_attention", "jaxlsq_torch.ops.observers",
     "jaxlsq_torch.models", "jaxlsq_torch.models.qconfig", "jaxlsq_torch.models.calibrate",
     "jaxlsq_torch.models.layers", "jaxlsq_torch.models.norm",
-    "jaxlsq_torch.models.toggles", "jaxlsq_torch.models.zoo",
+    "jaxlsq_torch.models.toggles", "jaxlsq_torch.models.zoo", "jaxlsq_torch.models.quantize",
     "jaxlsq_torch.parallel", "jaxlsq_torch.parallel.train", "jaxlsq_torch.parallel.optim",
     "jaxlsq_torch.serve", "jaxlsq_torch.serve.pack", "jaxlsq_torch.serve.convert",
     "jaxlsq_torch.serve.matmul", "jaxlsq_torch.serve.attention",
     "jaxlsq_torch.serve.decode", "jaxlsq_torch.serve.paged",
     "jaxlsq_torch.serve.paged_engine", "jaxlsq_torch.interop",
     "jaxlsq_torch.lab", "jaxlsq_torch.lab.int4_kernel_lab", "jaxlsq_torch.lab.timing",
-    "jaxlsq_torch.lab.accuracy_parity", "jaxlsq_torch.utils", "jaxlsq_torch.utils.bn",
+    "jaxlsq_torch.lab.accuracy_parity", "jaxlsq_torch.lab.stock_resnet",
+    "jaxlsq_torch.utils", "jaxlsq_torch.utils.bn", "jaxlsq_torch.utils.checkpoint",
 ]
 
 
@@ -50,8 +51,10 @@ def test_port_imports_no_jax():
 
 
 def test_entry_points_need_a_device_without_cuda():
-    from jaxlsq_torch.models import (QuantCNN, QuantMLP, QuantMobileNetV2, QuantResNet,
-                                     QuantTransformerLM, default_qconfig)
+    from jaxlsq_torch.lab.stock_resnet import stock_resnet18
+    from jaxlsq_torch.models import (QuantCNN, QuantDense, QuantDenseGeneral, QuantEmbed,
+                                     QuantMLP, QuantMobileNetV2, QuantResNet,
+                                     QuantTransformerLM, default_qconfig, quantize_model)
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -70,6 +73,21 @@ def test_entry_points_need_a_device_without_cuda():
                          stages=((1, 8, 1, 1),))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         QuantCNN(10, default_qconfig(8, 8), widths=(8,))
+    qc = default_qconfig(8, 8)
+    for act_mode in ("none", "static"):  # the serve-mode layers resolve it too
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            QuantDense(16, 8, qc.for_serving(act_mode))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        QuantEmbed(16, 8, qc.for_serving())
+    for mode_qc in (qc, qc.for_serving("static")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            QuantDenseGeneral((3, 5), (4, 2), mode_qc, axis=(1, 2))
+    stock = stock_resnet18(10, widths=(8, 16), stage_sizes=(1, 1))
+    for mode_qc in (qc, qc.for_serving("static")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            quantize_model(stock, mode_qc)
+        swapped = quantize_model(stock, mode_qc, device="cpu")
+        assert all(t.device.type == "cpu" for t in swapped.state_dict().values())
     model = QuantResNet(10, default_qconfig(8, 8), stage_sizes=(1,), widths=(8,),
                         device="cpu")
     assert all(p.device.type == "cpu" for p in model.parameters())
