@@ -4,7 +4,9 @@ slice, paged-KV serving of a group-wise int4 LM, the QAT training slice, its
 single-program (CUDA-graph) step, long-context LSQ QAT of the LM through
 the flash-attention kernels, then serving the trained LM; jaxlsq's headline
 fake-quant fwd+bwd chain through the fused kernel, the int4 kernel lab, the
-conv nets' train-then-serve, the observers, and a stock third-party model.
+conv nets' train-then-serve, the observers, a stock third-party model, and
+the decode features (QAT decode, beam search, speculative decoding and its
+engines, ServingEngine).
 
     python3 chip_smoke.py [--record PATH]
 
@@ -210,6 +212,25 @@ exits non-zero on any failure (no phase is caught and skipped):
    logits rule, the head through ``wo8``/``wo4`` by the counts and the
    profiler), and ``reestimate_batch_stats`` (every stock BatchNorm moved,
    no quantizer tensor changed).
+16. decode features, every launch count reset: bench.py's real-draft
+   speculative pair (``lab/speculative_decode.py``: a d1024 x 4 target and a
+   d128 x 1 draft, vocab 512, trained on its Markov corpus by captured QAT
+   steps, cut to SPEC_TARGET_STEPS / SPEC_DRAFT_STEPS); ``make_generate`` on
+   the QAT-mode target and on phase 9's per-channel rope LM through the
+   cache branch (logits within 1e-4 of max|ref| of the full eval forward and
+   of the CPU, every quantizer tensor unchanged); the pair converted to int8:
+   speculative greedy (k = 4) equal to greedy bit for bit, the verify's rows
+   equal to the t = 1 steps' bits (else the first module that differs is
+   named), tokens/s from the 16 -> 208 slope beside plain, kernels and host
+   reads a round, speculative sampling and the target as its own draft
+   (k + 1 a round); ``SpeculativeDecodeEngine`` and
+   ``PagedSpeculativeDecodeEngine`` over 16 staggered requests (8 on a
+   prefix; a page-16 pool that defers), each equal to its B = 1 greedy
+   decode, paged = dense; ``make_beam_search`` on phase 3's LM and its w4
+   twin (beams=1 = greedy; beam-4 scores against a teacher-forced rescoring;
+   the CPU's tokens, or a tie); ``ServingEngine`` over a calibrated w8a8
+   ``mobilenetv2_cifar``: one CUDA graph a bucket, each result the bits of
+   the eager forward of its padded batch.
 
 Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes the full
@@ -283,6 +304,17 @@ OBS_TIMED = 20
 # its 20 convolutions and head quantized; a 2-batch observer window
 STOCK_SWAPPED, STOCK_WINDOW, STOCK_EVAL_N = 21, 2, 2000
 STOCK_DISTILL_STEPS, CKPT_K, CKPT_M = 8, 2, 3
+# the decode features (phase 16): bench.py:192-257's real-draft speculative
+# leg (k = 4, a 32-token prompt, 16 -> 208 new tokens), its pair's training cut
+# from 1200 steps each; the speculative engines' 16 requests over page-16
+# pools; beam search; ServingEngine's 200 requests
+SPEC_K, SPEC_T0, SPEC_N1, SPEC_N2, SPEC_TEMP = 4, 32, 16, 208, 0.8
+SPEC_N_PROFILED = 48  # kernels a round: profiles of 16 and 48 new tokens
+SPEC_MAXLEN = SPEC_T0 + SPEC_N2 + SPEC_K + 8
+SPEC_B, SPEC_TARGET_STEPS, SPEC_DRAFT_STEPS = 64, 100, 300
+SPEC_REQUESTS, SPEC_PAGE, SPEC_PAGES = 16, 16, 24
+BEAMS, ENGINE_REQUESTS, ENGINE_MAX_B, ENGINE_PASSES = 4, 200, 64, 4
+MAX_DECODE_MOVED = 1e-4  # of a QAT decode's activation elements (deviation 14's CPU rule)
 
 
 def reset_counts():
@@ -3622,6 +3654,581 @@ def phase_third_party(torch, rec):
     log(f"[third-party] phase 15 took {out['wall_s']:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: decode features
+# ---------------------------------------------------------------------------
+
+def _decode_rows(torch, model, seq, t0, take=None):
+    """Prefill ``seq[:, :t0]``, then one-token decode steps over the rest:
+    the (B, len - t0 + 1, V) logits of positions t0 - 1 .. len - 1, and each
+    activation quantizer's outputs over positions 0 .. len - 2 (B, len - 1,
+    K).  With ``take`` (such outputs of a reference run), an output more than
+    half a quant step from the reference's takes the reference's value,
+    after checking they differ by at most one step (and the two levels' f32
+    rounding); returns ``(logits, outputs, [taken, elements])``."""
+    from jaxlsq_torch.serve import prefill
+
+    cur, moved, acts = [0, 0], [0, 0], {}
+
+    def hook(n, mod, inp, out):
+        if take is not None:
+            ref = take[n][:, cur[0]:cur[1]].to(out.device)
+            d = (ref - out).abs()
+            q = float(mod.scale.detach().abs().max())
+            slack = 1e-5 * q + 2 * F32_EPS * float(out.abs().max())
+            if float(d.max()) > q + slack:
+                raise AssertionError(f"[decode] {n}: activations differ by "
+                                     f"{float(d.max())}, more than a quant step {q}")
+            far = d > 0.5 * q
+            moved[0] += int(far.sum())
+            moved[1] += out.numel()
+            out = torch.where(far, ref, out)
+        acts.setdefault(n, []).append(out.detach().cpu())
+        return out
+
+    hooks = [m.register_forward_hook(lambda mod, i, o, n=n: hook(n, mod, i, o))
+             for n, m in _act_quantizers(model)]
+    try:
+        cur[:] = [0, t0]
+        last, cache, idx = prefill(model, seq[:, :t0])
+        rows = [last]
+        with torch.no_grad():
+            for t in range(t0, seq.shape[1]):
+                cur[:] = [t, t + 1]
+                logits, cache = model(seq[:, t:t + 1], cache=cache, cache_index=t)
+                rows.append(logits[:, 0])
+    finally:
+        for h in hooks:
+            h.remove()
+    return (torch.stack(rows, 1), {n: torch.cat(v, 1) for n, v in acts.items()}, moved)
+
+
+def _qat_decode(torch, model, prompt, n_new, what):
+    """A QAT-mode LM (observers off) through the cache branch: ``make_generate``
+    leaves every quantizer parameter and buffer bit-identical; the decoded
+    logits over prompt + tokens lie within 1e-4 of max|ref| of the full eval
+    forward's, and of the same decode on the CPU plain path.  The decode's
+    matmuls run at other row counts than the full forward's (and the CPU's
+    in another order), so an activation can round to the neighbouring level:
+    there the decode takes the full forward's activation (the CPU the
+    card's), and at most ``MAX_DECODE_MOVED`` of the elements may move."""
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.models import QuantTransformerLM, disable_observer
+    from jaxlsq_torch.models.layers import quant_state_frozen
+    from jaxlsq_torch.serve import make_generate
+
+    disable_observer(model)
+    t0 = prompt.shape[1]
+    before = _quantizer_state(model)
+    toks = make_generate(model, t0, n_new)(prompt)
+    changed = [k for k, v in _quantizer_state(model).items() if not torch.equal(v, before[k])]
+    if changed:
+        raise AssertionError(f"[decode] {what}: make_generate changed {changed[:4]}")
+    seq = torch.cat([prompt, toks[:, :-1].to(prompt.dtype)], 1)
+    full_acts = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, i, o, n=n: full_acts.__setitem__(n, o.detach().cpu()))
+        for n, m in _act_quantizers(model)]
+    model.eval()
+    try:
+        with torch.no_grad(), quant_state_frozen(list(model.modules())):
+            full = model(seq)[:, t0 - 1:]
+    finally:
+        model.train()
+        for h in hooks:
+            h.remove()
+    dec, dec_acts, moved = _decode_rows(torch, model, seq, t0, take=full_acts)
+    cpu = QuantTransformerLM(model.vocab, model.dim, model.depth, model.num_heads,
+                             model.qconfig, max_len=model.max_len,
+                             pos_embedding=model.pos_embedding, device="cpu")
+    interop.load_qat_variables(cpu, interop.qat_variables(model))
+    disable_observer(cpu)
+    dec_cpu, _, moved_cpu = _decode_rows(torch, cpu, seq.cpu(), t0, take=dec_acts)
+    out = {"tokens": n_new, "quantizer_tensors_unchanged": len(before)}
+    for name, ref, mv in (("full_forward", full, moved), ("cpu", dec_cpu, moved_cpu)):
+        err = float((dec.cpu() - ref.cpu()).abs().max())
+        tol = 1e-4 * float(ref.abs().max())
+        out[f"logits_err_vs_{name}"], out[f"tol_vs_{name}"] = err, tol
+        out[f"moved_vs_{name}"] = mv
+        if not (err <= tol and torch.isfinite(dec).all()):
+            raise AssertionError(f"[decode] {what}: decoded logits vs {name} {err} > {tol} "
+                                 f"({mv[0]} of {mv[1]} activations handed over)")
+        if mv[0] > MAX_DECODE_MOVED * mv[1]:
+            raise AssertionError(f"[decode] {what}: {mv[0]} of {mv[1]} activations "
+                                 f"handed over against the {name}")
+    log(f"[decode] QAT decode of the {what}: {n_new} tokens through the cache branch; "
+        f"logits vs the full eval forward max_abs_err {out['logits_err_vs_full_forward']:.3e}"
+        f" (tol {out['tol_vs_full_forward']:.3e}; {moved[0]} of {moved[1]} activations "
+        f"handed over), vs the CPU {out['logits_err_vs_cpu']:.3e} (tol "
+        f"{out['tol_vs_cpu']:.3e}; {moved_cpu[0]} handed over); {len(before)} quantizer "
+        f"tensors bit-identical after make_generate")
+    return out
+
+
+def _first_divergence(torch, model, run_a, run_b):
+    """The first module (in call order) whose outputs differ between two runs
+    of the same positions: ``run_a`` one token a call, ``run_b`` all at
+    once; the outputs of ``run_a``'s calls are joined along t."""
+    outs = {"a": {}, "b": {}}
+    order = []
+    side = ["a"]
+
+    def hook(name):
+        def fn(mod, args, out):
+            if torch.is_tensor(out) and out.dim() >= 3:
+                if name not in order:
+                    order.append(name)
+                outs[side[0]].setdefault(name, []).append(out.detach())
+        return fn
+
+    handles = [m.register_forward_hook(hook(n)) for n, m in model.named_modules() if n]
+    try:
+        run_a()
+        side[0] = "b"
+        run_b()
+    finally:
+        for h in handles:
+            h.remove()
+    for name in order:
+        a, b = outs["a"].get(name), outs["b"].get(name)
+        if not a or not b:
+            continue
+        b = b[-1]
+        t = b.shape[1]
+        if len(a) < t or any(x.shape[1] != 1 for x in a[-t:]):
+            continue
+        a = torch.cat(a[-t:], 1)
+        if a.shape == b.shape and not torch.equal(a, b):
+            return name, float((a - b).abs().max())
+    return None, 0.0
+
+
+def _verify_rows_equal(torch, model, seq, k, starts):
+    """The speculative verify (one forward over k + 1 rows at position p)
+    gives, row for row, the bits of the t = 1 decode steps at p .. p + k, on
+    the same cache contents (a prefill of ``seq[:, :p]``)."""
+    from jaxlsq_torch.serve import prefill
+
+    for p in starts:
+        def steps():
+            _, cache, _ = prefill(model, seq[:, :p])
+            rows = []
+            with torch.no_grad():
+                for j in range(k + 1):
+                    logits, cache = model(seq[:, p + j:p + j + 1], cache=cache,
+                                          cache_index=p + j)
+                    rows.append(logits[:, 0])
+            return torch.stack(rows, 1)
+
+        def verify():
+            _, cache, _ = prefill(model, seq[:, :p])
+            with torch.no_grad():
+                return model(seq[:, p:p + k + 1], cache=cache, cache_index=p)[0]
+
+        a, b = steps(), verify()
+        if not torch.equal(a, b):
+            where, diff = _first_divergence(torch, model, steps, verify)
+            raise AssertionError(
+                f"[decode] verify rows at position {p} differ from the t=1 decode "
+                f"steps' (max {float((a - b).abs().max()):.3e}); first differing "
+                f"module: {where} ({diff:.3e})")
+    return len(starts)
+
+
+def _spec_kernels(torch, run, rounds):
+    """Kernels a round from the profiles' kernel counts of ``run(n)`` at the
+    two lengths of ``rounds`` (the larger of two profiles each), over the
+    rounds between."""
+    def count(n):
+        return max(sum(e.count for e in profiled(lambda: run(n))[0]) for _ in range(2))
+
+    (n1, r1), (n2, r2) = sorted(rounds.items())
+    return (count(n2) - count(n1)) / (r2 - r1)
+
+
+def _speculative(torch, st, sd, prompt, card):
+    """Plain greedy against speculative greedy (k = 4) at B = 1 on the served
+    pair: tokens equal bit for bit, the verify rows equal the t = 1 steps'
+    bits, tokens/s from the 16 -> 208 slope, kernels and host reads a round;
+    sampled speculative decoding, and the target as its own draft."""
+    from jaxlsq_torch.serve import make_generate, make_speculative_generate
+
+    lengths = (SPEC_N1, SPEC_N_PROFILED, SPEC_N2)
+    plain = {n: make_generate(st, SPEC_T0, n) for n in lengths}
+    spec = {n: make_speculative_generate(st, sd, SPEC_T0, n, k=SPEC_K, return_stats=True)
+            for n in lengths}
+    want = plain[SPEC_N2](prompt)
+    got, stats = spec[SPEC_N2](prompt)
+    if not torch.equal(got, want):
+        raise AssertionError(f"[decode] speculative greedy != greedy: {got} vs {want}")
+    seq = torch.cat([prompt, want.to(prompt.dtype)], 1)
+    checked = _verify_rows_equal(torch, st, seq, SPEC_K, (SPEC_T0, SPEC_T0 + 41, SPEC_T0 + 150))
+    rounds = {n: spec[n](prompt)[1]["rounds"] for n in (SPEC_N1, SPEC_N_PROFILED)}
+    t = {"plain": ([], []), "spec": ([], [])}
+    for _ in range(2):
+        for name, fns in (("plain", plain), ("spec", spec)):
+            for i, n in enumerate((SPEC_N1, SPEC_N2)):
+                s = time.perf_counter()
+                r = fns[n](prompt)
+                (r[0] if isinstance(r, tuple) else r).cpu()
+                t[name][i].append(time.perf_counter() - s)
+    tps = {name: (SPEC_N2 - SPEC_N1) / (min(t2) - min(t1)) for name, (t1, t2) in t.items()}
+    k_round = _spec_kernels(torch, lambda n: spec[n](prompt), rounds)
+    k_token = _spec_kernels(torch, lambda n: plain[n](prompt),
+                            {SPEC_N1: SPEC_N1, SPEC_N_PROFILED: SPEC_N_PROFILED})
+    out = {"tokens_equal": True, "verify_positions_bit_equal": checked,
+           "accepted_per_round_greedy": stats["accepted_per_round"],
+           "rounds": stats["rounds"], "host_reads_per_round": stats["host_reads"] / stats["rounds"],
+           "plain_tokens_per_s": tps["plain"], "spec_tokens_per_s": tps["spec"],
+           "speedup": tps["spec"] / tps["plain"], "kernels_per_round": k_round,
+           "plain_kernels_per_token": k_token, "raw_s": t}
+    log(f"[decode] speculative greedy (k={SPEC_K}) = plain greedy bit for bit over {SPEC_N2} "
+        f"tokens; verify rows = t=1 rows bit for bit at {checked} positions; accepted "
+        f"{stats['accepted_per_round']:.3f} a round; plain {tps['plain']:.1f} tokens/s, "
+        f"speculative {tps['spec']:.1f} ({out['speedup']:.2f}x; slope {SPEC_N1}->{SPEC_N2}); "
+        f"{k_round:.1f} kernels and {out['host_reads_per_round']:.0f} host read a round, "
+        f"plain {k_token:.1f} kernels a token ({card})")
+    gen = torch.Generator(device="cuda")
+    sampled = make_speculative_generate(st, sd, SPEC_T0, SPEC_N2, k=SPEC_K,
+                                        temperature=SPEC_TEMP, return_stats=True)
+    toks, sst = sampled(prompt, gen.manual_seed(7))
+    if toks.shape != (1, SPEC_N2) or not ((toks >= 0) & (toks < st.vocab)).all():
+        raise AssertionError(f"[decode] sampled speculative: bad tokens {toks.shape}")
+    self_spec = make_speculative_generate(st, st, SPEC_T0, SPEC_N1, k=SPEC_K,
+                                          temperature=SPEC_TEMP, return_stats=True)
+    _, self_st = self_spec(prompt, gen.manual_seed(8))
+    if self_st["accepted_per_round"] != SPEC_K + 1:
+        raise AssertionError(f"[decode] the target as its own sampled draft accepted "
+                             f"{self_st['accepted_per_round']} a round, not {SPEC_K + 1}")
+    out.update(accepted_per_round_sampled=sst["accepted_per_round"],
+               sampled_temperature=SPEC_TEMP,
+               self_draft_sampled_accepted_per_round=self_st["accepted_per_round"])
+    log(f"[decode] speculative sampling T={SPEC_TEMP}: {SPEC_N2} tokens in range, "
+        f"accepted {sst['accepted_per_round']:.3f} a round; the target as its own "
+        f"draft accepts {self_st['accepted_per_round']:.0f} = k + 1")
+    return out
+
+
+def _spec_engines(torch, st, sd, prompts, card):
+    """SpeculativeDecodeEngine and PagedSpeculativeDecodeEngine (max_batch 8,
+    bf16 caches; page 16, a pool of SPEC_PAGES) over 16 staggered requests,
+    8 on a registered 40-token prefix: every request equals its own B = 1
+    greedy ``make_generate``, paged equals dense, the paged run defers and
+    shares prefix pages."""
+    import numpy as np
+
+    from jaxlsq_torch.serve import (PagedSpeculativeDecodeEngine, SpeculativeDecodeEngine,
+                                    make_generate)
+
+    r = np.random.RandomState(16)
+    rows = prompts.cpu().numpy()
+    prefix = rows[0, :40]
+    reqs = [(rows[1 + i, :int(r.randint(4, 33))], int(r.randint(16, 49)), i % 2 == 1)
+            for i in range(SPEC_REQUESTS)]
+    dt = torch.bfloat16
+    want = []
+    for p, n, shared in reqs:
+        full = np.concatenate([prefix, p]) if shared else p
+        want.append(make_generate(st, len(full), n, cache_dtype=dt)(
+            torch.as_tensor(full, device="cuda")[None])[0].cpu().numpy())
+    out = {}
+    for name, make in (
+            ("dense", lambda: SpeculativeDecodeEngine(
+                st, sd, max_batch=8, prompt_buckets=(8, 32), k=SPEC_K, cache_dtype=dt)),
+            ("paged", lambda: PagedSpeculativeDecodeEngine(
+                st, sd, num_pages=SPEC_PAGES, page_size=SPEC_PAGE, max_batch=8,
+                prompt_buckets=(8, 32), k=SPEC_K, cache_dtype=dt))):
+        with make() as eng:
+            eng.warmup()
+            h = eng.register_prefix(prefix)
+            s = time.perf_counter()
+            futs = []
+            for i, (p, n, shared) in enumerate(reqs):
+                futs.append(eng.submit(p, n, prefix=h if shared else None))
+                if i % 4 == 3:
+                    time.sleep(0.005)
+            outs = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - s
+            stats = dict(eng.stats)
+        for i, (got, w) in enumerate(zip(outs, want)):
+            if not np.array_equal(got, w):
+                raise AssertionError(f"[decode] {name} speculative engine request {i}: "
+                                     f"{got} != make_generate's {w}")
+        n_tok = sum(len(o) for o in outs)
+        out[name] = {"outs": outs, "wall_s": wall, "tokens_per_s": n_tok / wall,
+                     "rounds": stats["rounds"], "accepted_tokens": stats["accepted_tokens"],
+                     **{k: stats[k] for k in ("admissions_deferred", "prefix_pages_shared")
+                        if k in stats}}
+        log(f"[decode] {name} SpeculativeDecodeEngine: {len(reqs)} requests, {n_tok} "
+            f"tokens in {wall:.3f} s ({n_tok / wall:.1f} tokens/s), {stats['rounds']} "
+            f"rounds; every request = make_generate at B=1"
+            + (f"; {stats['admissions_deferred']} deferrals, "
+               f"{stats['prefix_pages_shared']} prefix pages shared" if name == "paged"
+               else "") + f" ({card})")
+    if any(not np.array_equal(a, b) for a, b in zip(out["dense"].pop("outs"),
+                                                    out["paged"].pop("outs"))):
+        raise AssertionError("[decode] the paged speculative engine differs from the dense")
+    if out["paged"]["admissions_deferred"] < 1 or out["paged"]["prefix_pages_shared"] < 1:
+        raise AssertionError(f"[decode] the paged run neither deferred nor shared: {out['paged']}")
+    return out
+
+
+def _rescore(torch, model, prompt, toks, eos):
+    """Joint log-prob of ``toks`` after ``prompt`` under one teacher-forced
+    full forward (up to and including the first eos when ``eos`` is set)."""
+    seq = torch.cat([prompt, toks.to(prompt.dtype)], 1)
+    with torch.no_grad():
+        logp = torch.log_softmax(model(seq)[:, prompt.shape[1] - 1:-1], -1)
+    lp = torch.gather(logp, 2, toks.long()[..., None])[..., 0]
+    if eos is not None:
+        is_eos = (toks == eos).to(torch.int32)
+        first = torch.where(is_eos.any(1), is_eos.argmax(1), toks.shape[1] - 1)
+        lp = torch.where(torch.arange(toks.shape[1], device=toks.device)[None] <= first[:, None],
+                         lp, 0.0)
+    return lp.sum(1)
+
+
+def _beam(torch, card):
+    """make_beam_search on phase 3's d1024 x 4 LM (vocab 8192) and its w4
+    twin: beams=1 equals make_generate (B = 8, bf16 and int8 caches); beams=4
+    at B = 1 and 8, eos unset and set (f32 cache): the best sequence's score
+    within 1e-4·max(1, |score|) of one teacher-forced full forward's; the B = 1
+    tokens against the CPU plain run's; tokens/s from the 16 -> 80 slope."""
+    import numpy as np
+
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.models import QuantTransformerLM
+    from jaxlsq_torch.serve import make_beam_search, make_generate
+
+    r = np.random.RandomState(18)
+    out = {"beam1_equal": [], "beam4": {}}
+    models = {w: _lm(torch, w, T0 + 80, seed=w)[:2] for w in (8, 4)}
+    prompt8 = torch.as_tensor(r.randint(0, VOCAB, size=(8, T0)), device="cuda")
+    for w, (model, _) in models.items():
+        for cdt in (torch.bfloat16, torch.int8):
+            toks, scores = make_beam_search(model, T0, 8, beams=1, cache_dtype=cdt)(prompt8)
+            want = make_generate(model, T0, 8, cache_dtype=cdt)(prompt8)
+            if not torch.equal(toks, want) or not torch.isfinite(scores).all():
+                raise AssertionError(f"[decode] beams=1 != greedy (w{w}, {cdt})")
+            out["beam1_equal"].append(f"w{w} {cdt}")
+    model, variables = models[8]
+    eos = int(make_generate(model, T0, 8)(prompt8[:1])[0, 3])  # a token greedy emits
+    for b in (1, 8):
+        prompt = prompt8[:b]
+        for e in (None, eos):
+            toks, scores = make_beam_search(model, T0, 16, beams=BEAMS, eos_id=e)(prompt)
+            ref = _rescore(torch, model, prompt, toks, e)
+            err = float(((scores - ref).abs() / scores.abs().clamp(min=1.0)).max())
+            if not err <= 1e-4:
+                raise AssertionError(f"[decode] beam-{BEAMS} B={b} eos={e}: scores "
+                                     f"{scores.tolist()} vs rescored {ref.tolist()}")
+            out["beam4"][f"b{b}_eos{e}"] = {"scores": scores.tolist(), "rel_err": err}
+    # the B = 1 search on the CPU plain path
+    cpu = QuantTransformerLM(VOCAB, DIM, DEPTH, HEADS, model.qconfig, max_len=T0 + 80,
+                             device="cpu")
+    interop.load_variables(cpu, _to_cpu(torch, variables))
+    n_cpu = 4
+    got, gs = make_beam_search(model, T0, n_cpu, beams=BEAMS)(prompt8[:1])
+    want, ws = make_beam_search(cpu, T0, n_cpu, beams=BEAMS)(prompt8[:1].cpu())
+    tie = None
+    if not torch.equal(got.cpu(), want):
+        # a tie the sum order broke the other way: both sequences' joint
+        # log-probs, on the CPU, within 1e-4 of each other
+        a = float(_rescore(torch, cpu, prompt8[:1].cpu(), got.cpu(), None)[0])
+        b_ = float(_rescore(torch, cpu, prompt8[:1].cpu(), want, None)[0])
+        tie = {"card": got.tolist(), "cpu": want.tolist(), "scores_cpu": [a, b_]}
+        log(f"[decode] beam-{BEAMS} tokens differ from the CPU's: {tie}")
+        if not abs(a - b_) <= 1e-4 * max(1.0, abs(b_)):
+            raise AssertionError(f"[decode] beam-{BEAMS} tokens differ from the CPU "
+                                 f"plain run's and no tie: {tie}")
+    out["cpu"] = {"tokens_equal": tie is None, "tie": tie,
+                  "score_err": abs(float(gs[0]) - float(ws[0]))}
+    tps = {}
+    for b in (1, 8):
+        fns = {n: make_beam_search(model, T0, n, beams=BEAMS) for n in (16, 80)}
+        ts = {16: [], 80: []}
+        fns[80](prompt8[:b])[0].cpu()
+        for _ in range(2):
+            for n in (16, 80):
+                s = time.perf_counter()
+                fns[n](prompt8[:b])[0].cpu()
+                ts[n].append(time.perf_counter() - s)
+        tps[b] = b * (80 - 16) / (min(ts[80]) - min(ts[16]))
+    out["tokens_per_s"] = tps
+    log(f"[decode] beam search: beams=1 = greedy for {out['beam1_equal']}; beam-{BEAMS} "
+        f"scores = teacher-forced rescoring (max rel err "
+        f"{max(v['rel_err'] for v in out['beam4'].values()):.2e}); B=1 tokens "
+        + ("= the CPU plain run's" if tie is None else "a tie against the CPU's")
+        + f"; beam-{BEAMS} {tps[1]:.1f} tokens/s at B=1, {tps[8]:.1f} at B=8 "
+        f"(slope 16->80, B x new tokens) ({card})")
+    return out
+
+
+def _serving_engine(torch, card):
+    """ServingEngine over a calibrated, converted full-width mobilenetv2_cifar
+    at w8a8 (max_batch 64): 200 single-image requests in bursts, twice.  Each
+    result equals, bit for bit, the eager forward of its padded bucket batch
+    and lies within 1e-5 of max|ref| of a B = 1 call; pass 1 captures each
+    bucket it uses once, ``warmup`` the rest, the timed passes none."""
+    import numpy as np
+
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.lab.accuracy_parity import make_batch
+    from jaxlsq_torch.models import calibrate, mobilenetv2_cifar
+    from jaxlsq_torch.serve import ServingEngine
+
+    model = _mnv2(torch, "cuda", 8)
+    g = torch.Generator(device="cuda").manual_seed(161)
+    calibrate(model, [make_batch(MNV2_B, g, "cuda")[0] for _ in range(4)])
+    served = mobilenetv2_cifar(MNV2_CLASSES, model.qconfig.for_serving("static"),
+                               device="cuda")
+    interop.load_variables(served, interop.qat_variables(model))
+    served.eval()
+    images = make_batch(ENGINE_REQUESTS, g, "cuda")[0].cpu().numpy()
+    r = np.random.RandomState(162)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    passes = []
+    try:
+        with ServingEngine(served, images.shape[1:], max_batch=ENGINE_MAX_B) as eng:
+            for k in range(ENGINE_PASSES):
+                if k == 1:
+                    eng.warmup()  # the buckets pass 1 did not use
+                before = dict(eng.stats, batch_sizes=len(eng.stats["batch_sizes"]))
+                caps = dict(eng.captures)
+                s = time.perf_counter()
+                futs, i = [], 0
+                while i < ENGINE_REQUESTS:
+                    n = int(r.randint(1, ENGINE_MAX_B + 1))
+                    futs += eng.submit_many(list(images[i:i + n]))
+                    i += n
+                    time.sleep(0.002)
+                res = [f.result(timeout=300) for f in futs]
+                wall = time.perf_counter() - s
+                sizes = list(eng.stats["batch_sizes"])[before["batch_sizes"]:]
+                passes.append({"wall_s": wall, "requests_per_s": ENGINE_REQUESTS / wall,
+                               "batches": len(sizes), "batch_sizes": sizes,
+                               "padded_examples": eng.stats["padded_examples"]
+                               - before["padded_examples"],
+                               "captures": {b: eng.captures[b] - caps[b] for b in caps}})
+                # each batch against the eager forward of its padded bucket
+                j, worst = 0, 0.0
+                for n in sizes:
+                    b = eng._bucket_for(n)
+                    x = np.zeros((b,) + images.shape[1:], np.float32)
+                    x[:n] = images[j:j + n]
+                    with torch.no_grad():
+                        want = served(torch.as_tensor(x, device="cuda")).cpu().numpy()
+                    got = np.stack(res[j:j + n])
+                    if not np.array_equal(got, want[:n]):
+                        raise AssertionError(f"[engine] a bucket-{b} batch differs from its "
+                                             f"eager forward: {np.abs(got - want[:n]).max()}")
+                    for q in range(j, j + n, 17):
+                        with torch.no_grad():
+                            one = served(torch.as_tensor(images[q:q + 1], device="cuda"))
+                        one = one.cpu().numpy()[0]
+                        worst = max(worst, float(np.abs(res[q] - one).max()
+                                                 / np.abs(one).max()))
+                    j += n
+                if worst > 1e-5:
+                    raise AssertionError(f"[engine] results vs a B=1 call: {worst} > 1e-5")
+                passes[-1]["vs_b1_rel_err"] = worst
+    finally:
+        torch.backends.cudnn.deterministic = det
+    used = {eng._bucket_for(n) for n in passes[0]["batch_sizes"]}
+    if (any(passes[0]["captures"][b] != (b in used) for b in eng.buckets)
+            or any(any(q["captures"].values()) for q in passes[1:])
+            or any(v != 1 for v in eng.captures.values())):
+        raise AssertionError(f"[engine] captures {[q['captures'] for q in passes]} by pass "
+                             f"(buckets used in pass 1 {sorted(used)}), {eng.captures} in all")
+    # a full bucket's replay (the input copy in, the output copy out) beside
+    # the eager forward of the same batch
+    x = torch.as_tensor(images[:ENGINE_MAX_B])
+    rep = {}
+    for name, run in (("replay", lambda: eng._forward(x)),
+                      ("eager", lambda: served(x.to("cuda")).cpu())):
+        ts = []
+        with torch.no_grad():
+            for _ in range(10):
+                s = time.perf_counter()
+                run()
+                ts.append(time.perf_counter() - s)
+        rep[f"{name}_ms"] = 1e3 * min(ts)
+    best = max(passes[1:], key=lambda q: q["requests_per_s"])
+    log(f"[engine] ServingEngine, w8a8 mobilenetv2_cifar, max_batch {ENGINE_MAX_B}: "
+        f"{ENGINE_REQUESTS} requests a pass; timed passes "
+        + ", ".join(f"{q['requests_per_s']:.1f}" for q in passes[1:])
+        + f" requests/s ({best['batches']} batches, {best['padded_examples']} padded "
+        f"examples in the best); a bucket-{ENGINE_MAX_B} replay {rep['replay_ms']:.2f} ms "
+        f"beside its eager forward {rep['eager_ms']:.2f} ms; pass 1 captured the "
+        f"buckets it used, {sorted(used)}, once each, warmup() the rest, later passes none; "
+        f"every result = the eager forward of its padded batch bit for bit, within "
+        f"{max(q['vs_b1_rel_err'] for q in passes):.1e} of max|ref| of a B=1 call ({card})")
+    return {"passes": passes, "buckets_used": sorted(used), **rep}
+
+
+def phase_decode_features(torch, rec):
+    from jaxlsq_torch.lab import speculative_decode as lab
+    from jaxlsq_torch.serve.paged import LAUNCHES as PAGED
+
+    card = rec["card"]
+    out = {}
+    rec["decode_features"] = out
+    t_start = time.time()
+    mm, attn, fq = reset_counts()
+    target, draft = lab.lm_pair(SPEC_MAXLEN, "cuda")
+    s = time.time()
+    out["target_loss"] = lab.train(target, SPEC_TARGET_STEPS, SPEC_B, seed=0)
+    out["target_train_s"] = time.time() - s
+    s = time.time()
+    out["draft_loss"] = lab.train(draft, SPEC_DRAFT_STEPS, SPEC_B, seed=0)
+    out["draft_train_s"] = time.time() - s
+    out["train_steps"] = {"target": SPEC_TARGET_STEPS, "draft": SPEC_DRAFT_STEPS}
+    log(f"[decode] trained the pair on the Markov corpus (B={SPEC_B}, captured steps): "
+        f"target d1024x4 {SPEC_TARGET_STEPS} steps in {out['target_train_s']:.1f} s, "
+        f"loss {out['target_loss']:.3f}; draft d128x1 {SPEC_DRAFT_STEPS} steps in "
+        f"{out['draft_train_s']:.1f} s, loss {out['draft_loss']:.3f} (cut from 1200 each)")
+    prompts = lab.corpus_batch(1 + SPEC_REQUESTS, torch.Generator(device="cuda").manual_seed(99),
+                               "cuda")
+    legs = out["leg_s"] = {"train": time.time() - t_start}
+    s = time.time()
+    out["qat_decode"] = _qat_decode(torch, target, prompts[:2, :SPEC_T0], 8,
+                                    "trained d1024x4 target (per tensor)")
+    lm = _lm_qat(torch, "cuda", "xla", seed=3)
+    lm.eval()
+    with torch.no_grad():  # one eval batch feeds the activation observers
+        lm(torch.randint(0, LM_VOCAB, (2, 64), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(3)))
+    lm.train()
+    out["qat_decode_rope"] = _qat_decode(
+        torch, lm, torch.randint(0, LM_VOCAB, (1, SPEC_T0), device="cuda",
+                                 generator=torch.Generator(device="cuda").manual_seed(4)),
+        8, "d512x2 rope LM (per channel)")
+    del lm
+    legs["qat_decode"], s = time.time() - s, time.time()
+    st, sd = lab.serve(target), lab.serve(draft)
+    del target, draft
+    out["speculative"] = _speculative(torch, st, sd, prompts[:1, :SPEC_T0], card)
+    legs["speculative"], s = time.time() - s, time.time()
+    out["engines"] = _spec_engines(torch, st, sd, prompts, card)
+    legs["engines"], s = time.time() - s, time.time()
+    del st, sd
+    out["beam"] = _beam(torch, card)
+    legs["beam"], s = time.time() - s, time.time()
+    out["serving_engine"] = _serving_engine(torch, card)
+    torch.cuda.synchronize()
+    legs["serving_engine"] = time.time() - s
+    out["launches"] = {**fq, **mm, **attn, **PAGED}
+    out["wall_s"] = time.time() - t_start
+    log(f"[decode] kernel launches on the decode-features path: {out['launches']}; "
+        f"phase 16 took {out['wall_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in legs.items()) + ")")
+    for k in ("fq_fwd_pt", "fq_fwd_pc", "wo8", "wo4", "decode_attention",
+              "paged_attention"):
+        if out["launches"][k] <= 0:
+            raise AssertionError(f"kernel {k} was never launched on the decode-features path")
+
+
 def _obs_kernels_line(rec):
     o = rec["observers"]
     big = max(o["times"]["rows"], key=lambda r: r["elements"])
@@ -3661,6 +4268,7 @@ def kernels_line(rec):
                     "launches": rec["launches"][name],
                     "convnet_launches": rec["convnet"]["launches"][name],
                     "third_party_launches": rec["third_party"]["launches"][name],
+                    "decode_features_launches": rec["decode_features"]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": sum(r["ms"] for r in rows),
                     "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -3692,6 +4300,8 @@ def kernels_line(rec):
                 "replaces": "jaxlsq/serve/paged.py:225",
                 "launches": rec["paged"]["launches"]["paged_attention"],
                 "fold_launches": rec["paged"]["launches"]["paged_attention_fold"],
+                "decode_features_launches":
+                    rec["decode_features"]["launches"]["paged_attention"],
                 "max_abs_err": rec["max_abs_err"]["paged_attention"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -3703,6 +4313,8 @@ def kernels_line(rec):
                 "replaces": "jaxlsq/serve/attention.py:63",
                 "launches": rec["launches"]["decode_attention"],
                 "fold_launches": rec["launches"]["decode_attention_fold"],
+                "decode_features_launches":
+                    rec["decode_features"]["launches"]["decode_attention"],
                 "max_abs_err": rec["max_abs_err"]["decode_attention"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -3723,6 +4335,7 @@ def kernels_line(rec):
                     "launches": rec[leg]["launches"][name],
                     "convnet_launches": rec["convnet"]["launches"][name],
                     "third_party_launches": rec["third_party"]["launches"][name],
+                    "decode_features_launches": rec["decode_features"]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -3831,6 +4444,7 @@ def main(argv):
     phase_convnet(torch, rec)
     phase_observers(torch, rec)
     phase_third_party(torch, rec)
+    phase_decode_features(torch, rec)
     rec["wall_s"] = time.time() - t0
     rec["profile_misses"] = PROFILE_MISSES
     rec["waiting_calls"] = WAITING_CALLS

@@ -16,20 +16,25 @@ in either mode of its qconfig:
 * QAT mode (``qconfig.mode != 'serve'``): trainable kernels, biases,
   LayerNorm affine and ``pos_emb`` (``nn.Parameter``), LSQ quantizers in
   every dense layer and the embedding, drawn from ``seed`` by
-  :func:`init_qat_variables`; the full causal forward only (the cache branch
-  of a QAT-mode LM raises).  ``train_attn_impl`` picks the no-cache
+  :func:`init_qat_variables`.  With a cache it runs as the JAX package's
+  ``apply(training=False)`` with ``quant_state`` and ``qparams`` not
+  mutable: the quantizers take the eval flag whatever ``model.training``
+  says, an enabled observer re-derives qparams from the call's input for
+  that call only, and nothing of the quantizers' state is kept
+  (``layers.quant_state_frozen``).  ``train_attn_impl`` picks the no-cache
   attention: ``'xla'`` the plain einsum over the (t, t) scores,
   ``'flash'`` the flash-attention kernels (``ops.flash_attention``), or the
   banded formulation when a sliding window shorter than t is set.
 * Serve mode: serve-mode buffers (packed kernels from
   ``jaxlsq_torch.serve.convert``, loaded by ``jaxlsq_torch.interop``).
   Without a cache: the full causal forward, attention as in QAT mode.
-  With a cache: the new k/v are written into the cache IN PLACE at
-  ``cache_index`` (the JAX package returns a new cache; here the returned
-  cache is the same objects, updated) and attention runs through
-  ``serve.attention.decode_attention`` — the CUDA kernel on the card — or,
-  for a paged cache (``serve.paged.PagedKVLayer`` entries), the writes go
-  through the block table and attention through ``serve.paged.paged_attention``.
+
+In either mode, with a cache, the new k/v are written into the cache IN
+PLACE at ``cache_index`` (the JAX package returns a new cache; here the
+returned cache is the same objects, updated) and attention runs through
+``serve.attention.decode_attention`` — the CUDA kernel on the card — or, for
+a paged cache (``serve.paged.PagedKVLayer`` entries), the writes go through
+the block table and attention through ``serve.paged.paged_attention``.
 
 Carriers: f32/bf16 caches (new k/v cast to the cache dtype on write, read back
 as f32), and int8/int4 ``(data, scales)`` caches quantized per (b, head,
@@ -53,7 +58,8 @@ from .._device import resolve_device
 from ..ops.flash_attention import flash_attention
 from ..serve.attention import MASK, _q4, _q8, decode_attention
 from ..serve.paged import PagedKVLayer, paged_attention, paged_update
-from .layers import FakeQuantize, QuantConv, QuantDense, QuantEmbed
+from .layers import (FakeQuantize, QuantConv, QuantDense, QuantEmbed, quant_state_frozen,
+                     refresh_host_state)
 from .norm import BatchNorm
 from .qconfig import QConfig
 
@@ -283,10 +289,12 @@ class QuantTransformerLM(nn.Module):
     bias).  QAT mode (parameters drawn from ``seed``) or serve mode (pass
     ``qconfig.for_serving(...)``; buffers loaded by ``interop``).
 
-    ``model(tokens)`` gives logits (B, t, vocab); in serve mode
-    ``model(tokens, cache=..., cache_index=...)`` gives ``(logits, cache)``
-    with the cache updated in place.  Runs on CUDA unless ``device`` says
-    otherwise; with no card and no ``device``, construction raises.
+    ``model(tokens)`` gives logits (B, t, vocab); ``model(tokens,
+    cache=..., cache_index=...)`` gives ``(logits, cache)`` with the cache
+    updated in place, in either mode (a QAT-mode call with a cache is an
+    eval forward that keeps no quantizer state).  Runs on CUDA unless
+    ``device`` says otherwise; with no card and no ``device``, construction
+    raises.
     """
 
     def __init__(self, vocab: int, dim: int, depth: int, num_heads: int,
@@ -332,12 +340,24 @@ class QuantTransformerLM(nn.Module):
         return [getattr(self, f"block{i}") for i in range(self.depth)]
 
     def forward(self, tokens: torch.Tensor, cache=None, cache_index=None):
+        if cache is None or not self.qat:
+            return self._forward(tokens, cache, cache_index)
+        # the JAX package's apply(training=False) with the quantizers'
+        # collections not mutable
+        fqs = [m for m in self.modules() if isinstance(m, FakeQuantize)]
+        refresh_host_state(fqs)
+        modes = [m.training for m in fqs]
+        try:
+            for m in fqs:
+                m.training = False
+            with quant_state_frozen(fqs):
+                return self._forward(tokens, cache, cache_index)
+        finally:
+            for m, mode in zip(fqs, modes):
+                m.training = mode
+
+    def _forward(self, tokens: torch.Tensor, cache, cache_index):
         b, t = tokens.shape
-        if cache is not None and self.qat:
-            raise NotImplementedError(
-                "a QAT-mode LM has no cache branch yet (prefill on QAT variables "
-                "arrives with a later slice); convert it and decode with a "
-                "serve-mode LM (interop.load_variables)")
         x = self.tok_emb(tokens)
         if self.pos_embedding == "learned":
             if cache is None:

@@ -1,20 +1,23 @@
 from .attention import decode_attention, decode_attention_plain
 from .convert import convert, serving_bits
-from .decode import (DecodeEngine, Prefix, init_kv_cache, make_generate,
-                     make_sampler, prefill)
+from .decode import (DecodeEngine, Prefix, SpeculativeDecodeEngine, init_kv_cache,
+                     make_beam_search, make_generate, make_sampler,
+                     make_speculative_generate, prefill)
+from .engine import ServingEngine
 from .matmul import wo_matmul, wo_matmul_plain
 from .pack import (PackedWeight, dequantize_weight, pack_int4, quantize_weight,
                    quantize_weight_grouped, unpack_int4)
 from .paged import (PageAllocator, PagedKVLayer, init_paged_cache,
                     paged_attention, paged_attention_plain, paged_update,
                     with_table)
-from .paged_engine import PagedDecodeEngine, PagedPrefix
+from .paged_engine import PagedDecodeEngine, PagedPrefix, PagedSpeculativeDecodeEngine
 
 __all__ = ["decode_attention", "decode_attention_plain", "convert", "serving_bits",
-           "DecodeEngine", "Prefix", "init_kv_cache", "make_generate",
-           "make_sampler", "prefill", "wo_matmul", "wo_matmul_plain",
-           "PackedWeight", "dequantize_weight", "pack_int4", "quantize_weight",
-           "quantize_weight_grouped", "unpack_int4", "PageAllocator",
+           "DecodeEngine", "Prefix", "SpeculativeDecodeEngine", "init_kv_cache",
+           "make_beam_search", "make_generate", "make_sampler",
+           "make_speculative_generate", "prefill", "ServingEngine", "wo_matmul",
+           "wo_matmul_plain", "PackedWeight", "dequantize_weight", "pack_int4",
+           "quantize_weight", "quantize_weight_grouped", "unpack_int4", "PageAllocator",
            "PagedKVLayer", "init_paged_cache", "paged_attention",
            "paged_attention_plain", "paged_update", "with_table",
-           "PagedDecodeEngine", "PagedPrefix"]
+           "PagedDecodeEngine", "PagedPrefix", "PagedSpeculativeDecodeEngine"]

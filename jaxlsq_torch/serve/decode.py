@@ -1,6 +1,9 @@
 """Autoregressive decode on the quantized serving path (port of
 ``make_sampler``, ``init_kv_cache``, ``prefill``, ``make_generate``,
-``Prefix`` and ``DecodeEngine`` from ``jaxlsq/serve/decode.py``).
+``make_beam_search``, ``make_speculative_generate``, ``Prefix``,
+``DecodeEngine`` and ``SpeculativeDecodeEngine`` from
+``jaxlsq/serve/decode.py``).  Every model may be a ``QuantTransformerLM`` in
+QAT or serve mode.
 
 Differences from the JAX package, all from PyTorch running eagerly:
 
@@ -8,15 +11,21 @@ Differences from the JAX package, all from PyTorch running eagerly:
   cache objects they were given.
 * ``make_generate``'s decode loop is a Python loop (the JAX package scans).
   Positions stay Python ints, so no step waits on the card.
-* Randomness is a ``torch.Generator`` (the JAX package folds keys); the same
-  seed gives other tokens than JAX's.
-* The engine keeps slot positions on the host and uploads them each step;
+* Randomness is a ``torch.Generator`` (the JAX package folds keys by
+  output position); the same seed gives other tokens than JAX's, from the
+  same distributions.
+* The engines keep slot positions on the host and upload them each step;
   JAX's ``dynamic_update_slice`` clamps a write that runs past the cache,
   the port refuses such requests at ``submit`` and never clamps.
+* Beam search breaks ties in its top-k by the lower index, as
+  ``jax.lax.top_k`` does (a stable descending sort; ``torch.topk`` promises
+  no order among equal values), and reorders the cache in place.
+* A speculative round reads the accepted count on the host once (the JAX
+  package keeps it in its ``while_loop``): the next round's position is a
+  Python int.
 
-Beam search and the speculative generators and engines come with a later
-slice.  ``PagedDecodeEngine`` (``serve/paged_engine.py``) is this engine over
-page pools.
+``PagedDecodeEngine`` and ``PagedSpeculativeDecodeEngine``
+(``serve/paged_engine.py``) are the engines over page pools.
 """
 
 from __future__ import annotations
@@ -35,11 +44,28 @@ from .attention import _dtype_name
 from .paged import PagedKVLayer
 
 __all__ = ["init_kv_cache", "prefill", "make_generate", "make_sampler",
-           "Prefix", "DecodeEngine"]
+           "make_beam_search", "make_speculative_generate", "Prefix",
+           "DecodeEngine", "SpeculativeDecodeEngine"]
 
 
 def _greedy(logits: torch.Tensor, generator=None) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def _filter_logits(logits: torch.Tensor, temperature: float,
+                   top_k: Optional[int]) -> torch.Tensor:
+    """Temperature + top-k filter over the last axis, in f32 (the transform
+    :func:`make_sampler` samples from)."""
+    scaled = logits.to(torch.float32) / temperature
+    if top_k is not None:
+        kth = torch.sort(scaled, dim=-1).values[..., -top_k][..., None]
+        scaled = torch.where(scaled < kth, float("-inf"), scaled)
+    return scaled
+
+
+def _sample(probs: torch.Tensor, generator) -> torch.Tensor:
+    """One draw a row of ``probs`` (B, V), unnormalized: (B,) int32."""
+    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
 
 def make_sampler(temperature: float = 1.0, top_k: Optional[int] = None):
@@ -49,12 +75,8 @@ def make_sampler(temperature: float = 1.0, top_k: Optional[int] = None):
         return _greedy
 
     def pick(logits, generator=None):
-        scaled = logits.to(torch.float32) / temperature
-        if top_k is not None:
-            kth = torch.sort(scaled, dim=-1).values[:, -top_k][:, None]
-            scaled = torch.where(scaled < kth, float("-inf"), scaled)
-        probs = torch.softmax(scaled, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
+        return _sample(torch.softmax(_filter_logits(logits, temperature, top_k), -1),
+                       generator)
 
     return pick
 
@@ -149,6 +171,216 @@ def make_generate(model, prompt_len: int, n_new: int, *,
     return generate
 
 
+def _top_k(x: torch.Tensor, k: int):
+    """The k largest values along the last axis and their indices, ties
+    broken by the lower index (``jax.lax.top_k``'s order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def make_beam_search(model, prompt_len: int, n_new: int, *, beams: int = 4,
+                     cache_dtype=torch.float32, eos_id: Optional[int] = None,
+                     length_penalty: float = 0.0):
+    """Beam search: keep the ``beams`` (K) highest joint log-prob
+    continuations at every step.
+
+    The prompt is tiled beam-major and prefilled at B·K rows; the first step
+    seeds the beams with the top K tokens (beams past the vocab start at
+    -inf, so K >= V^n is exhaustive search).  Each step decodes all beams,
+    takes the top K of the (B, K·V) joint scores, and reorders the token
+    histories and every cache leaf (the int8/int4 ``(data, scale)`` pairs
+    too) to the surviving parents in place.  With ``eos_id`` a beam that
+    emitted it is frozen: its only continuation is a free eos.  The
+    Google-NMT ``length_penalty`` (``score / ((5 + len) / 6) ** alpha``,
+    ``len`` up to the first eos) applies at the final ranking only, and only
+    with ``eos_id``.  ``beams=1`` is greedy decode.
+
+    Returns ``search(prompt (B, prompt_len)) -> (tokens (B, n_new) int32,
+    scores (B,) f32)``: the best beam a sample and its joint log-prob.  No
+    step reads the device on the host.
+    """
+    if beams < 1:
+        raise ValueError("beams must be >= 1")
+    if prompt_len + n_new > model.max_len:
+        raise ValueError(
+            f"prompt_len + n_new = {prompt_len + n_new} exceeds model.max_len "
+            f"= {model.max_len}")
+    k = beams
+
+    @torch.no_grad()
+    def search(prompt: torch.Tensor):
+        if prompt.shape[1] != prompt_len:
+            raise ValueError(f"prompt length {prompt.shape[1]} != {prompt_len}")
+        prompt = prompt.to(model.device)
+        b = prompt.shape[0]
+        last, cache, index = prefill(model, prompt.repeat_interleave(k, dim=0),
+                                     cache_dtype=cache_dtype)
+        logp0 = torch.log_softmax(last.reshape(b, k, -1)[:, 0].to(torch.float32), -1)
+        v = logp0.shape[-1]
+        k1 = min(k, v)
+        scores, first = _top_k(logp0, k1)
+        if k1 < k:
+            scores = torch.cat([scores, scores.new_full((b, k - k1), float("-inf"))], 1)
+            first = torch.cat([first, first.new_zeros((b, k - k1))], 1)
+        tok = first.to(torch.int32)
+        hist = torch.zeros((b, k, n_new), dtype=torch.int32, device=prompt.device)
+        hist[:, :, 0] = tok
+        finished = tok == eos_id if eos_id is not None else None
+        if eos_id is not None:
+            frozen = torch.full((v,), float("-inf"), device=prompt.device)
+            frozen[eos_id] = 0.0
+        base = torch.arange(b, device=prompt.device)[:, None] * k
+        for i in range(1, n_new):
+            logits, cache = model(tok.reshape(b * k, 1), cache=cache,
+                                  cache_index=index + i - 1)
+            logp = torch.log_softmax(logits[:, -1].to(torch.float32).reshape(b, k, v), -1)
+            if eos_id is not None:
+                logp = torch.where(finished[:, :, None], frozen, logp)
+            scores, flat = _top_k((scores[:, :, None] + logp).reshape(b, k * v), k)
+            parent = flat // v
+            tok = (flat % v).to(torch.int32)
+            hist = torch.gather(hist, 1, parent[:, :, None].expand(b, k, n_new))
+            hist[:, :, i] = tok
+            rows = (base + parent).reshape(-1)
+            for leaf in _leaves(cache):
+                leaf.copy_(leaf.index_select(0, rows))
+            if eos_id is not None:
+                finished = torch.gather(finished, 1, parent) | (tok == eos_id)
+        ranked = scores
+        if length_penalty > 0.0 and eos_id is not None:
+            is_eos = (hist == eos_id).to(torch.int32)
+            lens = torch.where(is_eos.any(-1), torch.argmax(is_eos, -1) + 1, n_new)
+            ranked = scores / ((5.0 + lens.to(torch.float32)) / 6.0) ** length_penalty
+        best = torch.argmax(ranked, dim=1)
+        rows = torch.arange(b, device=prompt.device)
+        return hist[rows, best], scores[rows, best]
+
+    return search
+
+
+def _spec_round(target, draft, tcache, dcache, last: torch.Tensor, pos, k: int,
+                sample=None):
+    """One speculative round over B rows at ``pos`` (an int, or a (B,)
+    tensor of per-slot positions): k + 1 draft steps (the last only writes
+    its cache row for the k-th proposal), then one target forward over the
+    k + 1 rows ``[last, d_1 .. d_k]``.  Rejected rows stay in both caches
+    beyond the accepted prefix; the next round overwrites them before any
+    query reads them.
+
+    Greedy (``sample`` None): proposal ``d_i`` is the draft's argmax, the
+    target's argmax ``g`` is emitted, and ``m`` counts the leading ``d_i ==
+    g_i``.  Sampled (``sample = (temperature, top_k, generator)``): ``d_i ~
+    q``, accepted while ``u_i·q(d_i) < p(d_i)``; at the first rejection the
+    token is drawn from ``max(p − q, 0)`` (from p where that is all zero),
+    after k acceptances the bonus from p at row k + 1.
+
+    Returns ``(emit (B, k + 1) int32, m (B,))``: the round emits
+    ``emit[:, :m + 1]``."""
+    tok, props, qlogits = last, [], []
+    for j in range(k + 1):
+        logits, dcache = draft(tok[:, None], cache=dcache, cache_index=pos + j)
+        if j == k:
+            break
+        if sample is None:
+            tok = _greedy(logits[:, -1])
+        else:
+            fl = _filter_logits(logits[:, -1], sample[0], sample[1])
+            tok = _sample(torch.softmax(fl, -1), sample[2])
+            qlogits.append(fl)
+        props.append(tok)
+    d = torch.stack(props, 1)
+    logits, tcache = target(torch.cat([last[:, None], d], 1), cache=tcache,
+                            cache_index=pos)
+    if sample is None:
+        g = _greedy(logits)
+        return g, torch.cumprod((d == g[:, :k]).to(torch.int32), 1).sum(1)
+    temperature, top_k, gen = sample
+    b = d.shape[0]
+    rows = torch.arange(b, device=d.device)
+    p = torch.softmax(_filter_logits(logits, temperature, top_k), -1)
+    q = torch.softmax(torch.stack(qlogits, 1), -1)
+    idx = d.to(torch.int64)[..., None]
+    p_d = torch.gather(p[:, :k], 2, idx)[..., 0]
+    q_d = torch.gather(q, 2, idx)[..., 0]
+    u = torch.rand((b, k), generator=gen, device=d.device)
+    m = torch.cumprod((u * q_d < p_d).to(torch.int32), 1).sum(1)
+    p_m = p[rows, m]
+    q_m = torch.cat([q, torch.zeros_like(q[:, :1])], 1)[rows, m]
+    resid = torch.clamp(p_m - q_m, min=0.0)
+    resid = torch.where(resid.sum(-1, keepdim=True) > 0.0, resid, p_m)
+    z = torch.where(m == k, _sample(p[:, k], gen), _sample(resid, gen))
+    emit = torch.cat([d, torch.zeros_like(d[:, :1])], 1)
+    emit[rows, m] = z
+    return emit, m
+
+
+def make_speculative_generate(target, draft, prompt_len: int, n_new: int, *,
+                              k: int = 4, cache_dtype=torch.float32,
+                              temperature: float = 0.0,
+                              top_k: Optional[int] = None,
+                              return_stats: bool = False):
+    """Speculative decoding at B = 1: the ``draft`` proposes ``k`` tokens a
+    round and the ``target`` verifies them in one forward over k + 1 rows
+    (:func:`_spec_round`); the accepted prefix and one target token are
+    emitted.  Rollback is not advancing the position; the emit buffer is
+    padded by k + 1 so each round writes its whole row.
+
+    ``temperature <= 0``: greedy, the target's own greedy decode by
+    construction.  ``temperature > 0``: accept/reject speculative sampling,
+    distributed as the target's ``temperature``/``top_k`` sampling
+    (:func:`make_sampler`'s transform) whatever the draft; ``generate``
+    then takes a ``torch.Generator``.
+
+    Needs ``prompt_len + n_new + k <= min(target.max_len, draft.max_len)``
+    and a shared vocab.  Returns ``generate(prompt (1, prompt_len)[,
+    generator]) -> (1, n_new) int32``, with ``return_stats`` also ``{"rounds",
+    "accepted_per_round", "host_reads"}`` (one read a round, of the
+    accepted count).
+    """
+    if k < 1:
+        raise ValueError("k must be >= 1 (k draft tokens per verify round)")
+    if target.vocab != draft.vocab:
+        raise ValueError("target and draft must share a vocab")
+    if prompt_len + n_new + k > min(target.max_len, draft.max_len):
+        raise ValueError(
+            f"prompt_len + n_new + k = {prompt_len + n_new + k} exceeds "
+            f"max_len = {min(target.max_len, draft.max_len)} "
+            "(speculative verification needs k tokens of cache headroom)")
+    sampled = temperature > 0.0
+
+    @torch.no_grad()
+    def generate(prompt: torch.Tensor, generator=None):
+        if tuple(prompt.shape) != (1, prompt_len):
+            raise ValueError(f"speculative decode is B=1: prompt shape "
+                             f"{tuple(prompt.shape)} != (1, {prompt_len})")
+        if sampled and generator is None:
+            raise ValueError("temperature > 0 needs a torch.Generator")
+        prompt = prompt.to(target.device)
+        sample = (temperature, top_k, generator) if sampled else None
+        tlog, tcache, pos = prefill(target, prompt, cache_dtype=cache_dtype)
+        _, dcache, _ = prefill(draft, prompt, cache_dtype=cache_dtype)
+        last = (_sample(torch.softmax(_filter_logits(tlog, temperature, top_k), -1),
+                        generator) if sampled else _greedy(tlog))
+        out = torch.zeros((n_new + k + 1,), dtype=torch.int32, device=prompt.device)
+        out[0] = last[0]
+        count, rounds = 1, 0
+        while count < n_new:
+            emit, m = _spec_round(target, draft, tcache, dcache, last, pos, k, sample)
+            out[count:count + k + 1] = emit[0]
+            m = int(m[0])  # the round's one host read
+            last = emit[:, m]
+            count += m + 1
+            pos += m + 1
+            rounds += 1
+        toks = out[:n_new][None]
+        if return_stats:
+            return toks, {"rounds": rounds, "host_reads": rounds,
+                          "accepted_per_round": (count - 1) / max(rounds, 1)}
+        return toks
+
+    return generate
+
+
 class _GenRequest:
     __slots__ = ("prompt", "n_new", "future", "tokens", "slot", "prefix",
                  "pages")
@@ -170,7 +402,8 @@ class Prefix:
     prefix=handle)`` seeds each admission from a copy of it and prefills only
     the suffix.  ``caches`` holds one slot cache a model the engine drives;
     ``owner`` is the engine that built it (two engines may hold different
-    weights behind the same cache layout, so a handle never crosses)."""
+    weights behind the same cache layout, so a handle never crosses).  A
+    speculative engine's handle holds the target's and the draft's."""
 
     __slots__ = ("tokens", "length", "caches", "owner")
 
@@ -239,9 +472,15 @@ class DecodeEngine:
     (admission cap), ``cache_dtype``, ``prefill_chunk`` (None = whole-bucket
     chunks), ``max_wait_ms``, ``eos_id``, ``logits_to_token`` and ``rng`` (a
     ``torch.Generator``; set it to call ``logits_to_token(logits, rng)``).
+
+    The engine state is laid out for the models it drives
+    (:meth:`_served_models`): ``_cache`` is one cache here, the (target,
+    draft) pair in :class:`SpeculativeDecodeEngine`, and a slot cache or a
+    Prefix follows it; the subclasses change the hooks, not the dispatcher.
     """
 
     _EXTRA_STATS: tuple = ()  # counters a subclass adds to ``stats``
+    _STEP = "steps"            # the stat that counts dispatcher steps
 
     def __init__(self, model, *, max_batch: int = 8,
                  prompt_buckets: Sequence[int] = (32, 128),
@@ -255,7 +494,8 @@ class DecodeEngine:
         self.device = model.device
         self.max_batch = max_batch
         self.buckets = sorted(prompt_buckets)
-        self.max_len = model.max_len
+        self.max_len = min(m.max_len for m in self._served_models())
+        self._park = self._park_position()
         self.eos_id = eos_id
         self._rng = rng
         self._sampled = rng is not None
@@ -270,18 +510,42 @@ class DecodeEngine:
         self._state_lock = threading.Lock()
         self._stop = False
         self.max_wait_s = max_wait_ms / 1e3
-        self.stats = {"requests": 0, "steps": 0, "slot_tokens": 0,
+        self.stats = {"requests": 0, self._STEP: 0, "slot_tokens": 0,
                       "active_token_sum": 0, "admission_chunks": 0,
                       "admission_interleave": deque(maxlen=1024),
                       **{k: 0 for k in self._EXTRA_STATS}}
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
+    # ------------------------------------------------------------------ hooks
+
+    def _served_models(self) -> tuple:
+        """The models whose caches the engine keeps, the first emitting."""
+        return (self.model,)
+
+    def _park_position(self) -> int:
+        """Where a free slot decodes (its writes reach no live row)."""
+        return self.max_len - 1
+
+    def _headroom(self) -> int:
+        """Cache rows a request may write past its last token."""
+        return 0
+
+    def _model_caches(self, cache) -> tuple:
+        """One cache a served model, of an engine-layout cache."""
+        return (cache,)
+
+    def _engine_cache(self, caches):
+        """The engine layout of one cache a served model."""
+        return caches[0]
+
     def _build_device_state(self, cache_dtype):
         """The KV cache, host slot positions and device tokens
         (``PagedDecodeEngine`` builds page pools instead)."""
-        self._cache = init_kv_cache(self.model, self.max_batch, dtype=cache_dtype)
-        self._pos = np.full((self.max_batch,), self.max_len - 1, np.int64)
+        self._cache = self._engine_cache(
+            [init_kv_cache(m, self.max_batch, dtype=cache_dtype)
+             for m in self._served_models()])
+        self._pos = np.full((self.max_batch,), self._park, np.int64)
         self._tok = torch.zeros((self.max_batch,), dtype=torch.int32,
                                 device=self.device)
 
@@ -290,28 +554,38 @@ class DecodeEngine:
     def _pick_tok(self, logits):
         return self._pick(logits, self._rng) if self._sampled else self._pick(logits)
 
+    def _forward(self, cache, tokens, start):
+        """The served models over ``tokens`` at ``start``: the first
+        model's logits and the updated cache."""
+        return self.model(tokens, cache=cache, cache_index=start)
+
     def _run_chunk(self, slot_cache, tokens, start: int):
-        _, slot_cache = self.model(tokens, cache=slot_cache, cache_index=start)
-        return slot_cache
+        return self._forward(slot_cache, tokens, start)[1]
 
     def _run_final_chunk(self, slot_cache, tokens, start: int, true_len: int,
                          slot: int):
-        logits, slot_cache = self.model(tokens, cache=slot_cache, cache_index=start)
+        logits, slot_cache = self._forward(slot_cache, tokens, start)
         first = self._pick_tok(logits[0, true_len - 1 - start][None])[0]
+        self._install(slot_cache, slot)
+        return first
 
+    def _install(self, slot_cache, slot: int) -> None:
+        """Copy an admitted slot cache into the engine's cache."""
         def copy(g, s):
             g[slot:slot + 1].copy_(s)
             return g
 
         _map_cache(copy, self._cache, slot_cache)
-        return first
 
     def _run_step(self):
+        """One step of every slot: ``(tokens (max_batch, n), counts
+        (max_batch,))`` on the host, slot i emitting ``tokens[i, :counts[i]]``
+        (one host read)."""
         pos = torch.as_tensor(self._pos, dtype=torch.int32).to(self.device)
-        logits, _ = self.model(self._tok[:, None], cache=self._cache, cache_index=pos)
-        nxt = self._pick_tok(logits[:, -1])
-        self._pos = np.minimum(self._pos + 1, self.max_len - 1)
-        return nxt
+        logits, _ = self._forward(self._cache, self._tok[:, None], pos)
+        self._tok = self._pick_tok(logits[:, -1])
+        self._pos = np.minimum(self._pos + 1, self._park)
+        return self._tok.cpu().numpy()[:, None], np.ones(self.max_batch, np.int64)
 
     def _slot_cache(self):
         return _map_cache(lambda g: torch.zeros((1,) + tuple(g.shape[1:]),
@@ -379,7 +653,7 @@ class DecodeEngine:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             _map_cache(lambda g: g.zero_(), self._cache)
-            self._pos[:] = self.max_len - 1
+            self._pos[:] = self._park
             self._tok.zero_()
 
     @torch.no_grad()
@@ -397,20 +671,22 @@ class DecodeEngine:
                 sc = self._run_chunk(sc, toks, i * c)
         # rows in [size, n_chunks * c) hold pad garbage that the suffix
         # admission overwrites before any decode step reads them
-        return Prefix(tokens, int(tokens.size), (sc,), owner=self)
+        return Prefix(tokens, int(tokens.size), self._model_caches(sc), owner=self)
 
-    def _check_prefix(self, prefix, n_models: int):
+    def _check_prefix(self, prefix):
+        n_models = len(self._served_models())
         if not isinstance(prefix, Prefix) or len(prefix.caches) != n_models:
             raise ValueError("prefix must come from this engine kind's "
                              "register_prefix()")
         if prefix.owner is not self:
             raise ValueError("prefix was registered on a different engine; call "
                              "register_prefix() on this one")
-        want = [tuple(g.shape[1:]) + (g.dtype,) for g in _leaves(self._cache)]
-        got = [tuple(g.shape[1:]) + (g.dtype,) for g in _leaves(prefix.caches[0])]
-        if want != got:
-            raise ValueError("prefix cache layout does not match this engine's "
-                             "(different model/max_len/cache_dtype?)")
+        for mine, theirs in zip(self._model_caches(self._cache), prefix.caches):
+            want = [tuple(g.shape[1:]) + (g.dtype,) for g in _leaves(mine)]
+            got = [tuple(g.shape[1:]) + (g.dtype,) for g in _leaves(theirs)]
+            if want != got:
+                raise ValueError("prefix cache layout does not match this "
+                                 "engine's (different model/max_len/cache_dtype?)")
 
     def submit(self, prompt, n_new: int, *, prefix: Optional[Prefix] = None
                ) -> Future:
@@ -427,10 +703,14 @@ class DecodeEngine:
                              f"bucket {self.buckets[-1]}")
         base = 0
         if prefix is not None:
-            self._check_prefix(prefix, 1)
+            self._check_prefix(prefix)
             base = prefix.length
-        if base + prompt.size + n_new > self.max_len:
-            raise ValueError("prefix + prompt + n_new exceeds model.max_len")
+        extra = self._headroom()
+        if base + prompt.size + n_new + extra > self.max_len:
+            raise ValueError(
+                "prefix + prompt + n_new " + (f"+ k + 1 = {extra} rows (speculative "
+                                              "verification headroom) " if extra else "")
+                + f"exceeds max_len {self.max_len}")
         if base + self._padded_admit_len(prompt.size) > self.max_len:
             raise ValueError(
                 "the chunk-padded admission would write past max_len (prefix "
@@ -440,7 +720,7 @@ class DecodeEngine:
         req = _GenRequest(prompt, n_new, prefix=prefix)
         with self._lifecycle_lock:
             if self._stop:
-                raise RuntimeError("DecodeEngine is closed")
+                raise RuntimeError(f"{type(self).__name__} is closed")
             self._queue.put(req)
         return req.future
 
@@ -449,7 +729,7 @@ class DecodeEngine:
             self._stop = True
         self._thread.join(timeout=300)
         if not self._thread.is_alive():
-            self._fail_pending(RuntimeError("DecodeEngine closed"))
+            self._fail_pending(RuntimeError(f"{type(self).__name__} closed"))
         else:  # dispatcher stuck: cancel so callers do not block
             self._cancel_pending()
 
@@ -500,7 +780,7 @@ class DecodeEngine:
         c, n_chunks, padded = self._stage_prompt(req)
         if req.prefix is not None:
             base = req.prefix.length
-            slot_cache = _map_cache(torch.clone, req.prefix.caches[0])
+            slot_cache = _map_cache(torch.clone, self._engine_cache(req.prefix.caches))
             self.stats["prefix_tokens_reused"] = (
                 self.stats.get("prefix_tokens_reused", 0) + base)
         else:
@@ -508,7 +788,7 @@ class DecodeEngine:
         req.slot = slot
         self._pending.append(_PendingAdmit(
             req=req, slot=slot, slot_cache=slot_cache, n_chunks=n_chunks,
-            padded=padded, c=c, steps_at_start=self.stats["steps"], base=base))
+            padded=padded, c=c, steps_at_start=self.stats[self._STEP], base=base))
 
     def _advance_admission(self, p: _PendingAdmit):
         """Run ONE chunk of the admission at the head of the queue."""
@@ -528,7 +808,7 @@ class DecodeEngine:
             self._pending.remove(p)
             self.stats["requests"] += 1
             self.stats["admission_interleave"].append(
-                self.stats["steps"] - p.steps_at_start)
+                self.stats[self._STEP] - p.steps_at_start)
         self.stats["admission_chunks"] += 1
 
     def _retire_done(self):
@@ -537,7 +817,7 @@ class DecodeEngine:
                 if not req.future.done():
                     req.future.set_result(np.asarray(req.tokens[: req.n_new], np.int32))
                 self._slots[slot] = None
-                self._pos[slot] = self.max_len - 1  # park the freed slot
+                self._pos[slot] = self._park
 
     def _stage_admissions(self, reserved: set):
         for slot in range(self.max_batch):
@@ -553,7 +833,7 @@ class DecodeEngine:
         with torch.no_grad():
             while True:
                 if self._stop:
-                    self._fail_pending(RuntimeError("DecodeEngine closed"))
+                    self._fail_pending(RuntimeError(f"{type(self).__name__} closed"))
                     return
                 with self._state_lock:
                     idle = self._iterate()
@@ -579,19 +859,110 @@ class DecodeEngine:
         if not active:
             return not self._pending
         try:
-            nxt = self._run_step()
-            toks = nxt.cpu().numpy()
+            toks, counts = self._run_step()
         except Exception as e:  # device failure: fail fast
             with self._lifecycle_lock:
                 self._stop = True
             self._fail_pending(e)
             return None
-        self._tok = nxt
+        emitted = 0
         for slot, req in enumerate(self._slots):
-            if req is not None and not self._finished(req):
-                req.tokens.append(int(toks[slot]))
-        self.stats["steps"] += 1
+            for j in range(int(counts[slot]) if req is not None else 0):
+                if self._finished(req):  # n_new reached or eos: drop the rest
+                    break
+                req.tokens.append(int(toks[slot, j]))
+                emitted += 1
+        if "accepted_tokens" in self.stats:
+            self.stats["accepted_tokens"] += emitted
+        self.stats[self._STEP] += 1
         self.stats["slot_tokens"] += self.max_batch
         self.stats["active_token_sum"] += len(active)
         self._retire_done()
         return False
+
+
+class SpeculativeDecodeEngine(DecodeEngine):
+    """Token-level continuous batching with speculative decoding: every
+    dispatcher iteration advances all active slots by one draft-propose /
+    target-verify round (:func:`_spec_round` over the slots, 1..k+1 tokens
+    each) instead of one token.  Greedy (default): each request is exactly
+    the target's greedy decode.  ``temperature > 0`` (with ``rng``, a
+    ``torch.Generator``): accept/reject speculative sampling a slot, each
+    request distributed as the target's ``temperature``/``top_k`` sampling.
+
+    :class:`DecodeEngine`'s dispatcher, queue, chunked admission and prefix
+    reuse run over both models: the engine cache is the (target, draft)
+    pair, an admission chunk runs through both private slot caches, and a
+    Prefix holds both.  Free slots park at ``max_len - k - 2`` and an active
+    slot's position advances by ``min(pos + accepted, park)``, so a round's
+    k + 1 rows never leave the cache (the model does not check a per-slot
+    index).  ``submit`` keeps k + 1 rows of headroom.  With ``eos_id`` a
+    request retires in the round it emits eos; later accepted tokens are
+    dropped.  Slots join and retire at round boundaries; ``stats['rounds']``
+    counts rounds and ``stats['accepted_tokens']`` the tokens they emitted.
+    """
+
+    _STEP = "rounds"
+    _EXTRA_STATS = ("accepted_tokens",)
+
+    def __init__(self, target, draft, *, max_batch: int = 4,
+                 prompt_buckets: Sequence[int] = (32, 128), k: int = 4,
+                 cache_dtype=torch.float32, temperature: float = 0.0,
+                 top_k: Optional[int] = None,
+                 rng: Optional[torch.Generator] = None,
+                 prefill_chunk: Optional[int] = 32, eos_id: Optional[int] = None,
+                 max_wait_ms: float = 2.0):
+        if k < 1:
+            raise ValueError("k must be >= 1")
+        if temperature > 0.0 and rng is None:
+            raise ValueError("temperature > 0 needs an rng (a torch.Generator)")
+        if target.vocab != draft.vocab:
+            raise ValueError("target and draft must share a vocab")
+        if target.device != draft.device:
+            raise ValueError("target and draft must be on one device")
+        if k + 2 >= min(target.max_len, draft.max_len):
+            raise ValueError(
+                f"k = {k} too large for max_len = "
+                f"{min(target.max_len, draft.max_len)}: need k + 2 < max_len "
+                "(k+1 verify rows plus a parked row must fit)")
+        self.target, self.draft, self.k = target, draft, k
+        sampled = temperature > 0.0
+        self._sample = (temperature, top_k, rng) if sampled else None
+        super().__init__(target, max_batch=max_batch, prompt_buckets=prompt_buckets,
+                         cache_dtype=cache_dtype, prefill_chunk=prefill_chunk,
+                         max_wait_ms=max_wait_ms, eos_id=eos_id,
+                         logits_to_token=make_sampler(temperature, top_k),
+                         rng=rng if sampled else None)
+
+    def _served_models(self) -> tuple:
+        return (self.target, self.draft)
+
+    def _park_position(self) -> int:
+        return self.max_len - self.k - 2  # a round writes k + 1 rows from pos
+
+    def _headroom(self) -> int:
+        return self.k + 1
+
+    def _model_caches(self, cache) -> tuple:
+        return tuple(cache)
+
+    def _engine_cache(self, caches):
+        return tuple(caches)
+
+    def _forward(self, cache, tokens, start):
+        tcache, dcache = cache
+        logits, tcache = self.target(tokens, cache=tcache, cache_index=start)
+        _, dcache = self.draft(tokens, cache=dcache, cache_index=start)
+        return logits, (tcache, dcache)
+
+    def _run_step(self):
+        """One speculative round of every slot, with one host read (the
+        emitted rows and accepted counts)."""
+        pos = torch.as_tensor(self._pos, dtype=torch.int32).to(self.device)
+        emit, m = _spec_round(self.target, self.draft, *self._cache, self._tok,
+                              pos, self.k, self._sample)
+        self._tok = emit[torch.arange(self.max_batch, device=self.device), m]
+        host = torch.cat([emit, m[:, None].to(emit.dtype)], 1).cpu().numpy()
+        counts = host[:, -1].astype(np.int64) + 1
+        self._pos = np.minimum(self._pos + counts, self._park)
+        return host[:, :-1], counts

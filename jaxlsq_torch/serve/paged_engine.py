@@ -1,5 +1,6 @@
-"""Paged continuous-batching decode engine (port of ``PagedPrefix`` and
-``PagedDecodeEngine`` from ``jaxlsq/serve/paged_engine.py``).
+"""Paged continuous-batching decode engines (port of ``PagedPrefix``,
+``PagedDecodeEngine`` and ``PagedSpeculativeDecodeEngine`` from
+``jaxlsq/serve/paged_engine.py``).
 
 :class:`PagedDecodeEngine` keeps :class:`~jaxlsq_torch.serve.decode.DecodeEngine`'s
 dispatcher (token-level continuous batching, chunked admission, prefix
@@ -27,6 +28,10 @@ garbage there, and reads through it sit at key positions the causal mask
 kills.  Paged and dense caches hold identical bytes for the same tokens and
 the paged kernel gives the dense kernel's bits, so this engine gives
 ``DecodeEngine``'s tokens for the same request stream.
+
+:class:`PagedSpeculativeDecodeEngine` is ``SpeculativeDecodeEngine`` over the
+same machinery: the target and the draft decode in position lockstep, so one
+allocator and ONE table tensor serve both models' pools.
 """
 
 from __future__ import annotations
@@ -37,10 +42,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .decode import DecodeEngine, Prefix, _GenRequest, _PendingAdmit
+from .decode import (DecodeEngine, Prefix, SpeculativeDecodeEngine, _GenRequest,
+                     _PendingAdmit)
 from .paged import PageAllocator, init_paged_cache, with_table
 
-__all__ = ["PagedDecodeEngine", "PagedPrefix"]
+__all__ = ["PagedDecodeEngine", "PagedPrefix", "PagedSpeculativeDecodeEngine"]
 
 
 class PagedPrefix(Prefix):
@@ -77,6 +83,11 @@ class PagedDecodeEngine(DecodeEngine):
                     "window_pages_freed")
 
     def __init__(self, model, *, num_pages: int, page_size: int = 1024, **kwargs):
+        self._init_pages(num_pages, page_size)
+        self._window = model.attn_window
+        super().__init__(model, **kwargs)
+
+    def _init_pages(self, num_pages: int, page_size: int) -> None:
         if page_size < 1:
             raise ValueError("page_size must be >= 1")
         if num_pages < 1:
@@ -84,24 +95,31 @@ class PagedDecodeEngine(DecodeEngine):
         self.page_size = int(page_size)
         self.num_pages = int(num_pages)
         self._deferred: list = []  # FIFO of page-starved requests
-        self._window = model.attn_window
-        super().__init__(model, **kwargs)
 
     # --------------------------------------------------------- device state
 
     def _build_device_state(self, cache_dtype):
+        """Page pools for every served model, all layers of all of them on
+        one table tensor."""
         ps = self.page_size
         self._pps = -(-self.max_len // ps)  # table width (logical pages)
         self._dummy = self.num_pages
         self._alloc = PageAllocator(self.num_pages)
         self._table = np.full((self.max_batch, self._pps), self._dummy, np.int32)
-        self._cache = init_paged_cache(
-            self.model, self.max_batch, page_size=ps,
-            num_pages=self.num_pages + 1, dtype=cache_dtype, table=self._table)
-        self._dev_table = self._cache[0].table  # shared by every layer
-        self._pos = np.full((self.max_batch,), self.max_len - 1, np.int64)
+        caches = []
+        for m in self._served_models():
+            c = init_paged_cache(m, self.max_batch, page_size=ps,
+                                 num_pages=self.num_pages + 1, dtype=cache_dtype,
+                                 max_len=self.max_len, table=self._table)
+            caches.append(with_table(c, caches[0][0].table) if caches else c)
+        self._cache = self._engine_cache(caches)
+        self._dev_table = caches[0][0].table  # shared by every layer
+        self._pos = np.full((self.max_batch,), self._park, np.int64)
         self._tok = torch.zeros((self.max_batch,), dtype=torch.int32,
                                 device=self.device)
+
+    def _layers(self) -> list:
+        return [layer for c in self._model_caches(self._cache) for layer in c]
 
     def _sync_table(self):
         """Install the host table on the device (admission and retirement
@@ -110,20 +128,18 @@ class PagedDecodeEngine(DecodeEngine):
 
     def _row_cache(self, row: np.ndarray):
         """The engine's pools seen through a one-row table (a B=1 chunk)."""
-        return with_table(self._cache, torch.as_tensor(
-            row.reshape(1, self._pps)).to(self.device))
+        t = torch.as_tensor(row.reshape(1, self._pps)).to(self.device)
+        return self._engine_cache([with_table(c, t)
+                                   for c in self._model_caches(self._cache)])
 
-    def _run_final_chunk(self, slot_cache, tokens, start: int, true_len: int,
-                         slot: int):
-        """The last admission chunk: the rows already sit in the slot's
-        pages, so activation is the first token alone (no copy)."""
-        logits, _ = self.model(tokens, cache=slot_cache, cache_index=start)
-        return self._pick_tok(logits[0, true_len - 1 - start][None])[0]
+    def _install(self, slot_cache, slot: int) -> None:
+        """Nothing to copy: the admission's rows already sit in the slot's
+        pages."""
 
     def _copy_page(self, src: int, dst: int):
         """pool[dst] = pool[src] in every pool of every layer (a partial
         prefix page materialized for one admission)."""
-        for layer in self._cache:
+        for layer in self._layers():
             for pool in (layer.kp, layer.vp, layer.ks, layer.vs):
                 if pool is not None:
                     pool[dst].copy_(pool[src])
@@ -132,9 +148,11 @@ class PagedDecodeEngine(DecodeEngine):
 
     def _pages_needed(self, size: int, n_new: int, prefix) -> int:
         """Fresh pages an admission allocates: from the first page it does
-        not share through the last position it will ever write."""
+        not share through the last position it will ever write (the
+        verify headroom included)."""
         base = prefix.length if prefix is not None else 0
-        end = base + max(self._padded_admit_len(size), size + n_new)
+        end = base + max(self._padded_admit_len(size),
+                         size + n_new + self._headroom())
         shared = base // self.page_size if prefix is not None else 0
         return -(-end // self.page_size) - shared
 
@@ -161,11 +179,11 @@ class PagedDecodeEngine(DecodeEngine):
                 self._run_final_chunk(sc, toks, 0, 1, 0)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-            for layer in self._cache:
+            for layer in self._layers():
                 for pool in (layer.kp, layer.vp, layer.ks, layer.vs):
                     if pool is not None:
                         pool.zero_()
-            self._pos[:] = self.max_len - 1
+            self._pos[:] = self._park
             self._tok.zero_()
 
     @torch.no_grad()
@@ -193,9 +211,9 @@ class PagedDecodeEngine(DecodeEngine):
             raise
         return PagedPrefix(tokens, int(tokens.size), self, pages, self.page_size)
 
-    def _check_prefix(self, prefix, n_models: int):
+    def _check_prefix(self, prefix):
         if not isinstance(prefix, PagedPrefix):
-            raise ValueError("prefix must come from PagedDecodeEngine."
+            raise ValueError(f"prefix must come from {type(self).__name__}."
                              "register_prefix()")
         if prefix.owner is not self:
             raise ValueError("prefix was registered on a different engine; call "
@@ -283,7 +301,7 @@ class PagedDecodeEngine(DecodeEngine):
         self._pending.append(_PendingAdmit(
             req=req, slot=slot, slot_cache=self._row_cache(row),
             n_chunks=n_chunks, padded=padded, c=c,
-            steps_at_start=self.stats["steps"], base=base))
+            steps_at_start=self.stats[self._STEP], base=base))
 
     def _advance_admission(self, p: _PendingAdmit):
         """One chunk into the slot's pages; a failed admission gives its
@@ -360,3 +378,33 @@ class PagedDecodeEngine(DecodeEngine):
                 req.future.cancel()
         super()._cancel_pending()
 
+
+
+class PagedSpeculativeDecodeEngine(PagedDecodeEngine, SpeculativeDecodeEngine):
+    """:class:`SpeculativeDecodeEngine` over paged KV memory: every round
+    advances all slots by a draft-propose / target-verify step, and both
+    models' caches live in page pools.  The two decode in position
+    lockstep, so ONE allocator and ONE table tensor serve both (page p backs
+    the same positions in the target's and the draft's pools): sharing,
+    deferral and retirement are :class:`PagedDecodeEngine`'s, and a prefix's
+    pages and a partial page's copy cover both pools.  Needs
+    ``target.max_len == draft.max_len`` (one table, one page grid).  A
+    request reserves pages through ``prompt + n_new + k + 1`` rows.  Slid
+    pages are not freed (the JAX package's engine frees none either).
+
+    Args: ``target``, ``draft``, ``num_pages`` and ``page_size`` as
+    :class:`PagedDecodeEngine`, the rest as :class:`SpeculativeDecodeEngine`.
+    """
+
+    _EXTRA_STATS = PagedDecodeEngine._EXTRA_STATS + SpeculativeDecodeEngine._EXTRA_STATS
+
+    def __init__(self, target, draft, *, num_pages: int, page_size: int = 1024,
+                 **kwargs):
+        if target.max_len != draft.max_len:
+            raise ValueError(
+                "paged speculative serving shares ONE block table between the "
+                f"target and draft pools: max_len must match (got "
+                f"{target.max_len} vs {draft.max_len})")
+        self._init_pages(num_pages, page_size)
+        self._window = None
+        SpeculativeDecodeEngine.__init__(self, target, draft, **kwargs)

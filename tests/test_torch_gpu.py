@@ -2325,3 +2325,148 @@ def test_checkpoint_restored_after_a_capture_resumes_bit_for_bit(cuda, tmp_path)
                 assert torch.equal(o.state[p][k], oo.state[q][k]), k
     finally:
         _restore_flags(flags)
+
+
+# ------------------------------------------------------------ decode features
+
+def _served_lm(dev, dim, depth, heads, seed, wbits=8, variables=None):
+    """A serve-mode LM (vocab 256, max_len 64) on ``dev`` with seeded
+    variables (or ``variables``, a tree of tensors on any device)."""
+    m = QuantTransformerLM(256, dim, depth, heads, default_qconfig(wbits, 8).for_serving(),
+                           max_len=64, device=dev)
+    if variables is None:
+        variables = init_variables(m, seed=seed)
+    interop.load_variables(m, _on(variables, dev))
+    return m, variables
+
+
+def _on(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _on(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.gpu
+def test_speculative_greedy_equals_greedy_on_card(cuda):
+    """Speculative greedy (k = 3, a weak draft and the target itself) and both
+    speculative engines give make_generate's B = 1 tokens on the card, and the
+    verify's k + 1 rows are the t = 1 steps' rows bit for bit."""
+    from jaxlsq_torch.serve import (PagedSpeculativeDecodeEngine, SpeculativeDecodeEngine,
+                                    make_speculative_generate, prefill)
+
+    target, draft = _served_lm(cuda, 128, 2, 4, 1)[0], _served_lm(cuda, 64, 1, 2, 2)[0]
+    r = np.random.RandomState(3)
+    prompt = torch.as_tensor(r.randint(0, 256, size=(1, 8)), device=cuda)
+    want = make_generate(target, 8, 40)(prompt)
+    for d in (draft, target):
+        assert torch.equal(make_speculative_generate(target, d, 8, 40, k=3)(prompt), want)
+    seq = torch.cat([prompt, want.long()], 1)
+    _, cache, _ = prefill(target, seq[:, :20])
+    steps = []
+    with torch.no_grad():
+        for j in range(4):
+            logits, cache = target(seq[:, 20 + j:21 + j], cache=cache, cache_index=20 + j)
+            steps.append(logits[:, 0])
+        _, cache, _ = prefill(target, seq[:, :20])
+        verify = target(seq[:, 20:24], cache=cache, cache_index=20)[0]
+    assert torch.equal(torch.stack(steps, 1), verify)
+    reqs = [(r.randint(0, 256, size=r.randint(3, 17)), int(r.randint(4, 12)))
+            for _ in range(5)]
+    for eng in (SpeculativeDecodeEngine(target, draft, max_batch=4, prompt_buckets=(8, 16),
+                                        k=3, cache_dtype=torch.bfloat16),
+                PagedSpeculativeDecodeEngine(target, draft, num_pages=12, page_size=16,
+                                             max_batch=4, prompt_buckets=(8, 16), k=3,
+                                             cache_dtype=torch.bfloat16)):
+        with eng:
+            outs = [f.result(timeout=300) for f in [eng.submit(p, n) for p, n in reqs]]
+        for (p, n), got in zip(reqs, outs):
+            want = make_generate(target, len(p), n, cache_dtype=torch.bfloat16)(
+                torch.as_tensor(p, device=cuda)[None])
+            np.testing.assert_array_equal(got, want[0].cpu().numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wbits", [8, 4])
+def test_beam_search_on_card(cuda, wbits):
+    """beams=1 equals greedy; beam-4's score is its tokens' teacher-forced
+    joint log-prob within 1e-4 of its magnitude; tokens equal the CPU's."""
+    from jaxlsq_torch.serve import make_beam_search
+
+    m, variables = _served_lm(cuda, 128, 2, 4, 5, wbits)
+    prompt = torch.as_tensor(np.random.RandomState(4).randint(0, 256, size=(3, 8)),
+                             device=cuda)
+    for cdt in (torch.bfloat16, torch.int8):
+        toks, _ = make_beam_search(m, 8, 10, beams=1, cache_dtype=cdt)(prompt)
+        assert torch.equal(toks, make_generate(m, 8, 10, cache_dtype=cdt)(prompt))
+    toks, scores = make_beam_search(m, 8, 10, beams=4)(prompt)
+    with torch.no_grad():
+        logp = torch.log_softmax(m(torch.cat([prompt, toks.long()], 1))[:, 7:-1], -1)
+    ref = torch.gather(logp, 2, toks.long()[..., None])[..., 0].sum(1)
+    assert float(((scores - ref).abs() / ref.abs()).max()) <= 1e-4
+    cpu, _ = _served_lm("cpu", 128, 2, 4, 5, wbits, variables)
+    ctoks, cscores = make_beam_search(cpu, 8, 10, beams=4)(prompt.cpu())
+    assert torch.equal(toks.cpu(), ctoks)
+    torch.testing.assert_close(scores.cpu(), cscores, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_qat_decode_on_card_matches_cpu(cuda):
+    """A QAT-mode LM (observers off) decodes through its cache branch on the
+    card: logits within 1e-4 of max|ref| of the CPU's, every quantizer
+    tensor unchanged by make_generate."""
+    from jaxlsq_torch.models import disable_observer
+    from jaxlsq_torch.serve import prefill
+
+    qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=1)
+    models = [QuantTransformerLM(256, 128, 2, 4, qc, max_len=64, pos_embedding="rope",
+                                 device=dev, seed=7) for dev in (cuda, "cpu")]
+    tree = interop.qat_variables(models[0])
+    interop.load_qat_variables(models[1], tree)
+    for m in models:
+        disable_observer(m)
+    before = {k: v.clone() for k, v in models[0].state_dict().items()}
+    prompt = torch.as_tensor(np.random.RandomState(6).randint(0, 256, size=(2, 8)))
+    toks = make_generate(models[0], 8, 12)(prompt.to(cuda))
+    assert all(torch.equal(v, models[0].state_dict()[k]) for k, v in before.items())
+    seq = torch.cat([prompt, toks.cpu().long()], 1)
+    rows = []
+    for m in models:
+        last, cache, _ = prefill(m, seq[:, :8].to(m.device))
+        out = [last]
+        with torch.no_grad():
+            for t in range(8, seq.shape[1] - 1):
+                logits, cache = m(seq[:, t:t + 1].to(m.device), cache=cache, cache_index=t)
+                out.append(logits[:, 0])
+        rows.append(torch.stack(out, 1).cpu())
+    assert float((rows[0] - rows[1]).abs().max()) <= 1e-4 * float(rows[1].abs().max())
+
+
+@pytest.mark.gpu
+def test_serving_engine_replays_one_graph_a_bucket(cuda):
+    """ServingEngine on the card: a bucket is captured once at first use and
+    then replayed; each result is the bits of the eager forward of its padded
+    bucket batch."""
+    from jaxlsq_torch.serve import ServingEngine
+
+    m, _ = _served_lm(cuda, 128, 1, 4, 8)
+
+    def fn(x):
+        return m(x)[:, -1]
+
+    x = np.random.RandomState(9).randint(0, 256, size=(11, 8)).astype(np.int64)
+    with ServingEngine(fn, (8,), max_batch=4, dtype=torch.int64, device=cuda) as eng:
+        [f.result(timeout=120) for f in eng.submit_many(list(x))]
+        first = len(eng.stats["batch_sizes"])
+        res = [f.result(timeout=120) for f in eng.submit_many(list(x))]
+        sizes = list(eng.stats["batch_sizes"])
+        used = {eng._bucket_for(n) for n in sizes}
+        assert all(eng.captures[b] == 1 for b in used)
+        assert sum(eng.captures.values()) == len(used)
+    i = 0
+    for n in sizes[first:]:
+        pad = np.zeros((eng._bucket_for(n), 8), np.int64)
+        pad[:n] = x[i:i + n]
+        with torch.no_grad():
+            want = fn(torch.as_tensor(pad, device=cuda)).cpu().numpy()
+        np.testing.assert_array_equal(np.stack(res[i:i + n]), want[:n])
+        i += n

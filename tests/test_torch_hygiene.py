@@ -25,9 +25,10 @@ MODULES = [
     "jaxlsq_torch.serve", "jaxlsq_torch.serve.pack", "jaxlsq_torch.serve.convert",
     "jaxlsq_torch.serve.matmul", "jaxlsq_torch.serve.attention",
     "jaxlsq_torch.serve.decode", "jaxlsq_torch.serve.paged",
-    "jaxlsq_torch.serve.paged_engine", "jaxlsq_torch.interop",
+    "jaxlsq_torch.serve.paged_engine", "jaxlsq_torch.serve.engine", "jaxlsq_torch.interop",
     "jaxlsq_torch.lab", "jaxlsq_torch.lab.int4_kernel_lab", "jaxlsq_torch.lab.timing",
     "jaxlsq_torch.lab.accuracy_parity", "jaxlsq_torch.lab.stock_resnet",
+    "jaxlsq_torch.lab.speculative_decode",
     "jaxlsq_torch.utils", "jaxlsq_torch.utils.bn", "jaxlsq_torch.utils.checkpoint",
 ]
 

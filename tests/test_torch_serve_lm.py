@@ -189,9 +189,11 @@ def test_init_variables_mirrors_flax_init():
 def test_unported_paths_raise():
     qc = default_qconfig(8, 8)
     qat = QuantTransformerLM(VOCAB, DIM, 1, HEADS, qc, max_len=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="serve"):
-        qat(torch.zeros((1, 1), dtype=torch.int32), cache=init_kv_cache(qat, 1),
-            cache_index=0)
+    # the QAT-mode cache branch is ported: an eval forward that keeps no state
+    tok = torch.zeros((1, 1), dtype=torch.int32)
+    logits, _ = qat(tok, cache=init_kv_cache(qat, 1), cache_index=0)
+    qat.eval()
+    torch.testing.assert_close(logits, qat(tok), rtol=1e-5, atol=1e-5)
     with pytest.raises(NotImplementedError, match="MoE"):
         QuantTransformerLM(VOCAB, DIM, 1, HEADS, qc.for_serving(), device="cpu",
                            moe_experts=4)
