@@ -4,9 +4,10 @@ slice, paged-KV serving of a group-wise int4 LM, the QAT training slice, its
 single-program (CUDA-graph) step, long-context LSQ QAT of the LM through
 the flash-attention kernels, then serving the trained LM; jaxlsq's headline
 fake-quant fwd+bwd chain through the fused kernel, the int4 kernel lab, the
-conv nets' train-then-serve, the observers, a stock third-party model, and
-the decode features (QAT decode, beam search, speculative decoding and its
-engines, ServingEngine).
+conv nets' train-then-serve, the observers, a stock third-party model, the
+decode features (QAT decode, beam search, speculative decoding and its
+engines, ServingEngine), and the int8 x int8 serving path and the quantized
+MoE.
 
     python3 chip_smoke.py [--record PATH]
 
@@ -231,6 +232,33 @@ exits non-zero on any failure (no phase is caught and skipped):
    the CPU's tokens, or a tie); ``ServingEngine`` over a calibrated w8a8
    ``mobilenetv2_cifar``: one CUDA graph a bucket, each result the bits of
    the eager forward of its padded batch.
+17. the int8 x int8 path and the MoE: ``act_quant_i8`` and ``i8mm``
+   (``csrc/int8_matmul.cu``) bit-equal to their plain versions and across
+   two runs at every (M, K, N) of INT8_MS x INT8_KS x INT8_NS (signed and
+   shifted unsigned activations; per-channel, per-tensor and affine
+   weights; the dynamic mode), on NaN, +-inf and zeros, over E = 8 expert
+   stacks with per-expert qparams and at mobilenetv2's conv shapes
+   (symmetric and affine); the fake-quant kernels at the MoE LM's
+   per-expert shapes (phase 2's gates); then, every launch count reset:
+   the d1024 x 4 LM at w8, calibrated on 4 token batches and served
+   'static_int8' (prefill logits within 1e-4 of max|ref| of 'static', a
+   dense layer's input a level over handed over as deviation 14, at most
+   1e-4 of the elements) and 'dynamic' (``make_generate`` at B = 1 and 8;
+   every dynamic matmul of a decode step within 2e-2 of x @ dequant(W));
+   decode tokens/s beside 'none' and the kernels a token; w8a8
+   mobilenetv2_cifar at B = 128 (every conv and the classifier bit-equal to
+   their plain versions, one ``i8mm`` and one ``act_quant_i8`` a layer,
+   logits within 5e-3 of 'static'; ``ServingEngine`` over it, a graph a
+   bucket, replays = eager); the d1024 x 4 MoE LM (8 experts of 4096, top
+   2, capacity 1.25) trained MOE_STEPS steps at B = 8, t = 256 eager and
+   captured from one state, equal leaf by leaf, its aux loss finite and
+   positive and its dropped picks printed; converted at w8 and w4 expert
+   stacks and served at capacity E / top_k: ``make_generate`` at B = 1 and
+   8 within 1e-4 of the full forward, ``DecodeEngine`` = B = 1 decodes,
+   'static_int8' within 1e-4 of 'static' (routing picks handed over only at
+   a near-tie of the reference's gates, at most 1e-3 of the tokens); then
+   both kernels timed at the d1024 shapes beside ``wo8`` and
+   ``torch._int_mm``.
 
 Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes the full
@@ -315,6 +343,16 @@ SPEC_B, SPEC_TARGET_STEPS, SPEC_DRAFT_STEPS = 64, 100, 300
 SPEC_REQUESTS, SPEC_PAGE, SPEC_PAGES = 16, 16, 24
 BEAMS, ENGINE_REQUESTS, ENGINE_MAX_B, ENGINE_PASSES = 4, 200, 64, 4
 MAX_DECODE_MOVED = 1e-4  # of a QAT decode's activation elements (deviation 14's CPU rule)
+# the int8 x int8 path and the MoE (phase 17): ragged shapes for the kernels,
+# the d1024 x 4 LM with 8 experts of 4 x 1024 hidden units, top-2 routing
+INT8_MS, INT8_KS, INT8_NS = (1, 5, 17, 256), (27, 1000, 1024, 4096), (10, 36, 1024, 4096)
+INT8_KERNELS = ("act_quant_i8", "i8mm")
+INT8_TIMED_MS = (1, 8, 256)
+MOE_E, MOE_TOP_K, MOE_CF, MOE_B, MOE_T, MOE_STEPS = 8, 2, 1.25, 8, 256, 6
+MOE_SERVE_CF = MOE_E / MOE_TOP_K  # capacity never binds: routing per token
+INT8_N1, INT8_N2 = 16, 64  # the decode slope of phase 17, one round (cut from 16 -> 208)
+MAX_ROUTE_HANDED = 1e-3  # of the tokens: routing picks handed over at a near-tie
+ROUTE_TIE = 1e-5
 
 
 def reset_counts():
@@ -4229,6 +4267,813 @@ def phase_decode_features(torch, rec):
             raise AssertionError(f"kernel {k} was never launched on the decode-features path")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the int8 x int8 serving path and the quantized MoE
+
+
+def _int8_pack(torch, shape, g, per_channel=True, affine=False):
+    """A seeded int8 pack of a (K, N) weight or an HWIO conv kernel (per
+    output channel) or an (E, K, N) stack (per expert); ``affine`` gives
+    zero points off 0."""
+    from jaxlsq_torch.core.spec import QuantSpec
+    from jaxlsq_torch.serve.pack import quantize_weight
+
+    axis = 0 if len(shape) == 3 else len(shape) - 1
+    qmax = 127
+    spec = QuantSpec(quant_min=-qmax - 1, quant_max=qmax, type_min=-qmax - 1, type_max=qmax,
+                     per_channel=per_channel, axis=axis)
+    w = torch.randn(shape, device="cuda", generator=g) * shape[-2] ** -0.5
+    red = tuple(a for a in range(len(shape)) if a != axis)
+    amax = w.abs().amax(red) if per_channel else w.abs().amax().reshape(1)
+    scale = amax / (qmax * 0.9)
+    shift = (torch.randn(scale.shape, device="cuda", generator=g) * scale * 9 if affine
+             else torch.zeros_like(scale))
+    return quantize_weight(w, scale, shift, spec, bits=8)
+
+
+def _equal_twice(torch, fn, plain, what):
+    """``fn()`` twice and ``plain()``: the same bits, or raise."""
+    a, b, want = fn(), fn(), plain()
+    torch.cuda.synchronize()
+    for got in (a, b):
+        got = got if isinstance(got, tuple) else (got,)
+        ref = want if isinstance(want, tuple) else (want,)
+        for x, y in zip(got, ref):
+            if not _same_bits(torch, x, y):
+                raise AssertionError(f"{what}: the kernel differs from its plain version "
+                                     f"({float((x.double() - y.double()).abs().nan_to_num(1.0).max())})")
+
+
+def _check_int8_kernels(torch, rec):
+    """act_quant_i8 and i8mm against their plain versions on the card, bit for
+    bit and the same bits on two runs: every (M, K, N) of INT8_MS x INT8_KS x
+    INT8_NS with signed per-channel, unsigned (shifted) per-tensor and
+    unsigned affine weights, the dynamic mode; NaN, +-inf and zeros; the
+    experts' batched product (E = 8, per-expert qparams) at the MoE LM's
+    shapes; mobilenetv2's stem, depthwise and 1 x 1 shapes with symmetric
+    and affine weights.  Then the fake-quant kernels at the MoE LM's
+    per-expert shapes (phase 2's gates)."""
+    from jaxlsq_torch.models import default_qconfig
+    from jaxlsq_torch.serve.matmul import (act_quant_i8, act_quant_i8_plain,
+                                           dynamic_int8_matmul, dynamic_int8_matmul_plain,
+                                           static_int8_bmm, static_int8_bmm_plain,
+                                           static_int8_conv,
+                                           static_int8_conv_plain, static_int8_matmul,
+                                           static_int8_matmul_plain)
+
+    t0 = time.time()
+    g = torch.Generator(device="cuda").manual_seed(170)
+    acts = {"signed": (-128, 127, -3), "unsigned": (0, 255, 131)}
+    sx = torch.tensor([0.037], device="cuda")
+    n_cases = 0
+    for k in INT8_KS:
+        for n in INT8_NS:
+            packs = {"per_channel": _int8_pack(torch, (k, n), g),
+                     "per_tensor": _int8_pack(torch, (k, n), g, per_channel=False),
+                     "affine": _int8_pack(torch, (k, n), g, affine=True)}
+            for m in INT8_MS:
+                x = torch.randn(m, k, device="cuda", generator=g) * 2
+                for wname, act in (("per_channel", "signed"), ("per_tensor", "unsigned"),
+                                   ("affine", "unsigned"), ("affine", "signed")):
+                    qmin, qmax, zp = acts[act]
+                    z = torch.tensor([zp], dtype=torch.int32, device="cuda")
+                    p = packs[wname]
+                    _equal_twice(torch, lambda: static_int8_matmul(x, p, sx, z, qmin, qmax),
+                                 lambda: static_int8_matmul_plain(x, p, sx, z, qmin, qmax),
+                                 f"static_int8_matmul M={m} K={k} N={n} {wname} {act}")
+                    n_cases += 1
+                for wname in ("per_channel", "affine"):
+                    p = packs[wname]
+                    _equal_twice(torch, lambda: dynamic_int8_matmul(x, p),
+                                 lambda: dynamic_int8_matmul_plain(x, p),
+                                 f"dynamic_int8_matmul M={m} K={k} N={n} {wname}")
+                    n_cases += 1
+    for shape in ((1, 27), (17, 1000), (256, 4096), (8, 640, 1024)):
+        x = torch.randn(shape, device="cuda", generator=g) * 3
+        for special in (None, float("nan"), float("inf"), -float("inf"), 0.0):
+            xs = x.clone()
+            if special == 0.0:
+                xs.zero_()
+            elif special is not None:
+                xs.view(-1)[7] = special
+            for act in ("signed", "unsigned"):
+                qmin, qmax, zp = acts[act]
+                z = torch.tensor([zp], dtype=torch.int32, device="cuda")
+                _equal_twice(torch, lambda: act_quant_i8(xs, sx, z, qmin, qmax),
+                             lambda: act_quant_i8_plain(xs, sx, z, qmin, qmax),
+                             f"act_quant_i8 {shape} {act} {special}")
+            _equal_twice(torch, lambda: act_quant_i8(xs, dynamic=True),
+                         lambda: act_quant_i8_plain(xs, dynamic=True),
+                         f"act_quant_i8 {shape} dynamic {special}")
+            n_cases += 3
+    for (k, n), c in [(kn, c) for kn in ((DIM, 4 * DIM), (4 * DIM, DIM)) for c in (1, 37, 640)]:
+        x = torch.randn(MOE_E, c, k, device="cuda", generator=g)
+        for per_expert in (True, False):
+            p = _int8_pack(torch, (MOE_E, k, n), g, per_channel=per_expert, affine=per_expert)
+            z = torch.tensor([128], dtype=torch.int32, device="cuda")
+            _equal_twice(torch,
+                         lambda: static_int8_bmm(x, p.data, p.scale, p.zero_point, sx, z,
+                                                 0, 255),
+                         lambda: static_int8_bmm_plain(x, p.data, p.scale, p.zero_point, sx,
+                                                       z, 0, 255),
+                         f"static_int8_bmm E={MOE_E} C={c} K={k} N={n}")
+            n_cases += 1
+    convs = ((3, 32, 1, 3, 1, 32), (32, 32, 32, 3, 1, 32), (96, 96, 96, 3, 2, 32),
+             (144, 144, 144, 3, 1, 8), (32, 16, 1, 1, 1, 32), (960, 320, 1, 1, 1, 4),
+             (320, 1280, 1, 1, 1, 4))
+    for cin, cout, groups, kk, stride, hw in convs:
+        x = torch.randn(8, cin, hw, hw, device="cuda", generator=g)
+        for affine in (False, True):
+            p = _int8_pack(torch, (kk, kk, cin // groups, cout), g, affine=affine)
+            z = torch.tensor([128], dtype=torch.int32, device="cuda")
+            kw = dict(strides=(stride, stride), padding="SAME", feature_group_count=groups)
+            _equal_twice(torch, lambda: static_int8_conv(x, p, sx, z, 0, 255, **kw),
+                         lambda: static_int8_conv_plain(x, p, sx, z, 0, 255, **kw),
+                         f"static_int8_conv {cin}->{cout} groups {groups} {kk}x{kk} "
+                         f"stride {stride} {hw}x{hw} affine={affine}")
+            n_cases += 1
+    for k in INT8_KERNELS:
+        rec["max_abs_err"][k] = 0.0
+    # the fake-quant kernels at the per-expert shapes: the weight stacks on
+    # axis 0 (8 channels of 4 Mi elements) and the expert activations
+    qc = default_qconfig(8, 8, per_channel_weights=True)
+    wspec = qc.weight_for_axis(0).spec
+    aspec = qc.activation.spec
+    worst = 0.0
+    for shape, spec in (((MOE_E, DIM, 4 * DIM), wspec), ((MOE_E, 4 * DIM, DIM), wspec),
+                        ((MOE_E, 640, DIM), aspec), ((MOE_E, 640, 4 * DIM), aspec)):
+        x = torch.randn(shape, device="cuda", generator=g) * (0.02 if spec is wspec else 1.0)
+        c = MOE_E if spec.per_channel else 1
+        s = (x.abs().amax(dim=(1, 2)) if spec.per_channel else x.abs().amax().reshape(1)) / 100
+        b = (torch.zeros(c, device="cuda") if spec is wspec
+             else torch.full((1,), -0.4, device="cuda"))
+        gr = torch.randn(shape, device="cuda", generator=g)
+        for traced in (False, True):
+            worst = max(worst, _check_fq(torch, x, s, b, gr, spec, rec["max_abs_err"],
+                                         f"MoE {tuple(shape)}", traced))
+    log(f"[check] act_quant_i8 and i8mm: {n_cases} cases bit-equal to their plain versions "
+        f"and across two runs (static_int8_matmul over M {INT8_MS} x K {INT8_KS} x N "
+        f"{INT8_NS}, signed / unsigned activations, per-channel / per-tensor / affine "
+        f"weights; dynamic; NaN, +-inf, zeros; E={MOE_E} per-expert stacks; mobilenetv2's "
+        f"stem, depthwise and 1x1 convs, symmetric and affine); fake-quant kernels at the "
+        f"MoE shapes (per-expert weights on axis 0, expert activations): forward and dX "
+        f"bit-exact, dS/dB worst {worst:.2e} of their term sums; {time.time() - t0:.1f} s")
+
+
+class _Handover:
+    """Deviation 14's hand-over for served models.  ``run(fn)`` runs the
+    model with pre-hooks that keep the inputs of its quantized layers
+    (``QuantConv``, ``QuantDense``, a ``QuantMoE``'s input at its
+    ``experts_up`` qparams, each ``_ExpertDense``) in call order, and the
+    gates of every routing call.  ``run(fn, take=True)`` on a hand-over
+    given those records (``ref``, ``gates``): where an input element
+    quantizes to another level than the reference's (one level at most, or
+    it raises) the reference's value is handed over and counted; a token
+    whose top-k experts differ from the reference's is handed the
+    reference's gates if the reference's k-th and (k+1)-th gates lie within
+    ROUTE_TIE (counted), and raises otherwise.  ``rows`` maps a call's rows
+    to the reference's (a decode step's position), ``experts`` takes the
+    expert layers too (same shapes: one full forward against another)."""
+
+    def __init__(self, torch, model):
+        from jaxlsq_torch.models import QuantConv, QuantDense, QuantMoE
+        from jaxlsq_torch.models.moe import _ExpertDense
+
+        self.torch, self.model = torch, model
+        self.mods = [(n, m) for n, m in model.named_modules()
+                     if isinstance(m, QuantMoE) or (isinstance(m, (QuantConv, QuantDense,
+                                                                   _ExpertDense))
+                                                    and m.aspec is not None)]
+        self._lead = None
+        self.ref, self.gates = {}, []
+        self.moved = [0, 0]
+        self.routes = [0, 0]
+
+    @staticmethod
+    def _levels(torch, mod, x):
+        from jaxlsq_torch.serve.matmul import act_quant_i8_plain
+
+        q = mod.experts_up if hasattr(mod, "experts_up") else mod
+        return act_quant_i8_plain(x, q.act_scale, q.act_zp, q.aspec.quant_min,
+                                  q.aspec.quant_max)[0].to(torch.int16)
+
+    def run(self, fn, take=False, rows=None, experts=True):
+        import jaxlsq_torch.models.moe as moe_mod
+
+        torch = self.torch
+        calls = {n: 0 for n, _ in self.mods}
+        route_calls = [0]
+        plain_route = moe_mod.route
+
+        def pre(n, mod, args):
+            x = args[0]
+            if not take:
+                self.ref.setdefault(n, []).append(x.detach().clone())
+                return None
+            i = calls[n]
+            calls[n] += 1
+            is_expert = type(mod).__name__ == "_ExpertDense"
+            if is_expert and not experts:
+                return None
+            # one reference forward: a decode's every call maps to it
+            ref = self.ref[n][i % len(self.ref[n])]
+            if rows is not None and not is_expert:
+                ref = rows(ref)
+            if ref.shape != x.shape:
+                raise AssertionError(f"[handover] {n}: shape {tuple(x.shape)} against the "
+                                     f"reference's {tuple(ref.shape)}")
+            d = self._levels(torch, mod, x) - self._levels(torch, mod, ref)
+            if int(d.abs().max()) > 1:
+                raise AssertionError(f"[handover] {n}: an input quantizes "
+                                     f"{int(d.abs().max())} levels from the reference's")
+            far = d != 0
+            self.moved[0] += int(far.sum())
+            self.moved[1] += x.numel()
+            if bool(far.any()) and not hasattr(self, "first"):
+                self.first = n
+            return (torch.where(far, ref, x),) + tuple(args[1:])
+
+        def route(gates, top_k, capacity):
+            if not take:
+                self.gates.append(gates.detach().clone())
+                return plain_route(gates, top_k, capacity)
+            ref = self.gates[route_calls[0] % len(self.gates)]
+            route_calls[0] += 1
+            if rows is not None:  # (B * T, E) -> the call's (b, t) rows
+                ref = rows(ref.reshape(*self._lead, -1)).reshape(-1, ref.shape[-1])
+            picks = torch.sort(gates, dim=-1, descending=True, stable=True)[1][:, :top_k]
+            rvals, rpicks = torch.sort(ref, dim=-1, descending=True, stable=True)
+            same = (picks.sort(-1)[0] == rpicks[:, :top_k].sort(-1)[0]).all(-1)
+            self.routes[1] += gates.shape[0]
+            if not bool(same.all()):
+                tie = (rvals[:, top_k - 1] - rvals[:, top_k]).abs() <= ROUTE_TIE
+                if bool((~same & ~tie).any()):
+                    raise AssertionError("[handover] a routing pick differs from the "
+                                         "reference's away from a near-tie")
+                self.routes[0] += int((~same).sum())
+                gates = torch.where(same[:, None], gates, ref)
+            return plain_route(gates, top_k, capacity)
+
+        hooks = [m.register_forward_pre_hook(lambda mod, a, n=n: pre(n, mod, a))
+                 for n, m in self.mods]
+        moe_mod.route = route
+        try:
+            with torch.no_grad():
+                return fn()
+        finally:
+            moe_mod.route = plain_route
+            for h in hooks:
+                h.remove()
+
+
+def _handed_over(torch, ref_model, model, x):
+    """``model(x)`` handed over (``_Handover``) against ``ref_model(x)``:
+    the two outputs and the hand-over."""
+    ref = _Handover(torch, ref_model)
+    want = ref.run(lambda: ref_model(x))
+    hand = _Handover(torch, model)
+    hand.ref, hand.gates = ref.ref, ref.gates
+    return hand.run(lambda: model(x), take=True), want, hand
+
+
+def _decode_handover(torch, model, seq, t0):
+    """The served ``model``'s prefill of ``seq[:, :t0]`` and decode steps over
+    the rest, handed over (``_Handover``) against its own full forward of
+    ``seq``: the decode logits of positions t0 - 1 .. len - 2, the full
+    forward's, and the hand-over."""
+    from jaxlsq_torch.serve import prefill
+
+    hand = _Handover(torch, model)
+    full = hand.run(lambda: model(seq))
+    b, length = seq.shape
+    hand._lead = (b, length)
+    cur = [0, t0]
+
+    def rows(ref):  # (B, T, ...) -> the call's positions
+        return ref[:, cur[0]:cur[1]]
+
+    def decode():
+        last, cache, idx = prefill(model, seq[:, :t0])
+        out = [last]
+        for t in range(t0, length - 1):
+            cur[:] = [t, t + 1]
+            logits, cache = model(seq[:, t:t + 1], cache=cache, cache_index=t)
+            out.append(logits[:, 0])
+        return torch.stack(out, 1)
+
+    dec = hand.run(decode, take=True, rows=rows, experts=False)
+    return dec, full[:, t0 - 1:length - 1], hand
+
+
+def _int8_dense_lm(torch, card):
+    """The d1024 x 4 LM at w8: QAT variables drawn from a seed, calibrated on 4
+    seeded token batches, converted and served 'none', 'static',
+    'static_int8' and 'dynamic'."""
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.models import QuantDense, QuantTransformerLM, calibrate, default_qconfig
+    from jaxlsq_torch.serve.matmul import wo_matmul_plain
+
+    out = {}
+    qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=1)
+    qat = QuantTransformerLM(VOCAB, DIM, DEPTH, HEADS, qc, max_len=240, device="cuda", seed=17)
+    g = torch.Generator(device="cuda").manual_seed(171)
+    calibrate(qat, [torch.randint(0, VOCAB, (4, 64), device="cuda", generator=g)
+                    for _ in range(4)])
+    tree = interop.qat_variables(qat)
+    del qat
+    served = {}
+    for mode in ("none", "static", "static_int8", "dynamic"):
+        served[mode] = QuantTransformerLM(VOCAB, DIM, DEPTH, HEADS, qc.for_serving(mode),
+                                          max_len=240, device="cuda")
+        interop.load_variables(served[mode], tree)
+    prompt = torch.randint(0, VOCAB, (2, 96), device="cuda", generator=g)
+    # 'static_int8' against 'static': the prefill logits, handed over
+    got, want, hand = _handed_over(torch, served["static"], served["static_int8"], prompt)
+    err = float((got - want).abs().max())
+    tol = 1e-4 * float(want.abs().max())
+    out["static_int8_vs_static"] = {"max_abs_err": err, "tol": tol, "moved": hand.moved,
+                                    "first_moved": getattr(hand, "first", None)}
+    log(f"[int8] d1024x4 LM, w8, calibrated: 'static_int8' prefill logits (B=2, t=96) vs "
+        f"'static' max_abs_err {err:.3e} (tol {tol:.3e}); {hand.moved[0]} of {hand.moved[1]} "
+        f"dense-layer input elements quantized one level over and handed over (first: "
+        f"{getattr(hand, 'first', None)})")
+    if not err <= tol or hand.moved[0] > MAX_DECODE_MOVED * hand.moved[1]:
+        raise AssertionError(f"[int8] static_int8 vs static: {err} > {tol} or "
+                             f"{hand.moved} moved")
+    # 'dynamic': every dynamic_int8_matmul of one decode step within 2e-2 of
+    # x @ dequant(W) (the JAX package's bound); the logits against 'none'
+    from jaxlsq_torch.serve import make_generate, prefill
+
+    worst = [0.0, 0]
+
+    def check(mod, inp, y):
+        ref = wo_matmul_plain(inp[0], mod.kernel.packed())
+        if mod.bias is not None:
+            ref = ref + mod.bias
+        worst[0] = max(worst[0], float((y - ref).abs().max() / ref.abs().max()))
+        worst[1] += 1
+
+    dyn = served["dynamic"]
+    for b in (1, 8):
+        toks = make_generate(dyn, 32, 16, cache_dtype=torch.bfloat16)(prompt[:1].repeat(b, 1)[:, :32])
+        if toks.shape != (b, 16):
+            raise AssertionError(f"[int8] dynamic generate gave {tuple(toks.shape)}")
+    hooks = [m.register_forward_hook(check) for m in dyn.modules() if isinstance(m, QuantDense)]
+    try:
+        with torch.no_grad():
+            last, cache, idx = prefill(dyn, prompt[:, :32])
+            worst[:] = [0.0, 0]
+            dyn(prompt[:, 32:33], cache=cache, cache_index=32)
+    finally:
+        for h in hooks:
+            h.remove()
+    with torch.no_grad():
+        ld, ln = served["dynamic"](prompt), served["none"](prompt)
+    rel = float((ld - ln).abs().max() / ln.abs().max())
+    out["dynamic"] = {"decode_step_worst_rel": worst[0], "calls": worst[1],
+                      "logits_rel_vs_none": rel}
+    log(f"[int8] 'dynamic': generate at B=1 and 8; the {worst[1]} dynamic_int8_matmul calls "
+        f"of one decode step within {worst[0]:.3e} of x @ dequant(W) relative (bound 2e-2); "
+        f"prefill logits relative error vs 'none' {rel:.3e}")
+    if not worst[0] <= 2e-2 or worst[1] != 4 * DEPTH + 1:
+        raise AssertionError(f"[int8] dynamic matmuls off: {worst}")
+    tps = {}
+    for mode in ("none", "static_int8", "dynamic"):
+        tps[mode], _, _ = _slope_tps(torch, served[mode], 1, prompt[:1, :T0], torch.bfloat16,
+                                     n1=INT8_N1, n2=INT8_N2, rounds=1)
+    out["kernels_a_token"] = _kernels_per_step(
+        torch, lambda n: make_generate(served["static_int8"], T0, n,
+                                       cache_dtype=torch.bfloat16)(prompt[:1, :T0]),
+        INT8_N1 // 4, INT8_N1)
+    out["tokens_per_s_b1"] = tps
+    log(f"[int8] decode tokens/s at B=1 (slope {INT8_N1} -> {INT8_N2}, bf16 cache): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in tps.items())
+        + f"; 'static_int8' {out['kernels_a_token']:.1f} kernels a token ({card})")
+    return out
+
+
+def _int8_mnv2(torch, mm, card):
+    """mobilenetv2_cifar at w8a8, calibrated on 4 grating batches, served
+    'static' and 'static_int8' at B = 128; ServingEngine over the int8 net."""
+    import numpy as np
+
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.lab.accuracy_parity import make_batch
+    from jaxlsq_torch.models import QuantConv, QuantDense, calibrate, mobilenetv2_cifar
+    from jaxlsq_torch.serve import ServingEngine
+    from jaxlsq_torch.serve.matmul import static_int8_conv_plain, static_int8_matmul_plain
+
+    out = {}
+    model = _mnv2(torch, "cuda", 8)
+    g = torch.Generator(device="cuda").manual_seed(172)
+    calibrate(model, [make_batch(MNV2_B, g, "cuda")[0] for _ in range(4)])
+    tree, qc = interop.qat_variables(model), model.qconfig
+    del model
+    nets = {}
+    for mode in ("static", "static_int8"):
+        nets[mode] = mobilenetv2_cifar(MNV2_CLASSES, qc.for_serving(mode), device="cuda")
+        interop.load_variables(nets[mode], tree)
+        nets[mode].eval()
+    net = nets["static_int8"]
+    images = make_batch(MNV2_B, g, "cuda")[0]
+    n_conv = sum(isinstance(m, QuantConv) for m in net.modules())
+    # every layer's kernels against their plain versions at B = 128
+    bad = []
+
+    def check(mod, inp, y):
+        x = inp[0]
+        a = (mod.act_scale, mod.act_zp, mod.aspec.quant_min, mod.aspec.quant_max)
+        if isinstance(mod, QuantConv):
+            ref = static_int8_conv_plain(x, mod.kernel.packed(), *a, strides=mod.strides,
+                                         padding=mod.padding, feature_group_count=mod.groups)
+            ref = ref + mod.bias[:, None, None] if mod.bias is not None else ref
+        else:
+            ref = static_int8_matmul_plain(x, mod.kernel.packed(), *a)
+            ref = ref + mod.bias if mod.bias is not None else ref
+        if not torch.equal(y, ref):
+            bad.append(type(mod).__name__)
+
+    hooks = [m.register_forward_hook(check) for m in net.modules()
+             if isinstance(m, (QuantConv, QuantDense))]
+    try:
+        with torch.no_grad():
+            net(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    if bad:
+        raise AssertionError(f"[int8] mobilenetv2 layers differ from their plain versions: {bad}")
+    before = dict(mm)
+    with torch.no_grad():
+        logits = net(images)
+    torch.cuda.synchronize()
+    launches = {k: mm[k] - before[k] for k in mm}
+    out["launches_a_forward"] = launches
+    if not (launches["i8mm"] == launches["act_quant_i8"] == n_conv + 1
+            and launches["wo8"] == 0 and torch.isfinite(logits).all()):
+        raise AssertionError(f"[int8] mobilenetv2 static_int8 forward launched {launches} "
+                             f"({n_conv} convs and the classifier)")
+    got, want, hand = _handed_over(torch, nets["static"], net, images)
+    err = float((got - want).abs().max())
+    ok = bool(((got - want).abs() <= 5e-3 + 5e-3 * want.abs()).all())
+    out["static_int8_vs_static"] = {"max_abs_err": err, "moved": hand.moved,
+                                    "first_moved": getattr(hand, "first", None)}
+    log(f"[int8] mobilenetv2_cifar w8a8 at B={MNV2_B}: every conv and the classifier "
+        f"bit-equal to their plain versions; a forward launches {launches['i8mm']} i8mm and "
+        f"{launches['act_quant_i8']} act_quant_i8 ({n_conv} convs + classifier), no wo8; "
+        f"'static_int8' vs 'static' logits max_abs_err {err:.3e} (tol 5e-3 + 5e-3 |ref|), "
+        f"{hand.moved[0]} of {hand.moved[1]} layer-input elements a level over, handed over")
+    if not ok:
+        raise AssertionError(f"[int8] mobilenetv2 static_int8 vs static: {err}")
+    # ServingEngine captures the int8 path, a graph a bucket
+    reqs = make_batch(48, g, "cuda")[0].cpu().numpy()
+    r = np.random.RandomState(173)
+    with ServingEngine(net, reqs.shape[1:], max_batch=16) as eng:
+        futs, i = [], 0
+        while i < len(reqs):
+            k = int(r.randint(1, 17))
+            futs += eng.submit_many(list(reqs[i:i + k]))
+            i += k
+            time.sleep(0.002)
+        res = [f.result(timeout=300) for f in futs]
+        sizes = list(eng.stats["batch_sizes"])
+        caps = dict(eng.captures)
+    j = 0
+    for k in sizes:
+        b = eng._bucket_for(k)
+        x = np.zeros((b,) + reqs.shape[1:], np.float32)
+        x[:k] = reqs[j:j + k]
+        with torch.no_grad():
+            w = net(torch.as_tensor(x, device="cuda")).cpu().numpy()
+        if not np.array_equal(np.stack(res[j:j + k]), w[:k]):
+            raise AssertionError(f"[int8] ServingEngine bucket {b}: replay != eager")
+        j += k
+    used = {eng._bucket_for(k) for k in sizes}
+    if any(caps[b] != (1 if b in used else 0) for b in caps):
+        raise AssertionError(f"[int8] ServingEngine captures {caps} (used {sorted(used)})")
+    out["engine"] = {"batches": sizes, "captures": caps}
+    log(f"[int8] ServingEngine over the static_int8 net: {len(reqs)} requests in "
+        f"{len(sizes)} batches, buckets {sorted(used)} captured once each, every result the "
+        f"eager forward of its padded batch bit for bit ({card})")
+    return out
+
+
+def _moe_model(torch, qc, device, cf):
+    """The d1024 x 4 MoE LM at capacity ``cf`` (QAT mode: drawn from seed 19)."""
+    from jaxlsq_torch.models import QuantTransformerLM
+
+    return QuantTransformerLM(VOCAB, DIM, DEPTH, HEADS, qc, max_len=MOE_T, device=device,
+                              moe_experts=MOE_E, moe_top_k=MOE_TOP_K, moe_capacity_factor=cf,
+                              seed=19)
+
+
+def _moe_probe(torch, model, batch):
+    """A frozen no-grad forward of the QAT MoE LM on ``batch``: the aux terms
+    it records and the routing picks dropped at its capacity."""
+    import jaxlsq_torch.models.moe as moe_mod
+    from jaxlsq_torch.models.layers import FakeQuantize, collect_losses, quant_state_frozen
+
+    plain = moe_mod.route
+    drops = [0, 0]
+
+    def route(gates, k, c):
+        d, cmb = plain(gates, k, c)
+        drops[0] += gates.shape[0] * k - int(d.sum())
+        drops[1] += gates.shape[0] * k
+        return d, cmb
+
+    moe_mod.route = route
+    try:
+        with quant_state_frozen([m for m in model.modules() if isinstance(m, FakeQuantize)]):
+            with collect_losses() as terms, torch.no_grad():
+                model(batch["input"])
+    finally:
+        moe_mod.route = plain
+    return [float(t) for t in terms], drops
+
+
+def _moe_lm(torch, card):
+    """The d1024 x 4 MoE LM (8 experts, top-2): 6 steps from one state, eager
+    and captured, equal leaf by leaf; converted at w8 and w4 stacks and
+    served at capacity E / top_k."""
+    import copy
+
+    import numpy as np
+
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.models import default_qconfig
+    from jaxlsq_torch.parallel import make_train_step
+
+    out = {}
+    qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=2)
+    models = [_moe_model(torch, qc, "cuda", MOE_CF) for _ in range(2)]
+    opts = [_sgd(torch, m) for m in models]
+    steps = [make_train_step(m, o, jit=j) for m, o, j in zip(models, opts, (False, True))]
+    g = torch.Generator(device="cuda").manual_seed(174)
+    batches = []
+    for _ in range(MOE_STEPS):
+        x = torch.randint(0, VOCAB, (MOE_B, MOE_T + 1), device="cuda", generator=g)
+        batches.append({"input": x[:, :-1].contiguous(), "label": x[:, 1:].contiguous()})
+    losses, unequal, probes = [], [], []
+    t_train = time.time()
+    for i, batch in enumerate(batches):
+        aux, drops = _moe_probe(torch, models[0], batch)
+        if not (len(aux) == DEPTH and all(math.isfinite(a) and a > 0 for a in aux)):
+            raise AssertionError(f"[moe] aux loss terms {aux}")
+        probes.append({"aux": aux, "dropped_picks": drops})
+        pair = [s(batch)["loss"] for s in steps]
+        losses.append([float(v) for v in pair])
+        states = [{"loss": v, **_train_state(m, o)} for v, m, o in zip(pair, models, opts)]
+        for name, a in states[0].items():
+            if not torch.equal(a, states[1][name]):
+                unequal.append({"step": i + 1, "leaf": name})
+    torch.cuda.synchronize()
+    train_s = time.time() - t_train
+    _graph_of(steps[1])
+    for _ in range(2):  # the captured step's time (replays)
+        steps[1](batches[0])
+    torch.cuda.synchronize()
+    s = time.perf_counter()
+    for b in batches[:3]:
+        steps[1](b)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - s) / 3
+    out["train"] = {"losses": losses, "unequal": unequal, "probes": probes,
+                    "step_ms_captured": step_ms, "wall_s": train_s}
+    log(f"[moe] d1024x4 LM, {MOE_E} experts top-{MOE_TOP_K}, capacity {MOE_CF}, B={MOE_B}, "
+        f"t={MOE_T}: {MOE_STEPS} steps eager and captured from one state, losses {losses}; "
+        f"{len(unequal)} leaves not bit-equal; aux terms "
+        f"{[round(sum(p['aux']), 5) for p in probes]}; picks dropped a step "
+        f"{[p['dropped_picks'][0] for p in probes]} of {probes[0]['dropped_picks'][1]}; a "
+        f"captured step {step_ms:.1f} ms ({card})")
+    if unequal:
+        raise AssertionError(f"[moe] eager and captured steps differ: {unequal[:5]}")
+    tree = interop.qat_variables(models[0])
+    del models, opts, steps
+    torch.cuda.empty_cache()
+    # w4 stacks: the experts re-quantized at 4 bits (per-expert |w|max / 7)
+    qc4 = default_qconfig(4, 8, per_channel_weights=True, init_batches=2)
+    tree4 = dict(tree, qparams=copy.deepcopy(tree["qparams"]))
+    for i in range(DEPTH):
+        for sub in ("experts_up", "experts_down"):
+            w = tree["params"][f"block{i}"]["moe"][sub]["kernel"]
+            qp = tree4["qparams"][f"block{i}"]["moe"][sub]["weight_fq"]["qp"]
+            qp["scale"] = (np.abs(w).max(axis=(1, 2)) / 7).astype(np.float32)
+    legs = {}
+    for wbits, qcw, t in ((8, qc, tree), (4, qc.with_overrides({"moe": qc4}), tree4)):
+        legs[f"w{wbits}"] = _moe_serve(torch, qcw, t, wbits, card)
+    out["serve"] = legs
+    return out
+
+
+def _moe_serve(torch, qc, tree, wbits, card):
+    """The MoE LM served at capacity E / top_k: make_generate greedy at B = 1
+    and 8, its decode logits within 1e-4 of the full forward (handed over);
+    DecodeEngine over 8 staggered requests equal to their B = 1 decodes;
+    'static_int8' within 1e-4 of 'static' (handed over); tokens/s."""
+    import numpy as np
+
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.serve import DecodeEngine, make_generate
+    from jaxlsq_torch.serve.matmul import LAUNCHES as MM
+
+    out = {}
+    served = {}
+    for mode in ("static", "static_int8"):
+        served[mode] = _moe_model(torch, qc.for_serving(mode), "cuda", MOE_SERVE_CF)
+        interop.load_variables(served[mode], tree)
+    sm = served["static"]
+    packs = sm.block0.moe.experts_up.kernel
+    if packs.bits != wbits:
+        raise AssertionError(f"[moe] w{wbits}: the expert stack packed at {packs.bits} bits")
+    g = torch.Generator(device="cuda").manual_seed(175 + wbits)
+    prompt = torch.randint(0, VOCAB, (8, 32), device="cuda", generator=g)
+    handed = [0, 0, 0, 0]
+    worst = 0.0
+    for b in (1, 8):
+        before = dict(MM)
+        toks = make_generate(sm, 32, 16, cache_dtype=torch.float32)(prompt[:b])
+        key = "wo8" if wbits == 8 else "wo4"
+        if MM[key] - before[key] <= 0:
+            raise AssertionError(f"[moe] w{wbits}: generate launched no {key}")
+        seq = torch.cat([prompt[:b], toks.to(prompt.dtype)], 1)
+        dec, full, hand = _decode_handover(torch, sm, seq, 32)
+        err = float((dec - full).abs().max())
+        tol = 1e-4 * float(full.abs().max())
+        worst = max(worst, err / tol)
+        handed = [handed[0] + hand.moved[0], handed[1] + hand.moved[1],
+                  handed[2] + hand.routes[0], handed[3] + hand.routes[1]]
+        if not err <= tol:
+            raise AssertionError(f"[moe] w{wbits} B={b}: decode logits vs the full forward "
+                                 f"{err} > {tol}")
+    # DecodeEngine: 8 staggered requests, each equal to its own B = 1 decode
+    r = np.random.RandomState(176)
+    reqs = [(prompt[i, :int(r.randint(4, 33))].cpu().numpy(), int(r.randint(4, 17)))
+            for i in range(8)]
+    with DecodeEngine(sm, max_batch=8, prompt_buckets=(32,)) as eng:
+        futs = []
+        for p, n in reqs:
+            futs.append(eng.submit(p, n))
+            time.sleep(0.003)
+        got = [f.result(timeout=300) for f in futs]
+    for (p, n), toks in zip(reqs, got):
+        want = make_generate(sm, len(p), n)(torch.as_tensor(p[None], device="cuda"))
+        if not np.array_equal(np.asarray(toks), want[0].cpu().numpy()):
+            raise AssertionError(f"[moe] w{wbits}: an engine request differs from its "
+                                 "B=1 decode")
+    # 'static_int8' against 'static' (the int8 experts unpack an int4 stack)
+    before = dict(MM)
+    got, want, hand = _handed_over(torch, sm, served["static_int8"], prompt[:2])
+    i8 = MM["i8mm"] - before["i8mm"]
+    err = float((got - want).abs().max())
+    tol = 1e-4 * float(want.abs().max())
+    handed = [handed[0] + hand.moved[0], handed[1] + hand.moved[1],
+              handed[2] + hand.routes[0], handed[3] + hand.routes[1]]
+    tps = None
+    if wbits == 8:  # the w4 stacks decode the same way
+        tps, _, _ = _slope_tps(torch, sm, 1, prompt[:1], torch.float32, n1=INT8_N1,
+                               n2=INT8_N2, rounds=1)
+    out = {"decode_vs_full_worst_of_tol": worst, "engine_requests": len(reqs),
+           "int8_vs_static_err": err, "int8_vs_static_tol": tol, "i8mm_a_forward": i8,
+           "moved": handed[:2], "routes_handed": handed[2:], "tokens_per_s_b1": tps}
+    log(f"[moe] w{wbits} stacks, capacity {MOE_SERVE_CF}: generate at B=1 and 8, decode "
+        f"logits within {worst:.2f} of the 1e-4 tolerance of the full forward; DecodeEngine "
+        f"over 8 staggered requests = their B=1 decodes; 'static_int8' vs 'static' "
+        f"{err:.3e} (tol {tol:.3e}, {i8} i8mm a forward); {handed[0]} of {handed[1]} "
+        f"activation elements and {handed[2]} of {handed[3]} routed tokens handed over; "
+        + (f"decode {tps:.1f} tokens/s at B=1 " if tps else "") + f"({card})")
+    if not err <= tol or i8 != 4 * DEPTH + 1:
+        raise AssertionError(f"[moe] w{wbits} static_int8 vs static {err} > {tol} or "
+                             f"{i8} i8mm launches")
+    if handed[0] > MAX_DECODE_MOVED * handed[1] or handed[2] > MAX_ROUTE_HANDED * handed[3]:
+        raise AssertionError(f"[moe] w{wbits}: too many handed over: {handed}")
+    return out
+
+
+def _time_int8(torch, card):
+    """act_quant_i8 and i8mm (static epilogue) at the d1024 LM's five layer
+    shapes, M = 1, 8, 256: device µs beside wo8 on the same weight,
+    torch._int_mm (where it takes the shape: M > 16), the plain versions and
+    the bounds (bytes at 3.35 TB/s; int8 operations at 1,979 TOPS)."""
+    from jaxlsq_torch.serve.matmul import (_i8mm, act_quant_i8, act_quant_i8_plain,
+                                           wo_matmul)
+
+    g = torch.Generator(device="cuda").manual_seed(177)
+    rows = []
+    sx = torch.tensor([0.03], device="cuda")
+    z = torch.tensor([128], dtype=torch.int32, device="cuda")
+    for layer, (k, n) in WO_SHAPES.items():
+        p = _int8_pack(torch, (k, n), g)
+        wbytes = k * n + 8 * n
+        packs = [p] + [dataclasses.replace(p, data=p.data.clone(), scale=p.scale.clone(),
+                                           zero_point=p.zero_point.clone())
+                       for _ in range(copies_for(wbytes) - 1)]
+        for m in INT8_TIMED_MS:
+            x = torch.randn(m, k, device="cuda", generator=g)
+            xq, qx = act_quant_i8(x, sx, z, 0, 255)
+
+            def i2(q, xq=xq, qx=qx):
+                return _i8mm(xq[None], q.data[None], qx, q.scale, q.zero_point, "static",
+                             (0, 1), plain=False)
+
+            def i2_plain(q, xq=xq, qx=qx):
+                return _i8mm(xq[None], q.data[None], qx, q.scale, q.zero_point, "static",
+                             (0, 1), plain=True)
+
+            xs = [x] + [x.clone() for _ in range(copies_for(4 * m * k) - 1)]
+            i1_ms, _ = measure(lambda a: act_quant_i8(a, sx, z, 0, 255), [(a,) for a in xs])
+            i1_plain, _ = measure(lambda a: act_quant_i8_plain(a, sx, z, 0, 255),
+                                  [(a,) for a in xs], reps=10)
+            i2_ms, _ = measure(i2, [(q,) for q in packs])
+            i2p_ms, _ = measure(i2_plain, [(q,) for q in packs], reps=5)
+            wo_ms, _ = measure(wo_matmul, [(x, q) for q in packs])
+            lib = None
+            if m > 16:  # the yardstick only: a refusal is logged, not fatal
+                try:
+                    lib, _ = measure(torch._int_mm, [(xq, q.data) for q in packs])
+                except RuntimeError as e:
+                    log(f"[time] torch._int_mm refused M={m} K={k} N={n}: {e}")
+            i1_b = bound(5 * m * k, 0)  # 4 bytes read, 1 written an element
+            nbytes = m * k + wbytes + 4 * m * n + 8
+            tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, 2 * m * k * n / 1979e12 * 1e3
+            rows.append({"layer": layer, "M": m, "K": k, "N": n, "i1_ms": i1_ms,
+                         "i1_plain_ms": i1_plain, "i1_bound_ms": i1_b[0], "i2_ms": i2_ms,
+                         "i2_plain_ms": i2p_ms, "i2_bound_ms": max(tb, tf),
+                         "i2_bound_by": "bytes" if tb >= tf else "operations",
+                         "wo8_ms": wo_ms, "int_mm_ms": lib, "bytes": nbytes})
+    by_m = {}
+    for m in INT8_TIMED_MS:
+        rs = [r for r in rows if r["M"] == m]
+        by_m[m] = {k: sum(r[k] for r in rs) for k in ("i1_ms", "i2_ms", "wo8_ms", "i1_bound_ms",
+                                                        "i2_bound_ms", "i1_plain_ms",
+                                                        "i2_plain_ms")}
+        libs = [r["int_mm_ms"] for r in rs]
+        by_m[m]["int_mm_ms"] = sum(libs) if all(v is not None for v in libs) else None
+        log(f"[time] d1024 layers summed at M={m}: act_quant_i8 {by_m[m]['i1_ms'] * 1e3:.2f} us "
+            f"(bound {by_m[m]['i1_bound_ms'] * 1e3:.2f}), i8mm {by_m[m]['i2_ms'] * 1e3:.2f} us "
+            f"(bound {by_m[m]['i2_bound_ms'] * 1e3:.2f}), wo8 {by_m[m]['wo8_ms'] * 1e3:.2f} us, "
+            f"torch._int_mm "
+            + (f"{by_m[m]['int_mm_ms'] * 1e3:.2f} us" if by_m[m]["int_mm_ms"] else "refused")
+            + f"; plain {by_m[m]['i1_plain_ms'] * 1e3:.1f} / {by_m[m]['i2_plain_ms'] * 1e3:.1f} us"
+            f" ({card})")
+    return {"rows": rows, "by_m": by_m}
+
+
+def phase_int8_moe(torch, rec):
+    """Phase 17: the kernels' checks, then with every count at 0 the dense
+    LM's int8 modes, mobilenetv2's int8 serving and the MoE LM; then the
+    kernels' times."""
+    out = rec["int8_moe"] = {}
+    t_start = time.time()
+    _check_int8_kernels(torch, rec)
+    legs = out["leg_s"] = {"checks": time.time() - t_start}
+    mm, attn, fq = reset_counts()
+    s = time.time()
+    out["dense_lm"] = _int8_dense_lm(torch, rec["card"])
+    legs["dense_lm"], s = time.time() - s, time.time()
+    out["mnv2"] = _int8_mnv2(torch, mm, rec["card"])
+    legs["mnv2"], s = time.time() - s, time.time()
+    out["moe"] = _moe_lm(torch, rec["card"])
+    torch.cuda.synchronize()
+    legs["moe"], s = time.time() - s, time.time()
+    out["launches"] = {**fq, **mm, **attn}
+    for k in INT8_KERNELS + ("wo8", "wo4", "fq_fwd_pt", "fq_fwd_pc", "fq_bwd_pt", "fq_bwd_pc",
+                             "fq_fwd_pt_traced", "fq_fwd_pc_traced", "decode_attention"):
+        if out["launches"][k] <= 0:
+            raise AssertionError(f"kernel {k} was never launched on the int8 / MoE path")
+    out["times"] = _time_int8(torch, rec["card"])
+    legs["times"] = time.time() - s
+    out["wall_s"] = time.time() - t_start
+    log(f"[int8] kernel launches on the int8 / MoE path: {out['launches']}; phase 17 took "
+        f"{out['wall_s']:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in legs.items()) + ")")
+
+
+def _int8_kernels_line(rec):
+    o = rec["int8_moe"]
+    m1 = o["times"]["by_m"][1]
+    m256 = o["times"]["by_m"][256]
+    out = []
+    for name, key, repl in (
+            ("act_quant_i8", "i1", "none (port-only; jaxlsq/serve/matmul.py:448-451 and "
+                                   ":597-600, the activation quantization of "
+                                   "static_int8_matmul and dynamic_int8_matmul, XLA)"),
+            ("i8mm", "i2", "none (port-only; jaxlsq/serve/matmul.py:415 static_int8_matmul, "
+                           ":471 static_int8_conv, :582 dynamic_int8_matmul, "
+                           "jaxlsq/models/moe.py:204 _ExpertDense._serve_int8: "
+                           "jax.lax.dot / conv_general_dilated in int32, XLA)")):
+        out.append({"name": name, "route": "cuda", "source": "jaxlsq_torch/csrc/int8_matmul.cu",
+                    "replaces": repl, "launches": o["launches"][name],
+                    "max_abs_err": rec["max_abs_err"][name], "ms": m1[f"{key}_ms"],
+                    "plain_ms": m1[f"{key}_plain_ms"], "bound_ms": m1[f"{key}_bound_ms"],
+                    "bound_by": "bytes", "library_ms": None,
+                    "by_m": {m: v for m, v in o["times"]["by_m"].items()},
+                    "library_ms_m256": m256["int_mm_ms"] if name == "i8mm" else None,
+                    "shape": "M=1, sum over qkv/proj/mlp_up/mlp_down/lm_head of the d1024 LM; "
+                             "library: torch._int_mm (refuses M<=16; by_m at M=256)"})
+    return out
+
+
 def _obs_kernels_line(rec):
     o = rec["observers"]
     big = max(o["times"]["rows"], key=lambda r: r["elements"])
@@ -4269,6 +5114,7 @@ def kernels_line(rec):
                     "convnet_launches": rec["convnet"]["launches"][name],
                     "third_party_launches": rec["third_party"]["launches"][name],
                     "decode_features_launches": rec["decode_features"]["launches"][name],
+                    "int8_moe_launches": rec["int8_moe"]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": sum(r["ms"] for r in rows),
                     "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -4315,6 +5161,7 @@ def kernels_line(rec):
                 "fold_launches": rec["launches"]["decode_attention_fold"],
                 "decode_features_launches":
                     rec["decode_features"]["launches"]["decode_attention"],
+                "int8_moe_launches": rec["int8_moe"]["launches"]["decode_attention"],
                 "max_abs_err": rec["max_abs_err"]["decode_attention"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -4336,6 +5183,7 @@ def kernels_line(rec):
                     "convnet_launches": rec["convnet"]["launches"][name],
                     "third_party_launches": rec["third_party"]["launches"][name],
                     "decode_features_launches": rec["decode_features"]["launches"][name],
+                    "int8_moe_launches": rec["int8_moe"]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -4398,6 +5246,7 @@ def kernels_line(rec):
                     "shape": f"B={r['B']}, H={r['H']}, t={r['t']}, hd={r['hd']}, causal, "
                              f"f32; bound: 3xTF32 on the tensor cores; library: {what}"})
     out.extend(_obs_kernels_line(rec))
+    out.extend(_int8_kernels_line(rec))
     return out
 
 
@@ -4445,6 +5294,7 @@ def main(argv):
     phase_observers(torch, rec)
     phase_third_party(torch, rec)
     phase_decode_features(torch, rec)
+    phase_int8_moe(torch, rec)
     rec["wall_s"] = time.time() - t0
     rec["profile_misses"] = PROFILE_MISSES
     rec["waiting_calls"] = WAITING_CALLS

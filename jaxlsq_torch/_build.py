@@ -22,7 +22,7 @@ __all__ = ["load_library", "check"]
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC"]
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream as
 # c_void_p: a bare Python int would be passed as a 32-bit int).
 _SIGNATURES = {
@@ -86,6 +86,13 @@ _SIGNATURES = {
     "jlt_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     # q, k, v, dout, lse, D, dq, dk, dv, BH, t, hd, sm_scale, stream
     "jlt_flash_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    # x, scale, zp, xq, qx, work, n, qmin, qmax, shift, dynamic, stream
+    "jlt_act_quant_i8": [_P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _I, _P],
+    # a, b, out, a_bstride, b_bstride, o_bstride, o_hw, o_mhi, o_mlo, o_n, lda,
+    # ldb, batch, M, N, K, qx, sw, zw, q_bstride, q_nstride, mode, window,
+    # vec_a, vec_b, stream
+    "jlt_i8mm": [_P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I, _I, _P, _P,
+                 _P, _I, _I, _I, _F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -33,7 +33,11 @@ of the port (``QuantResNet``, ``QuantMobileNetV2``, ``QuantCNN``,
 ``QuantMLP``, the QAT-mode ``QuantTransformerLM``, or any model of
 ``QuantConv``, ``QuantDense``, ``QuantEmbed``, ``BatchNorm``,
 ``nn.LayerNorm`` and ``FakeQuantize`` modules named as the flax modules are,
-plus a learned ``pos_emb`` parameter) and out again.  Conv kernels are HWIO
+plus a learned ``pos_emb`` parameter) and out again.  A ``QuantMoE``'s
+router is the JAX package's ``router/kernel`` (the Linear's weight
+transposed), its ``experts_up``/``experts_down`` the stacked (E, K, N)
+``kernel``, ``bias`` and quantizers (converted: the per-expert packs and
+activation qparams in ``quantized``).  Conv kernels are HWIO
 there and OIHW here (a depthwise (3, 3, 1, C) there is (C, 1, 3, 3) here);
 a per-channel conv weight's qparams are the same (C,) vectors (axis 3
 there, 0 here); the quantizers' counters, flags and observer count are
@@ -62,6 +66,7 @@ from torch.nn.modules.batchnorm import _BatchNorm
 from ._device import device_of
 from .models.layers import (FakeQuantize, QuantConv, QuantDense, QuantDenseGeneral,
                             QuantEmbed)
+from .models.moe import _ExpertDense
 from .models.norm import BatchNorm
 from .models.quantize import QuantConv2d, QuantEmbedding, QuantLinear
 from .models.zoo import QuantTransformerLM
@@ -169,9 +174,23 @@ def _load_lm(model, params, quant) -> None:
         q = _take(quant, name, "quantized")
         _layer_norm(blk.ln1, _take(p, "ln1", f"params/{name}"), f"{name}/ln1")
         _layer_norm(blk.ln2, _take(p, "ln2", f"params/{name}"), f"{name}/ln2")
-        for sub in ("qkv", "proj", "mlp_up", "mlp_down"):
-            _packed_layer(getattr(blk, sub), p.pop(sub, {}),
-                   _take(q, sub, f"quantized/{name}"), f"{name}/{sub}")
+        subs = [("qkv", blk.qkv), ("proj", blk.proj)]
+        if blk.moe is None:
+            subs += [("mlp_up", blk.mlp_up), ("mlp_down", blk.mlp_down)]
+        else:  # the float router from params, the expert stacks packed
+            pm, qm = p.pop("moe", {}), _take(q, "moe", f"quantized/{name}")
+            _float_layer(blk.moe.router, _take(pm, "router", f"params/{name}/moe"),
+                         f"{name}/moe/router")
+            for sub in ("experts_up", "experts_down"):
+                _packed_layer(getattr(blk.moe, sub), pm.pop(sub, {}),
+                              _take(qm, sub, f"quantized/{name}/moe"), f"{name}/moe/{sub}")
+            left = (_leftover(pm, f"params/{name}/moe")
+                    + _leftover(qm, f"quantized/{name}/moe"))
+            if left:
+                raise ValueError(f"unexpected variables {left}")
+        for sub, layer in subs:
+            _packed_layer(layer, p.pop(sub, {}), _take(q, sub, f"quantized/{name}"),
+                          f"{name}/{sub}")
         left = _leftover(p, f"params/{name}") + _leftover(q, f"quantized/{name}")
         if left:
             raise ValueError(f"unexpected variables {left}")
@@ -190,7 +209,7 @@ def _load_net(model, params, quant, stats) -> None:
     for name, mod in model.named_modules():
         path = tuple(name.split("."))
         where = "/".join(path)
-        if isinstance(mod, (QuantConv, QuantDense, QuantDenseGeneral, QuantEmbed)):
+        if isinstance(mod, (QuantConv, QuantDense, QuantDenseGeneral, QuantEmbed, _ExpertDense)):
             if mod.qat:
                 raise ValueError(f"{where} is a QAT-mode layer: load_variables fills "
                                  "a serve-mode model (load_qat_variables a QAT one)")
@@ -257,7 +276,7 @@ def _weight_views(mod):
                 lambda a: a.transpose(2, 3, 1, 0))
     if isinstance(mod, (QuantLinear, nn.Linear)):
         return mod.weight, "kernel", lambda a: a.T, lambda a: a.T
-    return mod.kernel, "kernel", *ident  # QuantDense, QuantDenseGeneral
+    return mod.kernel, "kernel", *ident  # QuantDense, QuantDenseGeneral, _ExpertDense
 
 
 def _float_layer(mod, p, where) -> None:
@@ -303,7 +322,7 @@ def _prune(tree):
 
 
 _KERNEL_LAYERS = (QuantConv, QuantDense, QuantDenseGeneral, QuantEmbed, QuantLinear,
-                  QuantConv2d, QuantEmbedding)
+                  QuantConv2d, QuantEmbedding, _ExpertDense)
 
 
 def _qat_modules(model):

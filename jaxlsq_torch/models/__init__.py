@@ -1,5 +1,6 @@
 from .calibrate import calibrate, enable_param_learning_all, set_static_estimate
 from .layers import FakeQuantize, QuantConv, QuantDense, QuantDenseGeneral, QuantEmbed, sow_loss
+from .moe import QuantMoE, load_balance_loss, route
 from .norm import BatchNorm
 from .qconfig import QConfig, default_qconfig
 from .quantize import QuantConv2d, QuantEmbedding, QuantLinear, quantize_model
@@ -24,4 +25,4 @@ __all__ = ["QConfig", "default_qconfig", "FakeQuantize", "QuantDense", "QuantCon
            "enable_fake_quant_on_act", "disable_fake_quant_on_act",
            "enable_observer_on_weights", "disable_observer_on_weights",
            "map_quant_state", "calibrate", "set_static_estimate",
-           "enable_param_learning_all"]
+           "enable_param_learning_all", "QuantMoE", "load_balance_loss", "route"]

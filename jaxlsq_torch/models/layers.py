@@ -32,12 +32,16 @@ QAT mode (fake-quant training):
   its forward (:func:`collect_losses`).
 
 Serve mode: :class:`QuantDense` holds a packed (K, N) kernel as buffers and
-runs the fused weight-only matmul (``serve.matmul.wo_matmul``);
+runs the fused weight-only matmul (``serve.matmul.wo_matmul``), or under
+``act_mode='static_int8'`` (an activation quantizer, per tensor) the int8 x
+int8 ``static_int8_matmul`` and under ``'dynamic'`` ``dynamic_int8_matmul``;
 :class:`QuantConv` holds its kernel packed in the JAX package's HWIO layout
 (per-channel axis 3, int4 along the in axis 2), dequantizes it at each
 forward and runs the convolution (plain PyTorch, as the JAX package's
-``conv_general_dilated``); :class:`QuantEmbed` holds an int8 table and
-dequantizes only the gathered rows; :class:`QuantDenseGeneral` runs its
+``conv_general_dilated``), or under ``'static_int8'`` the integer
+``static_int8_conv`` where the JAX package takes it (an int8 pack, symmetric
+weights, a per-tensor activation); :class:`QuantEmbed` holds an int8 table
+and dequantizes only the gathered rows; :class:`QuantDenseGeneral` runs its
 packed (K, N) view as :class:`QuantDense`.  All four are filled by
 :func:`jaxlsq_torch.interop.load_variables`.
 """
@@ -59,7 +63,8 @@ from ..observers.quantizer import (STATE_DTYPES, STATE_FIELDS, LSQQuantizer,
                                    QuantizerState)
 from ..ops.functional import fake_quant
 from ..serve.convert import serving_bits
-from ..serve.matmul import wo_matmul
+from ..serve.matmul import (conv_pads, dynamic_int8_matmul, same_padding,  # noqa: F401
+                             static_int8_conv, static_int8_matmul, wo_matmul)
 from ..serve.pack import PackedWeight, dequantize_weight
 from .qconfig import QConfig
 
@@ -355,7 +360,9 @@ class QuantDense(nn.Module):
     QAT mode: ``y = fq_w(W) applied to fq_a(x) + b``, with the input's
     quantizer over its last axis.  Serve mode: ``y = wo_matmul(x', W) + b``
     where x' is x (``act_mode='none'``) or its frozen fake-quant
-    (``'static'``).
+    (``'static'``); ``'static_int8'`` runs ``static_int8_matmul`` with the
+    converted activation qparams (``wo_matmul`` when the config quantizes no
+    activation), ``'dynamic'`` ``dynamic_int8_matmul``, as the JAX package.
     """
 
     def __init__(self, in_features: int, features: int, qconfig: QConfig, *,
@@ -390,10 +397,6 @@ def _serve_dense(mod: nn.Module, qc: QConfig, k: int, n: int, bias_shape, use_bi
                  device) -> None:
     """A serve-mode dense layer's buffers: the packed (K, N) ``kernel``
     (per-channel axis 1), the activation qparams over K and the bias."""
-    if qc.act_mode not in ("none", "static"):
-        raise NotImplementedError(
-            f"act_mode {qc.act_mode!r} (int8 x int8 matmuls) arrives with "
-            "the static/dynamic int8 slice")
     wspec = qc.required_weight_for_axis(1).spec
     mod.kernel = _PackedBuffers((k, n), serving_bits(wspec), 1, 0,
                                 n if wspec.per_channel else 1, device)
@@ -403,12 +406,22 @@ def _serve_dense(mod: nn.Module, qc: QConfig, k: int, n: int, bias_shape, use_bi
 
 
 def _serve_dense_forward(mod: nn.Module, x: torch.Tensor, shape=None) -> torch.Tensor:
-    """``wo_matmul`` of x (or its frozen fake-quant, ``act_mode='static'``)
-    with the packed kernel, reshaped to ``shape`` when given, plus the bias,
-    in x's dtype."""
-    if mod.aspec is not None and mod.act_mode == "static":
-        x = static_act_quant(x, mod.act_scale, mod.act_zp, mod.aspec)
-    y = wo_matmul(x, mod.kernel.packed())
+    """The packed kernel's product with x by ``act_mode``: ``wo_matmul`` of x
+    or its frozen fake-quant (``'static'``), ``static_int8_matmul``
+    (``'static_int8'``) or ``dynamic_int8_matmul`` (``'dynamic'``, with or
+    without an activation quantizer); reshaped to ``shape`` when given, plus
+    the bias, in x's dtype."""
+    packed = mod.kernel.packed()
+    aspec = mod.aspec
+    if mod.act_mode == "dynamic":
+        y = dynamic_int8_matmul(x, packed)
+    elif aspec is not None and mod.act_mode == "static_int8":
+        y = static_int8_matmul(x, packed, mod.act_scale, mod.act_zp, aspec.quant_min,
+                               aspec.quant_max)
+    else:
+        if aspec is not None and mod.act_mode == "static":
+            x = static_act_quant(x, mod.act_scale, mod.act_zp, aspec)
+        y = wo_matmul(x, packed)
     if shape is not None:
         y = y.reshape(shape)
     if mod.bias is not None:
@@ -476,15 +489,6 @@ class QuantDenseGeneral(nn.Module):
         return y if self.bias is None else y + self.bias
 
 
-def same_padding(size: int, k: int, stride: int) -> Tuple[int, int]:
-    """XLA's SAME padding of one spatial axis: ``ceil(size / stride)``
-    outputs, the odd pixel of padding after (a stride-2 3x3 conv on an even
-    size pads 0 before and 1 after; ``Conv2d(padding=1)`` would pad 1 and 1)."""
-    out = -(-size // stride)
-    total = max((out - 1) * stride + k - size, 0)
-    return total // 2, total - total // 2
-
-
 class QuantConv(nn.Module):
     """2-D convolution with LSQ weight and input-activation quantizers.
 
@@ -494,9 +498,11 @@ class QuantConv(nn.Module):
     package packs it, HWIO with per-channel axis 3 and int4 pairs along the
     in axis 2 (an odd in-axis pads one row), dequantized at each forward and
     permuted to OIHW; ``act_mode='static'`` fake-quantizes the input with the
-    converted qparams first, ``'none'`` leaves it; ``'dynamic'`` raises
-    ``ValueError`` as in the JAX package, and ``'static_int8'`` (the
-    int8 x int8 convolution) raises ``NotImplementedError``.
+    converted qparams first, ``'none'`` leaves it; ``'static_int8'`` runs the
+    int8 x int8 ``static_int8_conv`` for an int8 pack of symmetric weights
+    and a per-tensor activation quantizer, and otherwise falls back to
+    ``'static'`` (the JAX package's rule); ``'dynamic'`` raises
+    ``ValueError`` as in the JAX package.
     ``padding``: 'SAME' (XLA's rule, see :func:`same_padding`), 'VALID', or
     ``((top, bottom), (left, right))``; it is applied after the activation's
     quantization, as the JAX package pads inside the convolution.
@@ -535,11 +541,8 @@ class QuantConv(nn.Module):
         if qc.act_mode == "dynamic":
             raise ValueError("act_mode='dynamic' is not supported for conv layers; "
                              "use 'static' or 'none' for models containing QuantConv")
-        if qc.act_mode == "static_int8":
-            raise NotImplementedError(
-                "act_mode 'static_int8' (the int8 x int8 convolution) arrives "
-                "with the static/dynamic int8 slice")
         wspec = qc.required_weight_for_axis(3).spec
+        self.weight_symmetric = wspec.symmetric
         c = features if wspec.per_channel else 1
         self.kernel = _PackedBuffers(
             (self.kh, self.kw, in_features // feature_group_count, features),
@@ -551,8 +554,19 @@ class QuantConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.qat:
             return qat_conv2d(self, x, self.kernel, self.strides, self.padding, self.groups)
-        if self.aspec is not None and self.act_mode == "static":
-            x = static_act_quant(x, self.act_scale, self.act_zp, self.aspec, axis=1)
+        aspec = self.aspec
+        if aspec is not None and self.act_mode == "static_int8" and (
+                self.kernel.bits == 8 and self.weight_symmetric and not aspec.per_channel):
+            y = static_int8_conv(x, self.kernel.packed(), self.act_scale, self.act_zp,
+                                 aspec.quant_min, aspec.quant_max, strides=self.strides,
+                                 padding=self.padding, feature_group_count=self.groups)
+            if self.bias is not None:
+                y = y + self.bias[:, None, None]
+            return y.to(x.dtype)
+        if aspec is not None and self.act_mode in ("static", "static_int8"):
+            # the float-simulated path (also static_int8's fallback: per-channel
+            # activation qparams, affine or int4 weights)
+            x = static_act_quant(x, self.act_scale, self.act_zp, aspec, axis=1)
         w = dequantize_weight(self.kernel.packed(), x.dtype).permute(3, 2, 0, 1)
         return conv2d_padded(x, w, self.bias, self.strides, self.padding, self.groups)
 
@@ -574,14 +588,7 @@ def conv2d_padded(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor]
     """``F.conv2d`` of NCHW ``x`` and OIHW ``w`` with ``padding`` 'SAME'
     (XLA's rule, :func:`same_padding`), 'VALID' or ``((top, bottom), (left,
     right))``; an uneven pad goes through ``F.pad`` first."""
-    kh, kw = w.shape[2], w.shape[3]
-    if padding == "SAME":
-        (t, b), (l, r) = (same_padding(x.shape[2], kh, strides[0]),
-                          same_padding(x.shape[3], kw, strides[1]))
-    elif padding == "VALID":
-        t = b = l = r = 0
-    else:
-        (t, b), (l, r) = ((int(p0), int(p1)) for p0, p1 in padding)
+    (t, b), (l, r) = conv_pads(x.shape[2:], w.shape[2:], strides, padding)
     if t == b and l == r:
         pad = (t, l)
     else:

@@ -25,9 +25,10 @@ class QConfig:
     """``weight`` and ``activation`` quantizer templates plus execution mode.
 
     ``mode``: 'qat' or 'serve'.  ``act_mode`` (serve): 'none' (weight-only),
-    'static' (frozen fake-quant of the input with the converted qparams);
-    'static_int8' and 'dynamic' are accepted here but run only with the
-    int8×int8 serving slice.  ``overrides``: ``(pattern, QConfig)`` pairs;
+    'static' (frozen fake-quant of the input with the converted qparams),
+    'static_int8' (the int8 x int8 product with the converted per-tensor
+    activation qparams) or 'dynamic' (per-tensor activation quantization
+    from each call's max|x|, dense layers only).  ``overrides``: ``(pattern, QConfig)`` pairs;
     the first pattern found in a layer's '/'-joined path wins.
     """
 

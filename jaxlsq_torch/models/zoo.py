@@ -41,8 +41,11 @@ as f32), and int8/int4 ``(data, scales)`` caches quantized per (b, head,
 position) on write.  A scalar ``cache_index`` (int) is checked against the
 cache length here (for a paged cache, pages_per_slot * page_size); a
 per-slot (B,) index tensor is the caller's to keep in range (the engine
-does), since checking it would stall on the card.  MoE blocks come with a
-later slice and raise.
+does), since checking it would stall on the card.
+
+``moe_experts`` swaps each block's dense MLP for a :class:`QuantMoE` named
+``moe`` (``moe_top_k`` routed experts of ``mlp_ratio * dim`` hidden units,
+``moe_capacity_factor``), as the JAX package's MoE LM.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from ..serve.attention import MASK, _q4, _q8, decode_attention
 from ..serve.paged import PagedKVLayer, paged_attention, paged_update
 from .layers import (FakeQuantize, QuantConv, QuantDense, QuantEmbed, quant_state_frozen,
                      refresh_host_state)
+from .moe import QuantMoE, _ExpertDense
 from .norm import BatchNorm
 from .qconfig import QConfig
 
@@ -198,16 +202,16 @@ def _banded_train_attention(q, k, v, window: int):
 
 class QuantTransformerBlock(nn.Module):
     """Pre-LN block: fused q|k|v projection, attention, output projection,
-    GELU (tanh form, as flax ``nn.gelu``) MLP — every matmul quantized."""
+    GELU (tanh form, as flax ``nn.gelu``) MLP — every matmul quantized; with
+    ``moe_experts`` the MLP is a routed :class:`QuantMoE` (``moe``)."""
 
     def __init__(self, dim: int, num_heads: int, qconfig: QConfig, *,
                  mlp_ratio: int = 4, num_kv_heads: Optional[int] = None,
                  rope: bool = False, attn_window: Optional[int] = None,
                  train_attn_impl: str = "xla", moe_experts: Optional[int] = None,
+                 moe_top_k: int = 2, moe_capacity_factor: float = 1.25,
                  path=(), device=None):
         super().__init__()
-        if moe_experts:
-            raise NotImplementedError("MoE blocks arrive with the MoE slice")
         if attn_window is not None and attn_window < 1:
             raise ValueError(f"attn_window must be >= 1 or None, got {attn_window}")
         if train_attn_impl not in ("xla", "flash"):
@@ -226,9 +230,16 @@ class QuantTransformerBlock(nn.Module):
                               path=path + ("qkv",), device=device)
         self.proj = QuantDense(dim, dim, qconfig, path=path + ("proj",), device=device)
         self.ln2 = _layer_norm(dim, device)
-        self.mlp_up = QuantDense(dim, mlp_ratio * dim, qconfig,
+        self.hidden = mlp_ratio * dim
+        if moe_experts:
+            self.moe = QuantMoE(dim, self.hidden, moe_experts, qconfig, top_k=moe_top_k,
+                                capacity_factor=moe_capacity_factor,
+                                path=path + ("moe",), device=device)
+            return
+        self.moe = None
+        self.mlp_up = QuantDense(dim, self.hidden, qconfig,
                                  path=path + ("mlp_up",), device=device)
-        self.mlp_down = QuantDense(mlp_ratio * dim, dim, qconfig,
+        self.mlp_down = QuantDense(self.hidden, dim, qconfig,
                                    path=path + ("mlp_down",), device=device)
 
     def _attention(self, q, k, v):
@@ -277,7 +288,10 @@ class QuantTransformerBlock(nn.Module):
         y = y.transpose(1, 2).reshape(b, t, d)
         x = x + self.proj(y)
         y = self.ln2(x)
-        y = self.mlp_down(F.gelu(self.mlp_up(y), approximate="tanh"))
+        if self.moe is not None:
+            y = self.moe(y)
+        else:
+            y = self.mlp_down(F.gelu(self.mlp_up(y), approximate="tanh"))
         out = x + y
         if kv_cache is None:
             return out
@@ -301,13 +315,14 @@ class QuantTransformerLM(nn.Module):
                  qconfig: QConfig, *, max_len: int = 256,
                  num_kv_heads: Optional[int] = None, pos_embedding: str = "learned",
                  attn_window: Optional[int] = None, train_attn_impl: str = "xla",
-                 moe_experts: Optional[int] = None, device=None, seed: int = 0):
+                 moe_experts: Optional[int] = None, moe_top_k: int = 2,
+                 moe_capacity_factor: float = 1.25, device=None, seed: int = 0):
         super().__init__()
         if pos_embedding not in ("learned", "rope"):
             raise ValueError(f"pos_embedding must be 'learned' or 'rope', "
                              f"got {pos_embedding!r}")
-        if moe_experts:
-            raise NotImplementedError("MoE blocks arrive with the MoE slice")
+        self.moe_experts, self.moe_top_k = moe_experts, moe_top_k
+        self.moe_capacity_factor = moe_capacity_factor
         self.device = resolve_device(device)
         self.vocab, self.dim, self.depth = vocab, dim, depth
         self.num_heads, self.num_kv_heads = num_heads, num_kv_heads
@@ -327,7 +342,9 @@ class QuantTransformerLM(nn.Module):
             self.add_module(f"block{i}", QuantTransformerBlock(
                 dim, num_heads, qconfig, num_kv_heads=num_kv_heads,
                 rope=pos_embedding == "rope", attn_window=attn_window,
-                train_attn_impl=train_attn_impl, path=(f"block{i}",), device=dev))
+                train_attn_impl=train_attn_impl, moe_experts=moe_experts,
+                moe_top_k=moe_top_k, moe_capacity_factor=moe_capacity_factor,
+                path=(f"block{i}",), device=dev))
         self.ln_f = _layer_norm(dim, dev)
         self.lm_head = QuantDense(dim, vocab, qconfig, use_bias=False,
                                   path=("lm_head",), device=dev)
@@ -430,6 +447,15 @@ def init_variables(model: QuantTransformerLM, seed: int = 0) -> dict:
             p["bias"] = torch.zeros(n, device=dev)
         return p, quantizers(path, w, 1)
 
+    def experts(path, e, k, n):  # flax lecun_normal(batch_axis=(0,)): fan-in k
+        w = _lecun_normal((e, k, n), gen, dev, fan_in=k)
+        qcfg = qc.resolve(path)
+        node = {"weight_fq": qp(qcfg.weight_for_axis(0).init(w))}
+        acfg = qcfg.activation_for_axis(-1)
+        if acfg is not None:
+            node["act_fq"] = qp(acfg.init(num_channels=k, device=dev))
+        return {"kernel": w, "bias": torch.zeros(n, device=dev)}, node
+
     def ln():
         return {"scale": torch.ones(model.dim, device=dev),
                 "bias": torch.zeros(model.dim, device=dev)}
@@ -444,10 +470,19 @@ def init_variables(model: QuantTransformerLM, seed: int = 0) -> dict:
         name = f"block{i}"
         bp, bq = {"ln1": ln(), "ln2": ln()}, {}
         n_qkv = d + 2 * blk.kvh * blk.hd
-        hidden = blk.mlp_up.kernel.orig_shape[1]
-        for sub, k, n in (("qkv", d, n_qkv), ("proj", d, d),
-                          ("mlp_up", d, hidden), ("mlp_down", hidden, d)):
+        hidden = blk.hidden
+        subs = [("qkv", d, n_qkv), ("proj", d, d)]
+        if blk.moe is None:
+            subs += [("mlp_up", d, hidden), ("mlp_down", hidden, d)]
+        for sub, k, n in subs:
             bp[sub], bq[sub] = dense((name, sub), k, n)
+        if blk.moe is not None:
+            e = blk.moe.num_experts
+            mp = {"router": {"kernel": _lecun_normal((d, e), gen, dev)}}
+            mq = {}
+            for sub, k, n in (("experts_up", d, hidden), ("experts_down", hidden, d)):
+                mp[sub], mq[sub] = experts((name, "moe", sub), e, k, n)
+            bp["moe"], bq["moe"] = mp, mq
         params[name], qparams[name] = bp, bq
     params["ln_f"] = ln()
     params["lm_head"], qparams["lm_head"] = dense(("lm_head",), d, model.vocab,
@@ -694,10 +729,14 @@ def init_qat_variables(model: nn.Module, seed: int = 0) -> None:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     for mod in model.modules():
-        if isinstance(mod, (QuantConv, QuantDense)) and getattr(mod, "qat", True):
+        if isinstance(mod, QuantMoE):  # the float router: a (d, E) kernel
+            mod.router.weight.copy_(_lecun_normal((mod.dim, mod.num_experts), gen, dev).T)
+        elif isinstance(mod, (QuantConv, QuantDense, _ExpertDense)) and getattr(mod, "qat", True):
             k = mod.kernel
             if isinstance(mod, QuantConv):  # OIHW: fan-in is I * kh * kw
                 k.copy_(_lecun_normal(k.shape, gen, dev, fan_in=k[0].numel()))
+            elif isinstance(mod, _ExpertDense):  # (E, K, N): fan-in K
+                k.copy_(_lecun_normal(k.shape, gen, dev, fan_in=k.shape[1]))
             else:
                 k.copy_(_lecun_normal(k.shape, gen, dev))
             if mod.bias is not None:

@@ -4,7 +4,8 @@ from .decode import (DecodeEngine, Prefix, SpeculativeDecodeEngine, init_kv_cach
                      make_beam_search, make_generate, make_sampler,
                      make_speculative_generate, prefill)
 from .engine import ServingEngine
-from .matmul import wo_matmul, wo_matmul_plain
+from .matmul import (dynamic_int8_matmul, static_int8_conv, static_int8_matmul, wo_matmul,
+                     wo_matmul_plain)
 from .pack import (PackedWeight, dequantize_weight, pack_int4, quantize_weight,
                    quantize_weight_grouped, unpack_int4)
 from .paged import (PageAllocator, PagedKVLayer, init_paged_cache,
@@ -20,4 +21,5 @@ __all__ = ["decode_attention", "decode_attention_plain", "convert", "serving_bit
            "quantize_weight", "quantize_weight_grouped", "unpack_int4", "PageAllocator",
            "PagedKVLayer", "init_paged_cache", "paged_attention",
            "paged_attention_plain", "paged_update", "with_table",
-           "PagedDecodeEngine", "PagedPrefix", "PagedSpeculativeDecodeEngine"]
+           "PagedDecodeEngine", "PagedPrefix", "PagedSpeculativeDecodeEngine",
+           "static_int8_matmul", "dynamic_int8_matmul", "static_int8_conv"]

@@ -33,6 +33,7 @@ from __future__ import annotations
 import queue
 import threading
 import time
+import warnings
 from collections import deque
 from concurrent.futures import Future
 from typing import Callable, Optional, Sequence
@@ -395,6 +396,25 @@ class _GenRequest:
         self.pages = None  # pool pages the request holds (paged engine)
 
 
+def _warn_moe_capacity(model) -> None:
+    """An MoE model routes the tokens of every co-batched slot together, so
+    a capacity that can bind couples the requests (one's tokens depend on
+    which others share its decode steps).  Warn when it can bind."""
+    e = getattr(model, "moe_experts", 0) or 0
+    if not e:
+        return
+    k = getattr(model, "moe_top_k", 1) or 1
+    cf = getattr(model, "moe_capacity_factor", 0.0) or 0.0
+    if cf < e / k:
+        warnings.warn(
+            f"QuantMoE capacity can bind under batched decode "
+            f"(capacity_factor={cf} < num_experts/top_k={e}/{k}): capacity "
+            "drops couple co-batched requests, making generations depend on "
+            "batch composition. Serve with capacity_factor >= "
+            "num_experts/top_k for per-token-exact routing.",
+            stacklevel=3)
+
+
 class Prefix:
     """A prefilled, immutable KV prefix (a shared system prompt), built by
     ``DecodeEngine.register_prefix``: the prefix tokens chunk-prefilled into
@@ -491,6 +511,8 @@ class DecodeEngine:
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1 or None")
         self.model = model
+        for m in self._served_models():
+            _warn_moe_capacity(m)
         self.device = model.device
         self.max_batch = max_batch
         self.buckets = sorted(prompt_buckets)

@@ -25,8 +25,20 @@ group-wise (G, N) scales (``packed.group_size``, int4).
   and K / 2 that are multiples of 128 (the JAX package's TPU limits do not
   apply); another grouped pack raises ``ValueError``.
 
-``LAUNCHES`` counts the kernel launches of each kind.  The int8×int8 paths
-(``static_int8_matmul``, ``dynamic_int8_matmul``) come with a later slice.
+The int8 x int8 paths (the JAX package's ``static_int8_matmul``,
+``dynamic_int8_matmul`` and ``static_int8_conv``) quantize the activation to
+int8 (``act_quant_i8``) and run the integer product with the dequant epilogue
+fused (``i8mm``), both in ``csrc/int8_matmul.cu`` on a CUDA tensor, and in
+their plain versions (the ``*_plain`` functions: the same integers, the
+epilogue's f32 operations in the same order) on a CPU tensor.  The integer
+product is exact, so the kernel's output is the plain version's bit for bit.
+The convolution takes NCHW activations and the pack as ``QuantConv`` holds
+it (HWIO); it gathers the windows of the int8 activation (im2col, padded with
+the integer zero point) with PyTorch ops and runs one product per group.
+
+``LAUNCHES`` counts the kernel launches of each kind (``act_quant_i8`` one a
+call: its dynamic mode is two launches, the absmax's partials and the
+quantizing pass).
 """
 
 from __future__ import annotations
@@ -34,11 +46,15 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from .pack import PackedWeight, dequantize_weight
+from .pack import PackedWeight, dequantize_weight, true_div
 
-__all__ = ["wo_matmul", "wo_matmul_plain", "LAUNCHES"]
+__all__ = ["wo_matmul", "wo_matmul_plain", "act_quant_i8", "act_quant_i8_plain",
+           "int8_product_plain", "static_int8_matmul", "static_int8_matmul_plain",
+           "dynamic_int8_matmul", "dynamic_int8_matmul_plain", "static_int8_conv",
+           "static_int8_conv_plain", "static_int8_bmm", "static_int8_bmm_plain",
+           "same_padding", "conv_pads", "conv_operands", "LAUNCHES"]
 
-LAUNCHES = {"wo8": 0, "wo4": 0, "wo4g": 0}
+LAUNCHES = {"wo8": 0, "wo4": 0, "wo4g": 0, "act_quant_i8": 0, "i8mm": 0}
 
 
 def wo_matmul_plain(x: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
@@ -112,3 +128,360 @@ def wo_matmul(x: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
     if x2d.shape[0] == 0:
         return x.new_zeros(*lead, n)
     return _launch(x2d, packed).reshape(*lead, n)
+
+
+# --------------------------------------------------------------------------
+# int8 x int8 (act_quant_i8 and i8mm)
+# --------------------------------------------------------------------------
+
+_EPILOGUES = {"static": 0, "dynamic": 1, "conv": 2}
+_MAX_K = 131072  # K * 128 * 128 < 2^31: the int32 sums stay exact
+_WORK = 1024     # the dynamic absmax's partials (csrc kMaxPartials)
+
+
+def _uses_plain(x: torch.Tensor, what: str) -> bool:
+    """A CPU tensor takes the plain versions, a CUDA one the kernels."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"{what}: the kernels take f32 activations, got {x.dtype}")
+    return False
+
+
+def _to_int8(r: torch.Tensor) -> torch.Tensor:
+    """The JAX package's float -> int8 conversion: saturating, NaN -> 0."""
+    return torch.where(torch.isnan(r), torch.zeros_like(r),
+                       r.clamp(-128.0, 127.0)).to(torch.int8)
+
+
+def _act_shift(act_qmax: int) -> float:
+    # an unsigned range overflows the int8 carrier: recentre by 128, which
+    # leaves (x_q - zpx) * sx unchanged
+    return 128.0 if act_qmax > 127 else 0.0
+
+
+def act_quant_i8_plain(x: torch.Tensor, act_scale=None, act_zp=None, act_qmin: int = -128,
+                       act_qmax: int = 127, *, dynamic: bool = False):
+    """x -> (int8 x_q of x's shape, f32 (2,) [sx, zpx_c]).  Static:
+    ``x_q = clip(round(x / sx + zpx), qmin, qmax) - shift`` with the frozen
+    per-tensor qparams, ``zpx_c = zpx - shift``; dynamic: ``sx = max(max|x| /
+    127, tiny)``, ``x_q = round(x / sx)``, ``zpx_c = 0``."""
+    xf = x.to(torch.float32)
+    if dynamic:
+        sx = true_div(xf.abs().amax(), 127.0)
+        sx = torch.maximum(sx, torch.full_like(sx, torch.finfo(torch.float32).tiny))
+        return _to_int8(torch.round(xf / sx)), torch.stack([sx, torch.zeros_like(sx)])
+    shift = _act_shift(act_qmax)
+    sx = act_scale.to(torch.float32)[0]
+    zpx = act_zp.to(torch.float32)[0]
+    r = torch.clamp(torch.round(xf / sx + zpx), act_qmin, act_qmax) - shift
+    return _to_int8(r), torch.stack([sx, zpx - shift])
+
+
+def act_quant_i8(x: torch.Tensor, act_scale=None, act_zp=None, act_qmin: int = -128,
+                 act_qmax: int = 127, *, dynamic: bool = False):
+    """:func:`act_quant_i8_plain` on a CPU tensor; the ``act_quant_i8``
+    kernel on a CUDA one (sx stays on the card)."""
+    if _uses_plain(x, "act_quant_i8"):
+        return act_quant_i8_plain(x, act_scale, act_zp, act_qmin, act_qmax, dynamic=dynamic)
+    if x.numel() == 0:
+        raise ValueError("act_quant_i8: empty input")
+    dev = x.device
+    xc = x.contiguous()
+    xq = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    qx = torch.empty(2, dtype=torch.float32, device=dev)
+    if dynamic:
+        scale = zp = qx  # not read
+        work = torch.empty(_WORK, dtype=torch.int32, device=dev)
+    else:
+        scale = act_scale.to(device=dev, dtype=torch.float32).contiguous()
+        zp = act_zp.to(device=dev, dtype=torch.int32).contiguous()
+        work = qx  # not read
+    lib = _build.load_library()
+    err = lib.jlt_act_quant_i8(xc.data_ptr(), scale.data_ptr(), zp.data_ptr(), xq.data_ptr(),
+                               qx.data_ptr(), work.data_ptr(), xc.numel(), float(act_qmin),
+                               float(act_qmax), _act_shift(act_qmax), int(dynamic),
+                               torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["act_quant_i8"] += 1
+    _build.check(err, "act_quant_i8")
+    return xq, qx
+
+
+def int8_product_plain(a: torch.Tensor, b: torch.Tensor):
+    """Batched ``a @ b`` of int8 (Bt, M, K) and (Bt, K, N) in exact integers
+    (an f64 product: every partial sum is an integer below 2^53), with
+    ``rowsum(a)`` (Bt, M) and ``colsum(b)`` (Bt, N), all int32."""
+    acc = torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int32)
+    return (acc, a.to(torch.int32).sum(-1, dtype=torch.int32),
+            b.to(torch.int32).sum(-2, dtype=torch.int32))
+
+
+def _weight_qparams(t: torch.Tensor, batch: int, n: int, qstrides) -> torch.Tensor:
+    """The (Bt, 1, N) f32 view of a weight's scale or zero point indexed at
+    ``b * qstrides[0] + n * qstrides[1]`` (the kernel's rule)."""
+    dev = t.device
+    idx = (torch.arange(batch, device=dev)[:, None] * qstrides[0]
+           + torch.arange(n, device=dev)[None, :] * qstrides[1])
+    return t.to(torch.float32).reshape(-1)[idx][:, None, :]
+
+
+def _epilogue_plain(acc, rs, cs, qx, sw, zw, mode, kdim, window):
+    """The dequant epilogue in the JAX package's order of f32 operations."""
+    a = acc.to(torch.float32)
+    rsf = rs.to(torch.float32)[..., None]
+    csf = cs.to(torch.float32)[:, None, :]
+    sx, zpx = qx[0], qx[1]
+    if mode == "dynamic":
+        o = a - rsf * zw
+    elif mode == "static":
+        o = a - zpx * csf
+        o = o - zw * rsf
+        o = o + (float(kdim) * zpx) * zw
+    else:
+        o = a - zpx * csf
+        o = torch.where(zw != 0, o - zw * (rsf - zpx * window), o)
+    return o * (sx * sw)
+
+
+def _i8mm(a, b, qx, scale, zp, mode, qstrides, *, plain, window=0.0, conv_out=None):
+    """The epilogue-fused product of int8 a (Bt, M, K) and b (Bt, K, N)
+    (views, unit stride along K and N): (Bt, M, N) f32, or with ``conv_out``
+    = (images, H', W') the NCHW (images, Bt * N, H', W') of a grouped conv
+    whose rows are (image, pixel)."""
+    batch, m, kdim = a.shape
+    n = b.shape[2]
+    if plain:
+        acc, rs, cs = int8_product_plain(a, b)
+        out = _epilogue_plain(acc, rs, cs, qx, _weight_qparams(scale, batch, n, qstrides),
+                              _weight_qparams(zp, batch, n, qstrides), mode, kdim, window)
+        if conv_out is None:
+            return out
+        imgs, ho, wo = conv_out
+        return out.reshape(batch, imgs, ho * wo, n).permute(1, 0, 3, 2).reshape(
+            imgs, batch * n, ho, wo)
+    if kdim > _MAX_K:
+        raise ValueError(f"i8mm: K = {kdim} exceeds {_MAX_K} (int32 sums)")
+    dev = a.device
+    for name, t in (("weight", b), ("scale", scale), ("zero_point", zp), ("qx", qx)):
+        if t.device != dev:
+            raise ValueError(f"i8mm: {name} is on {t.device}, x on {dev}")
+    if a.dtype != torch.int8 or b.dtype != torch.int8 or a.stride(2) != 1 or b.stride(2) != 1:
+        raise ValueError("i8mm: operands must be int8 with unit stride along K and N")
+    scale = scale.to(torch.float32).contiguous()
+    zp = zp.to(torch.int32).contiguous()
+    if conv_out is None:
+        out = torch.empty((batch, m, n), dtype=torch.float32, device=dev)
+        geom = (m * n, m, 0, n, 1)
+    else:
+        imgs, ho, wo = conv_out
+        hw = ho * wo
+        out = torch.empty((imgs, batch * n, ho, wo), dtype=torch.float32, device=dev)
+        geom = (n * hw, hw, batch * n * hw, 1, hw)
+    vec_a = int(a.data_ptr() % 16 == 0 and a.stride(1) % 16 == 0 and a.stride(0) % 16 == 0)
+    vec_b = int(b.data_ptr() % 4 == 0 and b.stride(1) % 4 == 0 and b.stride(0) % 4 == 0)
+    lib = _build.load_library()
+    err = lib.jlt_i8mm(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.stride(0), b.stride(0),
+                       *geom, a.stride(1), b.stride(1), batch, m, n, kdim, qx.data_ptr(),
+                       scale.data_ptr(), zp.data_ptr(), qstrides[0], qstrides[1],
+                       _EPILOGUES[mode], float(window), vec_a, vec_b,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    LAUNCHES["i8mm"] += 1
+    _build.check(err, "i8mm")
+    return out
+
+
+def _check_int8_pack(packed: PackedWeight, what: str) -> None:
+    if packed.bits != 8 or packed.group_size is not None:
+        raise ValueError(f"{what} needs an int8-packed weight")
+
+
+def _static_int8_matmul(x, packed, act_scale, act_zp, act_qmin, act_qmax, out_dtype, plain):
+    _check_int8_pack(packed, "static_int8_matmul")
+    if act_scale.shape[0] != 1:
+        raise ValueError("static activation qparams must be per-tensor")
+    if len(packed.orig_shape) != 2:
+        raise ValueError("static_int8_matmul needs a 2-D (K, N) packed weight")
+    kdim, n = packed.orig_shape
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, kdim)
+    quant = act_quant_i8_plain if plain else act_quant_i8
+    xq, qx = quant(x2d, act_scale, act_zp, act_qmin, act_qmax)
+    per_channel = packed.scale.numel() > 1
+    out = _i8mm(xq[None], packed.data[None], qx, packed.scale, packed.zero_point, "static",
+                (0, int(per_channel)), plain=plain)
+    return out[0].to(out_dtype or x.dtype).reshape(*lead, n)
+
+
+def static_int8_matmul(x: torch.Tensor, packed: PackedWeight, act_scale: torch.Tensor,
+                       act_zp: torch.Tensor, act_qmin: int, act_qmax: int, *,
+                       out_dtype=None) -> torch.Tensor:
+    """Static-activation int8 x int8 matmul with the full dequant epilogue
+    (the JAX package's ``static_int8_matmul``): x quantized with the frozen
+    per-tensor (scale, zp), ``out = sx sw [x_q @ w_q - zpx colsum(w_q) - zpw
+    rowsum(x_q) + K zpx zpw]``.  x (..., K) -> (..., N)."""
+    if x.shape[-1] != packed.orig_shape[0]:
+        raise ValueError(f"static_int8_matmul: x has K={x.shape[-1]}, "
+                         f"weight K={packed.orig_shape[0]}")
+    plain = _uses_plain(x, "static_int8_matmul")
+    if x.numel() == 0:
+        return x.new_zeros(*x.shape[:-1], packed.orig_shape[1])
+    return _static_int8_matmul(x, packed, act_scale, act_zp, act_qmin, act_qmax, out_dtype,
+                               plain)
+
+
+def static_int8_matmul_plain(x, packed, act_scale, act_zp, act_qmin, act_qmax, *,
+                             out_dtype=None):
+    """:func:`static_int8_matmul` in PyTorch ops on any device."""
+    return _static_int8_matmul(x, packed, act_scale, act_zp, act_qmin, act_qmax, out_dtype,
+                               True)
+
+
+def _dynamic_int8_matmul(x, packed, out_dtype, plain):
+    _check_int8_pack(packed, "dynamic_int8_matmul")
+    kdim, n = packed.orig_shape
+    lead = x.shape[:-1]
+    quant = act_quant_i8_plain if plain else act_quant_i8
+    xq, qx = quant(x.reshape(-1, kdim), dynamic=True)
+    per_channel = packed.scale.numel() > 1
+    out = _i8mm(xq[None], packed.data[None], qx, packed.scale, packed.zero_point, "dynamic",
+                (0, int(per_channel)), plain=plain)
+    return out[0].to(out_dtype or x.dtype).reshape(*lead, n)
+
+
+def dynamic_int8_matmul(x: torch.Tensor, packed: PackedWeight, *,
+                        out_dtype=None) -> torch.Tensor:
+    """Per-tensor dynamic activation quant + int8 x int8 matmul + fused
+    dequant (the JAX package's ``dynamic_int8_matmul``): ``sx = max|x| /
+    127``, ``x_q = round(x / sx)``, ``out = sx sw (x_q @ w_q - zpw
+    rowsum(x_q))``.  The scale is taken over every row of the call."""
+    if len(packed.orig_shape) != 2 or x.shape[-1] != packed.orig_shape[0]:
+        raise ValueError(f"dynamic_int8_matmul: x has K={x.shape[-1]}, weight shape "
+                         f"{tuple(packed.orig_shape)}")
+    plain = _uses_plain(x, "dynamic_int8_matmul")
+    if x.numel() == 0:
+        return x.new_zeros(*x.shape[:-1], packed.orig_shape[1])
+    return _dynamic_int8_matmul(x, packed, out_dtype, plain)
+
+
+def dynamic_int8_matmul_plain(x, packed, *, out_dtype=None):
+    """:func:`dynamic_int8_matmul` in PyTorch ops on any device."""
+    return _dynamic_int8_matmul(x, packed, out_dtype, True)
+
+
+def _static_int8_bmm(x, wq, scale, zero_point, act_scale, act_zp, act_qmin, act_qmax, plain):
+    if act_scale.shape[0] != 1:
+        raise ValueError("static activation qparams must be per-tensor")
+    quant = act_quant_i8_plain if plain else act_quant_i8
+    xq, qx = quant(x, act_scale, act_zp, act_qmin, act_qmax)
+    per_expert = scale.numel() > 1
+    return _i8mm(xq, wq, qx, scale, zero_point, "static", (int(per_expert), 0), plain=plain)
+
+
+def static_int8_bmm(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
+                    zero_point: torch.Tensor, act_scale: torch.Tensor, act_zp: torch.Tensor,
+                    act_qmin: int, act_qmax: int) -> torch.Tensor:
+    """The stacked experts' static int8 x int8 product (the JAX package's
+    ``_ExpertDense._serve_int8``): x (E, C, K) f32, ``wq`` int8 (E, K, N),
+    per-expert (E,) or per-tensor (1,) weight qparams, the static epilogue
+    of :func:`static_int8_matmul` per expert."""
+    plain = _uses_plain(x, "static_int8_bmm")
+    return _static_int8_bmm(x, wq, scale, zero_point, act_scale, act_zp, act_qmin, act_qmax,
+                            plain)
+
+
+def static_int8_bmm_plain(x, wq, scale, zero_point, act_scale, act_zp, act_qmin, act_qmax):
+    """:func:`static_int8_bmm` in PyTorch ops on any device."""
+    return _static_int8_bmm(x, wq, scale, zero_point, act_scale, act_zp, act_qmin, act_qmax,
+                            True)
+
+
+def same_padding(size: int, k: int, stride: int):
+    """XLA's SAME padding of one spatial axis: ``ceil(size / stride)``
+    outputs, the odd pixel of padding after (a stride-2 3x3 conv on an even
+    size pads 0 before and 1 after; ``Conv2d(padding=1)`` would pad 1 and 1)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_pads(size_hw, kernel_hw, strides, padding):
+    """((top, bottom), (left, right)) of 'SAME' (:func:`same_padding`),
+    'VALID' or explicit pairs."""
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    if padding == "SAME":
+        return tuple(same_padding(n, k, s) for n, k, s in zip(size_hw, kernel_hw, strides))
+    return tuple((int(p0), int(p1)) for p0, p1 in padding)
+
+
+def conv_operands(xq: torch.Tensor, qx: torch.Tensor, packed: PackedWeight, strides, padding,
+                  groups: int):
+    """The int8 product's operands of a grouped conv: the windows of the
+    NCHW int8 ``xq`` (padded with the integer zero point ``round(qx[1])``,
+    the quantized real 0.0, so SAME padding agrees with the float path's zero
+    padding) as (G, images * H' * W', kh * kw * cin_g) im2col rows, the HWIO
+    pack as a (G, kh * kw * cin_g, cout / G) view, and (images, H', W')."""
+    kh, kw, cin_g, cout = packed.orig_shape
+    imgs, c, h, w = xq.shape
+    if c != cin_g * groups or cout % groups:
+        raise ValueError(f"static_int8_conv: {c} input channels, {groups} groups and a "
+                         f"{tuple(packed.orig_shape)} kernel do not fit")
+    sh, sw = (strides, strides) if isinstance(strides, int) else tuple(strides)
+    (t, b), (l, r) = conv_pads((h, w), (kh, kw), (sh, sw), padding)
+    if t or b or l or r:
+        pad = _to_int8(torch.round(qx[1]))  # read on the device
+        xp = torch.empty((imgs, c, h + t + b, w + l + r), dtype=torch.int8, device=xq.device)
+        xp.copy_(pad.expand(xp.shape))
+        xp[:, :, t:t + h, l:l + w] = xq
+        xq = xp
+    win = xq.unfold(2, kh, sh).unfold(3, kw, sw)  # (imgs, C, H', W', kh, kw)
+    ho, wo = win.shape[2], win.shape[3]
+    a = win.reshape(imgs, groups, cin_g, ho, wo, kh, kw).permute(1, 0, 3, 4, 5, 6, 2)
+    a = a.reshape(groups, imgs * ho * wo, kh * kw * cin_g)
+    bmat = packed.data.reshape(kh * kw * cin_g, groups, cout // groups).permute(1, 0, 2)
+    return a, bmat, (imgs, ho, wo)
+
+
+def _static_int8_conv(x, packed, act_scale, act_zp, act_qmin, act_qmax, strides, padding,
+                      groups, out_dtype, plain):
+    _check_int8_pack(packed, "static_int8_conv")
+    if act_scale.shape[0] != 1:
+        raise ValueError("static activation qparams must be per-tensor")
+    quant = act_quant_i8_plain if plain else act_quant_i8
+    xq, qx = quant(x, act_scale, act_zp, act_qmin, act_qmax)
+    a, bmat, geom = conv_operands(xq, qx, packed, strides, padding, groups)
+    ng = bmat.shape[2]
+    per_channel = packed.scale.numel() > 1
+    out = _i8mm(a, bmat, qx, packed.scale, packed.zero_point, "conv",
+                (ng, 1) if per_channel else (0, 0), plain=plain,
+                window=float(a.shape[2]), conv_out=geom)
+    return out.to(out_dtype or x.dtype)
+
+
+def static_int8_conv(x: torch.Tensor, packed: PackedWeight, act_scale: torch.Tensor,
+                     act_zp: torch.Tensor, act_qmin: int, act_qmax: int, *, strides=(1, 1),
+                     padding="SAME", feature_group_count: int = 1,
+                     out_dtype=None) -> torch.Tensor:
+    """Static-activation int8 x int8 convolution with the dequant epilogue
+    (the JAX package's ``static_int8_conv``) of NCHW ``x`` and the HWIO
+    (kh, kw, cin / groups, cout) pack, per-channel qparams on cout:
+    ``out = sx sw[c] (acc - zpx' colsum(w_q)[c] - zpw[c] (xwin - zpx' kh kw
+    cin_g))``, the last term only for a column whose zero point is not 0
+    (``xwin`` the window sum of x_q, the row sum of the group's im2col
+    rows).  SAME padding uses the integer zero point, so it agrees with the
+    float path's zero padding."""
+    if x.dim() != 4:
+        raise ValueError("static_int8_conv takes NCHW activations")
+    plain = _uses_plain(x, "static_int8_conv")
+    return _static_int8_conv(x, packed, act_scale, act_zp, act_qmin, act_qmax, strides,
+                             padding, feature_group_count, out_dtype, plain)
+
+
+def static_int8_conv_plain(x, packed, act_scale, act_zp, act_qmin, act_qmax, *,
+                           strides=(1, 1), padding="SAME", feature_group_count: int = 1,
+                           out_dtype=None):
+    """:func:`static_int8_conv` in PyTorch ops on any device."""
+    return _static_int8_conv(x, packed, act_scale, act_zp, act_qmin, act_qmax, strides,
+                             padding, feature_group_count, out_dtype, True)

@@ -2470,3 +2470,137 @@ def test_serving_engine_replays_one_graph_a_bucket(cuda):
             want = fn(torch.as_tensor(pad, device=cuda)).cpu().numpy()
         np.testing.assert_array_equal(np.stack(res[i:i + n]), want[:n])
         i += n
+
+
+# ---------------------------------------------------------------------------
+# int8 x int8 serving (act_quant_i8, i8mm) and the MoE
+
+
+def _int8_pack(k, n, seed, per_channel=True, affine=False, device="cpu"):
+    r = np.random.RandomState(seed)
+    w = torch.as_tensor((r.randn(k, n) * k ** -0.5).astype(np.float32))
+    spec = QuantSpec(quant_min=-128, quant_max=127, type_min=-128, type_max=127,
+                     per_channel=per_channel, axis=1)
+    c = n if per_channel else 1
+    scale = torch.as_tensor((np.abs(r.randn(c)) * 0.004 + 0.002).astype(np.float32))
+    shift = torch.as_tensor((r.randn(c) * 0.01 if affine else np.zeros(c)).astype(np.float32))
+    return quantize_weight(w, scale, shift, spec, bits=8).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dynamic,qmin,qmax,zp", [(False, -128, 127, 3), (False, 0, 255, 131),
+                                                  (True, -128, 127, 0)])
+def test_act_quant_i8_kernel_matches_plain(cuda, dynamic, qmin, qmax, zp):
+    """I1 on the card gives the plain version's xq and [sx, zpx_c] bit for
+    bit, NaN -> 0 and +-inf saturated as the JAX package converts."""
+    from jaxlsq_torch.serve.matmul import act_quant_i8, act_quant_i8_plain
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    scale = torch.tensor([0.021], device=cuda)
+    zpt = torch.tensor([zp], dtype=torch.int32, device=cuda)
+    for shape in ((1, 27), (5, 1000), (257, 4096), (3, 7, 33)):
+        x = torch.randn(shape, device=cuda, generator=g) * 2.0
+        x.view(-1)[::97] = torch.round(x.view(-1)[::97] / 0.021) * 0.021 + 0.0105  # halves
+        for special in (None, float("nan"), float("inf"), -float("inf")):
+            xs = x.clone()
+            if special is not None:
+                xs.view(-1)[3] = special
+            got = act_quant_i8(xs, scale, zpt, qmin, qmax, dynamic=dynamic)
+            want = act_quant_i8_plain(xs, scale, zpt, qmin, qmax, dynamic=dynamic)
+            assert torch.equal(got[0], want[0]), (shape, special)
+            assert torch.equal(got[1].isnan(), want[1].isnan())
+            assert torch.equal(torch.nan_to_num(got[1]), torch.nan_to_num(want[1]))
+    z = torch.zeros(4, 64, device=cuda)
+    got = act_quant_i8(z, scale, zpt, qmin, qmax, dynamic=dynamic)
+    want = act_quant_i8_plain(z, scale, zpt, qmin, qmax, dynamic=dynamic)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 5, 17, 256])
+@pytest.mark.parametrize("k,n", [(27, 10), (1000, 36), (1024, 1024), (4096, 1024), (1024, 4096)])
+def test_int8_matmuls_match_plain_bit_for_bit(cuda, m, k, n):
+    """static_int8_matmul (signed and shifted unsigned activations,
+    per-tensor, per-channel and affine weights) and dynamic_int8_matmul on
+    the card equal their plain versions bit for bit, twice."""
+    from jaxlsq_torch.serve.matmul import (LAUNCHES, dynamic_int8_matmul,
+                                           dynamic_int8_matmul_plain, static_int8_matmul,
+                                           static_int8_matmul_plain)
+
+    x = torch.as_tensor(np.random.RandomState(m + k + n).randn(m, k).astype(np.float32),
+                        device=cuda)
+    for pc, affine in ((True, False), (False, False), (True, True)):
+        p = _int8_pack(k, n, k + n, per_channel=pc, affine=affine, device=cuda)
+        for qmin, qmax, zp in ((-128, 127, -5), (0, 255, 128)):
+            s = torch.tensor([0.031], device=cuda)
+            z = torch.tensor([zp], dtype=torch.int32, device=cuda)
+            before = LAUNCHES["i8mm"]
+            got = static_int8_matmul(x, p, s, z, qmin, qmax)
+            again = static_int8_matmul(x, p, s, z, qmin, qmax)
+            want = static_int8_matmul_plain(x, p, s, z, qmin, qmax)
+            assert LAUNCHES["i8mm"] == before + 2
+            assert torch.equal(got, want) and torch.equal(got, again), (pc, affine, qmin)
+        got = dynamic_int8_matmul(x, p)
+        want = dynamic_int8_matmul_plain(x, p)
+        assert torch.equal(got, want), (pc, affine)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,cout,groups,kh,stride,padding,h", [
+    (3, 32, 1, 3, 1, "SAME", 32), (32, 32, 32, 3, 1, "SAME", 16), (96, 96, 96, 3, 2, "SAME", 16),
+    (32, 16, 1, 1, 1, "VALID", 16), (16, 24, 2, 3, 2, "VALID", 15), (24, 36, 1, 1, 1, "SAME", 7)])
+def test_static_int8_conv_matches_plain_bit_for_bit(cuda, cin, cout, groups, kh, stride, padding,
+                                                    h):
+    """static_int8_conv on the card equals its plain version bit for bit:
+    the stem, depthwise (stride 1 and 2), 1x1, grouped and ragged shapes,
+    symmetric and affine weights, an unsigned activation range."""
+    from jaxlsq_torch.serve.matmul import static_int8_conv, static_int8_conv_plain
+
+    r = np.random.RandomState(cin + cout + h)
+    x = torch.as_tensor(r.randn(4, cin, h, h).astype(np.float32), device=cuda)
+    w = torch.as_tensor((r.randn(kh, kh, cin // groups, cout) * 0.2).astype(np.float32))
+    for affine in (False, True):
+        spec = QuantSpec(quant_min=-128, quant_max=127, type_min=-128, type_max=127,
+                         per_channel=True, axis=3)
+        shift = torch.as_tensor((r.randn(cout) * 0.01 if affine else np.zeros(cout))
+                                .astype(np.float32))
+        p = quantize_weight(w, w.abs().amax((0, 1, 2)) / 127, shift, spec, bits=8,
+                            k_axis=2).to(cuda)
+        s = torch.tensor([0.02], device=cuda)
+        z = torch.tensor([120], dtype=torch.int32, device=cuda)
+        kw = dict(strides=(stride, stride), padding=padding, feature_group_count=groups)
+        got = static_int8_conv(x, p, s, z, 0, 255, **kw)
+        want = static_int8_conv_plain(x, p, s, z, 0, 255, **kw)
+        assert got.shape == want.shape and torch.equal(got, want), affine
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_moe_serve_on_card_matches_cpu(cuda, bits):
+    """A small MoE LM converted at w8 or w4 expert stacks serves on the card
+    ('none', 'static' through per-expert wo_matmul, 'static_int8' through
+    the batched i8mm) within 1e-4 of max|ref| of the CPU; the int8 product
+    of the experts equals its plain version bit for bit."""
+    from jaxlsq_torch.models import QuantMoE  # noqa: F401
+    from jaxlsq_torch.serve.matmul import LAUNCHES
+
+    qc8 = default_qconfig(8, 8, per_channel_weights=True, init_batches=1)
+    qc = qc8 if bits == 8 else qc8.with_overrides(
+        {"moe": default_qconfig(4, 8, per_channel_weights=True, init_batches=1)})
+    kw = dict(max_len=32, moe_experts=4, moe_top_k=2, moe_capacity_factor=2.0)
+    qat = QuantTransformerLM(128, 64, 2, 4, qc, device="cpu", seed=3, **kw)
+    tree = convert(interop.qat_variables(qat), qc)
+    toks = torch.as_tensor(np.random.RandomState(3).randint(0, 128, size=(2, 16)))
+    for mode in ("none", "static", "static_int8"):
+        outs = []
+        for dev in (cuda, "cpu"):
+            m = QuantTransformerLM(128, 64, 2, 4, qc.for_serving(mode), device=dev, **kw)
+            interop.load_variables(m, tree)
+            before = dict(LAUNCHES)
+            with torch.no_grad():
+                outs.append(m(toks.to(dev)).cpu())
+            if dev != "cpu":
+                key = "i8mm" if mode == "static_int8" else ("wo8" if bits == 8 else "wo4")
+                assert LAUNCHES[key] > before[key], mode
+        err = float((outs[0] - outs[1]).abs().max())
+        assert err <= 1e-4 * float(outs[1].abs().max()), (mode, err)

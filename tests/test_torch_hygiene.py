@@ -21,6 +21,7 @@ MODULES = [
     "jaxlsq_torch.models", "jaxlsq_torch.models.qconfig", "jaxlsq_torch.models.calibrate",
     "jaxlsq_torch.models.layers", "jaxlsq_torch.models.norm",
     "jaxlsq_torch.models.toggles", "jaxlsq_torch.models.zoo", "jaxlsq_torch.models.quantize",
+    "jaxlsq_torch.models.moe",
     "jaxlsq_torch.parallel", "jaxlsq_torch.parallel.train", "jaxlsq_torch.parallel.optim",
     "jaxlsq_torch.serve", "jaxlsq_torch.serve.pack", "jaxlsq_torch.serve.convert",
     "jaxlsq_torch.serve.matmul", "jaxlsq_torch.serve.attention",

@@ -194,12 +194,13 @@ def test_unported_paths_raise():
     logits, _ = qat(tok, cache=init_kv_cache(qat, 1), cache_index=0)
     qat.eval()
     torch.testing.assert_close(logits, qat(tok), rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="MoE"):
+    with pytest.raises(ValueError, match="top_k"):
         QuantTransformerLM(VOCAB, DIM, 1, HEADS, qc.for_serving(), device="cpu",
-                           moe_experts=4)
-    with pytest.raises(NotImplementedError, match="int8"):
-        QuantTransformerLM(VOCAB, DIM, 1, HEADS, qc.for_serving("dynamic"),
-                           device="cpu")
+                           moe_experts=4, moe_top_k=5)
+    w4 = QuantTransformerLM(VOCAB, DIM, 1, HEADS, default_qconfig(4, 8).for_serving(
+        "static_int8"), max_len=8, device="cpu")
+    with pytest.raises(ValueError, match="int8-packed"):  # int4 packs: no int8 product
+        w4(torch.zeros((1, 2), dtype=torch.int32))
     with pytest.raises(ValueError, match="unknown act_observer"):
         default_qconfig(8, 8, act_observer="kl")
     tm = QuantTransformerLM(VOCAB, DIM, 1, HEADS, qc.for_serving(), max_len=8,
