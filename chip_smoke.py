@@ -7,7 +7,8 @@ fake-quant fwd+bwd chain through the fused kernel, the int4 kernel lab, the
 conv nets' train-then-serve, the observers, a stock third-party model, the
 decode features (QAT decode, beam search, speculative decoding and its
 engines, ServingEngine), and the int8 x int8 serving path and the quantized
-MoE.
+MoE, and the tooling (sensitivity and mixed-precision planning, torch.export
+of the serving programs, the host C++ oracle and shard loader).
 
     python3 chip_smoke.py [--record PATH]
 
@@ -260,6 +261,33 @@ exits non-zero on any failure (no phase is caught and skipped):
    both kernels timed at the d1024 shapes beside ``wo8`` and
    ``torch._int_mm``.
 
+18. the tooling, inside ``utils.profiling.trace`` (each leg an ``annotate``
+   span, found in the trace file after) with every launch count reset:
+   combo1200_4's w4a8 ``mobilenetv2_cifar``, calibrated on 4 grating
+   batches and trained 4 captured steps at B = 128: ``sensitivity_report``
+   and ``plan_mixed_precision`` (weights at 4 or 8 bits, 4.8 on average) on
+   the card (the fake-quant kernels counted, every quantizer tensor
+   bit-identical after each), then both on the card and on the CPU from the
+   same state on 8 images (every loss within 1e-4 relative, the assignments
+   equal but at near ties of the damage-per-byte gains, printed and
+   counted); the plan's qconfig trained 4 captured steps (``StepTimer``),
+   converted and served (phase 13's rules, the classifier through the wo
+   kernel of its planned width, packs at both widths) and
+   ``serving_size_report`` beside the uniform w4 and w8 conversions; phase
+   3's LM in QAT mode at w4, calibrated and planned the same way, served
+   'static' (logits within 1e-4 of max|ref| of the planned QAT model's,
+   deviation 14's hand-over) and through ``make_generate`` at B = 1 over both
+   ``wo8`` and ``wo4``; ``torch.export`` of phase 3's LM at w8 and w4 (f32
+   cache, B = 1: the forward and the greedy generate of 16 + 32 tokens) and
+   its 'static_int8' forward, each blob under 1 MB, replayed in a fresh
+   process that imports ``torch`` and ``serve.custom_ops`` only, bit-equal
+   to the eager forward and ``make_generate``, its launches and the
+   profiler's kernel names the hand-written kernels'; the host C++ oracle
+   (``jaxlsq_torch.native``) against the fake-quant kernels (phase 2's
+   gates) and ``NativeShardLoader`` feeding 4 eager resnet18_cifar steps at
+   B = 64 from seeded shards, each batch the rows the loader's contract
+   names.
+
 Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes the full
 record (every check, time and profile) to PATH as JSON.
@@ -353,6 +381,14 @@ MOE_SERVE_CF = MOE_E / MOE_TOP_K  # capacity never binds: routing per token
 INT8_N1, INT8_N2 = 16, 64  # the decode slope of phase 17, one round (cut from 16 -> 208)
 MAX_ROUTE_HANDED = 1e-3  # of the tokens: routing picks handed over at a near-tie
 ROUTE_TIE = 1e-5
+# the tooling (phase 18): combo1200_4's mobilenetv2 calibrated and trained a
+# few captured steps, planned (4, 8) at 4.8 average bits; card against CPU on
+# a few images; the d1024 x 4 LM exported (generate: 16 + 32 tokens); the
+# shard loader feeding resnet18_cifar
+TOOL_CALIB, TOOL_STEPS, TOOL_CPU_B, TOOL_TARGET, TOOL_REL = 4, 4, 8, 4.8, 1e-4
+EXPORT_T0, EXPORT_NEW, EXPORT_MAX_BLOB = 16, 32, 1 << 20
+TOOL_LM_LEN = 64  # the planned LM's max_len
+LOADER_B, LOADER_STEPS, LOADER_SHARDS = 64, 4, (100, 90, 70)
 
 
 def reset_counts():
@@ -2634,15 +2670,21 @@ def phase_int4_lab(torch, rec):
 # conv-net train-then-serve: mobilenetv2_cifar on the grating task
 # ---------------------------------------------------------------------------
 
+def _combo_qc(wbits, window):
+    """combo1200's qconfig (examples/recipe_sweep.py:168; w4a8 at :234) with
+    an observer window of ``window`` batches."""
+    from jaxlsq_torch.models import default_qconfig
+
+    return default_qconfig(wbits, 8, per_channel_weights=True, init_batches=window,
+                           reduce_range=False)
+
+
 def _mnv2(torch, device, wbits=8, window=MNV2_WINDOW):
     """Full-width mobilenetv2_cifar (36 classes) under combo1200's qconfig
-    (examples/recipe_sweep.py:168; w4a8 at :234) with an observer window of
-    ``window`` batches."""
-    from jaxlsq_torch.models import default_qconfig, mobilenetv2_cifar
+    with an observer window of ``window`` batches."""
+    from jaxlsq_torch.models import mobilenetv2_cifar
 
-    qc = default_qconfig(wbits, 8, per_channel_weights=True, init_batches=window,
-                         reduce_range=False)
-    return mobilenetv2_cifar(MNV2_CLASSES, qc, device=device, seed=0)
+    return mobilenetv2_cifar(MNV2_CLASSES, _combo_qc(wbits, window), device=device, seed=0)
 
 
 def _grating_batches(torch, n, b, seed):
@@ -5049,6 +5091,609 @@ def phase_int8_moe(torch, rec):
         f"{out['wall_s']:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in legs.items()) + ")")
 
 
+def _tool_mnv2(torch, qc, seed):
+    """mobilenetv2_cifar under ``qc``: calibrated on TOOL_CALIB grating
+    batches, handed to LSQ learning (observers off), then TOOL_STEPS captured
+    steps at B = MNV2_B under the protocol's optimizer; returns the model, an
+    eval batch and StepTimer's steps/s."""
+    from jaxlsq_torch.models import calibrate, enable_param_learning_all, mobilenetv2_cifar
+    from jaxlsq_torch.parallel import make_train_step
+    from jaxlsq_torch.utils import StepTimer
+
+    model = mobilenetv2_cifar(MNV2_CLASSES, qc, device="cuda", seed=0)
+    batches = _grating_batches(torch, TOOL_CALIB + TOOL_STEPS + 1, MNV2_B, seed=seed)
+    calibrate(model, [b["image"] for b in batches[:TOOL_CALIB]])
+    enable_param_learning_all(model)
+    step = make_train_step(model, _adamw(torch, model), jit=True)
+    timer, rate, losses = StepTimer(warmup=2), None, []
+    for b in batches[TOOL_CALIB:-1]:
+        losses.append(step(b)["loss"])
+        rate = timer.tick(losses[-1]) or rate
+    if not all(math.isfinite(float(v)) for v in losses) or not (rate or 0) > 0:
+        raise AssertionError(f"[tooling] losses {losses}, StepTimer {rate}")
+    return model, batches[-1], rate
+
+
+def _unchanged(torch, model, before, what):
+    after = _quantizer_state(model)
+    bad = [k for k, v in before.items() if not torch.equal(v, after[k])]
+    if bad or model.training:
+        raise AssertionError(f"[tooling] {what} left {bad[:4]} changed "
+                             f"(training={model.training})")
+
+
+def _losses(sens, plan):
+    """Every loss a sensitivity report and a plan evaluated, by name."""
+    out = {"sens/float": sens["baseline_float"], "sens/quant": sens["baseline_quant"],
+           "plan/float": plan["baseline_float"],
+           "plan/planned": plan["planned_quant_loss"]}
+    for r in sens["rows"]:
+        out[f"sens/{r['scope']}/only"] = r["quant_only"]
+        out[f"sens/{r['scope']}/loo"] = r["leave_one_out"]
+    for b, v in plan["uniform"].items():
+        out[f"plan/uniform{b}"] = v
+    for r in plan["rows"]:
+        for b in (4, 8):
+            out[f"plan/{r['scope']}/{b}"] = r[f"damage_{b}b"] + plan["baseline_float"]
+    return out
+
+
+def _near_ties(ref, got, rel):
+    """The scopes whose bits differ between two plans, each paired with a
+    scope of the other width in ``ref`` whose damage-per-byte gain lies within
+    what a relative error ``rel`` of the losses can move (else raises)."""
+    rows = {r["scope"]: r for r in ref["rows"]}
+    eps = 2 * rel * max(abs(v) for v in [ref["baseline_float"], *ref["uniform"].values()])
+
+    def gain(s):
+        return (rows[s]["damage_4b"] - rows[s]["damage_8b"]) / (4 * rows[s]["numel"])
+
+    def slack(s):
+        return 2 * eps / (4 * rows[s]["numel"])
+
+    ties = []
+    for s, b in ref["assignment"].items():
+        if got["assignment"][s] == b:
+            continue
+        near = [t for t, bt in ref["assignment"].items()
+                if bt != b and abs(gain(s) - gain(t)) <= slack(s) + slack(t)]
+        if not near:
+            raise AssertionError(f"[tooling] the card planned {s} at {got['assignment'][s]} "
+                                 f"bits, the CPU at {b}, with no near tie")
+        ties.append([s, near[0]])
+    return ties
+
+
+class _ActHandover:
+    """Deviation 14's hand-over for a QAT model's activation quantizers
+    across whole sequences of evaluations (the copies a plan makes carry the
+    hooks).  ``record``: each ``act_fq``'s input elements within 1e-3 of a
+    rounding boundary of its quantizer, kept on the host by call.  ``take``
+    (the other device, the same sequence of calls): where such an element
+    quantizes to another level than the recorded one, the recorded value is
+    handed over and counted; an element away from a boundary cannot change
+    its level by a rounding difference."""
+
+    NEAR = 1e-3
+
+    def __init__(self, torch, model, take=None):
+        self.torch, self.take = torch, take
+        self.kept = {} if take is None else None
+        self.calls = {}
+        self.moved = [0, 0]
+        self.hooks = [m.register_forward_pre_hook(
+            lambda mod, args, n=n: self._pre(n, mod, args))
+            for n, m in model.named_modules() if n.endswith("act_fq")]
+
+    def _v(self, mod, x):
+        torch = self.torch
+        spec = mod.cfg.spec
+        s = mod.scale.detach().abs().clamp_min(torch.finfo(torch.float32).eps)
+        zp = torch.round(torch.clamp(-mod.shift.detach() / s, spec.type_min, spec.type_max))
+        return torch.clamp(x / s + zp, spec.quant_min, spec.quant_max)
+
+    def _pre(self, n, mod, args):
+        torch = self.torch
+        x = args[0].detach()
+        i = self.calls[n] = self.calls.get(n, -1) + 1
+        if self.take is None:
+            v = self._v(mod, x).reshape(-1)
+            idx = ((v - torch.floor(v) - 0.5).abs() < self.NEAR).nonzero().reshape(-1)
+            self.kept.setdefault(n, []).append((idx.cpu(), x.reshape(-1)[idx].cpu()))
+            return None
+        idx, vals = self.take.kept[n][i]
+        idx, vals = idx.to(x.device), vals.to(x.device)
+        flat = x.reshape(-1).clone()
+        far = torch.round(self._v(mod, flat[idx])) != torch.round(self._v(mod, vals))
+        self.moved[0] += int(far.sum())
+        self.moved[1] += flat.numel()
+        flat[idx[far]] = vals[far]
+        return (flat.reshape(x.shape),) + tuple(args[1:])
+
+    def close(self):
+        for h in self.hooks:
+            h.remove()
+
+
+def _tool_plan(torch, card, fq):
+    """sensitivity_report and plan_mixed_precision (weights at 4 or 8 bits,
+    TOOL_TARGET average) on the card at B = MNV2_B; then both on the card and
+    on the CPU from the same state on the batch's first TOOL_CPU_B images:
+    every loss within TOOL_REL relative, the assignments equal but at near
+    ties, the CPU's activation-quantizer inputs handed over where the card's
+    quantize to the neighbouring level (deviation 14, at most
+    MAX_DECODE_MOVED of them); every quantizer tensor bit-identical after
+    each call."""
+    from jaxlsq_torch.utils import plan_mixed_precision, sensitivity_report
+
+    model, batch, _ = _tool_mnv2(torch, _combo_qc(4, 1200), seed=181)
+    model.eval()
+    before = _quantizer_state(model)
+    f0 = dict(fq)
+    s = time.time()
+    sens = sensitivity_report(model, batch, input_key="image")
+    _unchanged(torch, model, before, "sensitivity_report")
+    sens_s, s = time.time() - s, time.time()
+    plan = plan_mixed_precision(model, batch, bit_options=(4, 8),
+                                target_avg_bits=TOOL_TARGET, input_key="image", verify=True)
+    _unchanged(torch, model, before, "plan_mixed_precision")
+    plan_s = time.time() - s
+    launches = {k: fq[k] - f0[k] for k in FQ_KERNELS}
+    if launches["fq_fwd_pt"] <= 0 or launches["fq_fwd_pc"] <= 0:
+        raise AssertionError(f"[tooling] the evaluations launched {launches}")
+    n8 = sum(1 for b in plan["assignment"].values() if b == 8)
+    log(f"[tooling] w4a8 mobilenetv2_cifar, B={MNV2_B}: sensitivity_report over "
+        f"{len(sens['rows'])} layers in {sens_s:.2f} s (float loss "
+        f"{sens['baseline_float']:.5f}, all quantized {sens['baseline_quant']:.5f}, most "
+        f"sensitive {sens['rows'][0]['scope']}); plan_mixed_precision (4, 8) at "
+        f"{TOOL_TARGET}: {n8} of {len(plan['assignment'])} layers at 8 bits, avg "
+        f"{plan['avg_bits']:.3f}, planned loss {plan['planned_quant_loss']:.5f} "
+        f"(uniform {plan['uniform']}) in {plan_s:.2f} s; fake-quant launches {launches}; "
+        "every quantizer tensor unchanged after each")
+    small = {k: v[:TOOL_CPU_B] for k, v in batch.items()}
+    cpu_model = _mnv2(torch, "cpu", wbits=4, window=1200)
+    cpu_model.load_state_dict(model.state_dict())
+    cpu_model.eval()
+    cpu_before = _quantizer_state(cpu_model)
+    plans, losses, hand, cpu_s = {}, {}, None, None
+    for m, batch_d in ((model, small), (cpu_model, {k: v.cpu() for k, v in small.items()})):
+        s = time.time()
+        dev = next(m.parameters()).device.type
+        hand = _ActHandover(torch, m, take=hand)  # the CPU takes the card's near-boundary inputs
+        try:
+            plans[dev] = plan_mixed_precision(m, batch_d, bit_options=(4, 8),
+                                              target_avg_bits=TOOL_TARGET, input_key="image")
+            losses[dev] = _losses(sensitivity_report(m, batch_d, input_key="image"),
+                                  plans[dev])
+        finally:
+            hand.close()
+        cpu_s = time.time() - s
+    got, want, plan_card, plan_cpu = losses["cuda"], losses["cpu"], plans["cuda"], plans["cpu"]
+    _unchanged(torch, model, before, "the B=8 calls")
+    _unchanged(torch, cpu_model, cpu_before, "the CPU calls")
+    worst = max(want, key=lambda k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30))
+    rel = abs(got[worst] - want[worst]) / max(abs(want[worst]), 1e-30)
+    ties = _near_ties(plan_cpu, plan_card, TOOL_REL)
+    log(f"[tooling] card vs CPU on {TOOL_CPU_B} images: {len(want)} losses, the worst "
+        f"{worst} {rel:.3e} relative (tol {TOOL_REL}; {hand.moved[0]} of {hand.moved[1]} "
+        f"activation-quantizer inputs handed over); assignments equal but {len(ties)} "
+        f"near ties {ties}; the CPU calls {cpu_s:.1f} s")
+    if not rel <= TOOL_REL or hand.moved[0] > MAX_DECODE_MOVED * hand.moved[1]:
+        raise AssertionError(f"[tooling] card and CPU losses disagree: {worst} {rel}")
+    return model, plan, {"sensitivity_s": sens_s, "plan_s": plan_s, "fq_launches": launches,
+                         "n_int8": n8, "n_layers": len(plan["assignment"]),
+                         "avg_bits": plan["avg_bits"], "planned_loss": plan["planned_quant_loss"],
+                         "uniform": plan["uniform"], "baseline_float": sens["baseline_float"],
+                         "cpu_vs_card_rel": rel, "cpu_vs_card_worst": worst,
+                         "handed_over": hand.moved, "near_ties": ties, "cpu_s": cpu_s}
+
+
+def _tool_mixed(torch, plan, card, mm, fq):
+    """The plan's qconfig: a fresh mobilenetv2_cifar calibrated and trained
+    as the planned one (StepTimer's rate), converted and served (phase 13's
+    rules, the classifier through the wo kernel of its planned width, the
+    convolutions' packs at both widths), and serving_size_report beside the
+    uniform w4 and w8 conversions of the same variables."""
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.models import mobilenetv2_cifar
+    from jaxlsq_torch.models.layers import _PackedBuffers
+    from jaxlsq_torch.utils import serving_size_report
+
+    qc = plan["qconfig"]
+    model, batch, rate = _tool_mnv2(torch, qc, seed=182)
+    out = {"steps_per_s": rate}
+    out["serve"] = _mnv2_serve(torch, model, plan["assignment"]["classifier"],
+                               batch["image"], mm, fq)
+    tree = interop.qat_variables(model)
+    sizes = {}
+    for name, wbits in (("planned", None), ("uniform_w4", 4), ("uniform_w8", 8)):
+        q = qc if wbits is None else _combo_qc(wbits, 1200)
+        served = mobilenetv2_cifar(MNV2_CLASSES, q.for_serving("static"), device="cuda")
+        interop.load_variables(served, tree)
+        sizes[name] = serving_size_report(served)
+        if wbits is None:
+            bits = [m.bits for m in served.modules() if isinstance(m, _PackedBuffers)]
+            out["packs_by_bits"] = {8: bits.count(8), 4: bits.count(4)}
+    out["serving_size"] = sizes
+    log(f"[tooling] the planned mobilenetv2_cifar: {TOOL_STEPS} captured steps at "
+        f"{rate * MNV2_B:.0f} images/s (StepTimer), packs by width "
+        f"{out['packs_by_bits']}; serving_size_report: " + "; ".join(
+            f"{k} {v['total_bytes']} bytes ({v['compression']}x)" for k, v in sizes.items()))
+    if not (sizes["uniform_w4"]["total_bytes"] < sizes["planned"]["total_bytes"]
+            < sizes["uniform_w8"]["total_bytes"]) or 0 in out["packs_by_bits"].values():
+        raise AssertionError(f"[tooling] the planned packs are not mixed: {out}")
+    return out
+
+
+def _tool_mixed_lm(torch, card, mm):
+    """Mixed carriers on the dense path: phase 3's LM in QAT mode at w4 (full
+    range), calibrated on 4 token batches, planned (4, 8) at TOOL_TARGET on a
+    B = 8, t = 47 batch; the planned copy converted and served 'static': its
+    logits within 1e-4 of max|ref| of the planned QAT model's eval logits
+    (deviation 14's hand-over), and ``make_generate`` at B = 1 through both
+    ``wo8`` and ``wo4``."""
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.models import (QuantDense, QuantTransformerLM, calibrate,
+                                     default_qconfig)
+    from jaxlsq_torch.parallel import make_eval_step
+    from jaxlsq_torch.serve import make_generate
+    from jaxlsq_torch.utils import plan_mixed_precision
+
+    qc = default_qconfig(4, 8, per_channel_weights=True, init_batches=1, reduce_range=False)
+    qat = QuantTransformerLM(VOCAB, DIM, DEPTH, HEADS, qc, max_len=TOOL_LM_LEN,
+                             device="cuda", seed=18)
+    g = torch.Generator(device="cuda").manual_seed(183)
+    calibrate(qat, [torch.randint(0, VOCAB, (4, 48), device="cuda", generator=g)
+                    for _ in range(4)])
+    toks = torch.randint(0, VOCAB, (8, 48), device="cuda", generator=g)
+    plan = plan_mixed_precision(qat, {"input": toks[:, :-1], "label": toks[:, 1:]},
+                                bit_options=(4, 8), target_avg_bits=TOOL_TARGET)
+    planned = plan["planned_model"]
+    served = QuantTransformerLM(VOCAB, DIM, DEPTH, HEADS, plan["qconfig"].for_serving("static"),
+                                max_len=TOOL_LM_LEN, device="cuda")
+    interop.load_variables(served, interop.qat_variables(planned))
+    prompt = toks[:2, :40]
+    ref_inputs = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, n=n: ref_inputs.setdefault(n, []).append(args[0].detach().clone()))
+        for n, m in planned.named_modules() if isinstance(m, QuantDense)]
+    try:
+        want = make_eval_step(planned)({"input": prompt})
+    finally:
+        for h in hooks:
+            h.remove()
+    hand = _Handover(torch, served)
+    hand.ref = ref_inputs
+    with torch.no_grad():
+        got = hand.run(lambda: served(prompt), take=True)
+    err = float((got - want).abs().max())
+    tol = 1e-4 * float(want.abs().max())
+    before = dict(mm)
+    toks_out = make_generate(served, EXPORT_T0, EXPORT_NEW)(prompt[:1, :EXPORT_T0])
+    launches = {k: mm[k] - before[k] for k in ("wo8", "wo4")}
+    dense = {n: b for n, b in plan["assignment"].items() if n != "tok_emb"}
+    out = {"assignment": plan["assignment"], "avg_bits": plan["avg_bits"],
+           "logits_err": err, "tol": tol, "moved": hand.moved, "generate_launches": launches}
+    log(f"[tooling] the d1024x4 LM at w4, planned (4, 8) at {TOOL_TARGET}: "
+        f"{sum(b == 8 for b in dense.values())} of {len(dense)} dense layers at 8 bits "
+        f"(avg {plan['avg_bits']:.3f}); served 'static' logits vs the planned QAT model's eval "
+        f"logits max_abs_err {err:.3e} (tol {tol:.3e}; {hand.moved[0]} of {hand.moved[1]} "
+        f"layer inputs handed over); make_generate B=1 launched {launches}")
+    if not (err <= tol and hand.moved[0] <= MAX_DECODE_MOVED * hand.moved[1]):
+        raise AssertionError(f"[tooling] the planned LM's served logits: {err} > {tol} or "
+                             f"{hand.moved} moved")
+    if min(launches.values()) <= 0 or toks_out.shape != (1, EXPORT_NEW):
+        raise AssertionError(f"[tooling] the mixed LM did not run both wo kernels: {launches}")
+    return out
+
+
+_REPLAY = r'''
+import json, sys, time
+import torch
+sys.path.insert(0, sys.argv[1])
+import jaxlsq_torch.serve.custom_ops  # noqa: F401  (registers the operators)
+from torch.profiler import ProfilerActivity, profile
+
+mm = sys.modules["jaxlsq_torch.serve.matmul"].LAUNCHES
+attn = sys.modules["jaxlsq_torch.serve.attention"].LAUNCHES
+results = {}
+for case in json.loads(sys.argv[2]):
+    args = torch.load(case["args"], map_location="cuda")
+    program = torch.export.load(case["blob"]).module()
+    before = {**mm, **attn}
+    out = program(args["state"], args["x"])
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in {**mm, **attn}.items() if v != before[k]}
+    names = set()
+    for _ in range(3):  # the profiler can lose a stretch of kernel records
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            program(args["state"], args["x"])
+            torch.cuda.synchronize()
+        names = {e.key for e in p.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA}
+        if any(k in n for n in names for k in case["kernels"]):
+            break
+    results[case["name"]] = {
+        "equal": bool(torch.equal(out, args["ref"])), "launches": launches,
+        "kernels": sorted(n for n in names if any(k in n for k in case["kernels"]))}
+bad = sorted(m for m in sys.modules if m.startswith(("jaxlsq_torch.models",
+             "jaxlsq_torch.interop")) or m.split(".")[0] in ("jax", "jaxlsq", "flax"))
+print(json.dumps({"results": results, "model_modules": bad}))
+'''
+
+
+def _tool_export(torch, card):
+    """torch.export of phase 3's d1024 x 4 LM at w8 and w4 (f32 cache, B = 1):
+    the serving forward and the greedy generate (prompt EXPORT_T0, EXPORT_NEW
+    new tokens), and the 'static_int8' forward; each blob under
+    EXPORT_MAX_BLOB, replayed in a fresh process that imports torch and
+    ``serve.custom_ops`` only: bit-equal to the eager forward and
+    ``make_generate``, launching the hand-written kernels (their counts and
+    the profiler's kernel names)."""
+    import shutil
+    import tempfile
+
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.models import QuantTransformerLM, default_qconfig, init_variables
+    from jaxlsq_torch.serve import export_generate, export_serving_forward, make_generate
+
+    d = tempfile.mkdtemp(prefix="jlt_export_")
+    g = torch.Generator(device="cuda").manual_seed(184)
+    prompt = torch.randint(0, VOCAB, (1, EXPORT_T0), device="cuda", generator=g,
+                           dtype=torch.int32)
+    max_len = EXPORT_T0 + EXPORT_NEW
+    cases, out = [], {}
+    wo = ("wo_mma_", "wo_split_kernel", "wo_tiled_kernel")
+    for name, wbits, act_mode in (("w8", 8, "none"), ("w4", 4, "none"),
+                                  ("w8_static_int8", 8, "static_int8")):
+        qc = default_qconfig(wbits, 8, per_channel_weights=True).for_serving(act_mode)
+        model = QuantTransformerLM(VOCAB, DIM, DEPTH, HEADS, qc, max_len=max_len,
+                                   device="cuda")
+        interop.load_variables(model, init_variables(model, seed=40 + wbits))
+        model.eval()
+        state = dict(model.state_dict())
+        progs = [("forward", lambda: export_serving_forward(model, state, prompt), prompt)]
+        if act_mode == "none":
+            progs.append(("generate", lambda: export_generate(
+                model, state, EXPORT_T0, EXPORT_NEW, batch_size=1), prompt))
+        for prog, export, x in progs:
+            s = time.time()
+            blob = export()
+            export_s = time.time() - s
+            with torch.no_grad():
+                ref = (model(x) if prog == "forward"
+                       else make_generate(model, EXPORT_T0, EXPORT_NEW)(x))
+            key = f"{name}_{prog}"
+            path = os.path.join(d, key)
+            with open(path + ".pt2", "wb") as f:
+                f.write(blob)
+            torch.save({"state": state, "x": x, "ref": ref}, path + ".args")
+            kernels = (("act_quant", "i8mm_kernel") if act_mode == "static_int8" else wo)
+            if prog == "generate":
+                kernels = kernels + ("decode_attention_span_kernel",)
+            cases.append({"name": key, "blob": path + ".pt2", "args": path + ".args",
+                          "kernels": list(kernels)})
+            out[key] = {"blob_bytes": len(blob), "export_s": export_s}
+            if len(blob) >= EXPORT_MAX_BLOB:
+                raise AssertionError(f"[tooling] the {key} blob is {len(blob)} bytes")
+        del model
+    s = time.time()
+    proc = subprocess.run([sys.executable, "-c", _REPLAY, ROOT, json.dumps(cases)],
+                          capture_output=True, text=True, timeout=900)
+    replay_s = time.time() - s
+    shutil.rmtree(d)
+    if proc.returncode != 0:
+        raise AssertionError(f"[tooling] the replay process failed:\n{proc.stderr[-4000:]}")
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    for key, r in rep["results"].items():
+        out[key].update(r)
+        want = ({"act_quant_i8", "i8mm"} if "int8" in key else
+                {"wo8" if key.startswith("w8") else "wo4"})
+        if "generate" in key:
+            want |= {"decode_attention"}
+        if not r["equal"] or not want <= set(r["launches"]) or not r["kernels"]:
+            raise AssertionError(f"[tooling] the replayed {key}: {r}")
+    if rep["model_modules"]:
+        raise AssertionError(f"[tooling] the replay process imported {rep['model_modules']}")
+    out["replay_s"] = replay_s
+    log(f"[tooling] torch.export of the d1024x4 LM (B=1, f32 cache; generate {EXPORT_T0} + "
+        f"{EXPORT_NEW}): " + "; ".join(
+            f"{k} {v['blob_bytes']} bytes, exported in {v['export_s']:.1f} s, replay bit-equal, "
+            f"launches {v['launches']}, profiled {v['kernels']}" for k, v in out.items()
+            if isinstance(v, dict))
+        + f"; the replay process ({replay_s:.1f} s) imported no model class")
+    return out
+
+
+def _mt19937_64(seed):
+    """std::mt19937_64 seeded with one 64-bit value: its next output."""
+    mask = (1 << 64) - 1
+    mt = [seed & mask]
+    for i in range(1, 312):
+        mt.append((6364136223846793005 * (mt[-1] ^ (mt[-1] >> 62)) + i) & mask)
+    state = {"i": 312}
+
+    def draw():
+        if state["i"] >= 312:
+            for i in range(312):
+                x = (mt[i] & 0xFFFFFFFF80000000) | (mt[(i + 1) % 312] & 0x7FFFFFFF)
+                mt[i] = mt[(i + 156) % 312] ^ (x >> 1) ^ (0xB5026F5AA96619E9 if x & 1 else 0)
+            state["i"] = 0
+        y = mt[state["i"]]
+        state["i"] += 1
+        y ^= (y >> 29) & 0x5555555555555555
+        y ^= (y << 17) & 0x71D67FFFEDA60000
+        y ^= (y << 37) & 0xFFF7EEE000000000
+        return (y ^ (y >> 43)) & mask
+
+    return draw
+
+
+def _loader_rows(n, seed, batch, k):
+    """The loader's contract: batch ``k`` holds rows perm_epoch[k*B:(k+1)*B]
+    of the (shard, row) index, the epoch's permutation a Fisher-Yates shuffle
+    of the identity by std::mt19937_64 seeded ``seed * 0x9E3779B97F4A7C15 +
+    epoch``; epochs drop their remainder."""
+    per_epoch = n // batch
+    epoch, off = divmod(k, per_epoch)
+    draw = _mt19937_64((seed * 0x9E3779B97F4A7C15 + epoch) & ((1 << 64) - 1))
+    perm = list(range(n))
+    for i in range(n - 1, 0, -1):
+        j = draw() % (i + 1)
+        perm[i], perm[j] = perm[j], perm[i]
+    return perm[off * batch:(off + 1) * batch]
+
+
+def _tool_oracle(torch):
+    """The host C++ oracle against the card's fake-quant kernels (phase 2's
+    gates) at a per-tensor activation and a per-channel weight, in train,
+    eval and init modes."""
+    import numpy as np
+
+    from jaxlsq_torch.core.golden import effective_grad_scale
+    from jaxlsq_torch.core.spec import QuantSpec
+    from jaxlsq_torch.native import native_backward, native_forward
+    from jaxlsq_torch.ops.fake_quant import fake_quant_backward, fake_quant_forward
+
+    g = torch.Generator(device="cuda").manual_seed(185)
+    cases = [("activation", (32, 64, 16, 16), QuantSpec.activation_default(8)),
+             ("weight", (256, 128, 3, 3), QuantSpec.weight_default(8, per_channel=True,
+                                                                    axis=0))]
+    out = {"oracle": {}}
+    for what, shape, spec in cases:
+        x = torch.randn(shape, device="cuda", generator=g) * 2
+        gr = torch.randn(shape, device="cuda", generator=g)
+        c = shape[0] if spec.per_channel else 1
+        s = torch.rand(c, device="cuda", generator=g) * 0.03 + 0.02
+        b = (torch.zeros(c, device="cuda") if spec.symmetric
+             else torch.randn(c, device="cuda", generator=g) * 0.1)
+        npx, npg, nps, npb = (t.cpu().numpy() for t in (x, gr, s, b))
+        for ev, init in ((False, False), (True, False), (False, True)):
+            fwd = fake_quant_forward(x, s, b, spec, init_mode=init)
+            dx, ds, db = fake_quant_backward(gr, x, s, b, spec, eval_mode=ev, init_mode=init)
+            nf = native_forward(npx, nps, npb, spec, init_mode=init)
+            ndx, nds, ndb = native_backward(npg, npx, nps, npb, spec, eval_mode=ev,
+                                            init_mode=init)
+            gs = effective_grad_scale(spec, x.numel(), c)
+            ts, tb = _fq_term_sums(torch, gr, x, s, b, spec, init, gs)
+            e_s = float((ds.double().cpu() - torch.from_numpy(nds).double()).abs().max())
+            e_b = float((db.double().cpu() - torch.from_numpy(ndb).double()).abs().max())
+            ok = (np.array_equal(fwd.cpu().numpy(), nf) and np.array_equal(dx.cpu().numpy(), ndx)
+                  and bool(((ds.double().cpu() - torch.from_numpy(nds).double()).abs()
+                            <= 1e-5 * ts.cpu()).all())
+                  and bool(((db.double().cpu() - torch.from_numpy(ndb).double()).abs()
+                            <= 1e-5 * tb.cpu()).all()))
+            out["oracle"][f"{what} eval={ev} init={init}"] = {"ds_err": e_s, "db_err": e_b}
+            if not ok:
+                raise AssertionError(f"[tooling] the native oracle and the card disagree at "
+                                     f"{what} eval={ev} init={init}: dS {e_s}, dB {e_b}")
+    log(f"[tooling] the native oracle against fq_fwd/bwd_pt and _pc: forward and dX bit for "
+        f"bit, dS/dB within 1e-5 of their term sums ({out['oracle']})")
+    return out
+
+
+def _tool_loader(torch):
+    """NativeShardLoader feeding LOADER_STEPS eager resnet18_cifar steps at
+    B = LOADER_B from shards written from a seed, each batch the rows the
+    loader's contract names."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from jaxlsq_torch.native import NativeShardLoader
+    from jaxlsq_torch.parallel import make_train_step
+
+    d = tempfile.mkdtemp(prefix="jlt_shards_")
+    r = np.random.RandomState(186)
+    shards, xs, ys = [], [], []
+    for i, n in enumerate(LOADER_SHARDS):
+        x = r.randn(n, 3, 32, 32).astype(np.float32)
+        y = r.randint(0, 10, n).astype(np.int64)
+        np.save(os.path.join(d, f"x{i}.npy"), x)
+        np.save(os.path.join(d, f"y{i}.npy"), y)
+        shards.append((os.path.join(d, f"x{i}.npy"), os.path.join(d, f"y{i}.npy")))
+        xs.append(x)
+        ys.append(y)
+    xs, ys = np.concatenate(xs), np.concatenate(ys)
+    model = _resnet(torch, "cuda", seed=7)
+    step = make_train_step(model, _sgd(torch, model), jit=False)
+    losses = []
+    with NativeShardLoader(shards, LOADER_B, seed=3, workers=4, prefetch=4,
+                           device="cuda") as ld:
+        for k in range(LOADER_STEPS):
+            x, y = ld.next()
+            rows = _loader_rows(len(xs), 3, LOADER_B, k)
+            if not (x.is_cuda and np.array_equal(x.cpu().numpy(), xs[rows])
+                    and np.array_equal(y.cpu().numpy(), ys[rows])):
+                raise AssertionError(f"[tooling] loader batch {k} is not the contract's rows")
+            losses.append(float(step({"image": x, "label": y})["loss"]))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"[tooling] non-finite losses {losses}")
+    shutil.rmtree(d)
+    out = {"losses": losses, "batches_per_epoch": len(xs) // LOADER_B}
+    log(f"[tooling] NativeShardLoader ({len(xs)} rows in {len(shards)} shards, 4 workers): "
+        f"{LOADER_STEPS} eager resnet18_cifar steps at B={LOADER_B}, every batch the "
+        f"contract's rows (a re-derived mt19937_64 shuffle); losses {losses}")
+    return out
+
+
+def phase_tooling(torch, rec):
+    """Phase 18, inside ``utils.profiling.trace``: sensitivity and planning on
+    mobilenetv2 (card against the CPU), mixed carriers served (mobilenetv2 and
+    the d1024 LM), torch.export of the d1024 LM replayed in a fresh process,
+    with every count at 0; then the native oracle and shard loader.  Each
+    leg is an ``annotate`` span, found in the trace file after."""
+    import shutil
+    import tempfile
+
+    from jaxlsq_torch.utils import annotate, trace
+
+    out = rec["tooling"] = {}
+    t_start = time.time()
+    log_dir = tempfile.mkdtemp(prefix="jlt_trace_")
+    legs = out["leg_s"] = {}
+    mm, attn, fq = reset_counts()
+    with trace(log_dir) as prof:
+        s = time.time()
+        with annotate("jlt/plan"):
+            model, plan, out["plan"] = _tool_plan(torch, rec["card"], fq)
+        legs["plan"], s = time.time() - s, time.time()
+        with annotate("jlt/mixed"):
+            out["mixed"] = _tool_mixed(torch, plan, rec["card"], mm, fq)
+            out["mixed_lm"] = _tool_mixed_lm(torch, rec["card"], mm)
+        legs["mixed"], s = time.time() - s, time.time()
+        with annotate("jlt/export"):
+            out["export"] = _tool_export(torch, rec["card"])
+        legs["export"], s = time.time() - s, time.time()
+        with annotate("jlt/native"):
+            torch.cuda.synchronize()
+            pre = {**fq, **mm, **attn}
+            out["native"] = _tool_oracle(torch)  # its launches compare: not counted
+            torch.cuda.synchronize()
+            post = {**fq, **mm, **attn}
+            out["native"]["loader"] = _tool_loader(torch)
+            torch.cuda.synchronize()
+        legs["native"] = time.time() - s
+    out["launches"] = {k: v - (post[k] - pre[k]) for k, v in {**fq, **mm, **attn}.items()}
+    s = time.time()
+    with open(prof.trace_path) as f:
+        spans = {e.get("name") for e in json.load(f).get("traceEvents", [])}
+    out["trace_mb"] = os.path.getsize(prof.trace_path) / 1e6
+    shutil.rmtree(log_dir)
+    legs["trace_file"] = time.time() - s
+    missing = {"jlt/plan", "jlt/mixed", "jlt/export", "jlt/native"} - spans
+    if missing:
+        raise AssertionError(f"[tooling] the trace file lacks the spans {missing}")
+    for k in FQ_KERNELS + TRACED_KERNELS + ("wo8", "wo4", "decode_attention"):
+        if out["launches"][k] <= 0:
+            raise AssertionError(f"kernel {k} was never launched on the tooling path")
+    out["wall_s"] = time.time() - t_start
+    log(f"[tooling] kernel launches on the tooling path: {out['launches']}; the trace "
+        f"({out['trace_mb']:.1f} MB) holds the four annotate spans; phase 18 took "
+        f"{out['wall_s']:.1f} s (" + ", ".join(f"{k} {v:.1f}" for k, v in legs.items()) + ")")
+
+
 def _int8_kernels_line(rec):
     o = rec["int8_moe"]
     m1 = o["times"]["by_m"][1]
@@ -5064,6 +5709,7 @@ def _int8_kernels_line(rec):
                            "jax.lax.dot / conv_general_dilated in int32, XLA)")):
         out.append({"name": name, "route": "cuda", "source": "jaxlsq_torch/csrc/int8_matmul.cu",
                     "replaces": repl, "launches": o["launches"][name],
+                    "tooling_launches": rec["tooling"]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name], "ms": m1[f"{key}_ms"],
                     "plain_ms": m1[f"{key}_plain_ms"], "bound_ms": m1[f"{key}_bound_ms"],
                     "bound_by": "bytes", "library_ms": None,
@@ -5115,6 +5761,7 @@ def kernels_line(rec):
                     "third_party_launches": rec["third_party"]["launches"][name],
                     "decode_features_launches": rec["decode_features"]["launches"][name],
                     "int8_moe_launches": rec["int8_moe"]["launches"][name],
+                    "tooling_launches": rec["tooling"]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": sum(r["ms"] for r in rows),
                     "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -5162,6 +5809,7 @@ def kernels_line(rec):
                 "decode_features_launches":
                     rec["decode_features"]["launches"]["decode_attention"],
                 "int8_moe_launches": rec["int8_moe"]["launches"]["decode_attention"],
+                "tooling_launches": rec["tooling"]["launches"]["decode_attention"],
                 "max_abs_err": rec["max_abs_err"]["decode_attention"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -5184,6 +5832,7 @@ def kernels_line(rec):
                     "third_party_launches": rec["third_party"]["launches"][name],
                     "decode_features_launches": rec["decode_features"]["launches"][name],
                     "int8_moe_launches": rec["int8_moe"]["launches"][name],
+                    "tooling_launches": rec["tooling"]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -5295,6 +5944,7 @@ def main(argv):
     phase_third_party(torch, rec)
     phase_decode_features(torch, rec)
     phase_int8_moe(torch, rec)
+    phase_tooling(torch, rec)
     rec["wall_s"] = time.time() - t0
     rec["profile_misses"] = PROFILE_MISSES
     rec["waiting_calls"] = WAITING_CALLS

@@ -32,7 +32,13 @@ trained variables through ``serve.convert`` into the serve-mode model under
 the classifier through ``wo8``/``wo4``) and ``top1_bnreest`` (the QAT model
 after ``reestimate_batch_stats`` over 400 batches), each with its paired
 delta against the seed's float model and its McNemar sigma; the summary is
-the mean over seeds with its 95% t-interval.  On the card::
+the mean over seeds with its 95% t-interval.  The mixed-precision recipes
+(``mp4_48``, ``mp4_56``) follow the sweep's flow: a ``combo1200_4`` scout
+is trained once a seed, ``plan_mixed_precision`` (weights at 4 or 8 bits,
+an average of 4.8 or 5.6) runs on it over a batch drawn from 424,242 +
+seed, and the recipe trains fresh under the planned qconfig; its rows carry
+``avg_bits``, ``n_int8`` and ``n_scopes``, and it serves mixed carriers
+(``wo8`` for the int8 layers, ``wo4`` for the rest).  On the card::
 
     python3 -m jaxlsq_torch.lab.accuracy_parity --models mobilenetv2 \\
         --recipe combo1200[,mse,...] --seeds 3 [--seed-start S] [--steps 1500] \\
@@ -59,11 +65,12 @@ from ..models.zoo import mobilenetv2_cifar, resnet18_cifar
 from ..observers import MovingAverageMinMaxObserver
 from ..parallel import (cross_entropy_loss, distillation_loss, make_eval_step,
                         make_train_step, qat_optimizer)
-from ..utils import reestimate_batch_stats
+from ..utils import plan_mixed_precision, reestimate_batch_stats
 
 __all__ = ["N_CLASSES", "SIZE", "EVAL_N", "EVAL_CHUNK", "BN_BATCHES", "T95",
            "grating_draws", "grating_images", "make_batch", "cosine_lr", "Recipe",
-           "recipe", "recipe_names", "paired_delta", "summarize", "run_seed", "main"]
+           "recipe", "recipe_names", "planned_recipe", "paired_delta", "summarize",
+           "run_seed", "main"]
 
 N_CLASSES = 36       # 5 degrees apart
 SIZE = 32
@@ -73,6 +80,9 @@ BN_BATCHES = 400     # examples/recipe_sweep.py's --bn-batches
 BASE_LR, WEIGHT_DECAY = 3e-3, 1e-4
 WARM_BATCHES = 20    # recipe_sweep.py: the *_warm recipes' calibration batches
 DISTILL_ALPHA, DISTILL_T = 0.5, 2.0  # recipe_sweep.py's distillation_loss arguments
+MP_SCOUT = "combo1200_4"  # recipe_sweep.py: the mixed-precision recipes' scout
+MP_BITS = (4, 8)
+MP_PLAN_SEED = 424_242    # the plan's batch: make_batch(key(424242 + seed))
 # two-sided t critical values at 95% for df = n - 1 (the JAX package's table)
 T95 = {1: 12.706, 2: 4.303, 3: 3.182, 4: 2.776, 5: 2.571}
 MODELS = {"resnet18": resnet18_cifar, "mobilenetv2": mobilenetv2_cifar}
@@ -155,14 +165,17 @@ def adamq_tx(model, on_card: bool) -> torch.optim.Optimizer:
 class Recipe:
     """A recipe of ``recipe_sweep.py``: its qconfig, its optimizer
     (``optimizer(model, on_card)``), a function of the model run before
-    training (``set_static_estimate``), its warm-start batch count and
-    whether it distills from the seed's float model."""
+    training (``set_static_estimate``), its warm-start batch count, whether
+    it distills from the seed's float model, and for a mixed-precision
+    recipe the average weight bits its plan targets (its qconfig is then
+    the uniform one the plan starts from; :func:`planned_recipe`)."""
 
     qconfig: QConfig
     optimizer: Callable = default_tx
     state_fn: Optional[Callable] = None
     warm_batches: int = 0
     distill: bool = False
+    mp_target: Optional[float] = None
 
 
 def _with_observer(qc: QConfig) -> QConfig:
@@ -172,9 +185,9 @@ def _with_observer(qc: QConfig) -> QConfig:
         qc.activation, observer=MovingAverageMinMaxObserver()))
 
 
-def _recipes() -> Dict[str, object]:
+def _recipes() -> Dict[str, Recipe]:
     """``recipes()`` and ``recipes_w4a8()`` of ``recipe_sweep.py``
-    (:125-250) by name: a Recipe, or the ROADMAP item that brings it."""
+    (:125-250) by name."""
     def dq(wbits=8, window=20, **kw):
         return default_qconfig(wbits, 8, per_channel_weights=True, init_batches=window,
                                **kw)
@@ -229,8 +242,9 @@ def _recipes() -> Dict[str, object]:
                                      distill=True),
         "distill4": Recipe(dq(4, window=1200, reduce_range=False), distill=True),
     }
-    for name in ("mp4_48", "mp4_56"):
-        out[name] = ("plan_mixed_precision", 7)
+    # planned mixed precision on a combo1200_4 scout, then trained fresh
+    for name, target in (("mp4_48", 4.8), ("mp4_56", 5.6)):
+        out[name] = Recipe(dq(4, window=1200, reduce_range=False), mp_target=target)
     return out
 
 
@@ -242,19 +256,30 @@ def recipe_names() -> Sequence[str]:
 def recipe(name: str) -> Recipe:
     """``float`` (no quantizer, ``default_tx``), or a recipe of
     ``examples/recipe_sweep.py``'s ``recipes()`` and ``recipes_w4a8()``
-    (:125-250).  The mixed-precision recipes raise ``NotImplementedError``:
-    their piece is ROADMAP queue A item 7."""
+    (:125-250)."""
     if name == "float":
         return Recipe(QConfig())
     table = _recipes()
     if name not in table:
         raise ValueError(f"unknown recipe {name!r}; one of {', '.join(recipe_names())}")
-    r = table[name]
-    if not isinstance(r, Recipe):
-        piece, item = r
-        raise NotImplementedError(f"recipe {name!r} needs {piece}, which the port does "
-                                  f"not have yet (ROADMAP queue A item {item})")
-    return r
+    return table[name]
+
+
+def planned_recipe(rec: Recipe, scout: torch.nn.Module, seed: int, batch: int,
+                   device) -> tuple:
+    """A mixed-precision recipe made concrete (``recipe_sweep.py``:449-476):
+    ``plan_mixed_precision`` over the trained ``scout`` (weights at 4 or 8
+    bits, ``rec.mp_target`` average bits) on a batch of ``batch`` images
+    drawn from 424,242 + ``seed``.  Returns the recipe under the planned
+    qconfig and its row's ``avg_bits``, ``n_int8`` and ``n_scopes``."""
+    x, y = make_batch(batch, _generator(MP_PLAN_SEED + seed, device), device)
+    plan = plan_mixed_precision(scout, {"image": x, "label": y}, bit_options=MP_BITS,
+                                target_avg_bits=rec.mp_target, input_key="image",
+                                verify=False)
+    extra = {"avg_bits": round(plan["avg_bits"], 3),
+             "n_int8": sum(1 for b in plan["assignment"].values() if b == 8),
+             "n_scopes": len(plan["assignment"])}
+    return dataclasses.replace(rec, qconfig=plan["qconfig"]), extra
 
 
 def paired_delta(pred_a: np.ndarray, pred_b: np.ndarray, labels: np.ndarray):
@@ -385,8 +410,20 @@ def run_seed(model_name: str, recipe_names, seed: int, results: Dict, *,
     labels = None
     teacher = None
     paired = results.setdefault(f"{prefix}/paired", {})
+    scout = None  # the mixed-precision recipes' scout, trained once a seed
     for cfg in ["float"] + names:
         rec = recipe(cfg)
+        extra = {}
+        if rec.mp_target is not None:
+            if scout is None:
+                srun = train(lambda q: model_fn(N_CLASSES, q, device=dev, seed=0),
+                             recipe(MP_SCOUT), steps, batch, seed, dev)
+                scout = srun["model"]
+                log(json.dumps({"row": f"{prefix}/{MP_SCOUT} (scout)",
+                                "train_loss": round(srun["loss"], 4),
+                                "train_s": round(srun["train_s"], 1)}))
+                del srun
+            rec, extra = planned_recipe(rec, scout, seed, batch, dev)
         qc = rec.qconfig
         run = train(lambda q: model_fn(N_CLASSES, q, device=dev, seed=0), rec,
                     steps, batch, seed, dev, teacher)
@@ -397,7 +434,7 @@ def run_seed(model_name: str, recipe_names, seed: int, results: Dict, *,
         preds[cfg] = p
         row = {"train_loss": round(run["loss"], 4), "top1": round(float((p == labels).mean()), 5),
                "train_s": round(run["train_s"], 1),
-               "images_per_s": round(run["images_per_s"], 1), "steps_ran": steps}
+               "images_per_s": round(run["images_per_s"], 1), "steps_ran": steps, **extra}
         if qc.weight is not None:
             # served: the raw trained variables through convert (load_variables)
             smodel = model_fn(N_CLASSES, qc.for_serving("static"), device=dev)
@@ -443,7 +480,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also write the whole record here (JSON)")
     args = ap.parse_args(argv)
     names = args.recipe.split(",")
-    for name in names:  # an unknown or unported name fails before any training
+    for name in names:  # an unknown name fails before any training
         recipe(name)
     if not torch.cuda.is_available():
         print("accuracy_parity: no CUDA device; the protocol runs on the card",

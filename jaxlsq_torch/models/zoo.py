@@ -501,6 +501,7 @@ class QuantMLP(nn.Module):
                  *, device=None, seed: int = 0):
         super().__init__()
         self.device = resolve_device(device)
+        self.qconfig = qconfig
         dims = (in_features,) + tuple(features)
         names = [f"dense_{i}" for i in range(len(features) - 1)] + ["head"]
         self.names = names

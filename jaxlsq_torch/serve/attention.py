@@ -8,6 +8,10 @@ nibbles.  ``cache_index`` is an int, a 0-d tensor or a (B,) tensor: the
 position of q's first row per slot; keys at positions <= cache_index + row
 are attended (and, with a window W, only those > cache_index + row - W).
 
+While a program is traced (``torch.export``, ``torch.compile``) it calls the
+``jaxlsq_torch::decode_attention`` operator (``serve.custom_ops``), whose
+implementations are the two below; eager code calls them directly:
+
 * On CPU tensors it runs :func:`decode_attention_plain`, the einsum
   formulation of ``_decode_attention_xla`` (the models' own program).
 * On CUDA tensors it launches ``csrc/decode_attention.cu`` or raises: a
@@ -179,8 +183,14 @@ def decode_attention(q, ck, cv, cache_index, window: Optional[int] = None):
         raise ValueError(f"num_heads {h} not divisible by kv heads {kdata.shape[1]}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"decode_attention: unsupported device {q.device}")
+    if torch.compiler.is_compiling():
+        quantized = isinstance(ck, (tuple, list))
+        kd, ks = (ck[0], ck[1]) if quantized else (ck, None)
+        vd, vs = (cv[0], cv[1]) if quantized else (cv, None)
+        return torch.ops.jaxlsq_torch.decode_attention(
+            q, kd, ks, vd, vs, _qpos(cache_index, b, q.device), window or 0)
     if q.device.type == "cpu":
         return decode_attention_plain(q, ck, cv, cache_index, window)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention: unsupported device {q.device}")
     return _launch(q, ck, cv, cache_index, window)

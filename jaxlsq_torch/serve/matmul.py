@@ -5,6 +5,11 @@
 (K, N) weight with per-channel qparams on N (or (1,) per-tensor), or with
 group-wise (G, N) scales (``packed.group_size``, int4).
 
+While a program is traced (``torch.export``, ``torch.compile``) it calls
+the ``jaxlsq_torch::wo_matmul`` operator (``serve.custom_ops``), whose
+implementations are the two below; eager code calls them directly (the
+operator's boxed call cost 13-15% of a B = 1 decode token, PERF.md):
+
 * On a CPU tensor it runs the plain version :func:`wo_matmul_plain`
   (``x @ dequantize_weight(packed)`` in f32).
 * On a CUDA tensor it launches ``csrc/wo_matmul.cu`` (``wo8`` for int8,
@@ -30,7 +35,9 @@ The int8 x int8 paths (the JAX package's ``static_int8_matmul``,
 int8 (``act_quant_i8``) and run the integer product with the dequant epilogue
 fused (``i8mm``), both in ``csrc/int8_matmul.cu`` on a CUDA tensor, and in
 their plain versions (the ``*_plain`` functions: the same integers, the
-epilogue's f32 operations in the same order) on a CPU tensor.  The integer
+epilogue's f32 operations in the same order) on a CPU tensor; while a
+program is traced, through the ``jaxlsq_torch::act_quant_i8`` and
+``jaxlsq_torch::i8mm`` operators, which pick by the device.  The integer
 product is exact, so the kernel's output is the plain version's bit for bit.
 The convolution takes NCHW activations and the pack as ``QuantConv`` holds
 it (HWIO); it gathers the windows of the int8 activation (im2col, padded with
@@ -63,31 +70,31 @@ def wo_matmul_plain(x: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
     return torch.matmul(x.to(torch.float32), w)
 
 
-def _launch(x2d: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
-    kdim, n = packed.orig_shape
+def _launch(x2d: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
+            zero_point: torch.Tensor, bits: int, kdim: int, n: int,
+            gs: int) -> torch.Tensor:
+    """The ``wo*`` kernel for a (K, N) pack's fields (``gs`` 0: not grouped)."""
     m = x2d.shape[0]
     dev = x2d.device
-    for name, t in (("data", packed.data), ("scale", packed.scale),
-                    ("zero_point", packed.zero_point)):
+    for name, t in (("data", data), ("scale", scale), ("zero_point", zero_point)):
         if t.device != dev:
             raise ValueError(f"wo_matmul: packed.{name} is on {t.device}, x on {dev}")
-    data = packed.data.contiguous()
+    data = data.contiguous()
     if data.dtype != torch.int8 or data.data_ptr() % 4:
         raise ValueError("wo_matmul: packed data must be 4-byte aligned int8")
-    rows = kdim if packed.bits == 8 else (kdim + 1) // 2
+    rows = kdim if bits == 8 else (kdim + 1) // 2
     if tuple(data.shape) != (rows, n):
         raise ValueError(f"wo_matmul: packed data shape {tuple(data.shape)} "
-                         f"!= {(rows, n)} for bits={packed.bits}, K={kdim}")
-    scale = packed.scale.to(torch.float32).contiguous()
-    zp = packed.zero_point.to(torch.int32).contiguous()
-    gs = packed.group_size or 0
+                         f"!= {(rows, n)} for bits={bits}, K={kdim}")
+    scale = scale.to(torch.float32).contiguous()
+    zp = zero_point.to(torch.int32).contiguous()
     lib = _build.load_library()
     if gs:
         align = lib.group_rows
-        if packed.bits != 4 or kdim % 2 or gs % align or (kdim // 2) % align:
+        if bits != 4 or kdim % 2 or gs % align or (kdim // 2) % align:
             raise ValueError(
                 f"wo_matmul: the wo4g kernel takes int4 packs whose group size "
-                f"and K / 2 are multiples of {align} (got bits={packed.bits}, "
+                f"and K / 2 are multiples of {align} (got bits={bits}, "
                 f"group_size={gs}, K={kdim})")
         if tuple(scale.shape) != (kdim // gs, n):
             raise ValueError(f"wo_matmul: group scales {tuple(scale.shape)} "
@@ -99,7 +106,7 @@ def _launch(x2d: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
     per_channel = int(scale.numel() == n and n > 1)
     args = (x2d.data_ptr(), data.data_ptr(), scale.data_ptr(), zp.data_ptr(),
             out.data_ptr(), m, kdim, n, per_channel)
-    if packed.bits == 8:
+    if bits == 8:
         err = lib.jlt_wo8(*args, stream)
         name = "wo8"
     else:
@@ -110,6 +117,17 @@ def _launch(x2d: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
     return out
 
 
+def _wo_launch(x: torch.Tensor, data: torch.Tensor, scale: torch.Tensor,
+               zero_point: torch.Tensor, bits: int, kdim: int, n: int,
+               gs: int) -> torch.Tensor:
+    """x (..., K) through the ``wo*`` kernel: (..., N) f32."""
+    lead = x.shape[:-1]
+    x2d = x.reshape(-1, kdim).contiguous()
+    if x2d.shape[0] == 0:
+        return x.new_zeros(*lead, n)
+    return _launch(x2d, data, scale, zero_point, bits, kdim, n, gs).reshape(*lead, n)
+
+
 def wo_matmul(x: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
     """``x @ dequant(packed)`` for x (..., K); returns (..., N) f32."""
     if len(packed.orig_shape) != 2:
@@ -117,17 +135,19 @@ def wo_matmul(x: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
     kdim, n = packed.orig_shape
     if x.shape[-1] != kdim:
         raise ValueError(f"wo_matmul: x has K={x.shape[-1]}, weight K={kdim}")
-    lead = x.shape[:-1]
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"wo_matmul: unsupported device {x.device}")
+    if x.device.type == "cuda" and x.dtype != torch.float32:
+        raise ValueError(f"wo_matmul: the kernel takes f32 activations, got {x.dtype}")
+    gs = packed.group_size or 0
+    if torch.compiler.is_compiling():
+        return torch.ops.jaxlsq_torch.wo_matmul(x, packed.data, packed.scale,
+                                                packed.zero_point, packed.bits, packed.axis,
+                                                packed.k_axis, kdim, n, gs)
     if x.device.type == "cpu":
         return wo_matmul_plain(x, packed)
-    if x.device.type != "cuda":
-        raise ValueError(f"wo_matmul: unsupported device {x.device}")
-    if x.dtype != torch.float32:
-        raise ValueError(f"wo_matmul: the kernel takes f32 activations, got {x.dtype}")
-    x2d = x.reshape(-1, kdim).contiguous()
-    if x2d.shape[0] == 0:
-        return x.new_zeros(*lead, n)
-    return _launch(x2d, packed).reshape(*lead, n)
+    return _wo_launch(x, packed.data, packed.scale, packed.zero_point, packed.bits, kdim, n,
+                      gs)
 
 
 # --------------------------------------------------------------------------
@@ -139,15 +159,12 @@ _MAX_K = 131072  # K * 128 * 128 < 2^31: the int32 sums stay exact
 _WORK = 1024     # the dynamic absmax's partials (csrc kMaxPartials)
 
 
-def _uses_plain(x: torch.Tensor, what: str) -> bool:
-    """A CPU tensor takes the plain versions, a CUDA one the kernels."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
+def _check_device(x: torch.Tensor, what: str) -> None:
+    """A CPU tensor takes the plain versions, a CUDA one (f32) the kernels."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {x.device}")
-    if x.dtype != torch.float32:
+    if x.device.type == "cuda" and x.dtype != torch.float32:
         raise ValueError(f"{what}: the kernels take f32 activations, got {x.dtype}")
-    return False
 
 
 def _to_int8(r: torch.Tensor) -> torch.Tensor:
@@ -184,8 +201,17 @@ def act_quant_i8(x: torch.Tensor, act_scale=None, act_zp=None, act_qmin: int = -
                  act_qmax: int = 127, *, dynamic: bool = False):
     """:func:`act_quant_i8_plain` on a CPU tensor; the ``act_quant_i8``
     kernel on a CUDA one (sx stays on the card)."""
-    if _uses_plain(x, "act_quant_i8"):
-        return act_quant_i8_plain(x, act_scale, act_zp, act_qmin, act_qmax, dynamic=dynamic)
+    _check_device(x, "act_quant_i8")
+    if torch.compiler.is_compiling():
+        return torch.ops.jaxlsq_torch.act_quant_i8(x, act_scale, act_zp, int(act_qmin),
+                                                   int(act_qmax), bool(dynamic))
+    if x.is_cuda:
+        return _act_quant_i8_launch(x, act_scale, act_zp, act_qmin, act_qmax, dynamic)
+    return act_quant_i8_plain(x, act_scale, act_zp, act_qmin, act_qmax, dynamic=dynamic)
+
+
+def _act_quant_i8_launch(x, act_scale, act_zp, act_qmin, act_qmax, dynamic):
+    """The ``act_quant_i8`` kernel (the CUDA operator's implementation)."""
     if x.numel() == 0:
         raise ValueError("act_quant_i8: empty input")
     dev = x.device
@@ -292,6 +318,22 @@ def _i8mm(a, b, qx, scale, zp, mode, qstrides, *, plain, window=0.0, conv_out=No
     return out
 
 
+def _quant(plain: bool):
+    return act_quant_i8_plain if plain else act_quant_i8
+
+
+def _product(a, b, qx, scale, zp, mode, qstrides, *, plain, window=0.0, conv_out=None):
+    """:func:`_i8mm` in PyTorch ops (``plain``), else by the device: the
+    ``i8mm`` operator while a program is traced, the kernel on a CUDA tensor,
+    the plain version on a CPU one."""
+    if not plain and torch.compiler.is_compiling():
+        return torch.ops.jaxlsq_torch.i8mm(a, b, qx, scale, zp, mode, int(qstrides[0]),
+                                           int(qstrides[1]), float(window),
+                                           list(conv_out) if conv_out else [])
+    return _i8mm(a, b, qx, scale, zp, mode, qstrides, plain=plain or not a.is_cuda,
+                 window=window, conv_out=conv_out)
+
+
 def _check_int8_pack(packed: PackedWeight, what: str) -> None:
     if packed.bits != 8 or packed.group_size is not None:
         raise ValueError(f"{what} needs an int8-packed weight")
@@ -306,11 +348,11 @@ def _static_int8_matmul(x, packed, act_scale, act_zp, act_qmin, act_qmax, out_dt
     kdim, n = packed.orig_shape
     lead = x.shape[:-1]
     x2d = x.reshape(-1, kdim)
-    quant = act_quant_i8_plain if plain else act_quant_i8
+    quant = _quant(plain)
     xq, qx = quant(x2d, act_scale, act_zp, act_qmin, act_qmax)
     per_channel = packed.scale.numel() > 1
-    out = _i8mm(xq[None], packed.data[None], qx, packed.scale, packed.zero_point, "static",
-                (0, int(per_channel)), plain=plain)
+    out = _product(xq[None], packed.data[None], qx, packed.scale, packed.zero_point, "static",
+                   (0, int(per_channel)), plain=plain)
     return out[0].to(out_dtype or x.dtype).reshape(*lead, n)
 
 
@@ -324,11 +366,11 @@ def static_int8_matmul(x: torch.Tensor, packed: PackedWeight, act_scale: torch.T
     if x.shape[-1] != packed.orig_shape[0]:
         raise ValueError(f"static_int8_matmul: x has K={x.shape[-1]}, "
                          f"weight K={packed.orig_shape[0]}")
-    plain = _uses_plain(x, "static_int8_matmul")
+    _check_device(x, "static_int8_matmul")
     if x.numel() == 0:
         return x.new_zeros(*x.shape[:-1], packed.orig_shape[1])
     return _static_int8_matmul(x, packed, act_scale, act_zp, act_qmin, act_qmax, out_dtype,
-                               plain)
+                               False)
 
 
 def static_int8_matmul_plain(x, packed, act_scale, act_zp, act_qmin, act_qmax, *,
@@ -342,11 +384,11 @@ def _dynamic_int8_matmul(x, packed, out_dtype, plain):
     _check_int8_pack(packed, "dynamic_int8_matmul")
     kdim, n = packed.orig_shape
     lead = x.shape[:-1]
-    quant = act_quant_i8_plain if plain else act_quant_i8
+    quant = _quant(plain)
     xq, qx = quant(x.reshape(-1, kdim), dynamic=True)
     per_channel = packed.scale.numel() > 1
-    out = _i8mm(xq[None], packed.data[None], qx, packed.scale, packed.zero_point, "dynamic",
-                (0, int(per_channel)), plain=plain)
+    out = _product(xq[None], packed.data[None], qx, packed.scale, packed.zero_point,
+                   "dynamic", (0, int(per_channel)), plain=plain)
     return out[0].to(out_dtype or x.dtype).reshape(*lead, n)
 
 
@@ -359,10 +401,10 @@ def dynamic_int8_matmul(x: torch.Tensor, packed: PackedWeight, *,
     if len(packed.orig_shape) != 2 or x.shape[-1] != packed.orig_shape[0]:
         raise ValueError(f"dynamic_int8_matmul: x has K={x.shape[-1]}, weight shape "
                          f"{tuple(packed.orig_shape)}")
-    plain = _uses_plain(x, "dynamic_int8_matmul")
+    _check_device(x, "dynamic_int8_matmul")
     if x.numel() == 0:
         return x.new_zeros(*x.shape[:-1], packed.orig_shape[1])
-    return _dynamic_int8_matmul(x, packed, out_dtype, plain)
+    return _dynamic_int8_matmul(x, packed, out_dtype, False)
 
 
 def dynamic_int8_matmul_plain(x, packed, *, out_dtype=None):
@@ -373,10 +415,11 @@ def dynamic_int8_matmul_plain(x, packed, *, out_dtype=None):
 def _static_int8_bmm(x, wq, scale, zero_point, act_scale, act_zp, act_qmin, act_qmax, plain):
     if act_scale.shape[0] != 1:
         raise ValueError("static activation qparams must be per-tensor")
-    quant = act_quant_i8_plain if plain else act_quant_i8
+    quant = _quant(plain)
     xq, qx = quant(x, act_scale, act_zp, act_qmin, act_qmax)
     per_expert = scale.numel() > 1
-    return _i8mm(xq, wq, qx, scale, zero_point, "static", (int(per_expert), 0), plain=plain)
+    return _product(xq, wq, qx, scale, zero_point, "static", (int(per_expert), 0),
+                    plain=plain)
 
 
 def static_int8_bmm(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
@@ -386,9 +429,9 @@ def static_int8_bmm(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     ``_ExpertDense._serve_int8``): x (E, C, K) f32, ``wq`` int8 (E, K, N),
     per-expert (E,) or per-tensor (1,) weight qparams, the static epilogue
     of :func:`static_int8_matmul` per expert."""
-    plain = _uses_plain(x, "static_int8_bmm")
+    _check_device(x, "static_int8_bmm")
     return _static_int8_bmm(x, wq, scale, zero_point, act_scale, act_zp, act_qmin, act_qmax,
-                            plain)
+                            False)
 
 
 def static_int8_bmm_plain(x, wq, scale, zero_point, act_scale, act_zp, act_qmin, act_qmax):
@@ -449,14 +492,14 @@ def _static_int8_conv(x, packed, act_scale, act_zp, act_qmin, act_qmax, strides,
     _check_int8_pack(packed, "static_int8_conv")
     if act_scale.shape[0] != 1:
         raise ValueError("static activation qparams must be per-tensor")
-    quant = act_quant_i8_plain if plain else act_quant_i8
+    quant = _quant(plain)
     xq, qx = quant(x, act_scale, act_zp, act_qmin, act_qmax)
     a, bmat, geom = conv_operands(xq, qx, packed, strides, padding, groups)
     ng = bmat.shape[2]
     per_channel = packed.scale.numel() > 1
-    out = _i8mm(a, bmat, qx, packed.scale, packed.zero_point, "conv",
-                (ng, 1) if per_channel else (0, 0), plain=plain,
-                window=float(a.shape[2]), conv_out=geom)
+    out = _product(a, bmat, qx, packed.scale, packed.zero_point, "conv",
+                   (ng, 1) if per_channel else (0, 0), plain=plain,
+                   window=float(a.shape[2]), conv_out=geom)
     return out.to(out_dtype or x.dtype)
 
 
@@ -474,9 +517,9 @@ def static_int8_conv(x: torch.Tensor, packed: PackedWeight, act_scale: torch.Ten
     float path's zero padding."""
     if x.dim() != 4:
         raise ValueError("static_int8_conv takes NCHW activations")
-    plain = _uses_plain(x, "static_int8_conv")
+    _check_device(x, "static_int8_conv")
     return _static_int8_conv(x, packed, act_scale, act_zp, act_qmin, act_qmax, strides,
-                             padding, feature_group_count, out_dtype, plain)
+                             padding, feature_group_count, out_dtype, False)
 
 
 def static_int8_conv_plain(x, packed, act_scale, act_zp, act_qmin, act_qmax, *,

@@ -30,7 +30,8 @@ lab's recipe table, against the JAX package on the same seeded numpy inputs.
   within 1e-6.
 * ``recipe``: every name of ``examples/recipe_sweep.py``'s ``recipes()`` and
   ``recipes_w4a8()`` (imported by path) builds the same qconfig, optimizer,
-  state function and warm start, or raises naming its ROADMAP item.
+  state function and warm start; the mixed-precision recipes' plan flow
+  (scout, plan, planned model) builds at a toy size.
 """
 
 import contextlib
@@ -395,14 +396,34 @@ def _qconfig_fields(qc):
             tuple((pat, _qconfig_fields(o)) for pat, o in qc.overrides))
 
 
+def _check_plan_flow(sweep, name):
+    """A mixed-precision recipe's plan flow builds at a toy size: its target
+    and scout are the sweep's; a narrow ``QuantCNN`` scout trained two steps,
+    the plan on a 4-image batch, and the planned model's weight quantizers at
+    the planned widths."""
+    def model_fn(qc):
+        return QuantCNN(ap.N_CLASSES, qc, widths=(4,), device="cpu")
+
+    rec = ap.recipe(name)
+    assert rec.mp_target == sweep.MP_TARGETS[name] and ap.MP_SCOUT == sweep.MP_SCOUT
+    scout = ap.train(model_fn, ap.recipe(ap.MP_SCOUT), 2, 4, seed=1, device="cpu")["model"]
+    planned, extra = ap.planned_recipe(rec, scout, 1, 4, "cpu")
+    assert extra["n_scopes"] == 2 and 0 <= extra["n_int8"] <= 1
+    assert 4.0 <= extra["avg_bits"] <= rec.mp_target
+    model = model_fn(planned.qconfig)
+    bits = {n.rsplit(".", 1)[0]: m.cfg.spec.quant_max for n, m in model.named_modules()
+            if isinstance(m, FakeQuantize) and n.endswith("weight_fq")}
+    assert sorted(bits) == ["conv_0", "head"]
+    assert sum(q == 127 for q in bits.values()) == extra["n_int8"]
+    assert sum(q == 7 for q in bits.values()) == 2 - extra["n_int8"]
+
+
 def test_every_recipe_matches_the_sweep(sweep):
     table = {**sweep.recipes(), **sweep.recipes_w4a8()}
     assert set(table) | {"float"} == set(ap.recipe_names())
     for name, entry in table.items():
         if name.startswith("mp4_"):
-            with pytest.raises(NotImplementedError, match="item 7"):
-                ap.recipe(name)
-            continue
+            _check_plan_flow(sweep, name)
         qc, *rest = entry if isinstance(entry, tuple) else (entry,)
         rec = ap.recipe(name)
         assert _qconfig_fields(rec.qconfig) == _qconfig_fields(qc), name

@@ -12,7 +12,12 @@ attention 1e-5; the paged kernel bit-equal to the dense kernel on
 the gathered cache; the flash-attention kernels' out and lse 2e-5, dQ/dK/dV
 1e-4 of the largest magnitude (3xTF32 products, tiled online softmax and sums
 over t keys in another order), their backward bit-equal across runs;
-captured train steps bit-equal to eager ones.
+captured train steps bit-equal to eager ones; the serving operators
+(``jaxlsq_torch::wo_matmul``, ``decode_attention``, ``act_quant_i8``,
+``i8mm``) bit-equal to their launchers called directly, and an exported
+LM's forward and generate bit-equal to the eager ones; the host C++ oracle's
+forward and dX bit-equal to the fake-quant kernels, dS/dB within 1e-5 of
+their terms' magnitudes.
 """
 
 import dataclasses
@@ -2604,3 +2609,184 @@ def test_moe_serve_on_card_matches_cpu(cuda, bits):
                 assert LAUNCHES[key] > before[key], mode
         err = float((outs[0] - outs[1]).abs().max())
         assert err <= 1e-4 * float(outs[1].abs().max()), (mode, err)
+
+
+# ---------------------------------------------------------------------------
+# the serving operators, torch.export, sensitivity and the host C++ oracle
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,group", [(8, None), (4, None), (4, 128)])
+@pytest.mark.parametrize("m", [1, 8, 256])
+def test_wo_matmul_operator_equals_the_launcher(cuda, bits, group, m):
+    """``jaxlsq_torch::wo_matmul`` on CUDA tensors runs the launcher: the
+    same bits as ``_launch`` called directly, one launch a call."""
+    from jaxlsq_torch.serve import matmul
+
+    g = torch.Generator(device=cuda).manual_seed(m + bits)
+    k, n = 1024, 512
+    w = torch.randn(k, n, device=cuda, generator=g) * 0.05
+    if group:
+        p = quantize_weight_grouped(w, group_size=group)
+    else:
+        spec = QuantSpec.weight_default(bits, per_channel=True, axis=1)
+        p = quantize_weight(w, w.abs().amax(0) / spec.quant_max, torch.zeros(n, device=cuda),
+                            spec, bits=bits)
+    x = torch.randn(m, k, device=cuda, generator=g)
+    key = "wo4g" if group else f"wo{bits}"
+    before = MM_LAUNCHES[key]
+    op = torch.ops.jaxlsq_torch.wo_matmul(x, p.data, p.scale, p.zero_point, p.bits, p.axis,
+                                          p.k_axis, k, n, p.group_size or 0)
+    assert MM_LAUNCHES[key] == before + 1
+    assert torch.equal(op, matmul._launch(x, p.data, p.scale, p.zero_point, p.bits, k, n,
+                                          p.group_size or 0))
+    assert torch.equal(wo_matmul(x, p), op)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("carrier", ["f32", "bf16", "int8", "int4"])
+def test_decode_attention_operator_equals_the_launcher(cuda, carrier):
+    from jaxlsq_torch.serve import attention
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    b, h, kvh, length, t, hd = 2, 8, 4, 300, 3, 64
+
+    def half():
+        if carrier in ("f32", "bf16"):
+            return torch.randn(b, kvh, length, hd, device=cuda, generator=g).to(
+                torch.float32 if carrier == "f32" else torch.bfloat16)
+        if carrier == "int8":
+            data = torch.randint(-127, 128, (b, kvh, length, hd), device=cuda, generator=g,
+                                 dtype=torch.int8)
+        else:
+            data = torch.randint(0, 256, (b, kvh, length, hd // 2), device=cuda, generator=g,
+                                 dtype=torch.uint8)
+        return data, torch.rand(b, kvh, length, device=cuda, generator=g) * 0.02
+
+    ck, cv = half(), half()
+    q = torch.randn(b, h, t, hd, device=cuda, generator=g)
+    idx = torch.tensor([100, 250], dtype=torch.int32, device=cuda)
+    before = ATTN_LAUNCHES["decode_attention"]
+    got = decode_attention(q, ck, cv, idx, window=64)
+    assert ATTN_LAUNCHES["decode_attention"] == before + 1
+    assert torch.equal(got, attention._launch(q, ck, cv, idx, 64))
+    assert torch.equal(decode_attention(q, ck, cv, 7), attention._launch(q, ck, cv, 7, None))
+
+
+@pytest.mark.gpu
+def test_int8_operators_equal_the_launchers(cuda):
+    from jaxlsq_torch.serve import matmul
+
+    p = _int8_pack(1024, 512, 3, affine=True, device=cuda)
+    x = torch.randn(17, 1024, device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
+    s, zp = torch.tensor([0.02], device=cuda), torch.tensor([131], dtype=torch.int32,
+                                                              device=cuda)
+    for dynamic in (False, True):
+        op = torch.ops.jaxlsq_torch.act_quant_i8(x, s, zp, 0, 255, dynamic)
+        direct = matmul._act_quant_i8_launch(x, s, zp, 0, 255, dynamic)
+        assert all(torch.equal(a, b) for a, b in zip(op, direct))
+    xq, qx = direct
+    before = MM_LAUNCHES["i8mm"]
+    op = torch.ops.jaxlsq_torch.i8mm(xq[None], p.data[None], qx, p.scale, p.zero_point,
+                                     "dynamic", 0, 1, 0.0, [])
+    assert MM_LAUNCHES["i8mm"] == before + 1
+    assert torch.equal(op, matmul._i8mm(xq[None], p.data[None], qx, p.scale, p.zero_point,
+                                        "dynamic", (0, 1), plain=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wbits", [8, 4])
+def test_exported_lm_forward_and_generate_on_card(cuda, wbits):
+    """The exported forward and greedy generate of a served LM replay on the
+    card to the eager forward's and ``make_generate``'s bits, through the
+    hand-written kernels."""
+    from jaxlsq_torch.serve import export_generate, export_serving_forward, load_exported
+
+    model, _ = _served_lm(cuda, 256, 2, 4, seed=wbits, wbits=wbits)
+    model.eval()
+    state = model.state_dict()
+    x = torch.randint(0, 256, (2, 8), device=cuda, dtype=torch.int32,
+                      generator=torch.Generator(device=cuda).manual_seed(1))
+    fwd = load_exported(export_serving_forward(model, state, x))
+    gen = load_exported(export_generate(model, state, 8, 12, batch_size=2))
+    key = f"wo{wbits}"
+    before = (MM_LAUNCHES[key], ATTN_LAUNCHES["decode_attention"])
+    with torch.no_grad():
+        assert torch.equal(fwd(state, x), model(x))
+    assert torch.equal(gen(state, x), make_generate(model, 8, 12)(x))
+    assert MM_LAUNCHES[key] > before[0] and ATTN_LAUNCHES["decode_attention"] > before[1]
+
+
+@pytest.mark.gpu
+def test_sensitivity_and_plan_on_card_restore_every_flag(cuda):
+    from jaxlsq_torch.models import QuantMLP
+    from jaxlsq_torch.models.layers import FakeQuantize
+    from jaxlsq_torch.ops.fake_quant import LAUNCHES as FQ_LAUNCHES
+    from jaxlsq_torch.parallel import make_train_step
+    from jaxlsq_torch.utils import plan_mixed_precision, sensitivity_report
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    qc = default_qconfig(4, 8, per_channel_weights=True, init_batches=1, reduce_range=False)
+    model = QuantMLP(64, (128, 64, 10), qc, device=cuda)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=0.05), jit=True)
+    for _ in range(3):
+        step({"input": torch.randn(32, 64, device=cuda, generator=g),
+              "label": torch.randint(0, 10, (32,), device=cuda, generator=g)})
+    batch = {"input": torch.randn(64, 64, device=cuda, generator=g),
+             "label": torch.randint(0, 10, (64,), device=cuda, generator=g)}
+
+    def state():
+        return {f"{n}.{k}": v.detach().clone() for n, m in model.named_modules()
+                if isinstance(m, FakeQuantize)
+                for k, v in list(m.named_parameters()) + list(m.named_buffers())}
+
+    before, launches = state(), FQ_LAUNCHES["fq_fwd_pc"]
+    rep = sensitivity_report(model, batch)
+    plan = plan_mixed_precision(model, batch, target_avg_bits=6.0)
+    assert FQ_LAUNCHES["fq_fwd_pc"] > launches
+    assert len(rep["rows"]) == 3 and set(plan["assignment"].values()) <= {4, 8}
+    calls = []
+
+    def failing(logits, b):
+        calls.append(1)
+        if len(calls) == 4:
+            raise RuntimeError("stop")
+        return torch.nn.functional.cross_entropy(logits, b["label"])
+
+    with pytest.raises(RuntimeError, match="stop"):
+        sensitivity_report(model, batch, loss_fn=failing)
+    after = state()
+    assert model.training
+    assert all(torch.equal(v, after[k]) for k, v in before.items())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_channel", [False, True])
+@pytest.mark.parametrize("eval_mode,init_mode", [(False, False), (True, False), (False, True)])
+def test_native_oracle_matches_the_fake_quant_kernels(cuda, per_channel, eval_mode, init_mode):
+    """The host C++ oracle's forward and dX equal the card's kernels bit for
+    bit, dS/dB within 1e-5 of their term sums (phase 2's gates)."""
+    from jaxlsq_torch.core.golden import effective_grad_scale
+    from jaxlsq_torch.native import native_backward, native_forward
+    from jaxlsq_torch.ops.fake_quant import fake_quant_backward, fake_quant_forward
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    shape = (64, 32, 3, 3) if per_channel else (16, 32, 8, 8)
+    spec = (QuantSpec.weight_default(8, per_channel=True, axis=0) if per_channel
+            else QuantSpec.activation_default(8))
+    c = shape[0] if per_channel else 1
+    x = torch.randn(shape, device=cuda, generator=g) * 2
+    gr = torch.randn(shape, device=cuda, generator=g)
+    s = torch.rand(c, device=cuda, generator=g) * 0.03 + 0.02
+    b = torch.zeros(c, device=cuda) if spec.symmetric else torch.randn(
+        c, device=cuda, generator=g) * 0.1
+    args = [t.cpu().numpy() for t in (x, s, b)]
+    out = fake_quant_forward(x, s, b, spec, init_mode=init_mode)
+    assert np.array_equal(out.cpu().numpy(), native_forward(*args, spec, init_mode=init_mode))
+    dx, ds, db = fake_quant_backward(gr, x, s, b, spec, eval_mode=eval_mode, init_mode=init_mode)
+    ndx, nds, ndb = native_backward(gr.cpu().numpy(), *args, spec, eval_mode=eval_mode,
+                                    init_mode=init_mode)
+    assert np.array_equal(dx.cpu().numpy(), ndx)
+    ts, tb = _fq_abs_sums(gr, x, s, b, spec, init_mode, effective_grad_scale(spec, x.numel(), c))
+    assert bool(((ds.double() - torch.from_numpy(nds).to(cuda).double()).abs() <= 1e-5 * ts).all())
+    assert bool(((db.double() - torch.from_numpy(ndb).to(cuda).double()).abs() <= 1e-5 * tb).all())

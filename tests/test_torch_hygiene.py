@@ -31,6 +31,11 @@ MODULES = [
     "jaxlsq_torch.lab.accuracy_parity", "jaxlsq_torch.lab.stock_resnet",
     "jaxlsq_torch.lab.speculative_decode",
     "jaxlsq_torch.utils", "jaxlsq_torch.utils.bn", "jaxlsq_torch.utils.checkpoint",
+    "jaxlsq_torch.utils.report", "jaxlsq_torch.utils.sensitivity",
+    "jaxlsq_torch.utils.mixed_precision", "jaxlsq_torch.utils.migrate",
+    "jaxlsq_torch.utils.profiling", "jaxlsq_torch.serve.custom_ops",
+    "jaxlsq_torch.serve.export", "jaxlsq_torch.native", "jaxlsq_torch.native.build",
+    "jaxlsq_torch.native.ops", "jaxlsq_torch.native.loader",
 ]
 
 

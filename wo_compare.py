@@ -6,7 +6,7 @@ and per channel), of two checkouts of this repo on
 one card, in turns (first, second, second, first), so that two versions are
 compared within one run on one card:
 
-    python3 wo_compare.py FIRST_DIR SECOND_DIR [--lab | --fq] [--out PATH]
+    python3 wo_compare.py FIRST_DIR SECOND_DIR [--lab | --fq | --decode] [--out PATH]
 
 Each turn is a process of its own that imports the checkout's
 ``jaxlsq_torch`` (building its kernels) and times them with this file's
@@ -34,7 +34,15 @@ sd / 127``): ``fq_bwd_pc`` and ``fq_bwd_pc_traced``, and the forward
 axis 0, at (512, 8192) on axis 1, and summed over the 21 per-channel
 weights of ``resnet18_cifar`` and the 9 (K, N) weights of the d512 LM;
 ``fq_fwdbwd_pc`` on the (8192, 8192) chain inputs.  One summary line a
-turn (µs).
+turn (µs).  ``--decode``: chip_smoke phase 3's B = 1 decode through each
+checkout's serving path (the d1024 x 4 LM at int8 and at int4 weights,
+seeded, a bf16 cache; ``_slope_tps``: tokens/s from the 16 -> 208 slope, the
+least time of 3 rounds), which measures what each checkout's host dispatch
+costs a token; in a checkout that has the serving operators
+(``serve.custom_ops``), each turn also times the same decode with the layers
+calling the ``torch.library`` operators in eager code, in turns with the
+direct calls (direct, operators, operators, direct); one summary line a turn
+(tokens/s).
 """
 
 import argparse
@@ -70,6 +78,76 @@ def lab_rows(torch, chip_smoke):
                                 [(w,) for w in w4s])):
             ms = min(chip_smoke.measure(fn, args, 20)[0] for _ in range(5))
             rows[kind].append({"M": m, "ms": ms})
+    return rows
+
+
+class _OperatorCalls:
+    """While open, the checkout's serving layers reach ``wo_matmul`` and
+    ``decode_attention`` through their ``torch.library`` operators
+    (``serve.custom_ops``) in eager code too, as they do while a program is
+    traced."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.layers = sys.modules["jaxlsq_torch.models.layers"]
+        self.zoo = sys.modules["jaxlsq_torch.models.zoo"]
+        from jaxlsq_torch.serve.attention import _qpos
+
+        ops = torch.ops.jaxlsq_torch
+
+        def wo(x, packed):
+            k, n = packed.orig_shape
+            return ops.wo_matmul(x, packed.data, packed.scale, packed.zero_point, packed.bits,
+                                 packed.axis, packed.k_axis, k, n, packed.group_size or 0)
+
+        def attention(q, ck, cv, cache_index, window=None):
+            quantized = isinstance(ck, (tuple, list))
+            kd, ks = (ck[0], ck[1]) if quantized else (ck, None)
+            vd, vs = (cv[0], cv[1]) if quantized else (cv, None)
+            return ops.decode_attention(q, kd, ks, vd, vs, _qpos(cache_index, q.shape[0],
+                                                                  q.device), window or 0)
+
+        self.calls = {(self.layers, "wo_matmul"): wo, (self.zoo, "decode_attention"): attention}
+
+    def __enter__(self):
+        self.saved = {key: getattr(*key) for key in self.calls}
+        for (mod, name), fn in self.calls.items():
+            setattr(mod, name, fn)
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in self.saved.items():
+            setattr(mod, name, fn)
+
+
+def decode_rows(torch, chip_smoke):
+    """Phase 3's B = 1 decode of the checkout: {"w8": row, "w4": row}, each
+    the slope's tokens/s and its raw times; where the checkout has the
+    serving operators (``serve.custom_ops``), also the same decode through
+    them in eager code, in turns in this process (direct, operators,
+    operators, direct)."""
+    import contextlib
+    import importlib.util
+
+    import numpy as np
+
+    ops = importlib.util.find_spec("jaxlsq_torch.serve.custom_ops") is not None
+    r = np.random.RandomState(7)
+    rows = {}
+    for wbits, seed in ((8, 0), (4, 1)):
+        model, _, _ = chip_smoke._lm(torch, wbits, chip_smoke.T0 + chip_smoke.N2, seed=seed)
+        prompt = torch.as_tensor(r.randint(0, chip_smoke.VOCAB, size=(1, chip_smoke.T0)),
+                                 device="cuda")
+        tps, _, raw = chip_smoke._slope_tps(torch, model, 1, prompt, torch.bfloat16)
+        rows[f"w{wbits}"] = {"tokens_per_s_b1": tps, **raw}
+        if ops:
+            turns = []
+            for via_ops in (False, True, True, False):
+                with _OperatorCalls(torch) if via_ops else contextlib.nullcontext():
+                    turns.append((via_ops, chip_smoke._slope_tps(
+                        torch, model, 1, prompt, torch.bfloat16)[0]))
+            rows[f"w{wbits}"]["in_process"] = {
+                "direct": [t for v, t in turns if not v], "operators": [t for v, t in turns if v]}
+        del model
     return rows
 
 
@@ -190,7 +268,7 @@ def fq_rows(torch, chip_smoke, shapes):
     return rows
 
 
-def turn(tree, lab=False, fq_shapes=None):
+def turn(tree, lab=False, fq_shapes=None, decode=False):
     """One checkout's rows: {kind: [row, ...]}."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -209,6 +287,8 @@ def turn(tree, lab=False, fq_shapes=None):
     _build.load_library()
     if lab:
         return lab_rows(torch, chip_smoke)
+    if decode:
+        return decode_rows(torch, chip_smoke)
     if fq_shapes is not None:
         return fq_rows(torch, chip_smoke, fq_shapes)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -221,6 +301,10 @@ def turn(tree, lab=False, fq_shapes=None):
 
 
 def summary(rows):
+    if "w8" in rows and "tokens_per_s_b1" in rows["w8"]:
+        return {k: {"tokens_per_s_b1": r["tokens_per_s_b1"],
+                    **({"in_process": r["in_process"]} if "in_process" in r else {})}
+                for k, r in rows.items()}
     if "chain_8192x8192" in rows:
         return {case: {k: 1e3 * v for k, v in r.items() if k != "shapes"}
                 for case, r in rows.items()}
@@ -245,11 +329,13 @@ def main(argv):
     ap.add_argument("--fq", action="store_true",
                     help="time the fake-quant kernels instead")
     ap.add_argument("--fq-shapes", help=argparse.SUPPRESS)
+    ap.add_argument("--decode", action="store_true",
+                    help="phase 3's B = 1 decode tokens/s instead")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     if args.turn:
         shapes = json.loads(args.fq_shapes) if args.fq_shapes else None
-        print(json.dumps(turn(args.turn, args.lab, shapes)))
+        print(json.dumps(turn(args.turn, args.lab, shapes, args.decode)))
         return 0
     if len(args.trees) != 2:
         ap.error("give two checkouts")
@@ -258,8 +344,8 @@ def main(argv):
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"[card] {smi}", flush=True)
     first, second = args.trees
-    record = {"card": smi, "lab": args.lab, "fq": args.fq, "turns": []}
-    extra = ["--lab"] if args.lab else []
+    record = {"card": smi, "lab": args.lab, "fq": args.fq, "decode": args.decode, "turns": []}
+    extra = ["--lab"] if args.lab else ["--decode"] if args.decode else []
     if args.fq:
         extra = ["--fq-shapes", json.dumps({**fq_weight_shapes(), **fq_act_shapes()})]
     for tree in (first, second, second, first):
