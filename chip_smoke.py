@@ -288,6 +288,25 @@ exits non-zero on any failure (no phase is caught and skipped):
    B = 64 from seeded shards, each batch the rows the loader's contract
    names.
 
+19. multi-device: torchrun's variables set here (a free port, world size
+   1) and ``parallel.initialize_distributed()`` (NCCL), a 1 x 1 mesh, cuDNN
+   deterministic, every count reset before each leg: resnet18_cifar at B =
+   64 through the mesh step for 3 steps, eager and captured, every leaf and
+   the losses bit-equal to the meshless step (the captured step's
+   collectives issued at the warm-up and the capture, none at a replay;
+   a replay timed beside the meshless one); FSDP (``fsdp_sharding``) of a
+   1024-wide ``QuantMLP`` and of resnet18_cifar, bit-equal to the meshless
+   steps; the EP (``moe_sharding`` over a (data, expert) mesh) MoE LM of
+   phase 17 at depth 2, B = 4, t = 128, eager and captured, bit-equal; phase
+   3's LM under ``serve.shard_converted``: ``make_generate`` at B = 4 with
+   the dense and the paged int8 cache, tokens equal to the meshless model's;
+   the collectives of each leg printed.  Then two gloo ranks of this script
+   (``--gloo-rank``) on the one card: the resnet DP step at B = 64 over the
+   ranks within 2e-5 of each leaf's largest magnitude (1e-5 of the loss) of
+   the one-process step on the full batch on every rank, and the d1024
+   LM's TP forward within 1e-5 of the unsharded one with greedy tokens
+   equal on every rank.
+
 Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes the full
 record (every check, time and profile) to PATH as JSON.
@@ -4535,10 +4554,10 @@ class _Handover:
                 self.first = n
             return (torch.where(far, ref, x),) + tuple(args[1:])
 
-        def route(gates, top_k, capacity):
+        def route(gates, top_k, capacity, part=None):
             if not take:
                 self.gates.append(gates.detach().clone())
-                return plain_route(gates, top_k, capacity)
+                return plain_route(gates, top_k, capacity, part)
             ref = self.gates[route_calls[0] % len(self.gates)]
             route_calls[0] += 1
             if rows is not None:  # (B * T, E) -> the call's (b, t) rows
@@ -4554,7 +4573,7 @@ class _Handover:
                                          "reference's away from a near-tie")
                 self.routes[0] += int((~same).sum())
                 gates = torch.where(same[:, None], gates, ref)
-            return plain_route(gates, top_k, capacity)
+            return plain_route(gates, top_k, capacity, part)
 
         hooks = [m.register_forward_pre_hook(lambda mod, a, n=n: pre(n, mod, a))
                  for n, m in self.mods]
@@ -4819,8 +4838,8 @@ def _moe_probe(torch, model, batch):
     plain = moe_mod.route
     drops = [0, 0]
 
-    def route(gates, k, c):
-        d, cmb = plain(gates, k, c)
+    def route(gates, k, c, part=None):
+        d, cmb = plain(gates, k, c, part)
         drops[0] += gates.shape[0] * k - int(d.sum())
         drops[1] += gates.shape[0] * k
         return d, cmb
@@ -5899,6 +5918,468 @@ def kernels_line(rec):
     return out
 
 
+MD_STEPS, MD_GLOO_RANKS, MD_GLOO_B = 3, 2, 64
+MD_MOE_DEPTH, MD_MOE_B, MD_MOE_T = 2, 4, 128
+
+
+def _md_counts():
+    """The collectives a leg issued (``jaxlsq_torch._dist.COUNTS``), reset."""
+    from jaxlsq_torch import _dist
+
+    out = dict(_dist.COUNTS)
+    _dist.COUNTS.clear()
+    return out
+
+
+def _md_equal(torch, a, b):
+    """The leaves of two ``_train_state`` dicts that are not bit-equal."""
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def _md_steps(torch, make, batches, mesh=None, sharding=None, jit=False, loss_fn=None):
+    """``make()``'s model trained on ``batches`` by ``make_train_step``
+    (meshless, or over ``mesh`` with ``sharding``): (losses, state, step)."""
+    from jaxlsq_torch.parallel import make_train_step
+    from jaxlsq_torch.parallel.placement import gathered_params
+
+    from jaxlsq_torch import _dist
+
+    model = make()
+    opt = _sgd(torch, model)
+    kw = {} if loss_fn is None else {"loss_fn": loss_fn}
+    step = make_train_step(model, opt, jit=jit, mesh=mesh, state_sharding=sharding, **kw)
+    losses, step.per_call = [], []
+    for b in batches:
+        before = sum(_dist.COUNTS.values())
+        losses.append(step(b)["loss"])
+        step.per_call.append(sum(_dist.COUNTS.values()) - before)
+    state = _train_state(model, opt)
+    full = gathered_params(model, grad=False) if mesh is not None else {}
+    state.update({f"model/{k}": v for k, v in full.items()})
+    if full:  # the momentum of a sharded leaf is its shard: compare the params
+        state = {k: v for k, v in state.items() if not k.startswith("optim/")}
+    return torch.stack(losses), state, step
+
+
+def _md_replay_profile(torch, step):
+    """A replay of a captured step's graph under the profiler: its kernels,
+    NCCL kernels and device-to-device copies (at world size 1 NCCL does
+    an in-place all-reduce as no device work at all, so none may show)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graph = _graph_of(step)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"kernels": sum(e.count for e in rows),
+            "nccl": sum(e.count for e in rows if "nccl" in e.key.lower()),
+            "dtod": sum(e.count for e in rows if "dtod" in e.key.lower())}
+
+
+def _md_dp(torch, rec, mesh, fq, out):
+    """resnet18_cifar at B = 64 through the mesh step, eager and captured,
+    bit-equal to the meshless step; returns the batches."""
+    batches = _image_batches(torch, MD_STEPS, TRAIN_B, seed=191)
+    for jit in (False, True):
+        reset_counts()
+        want = _md_steps(torch, lambda: _resnet(torch, "cuda", seed=0), batches, jit=jit)
+        _md_counts()
+        for k in fq:
+            fq[k] = 0
+        got = _md_steps(torch, lambda: _resnet(torch, "cuda", seed=0), batches,
+                        mesh=mesh, jit=jit)
+        launches = {k: v for k, v in fq.items() if v}
+        bad = _md_equal(torch, want[1], got[1])
+        if not torch.equal(want[0], got[0]) or bad or not launches:
+            raise AssertionError(f"[multi] DP resnet18_cifar jit={jit}: loss equal "
+                                 f"{torch.equal(want[0], got[0])}, unequal leaves "
+                                 f"{bad[:5]}, launches {launches}")
+        leg = {"leaves": len(got[1]), "collectives": _md_counts(),
+               "launches": launches, "losses": got[0].tolist()}
+        if jit:
+            # the collectives are issued at the warm-up and the capture
+            # (on the host, NCCL on a capturing stream), none at a replay
+            leg["collectives_per_call"] = got[2].per_call
+            if not (got[2].per_call[0] == got[2].per_call[1] > 0
+                    and not any(got[2].per_call[2:])):
+                raise AssertionError(f"[multi] the captured DP step issued "
+                                     f"{got[2].per_call} collectives a call")
+            leg["replay_profile"] = {"mesh": _md_replay_profile(torch, got[2]),
+                                     "meshless": _md_replay_profile(torch, want[2])}
+            # a replay's device span, meshless and mesh graphs in turns
+            spans = {"meshless": [], "mesh": []}
+            for _ in range(10):
+                for side, res in (("meshless", want), ("mesh", got)):
+                    spans[side].append(events_ms(_graph_of(res[2]).replay)[0])
+            leg["replay_ms"] = {k: min(v) for k, v in spans.items()}
+        out[f"dp_{'captured' if jit else 'eager'}"] = leg
+        log(f"[multi] DP resnet18_cifar B={TRAIN_B}, {MD_STEPS} steps "
+            f"{'captured' if jit else 'eager'} over a 1x1 NCCL mesh: every one of "
+            f"{leg['leaves']} leaves and the losses bit-equal to the meshless step; "
+            f"collectives {leg['collectives']}; launches {launches}"
+            + (f"; collectives a call (warm-up, capture, replays) "
+               f"{leg['collectives_per_call']}; a replay's profile "
+               f"{leg['replay_profile']}; a replay {leg['replay_ms']['mesh']:.3f} ms "
+               f"against the meshless {leg['replay_ms']['meshless']:.3f} "
+               f"({rec['card']})" if jit else ""))
+    return batches
+
+
+def _md_fsdp(torch, rec, mesh, fq, out, batches):
+    """FSDP of a 1024-wide MLP and of resnet18_cifar (on ``batches``),
+    eager, bit-equal to the meshless step."""
+    from jaxlsq_torch.models import QuantMLP, default_qconfig
+    from jaxlsq_torch.parallel import fsdp_sharding
+
+    qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=2)
+    g = torch.Generator(device="cuda").manual_seed(192)
+    mlp_batches = [{"input": torch.randn(TRAIN_B, 1024, device="cuda", generator=g),
+                    "label": torch.randint(0, 10, (TRAIN_B,), device="cuda",
+                                           generator=g)} for _ in range(MD_STEPS)]
+    for name, make, bs in (
+            ("mlp", lambda: QuantMLP(1024, (1024, 1024, 10), qc, device="cuda", seed=3),
+             mlp_batches),
+            ("resnet18_cifar", lambda: _resnet(torch, "cuda", seed=0), batches)):
+        want = _md_steps(torch, make, bs)
+        _md_counts()
+        for k in fq:
+            fq[k] = 0
+        sharding = fsdp_sharding(mesh, make())
+        got = _md_steps(torch, make, bs, mesh=mesh, sharding=sharding)
+        launches = {k: v for k, v in fq.items() if v}
+        bad = _md_equal(torch, {k: want[1][k] for k in got[1]}, got[1])
+        sharded = sum(1 for v in sharding.values() if "Shard" in str(v))
+        if not torch.equal(want[0], got[0]) or bad or not sharded or not launches:
+            raise AssertionError(f"[multi] FSDP {name}: unequal {bad[:5]}, "
+                                 f"{sharded} sharded leaves, launches {launches}")
+        out[f"fsdp_{name}"] = {"sharded_leaves": sharded, "collectives": _md_counts(),
+                               "launches": launches}
+        log(f"[multi] FSDP {name}, {MD_STEPS} eager steps over the 1x1 mesh "
+            f"({sharded} leaves sharded): losses and parameters bit-equal to the "
+            f"meshless step; collectives {out[f'fsdp_{name}']['collectives']}")
+
+
+def _md_ep(torch, rec, fq, out):
+    """The EP MoE LM of phase 17 at depth 2 over a 1 x 1 (data, expert)
+    mesh, eager and captured, bit-equal to the meshless step."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from jaxlsq_torch.models import QuantTransformerLM, default_qconfig
+    from jaxlsq_torch.parallel import moe_sharding
+
+    emesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                       mesh_dim_names=("data", "expert"))
+    mqc = default_qconfig(8, 8, per_channel_weights=True, init_batches=1)
+
+    def moe_lm():
+        return QuantTransformerLM(VOCAB, DIM, MD_MOE_DEPTH, HEADS, mqc, max_len=MD_MOE_T,
+                                  device="cuda", moe_experts=MOE_E, moe_top_k=MOE_TOP_K,
+                                  moe_capacity_factor=MOE_CF, seed=19)
+
+    g = torch.Generator(device="cuda").manual_seed(193)
+    moe_batches = []
+    for _ in range(MD_STEPS):
+        x = torch.randint(0, VOCAB, (MD_MOE_B, MD_MOE_T + 1), device="cuda", generator=g)
+        moe_batches.append({"input": x[:, :-1].contiguous(),
+                            "label": x[:, 1:].contiguous()})
+    for jit in (False, True):
+        want = _md_steps(torch, moe_lm, moe_batches, jit=jit)
+        _md_counts()
+        for k in fq:
+            fq[k] = 0
+        model = moe_lm()
+        got = _md_steps(torch, moe_lm, moe_batches, mesh=emesh, jit=jit,
+                        sharding=moe_sharding(emesh, model, MOE_E))
+        del model
+        launches = {k: v for k, v in fq.items() if v}
+        bad = _md_equal(torch, want[1], got[1])
+        if not torch.equal(want[0], got[0]) or bad or not launches:
+            raise AssertionError(f"[multi] EP MoE LM jit={jit}: unequal {bad[:8]}, "
+                                 f"losses {want[0].tolist()} {got[0].tolist()}")
+        leg = {"collectives": _md_counts(), "launches": launches,
+               "losses": got[0].tolist(), "leaves": len(got[1])}
+        out[f"ep_{'captured' if jit else 'eager'}"] = leg
+        log(f"[multi] EP d1024 x {MD_MOE_DEPTH} MoE LM ({MOE_E} experts, B={MD_MOE_B}, "
+            f"t={MD_MOE_T}) {'captured' if jit else 'eager'} over a 1x1 (data, expert) "
+            f"NCCL mesh, {MD_STEPS} steps: every one of {leg['leaves']} leaves and the "
+            f"losses bit-equal to the meshless step; collectives {leg['collectives']}; "
+            f"launches {launches}")
+
+
+def _md_tp(torch, rec, mesh, out):
+    """Phase 3's d1024 x 4 LM served under ``shard_converted``: tokens
+    equal to the meshless model's at w8 (dense and paged int8 caches), w4,
+    group-wise int4 and w8 ``'static_int8'`` (dense cache)."""
+    import copy
+
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.models import QuantTransformerLM
+    from jaxlsq_torch.serve import make_generate, shard_converted
+    from jaxlsq_torch.serve.paged import LAUNCHES as PAGED
+
+    r = torch.Generator(device="cuda").manual_seed(194)
+    prompt = torch.randint(0, VOCAB, (4, T0), device="cuda", generator=r)
+    legs = {}
+    for name, wbits, group, act in (("w8", 8, None, "none"), ("w4", 4, None, "none"),
+                                    ("w4g", 4, GROUP, "none"),
+                                    ("w8_static_int8", 8, None, "static_int8")):
+        model, variables, qc = _lm(torch, wbits, T0 + 64, seed=0, group=group)
+        if act != "none":
+            model = QuantTransformerLM(VOCAB, DIM, DEPTH, HEADS, qc.for_serving(act),
+                                       max_len=T0 + 64, device="cuda")
+            interop.load_variables(model, variables)
+        tp = copy.deepcopy(model)
+        shard_converted(tp, mesh)
+        want = make_generate(model, T0, 32)(prompt)
+        mm, attn, _ = reset_counts()
+        _md_counts()
+        got = make_generate(tp, T0, 32)(prompt)
+        leg = {"collectives": _md_counts(),
+               "launches": {k: v for c in (mm, attn) for k, v in c.items() if v}}
+        equal = torch.equal(want, got)
+        if name == "w8":
+            want_p = _paged_generate(torch, model, prompt, 32, PAGE)
+            reset_counts()
+            got_p = _paged_generate(torch, tp, prompt, 32, PAGE)
+            leg["paged_collectives"] = _md_counts()
+            leg["paged_launches"] = {k: v for k, v in PAGED.items() if v}
+            equal = equal and torch.equal(want_p, got_p)
+        if not equal or not leg["launches"]:
+            raise AssertionError(f"[multi] TP generate {name}: tokens differ from the "
+                                 f"meshless model's; {leg}")
+        legs[name] = leg
+        log(f"[multi] TP d1024 x {DEPTH} LM {name} under shard_converted over the 1x1 "
+            f"mesh: make_generate B=4 {T0}+32 tokens equal to the meshless model's"
+            + (" with the dense and the paged int8 cache" if name == "w8" else "")
+            + f"; collectives {leg['collectives']}"
+            + (f" / {leg['paged_collectives']}" if name == "w8" else "")
+            + f"; launches {leg['launches']}"
+            + (f" / {leg['paged_launches']}" if name == "w8" else ""))
+        del model, tp
+    out["tp"] = legs
+
+
+def phase_multi_device(torch, rec):
+    """Phase 19: the multi-device steps at world size 1 on NCCL (bit-equal to
+    the meshless ones), then two gloo ranks on the one card."""
+    from jaxlsq_torch.parallel import initialize_distributed, make_mesh
+
+    t0 = time.time()
+    out = {}
+    rec["multi_device"] = out
+    port = _free_port()
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+                      WORLD_SIZE="1", LOCAL_RANK="0")
+    rank, world = initialize_distributed()
+    import torch.distributed as dist
+
+    if (rank, world) != (0, 1) or dist.get_backend() != "nccl":
+        raise AssertionError(f"[multi] bring-up gave rank {rank} of {world} on "
+                             f"{dist.get_backend()}")
+    mesh = make_mesh()
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    _, _, fq = reset_counts()
+    _md_counts()
+    try:
+        batches = _md_dp(torch, rec, mesh, fq, out)
+        _md_fsdp(torch, rec, mesh, fq, out, batches)
+        _md_ep(torch, rec, fq, out)
+        _md_tp(torch, rec, mesh, out)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+        dist.destroy_process_group()
+        for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+            os.environ.pop(k, None)
+    out["nccl_s"] = time.time() - t0
+    out["gloo"] = _md_gloo(torch, rec)
+    out["wall_s"] = time.time() - t0
+    log(f"[multi] phase 19: {out['wall_s']:.1f} s ({rec['card']})")
+
+
+def _free_port():
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _md_handover(torch, model, ref, rank, moved):
+    """Forward hooks on ``model``'s activation quantizers that take this
+    rank's rows of the one-process step's output (``ref``, by name) where
+    the two differ by more than half a quant step, after checking that
+    they differ by at most one (deviation 14: the other batch size sums the
+    convolutions in another order); ``moved`` counts [taken, elements]."""
+    def take(n, mod, out):
+        r = ref[n].to(out.device).chunk(MD_GLOO_RANKS)[rank]
+        d = r - out.detach()
+        q = float(mod.scale.detach().abs().max())
+        slack = 1e-5 * q + 2 * F32_EPS * float(out.detach().abs().max())
+        if float(d.abs().max()) > q + slack:
+            raise AssertionError(f"{n}: the ranks' and the one-process activations differ "
+                                 f"by {float(d.abs().max())}, more than a quant step {q}")
+        far = d.abs() > 0.5 * q
+        moved[0] += int(far.sum())
+        moved[1] += out.numel()
+        return out + torch.where(far, d, torch.zeros_like(d))
+
+    return [m.register_forward_hook(lambda mod, i, o, n=n: take(n, mod, o))
+            for n, m in _act_quantizers(model)]
+
+
+def _md_gloo(torch, rec):
+    """Two gloo ranks on the one card (this script with ``--gloo-rank``):
+    the resnet DP step against the one-process step on the full batch (its
+    activation quantizers' outputs handed over as deviation 14's), and the
+    d1024 LM's TP forward against the unsharded one."""
+    import tempfile
+
+    from jaxlsq_torch.parallel import make_train_step
+
+    out_dir = tempfile.mkdtemp(prefix="md_gloo_", dir=os.environ.get("TMPDIR"))
+    # the one-process reference: one step on the full batch, its activation
+    # quantizers' outputs saved for the ranks
+    batch = _image_batches(torch, 1, MD_GLOO_B, seed=195)
+    model = _resnet(torch, "cuda", seed=0)
+    acts = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, i, o, n=n: acts.__setitem__(n, o.detach().cpu()))
+        for n, m in _act_quantizers(model)]
+    step = make_train_step(model, _sgd(torch, model), jit=False)
+    loss = float(step(batch[0])["loss"])
+    for h in hooks:
+        h.remove()
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    torch.save(acts, os.path.join(out_dir, "ref_acts.pt"))
+    port = str(_free_port())
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-rank",
+                               str(r), "--gloo-port", port, "--gloo-out", out_dir], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(MD_GLOO_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"[multi] gloo rank {r} exited {p.returncode}:\n"
+                                 + logs[r][-4000:])
+    got = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+           for r in range(MD_GLOO_RANKS)]
+    res = {"ranks": MD_GLOO_RANKS, "batch": MD_GLOO_B}
+
+    def worst_leaf(st):
+        worst = 0.0
+        for k, want in state.items():
+            if not want.is_floating_point():
+                if not torch.equal(st[k], want):
+                    raise AssertionError(f"[multi] gloo DP: {k} differs")
+                continue
+            w = want.double()
+            worst = max(worst, float((st[k].double() - w).abs().max())
+                        / max(float(w.abs().max()), 1.0))
+        return worst
+
+    # every rank's state and loss against the one-process step's
+    worst = max(worst_leaf(g["state"]) for g in got)
+    free = max(worst_leaf(g["free_state"]) for g in got)
+    dloss = max(abs(g["loss"] - loss) for g in got) / abs(loss)
+    free_loss = max(abs(g["free_loss"] - loss) for g in got) / abs(loss)
+    moved = [sum(g["moved"][0] for g in got), sum(g["moved"][1] for g in got)]
+    res["dp"] = {"worst_leaf_rel": worst, "loss_rel": dloss, "moved": moved,
+                 "without_hand_over": {"worst_leaf_rel": free, "loss_rel": free_loss},
+                 "collectives": got[0]["dp_collectives"]}
+    log(f"[multi] gloo, {MD_GLOO_RANKS} ranks on the one card (CUDA tensors): the "
+        f"resnet18_cifar DP step (B={MD_GLOO_B} over the ranks) within {worst:.3g} of each "
+        f"leaf's largest magnitude and {dloss:.3g} of the loss of the one-process step on "
+        f"the full batch, {moved[0]} of {moved[1]} activation elements one quant step apart "
+        f"taken from it; without that hand-over {free:.3g} and {free_loss:.3g}; collectives "
+        f"a rank {got[0]['dp_collectives']}")
+    if worst > 2e-5 or dloss > 1e-5 or moved[0] > MAX_MOVED_SHARE * moved[1]:
+        raise AssertionError(f"[multi] gloo DP step: {res['dp']} (limits 2e-5 of a leaf, "
+                             f"1e-5 of the loss, {MAX_MOVED_SHARE:g} of the elements moved)")
+    tp = [g["tp"] for g in got]
+    res["tp"] = tp
+    if any(t["max_abs_err"] > 1e-5 or not t["tokens_equal"] for t in tp):
+        raise AssertionError(f"[multi] gloo TP: {tp}")
+    log(f"[multi] gloo TP of the d1024 x {DEPTH} LM over 'model' = 2: every rank's logits "
+        f"within {max(t['max_abs_err'] for t in tp):.3g} of the unsharded model's, greedy "
+        f"tokens equal; collectives a forward {tp[0]['collectives']}")
+    return res
+
+
+def gloo_rank(torch, rank, port, out_dir):
+    """One of ``_md_gloo``'s ranks."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=str(rank),
+                      WORLD_SIZE=str(MD_GLOO_RANKS), LOCAL_RANK="0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    import torch.distributed as dist
+
+    from jaxlsq_torch import _build
+    from jaxlsq_torch.parallel import (initialize_distributed, make_mesh, make_train_step,
+                                       shard_batch)
+    from jaxlsq_torch.serve import shard_converted
+
+    _build.load_library()
+    initialize_distributed(device="cpu")
+    out = {}
+    mesh = make_mesh()
+    batch = _image_batches(torch, 1, MD_GLOO_B, seed=195)[0]
+    local = {k: v.to("cuda") for k, v in shard_batch(batch, mesh).items()}
+    ref = torch.load(os.path.join(out_dir, "ref_acts.pt"))
+    for hand_over in (False, True):
+        model = _resnet(torch, "cuda", seed=0)
+        moved = [0, 0]
+        hooks = _md_handover(torch, model, ref, rank, moved) if hand_over else []
+        step = make_train_step(model, _sgd(torch, model), jit=False, mesh=mesh)
+        _md_counts()
+        loss = float(step(local)["loss"])
+        counts = _md_counts()
+        for h in hooks:
+            h.remove()
+        st = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        if hand_over:
+            out.update(loss=loss, state=st, moved=moved, dp_collectives=counts)
+        else:
+            out.update(free_loss=loss, free_state=st)
+    tmesh = make_mesh(model=MD_GLOO_RANKS)
+    model, _, _ = _lm(torch, 8, T0 + 16, seed=0)
+    g = torch.Generator(device="cuda").manual_seed(196)
+    prompt = torch.randint(0, VOCAB, (2, T0), device="cuda", generator=g)
+    want = model(prompt)
+    want_t = _greedy(torch, model, prompt)
+    shard_converted(model, tmesh)
+    _md_counts()
+    got = model(prompt)
+    counts = _md_counts()
+    out["tp"] = {"max_abs_err": float((got - want).abs().max()),
+                 "tokens_equal": bool(torch.equal(_greedy(torch, model, prompt), want_t)),
+                 "collectives": counts}
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _greedy(torch, model, prompt, n=8):
+    from jaxlsq_torch.serve import make_generate
+
+    return make_generate(model, prompt.shape[1], n)(prompt)
+
+
 def main(argv):
     import argparse
 
@@ -5906,12 +6387,20 @@ def main(argv):
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--record", help="also write the full record here (JSON)")
-    record = parser.parse_args(argv).record
+    parser.add_argument("--gloo-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--gloo-port", help=argparse.SUPPRESS)
+    parser.add_argument("--gloo-out", help=argparse.SUPPRESS)
+    args = parser.parse_args(argv)
+    record = args.record
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 2
+
+    if args.gloo_rank is not None:  # one of phase 19's gloo ranks
+        gloo_rank(torch, args.gloo_rank, args.gloo_port, args.gloo_out)
+        return 0
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -5945,6 +6434,7 @@ def main(argv):
     phase_decode_features(torch, rec)
     phase_int8_moe(torch, rec)
     phase_tooling(torch, rec)
+    phase_multi_device(torch, rec)
     rec["wall_s"] = time.time() - t0
     rec["profile_misses"] = PROFILE_MISSES
     rec["waiting_calls"] = WAITING_CALLS

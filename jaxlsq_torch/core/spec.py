@@ -16,7 +16,15 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
-__all__ = ["QuantSpec", "int_dtype_range"]
+__all__ = ["QuantSpec", "int_dtype_range", "DTYPE_RANGES"]
+
+# The carrier integer types' limits, int4 and uint4 beside int8 and uint8.
+DTYPE_RANGES = {
+    "int8": (-128, 127),
+    "uint8": (0, 255),
+    "int4": (-8, 7),
+    "uint4": (0, 15),
+}
 
 
 def int_dtype_range(bits: int, signed: bool) -> Tuple[int, int]:

@@ -58,6 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import _dist
 from .._device import resolve_device
 from ..observers.quantizer import (STATE_DTYPES, STATE_FIELDS, LSQQuantizer,
                                    QuantizerState)
@@ -208,7 +209,7 @@ class FakeQuantize(nn.Module):
         if modes is None:
             return x
         return fake_quant(x, scale, shift, self.cfg.spec, eval_mode=modes[0],
-                          init_mode=modes[1], numel=self.cfg.numel)
+                          init_mode=modes[1], numel=self.cfg.grad_numel(x))
 
     def extra_repr(self) -> str:
         h = self.host_state()
@@ -301,6 +302,9 @@ class _PackedBuffers(nn.Module):
         self.orig_shape = tuple(shape)
         self.channels = channels
         self.group_size: Optional[int] = None
+        # tensor parallelism (serve.convert.shard_converted): the _dist.Part
+        # of the axis whose rank-th N / size columns this pack holds
+        self.tp = None
 
     def packed(self) -> PackedWeight:
         return PackedWeight(self.data, self.scale, self.zero_point, bits=self.bits,
@@ -422,11 +426,20 @@ def _serve_dense_forward(mod: nn.Module, x: torch.Tensor, shape=None) -> torch.T
         if aspec is not None and mod.act_mode == "static":
             x = static_act_quant(x, mod.act_scale, mod.act_zp, aspec)
         y = wo_matmul(x, packed)
+    y = _tp_gather(mod.kernel, y, -1)
     if shape is not None:
         y = y.reshape(shape)
     if mod.bias is not None:
         y = y + mod.bias
     return y.to(x.dtype)
+
+
+def _tp_gather(kernel: "_PackedBuffers", y: torch.Tensor, dim: int) -> torch.Tensor:
+    """A column-parallel pack's output slices all-gathered along ``dim``
+    (every process then holds the whole activation); else ``y``."""
+    if kernel.tp is None:
+        return y
+    return _dist.all_gather(y, kernel.tp.group, kernel.tp.size, dim)
 
 
 class QuantDenseGeneral(nn.Module):
@@ -560,6 +573,7 @@ class QuantConv(nn.Module):
             y = static_int8_conv(x, self.kernel.packed(), self.act_scale, self.act_zp,
                                  aspec.quant_min, aspec.quant_max, strides=self.strides,
                                  padding=self.padding, feature_group_count=self.groups)
+            y = _tp_gather(self.kernel, y, 1)
             if self.bias is not None:
                 y = y + self.bias[:, None, None]
             return y.to(x.dtype)
@@ -568,7 +582,11 @@ class QuantConv(nn.Module):
             # activation qparams, affine or int4 weights)
             x = static_act_quant(x, self.act_scale, self.act_zp, aspec, axis=1)
         w = dequantize_weight(self.kernel.packed(), x.dtype).permute(3, 2, 0, 1)
-        return conv2d_padded(x, w, self.bias, self.strides, self.padding, self.groups)
+        if self.kernel.tp is None:
+            return conv2d_padded(x, w, self.bias, self.strides, self.padding, self.groups)
+        y = _tp_gather(self.kernel, conv2d_padded(x, w, None, self.strides, self.padding,
+                                                  self.groups), 1)
+        return y if self.bias is None else y + self.bias[:, None, None]
 
 
 def qat_conv2d(mod: nn.Module, x: torch.Tensor, w: torch.Tensor,

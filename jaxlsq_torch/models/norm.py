@@ -5,7 +5,9 @@ flax and ``nn.BatchNorm2d`` differ in three ways that each change the
 numbers, so the port does not use the latter: flax's running average keeps
 ``0.99`` of the old value (torch's momentum 0.1 keeps 0.9), its variance is
 the biased "fast" ``E[x²] − E[x]²`` (clipped at 0), and that biased batch
-variance is what it stores (torch stores the unbiased one).  The names
+variance is what it stores (torch stores the unbiased one).  Under a split
+of the rows over processes (a multi-device step) E[x] and E[x²] are the
+global batch's, all-reduced with a backward.  The names
 ``scale``/``bias``/``mean``/``var`` are flax's.
 """
 
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import _dist
 from .._device import resolve_device
 
 __all__ = ["BatchNorm"]
@@ -39,7 +42,11 @@ class BatchNorm(nn.Module):
         if self.training:
             dims = (0,) + tuple(range(2, x.dim()))
             mean = x.mean(dim=dims)
-            var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+            ex2 = (x * x).mean(dim=dims)
+            split = _dist.current()
+            if split is not None:  # the global batch's moments
+                mean, ex2 = _dist.mean_grad(mean, split), _dist.mean_grad(ex2, split)
+            var = torch.clamp_min(ex2 - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1.0 - m) * mean)

@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import _dist
 from .._device import resolve_device
 from ..ops.flash_attention import flash_attention
 from ..serve.attention import MASK, _q4, _q8, decode_attention
@@ -88,6 +89,15 @@ def _rope(x: torch.Tensor, pos: torch.Tensor, base: float = 10000.0) -> torch.Te
     sin = torch.sin(ang)[:, None]
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1).to(x.dtype)
+
+
+def _seq_part():
+    """The part of the current split of the rows (``_dist.current()``) over
+    the sequence (dim 1), or None."""
+    split = _dist.current()
+    if split is None:
+        return None
+    return next((p for p in split.parts if p.dim == 1), None)
 
 
 def _is_scalar_index(cache_index) -> bool:
@@ -242,20 +252,32 @@ class QuantTransformerBlock(nn.Module):
         self.mlp_down = QuantDense(self.hidden, dim, qconfig,
                                    path=path + ("mlp_down",), device=device)
 
-    def _attention(self, q, k, v):
+    def _attention(self, q, k, v, seq=None):
         """No-cache causal attention: ``'flash'`` takes the flash kernels, or
         the banded formulation under a window shorter than t (the JAX
-        package's routing); ``'xla'`` the plain einsum over (t, t) scores."""
+        package's routing); ``'xla'`` the plain einsum over (t, t) scores.
+        Under sequence parallelism (``seq``, the split's dim-1 part) q is
+        this process's chunk of the sequence and k, v are gathered whole
+        (with a backward); the 'xla' mask is then offset by the chunk's
+        start."""
         b, h, t, hd = q.shape
-        if self.train_attn_impl == "flash":
+        off = 0
+        if seq is not None:
+            if self.train_attn_impl == "flash":
+                raise ValueError("sequence parallelism takes train_attn_impl='xla'")
+            k = _dist.all_gather_grad(k, seq.group, seq.size, 2)
+            v = _dist.all_gather_grad(v, seq.group, seq.size, 2)
+            off = seq.rank * t
+        elif self.train_attn_impl == "flash":
             if self.attn_window is not None and self.attn_window < t:
                 return _banded_train_attention(q, k, v, self.attn_window)
             return _flash_train_attention(q, k, v)
         g = h // self.kvh
-        mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+        span = (torch.arange(t, device=q.device)[:, None] + off
+                - torch.arange(k.shape[2], device=q.device)[None, :])
+        mask = span >= 0
         if self.attn_window is not None:
-            ar = torch.arange(t, device=q.device)
-            mask = mask & ((ar[:, None] - ar[None, :]) < self.attn_window)
+            mask = mask & (span < self.attn_window)
         q5 = q.reshape(b, self.kvh, g, t, hd)
         att = torch.einsum("bkgqd,bkld->bkgql", q5, k) / math.sqrt(hd)
         att = torch.softmax(torch.where(mask, att, MASK), dim=-1)
@@ -269,10 +291,11 @@ class QuantTransformerBlock(nn.Module):
         q = qkv[..., :d].reshape(b, t, h, hd).transpose(1, 2)
         k = qkv[..., d:d + kvh * hd].reshape(b, t, kvh, hd).transpose(1, 2)
         v = qkv[..., d + kvh * hd:].reshape(b, t, kvh, hd).transpose(1, 2)
+        seq = _seq_part() if kv_cache is None else None
         if self.rope:
             ar = torch.arange(t, device=x.device)
             if kv_cache is None:
-                rpos = ar
+                rpos = ar if seq is None else ar + seq.rank * t
             elif _is_scalar_index(cache_index):
                 rpos = ar + int(cache_index)
             else:
@@ -281,7 +304,7 @@ class QuantTransformerBlock(nn.Module):
             k = _rope(k, rpos)
         new_kv = None
         if kv_cache is None:
-            y = self._attention(q, k, v)
+            y = self._attention(q, k, v, seq)
         else:
             y, new_kv = _cached_attention(q, k, v, kv_cache, cache_index,
                                           self.attn_window)
@@ -378,9 +401,12 @@ class QuantTransformerLM(nn.Module):
         x = self.tok_emb(tokens)
         if self.pos_embedding == "learned":
             if cache is None:
-                if t > self.max_len:
-                    raise ValueError(f"sequence length {t} exceeds max_len {self.max_len}")
-                x = x + self.pos_emb[None, :t]
+                seq = _seq_part()
+                off = 0 if seq is None else seq.rank * t  # this chunk's start
+                if off + t > self.max_len:
+                    raise ValueError(f"sequence length {off + t} exceeds max_len "
+                                     f"{self.max_len}")
+                x = x + self.pos_emb[None, off:off + t]
             elif _is_scalar_index(cache_index):
                 i = int(cache_index)
                 if i < 0 or i + t > self.max_len:

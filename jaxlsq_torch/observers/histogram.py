@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import _dist
 from ..core.spec import QuantSpec
 from .minmax import observer_qparams
 
@@ -71,11 +72,23 @@ class HistogramObserver:
 
         xf = x.detach().to(torch.float32)
         bmin, bmax = xf.amin().reshape(1), xf.amax().reshape(1)
+        split = _dist.current()
+        old = state.histogram
+        if split is not None:
+            # the global range; each process counts its rows and the first
+            # also carries the old histogram into the new grid (the update
+            # is linear in it), so the sum over the processes is the global
+            # update
+            bmin, bmax = _dist.reduce_range(bmin, bmax, split)
+            if any(p.rank for p in split.parts):
+                old = torch.zeros_like(old)
         first = state.seen == 0
         new_min = torch.where(first, bmin, torch.minimum(state.min_val, bmin))
         new_max = torch.where(first, bmax, torch.maximum(state.max_val, bmax))
-        hist = hist_update(xf, state.histogram, state.min_val, state.max_val, new_min,
+        hist = hist_update(xf, old, state.min_val, state.max_val, new_min,
                            new_max, state.seen, self.upsample_rate, gate=gate)
+        if split is not None:
+            hist = _dist.reduce_sum(hist, split)
         return HistogramObserverState(new_min, new_max, hist, state.seen + 1)
 
     def calculate_qparams(self, state: HistogramObserverState, spec: QuantSpec,

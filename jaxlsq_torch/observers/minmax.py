@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import _dist
 from ..core.spec import QuantSpec
 
 __all__ = ["ObserverState", "MinMaxObserver", "MovingAverageMinMaxObserver",
@@ -83,11 +84,18 @@ def _channels_first(x: torch.Tensor, axis: int) -> torch.Tensor:
 
 
 def _batch_min_max(x: torch.Tensor, per_channel: bool, axis: int):
+    """The batch's range; under a split of the rows (``_dist.current()``)
+    the global one, the processes' ranges all-reduced."""
     x = x.detach().to(torch.float32)
     if per_channel:
         xt = _channels_first(x, axis)
-        return xt.amin(dim=1), xt.amax(dim=1)
-    return x.amin().reshape(1), x.amax().reshape(1)
+        bmin, bmax = xt.amin(dim=1), xt.amax(dim=1)
+    else:
+        bmin, bmax = x.amin().reshape(1), x.amax().reshape(1)
+    split = _dist.current()
+    if split is not None:
+        bmin, bmax = _dist.reduce_range(bmin, bmax, split)
+    return bmin, bmax
 
 
 def _merge(state: ObserverState, bmin: torch.Tensor, bmax: torch.Tensor,
@@ -137,11 +145,24 @@ class MSEObserver:
 
     def update(self, state: ObserverState, x: torch.Tensor,
                gate: Optional[torch.Tensor] = None) -> ObserverState:
-        from ..ops.observers import mse_range
+        from ..ops.observers import linspace, mse_range
 
         bmin, bmax = _batch_min_max(x, self.per_channel, self.axis)
-        nmin, nmax = mse_range(x, bmin, bmax, self.spec, self.per_channel, self.axis,
-                               self.num_candidates, gate=gate)
+        split = _dist.current()
+        if split is None:
+            nmin, nmax = mse_range(x, bmin, bmax, self.spec, self.per_channel,
+                                   self.axis, self.num_candidates, gate=gate)
+        else:
+            # the candidates' errors over the local rows, summed over the
+            # processes, then the first least, as on the global batch
+            errs = torch.empty((bmin.numel(), self.num_candidates),
+                               dtype=torch.float32, device=bmin.device)
+            mse_range(x, bmin, bmax, self.spec, self.per_channel, self.axis,
+                      self.num_candidates, gate=gate, errs=errs)
+            errs = _dist.reduce_sum(errs, split)
+            f = linspace(1.0 / self.num_candidates, 1.0, self.num_candidates)
+            fb = f.to(bmin.device)[torch.argmin(errs, dim=1)]
+            nmin, nmax = bmin * fb, bmax * fb
         return _merge(state, nmin, nmax, self.averaging_constant)
 
     def calculate_qparams(self, state: ObserverState, spec: QuantSpec,
@@ -187,6 +208,9 @@ class PercentileObserver:
 
     def _batch_range(self, x: torch.Tensor):
         xf = x.detach().to(torch.float32)
+        split = _dist.current()
+        if split is not None:  # the sample is drawn from the global tensor
+            xf = _dist.gather_global(xf, split)
         rows = _channels_first(xf, self.axis) if self.per_channel else xf.reshape(1, -1)
         rows = self._subsample(rows)
         n = rows.shape[-1]

@@ -47,6 +47,7 @@ from typing import Optional, Tuple, Union
 
 import torch
 
+from .. import _dist
 from ..core.spec import QuantSpec
 from ..ops.functional import fake_quant, fake_quant_traced
 from .histogram import HistogramObserver, HistogramObserverState
@@ -156,6 +157,24 @@ class LSQQuantizer:
         if self.spec.symmetric:
             return self.spec.symmetric_init_shift(self.init_scale)
         return self.init_shift
+
+    def grad_numel(self, x: torch.Tensor) -> Optional[int]:
+        """The element count of the gradient scale: ``numel`` when set, else
+        under a split of the rows (``_dist.current()``) the global count of
+        an activation (and of an expert-parallel weight), each split's size
+        counted unless it splits this quantizer's own channel axis (the
+        per-channel ``/ C`` then shrinks with it); else None (x's own)."""
+        split = _dist.current()
+        if self.numel is not None or split is None:
+            return self.numel
+        if self.otype == "weight" and not split.weights:
+            return None
+        axis = self.spec.axis % x.dim() if self.spec.per_channel else None
+        n = x.numel()
+        for p in split.parts:
+            if p.dim != axis:
+                n *= p.size
+        return n
 
     # ------------------------------------------------------------------ init
 
@@ -296,7 +315,8 @@ class LSQQuantizer:
         if modes is None:
             return x, state
         out = fake_quant(x, state.scale, state.shift, self.spec,
-                         eval_mode=modes[0], init_mode=modes[1], numel=self.numel)
+                         eval_mode=modes[0], init_mode=modes[1],
+                         numel=self.grad_numel(x))
         return out, state
 
     def forward_traced(self, state: QuantizerState, x: torch.Tensor,
@@ -335,5 +355,5 @@ class LSQQuantizer:
         out = fake_quant_traced(x, state.scale, state.shift, self.spec,
                                 eval_flag=1.0 - do_full_lsq.to(torch.float32),
                                 init_flag=do_backprop_init.to(torch.float32),
-                                numel=self.numel)
+                                numel=self.grad_numel(x))
         return torch.where(state.fake_quant_enabled, out, x), state

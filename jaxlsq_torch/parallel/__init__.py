@@ -1,5 +1,12 @@
+from .fsdp import fsdp_sharding
+from .mesh import data_sharding, initialize_distributed, make_mesh, replicated, shard_batch
+from .moe import EXPERT_SCOPES, moe_sharding
 from .optim import QATOptimizer, project_scale_floor, qat_optimizer
+from .placement import apply_sharding
 from .train import cross_entropy_loss, distillation_loss, make_eval_step, make_train_step
 
 __all__ = ["cross_entropy_loss", "distillation_loss", "make_eval_step", "make_train_step",
-           "QATOptimizer", "project_scale_floor", "qat_optimizer"]
+           "QATOptimizer", "project_scale_floor", "qat_optimizer",
+           "make_mesh", "data_sharding", "replicated", "shard_batch",
+           "initialize_distributed", "fsdp_sharding", "moe_sharding",
+           "EXPERT_SCOPES", "apply_sharding"]

@@ -1,6 +1,7 @@
-"""QAT train and eval steps on one device (port of ``make_train_step``,
-``make_eval_step`` and ``cross_entropy_loss`` of ``jaxlsq/parallel/train.py``,
-without a mesh).
+"""QAT train and eval steps (port of ``make_train_step``, ``make_eval_step``
+and ``cross_entropy_loss`` of ``jaxlsq/parallel/train.py``), on one device
+or over a mesh of processes (``mesh=``: jaxlsq's one-device step on the
+global batch; see ``make_train_step``).
 
 One step is: the training forward (the observers write the quantizers'
 scale/shift in place while they run), the backward, then
@@ -60,12 +61,15 @@ under capture inside the graph.  :func:`distillation_loss` builds a
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from .. import _dist
+from .placement import apply_sharding, gathered_params
 from ..models.layers import (FakeQuantize, collect_losses, quant_state_frozen,
                              refresh_host_state)
 
@@ -265,9 +269,117 @@ class _CapturedStep:
         return {"loss": entry[2].clone()}
 
 
+class _Mesh:
+    """What a step under a mesh needs: the split of the rows, the groups
+    each parameter's gradient is summed over, the mesh's size."""
+
+    def __init__(self, model: nn.Module, mesh, sequence_axis: Optional[str]):
+        names = list(mesh.mesh_dim_names)
+        if "data" not in names:
+            raise ValueError(f"the mesh needs a 'data' axis, has {names}")
+        if sequence_axis is not None and sequence_axis not in names:
+            raise ValueError(f"sequence_axis {sequence_axis!r} is not a mesh axis {names}")
+
+        def part(name, dim):
+            i = names.index(name)
+            return _dist.Part(mesh.get_group(i), mesh.size(i),
+                              mesh.get_local_rank(name), dim)
+
+        parts = [part("data", 0)]
+        self.seq = None
+        if sequence_axis is not None:
+            self.seq = part(sequence_axis, 1)
+            parts.append(self.seq)
+        self.data = parts[0]
+        self.split = _dist.Split(tuple(parts))
+        self.groups = {n: mesh.get_group(i) for i, n in enumerate(names)}
+        self.size = mesh.size()
+        self.model = model
+        self._plans = {}  # regroup's row order and split sizes, by batch shape
+        # a sharded leaf's gradient is summed over the axes it is not
+        # sharded on (an FSDP shard's over the sharded one too, by the
+        # reduce-scatter of its all-gather's backward)
+        named = dict(model.named_parameters())
+        self.owned = {}
+        for table in (getattr(model, "_jlt_fsdp", {}), getattr(model, "_jlt_expert", {})):
+            for name, pt in table.items():
+                if name in named:
+                    self.owned[id(named[name])] = pt.group
+
+    def reduce_grads(self, params) -> None:
+        """Every gradient summed over its groups and divided by the mesh's
+        size: the gradient of the global mean loss.  One flat all-reduce a
+        group per bucket of parameters with the same groups."""
+        buckets = {}
+        for p in params:
+            skip = self.owned.get(id(p))
+            key = tuple(n for n, g in self.groups.items() if g is not skip)
+            buckets.setdefault(key, []).append(p)
+        for key, ps in buckets.items():
+            for i in range(0, len(ps), _BUCKET):
+                chunk = ps[i:i + _BUCKET]
+                flat = torch.cat([p.grad.reshape(-1) for p in chunk])
+                for n in key:
+                    _dist.all_reduce(flat, "sum", self.groups[n])
+                flat.div_(float(self.size))
+                _unflat([p.grad for p in chunk], flat)
+
+    def mean(self, loss: torch.Tensor) -> torch.Tensor:
+        loss = loss.detach().clone().reshape(())
+        for g in self.groups.values():
+            _dist.all_reduce(loss, "sum", g)
+        return loss / float(self.size)
+
+    def forward(self, x: torch.Tensor, grad: bool = True) -> torch.Tensor:
+        if getattr(self.model, "_jlt_fsdp", None):
+            return torch.func.functional_call(self.model, gathered_params(self.model, grad),
+                                              (x,), strict=False)
+        return self.model(x)
+
+    def loss_batch(self, batch: Dict) -> Dict:
+        """The batch ``loss_fn`` sees: under sequence parallelism each
+        tensor's dim 1 gathered over the sequence axis."""
+        if self.seq is None:
+            return batch
+        return {k: (_dist.all_gather(v, self.seq.group, self.seq.size, 1)
+                    if torch.is_tensor(v) and v.dim() >= 2 else v)
+                for k, v in batch.items()}
+
+    def regroup(self, batch: Dict, n: int) -> Dict:
+        """jaxlsq's microbatch i is the global rows [i B / n, (i + 1) B / n);
+        one all-to-all of rows a tensor gives this process its 1/W of each,
+        in order, so ``_microbatches`` cuts them out."""
+        part = self.data
+        b, w, r = _inputs(batch).shape[0], part.size, part.rank
+        m = b * w // n
+        if (b * w) % n or m % w:
+            raise ValueError(f"a global batch of {b * w} rows does not split into "
+                             f"{n} microbatches over {w} processes")
+
+        device = _inputs(batch).device
+        key = (b, n, device)
+        if key not in self._plans:  # made at an eager call, before any capture
+            def dest(g):  # the process that holds global row g in its microbatch
+                return (g % m) // (m // w)
+
+            rows = [(dest(r * b + l), l) for l in range(b)]
+            send = [sum(1 for q, _ in rows if q == k) for k in range(w)]
+            recv = [sum(1 for l in range(b) if dest(s * b + l) == r) for s in range(w)]
+            idx = torch.tensor([l for _, l in sorted(rows)], device=device)
+            self._plans[key] = (idx, send, recv)
+        idx, send, recv = self._plans[key]
+        return {k: _dist.all_to_all_rows(v.index_select(0, idx), send, recv, part.group)
+                for k, v in batch.items()}
+
+
+# parameters per flat gradient all-reduce
+_BUCKET = 256
+
+
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     loss_fn: Callable = cross_entropy_loss, jit: bool = True,
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, mesh=None, donate: bool = True,
+                    state_sharding=None, sequence_axis: Optional[str] = None):
     """``step(batch) -> {"loss": loss}`` (loss a device scalar, not synced),
     updating ``model`` and ``optimizer`` in place.  ``batch`` is a dict of
     tensors: 'image' or 'input' (fed to the model) and what ``loss_fn``
@@ -277,9 +389,45 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     whose fake quantization is off) gets a zero gradient, as JAX's gradient
     of an unused input is zero, so its momentum trace decays as optax's
     does.  In the traced regime every quantizer's qparams take a gradient.
+
+    ``mesh`` (``parallel.make_mesh``): every process of the mesh calls the
+    step on its part of the global batch (``shard_batch``), and the step is
+    jaxlsq's one-device step on the global batch: the activation
+    quantizers' gradient scale counts the global elements, the observers,
+    BatchNorm, the MoE routing and its load-balance loss see the global
+    batch (``jaxlsq_torch._dist``), the gradients are averaged over the
+    mesh in a few flat all-reduces, and the loss returned is the global
+    one.  ``state_sharding`` (``fsdp_sharding``, ``moe_sharding``) is put in
+    effect first (``apply_sharding``); an FSDP step needs ``jit=False``.
+    ``sequence_axis`` (a mesh axis, jaxlsq's ``P('data', 'model')`` batch
+    spec) splits each tensor's dim 1 over it as well: sequence parallelism
+    of the LM, ``loss_fn`` seeing the logits and batch gathered over that
+    axis.  ``accum_steps`` takes jaxlsq's global microbatches.  ``donate``
+    is jaxlsq's argument and changes nothing here (the step updates the
+    model in place).  On a card, ``jit=True`` captures the collectives in
+    the step's graph, which needs the NCCL backend.
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    del donate
+    mesh_ctx = None
+    if mesh is not None:
+        if state_sharding is not None:
+            apply_sharding(model, state_sharding, mesh, optimizer)
+        if jit and getattr(model, "_jlt_fsdp", None):
+            raise ValueError("make_train_step(jit=True) does not take an FSDP-sharded "
+                             "state: build the FSDP step with jit=False")
+        if sequence_axis is not None and accum_steps > 1:
+            raise ValueError("accum_steps > 1 with sequence_axis is not supported")
+        if (jit and next(model.parameters()).device.type == "cuda"
+                and dist.get_backend() != "nccl"):
+            raise ValueError("make_train_step(jit=True) on a card captures the step's "
+                             "collectives in a CUDA graph, which the "
+                             f"{dist.get_backend()!r} backend cannot; use NCCL or "
+                             "jit=False")
+        mesh_ctx = _Mesh(model, mesh, sequence_axis)
+    elif state_sharding is not None or sequence_axis is not None:
+        raise ValueError("state_sharding and sequence_axis need a mesh")
     params = [p for group in optimizer.param_groups for p in group["params"]]
     fqs = _quantizers(model)
     in_opt = {id(p) for p in params}
@@ -294,9 +442,17 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         return [p for m in mods for p in (m.scale, m.shift) if id(p) in in_opt]
 
     def objective(batch: Dict) -> torch.Tensor:
-        with collect_losses() as terms:
-            out = model(_inputs(batch))
-        loss = loss_fn(out, batch)
+        if mesh_ctx is None:
+            with collect_losses() as terms:
+                out = model(_inputs(batch))
+            loss = loss_fn(out, batch)
+        else:
+            with _dist.splitting(mesh_ctx.split), collect_losses() as terms:
+                out = mesh_ctx.forward(_inputs(batch))
+                if mesh_ctx.seq is not None:
+                    out = _dist.all_gather_grad(out, mesh_ctx.seq.group,
+                                                mesh_ctx.seq.size, 1)
+            loss = loss_fn(out, mesh_ctx.loss_batch(batch))
         if terms:  # the JAX package's reduce(add, sums, zeros) over 'losses'
             aux = torch.zeros((), dtype=torch.float32, device=loss.device)
             for term in terms:
@@ -315,6 +471,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         else:
             optimizer.zero_grad(set_to_none=True)
             losses = []
+            if mesh_ctx is not None:
+                batch = mesh_ctx.regroup(batch, accum_steps)
             for mb in _microbatches(batch, accum_steps):
                 loss = objective(mb)
                 loss.backward()
@@ -326,6 +484,9 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if mesh_ctx is not None:
+            mesh_ctx.reduce_grads(params)
+            loss = mesh_ctx.mean(loss)
         new = _flat(qps)
         _unflat(qps, old)
         optimizer.step()
@@ -350,11 +511,19 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     return traced_step
 
 
-def make_eval_step(model: nn.Module):
+def make_eval_step(model: nn.Module, mesh=None, state_sharding=None):
     """``step(batch) -> logits``: the eval-mode forward with no gradient, and
     nothing of the quantizers' state kept, as the JAX package's eval step
-    discards its mutated collections."""
+    discards its mutated collections.  With ``mesh`` each process passes
+    its part of the global batch (``shard_batch``) and gets the logits of
+    its rows, computed as on the global batch (an observer still in its
+    window, the MoE routing); ``state_sharding`` is put in effect first."""
     fqs = _quantizers(model)
+    mesh_ctx = None
+    if mesh is not None:
+        if state_sharding is not None:
+            apply_sharding(model, state_sharding, mesh)
+        mesh_ctx = _Mesh(model, mesh, None)
 
     def step(batch: Dict) -> torch.Tensor:
         was_training = model.training
@@ -362,7 +531,10 @@ def make_eval_step(model: nn.Module):
         refresh_host_state(fqs)
         try:
             with torch.no_grad(), quant_state_frozen(fqs):
-                return model(_inputs(batch))
+                if mesh_ctx is None:
+                    return model(_inputs(batch))
+                with _dist.splitting(mesh_ctx.split):
+                    return mesh_ctx.forward(_inputs(batch), grad=False)
         finally:
             model.train(was_training)
 

@@ -1,6 +1,6 @@
 from .attention import decode_attention, decode_attention_plain
 from . import custom_ops  # noqa: F401  (registers the serving operators)
-from .convert import convert, serving_bits
+from .convert import convert, serving_bits, shard_converted, shard_packed
 from .decode import (DecodeEngine, Prefix, SpeculativeDecodeEngine, init_kv_cache,
                      make_beam_search, make_generate, make_sampler,
                      make_speculative_generate, prefill)
@@ -17,6 +17,7 @@ from .paged import (PageAllocator, PagedKVLayer, init_paged_cache,
 from .paged_engine import PagedDecodeEngine, PagedPrefix, PagedSpeculativeDecodeEngine
 
 __all__ = ["decode_attention", "decode_attention_plain", "convert", "serving_bits",
+           "shard_packed", "shard_converted",
            "DecodeEngine", "Prefix", "SpeculativeDecodeEngine", "init_kv_cache",
            "make_beam_search", "make_generate", "make_sampler",
            "make_speculative_generate", "prefill", "ServingEngine", "wo_matmul",

@@ -4,8 +4,19 @@
 JAX package's collection and layer names), folds each weight quantizer's
 (scale, shift) into (scale, zero_point), quantizes + packs the kernels, and
 freezes each activation quantizer's qparams; ``weight_group_size`` packs the
-int4 dense kernels group-wise instead.  Tensor-parallel placement
-(``shard_packed``/``shard_converted``) comes with the multi-device slice.
+int4 dense kernels group-wise instead.
+
+Tensor-parallel placement: :func:`shard_packed` and :func:`shard_converted`
+keep jaxlsq's column-parallel rule over a mesh axis ('model'): a pack's
+output-feature axis N (the last: a dense (K, N) or a conv HWIO kernel) is
+split, its per-channel scale and zero point ride with it, a group-wise
+(G, N) scale is split on N with its (1,) zero point whole; a pack whose
+per-channel axis is not the last (an embedding table, per row; an expert
+stack) or whose N the axis does not divide stays whole, as does a grouped
+convolution's (its input channels would split with it).  Each process
+keeps its N-slice; the serve-mode layer runs its kernel on that slice and
+all-gathers the output along N, so every process holds whole activations
+and decode, the caches and the engines run unchanged.
 """
 
 from __future__ import annotations
@@ -18,9 +29,9 @@ import torch
 from ..core.golden import clamp_scale
 from ..core.spec import QuantSpec
 from ..observers.quantizer import convert_shift_to_zp
-from .pack import quantize_weight, quantize_weight_grouped
+from .pack import PackedWeight, quantize_weight, quantize_weight_grouped
 
-__all__ = ["convert", "serving_bits"]
+__all__ = ["convert", "serving_bits", "shard_packed", "shard_converted"]
 
 
 def serving_bits(spec: QuantSpec) -> int:
@@ -123,3 +134,68 @@ def convert(variables: Dict[str, Any], qconfig, *,
         if k not in ("params", "qparams", "quant_state", "quantized", "losses"):
             out[k] = v
     return out
+
+
+# --------------------------------------------------------------------------
+# Tensor-parallel placement
+# --------------------------------------------------------------------------
+
+def _axis(mesh, axis_name: str):
+    i = mesh.mesh_dim_names.index(axis_name)
+    return i, mesh.size(i), mesh.get_local_rank(axis_name)
+
+
+def _column_parallel(p: PackedWeight, size: int) -> bool:
+    n = p.data.shape[-1]
+    return p.axis == len(p.orig_shape) - 1 and n % size == 0
+
+
+def shard_packed(packed: PackedWeight, mesh, axis_name: str = "model") -> PackedWeight:
+    """This process's part of ``packed`` under column parallelism over
+    ``axis_name`` (its N-slice, with its qparams), or ``packed`` itself where
+    the rule replicates it."""
+    _, size, rank = _axis(mesh, axis_name)
+    if not _column_parallel(packed, size):
+        return packed
+    n = packed.data.shape[-1]
+    w = n // size
+
+    def cols(t):
+        return t.narrow(t.dim() - 1, rank * w, w).contiguous()
+
+    scale, zp = packed.scale, packed.zero_point
+    if packed.group_size is not None and scale.dim() == 2 and scale.shape[1] == n:
+        scale = cols(scale)          # (G, N) group scales; the (1,) zp stays
+    elif scale.shape[0] == n:
+        scale, zp = cols(scale), cols(zp)
+    return PackedWeight(cols(packed.data), scale, zp, bits=packed.bits, axis=packed.axis,
+                        k_axis=packed.k_axis,
+                        orig_shape=tuple(packed.orig_shape[:-1]) + (w,),
+                        group_size=packed.group_size)
+
+
+@torch.no_grad()
+def shard_converted(model, mesh, axis_name: str = "model"):
+    """Column-parallel placement of a loaded serve-mode model over
+    ``axis_name``: every packed layer the rule splits keeps its slice in
+    place and all-gathers its output.  Every process of the axis calls it;
+    returns ``model``."""
+    from .. import _dist
+    from ..models.layers import QuantConv, _PackedBuffers
+
+    i, size, rank = _axis(mesh, axis_name)
+    part = _dist.Part(mesh.get_group(i), size, rank, -1)
+    for owner in model.modules():
+        kernel = getattr(owner, "kernel", None)
+        if not isinstance(kernel, _PackedBuffers) or kernel.tp is not None:
+            continue
+        if isinstance(owner, QuantConv) and owner.groups != 1:
+            continue
+        p = kernel.packed()
+        if not _column_parallel(p, size):
+            continue
+        local = shard_packed(p, mesh, axis_name)
+        kernel.data, kernel.scale, kernel.zero_point = local.data, local.scale, local.zero_point
+        kernel.orig_shape = local.orig_shape
+        kernel.tp = part
+    return model

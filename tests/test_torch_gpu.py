@@ -2790,3 +2790,109 @@ def test_native_oracle_matches_the_fake_quant_kernels(cuda, per_channel, eval_mo
     ts, tb = _fq_abs_sums(gr, x, s, b, spec, init_mode, effective_grad_scale(spec, x.numel(), c))
     assert bool(((ds.double() - torch.from_numpy(nds).to(cuda).double()).abs() <= 1e-5 * ts).all())
     assert bool(((db.double() - torch.from_numpy(ndb).to(cuda).double()).abs() <= 1e-5 * tb).all())
+
+
+# --- multi-device at world size 1 on NCCL ------------------------------------------------
+
+@pytest.fixture
+def nccl_mesh(cuda, monkeypatch):
+    """A one-process NCCL group (torchrun's variables on a free port) and
+    its (1, 1) mesh; the group is destroyed after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from jaxlsq_torch.parallel import initialize_distributed, make_mesh
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    for k, v in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(port)), ("RANK", "0"),
+                 ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    assert initialize_distributed() == (0, 1)
+    assert dist.get_backend() == "nccl"
+    yield make_mesh()
+    dist.destroy_process_group()
+
+
+def _md_resnet_run(cuda, mesh, jit, steps=3):
+    from jaxlsq_torch.models import QuantResNet
+    from jaxlsq_torch.parallel import make_train_step
+
+    qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=2)
+    model = QuantResNet(10, qc, stage_sizes=(1, 1), widths=(16, 32), device=cuda)
+    opt = torch.optim.SGD(model.parameters(), lr=1e-2, momentum=0.9)
+    step = make_train_step(model, opt, jit=jit, mesh=mesh)
+    g = torch.Generator(device=cuda).manual_seed(21)
+    losses = []
+    for _ in range(steps):
+        losses.append(step({"image": torch.randn(16, 3, 16, 16, device=cuda, generator=g),
+                            "label": torch.randint(0, 10, (16,), device=cuda, generator=g)})
+                      ["loss"])
+    state = dict(model.state_dict())
+    state.update({f"m{i}": v for i, st in enumerate(opt.state.values())
+                  for v in st.values() if torch.is_tensor(v)})
+    return torch.stack(losses), state, step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("jit", [False, True], ids=["eager", "captured"])
+def test_world_size_1_nccl_dp_step_is_the_meshless_step(nccl_mesh, cuda, jit):
+    """Across the observer window, every leaf and the losses bit-equal."""
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.deterministic, cudnn.benchmark)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        want = _md_resnet_run(cuda, None, jit)
+        got = _md_resnet_run(cuda, nccl_mesh, jit)
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+    assert torch.equal(want[0], got[0])
+    for k in want[1]:
+        assert torch.equal(want[1][k], got[1][k]), k
+
+
+@pytest.mark.gpu
+def test_captured_dp_step_holds_its_nccl_collectives(nccl_mesh, cuda):
+    """The captured mesh step issues its NCCL collectives at the warm-up and
+    while capturing (on the capturing stream, so they are in the graph) and
+    none on the host at a replay.  (At world size 1 NCCL does an in-place
+    all-reduce as no device work, so a replay's profile cannot show it.)"""
+    from jaxlsq_torch import _dist
+    from jaxlsq_torch.models import QuantResNet
+    from jaxlsq_torch.parallel import make_train_step
+
+    qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=2)
+    model = QuantResNet(10, qc, stage_sizes=(1, 1), widths=(16, 32), device=cuda)
+    step = make_train_step(model, torch.optim.SGD(model.parameters(), lr=1e-2, momentum=0.9),
+                           jit=True, mesh=nccl_mesh)
+    g = torch.Generator(device=cuda).manual_seed(21)
+    per_call = []
+    for _ in range(4):
+        before = sum(_dist.COUNTS.values())
+        step({"image": torch.randn(16, 3, 16, 16, device=cuda, generator=g),
+              "label": torch.randint(0, 10, (16,), device=cuda, generator=g)})
+        per_call.append(sum(_dist.COUNTS.values()) - before)
+    assert per_call[0] == per_call[1] > 0 and per_call[2:] == [0, 0], per_call
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wbits", [8, 4])
+def test_world_size_1_tp_serving_tokens_equal(nccl_mesh, cuda, wbits):
+    from jaxlsq_torch.serve import shard_converted
+
+    qc = default_qconfig(wbits, 8, per_channel_weights=True).for_serving("none")
+    models = []
+    for _ in range(2):
+        m = QuantTransformerLM(256, 128, 2, 4, qc, max_len=64, device=cuda)
+        interop.load_variables(m, init_variables(m, seed=5))
+        models.append(m)
+    shard_converted(models[1], nccl_mesh)
+    assert all(k.tp is not None for k in (models[1].lm_head.kernel, models[1].block0.qkv.kernel))
+    g = torch.Generator(device=cuda).manual_seed(22)
+    prompt = torch.randint(0, 256, (4, 16), device=cuda, generator=g)
+    assert torch.equal(models[0](prompt), models[1](prompt))
+    want, got = (make_generate(m, 16, 24)(prompt) for m in models)
+    assert torch.equal(want, got)

@@ -23,6 +23,8 @@ MODULES = [
     "jaxlsq_torch.models.toggles", "jaxlsq_torch.models.zoo", "jaxlsq_torch.models.quantize",
     "jaxlsq_torch.models.moe",
     "jaxlsq_torch.parallel", "jaxlsq_torch.parallel.train", "jaxlsq_torch.parallel.optim",
+    "jaxlsq_torch._dist", "jaxlsq_torch.parallel.mesh", "jaxlsq_torch.parallel.fsdp",
+    "jaxlsq_torch.parallel.moe", "jaxlsq_torch.parallel.placement",
     "jaxlsq_torch.serve", "jaxlsq_torch.serve.pack", "jaxlsq_torch.serve.convert",
     "jaxlsq_torch.serve.matmul", "jaxlsq_torch.serve.attention",
     "jaxlsq_torch.serve.decode", "jaxlsq_torch.serve.paged",
@@ -98,3 +100,18 @@ def test_entry_points_need_a_device_without_cuda():
     model = QuantResNet(10, default_qconfig(8, 8), stage_sizes=(1,), widths=(8,),
                         device="cpu")
     assert all(p.device.type == "cpu" for p in model.parameters())
+
+
+def test_initialize_distributed_needs_a_device_without_cuda(monkeypatch):
+    """Under torchrun's variables, with no card and no device named, the
+    bring-up raises rather than fall back to gloo on the CPU; with none of
+    them set it is a single-process no-op."""
+    from jaxlsq_torch.parallel import initialize_distributed
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: NCCL is the default backend")
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert initialize_distributed() == (0, 1)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        initialize_distributed()
