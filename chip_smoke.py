@@ -8,7 +8,8 @@ conv nets' train-then-serve, the observers, a stock third-party model, the
 decode features (QAT decode, beam search, speculative decoding and its
 engines, ServingEngine), and the int8 x int8 serving path and the quantized
 MoE, and the tooling (sensitivity and mixed-precision planning, torch.export
-of the serving programs, the host C++ oracle and shard loader).
+of the serving programs, the host C++ oracle and shard loader), the
+multi-device steps and the pipeline.
 
     python3 chip_smoke.py [--record PATH]
 
@@ -306,6 +307,23 @@ exits non-zero on any failure (no phase is caught and skipped):
    the one-process step on the full batch on every rank, and the d1024
    LM's TP forward within 1e-5 of the unsharded one with greedy tokens
    equal on every rank.
+
+20. the pipeline (``parallel.pipeline``) on phase 3's LM in QAT mode (16
+   heads, rope, per-channel w8a8), B = 16, t = 256, 4 microbatches, every
+   count reset first: (a) world size 1 on NCCL, a (1, 1) mesh, 3 steps in
+   learning mode against ``make_train_step(accum_steps=4)`` (within the
+   CPU tests' tolerances, bit-equality reported), captured and remat
+   bit-equal to eager, a window closing in step 2 with the accumulation
+   step's losses and observer state and its scale gradients deferred; (b)
+   four gloo ranks of this script (``--gloo-leg pipeline``) on the one card
+   over (data 1, stage 4) and (data 2, stage 2), every rank's leaves within
+   2e-5 of each leaf's largest magnitude (the loss 1e-5) of (a)'s
+   one-process pipeline (the (2, 2) leg with its gradient scale pinned,
+   deviation 14's hand-over counted), 2·(S − 1)·MB sends a step, each
+   rank's parameter bytes; (c) the state gathered into one plain LM, its
+   eval logits within 1e-5 of the stage's, served at w8 and w4 (16 + 32
+   tokens, ``wo8``/``wo4`` and ``decode_attention`` profiled); (d)
+   ``lab.parallel_qat`` at world size 1 for 10 steps.
 
 Prints one ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  ``--record PATH`` also writes the full
@@ -5781,6 +5799,7 @@ def kernels_line(rec):
                     "decode_features_launches": rec["decode_features"]["launches"][name],
                     "int8_moe_launches": rec["int8_moe"]["launches"][name],
                     "tooling_launches": rec["tooling"]["launches"][name],
+                    "pipeline_launches": rec["pipeline"]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": sum(r["ms"] for r in rows),
                     "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -5829,6 +5848,7 @@ def kernels_line(rec):
                     rec["decode_features"]["launches"]["decode_attention"],
                 "int8_moe_launches": rec["int8_moe"]["launches"]["decode_attention"],
                 "tooling_launches": rec["tooling"]["launches"]["decode_attention"],
+                "pipeline_launches": rec["pipeline"]["launches"]["decode_attention"],
                 "max_abs_err": rec["max_abs_err"]["decode_attention"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -5852,6 +5872,7 @@ def kernels_line(rec):
                     "decode_features_launches": rec["decode_features"]["launches"][name],
                     "int8_moe_launches": rec["int8_moe"]["launches"][name],
                     "tooling_launches": rec["tooling"]["launches"][name],
+                    "pipeline_launches": rec["pipeline"]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name],
                     "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                     "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -6374,6 +6395,532 @@ def gloo_rank(torch, rank, port, out_dir):
     dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the pipeline (jaxlsq/parallel/pipeline.py) and lab.parallel_qat
+# ---------------------------------------------------------------------------
+
+# phase 3's LM in QAT mode at phase 16's target's width (16 heads, rope), B =
+# 16 sequences of 256 tokens a step in 4 microbatches; a window of MB + 1
+# microbatches closes in the second step
+PP_B, PP_T, PP_MB, PP_STEPS, PP_TIMED, PP_SEED = 16, 256, 4, 3, 5, 20
+PP_WINDOW, PP_RANKS = PP_MB + 1, 4
+PP_MESHES = {"1x4": ("window", 1, 4, "ref_window.pt"), "2x2": ("pinned", 2, 2, "ref_pinned.pt")}
+
+
+def _pp_qc(kind):
+    """'learning' (no window), 'window' (it closes in the second step) or
+    'pinned' (learnable activation quantizers whose gradient scale counts
+    the global microbatch, jaxlsq's tests/test_pipeline.py:168-202)."""
+    from jaxlsq_torch.models import default_qconfig
+
+    qc = default_qconfig(8, 8, per_channel_weights=True,
+                         init_batches=PP_WINDOW if kind == "window" else 0)
+    if kind == "pinned":
+        qc = dataclasses.replace(qc, activation=dataclasses.replace(
+            qc.activation, init_mode="learnable", n_batches=-1,
+            numel=(PP_B // PP_MB) * PP_T * DIM))
+    return qc
+
+
+def _pp_lm(torch, kind):
+    from jaxlsq_torch.models import QuantTransformerLM
+
+    return QuantTransformerLM(VOCAB, DIM, DEPTH, HEADS, _pp_qc(kind), max_len=PP_T,
+                              pos_embedding="rope", device="cuda", seed=PP_SEED)
+
+
+def _pp_batches(torch):
+    g = torch.Generator(device="cuda").manual_seed(201)
+    return [torch.randint(0, VOCAB, (PP_B, PP_T), device="cuda", generator=g)
+            for _ in range(PP_STEPS)]
+
+
+def _pp_loss(logits, labels):
+    import torch.nn.functional as F
+
+    return F.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                           labels[:, 1:].reshape(-1))
+
+
+def _pp_sgd(params):
+    import torch
+
+    return torch.optim.SGD(params, lr=1e-2, momentum=0.9)
+
+
+def _pp_train(torch, mesh, kind, batches, *, jit=False, remat=False, accum=False,
+              mb=PP_MB, timed=0, keep=None):
+    """``batches`` through the pipeline over ``mesh`` (``accum``: through
+    ``make_train_step(accum_steps=mb)``): losses, state, fake-quant launches
+    and ms a call; then ``timed`` more calls on the last batch (a captured
+    step: its graph's replay too); ``keep(model)`` before the first step.
+    ``launches``: every kernel launch of the run."""
+    from jaxlsq_torch.ops.fake_quant import LAUNCHES as FQ
+    from jaxlsq_torch.parallel import (create_pipeline_state, make_pipeline_train_step,
+                                       make_train_step)
+
+    start = _pp_launches()
+    model = _pp_lm(torch, kind)
+    if accum:
+        opt = _pp_sgd(model.parameters())
+        step = make_train_step(model, opt, loss_fn=lambda lg, b: _pp_loss(lg, b["label"]),
+                               jit=jit, accum_steps=mb)
+    else:
+        model, opt = create_pipeline_state(model, _pp_sgd, mesh)
+        step = make_pipeline_train_step(model, opt, mesh, num_microbatches=mb,
+                                        loss_fn=_pp_loss, jit=jit, remat=remat)
+    if keep is not None:
+        keep(model)
+    losses, fq, ms = [], [], []
+    for t in batches:
+        before = dict(FQ)
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        losses.append(step({"input": t, "label": t})["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - s) * 1e3)
+        fq.append({k: FQ[k] - before[k] for k in FQ if FQ[k] != before[k]})
+    out = {"losses": torch.stack(losses),
+           "state": {k: v.detach().clone() for k, v in model.state_dict().items()},
+           "fq": fq, "call_ms": ms, "model": model, "step": step}
+    if timed:
+        batch = {"input": batches[-1], "label": batches[-1]}
+        torch.cuda.synchronize()
+        s = time.perf_counter()
+        for _ in range(timed):
+            step(batch)
+        torch.cuda.synchronize()
+        out["step_ms"] = (time.perf_counter() - s) * 1e3 / timed
+        if jit:
+            out["replay_ms"] = min(events_ms(_graph_of(step).replay)[0] for _ in range(timed))
+    out["launches"] = _pp_added({}, start)
+    return out
+
+
+def _pp_launches():
+    """Every kernel wrapper's launch count on phase 20's path."""
+    from jaxlsq_torch.ops.fake_quant import LAUNCHES as FQ
+    from jaxlsq_torch.serve.attention import LAUNCHES as ATTN
+    from jaxlsq_torch.serve.matmul import LAUNCHES as MM
+
+    return {**FQ, **MM, **ATTN}
+
+
+def _pp_added(into, start):
+    """``into`` with the launches since the counts ``start`` added."""
+    for k, v in _pp_launches().items():
+        into[k] = into.get(k, 0) + v - start.get(k, 0)
+    return into
+
+
+def _pp_diff(torch, want, got):
+    """(unequal leaves, worst float leaf's error over its largest magnitude
+    (at least 1)); integer and bool leaves must be equal."""
+    bad, worst = [], 0.0
+    for k, w in want.items():
+        g = got[k].to(w.device)
+        if torch.equal(w, g):
+            continue
+        bad.append(k)
+        if not w.is_floating_point():
+            raise AssertionError(f"[pipeline] {k}: integer leaf differs")
+        w64 = w.double()
+        worst = max(worst, float((g.double() - w64).abs().max())
+                    / max(1.0, float(w64.abs().max())))
+    return bad, worst
+
+
+def _pp_cpu(torch, state):
+    return {k: v.detach().cpu() for k, v in state.items()}
+
+
+def _pp_leg_a(torch, rec, mesh, out, out_dir):
+    """World size 1 on NCCL, a (1, 1) mesh: the pipeline against
+    make_train_step(accum_steps=4); captured and remat = eager; the window's
+    deferral; the references of leg (b)."""
+    batches = _pp_batches(torch)
+    res = {}
+    acc = _pp_train(torch, None, "learning", batches, accum=True, timed=PP_TIMED)
+    eager = _pp_train(torch, mesh, "learning", batches, timed=PP_TIMED)
+    bad, worst = _pp_diff(torch, acc["state"], eager["state"])
+    loss_rel = float(((eager["losses"] - acc["losses"]).abs() / acc["losses"].abs()).max())
+    res["vs_accum"] = {"bit_equal": not bad and torch.equal(acc["losses"], eager["losses"]),
+                       "unequal_leaves": len(bad), "worst_leaf_rel": worst,
+                       "loss_rel": loss_rel, "leaves": len(acc["state"])}
+    if worst > 2e-5 or loss_rel > 1e-5:
+        raise AssertionError(f"[pipeline] (1, 1) against accum_steps=4: {res['vs_accum']}")
+    cap = _pp_train(torch, mesh, "learning", batches, jit=True, timed=PP_TIMED)
+    remat = _pp_train(torch, mesh, "learning", batches, remat=True)
+    for what, other in (("captured", cap), ("remat", remat)):
+        bad, _ = _pp_diff(torch, eager["state"], other["state"])
+        if bad or not torch.equal(eager["losses"], other["losses"]):
+            raise AssertionError(f"[pipeline] {what} != eager: {bad[:6]}, losses "
+                                 f"{eager['losses'].tolist()} {other['losses'].tolist()}")
+    res["ms"] = {"accum_eager_step": acc["step_ms"], "eager_step": eager["step_ms"],
+                 "captured_call": cap["step_ms"], "captured_replay": cap["replay_ms"]}
+    res["fq_launches"] = {"eager_step": eager["fq"][1], "captured_warmup": cap["fq"][0],
+                          "captured_capture": cap["fq"][1], "captured_replay": cap["fq"][2]}
+    for what, got, names in (("an eager step", eager["fq"][1], FQ_KERNELS),
+                             ("a remat step", remat["fq"][1], FQ_KERNELS),
+                             ("the capture", cap["fq"][1], TRACED_KERNELS)):
+        if any(not got.get(k) for k in names):
+            raise AssertionError(f"[pipeline] {what} launched {got}, not each of {names}")
+    res["p2p"] = dict(_md_counts())
+
+    # the window closes at the second step's second microbatch: the same
+    # losses and observer state as the accumulation step, its later
+    # microbatches' scale gradients deferred
+    wacc = _pp_train(torch, None, "window", batches, accum=True)
+    wpipe = _pp_train(torch, mesh, "window", batches)
+    wcap = _pp_train(torch, mesh, "window", batches, jit=True)
+    bad, _ = _pp_diff(torch, wpipe["state"], wcap["state"])
+    if bad or not torch.equal(wpipe["losses"], wcap["losses"]):
+        raise AssertionError(f"[pipeline] window: captured != eager: {bad[:6]}")
+    obs = [k for k in wacc["state"] if ".act_fq." in k
+           and k.rsplit(".", 1)[1] in ("obs_min", "obs_max", "obs_seen", "current_batch")]
+    obs_bad = [k for k in obs if not torch.equal(wacc["state"][k], wpipe["state"][k])]
+    moved = [k for k in wacc["state"] if k.endswith("act_fq.scale")
+             and not torch.equal(wacc["state"][k], wpipe["state"][k])]
+    _, deferred = _pp_diff(torch, wacc["state"], wpipe["state"])
+    res["window"] = {"losses_equal_through_step_2": torch.equal(wacc["losses"][:2],
+                                                                wpipe["losses"][:2]),
+                     "observer_leaves_equal": len(obs) - len(obs_bad),
+                     "act_scales_deferred": len(moved), "worst_leaf_rel_vs_accum": deferred}
+    if not res["window"]["losses_equal_through_step_2"] or obs_bad or not moved:
+        raise AssertionError(f"[pipeline] window: {res['window']}, {obs_bad[:4]}")
+
+    # leg (b)'s references: the (1, 1) window pipeline, and the (1, 1)
+    # pipeline over 8 microbatches of 2 rows (the (2, 2) mesh's microbatches)
+    # with every activation quantizer's output kept for deviation 14's
+    # hand-over
+    acts, calls = {}, {}
+
+    def record(n):
+        def hook(mod, i, o):  # the k-th call is step k // (2 MB)'s
+            k = calls.get(n, 0)
+            calls[n] = k + 1
+            acts.setdefault((k // (2 * PP_MB), n), []).append(o.detach().cpu())
+        return hook
+
+    def keep(model):
+        for n, m in _act_quantizers(model):
+            m.register_forward_hook(record(n))
+
+    pinned = _pp_train(torch, mesh, "pinned", batches, mb=2 * PP_MB, keep=keep)
+    for r in (eager, cap, remat, wpipe, wcap, pinned):
+        for k, v in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+    for r in (acc, wacc):
+        for k, v in r["launches"].items():
+            out["reference_launches"][k] = out["reference_launches"].get(k, 0) + v
+    torch.save(_pp_cpu(torch, wpipe["state"]), os.path.join(out_dir, "ref_window.pt"))
+    torch.save(_pp_cpu(torch, pinned["state"]), os.path.join(out_dir, "ref_pinned.pt"))
+    torch.save({k: torch.cat(v) for k, v in acts.items()},
+               os.path.join(out_dir, "ref_acts.pt"))
+    res["losses"] = {"window": wpipe["losses"].tolist(), "pinned": pinned["losses"].tolist()}
+    out["a"] = res
+    log(f"[pipeline] (a) (data 1, stage 1) on NCCL, d{DIM} x {DEPTH} LM at B={PP_B}, "
+        f"t={PP_T}, MB={PP_MB}, {PP_STEPS} steps in learning mode against "
+        f"make_train_step(accum_steps={PP_MB}): "
+        + ("every one of {} leaves and the losses bit-equal".format(res["vs_accum"]["leaves"])
+           if res["vs_accum"]["bit_equal"] else
+           f"within {worst:.3g} of each leaf's largest magnitude and {loss_rel:.3g} of the "
+           f"loss ({res['vs_accum']['unequal_leaves']} leaves not bit-equal)")
+        + "; captured and remat bit-equal to eager; the window closing in step 2 (captured "
+        "= eager bit for bit): losses "
+        f"and {res['window']['observer_leaves_equal']} observer leaves equal to the "
+        f"accumulation step's, {len(moved)} activation scales deferred (worst leaf "
+        f"{deferred:.3g} from it); ms a step: eager {res['ms']['eager_step']:.2f} "
+        f"(accum_steps {res['ms']['accum_eager_step']:.2f}), captured call "
+        f"{res['ms']['captured_call']:.2f}, replay {res['ms']['captured_replay']:.2f} "
+        f"({rec['card']}); fake-quant launches an eager step {res['fq_launches']['eager_step']}, "
+        f"at the capture {res['fq_launches']['captured_capture']}, a replay "
+        f"{res['fq_launches']['captured_replay']}; bubble share (S - 1)/(MB + S - 1) = 0")
+    return eager
+
+
+def _pp_leg_b(torch, rec, out, out_dir):
+    """PP_RANKS gloo ranks of this script on the one card: (1, 4) and (2, 2)
+    against leg (a)'s one-process references."""
+    port = str(_free_port())
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-rank",
+                               str(r), "--gloo-port", port, "--gloo-out", out_dir,
+                               "--gloo-leg", "pipeline"], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for r in range(PP_RANKS)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"[pipeline] gloo rank {r} exited {p.returncode}:\n"
+                                 + logs[r][-4000:])
+    got = [torch.load(os.path.join(out_dir, f"pp_rank{r}.pt"), weights_only=False)
+           for r in range(PP_RANKS)]
+    want_losses = out["a"]["losses"]
+    res = {}
+    for name, (kind, data, stages, _) in PP_MESHES.items():
+        legs = [g[name] for g in got]
+        worst = max(g["worst_leaf_rel"] for g in legs)
+        loss_rel = max(abs(a - b) / abs(b) for g in legs
+                       for a, b in zip(g["losses"], want_losses[kind]))
+        sends = sum(g["p2p"][-1][0] for g in legs) // data
+        recvs = sum(g["p2p"][-1][1] for g in legs) // data
+        moved = [sum(g["moved"][0] for g in legs), sum(g["moved"][1] for g in legs)]
+        leg = {"worst_leaf_rel": worst, "loss_rel": loss_rel, "moved": moved,
+               "sends_a_step": sends, "recvs_a_step": recvs,
+               "want_p2p": 2 * (stages - 1) * PP_MB, "step_ms": [g["step_ms"] for g in legs],
+               "bytes": [g["bytes"] for g in legs], "block_bytes": [g["block_bytes"] for g in legs],
+               "bit_equal_ranks": sum(1 for g in legs if g["worst_leaf_rel"] == 0.0),
+               "bubble_share": (stages - 1) / (PP_MB + stages - 1)}
+        res[name] = leg
+        full = got[0]["full_block_bytes"]
+        log(f"[pipeline] (b) {PP_RANKS} gloo ranks on the one card, (data {data}, stage "
+            f"{stages}), {PP_STEPS} steps ({kind}): every rank's leaves within {worst:.3g} of "
+            f"each leaf's largest magnitude and the loss within {loss_rel:.3g} of leg (a)'s "
+            f"one-process pipeline ({leg['bit_equal_ranks']} of {PP_RANKS} ranks bit-equal); "
+            + (f"{moved[0]} of {moved[1]} activation elements handed over (deviation 14); "
+               if kind == "pinned" else "")
+            + f"sends / receives a step and data replica {sends} / {recvs} (2(S-1)MB = "
+            f"{leg['want_p2p']}); ms a step by rank {[round(x, 1) for x in leg['step_ms']]} "
+            f"(one card shared by {PP_RANKS} processes, gloo through host memory: not a "
+            f"scaling figure; {rec['card']}); parameter bytes by rank {leg['bytes']}, the "
+            f"blocks' {leg['block_bytes']} of {full} ({1 / stages:.2f}); bubble share "
+            f"{leg['bubble_share']:.3f}")
+        if (worst > 2e-5 or loss_rel > 1e-5 or sends != leg["want_p2p"]
+                or recvs != leg["want_p2p"] or moved[0] > MAX_MOVED_SHARE * max(moved[1], 1)):
+            raise AssertionError(f"[pipeline] (b) {name}: {leg}")
+    out["b"] = res
+
+
+def pp_rank(torch, rank, port, out_dir):
+    """One of ``_pp_leg_b``'s ranks."""
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=str(rank),
+                      WORLD_SIZE=str(PP_RANKS), LOCAL_RANK="0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    import torch.distributed as dist
+
+    from jaxlsq_torch import _build, _dist
+    from jaxlsq_torch.parallel import (create_pipeline_state, initialize_distributed,
+                                       make_pipeline_train_step, pipeline_mesh, shard_batch)
+
+    _build.load_library()
+    initialize_distributed(device="cpu")
+    batches = _pp_batches(torch)
+    acts = torch.load(os.path.join(out_dir, "ref_acts.pt"), mmap=True)
+    out = {}
+    for name, (kind, data, stages, ref_file) in PP_MESHES.items():
+        mesh = pipeline_mesh(stage=stages, data=data)
+        d = mesh.get_local_rank("data")
+        model = _pp_lm(torch, kind)
+        full_blocks = sum(p.numel() * p.element_size() for b in model.blocks()
+                          for p in b.parameters())
+        stage, opt = create_pipeline_state(model, _pp_sgd, mesh)
+        del model
+        moved, hooks, at = [0, 0], [], [0]
+        if kind == "pinned":
+            # deviation 14's hand-over: the one-process run's microbatch
+            # 4 d + j is this replica's microbatch j (2 rows each)
+            rows = PP_B // data // PP_MB
+            calls = {}
+
+            def take(n, mod, o):
+                j = calls.get(n, 0)
+                calls[n] = j + 1
+                lo = d * (PP_B // data) + j * rows
+                r = acts[(at[0], n)][lo:lo + rows].to(o.device)
+                diff = r - o.detach()
+                q = float(mod.scale.detach().abs().max())
+                slack = 1e-5 * q + 2 * F32_EPS * float(o.detach().abs().max())
+                if float(diff.abs().max()) > q + slack:
+                    raise AssertionError(f"{n}: the rank's and the one-process activations "
+                                         f"differ by {float(diff.abs().max())}, more than a "
+                                         f"quant step {q}")
+                far = diff.abs() > 0.5 * q
+                moved[0] += int(far.sum())
+                moved[1] += o.numel()
+                return o + torch.where(far, diff, torch.zeros_like(diff))
+
+            hooks = [m.register_forward_hook(lambda mod, i, o, n=n: take(n, mod, o))
+                     for n, m in _act_quantizers(stage)]
+        step = make_pipeline_train_step(stage, opt, mesh, num_microbatches=PP_MB,
+                                        loss_fn=_pp_loss, jit=False)
+        losses, p2p, ms = [], [], []
+        for i, t in enumerate(batches):
+            at[0] = i
+            calls_before = _dist.COUNTS.copy()
+            local = {k: v.to("cuda") for k, v in shard_batch({"input": t, "label": t},
+                                                             mesh).items()}
+            torch.cuda.synchronize()
+            s = time.perf_counter()
+            losses.append(float(step(local)["loss"]))
+            ms.append((time.perf_counter() - s) * 1e3)
+            if kind == "pinned":
+                calls.clear()
+            p2p.append((_dist.COUNTS["send"] - calls_before["send"],
+                        _dist.COUNTS["recv"] - calls_before["recv"]))
+        for h in hooks:
+            h.remove()
+        ref = torch.load(os.path.join(out_dir, ref_file), mmap=True)
+        _, worst = _pp_diff(torch, {k: ref[k] for k in stage.state_dict()},
+                            {k: v.detach().cpu() for k, v in stage.state_dict().items()})
+        out[name] = {"losses": losses, "p2p": p2p, "step_ms": min(ms[1:]),
+                     "worst_leaf_rel": worst, "moved": moved,
+                     "bytes": sum(p.numel() * p.element_size() for p in stage.parameters()),
+                     "block_bytes": sum(p.numel() * p.element_size() for b in stage.blocks()
+                                        for p in b.parameters())}
+        out["full_block_bytes"] = full_blocks
+        del stage, opt, step
+        torch.cuda.empty_cache()
+    torch.save(out, os.path.join(out_dir, f"pp_rank{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _pp_leg_c(torch, rec, mesh, eager, out):
+    """Gather leg (a)'s eager state into one plain LM; its eval logits
+    against the stage module's; convert at w8 and w4 and generate."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.models import QuantTransformerLM, default_qconfig
+    from jaxlsq_torch.parallel import gather_pipeline_model, make_eval_step
+    from jaxlsq_torch.serve import convert, make_generate
+    from jaxlsq_torch.serve.attention import LAUNCHES as ATTN
+    from jaxlsq_torch.serve.matmul import LAUNCHES as MM
+
+    stage = eager["model"]
+    lm = gather_pipeline_model(stage, mesh)
+    g = torch.Generator(device="cuda").manual_seed(202)
+    toks = torch.randint(0, VOCAB, (2, PP_T), device="cuda", generator=g)
+    want = make_eval_step(stage)({"input": toks})
+    got = make_eval_step(lm)({"input": toks})
+    err = float((got - want).abs().max())
+    res = {"eval_max_abs_err": err, "eval_bit_equal": bool(torch.equal(got, want))}
+    if err > 1e-5:
+        raise AssertionError(f"[pipeline] (c) gathered LM's eval logits {err} from the stage's")
+    tree = interop.qat_variables(lm)
+    prompt = toks[:1, :16]
+    for wbits in (8, 4):
+        qc = default_qconfig(wbits, 8, per_channel_weights=True)
+        served = QuantTransformerLM(VOCAB, DIM, DEPTH, HEADS, qc.for_serving("none"),
+                                    max_len=PP_T, pos_embedding="rope", device="cuda")
+        interop.load_variables(served, convert(tree, qc))
+        gen = make_generate(served, 16, 32)
+        before = {**MM, **ATTN}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            toks_out = gen(prompt)
+            torch.cuda.synchronize()
+        launches = {k: v - before[k] for k, v in {**MM, **ATTN}.items() if v != before[k]}
+        names = sorted({e.key for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and ("wo_mma" in e.key or "decode_attention" in e.key)})
+        res[f"w{wbits}"] = {"tokens": toks_out[0].tolist(), "launches": launches,
+                            "kernels": names}
+        key = f"wo{wbits}"
+        if (toks_out.shape != (1, 32) or not launches.get(key)
+                or not launches.get("decode_attention")
+                or not any("wo_mma" in n for n in names)
+                or not any("decode_attention_span" in n for n in names)):
+            raise AssertionError(f"[pipeline] (c) w{wbits} generate: {res[f'w{wbits}']}")
+    out["c"] = res
+    log(f"[pipeline] (c) the gathered d{DIM} x {DEPTH} LM: eval logits "
+        + ("bit-equal to" if res["eval_bit_equal"] else f"within {err:.3g} of")
+        + " the stage module's; served at w8 and w4, B=1, 16 + 32 tokens: launches "
+        f"{res['w8']['launches']} / {res['w4']['launches']}; profiled kernels "
+        f"{res['w8']['kernels']} / {res['w4']['kernels']}")
+
+
+def _pp_leg_d(torch, rec, out):
+    """lab.parallel_qat at world size 1 (the NCCL group up), 10 steps."""
+    from jaxlsq_torch.lab import parallel_qat
+
+    t0 = time.time()
+    got = parallel_qat.main(["--steps", "10"])
+    ok = (tuple(got["ep"].shape) == (2, 8) and tuple(got["pp"].shape) == (2, parallel_qat.T,
+                                                                          parallel_qat.VOCAB)
+          and bool(torch.isfinite(got["pp"]).all()))
+    out["d"] = {"s": time.time() - t0, "ep_tokens": got["ep"][0].tolist()}
+    if not ok:
+        raise AssertionError(f"[pipeline] (d) lab.parallel_qat: {got}")
+    log(f"[pipeline] (d) lab.parallel_qat, 10 steps EP and PP at world size 1: "
+        f"{out['d']['s']:.1f} s")
+
+
+def phase_pipeline(torch, rec):
+    """Phase 20: the pipeline at world size 1 on NCCL (legs a, c, d) and over
+    PP_RANKS gloo ranks on the one card (leg b)."""
+    import tempfile
+
+    from jaxlsq_torch.parallel import initialize_distributed, pipeline_mesh
+
+    import shutil
+
+    t0 = time.time()
+    # launches of the pipeline's own runs (leg (a)'s pipeline steps, leg
+    # (c)'s gathered LM), of leg (a)'s accumulation-step references and of
+    # the lab (its EP flow is no pipeline), apart
+    out = {"launches": {}, "reference_launches": {}, "lab_launches": {}}
+    rec["pipeline"] = out
+    reset_counts()
+    _md_counts()
+    port = _free_port()
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+                      WORLD_SIZE="1", LOCAL_RANK="0")
+    rank, world = initialize_distributed()
+    import torch.distributed as dist
+
+    if (rank, world) != (0, 1) or dist.get_backend() != "nccl":
+        raise AssertionError(f"[pipeline] bring-up gave rank {rank} of {world} on "
+                             f"{dist.get_backend()}")
+    out_dir = tempfile.mkdtemp(prefix="pp_", dir=os.environ.get("TMPDIR"))
+    try:
+        try:
+            mesh = pipeline_mesh(stage=1)
+            eager = _pp_leg_a(torch, rec, mesh, out, out_dir)
+            start = _pp_launches()
+            _pp_leg_c(torch, rec, mesh, eager, out)
+            _pp_added(out["launches"], start)
+            del eager
+            start = _pp_launches()
+            _pp_leg_d(torch, rec, out)
+            _pp_added(out["lab_launches"], start)
+        finally:
+            dist.destroy_process_group()
+            for k in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+                os.environ.pop(k, None)
+        total = _pp_launches()
+        for k, v in total.items():
+            parts = sum(out[c].get(k, 0) for c in ("launches", "reference_launches",
+                                                   "lab_launches"))
+            if parts != v:
+                raise AssertionError(f"[pipeline] {k}: {v} launches, {parts} accounted for")
+        for k in FQ_KERNELS + TRACED_KERNELS + ("wo8", "wo4", "decode_attention"):
+            if not out["launches"].get(k):
+                raise AssertionError(f"kernel {k} was never launched on the pipeline's path")
+        out["one_process_s"] = time.time() - t0
+        torch.cuda.empty_cache()
+        _pp_leg_b(torch, rec, out, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    out["wall_s"] = time.time() - t0
+
+    def shown(c):
+        return {k: v for k, v in out[c].items() if v}
+    log(f"[pipeline] phase 20: {out['wall_s']:.1f} s ({rec['card']}); launches of the "
+        f"pipeline's own runs {shown('launches')}; of the accumulation-step references "
+        f"{shown('reference_launches')}; of lab.parallel_qat {shown('lab_launches')}")
+
+
 def _greedy(torch, model, prompt, n=8):
     from jaxlsq_torch.serve import make_generate
 
@@ -6390,6 +6937,7 @@ def main(argv):
     parser.add_argument("--gloo-rank", type=int, help=argparse.SUPPRESS)
     parser.add_argument("--gloo-port", help=argparse.SUPPRESS)
     parser.add_argument("--gloo-out", help=argparse.SUPPRESS)
+    parser.add_argument("--gloo-leg", default="multi_device", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     record = args.record
 
@@ -6398,8 +6946,9 @@ def main(argv):
               file=sys.stderr)
         return 2
 
-    if args.gloo_rank is not None:  # one of phase 19's gloo ranks
-        gloo_rank(torch, args.gloo_rank, args.gloo_port, args.gloo_out)
+    if args.gloo_rank is not None:  # one of phase 19's or phase 20's gloo ranks
+        rank_fn = pp_rank if args.gloo_leg == "pipeline" else gloo_rank
+        rank_fn(torch, args.gloo_rank, args.gloo_port, args.gloo_out)
         return 0
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -6435,6 +6984,7 @@ def main(argv):
     phase_int8_moe(torch, rec)
     phase_tooling(torch, rec)
     phase_multi_device(torch, rec)
+    phase_pipeline(torch, rec)
     rec["wall_s"] = time.time() - t0
     rec["profile_misses"] = PROFILE_MISSES
     rec["waiting_calls"] = WAITING_CALLS

@@ -35,7 +35,8 @@ import torch.distributed as dist
 
 __all__ = ["COUNTS", "Part", "Split", "current", "splitting", "all_reduce",
            "all_gather", "all_reduce_grad", "all_gather_grad", "all_to_all_rows",
-           "reduce_range", "reduce_sum", "mean_grad", "gather_global"]
+           "reduce_range", "reduce_sum", "mean_grad", "gather_global", "send", "recv",
+           "broadcast"]
 
 # collectives issued, by kind
 COUNTS: collections.Counter = collections.Counter()
@@ -164,6 +165,42 @@ def all_to_all_rows(t: torch.Tensor, send, recv, group) -> torch.Tensor:
     dist.all_to_all_single(out, src, output_split_sizes=list(recv),
                            input_split_sizes=list(send), group=group)
     return out
+
+
+def _host_staged(t: torch.Tensor, group) -> bool:
+    """Whether ``t`` crosses ``group`` through host memory: gloo's send and
+    recv take CPU tensors only (PyTorch's backend table; a CUDA tensor
+    aborts the process in gloo's TCP transport, "writev: Bad address", on
+    torch 2.11), so a CUDA tensor is copied out and back under gloo.  NCCL
+    moves it on the card, and gloo's collectives take CUDA tensors."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def send(t: torch.Tensor, dst: int, group) -> None:
+    """Send ``t`` to rank ``dst`` of ``group`` (a group rank); waits until
+    it is sent."""
+    COUNTS["send"] += 1
+    src = t.detach().contiguous()
+    if _host_staged(src, group):
+        src = src.cpu()
+    dist.send(src, dst=dist.get_global_rank(group, dst), group=group)
+
+
+def recv(shape, dtype, device, src: int, group) -> torch.Tensor:
+    """A new tensor of ``shape``/``dtype`` on ``device``, received from rank
+    ``src`` of ``group``."""
+    COUNTS["recv"] += 1
+    out = torch.empty(shape, dtype=dtype, device=device)
+    buf = torch.empty(shape, dtype=dtype) if _host_staged(out, group) else out
+    dist.recv(buf, src=dist.get_global_rank(group, src), group=group)
+    return out.copy_(buf) if buf is not out else out
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``t`` overwritten in place by rank ``src``'s (a group rank); returned."""
+    COUNTS["broadcast"] += 1
+    dist.broadcast(t, src=dist.get_global_rank(group, src), group=group)
+    return t
 
 
 # ------------------------------------------------------ split reductions

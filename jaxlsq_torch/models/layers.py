@@ -62,7 +62,6 @@ from .. import _dist
 from .._device import resolve_device
 from ..observers.quantizer import (STATE_DTYPES, STATE_FIELDS, LSQQuantizer,
                                    QuantizerState)
-from ..ops.functional import fake_quant
 from ..serve.convert import serving_bits
 from ..serve.matmul import (conv_pads, dynamic_int8_matmul, same_padding,  # noqa: F401
                              static_int8_conv, static_int8_matmul, wo_matmul)
@@ -71,7 +70,7 @@ from .qconfig import QConfig
 
 __all__ = ["FakeQuantize", "QuantDense", "QuantDenseGeneral", "QuantConv", "QuantEmbed",
            "conv2d_padded", "qat_conv2d", "qat_embed", "static_act_quant", "refresh_host_state",
-           "quant_state_frozen", "collect_losses", "sow_loss"]
+           "quant_state_frozen", "collect_losses", "sow_loss", "fake_quant_hook"]
 
 
 def static_act_quant(x: torch.Tensor, scale: torch.Tensor, zp: torch.Tensor,
@@ -190,6 +189,9 @@ class FakeQuantize(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.debug_mode:
             return x
+        hook = _HOOK.get()
+        if hook is not None:
+            return hook(self, x)
         if self.traced:
             out, st = self.cfg.forward_traced(self.quant_state(traced=True), x,
                                               self.training)
@@ -206,10 +208,7 @@ class FakeQuantize(nn.Module):
                 scale, shift = scale.detach(), shift.detach()
         else:
             scale, shift = st.scale, st.shift
-        if modes is None:
-            return x
-        return fake_quant(x, scale, shift, self.cfg.spec, eval_mode=modes[0],
-                          init_mode=modes[1], numel=self.cfg.grad_numel(x))
+        return self.cfg.quantize(x, scale, shift, modes)
 
     def extra_repr(self) -> str:
         h = self.host_state()
@@ -248,6 +247,21 @@ def quant_state_frozen(modules):
     finally:
         for m in fqs:
             m.persist_state = True
+
+
+# the function that takes every FakeQuantize forward now (a pipeline step's
+# microbatch bookkeeping, ``parallel.pipeline``), or None
+_HOOK: contextvars.ContextVar = contextvars.ContextVar("fake_quant_hook", default=None)
+
+
+@contextlib.contextmanager
+def fake_quant_hook(hook):
+    """While open, every :class:`FakeQuantize` forward is ``hook(fq, x)``."""
+    token = _HOOK.set(hook)
+    try:
+        yield hook
+    finally:
+        _HOOK.reset(token)
 
 
 # the list of the innermost open collect_losses, or None

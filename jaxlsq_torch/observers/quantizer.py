@@ -312,12 +312,22 @@ class LSQQuantizer:
         if state.traced:
             return self.forward_traced(state, x, training)
         state, modes = self.advance(state, x, training)
+        return self.quantize(x, state.scale, state.shift, modes), state
+
+    def quantize(self, x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor,
+                 modes, traced: bool = False) -> torch.Tensor:
+        """``x`` fake-quantized with ``scale``/``shift`` in ``modes``: what
+        :meth:`advance` returns (None: fake quantization off) or, ``traced``,
+        what :meth:`advance_traced` returns."""
+        if traced:
+            eval_flag, init_flag, enabled = modes
+            out = fake_quant_traced(x, scale, shift, self.spec, eval_flag=eval_flag,
+                                    init_flag=init_flag, numel=self.grad_numel(x))
+            return torch.where(enabled, out, x)
         if modes is None:
-            return x, state
-        out = fake_quant(x, state.scale, state.shift, self.spec,
-                         eval_mode=modes[0], init_mode=modes[1],
-                         numel=self.grad_numel(x))
-        return out, state
+            return x
+        return fake_quant(x, scale, shift, self.spec, eval_mode=modes[0],
+                          init_mode=modes[1], numel=self.grad_numel(x))
 
     def forward_traced(self, state: QuantizerState, x: torch.Tensor,
                        training: bool) -> Tuple[torch.Tensor, QuantizerState]:
@@ -325,6 +335,14 @@ class LSQQuantizer:
         phase decision is a device value.  A qparam the observer writes is
         ``where(observer_enabled, observer's, state's)``, so its gradient
         reaches the state's qparam only where the observer is off."""
+        state, modes = self.advance_traced(state, x, training)
+        return self.quantize(x, state.scale, state.shift, modes, traced=True), state
+
+    def advance_traced(self, state: QuantizerState, x: torch.Tensor, training: bool
+                       ) -> Tuple[QuantizerState, Tuple[torch.Tensor, ...]]:
+        """The phase bookkeeping and observer update of :meth:`forward_traced`:
+        the new state and the fake-quant flags ``(eval_flag, init_flag,
+        fake_quant_enabled)``."""
         learning = state.learning_enabled
         cb, nb = state.current_batch, state.n_batches
         in_window = learning & (cb <= nb) & bool(training)
@@ -352,8 +370,5 @@ class LSQQuantizer:
                                   shift=torch.where(obs_on, o_shift, state.shift))
 
         do_backprop_init = do_backprop_init & do_full_lsq
-        out = fake_quant_traced(x, state.scale, state.shift, self.spec,
-                                eval_flag=1.0 - do_full_lsq.to(torch.float32),
-                                init_flag=do_backprop_init.to(torch.float32),
-                                numel=self.grad_numel(x))
-        return torch.where(state.fake_quant_enabled, out, x), state
+        return state, (1.0 - do_full_lsq.to(torch.float32),
+                       do_backprop_init.to(torch.float32), state.fake_quant_enabled)

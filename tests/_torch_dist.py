@@ -549,6 +549,184 @@ def leg_tp(rank: int, world: int):
     return out
 
 
+# the pipeline legs: jaxlsq's tests/test_pipeline.py sizes
+PP_VOCAB, PP_DIM, PP_DEPTH, PP_HEADS, PP_T, PP_B, PP_MB = 32, 16, 4, 4, 8, 8, 2
+PP_STEPS, PP_LR, PP_WORLD = 3, 1e-2, 4
+PP_CASES = {"learned": {"pos_embedding": "learned"}, "rope": {"pos_embedding": "rope"},
+            "gqa": {"pos_embedding": "rope", "num_kv_heads": 2}}
+PP_SEED = 7
+PP_PROMPT, PP_NEW = 3, 5
+
+
+def pp_qconfig(kind, default_qconfig, lsq_quantizer=None, quant_spec=None, qconfig=None):
+    """The pipeline legs' configs from either package: 'learning' (no
+    observer window), 'window' (init_batches=1: it closes between the first
+    step's microbatches), 'observers' (init_batches=3) or 'pinned' (jaxlsq's
+    DP test: learnable activation quantizers whose gradient scale counts the
+    GLOBAL microbatch, so the (2, 2) mesh equals the (1, 4) one)."""
+    if kind == "pinned":
+        numel = (PP_B // PP_MB) * PP_T * PP_DIM
+        return qconfig(weight=lsq_quantizer(spec=quant_spec.weight_default(8), otype="weight"),
+                       activation=lsq_quantizer(spec=quant_spec.activation_default(8),
+                                                otype="activation", init_mode="learnable",
+                                                n_batches=-1, numel=numel))
+    return default_qconfig(8, 8, init_batches={"learning": 0, "window": 1,
+                                               "observers": 3}[kind])
+
+
+def pp_port_qconfig(kind):
+    from jaxlsq_torch.core import QuantSpec
+    from jaxlsq_torch.models import QConfig, default_qconfig
+    from jaxlsq_torch.observers import LSQQuantizer
+
+    return pp_qconfig(kind, default_qconfig, LSQQuantizer, QuantSpec, QConfig)
+
+
+def pp_model(kind, case="learned", depth=PP_DEPTH, **kw):
+    from jaxlsq_torch.models import QuantTransformerLM
+
+    return QuantTransformerLM(PP_VOCAB, PP_DIM, depth, PP_HEADS, pp_port_qconfig(kind),
+                              max_len=PP_T, device="cpu", seed=PP_SEED,
+                              **{**PP_CASES[case], **kw})
+
+
+def pp_batches(seed, steps=PP_STEPS):
+    return token_batches(steps, PP_B, PP_T, PP_VOCAB, seed)
+
+
+def pp_sgd(params):
+    import torch
+
+    return torch.optim.SGD(params, lr=PP_LR, momentum=0.9)
+
+
+def pp_run(mesh, kind, case="learned", steps=PP_STEPS, seed=11, **step_kw):
+    """A pipeline of ``pp_model(kind, case)`` trained ``steps`` steps over
+    ``mesh``: losses, sends and receives a step, this stage's state (its
+    ``interop`` tree), the gathered tree, the stage and its optimizer."""
+    import torch
+
+    from jaxlsq_torch import _dist, interop
+    from jaxlsq_torch.parallel import (create_pipeline_state, gather_pipeline_model,
+                                       make_pipeline_train_step, shard_batch)
+
+    stage, opt = create_pipeline_state(pp_model(kind, case), pp_sgd, mesh, device="cpu")
+    step = make_pipeline_train_step(stage, opt, mesh, num_microbatches=PP_MB,
+                                    **{"jit": False, **step_kw})
+    losses, p2p = [], []
+    for b in pp_batches(seed, steps):
+        t = torch.from_numpy(b)
+        _dist.COUNTS.clear()
+        losses.append(float(step(shard_batch({"input": t, "label": t}, mesh))["loss"]))
+        p2p.append((_dist.COUNTS["send"], _dist.COUNTS["recv"]))
+    return {"losses": losses, "p2p": p2p, "stage": interop.qat_variables(stage),
+            "gathered": interop.qat_variables(gather_pipeline_model(stage, mesh)),
+            "bytes": sum(p.numel() * p.element_size() for p in stage.parameters()),
+            "blocks": list(stage.block_ids)}, stage, opt
+
+
+def _error(fn):
+    try:
+        fn()
+    except Exception as e:  # the test compares type and message with jaxlsq's
+        return type(e).__name__, str(e)
+    return None
+
+
+def leg_pipeline(rank: int, world: int):
+    """(data 1, stage 4): the three position cases in learning mode, eager,
+    traced and under remat; the errors; a checkpoint round trip."""
+    import tempfile
+
+    import torch
+
+    from jaxlsq_torch.parallel import (create_pipeline_state, make_pipeline_train_step,
+                                       pipeline_mesh, shard_batch)
+    from jaxlsq_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+    mesh = pipeline_mesh(stage=world)
+    out = {}
+    for case in PP_CASES:
+        out[("run", case)] = pp_run(mesh, "learning", case)[0]
+    out["traced"] = pp_run(mesh, "learning", jit=True)[0]
+    out["remat"] = pp_run(mesh, "learning", remat=True)[0]
+
+    errs = {}
+    errs["depth"] = _error(lambda: create_pipeline_state(pp_model("learning", depth=6),
+                                                         pp_sgd, mesh, device="cpu"))
+    stage, opt = create_pipeline_state(pp_model("learning"), pp_sgd, mesh, device="cpu")
+    errs["microbatches"] = _error(lambda: make_pipeline_train_step(
+        stage, opt, mesh, num_microbatches=0))
+    step = make_pipeline_train_step(stage, opt, mesh, num_microbatches=3, jit=False)
+    t = torch.from_numpy(pp_batches(1, 1)[0])
+    errs["batch"] = _error(lambda: step(shard_batch({"input": t, "label": t}, mesh)))
+    moe, mopt = create_pipeline_state(pp_model("learning", moe_experts=4), pp_sgd, mesh,
+                                      device="cpu")
+    errs["moe"] = _error(lambda: make_pipeline_train_step(moe, mopt, mesh,
+                                                          num_microbatches=2))
+    errs["window"] = _error(lambda: create_pipeline_state(
+        pp_model("learning", attn_window=4), pp_sgd, mesh, device="cpu"))
+    errs["flash"] = _error(lambda: create_pipeline_state(
+        pp_model("learning", train_attn_impl="flash"), pp_sgd, mesh, device="cpu"))
+    errs["mesh"] = _error(lambda: pipeline_mesh(stage=world, data=2))
+    errs["device"] = _error(lambda: create_pipeline_state(pp_model("learning"), pp_sgd, mesh))
+    out["errors"] = errs
+
+    # a checkpoint of the stage state, restored into a fresh one, trains on
+    # as the original does
+    res, stage, opt = pp_run(mesh, "window", steps=1)
+    ckpt = tempfile.mkdtemp(prefix=f"pp_ckpt{rank}_")
+    save_checkpoint(ckpt, {"model": stage, "opt": opt}, step=1)
+    fresh, fopt = create_pipeline_state(pp_model("window"), pp_sgd, mesh, device="cpu")
+    restore_checkpoint(ckpt, {"model": fresh, "opt": fopt})
+    same = [k for k, v in stage.state_dict().items() if not torch.equal(v, fresh.state_dict()[k])]
+    t = torch.from_numpy(pp_batches(12, 1)[0])
+    losses = []
+    for s, o in ((stage, opt), (fresh, fopt)):
+        step = make_pipeline_train_step(s, o, mesh, num_microbatches=PP_MB, jit=False)
+        losses.append(float(step(shard_batch({"input": t, "label": t}, mesh))["loss"]))
+    after = [k for k, v in stage.state_dict().items()
+             if not torch.equal(v, fresh.state_dict()[k])]
+    out["checkpoint"] = {"unequal_restored": same, "losses": losses, "unequal_after": after,
+                         "leaves": len(stage.state_dict())}
+    return out
+
+
+def leg_pipeline_dp(rank: int, world: int):
+    """The observer window over (data 1, stage 4); (data 2, stage 2) with
+    the gradient scale pinned and with observers; the gathered state served."""
+    import torch
+
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.models import QuantTransformerLM
+    from jaxlsq_torch.parallel import gather_pipeline_model, pipeline_mesh
+    from jaxlsq_torch.serve import convert, make_generate
+
+    out = {}
+    mesh14 = pipeline_mesh(stage=world)
+    res, stage, _ = pp_run(mesh14, "window", seed=13)
+    out[("window", False)] = res
+    out[("window", True)] = pp_run(mesh14, "window", seed=13, jit=True)[0]
+    # train, then serve: the gathered LM converted at w8, static activations
+    qc = pp_port_qconfig("window")
+    lm = gather_pipeline_model(stage, mesh14)
+    served = QuantTransformerLM(PP_VOCAB, PP_DIM, PP_DEPTH, PP_HEADS, qc.for_serving("static"),
+                                max_len=PP_T, device="cpu")
+    interop.load_variables(served, convert(interop.qat_variables(lm), qc))
+    prompt = torch.from_numpy(pp_batches(14, 1)[0][:2, :PP_PROMPT])
+    out["tokens"] = make_generate(served, PP_PROMPT, PP_NEW)(prompt).numpy()
+
+    mesh22 = pipeline_mesh(stage=2, data=2)
+    out["pinned"] = pp_run(mesh22, "pinned", steps=2, seed=15)[0]
+    out["observers"] = pp_run(mesh22, "observers", steps=2, seed=16)[0]
+    out["coords"] = (mesh22.get_local_rank("data"), mesh22.get_local_rank("stage"))
+    from jaxlsq_torch.lab import parallel_qat
+
+    lab = parallel_qat.main(["--steps", "2", "--device", "cpu"])
+    out["lab"] = {k: v.detach().numpy() for k, v in lab.items()}
+    return out
+
+
 def main():
     leg, rank, world, port, out_dir = sys.argv[1:6]
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=port, RANK=rank,

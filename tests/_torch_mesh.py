@@ -1,6 +1,8 @@
 """JAX-side helpers of the port's multi-device tests: carry a port model's
 variables into the JAX package's trees and compare trees."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,7 +14,16 @@ from _torch_port import np_tree
 from jaxlsq.models import QuantMLP as JQuantMLP
 from jaxlsq.models import default_qconfig as jdefault_qconfig
 from jaxlsq.observers import MinMaxObserver as JMinMaxObserver
+from jaxlsq.core.spec import QuantSpec as JQuantSpec
+from jaxlsq.models import QuantTransformerLM as JLM
+from jaxlsq.models.qconfig import QConfig as JQConfig
+from jaxlsq.observers import LSQQuantizer as JLSQQuantizer
 from jaxlsq.parallel import QATTrainState
+from jaxlsq.parallel import make_pipeline_train_step as jmake_pipeline_train_step
+from jaxlsq.parallel import pipeline_mesh as jpipeline_mesh
+from jaxlsq.parallel import pipeline_sharding as jpipeline_sharding
+from jaxlsq.parallel import stack_pipeline_variables as jstack
+from jaxlsq.parallel import unstack_pipeline_variables as junstack
 from jaxlsq.parallel import make_train_step as jmake_train_step
 from jaxlsq_torch import interop
 from jaxlsq_torch.models import QuantMLP, default_qconfig
@@ -148,3 +159,71 @@ def jax_mlp_run(obs, accum=1):
         state, m = step(state, {k: jnp.asarray(v) for k, v in b.items()})
         losses.append(float(m["loss"]))
     return model, losses, jax_variables(state)
+
+
+# ---------------------------------------------------------------- pipeline
+
+def pp_jmodel(kind, case="learned", **kw):
+    qc = td.pp_qconfig(kind, jdefault_qconfig, JLSQQuantizer, JQuantSpec, JQConfig)
+    return JLM(vocab=td.PP_VOCAB, dim=td.PP_DIM, depth=kw.pop("depth", td.PP_DEPTH),
+               num_heads=td.PP_HEADS, qconfig=qc, max_len=td.PP_T,
+               **{**td.PP_CASES[case], **kw})
+
+
+def jax_pipeline_state(kind, case, data, stage, tx):
+    """jaxlsq's stacked pipeline state on a (data, stage) mesh of the
+    virtual devices, carried from the port's seeded LM."""
+    jm = pp_jmodel(kind, case)
+    v = carry(td.pp_model(kind, case), jm, jnp.zeros((2, td.PP_T), jnp.int32))
+    v.pop("losses", None)
+    params = {c: jstack(v[c], td.PP_DEPTH, stage) for c in ("params", "qparams")}
+    rest = {k: jstack(x, td.PP_DEPTH, stage) for k, x in v.items()
+            if k not in ("params", "qparams")}
+    state = QATTrainState(step=jnp.zeros((), jnp.int32), params=params, model_state=rest,
+                          opt_state=tx.init(params))
+    mesh = jpipeline_mesh(stage=stage, data=data)
+    return jm, mesh, jax.tree.map(jax.device_put, state, jpipeline_sharding(mesh, state))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_pipeline(kind, case="learned", data=1, stage=td.PP_WORLD, steps=td.PP_STEPS, seed=11):
+    """jaxlsq's pipeline trained as ``td.pp_run`` trains the port's: the
+    losses and the unstacked variables, as numpy and as they are."""
+    tx = optax.sgd(td.PP_LR, momentum=0.9)
+    jm, mesh, state = jax_pipeline_state(kind, case, data, stage, tx)
+    step = jmake_pipeline_train_step(jm, tx, mesh, num_microbatches=td.PP_MB, donate=False)
+    losses = []
+    for b in td.pp_batches(seed, steps):
+        state, m = step(state, {"input": jnp.asarray(b), "label": jnp.asarray(b)})
+        losses.append(float(m["loss"]))
+    host = jax.device_get(state)
+    tree = {"params": host.params["params"], "qparams": host.params["qparams"],
+            "quant_state": host.model_state["quant_state"]}
+    raw = {c: junstack(t, td.PP_DEPTH) for c, t in tree.items()}
+    return losses, np_tree(raw), raw
+
+
+def assert_tree_close(got, want, rtol, atol, where=""):
+    """Float leaves within ``atol + rtol·|want|``, integer and bool leaves
+    equal, over the same keys."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), (where, sorted(got), sorted(want))
+        for k in want:
+            assert_tree_close(got[k], want[k], rtol, atol, f"{where}/{k}")
+        return
+    g, w = np.asarray(got), np.asarray(want)
+    assert g.size == w.size, (where, g.shape, w.shape)
+    g = g.reshape(w.shape)
+    if w.dtype.kind in "biu":
+        np.testing.assert_array_equal(g, w, err_msg=where)
+    else:
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=where)
+
+
+def assert_matches_jaxlsq(res, losses, want):
+    np.testing.assert_allclose(res["losses"], losses, rtol=1e-5)
+    got = res["gathered"]
+    assert set(got) == set(want)
+    for col in ("params", "qparams"):
+        assert_tree_close(got[col], want[col], 2e-5, 2e-6, col)
+    assert_tree_close(got["quant_state"], want["quant_state"], 1e-5, 1e-6, "quant_state")

@@ -2896,3 +2896,118 @@ def test_world_size_1_tp_serving_tokens_equal(nccl_mesh, cuda, wbits):
     assert torch.equal(models[0](prompt), models[1](prompt))
     want, got = (make_generate(m, 16, 24)(prompt) for m in models)
     assert torch.equal(want, got)
+
+
+# --- the pipeline step at world size 1 on NCCL ----------------------------------------------
+
+def _pp_lm(cuda, init_batches):
+    return QuantTransformerLM(256, 128, 2, 4, default_qconfig(8, 8, per_channel_weights=True,
+                                                              init_batches=init_batches),
+                              max_len=32, pos_embedding="rope", device=cuda, seed=9)
+
+
+def _pp_batches(cuda, steps=3):
+    g = torch.Generator(device=cuda).manual_seed(23)
+    return [torch.randint(0, 256, (8, 32), device=cuda, generator=g) for _ in range(steps)]
+
+
+def _pp_loss(logits, labels):
+    return torch.nn.functional.cross_entropy(logits[:, :-1].reshape(-1, logits.shape[-1]),
+                                             labels[:, 1:].reshape(-1))
+
+
+def _pp_run(cuda, mesh, init_batches, jit, remat=False, accum=False):
+    """Three steps of the pipeline over ``mesh`` (or, ``accum``, of
+    ``make_train_step(accum_steps=4)``): losses and the state dict."""
+    from jaxlsq_torch.parallel import (create_pipeline_state, make_pipeline_train_step,
+                                       make_train_step)
+
+    model = _pp_lm(cuda, init_batches)
+    if accum:
+        opt = torch.optim.SGD(model.parameters(), lr=1e-2, momentum=0.9)
+        step = make_train_step(model, opt, loss_fn=lambda lg, b: _pp_loss(lg, b["label"]),
+                               jit=jit, accum_steps=4)
+    else:
+        model, opt = create_pipeline_state(
+            model, lambda ps: torch.optim.SGD(ps, lr=1e-2, momentum=0.9), mesh)
+        step = make_pipeline_train_step(model, opt, mesh, num_microbatches=4,
+                                        loss_fn=_pp_loss, jit=jit, remat=remat)
+    losses = [step({"input": t, "label": t})["loss"] for t in _pp_batches(cuda)]
+    return torch.stack(losses), {k: v.clone() for k, v in model.state_dict().items()}
+
+
+@pytest.fixture
+def pp_mesh(nccl_mesh):
+    from jaxlsq_torch.parallel import pipeline_mesh
+
+    return pipeline_mesh(stage=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("jit", [False, True], ids=["eager", "captured"])
+def test_world_size_1_pipeline_step_is_the_accum_step(pp_mesh, cuda, jit):
+    """In learning mode the one-stage pipeline runs the accumulation step's
+    sums in its order: losses and every leaf bit-equal."""
+    want = _pp_run(cuda, None, 0, jit, accum=True)
+    got = _pp_run(cuda, pp_mesh, 0, jit)
+    assert torch.equal(want[0], got[0])
+    for k in want[1]:
+        assert torch.equal(want[1][k], got[1][k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("init_batches", [0, 5])
+def test_pipeline_captured_and_remat_are_the_eager_step(pp_mesh, cuda, init_batches):
+    """Captured = eager and remat = no remat, bit for bit, in learning mode
+    and across a window that closes in the second step."""
+    want = _pp_run(cuda, pp_mesh, init_batches, False)
+    for kw in ({"jit": True}, {"jit": False, "remat": True}, {"jit": True, "remat": True}):
+        got = _pp_run(cuda, pp_mesh, init_batches, **kw)
+        assert torch.equal(want[0], got[0]), kw
+        for k in want[1]:
+            assert torch.equal(want[1][k], got[1][k]), (kw, k)
+
+
+@pytest.mark.gpu
+def test_pipeline_defers_the_closing_steps_scale_gradients(pp_mesh, cuda):
+    """The window closes at the second step's second microbatch: the
+    pipeline's losses and observer state equal the accumulation step's, and
+    its activation scales after that step are the observer's writes (the
+    later microbatches' gradients deferred), where the accumulation step's
+    moved."""
+    acc = _pp_run(cuda, None, 5, False, accum=True)
+    pipe = _pp_run(cuda, pp_mesh, 5, False)
+    assert torch.equal(acc[0][:2], pipe[0][:2])
+    for k, v in acc[1].items():
+        if ".act_fq." in k and k.rsplit(".", 1)[1] in ("obs_min", "obs_max", "current_batch"):
+            assert torch.equal(v, pipe[1][k]), k
+    moved = [k for k in acc[1] if k.endswith("act_fq.scale")
+             and not torch.equal(acc[1][k], pipe[1][k])]
+    assert moved
+
+
+@pytest.mark.gpu
+def test_pipeline_jit_refuses_gloo_on_a_card(cuda, monkeypatch):
+    import socket
+
+    import torch.distributed as dist
+
+    from jaxlsq_torch.parallel import (create_pipeline_state, initialize_distributed,
+                                       make_pipeline_train_step, pipeline_mesh)
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    for k, v in (("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(port)), ("RANK", "0"),
+                 ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+    initialize_distributed(device="cpu")
+    try:
+        mesh = pipeline_mesh(stage=1)
+        stage, opt = create_pipeline_state(_pp_lm(cuda, 0), lambda ps: torch.optim.SGD(
+            ps, lr=1e-2), mesh)
+        with pytest.raises(ValueError, match="gloo"):
+            make_pipeline_train_step(stage, opt, mesh, num_microbatches=2)
+    finally:
+        dist.destroy_process_group()

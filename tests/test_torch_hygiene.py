@@ -25,6 +25,7 @@ MODULES = [
     "jaxlsq_torch.parallel", "jaxlsq_torch.parallel.train", "jaxlsq_torch.parallel.optim",
     "jaxlsq_torch._dist", "jaxlsq_torch.parallel.mesh", "jaxlsq_torch.parallel.fsdp",
     "jaxlsq_torch.parallel.moe", "jaxlsq_torch.parallel.placement",
+    "jaxlsq_torch.parallel.pipeline", "jaxlsq_torch.lab.parallel_qat",
     "jaxlsq_torch.serve", "jaxlsq_torch.serve.pack", "jaxlsq_torch.serve.convert",
     "jaxlsq_torch.serve.matmul", "jaxlsq_torch.serve.attention",
     "jaxlsq_torch.serve.decode", "jaxlsq_torch.serve.paged",
