@@ -240,16 +240,22 @@ exits non-zero on any failure (no phase is caught and skipped):
    shifted unsigned activations; per-channel, per-tensor and affine
    weights; the dynamic mode), on NaN, +-inf and zeros, over E = 8 expert
    stacks with per-expert qparams and at mobilenetv2's conv shapes
-   (symmetric and affine); the fake-quant kernels at the MoE LM's
-   per-expert shapes (phase 2's gates); then, every launch count reset:
+   (symmetric and affine); ``i8mm``'s forms (``serve.matmul.i8mm_plan``):
+   static and dynamic layers at M on either side of every row tile's and
+   the fusion's threshold, and every tile and cluster size the plan can
+   give, unfused and with the quantization fused into ``i8mm`` (NaN and
+   +-inf in x); the fake-quant kernels at the MoE LM's per-expert shapes
+   (phase 2's gates); then, every launch count reset:
    the d1024 x 4 LM at w8, calibrated on 4 token batches and served
    'static_int8' (prefill logits within 1e-4 of max|ref| of 'static', a
    dense layer's input a level over handed over as deviation 14, at most
    1e-4 of the elements) and 'dynamic' (``make_generate`` at B = 1 and 8;
    every dynamic matmul of a decode step within 2e-2 of x @ dequant(W));
-   decode tokens/s beside 'none' and the kernels a token; w8a8
+   decode tokens/s beside 'none' and the kernels a token, and each mode's
+   profiled B = 1 generate (kernels a token, device busy share); w8a8
    mobilenetv2_cifar at B = 128 (every conv and the classifier bit-equal to
-   their plain versions, one ``i8mm`` and one ``act_quant_i8`` a layer,
+   their plain versions, one ``i8mm`` a layer and one ``act_quant_i8`` a
+   conv, the classifier's rows quantized inside ``i8mm`` up to FUSED_MAX_M,
    logits within 5e-3 of 'static'; ``ServingEngine`` over it, a graph a
    bucket, replays = eager); the d1024 x 4 MoE LM (8 experts of 4096, top
    2, capacity 1.25) trained MOE_STEPS steps at B = 8, t = 256 eager and
@@ -259,8 +265,10 @@ exits non-zero on any failure (no phase is caught and skipped):
    8 within 1e-4 of the full forward, ``DecodeEngine`` = B = 1 decodes,
    'static_int8' within 1e-4 of 'static' (routing picks handed over only at
    a near-tie of the reference's gates, at most 1e-3 of the tokens); then
-   both kernels timed at the d1024 shapes beside ``wo8`` and
-   ``torch._int_mm``.
+   both kernels, the fused path and the static layer as served timed at
+   the d1024 shapes beside ``wo8``, ``torch._int_mm`` and
+   ``torch.quantize_per_tensor``, and the fused path against I1 + I2 at M =
+   32, 64 and 128 (the fusion's crossover).
 
 18. the tooling, inside ``utils.profiling.trace`` (each leg an ``annotate``
    span, found in the trace file after) with every launch count reset:
@@ -929,12 +937,12 @@ def phase_paged(torch, rec):
     paged["logits_err_vs_cpu"] = max(errs)
 
 
-def _profile_generate(torch, model, prompt):
+def _profile_generate(torch, model, prompt, n_new=N2):
     from torch.profiler import ProfilerActivity, profile
 
     from jaxlsq_torch.serve import make_generate
 
-    gen = make_generate(model, prompt.shape[1], N2, cache_dtype=torch.bfloat16)
+    gen = make_generate(model, prompt.shape[1], n_new, cache_dtype=torch.bfloat16)
     gen(prompt).cpu()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         s = time.perf_counter()
@@ -951,7 +959,7 @@ def _profile_generate(torch, model, prompt):
     dev_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {"wall_ms": wall * 1e3, "device_ms": dev_ms,
-            "busy_share": dev_ms / (wall * 1e3), "kernels_per_token": n_kernels / N2,
+            "busy_share": dev_ms / (wall * 1e3), "kernels_per_token": n_kernels / n_new,
             "top": top[:12]}
 
 
@@ -2929,6 +2937,12 @@ def phase_convnet(torch, rec):
     cap["replay_fq_kernels"] = _fq_kinds(p["fq_kernels"])
     want_kinds = {"fwd/traced": MNV2_QUANTIZERS, "bwd_pt/traced": MNV2_QUANTIZERS // 2,
                   "bwd_pc/traced": MNV2_QUANTIZERS // 2}
+    if cap["replay_fq_kernels"] != want_kinds:
+        # the profiler can lose a few kernel records (profiler_check.py): the
+        # larger count of two profiles a kind (a lost record only lowers one)
+        again = _fq_kinds(_profile_train_step(torch, step, spare, cap["step_ms"])["fq_kernels"])
+        cap["replay_fq_kernels"] = {k: max(cap["replay_fq_kernels"].get(k, 0), again.get(k, 0))
+                                    for k in {**cap["replay_fq_kernels"], **again}}
     out.update({"eager": {k: v for k, v in eager.items() if k != "per_step_launches"},
                 "captured": {k: v for k, v in cap.items() if k != "per_step_launches"},
                 "eager_launches_a_step": eager["per_step_launches"][-1],
@@ -3226,7 +3240,14 @@ def _time_obs_kernels(torch, acts, spec):
     t0 = time.perf_counter()
     hist_search_plain(h, lo, hi, 256)
     plain["hist_search"] = 1e3 * (time.perf_counter() - t0)
-    return rows, plain
+    # the library yardstick of K2: torch.histc's batch counts alone into
+    # 2,048 bins over the widened range (no fold of the old histogram);
+    # K1 and K3 have no one-call counterpart
+    lo_f, hi_f = float(nmin), float(nmax)
+    sets = [(big.clone(),) for _ in range(copies_for(4 * big.numel(), 120e6))]
+    library = {"hist_update": measure(lambda a: torch.histc(a, bins=2048, min=lo_f, max=hi_f),
+                                      sets, reps=10)[0]}
+    return rows, plain, library
 
 
 def _obs_leg(torch, kind, steps, obs):
@@ -3320,9 +3341,10 @@ def phase_observers(torch, rec):
         "with the gate off")
 
     # times at the real shapes
-    rows, plain = _time_obs_kernels(torch, acts, spec)
+    rows, plain, library = _time_obs_kernels(torch, acts, spec)
     big = max(rows, key=lambda r: r["elements"])
     out["times"] = {"rows": rows, "plain_ms_largest": plain, "largest": big["shape"],
+                    "library_ms_largest": library,
                     "sum_ms": {k: sum(r[k + "_ms"] for r in rows) for k in OBS_KERNELS},
                     "sum_bound_ms": {k: sum(r["bounds"][k][0] for r in rows)
                                      for k in OBS_KERNELS}}
@@ -3333,7 +3355,8 @@ def phase_observers(torch, rec):
         f"{1e3 * big['hist_search_ms']:.1f} us ({big['hist_search_trips']} trips, "
         f"{big['hist_search_scored']} scored); over the 23 shapes "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in out["times"]["sum_ms"].items())
-        + f"; plain at the largest: {plain}")
+        + f"; plain at the largest: {plain}; torch.histc (2,048 bins, the batch's counts "
+        f"alone) {1e3 * library['hist_update']:.1f} us")
 
     # the main path, every count reset: the captured step under each config
     reset_counts()
@@ -4471,6 +4494,8 @@ def _check_int8_kernels(torch, rec):
                          f"static_int8_conv {cin}->{cout} groups {groups} {kk}x{kk} "
                          f"stride {stride} {hw}x{hw} affine={affine}")
             n_cases += 1
+    n_forms = _check_i8mm_forms(torch, g)
+    n_cases += n_forms
     for k in INT8_KERNELS:
         rec["max_abs_err"][k] = 0.0
     # the fake-quant kernels at the per-expert shapes: the weight stacks on
@@ -4494,9 +4519,76 @@ def _check_int8_kernels(torch, rec):
         f"and across two runs (static_int8_matmul over M {INT8_MS} x K {INT8_KS} x N "
         f"{INT8_NS}, signed / unsigned activations, per-channel / per-tensor / affine "
         f"weights; dynamic; NaN, +-inf, zeros; E={MOE_E} per-expert stacks; mobilenetv2's "
-        f"stem, depthwise and 1x1 convs, symmetric and affine); fake-quant kernels at the "
+        f"stem, depthwise and 1x1 convs, symmetric and affine; {n_forms} of them the i8mm "
+        f"forms: M at each row tile's and the fusion's threshold and either side, every "
+        f"tile and cluster size, fused and unfused); fake-quant kernels at the "
         f"MoE shapes (per-expert weights on axis 0, expert activations): forward and dX "
         f"bit-exact, dS/dB worst {worst:.2e} of their term sums; {time.time() - t0:.1f} s")
+
+
+def _check_i8mm_forms(torch, g):
+    """i8mm's forms bit for bit against their plain versions, twice each:
+    static and dynamic int8 matmuls at M on each side of every row tile's
+    threshold (16, 32, 64, 128) and of the fusion's (FUSED_MAX_M), at three
+    d1024 shapes and a ragged one; then, at ragged shapes, every tile and
+    cluster size the plan can give (unfused; fused up to 64-row tiles,
+    static and dynamic, +-inf and a NaN in x).  Returns the cases run."""
+    import dataclasses
+
+    from jaxlsq_torch.serve import matmul
+
+    sx = torch.tensor([0.037], device="cuda")
+    z = torch.tensor([131], dtype=torch.int32, device="cuda")
+    cuts = sorted({c + d for c in (*matmul.I8MM_ROWS, matmul.FUSED_MAX_M) for d in (-1, 0, 1)
+                   if c + d >= 1})
+    n_cases = 0
+    for k, n in ((1024, 1024), (4096, 1024), (1024, 3072), (1000, 1040)):
+        p = _int8_pack(torch, (k, n), g, affine=True)
+        for m in cuts:
+            x = torch.randn(m, k, device="cuda", generator=g) * 2
+            _equal_twice(torch, lambda: matmul.static_int8_matmul(x, p, sx, z, 0, 255),
+                         lambda: matmul.static_int8_matmul_plain(x, p, sx, z, 0, 255),
+                         f"i8mm forms: static M={m} K={k} N={n} "
+                         f"{matmul.i8mm_plan(m, n, k, fused=True)}")
+            _equal_twice(torch, lambda: matmul.dynamic_int8_matmul(x, p),
+                         lambda: matmul.dynamic_int8_matmul_plain(x, p),
+                         f"i8mm forms: dynamic M={m} K={k} N={n}")
+            n_cases += 2
+    for m, k, n in ((1, 1000, 1040), (37, 520, 200), (130, 1030, 136)):
+        x = torch.randn(1, m, k, device="cuda", generator=g) * 2
+        x.view(-1)[3], x.view(-1)[-2], x.view(-1)[m * k // 2] = (float("inf"), -float("inf"),
+                                                                 float("nan"))
+        b = torch.randint(-128, 128, (1, k, n), device="cuda", generator=g).to(torch.int8)
+        sw = torch.rand(n, device="cuda", generator=g) * 0.01 + 1e-3
+        zw = torch.randint(-7, 8, (n,), device="cuda", generator=g).to(torch.int32)
+        q = (0, 1)
+        xq, qx = matmul.act_quant_i8_plain(x, sx, z, 0, 255)
+        want = matmul._i8mm(xq, b, qx, sw, zw, "static", q, plain=True)
+        fused_want = {dyn: matmul._i8mm_fused(x, b, sw, zw, *((None, None, -128, 127) if dyn
+                                                             else (sx, z, 0, 255)),
+                                              dyn, q, plain=True)
+                      for dyn in (False, True)}
+        steps = -(-k // matmul.I8MM_BK)
+        for bm in matmul.I8MM_ROWS:
+            for bn in matmul.I8MM_COLS:
+                if bn == 64 and bm > 64:
+                    continue
+                for cs in range(1, min(matmul.I8MM_MAX_CLUSTER, steps) + 1):
+                    plan = matmul.i8mm_plan(m, n, k, bm=bm, bn=bn, cs=cs)
+                    _equal_twice(torch, lambda: matmul._i8mm(xq, b, qx, sw, zw, "static", q,
+                                                             plain=False, plan=plan),
+                                 lambda: want, f"i8mm forms: {plan} M={m} K={k} N={n}")
+                    n_cases += 1
+                    if bm > 64 or bm * plan.kper > matmul._RESIDENT_MAX:
+                        continue
+                    fp = dataclasses.replace(plan, fused=True)
+                    for dyn, w in fused_want.items():
+                        args = (None, None, -128, 127) if dyn else (sx, z, 0, 255)
+                        _equal_twice(torch, lambda: matmul._i8mm_fused(
+                            x, b, sw, zw, *args, dyn, q, plain=False, plan=fp),
+                            lambda: w, f"i8mm forms: {fp} dynamic={dyn} M={m} K={k} N={n}")
+                        n_cases += 1
+    return n_cases
 
 
 class _Handover:
@@ -4644,15 +4736,13 @@ def _decode_handover(torch, model, seq, t0):
     return dec, full[:, t0 - 1:length - 1], hand
 
 
-def _int8_dense_lm(torch, card):
+def _int8_served_lms(torch, modes=("none", "static", "static_int8", "dynamic")):
     """The d1024 x 4 LM at w8: QAT variables drawn from a seed, calibrated on 4
-    seeded token batches, converted and served 'none', 'static',
-    'static_int8' and 'dynamic'."""
+    seeded token batches, converted and served in each of ``modes``; and
+    the generator that drew the batches, to draw prompts next."""
     from jaxlsq_torch import interop
-    from jaxlsq_torch.models import QuantDense, QuantTransformerLM, calibrate, default_qconfig
-    from jaxlsq_torch.serve.matmul import wo_matmul_plain
+    from jaxlsq_torch.models import QuantTransformerLM, calibrate, default_qconfig
 
-    out = {}
     qc = default_qconfig(8, 8, per_channel_weights=True, init_batches=1)
     qat = QuantTransformerLM(VOCAB, DIM, DEPTH, HEADS, qc, max_len=240, device="cuda", seed=17)
     g = torch.Generator(device="cuda").manual_seed(171)
@@ -4661,10 +4751,21 @@ def _int8_dense_lm(torch, card):
     tree = interop.qat_variables(qat)
     del qat
     served = {}
-    for mode in ("none", "static", "static_int8", "dynamic"):
+    for mode in modes:
         served[mode] = QuantTransformerLM(VOCAB, DIM, DEPTH, HEADS, qc.for_serving(mode),
                                           max_len=240, device="cuda")
         interop.load_variables(served[mode], tree)
+    return served, g
+
+
+def _int8_dense_lm(torch, card):
+    """The d1024 x 4 LM at w8 (``_int8_served_lms``) served 'none',
+    'static', 'static_int8' and 'dynamic'."""
+    from jaxlsq_torch.models import QuantDense
+    from jaxlsq_torch.serve.matmul import wo_matmul_plain
+
+    out = {}
+    served, g = _int8_served_lms(torch)
     prompt = torch.randint(0, VOCAB, (2, 96), device="cuda", generator=g)
     # 'static_int8' against 'static': the prefill logits, handed over
     got, want, hand = _handed_over(torch, served["static"], served["static_int8"], prompt)
@@ -4725,9 +4826,20 @@ def _int8_dense_lm(torch, card):
                                        cache_dtype=torch.bfloat16)(prompt[:1, :T0]),
         INT8_N1 // 4, INT8_N1)
     out["tokens_per_s_b1"] = tps
+    # where a B = 1 token's time goes in each mode: one profiled generate
+    prof = out["profile_b1"] = {}
+    for mode in ("none", "static_int8", "dynamic"):
+        p = _profile_generate(torch, served[mode], prompt[:1, :T0], INT8_N2)
+        prof[mode] = {k: p[k] for k in ("wall_ms", "device_ms", "busy_share",
+                                        "kernels_per_token")}
+        prof[mode]["top"] = p["top"][:6]
     log(f"[int8] decode tokens/s at B=1 (slope {INT8_N1} -> {INT8_N2}, bf16 cache): "
         + ", ".join(f"{k} {v:.1f}" for k, v in tps.items())
-        + f"; 'static_int8' {out['kernels_a_token']:.1f} kernels a token ({card})")
+        + f"; 'static_int8' {out['kernels_a_token']:.1f} kernels a token; profiled "
+        f"{INT8_N2}-token generates: " + "; ".join(
+            f"{k} {v['kernels_per_token']:.1f} kernels a token, busy "
+            f"{100 * v['busy_share']:.1f}% ({v['device_ms']:.1f} of {v['wall_ms']:.1f} ms)"
+            for k, v in prof.items()) + f" ({card})")
     return out
 
 
@@ -4740,7 +4852,8 @@ def _int8_mnv2(torch, mm, card):
     from jaxlsq_torch.lab.accuracy_parity import make_batch
     from jaxlsq_torch.models import QuantConv, QuantDense, calibrate, mobilenetv2_cifar
     from jaxlsq_torch.serve import ServingEngine
-    from jaxlsq_torch.serve.matmul import static_int8_conv_plain, static_int8_matmul_plain
+    from jaxlsq_torch.serve.matmul import (FUSED_MAX_M, static_int8_conv_plain,
+                                           static_int8_matmul_plain)
 
     out = {}
     model = _mnv2(torch, "cuda", 8)
@@ -4789,10 +4902,18 @@ def _int8_mnv2(torch, mm, card):
     torch.cuda.synchronize()
     launches = {k: mm[k] - before[k] for k in mm}
     out["launches_a_forward"] = launches
-    if not (launches["i8mm"] == launches["act_quant_i8"] == n_conv + 1
+    # the convs quantize by act_quant_i8 (im2col gathers int8 windows); the
+    # classifier's B rows in i8mm itself up to FUSED_MAX_M
+    head_fused = int(MNV2_B <= FUSED_MAX_M)
+    if not (launches["i8mm"] == n_conv + 1 and launches["i8mm_fused"] == head_fused
+            and launches["act_quant_i8"] == n_conv + 1 - head_fused
             and launches["wo8"] == 0 and torch.isfinite(logits).all()):
         raise AssertionError(f"[int8] mobilenetv2 static_int8 forward launched {launches} "
                              f"({n_conv} convs and the classifier)")
+    # the int8 forward's device time at B = MNV2_B (three image batches in turn)
+    with torch.no_grad():
+        ims = [images] + [images.clone() for _ in range(2)]
+        out["forward_ms"] = min(measure(net, [(x,) for x in ims], 10)[0] for _ in range(2))
     got, want, hand = _handed_over(torch, nets["static"], net, images)
     err = float((got - want).abs().max())
     ok = bool(((got - want).abs() <= 5e-3 + 5e-3 * want.abs()).all())
@@ -4802,7 +4923,9 @@ def _int8_mnv2(torch, mm, card):
         f"bit-equal to their plain versions; a forward launches {launches['i8mm']} i8mm and "
         f"{launches['act_quant_i8']} act_quant_i8 ({n_conv} convs + classifier), no wo8; "
         f"'static_int8' vs 'static' logits max_abs_err {err:.3e} (tol 5e-3 + 5e-3 |ref|), "
-        f"{hand.moved[0]} of {hand.moved[1]} layer-input elements a level over, handed over")
+        f"{hand.moved[0]} of {hand.moved[1]} layer-input elements a level over, handed over; "
+        f"the forward {out['forward_ms']:.3f} ms on the device "
+        f"({1e3 * MNV2_B / out['forward_ms']:.0f} images/s; {card})")
     if not ok:
         raise AssertionError(f"[int8] mobilenetv2 static_int8 vs static: {err}")
     # ServingEngine captures the int8 path, a graph a bucket
@@ -5031,40 +5154,80 @@ def _moe_serve(torch, qc, tree, wbits, card):
 
 
 def _time_int8(torch, card):
-    """act_quant_i8 and i8mm (static epilogue) at the d1024 LM's five layer
-    shapes, M = 1, 8, 256: device µs beside wo8 on the same weight,
-    torch._int_mm (where it takes the shape: M > 16), the plain versions and
-    the bounds (bytes at 3.35 TB/s; int8 operations at 1,979 TOPS)."""
-    from jaxlsq_torch.serve.matmul import (_i8mm, act_quant_i8, act_quant_i8_plain,
+    """act_quant_i8 (I1) and i8mm (I2, static epilogue) at the d1024 LM's five
+    layer shapes, M = 1, 8, 256: device µs of I1, of I2 alone (its plan for
+    int8 rows), of the fused path (one launch quantizing its rows; at M =
+    256 a forced 64-row fused plan where one fits) and of the static layer
+    as served (the fused launch up to FUSED_MAX_M rows, else I1 then I2),
+    beside wo8 on the same weight, torch._int_mm (where it takes the shape:
+    M > 16), torch.quantize_per_tensor (I1's yardstick: an affine
+    quantization to a quint8 tensor), the plain versions and the bounds
+    (bytes at 3.35 TB/s; int8 operations at 1,979 TOPS).  Then the fused
+    path against I1 + I2 at M = 32, 64 and 128 (the crossover)."""
+    import dataclasses as dc
+
+    from jaxlsq_torch.serve.matmul import (_RESIDENT_MAX, FUSED_MAX_M, I8MM_BK,
+                                           I8MM_MAX_CLUSTER, _i8mm, _i8mm_fused, act_quant_i8,
+                                           act_quant_i8_plain, i8mm_plan, static_int8_matmul,
                                            wo_matmul)
 
     g = torch.Generator(device="cuda").manual_seed(177)
-    rows = []
+    rows, cross = [], []
     sx = torch.tensor([0.03], device="cuda")
     z = torch.tensor([128], dtype=torch.int32, device="cuda")
+
+    def fused_plan(m, k, n):
+        """The served fused plan, or above FUSED_MAX_M one forced on 64-row
+        tiles with the cluster that keeps a rank's rows resident (32 KB)."""
+        plan = i8mm_plan(m, n, k, fused=True)
+        if plan.fused:
+            return plan
+        base = i8mm_plan(m, n, k, bm=min(64, plan.bm))
+        per = _RESIDENT_MAX // base.bm // I8MM_BK
+        cs = min(I8MM_MAX_CLUSTER, max(base.cs, -(-(-(-k // I8MM_BK)) // per)))
+        plan = i8mm_plan(m, n, k, bm=base.bm, bn=base.bn, cs=cs)
+        return dc.replace(plan, fused=True) if plan.bm * plan.kper <= _RESIDENT_MAX else None
+
     for layer, (k, n) in WO_SHAPES.items():
         p = _int8_pack(torch, (k, n), g)
         wbytes = k * n + 8 * n
-        packs = [p] + [dataclasses.replace(p, data=p.data.clone(), scale=p.scale.clone(),
-                                           zero_point=p.zero_point.clone())
+        packs = [p] + [dc.replace(p, data=p.data.clone(), scale=p.scale.clone(),
+                                  zero_point=p.zero_point.clone())
                        for _ in range(copies_for(wbytes) - 1)]
-        for m in INT8_TIMED_MS:
+        for m in INT8_TIMED_MS + (32, 64, 128):
             x = torch.randn(m, k, device="cuda", generator=g)
             xq, qx = act_quant_i8(x, sx, z, 0, 255)
+            fp = fused_plan(m, k, n)
+            xs = [x] + [x.clone() for _ in range(copies_for(4 * m * k) - 1)]
 
             def i2(q, xq=xq, qx=qx):
                 return _i8mm(xq[None], q.data[None], qx, q.scale, q.zero_point, "static",
                              (0, 1), plain=False)
 
+            def fused(q, a, fp=fp):
+                return _i8mm_fused(a[None], q.data[None], q.scale, q.zero_point, sx, z, 0,
+                                   255, False, (0, 1), plain=False, plan=fp)
+
+            args = [(packs[i % len(packs)], xs[i % len(xs)])
+                    for i in range(max(len(packs), len(xs)))]
+            i1_ms, _ = measure(lambda a: act_quant_i8(a, sx, z, 0, 255), [(a,) for a in xs])
+            i2_ms, _ = measure(i2, [(q,) for q in packs])
+            f_ms = measure(fused, args)[0] if fp is not None else None
+            if m not in INT8_TIMED_MS:
+                cross.append({"layer": layer, "M": m, "K": k, "N": n, "i1_ms": i1_ms,
+                              "i2_ms": i2_ms, "fused_ms": f_ms, "plan": dc.astuple(fp)
+                              if fp else None})
+                continue
+            lay_ms, _ = measure(lambda q, a: static_int8_matmul(a, q, sx, z, 0, 255), args)
+            i1_plain, _ = measure(lambda a: act_quant_i8_plain(a, sx, z, 0, 255),
+                                  [(a,) for a in xs], reps=10)
+            i1_lib, _ = measure(lambda a: torch.quantize_per_tensor(a, 0.03, 128, torch.quint8),
+                                [(a,) for a in xs])
+
             def i2_plain(q, xq=xq, qx=qx):
                 return _i8mm(xq[None], q.data[None], qx, q.scale, q.zero_point, "static",
                              (0, 1), plain=True)
 
-            xs = [x] + [x.clone() for _ in range(copies_for(4 * m * k) - 1)]
-            i1_ms, _ = measure(lambda a: act_quant_i8(a, sx, z, 0, 255), [(a,) for a in xs])
-            i1_plain, _ = measure(lambda a: act_quant_i8_plain(a, sx, z, 0, 255),
-                                  [(a,) for a in xs], reps=10)
-            i2_ms, _ = measure(i2, [(q,) for q in packs])
             i2p_ms, _ = measure(i2_plain, [(q,) for q in packs], reps=5)
             wo_ms, _ = measure(wo_matmul, [(x, q) for q in packs])
             lib = None
@@ -5076,27 +5239,46 @@ def _time_int8(torch, card):
             i1_b = bound(5 * m * k, 0)  # 4 bytes read, 1 written an element
             nbytes = m * k + wbytes + 4 * m * n + 8
             tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, 2 * m * k * n / 1979e12 * 1e3
+            fb = (4 * m * k + wbytes + 4 * m * n + 8) / HBM_BYTES_PER_S * 1e3  # x read as f32
             rows.append({"layer": layer, "M": m, "K": k, "N": n, "i1_ms": i1_ms,
-                         "i1_plain_ms": i1_plain, "i1_bound_ms": i1_b[0], "i2_ms": i2_ms,
-                         "i2_plain_ms": i2p_ms, "i2_bound_ms": max(tb, tf),
+                         "i1_plain_ms": i1_plain, "i1_library_ms": i1_lib,
+                         "i1_bound_ms": i1_b[0], "i2_ms": i2_ms, "i2_plain_ms": i2p_ms,
+                         "i2_bound_ms": max(tb, tf),
                          "i2_bound_by": "bytes" if tb >= tf else "operations",
+                         "fused_ms": f_ms, "fused_bound_ms": max(fb, tf),
+                         "layer_ms": lay_ms, "layer_fused": m <= FUSED_MAX_M,
+                         "plan": dc.astuple(i8mm_plan(m, n, k)),
+                         "fused_plan": dc.astuple(fp) if fp else None,
                          "wo8_ms": wo_ms, "int_mm_ms": lib, "bytes": nbytes})
     by_m = {}
+    keys = ("i1_ms", "i2_ms", "wo8_ms", "i1_bound_ms", "i2_bound_ms", "i1_plain_ms",
+            "i2_plain_ms", "i1_library_ms", "layer_ms", "fused_bound_ms")
     for m in INT8_TIMED_MS:
         rs = [r for r in rows if r["M"] == m]
-        by_m[m] = {k: sum(r[k] for r in rs) for k in ("i1_ms", "i2_ms", "wo8_ms", "i1_bound_ms",
-                                                        "i2_bound_ms", "i1_plain_ms",
-                                                        "i2_plain_ms")}
-        libs = [r["int_mm_ms"] for r in rs]
-        by_m[m]["int_mm_ms"] = sum(libs) if all(v is not None for v in libs) else None
+        by_m[m] = {k: sum(r[k] for r in rs) for k in keys}
+        for key in ("int_mm_ms", "fused_ms"):
+            vals = [r[key] for r in rs]
+            by_m[m][key] = sum(vals) if all(v is not None for v in vals) else None
         log(f"[time] d1024 layers summed at M={m}: act_quant_i8 {by_m[m]['i1_ms'] * 1e3:.2f} us "
-            f"(bound {by_m[m]['i1_bound_ms'] * 1e3:.2f}), i8mm {by_m[m]['i2_ms'] * 1e3:.2f} us "
-            f"(bound {by_m[m]['i2_bound_ms'] * 1e3:.2f}), wo8 {by_m[m]['wo8_ms'] * 1e3:.2f} us, "
-            f"torch._int_mm "
+            f"(bound {by_m[m]['i1_bound_ms'] * 1e3:.2f}, torch.quantize_per_tensor "
+            f"{by_m[m]['i1_library_ms'] * 1e3:.2f}), i8mm {by_m[m]['i2_ms'] * 1e3:.2f} us "
+            f"(bound {by_m[m]['i2_bound_ms'] * 1e3:.2f}), fused "
+            + (f"{by_m[m]['fused_ms'] * 1e3:.2f} us" if by_m[m]["fused_ms"] else "n/a")
+            + f", the static layer {by_m[m]['layer_ms'] * 1e3:.2f} us, wo8 "
+            f"{by_m[m]['wo8_ms'] * 1e3:.2f} us, torch._int_mm "
             + (f"{by_m[m]['int_mm_ms'] * 1e3:.2f} us" if by_m[m]["int_mm_ms"] else "refused")
             + f"; plain {by_m[m]['i1_plain_ms'] * 1e3:.1f} / {by_m[m]['i2_plain_ms'] * 1e3:.1f} us"
             f" ({card})")
-    return {"rows": rows, "by_m": by_m}
+    by_cross = {}
+    for m in sorted({r["M"] for r in cross}):
+        rs = [r for r in cross if r["M"] == m]
+        fs = [r["fused_ms"] for r in rs]
+        by_cross[m] = {"fused_ms": sum(fs) if all(v is not None for v in fs) else None,
+                       "i1_i2_ms": sum(r["i1_ms"] + r["i2_ms"] for r in rs)}
+    log("[time] fused vs act_quant_i8 + i8mm, the five shapes summed: " + "; ".join(
+        f"M={m} " + (f"{v['fused_ms'] * 1e3:.2f}" if v["fused_ms"] else "n/a")
+        + f" / {v['i1_i2_ms'] * 1e3:.2f} us" for m, v in by_cross.items()) + f" ({card})")
+    return {"rows": rows, "by_m": by_m, "crossover": cross, "by_crossover": by_cross}
 
 
 def phase_int8_moe(torch, rec):
@@ -5117,7 +5299,8 @@ def phase_int8_moe(torch, rec):
     torch.cuda.synchronize()
     legs["moe"], s = time.time() - s, time.time()
     out["launches"] = {**fq, **mm, **attn}
-    for k in INT8_KERNELS + ("wo8", "wo4", "fq_fwd_pt", "fq_fwd_pc", "fq_bwd_pt", "fq_bwd_pc",
+    for k in INT8_KERNELS + ("i8mm_fused", "wo8", "wo4", "fq_fwd_pt", "fq_fwd_pc", "fq_bwd_pt",
+                             "fq_bwd_pc",
                              "fq_fwd_pt_traced", "fq_fwd_pc_traced", "decode_attention"):
         if out["launches"][k] <= 0:
             raise AssertionError(f"kernel {k} was never launched on the int8 / MoE path")
@@ -5473,7 +5656,9 @@ def _tool_export(torch, card):
     from jaxlsq_torch import interop
     from jaxlsq_torch.models import QuantTransformerLM, default_qconfig, init_variables
     from jaxlsq_torch.serve import export_generate, export_serving_forward, make_generate
+    from jaxlsq_torch.serve.matmul import FUSED_MAX_M
 
+    fused = EXPORT_T0 <= FUSED_MAX_M
     d = tempfile.mkdtemp(prefix="jlt_export_")
     g = torch.Generator(device="cuda").manual_seed(184)
     prompt = torch.randint(0, VOCAB, (1, EXPORT_T0), device="cuda", generator=g,
@@ -5505,7 +5690,10 @@ def _tool_export(torch, card):
             with open(path + ".pt2", "wb") as f:
                 f.write(blob)
             torch.save({"state": state, "x": x, "ref": ref}, path + ".args")
-            kernels = (("act_quant", "i8mm_kernel") if act_mode == "static_int8" else wo)
+            # an EXPORT_T0-row forward's int8 layers quantize in i8mm itself up
+            # to FUSED_MAX_M rows, else by act_quant_i8 first
+            kernels = ((("i8mm_kernel",) if fused else ("act_quant", "i8mm_kernel"))
+                       if act_mode == "static_int8" else wo)
             if prog == "generate":
                 kernels = kernels + ("decode_attention_span_kernel",)
             cases.append({"name": key, "blob": path + ".pt2", "args": path + ".args",
@@ -5524,11 +5712,16 @@ def _tool_export(torch, card):
     rep = json.loads(proc.stdout.strip().splitlines()[-1])
     for key, r in rep["results"].items():
         out[key].update(r)
-        want = ({"act_quant_i8", "i8mm"} if "int8" in key else
-                {"wo8" if key.startswith("w8") else "wo4"})
+        want = ((({"i8mm", "i8mm_fused"} if fused else {"act_quant_i8", "i8mm"})
+                 if "int8" in key else {"wo8" if key.startswith("w8") else "wo4"}))
         if "generate" in key:
             want |= {"decode_attention"}
-        if not r["equal"] or not want <= set(r["launches"]) or not r["kernels"]:
+        launches = r["launches"]
+        once = "int8" not in key or (  # every i8mm's rows quantized once
+            launches.get("act_quant_i8", 0) + launches.get("i8mm_fused", 0)
+            == launches["i8mm"])
+        if not r["equal"] or not want <= set(r["launches"]) or not r["kernels"] \
+                or not once:
             raise AssertionError(f"[tooling] the replayed {key}: {r}")
     if rep["model_modules"]:
         raise AssertionError(f"[tooling] the replay process imported {rep['model_modules']}")
@@ -5749,11 +5942,17 @@ def _int8_kernels_line(rec):
                     "tooling_launches": rec["tooling"]["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name], "ms": m1[f"{key}_ms"],
                     "plain_ms": m1[f"{key}_plain_ms"], "bound_ms": m1[f"{key}_bound_ms"],
-                    "bound_by": "bytes", "library_ms": None,
+                    "bound_by": "bytes",
+                    "library_ms": m1["i1_library_ms"] if name == "act_quant_i8" else None,
                     "by_m": {m: v for m, v in o["times"]["by_m"].items()},
                     "library_ms_m256": m256["int_mm_ms"] if name == "i8mm" else None,
+                    "fused_launches": o["launches"]["i8mm_fused"] if name == "i8mm" else None,
                     "shape": "M=1, sum over qkv/proj/mlp_up/mlp_down/lm_head of the d1024 LM; "
-                             "library: torch._int_mm (refuses M<=16; by_m at M=256)"})
+                             + ("library: torch.quantize_per_tensor to quint8"
+                                if name == "act_quant_i8" else
+                                "library: torch._int_mm (refuses M<=16; by_m at M=256); "
+                                "fused_launches: those of the launches that quantized "
+                                "their rows themselves")})
     return out
 
 
@@ -5773,13 +5972,17 @@ def _obs_kernels_line(rec):
                     "replaces": repl, "launches": o["launches"][name],
                     "max_abs_err": rec["max_abs_err"][name], "ms": big[name + "_ms"],
                     "plain_ms": o["times"]["plain_ms_largest"][name], "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": None,
+                    "bound_by": b_by,
+                    "library_ms": o["times"]["library_ms_largest"].get(name),
                     "step_sum_ms": o["times"]["sum_ms"][name],
                     "step_sum_bound_ms": o["times"]["sum_bound_ms"][name],
                     "shape": "x " + "x".join(map(str, big["shape"])) + " (mobilenetv2's "
                              "largest activation, one step's real data); step_sum: the 23 "
                              "activations" + ("; plain: on the CPU (a host loop)"
-                                              if name == "hist_search" else "")})
+                                              if name == "hist_search" else "")
+                             + ("; library: torch.histc, 2,048 bins, the batch's counts "
+                                "alone" if name == "hist_update" else
+                                "; library: none (no one PyTorch call computes it)")})
     return out
 
 

@@ -90,9 +90,14 @@ _SIGNATURES = {
     "jlt_act_quant_i8": [_P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _I, _P],
     # a, b, out, a_bstride, b_bstride, o_bstride, o_hw, o_mhi, o_mlo, o_n, lda,
     # ldb, batch, M, N, K, qx, sw, zw, q_bstride, q_nstride, mode, window,
-    # vec_a, vec_b, stream
+    # vec_a, vec_b, bm, bn, cs, kper, fused, scale, zp, work, qmin, qmax, shift,
+    # dynamic, stream
     "jlt_i8mm": [_P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I, _I, _P, _P,
-                 _P, _I, _I, _I, _F, _I, _I, _P],
+                 _P, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _F, _F, _F, _I,
+                 _P],
+    # i8mm's conv form: jlt_i8mm's arguments up to vec_b, then stream
+    "jlt_i8mm_tile64": [_P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _I, _I, _I, _I, _I, _I, _P,
+                        _P, _P, _I, _I, _I, _F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -8,7 +8,10 @@ launch on ``data_ptr()`` cannot be traced).
   (``serve.attention``);
 * ``jaxlsq_torch::act_quant_i8`` and ``jaxlsq_torch::i8mm``: the int8 x int8
   path's activation quantization and epilogue-fused product
-  (``serve.matmul``).
+  (``serve.matmul``);
+* ``jaxlsq_torch::i8mm_fused``: the two in one, the product quantizing its
+  activation rows itself (a static or dynamic matmul, or the experts'
+  batched product, at decode M; ``serve.matmul.i8mm_plan``).
 
 Each operator has a CUDA implementation (the kernel's launcher, which counts
 its launch in the module's ``LAUNCHES``), a CPU implementation (the kernel's
@@ -48,6 +51,9 @@ _lib.define("act_quant_i8(Tensor x, Tensor? act_scale, Tensor? act_zp, int act_q
             "int act_qmax, bool dynamic) -> (Tensor, Tensor)")
 _lib.define("i8mm(Tensor a, Tensor b, Tensor qx, Tensor scale, Tensor zero_point, str mode, "
             "int q_bstride, int q_nstride, float window, int[] conv_out) -> Tensor")
+_lib.define("i8mm_fused(Tensor x, Tensor b, Tensor scale, Tensor zero_point, Tensor? act_scale, "
+            "Tensor? act_zp, int act_qmin, int act_qmax, bool dynamic, int q_bstride, "
+            "int q_nstride) -> Tensor")
 
 
 def _register(name: str, cpu, cuda, fake) -> None:
@@ -143,3 +149,26 @@ def _i8mm_fake(a, b, qx, scale, zero_point, mode, q_bstride, q_nstride, window, 
 
 
 _register("i8mm", _i8mm_cpu, _i8mm_cuda, _i8mm_fake)
+
+
+# ---------------------------------------------------------------- i8mm_fused
+
+def _fused_cpu(x, b, scale, zero_point, act_scale, act_zp, act_qmin, act_qmax, dynamic,
+               q_bstride, q_nstride):
+    return _matmul._quantized_product(x, b, scale, zero_point, act_scale, act_zp, act_qmin,
+                                      act_qmax, dynamic, (q_bstride, q_nstride), True)
+
+
+def _fused_cuda(x, b, scale, zero_point, act_scale, act_zp, act_qmin, act_qmax, dynamic,
+                q_bstride, q_nstride):
+    # the plan of the card it runs on: fused, or act_quant_i8 then i8mm
+    return _matmul._quantized_product(x, b, scale, zero_point, act_scale, act_zp, act_qmin,
+                                      act_qmax, dynamic, (q_bstride, q_nstride), False)
+
+
+def _fused_fake(x, b, scale, zero_point, act_scale, act_zp, act_qmin, act_qmax, dynamic,
+                q_bstride, q_nstride):
+    return x.new_empty((x.shape[0], x.shape[1], b.shape[2]), dtype=torch.float32)
+
+
+_register("i8mm_fused", _fused_cpu, _fused_cuda, _fused_fake)

@@ -36,19 +36,30 @@ int8 (``act_quant_i8``) and run the integer product with the dequant epilogue
 fused (``i8mm``), both in ``csrc/int8_matmul.cu`` on a CUDA tensor, and in
 their plain versions (the ``*_plain`` functions: the same integers, the
 epilogue's f32 operations in the same order) on a CPU tensor; while a
-program is traced, through the ``jaxlsq_torch::act_quant_i8`` and
-``jaxlsq_torch::i8mm`` operators, which pick by the device.  The integer
-product is exact, so the kernel's output is the plain version's bit for bit.
-The convolution takes NCHW activations and the pack as ``QuantConv`` holds
-it (HWIO); it gathers the windows of the int8 activation (im2col, padded with
-the integer zero point) with PyTorch ops and runs one product per group.
+program is traced, through the ``jaxlsq_torch::act_quant_i8``,
+``jaxlsq_torch::i8mm`` and ``jaxlsq_torch::i8mm_fused`` operators, which
+pick by the device.  The integer product is exact, so the kernel's output is
+the plain version's bit for bit.  :func:`i8mm_plan` (pure Python) picks the
+kernel's row tile and its K split over a thread-block cluster from the shape
+(a convolution's products take the kernel's conv form instead);
+where it says ``fused`` (the matmul callers at decode M), ``i8mm`` quantizes
+its A rows itself: a static layer is one launch, a dynamic one two (the
+absmax partials, then the product).  The convolution takes NCHW activations
+and the pack as ``QuantConv`` holds it (HWIO); it gathers the windows of the
+int8 activation (im2col, padded with the integer zero point) with PyTorch ops
+and runs one product per group.
 
 ``LAUNCHES`` counts the kernel launches of each kind (``act_quant_i8`` one a
 call: its dynamic mode is two launches, the absmax's partials and the
-quantizing pass).
+quantizing pass; a fused dynamic call's absmax pass counts here too).
+``i8mm`` counts every launch of the product; ``i8mm_fused`` those of them
+that quantized their A rows themselves.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -59,9 +70,10 @@ __all__ = ["wo_matmul", "wo_matmul_plain", "act_quant_i8", "act_quant_i8_plain",
            "int8_product_plain", "static_int8_matmul", "static_int8_matmul_plain",
            "dynamic_int8_matmul", "dynamic_int8_matmul_plain", "static_int8_conv",
            "static_int8_conv_plain", "static_int8_bmm", "static_int8_bmm_plain",
-           "same_padding", "conv_pads", "conv_operands", "LAUNCHES"]
+           "same_padding", "conv_pads", "conv_operands", "i8mm_plan", "I8mmPlan",
+           "LAUNCHES"]
 
-LAUNCHES = {"wo8": 0, "wo4": 0, "wo4g": 0, "act_quant_i8": 0, "i8mm": 0}
+LAUNCHES = {"wo8": 0, "wo4": 0, "wo4g": 0, "act_quant_i8": 0, "i8mm": 0, "i8mm_fused": 0}
 
 
 def wo_matmul_plain(x: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
@@ -157,6 +169,91 @@ def wo_matmul(x: torch.Tensor, packed: PackedWeight) -> torch.Tensor:
 _EPILOGUES = {"static": 0, "dynamic": 1, "conv": 2}
 _MAX_K = 131072  # K * 128 * 128 < 2^31: the int32 sums stay exact
 _WORK = 1024     # the dynamic absmax's partials (csrc kMaxPartials)
+# i8mm's tiling (csrc/int8_matmul.cu): 128 or 64 output columns a block, k
+# in stages of 128 rows, clusters of at most 8 blocks (the portable size)
+I8MM_BK, I8MM_MAX_CLUSTER = 128, 8
+I8MM_ROWS = (16, 32, 64, 128)   # a block's row tile (1 x 4, 2 x 4, 4 x 2, 8 x 1 warps)
+I8MM_COLS = (128, 64)           # a block's column tile (64 up to 64 rows)
+FUSED_MAX_M = 1                 # the fused quantization up to this M (card runs)
+_RESIDENT_MAX = 32 * 1024       # a fused block's quantized A rows in shared memory
+_WAVE = 0.9                     # of the SMs: the blocks that count as a wave
+_PREFILL_WAVE = 0.7             # above 32 rows (card runs)
+
+
+@dataclasses.dataclass(frozen=True)
+class I8mmPlan:
+    """One ``i8mm`` launch: ``bm`` x ``bn`` output tiles; K over clusters of
+    ``cs`` blocks, rank r owning k in ``[r * kper, (r + 1) * kper)``;
+    ``fused``: the kernel quantizes its A rows itself."""
+    bm: int
+    bn: int
+    cs: int
+    kper: int
+    fused: bool
+
+    def grid(self, m: int, n: int, batch: int = 1):
+        return (-(-n // self.bn) * self.cs, -(-m // self.bm), batch)
+
+
+def i8mm_plan(m: int, n: int, k: int, batch: int = 1, *, fused: bool = False,
+              sms: int = 132, bm: int = None, bn: int = None, cs: int = None) -> I8mmPlan:
+    """The tile and K split of an (m, k) x (k, n) product, ``batch`` times,
+    on a card of ``sms`` SMs (the rule from card runs over the d1024 LM's
+    shapes at M = 1, 16 and 256).  The row tile is the smallest of 16, 32,
+    64 that holds m; above 64 rows, 128 where those tiles alone give the
+    card a wave, else 64.  Up to 32 rows (decode) the column tile is 64 and
+    the target a wave of blocks (0.9 of the SMs); above (prefill) the
+    column tile is 128 where 128-column tiles reach the target, else 64, and
+    the target 0.7 of the SMs (a cluster's fold costs more than a few idle
+    SMs save there).  The
+    cluster is the smallest power of two (at most 8, and no more ranks than
+    128-row stages) whose blocks reach the target and, fused, whose ranks'
+    quantized rows fit in shared memory (32 KB); each rank then owns
+    ``kper`` rows of K, a multiple of 128, and the cluster is cut to the
+    ranks that own some.  ``fused`` holds where it was asked, m <=
+    FUSED_MAX_M and the block's quantized rows fit.
+    ``bm``, ``bn`` and ``cs`` force a tile and a cluster (the card checks
+    run every size the rule can pick)."""
+    if min(m, n, k, batch) <= 0:
+        raise ValueError(f"i8mm_plan: empty product ({m}, {n}, {k}, {batch})")
+    wave = _WAVE * sms
+    steps = -(-k // I8MM_BK)
+    if bm is None:
+        bm = next((r for r in I8MM_ROWS[:3] if m <= r), None)
+        if bm is None:
+            bm = 128 if -(-n // 128) * -(-m // 128) * batch >= wave else 64
+    if bm not in I8MM_ROWS:
+        raise ValueError(f"i8mm_plan: no {bm}-row tile")
+    rows = -(-m // bm) * batch
+    target = wave if bm <= 32 else _PREFILL_WAVE * sms
+    if bn is None:
+        bn = 64 if bm <= 32 or (bm == 64 and -(-n // 128) * rows < target) else 128
+    if bn not in I8MM_COLS or (bn == 64 and bm > 64):
+        raise ValueError(f"i8mm_plan: no {bm} x {bn} tile")
+    tiles = -(-n // bn) * rows
+    fused = bool(fused and m <= FUSED_MAX_M and bm <= 64)
+    if cs is None:
+        cs, most = 1, min(I8MM_MAX_CLUSTER, steps)
+        while 2 * cs <= most and (tiles * cs < target or (
+                fused and bm * -(-steps // cs) * I8MM_BK > _RESIDENT_MAX)):
+            cs *= 2
+    if not 1 <= cs <= min(I8MM_MAX_CLUSTER, steps):
+        raise ValueError(f"i8mm_plan: cluster {cs} for {steps} stages")
+    per = -(-steps // cs)
+    cs = -(-steps // per)
+    kper = per * I8MM_BK
+    return I8mmPlan(bm, bn, cs, kper, fused and bm * kper <= _RESIDENT_MAX)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(dev: torch.device) -> int:
+    """The device's SMs (the plan's wave); 132 (an H100's) off the card."""
+    return _sm_count(dev.index if dev.index is not None else torch.cuda.current_device()) \
+        if dev.type == "cuda" else 132
 
 
 def _check_device(x: torch.Tensor, what: str) -> None:
@@ -271,11 +368,15 @@ def _epilogue_plain(acc, rs, cs, qx, sw, zw, mode, kdim, window):
     return o * (sx * sw)
 
 
-def _i8mm(a, b, qx, scale, zp, mode, qstrides, *, plain, window=0.0, conv_out=None):
+def _i8mm(a, b, qx, scale, zp, mode, qstrides, *, plain, window=0.0, conv_out=None,
+          plan=None):
     """The epilogue-fused product of int8 a (Bt, M, K) and b (Bt, K, N)
     (views, unit stride along K and N): (Bt, M, N) f32, or with ``conv_out``
     = (images, H', W') the NCHW (images, Bt * N, H', W') of a grouped conv
-    whose rows are (image, pixel)."""
+    whose rows are (image, pixel), which takes the kernel's conv form (its
+    first form: one 64 x 64 tile a block over the whole K, faster on a
+    conv's few k and many rows in card runs).  ``plan``: a matmul's unfused
+    :class:`I8mmPlan` (default :func:`i8mm_plan`'s)."""
     batch, m, kdim = a.shape
     n = b.shape[2]
     if plain:
@@ -287,13 +388,34 @@ def _i8mm(a, b, qx, scale, zp, mode, qstrides, *, plain, window=0.0, conv_out=No
         imgs, ho, wo = conv_out
         return out.reshape(batch, imgs, ho * wo, n).permute(1, 0, 3, 2).reshape(
             imgs, batch * n, ho, wo)
+    if a.dtype != torch.int8 or a.stride(2) != 1:
+        raise ValueError("i8mm: operands must be int8 with unit stride along K and N")
+    vec_a = int(a.data_ptr() % 16 == 0 and a.stride(1) % 16 == 0 and a.stride(0) % 16 == 0)
+    if conv_out is not None:
+        if plan is not None:
+            raise ValueError("i8mm: a conv takes the conv form, not a plan")
+        return _i8mm_launch(a, b, qx, scale, zp, mode, qstrides, window, conv_out, None,
+                            vec_a, None)
+    plan = plan or i8mm_plan(m, n, kdim, batch, sms=_sms(a.device))
+    if plan.fused:
+        raise ValueError("i8mm: a fused plan takes f32 rows (_i8mm_fused)")
+    return _i8mm_launch(a, b, qx, scale, zp, mode, qstrides, window, conv_out, plan, vec_a,
+                        None)
+
+
+def _i8mm_launch(a, b, qx, scale, zp, mode, qstrides, window, conv_out, plan, vec_a, quant):
+    """One ``jlt_i8mm`` call, or with no ``plan`` one of the conv form
+    (``jlt_i8mm_tile64``); ``quant`` (fused): (act_scale, act_zp, qmin,
+    qmax, shift, dynamic) and ``a`` the f32 rows."""
+    batch, m, kdim = a.shape
+    n = b.shape[2]
     if kdim > _MAX_K:
         raise ValueError(f"i8mm: K = {kdim} exceeds {_MAX_K} (int32 sums)")
     dev = a.device
     for name, t in (("weight", b), ("scale", scale), ("zero_point", zp), ("qx", qx)):
         if t.device != dev:
             raise ValueError(f"i8mm: {name} is on {t.device}, x on {dev}")
-    if a.dtype != torch.int8 or b.dtype != torch.int8 or a.stride(2) != 1 or b.stride(2) != 1:
+    if b.dtype != torch.int8 or b.stride(2) != 1:
         raise ValueError("i8mm: operands must be int8 with unit stride along K and N")
     scale = scale.to(torch.float32).contiguous()
     zp = zp.to(torch.int32).contiguous()
@@ -305,17 +427,65 @@ def _i8mm(a, b, qx, scale, zp, mode, qstrides, *, plain, window=0.0, conv_out=No
         hw = ho * wo
         out = torch.empty((imgs, batch * n, ho, wo), dtype=torch.float32, device=dev)
         geom = (n * hw, hw, batch * n * hw, 1, hw)
-    vec_a = int(a.data_ptr() % 16 == 0 and a.stride(1) % 16 == 0 and a.stride(0) % 16 == 0)
-    vec_b = int(b.data_ptr() % 4 == 0 and b.stride(1) % 4 == 0 and b.stride(0) % 4 == 0)
     lib = _build.load_library()
-    err = lib.jlt_i8mm(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.stride(0), b.stride(0),
-                       *geom, a.stride(1), b.stride(1), batch, m, n, kdim, qx.data_ptr(),
-                       scale.data_ptr(), zp.data_ptr(), qstrides[0], qstrides[1],
-                       _EPILOGUES[mode], float(window), vec_a, vec_b,
-                       torch.cuda.current_stream(dev).cuda_stream)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), a.stride(0), b.stride(0), *geom,
+            a.stride(1), b.stride(1), batch, m, n, kdim, qx.data_ptr(), scale.data_ptr(),
+            zp.data_ptr(), qstrides[0], qstrides[1], _EPILOGUES[mode], float(window), vec_a)
+    if plan is None:
+        vec_b4 = int(b.data_ptr() % 4 == 0 and b.stride(1) % 4 == 0 and b.stride(0) % 4 == 0)
+        err = lib.jlt_i8mm_tile64(*args, vec_b4, stream)
+        LAUNCHES["i8mm"] += 1
+        _build.check(err, "i8mm")
+        return out
+    vec_b = int(b.data_ptr() % 16 == 0 and b.stride(1) % 16 == 0 and b.stride(0) % 16 == 0)
+    if quant is None:
+        xs = xz = work = qx
+        qmin = qmax = shift = 0.0
+        dynamic = 0
+    else:
+        xs, xz, qmin, qmax, shift, dynamic = quant
+        work = torch.empty(_WORK, dtype=torch.int32, device=dev) if dynamic else qx
+    err = lib.jlt_i8mm(*args, vec_b, plan.bm, plan.bn, plan.cs, plan.kper,
+                       int(quant is not None), xs.data_ptr(), xz.data_ptr(), work.data_ptr(),
+                       float(qmin), float(qmax), float(shift), int(dynamic), stream)
+    if quant is not None:
+        LAUNCHES["i8mm_fused"] += 1
+        if dynamic:
+            LAUNCHES["act_quant_i8"] += 1
     LAUNCHES["i8mm"] += 1
     _build.check(err, "i8mm")
     return out
+
+
+def _i8mm_fused(x, b, scale, zp, act_scale, act_zp, act_qmin, act_qmax, dynamic, qstrides,
+                *, plain, plan=None):
+    """:func:`act_quant_i8` of x (Bt, M, K) f32 then :func:`_i8mm` with the
+    static (or dynamic) epilogue, as one fused ``i8mm`` launch (two for a
+    dynamic call: the absmax partials first): returns (out, qx).  ``plain``:
+    the two plain versions, which are this path's plain version."""
+    mode = "dynamic" if dynamic else "static"
+    if plain:
+        xq, qx = act_quant_i8_plain(x, act_scale, act_zp, act_qmin, act_qmax, dynamic=dynamic)
+        return _i8mm(xq, b, qx, scale, zp, mode, qstrides, plain=True), qx
+    batch, m, kdim = x.shape
+    plan = plan or i8mm_plan(m, b.shape[2], kdim, batch, fused=True, sms=_sms(x.device))
+    if not plan.fused:
+        raise ValueError(f"i8mm: the plan {plan} does not fuse the quantization")
+    if x.dtype != torch.float32:
+        raise ValueError(f"i8mm: the fused quantization takes f32 rows, got {x.dtype}")
+    dev = x.device
+    xc = x.contiguous()
+    qx = torch.empty(2, dtype=torch.float32, device=dev)
+    if dynamic:
+        xs = xz = qx  # not read
+    else:
+        xs = act_scale.to(device=dev, dtype=torch.float32).contiguous()
+        xz = act_zp.to(device=dev, dtype=torch.int32).contiguous()
+    vec_x = int(xc.data_ptr() % 16 == 0 and kdim % 4 == 0)
+    out = _i8mm_launch(xc, b, qx, scale, zp, mode, qstrides, 0.0, None, plan, vec_x,
+                       (xs, xz, act_qmin, act_qmax, _act_shift(act_qmax), int(dynamic)))
+    return out, qx
 
 
 def _quant(plain: bool):
@@ -339,6 +509,30 @@ def _check_int8_pack(packed: PackedWeight, what: str) -> None:
         raise ValueError(f"{what} needs an int8-packed weight")
 
 
+def _quantized_product(x, b, scale, zp, act_scale, act_zp, act_qmin, act_qmax, dynamic,
+                       qstrides, plain):
+    """x (Bt, M, K) f32 quantized (static or dynamic) times the int8 b (Bt,
+    K, N) with the matching epilogue: the fused ``i8mm`` where
+    :func:`i8mm_plan` fuses (while a program is traced, the ``i8mm_fused``
+    operator), else ``act_quant_i8`` then ``i8mm``; ``plain``: the plain
+    versions."""
+    batch, m, kdim = x.shape
+    compiling = torch.compiler.is_compiling()
+    if not plain and (x.is_cuda or compiling):
+        plan = i8mm_plan(m, b.shape[2], kdim, batch, fused=True, sms=_sms(x.device))
+        if plan.fused and compiling:
+            return torch.ops.jaxlsq_torch.i8mm_fused(x, b, scale, zp, act_scale, act_zp,
+                                                     int(act_qmin), int(act_qmax),
+                                                     bool(dynamic), int(qstrides[0]),
+                                                     int(qstrides[1]))
+        if plan.fused:
+            return _i8mm_fused(x, b, scale, zp, act_scale, act_zp, act_qmin, act_qmax,
+                               dynamic, qstrides, plain=False, plan=plan)[0]
+    xq, qx = _quant(plain)(x, act_scale, act_zp, act_qmin, act_qmax, dynamic=dynamic)
+    return _product(xq, b, qx, scale, zp, "dynamic" if dynamic else "static", qstrides,
+                    plain=plain)
+
+
 def _static_int8_matmul(x, packed, act_scale, act_zp, act_qmin, act_qmax, out_dtype, plain):
     _check_int8_pack(packed, "static_int8_matmul")
     if act_scale.shape[0] != 1:
@@ -347,12 +541,10 @@ def _static_int8_matmul(x, packed, act_scale, act_zp, act_qmin, act_qmax, out_dt
         raise ValueError("static_int8_matmul needs a 2-D (K, N) packed weight")
     kdim, n = packed.orig_shape
     lead = x.shape[:-1]
-    x2d = x.reshape(-1, kdim)
-    quant = _quant(plain)
-    xq, qx = quant(x2d, act_scale, act_zp, act_qmin, act_qmax)
     per_channel = packed.scale.numel() > 1
-    out = _product(xq[None], packed.data[None], qx, packed.scale, packed.zero_point, "static",
-                   (0, int(per_channel)), plain=plain)
+    out = _quantized_product(x.reshape(1, -1, kdim), packed.data[None], packed.scale,
+                             packed.zero_point, act_scale, act_zp, act_qmin, act_qmax, False,
+                             (0, int(per_channel)), plain)
     return out[0].to(out_dtype or x.dtype).reshape(*lead, n)
 
 
@@ -384,11 +576,10 @@ def _dynamic_int8_matmul(x, packed, out_dtype, plain):
     _check_int8_pack(packed, "dynamic_int8_matmul")
     kdim, n = packed.orig_shape
     lead = x.shape[:-1]
-    quant = _quant(plain)
-    xq, qx = quant(x.reshape(-1, kdim), dynamic=True)
     per_channel = packed.scale.numel() > 1
-    out = _product(xq[None], packed.data[None], qx, packed.scale, packed.zero_point,
-                   "dynamic", (0, int(per_channel)), plain=plain)
+    out = _quantized_product(x.reshape(1, -1, kdim), packed.data[None], packed.scale,
+                             packed.zero_point, None, None, -128, 127, True,
+                             (0, int(per_channel)), plain)
     return out[0].to(out_dtype or x.dtype).reshape(*lead, n)
 
 
@@ -415,11 +606,9 @@ def dynamic_int8_matmul_plain(x, packed, *, out_dtype=None):
 def _static_int8_bmm(x, wq, scale, zero_point, act_scale, act_zp, act_qmin, act_qmax, plain):
     if act_scale.shape[0] != 1:
         raise ValueError("static activation qparams must be per-tensor")
-    quant = _quant(plain)
-    xq, qx = quant(x, act_scale, act_zp, act_qmin, act_qmax)
     per_expert = scale.numel() > 1
-    return _product(xq, wq, qx, scale, zero_point, "static", (int(per_expert), 0),
-                    plain=plain)
+    return _quantized_product(x, wq, scale, zero_point, act_scale, act_zp, act_qmin, act_qmax,
+                              False, (int(per_expert), 0), plain)
 
 
 def static_int8_bmm(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,

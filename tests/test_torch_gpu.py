@@ -2550,6 +2550,106 @@ def test_int8_matmuls_match_plain_bit_for_bit(cuda, m, k, n):
         assert torch.equal(got, want), (pc, affine)
 
 
+def _nan_equal(got, want):
+    """NaN where ``want`` has NaN, every other element bit-equal."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan], want[~nan])
+
+
+def _i8mm_plans(m, n, k, batch):
+    """Every (tile, cluster) the plan can give these shapes: each row tile,
+    each column tile it allows, each cluster size from 1 to the most."""
+    from jaxlsq_torch.serve import matmul
+
+    steps = -(-k // matmul.I8MM_BK)
+    plans = set()
+    for bm in matmul.I8MM_ROWS:
+        for bn in matmul.I8MM_COLS:
+            if bn == 64 and bm > 64:
+                continue
+            for cs in range(1, min(matmul.I8MM_MAX_CLUSTER, steps) + 1):
+                plans.add(matmul.i8mm_plan(m, n, k, batch, bm=bm, bn=bn, cs=cs))
+    return sorted(plans, key=dataclasses.astuple)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n,batch", [(1, 1000, 200, 1), (17, 1024, 1040, 1),
+                                         (64, 2048, 1024, 1), (130, 520, 136, 1),
+                                         (5, 300, 96, 3)])
+def test_i8mm_every_tile_and_cluster_matches_plain(cuda, m, k, n, batch):
+    """i8mm at every row tile, column tile and cluster size, unfused and (up
+    to 64-row tiles) with the quantization fused, static and dynamic, NaN
+    and +-inf in x: the plain version's bits, the same bits twice."""
+    from jaxlsq_torch.serve import matmul
+
+    g = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(batch, m, k, device=cuda, generator=g) * 2
+    x.view(-1)[5] = float("inf")
+    x.view(-1)[-3] = -float("inf")
+    b = torch.randint(-128, 128, (batch, k, n), device=cuda, generator=g).to(torch.int8)
+    scale = torch.rand(batch * n, device=cuda, generator=g) * 0.01 + 0.001
+    zp = torch.randint(-9, 10, (batch * n,), device=cuda, generator=g).to(torch.int32)
+    s, z = torch.tensor([0.03], device=cuda), torch.tensor([131], dtype=torch.int32, device=cuda)
+    xn = x.clone()
+    xn.view(-1)[7] = float("nan")
+    q = (n, 1)
+    xq, qx = matmul.act_quant_i8_plain(xn, s, z, 0, 255)
+    want = matmul._i8mm(xq, b, qx, scale, zp, "static", q, plain=True)
+    wants = {(xi, dyn): matmul._i8mm_fused(xs, b, scale, zp, *((None, None, -128, 127) if dyn
+                                                             else (s, z, 0, 255)),
+                                           dyn, q, plain=True)
+             for xi, xs in enumerate((x, xn)) for dyn in (False, True)}
+    n_fused = 0
+    for plan in _i8mm_plans(m, n, k, batch):
+        for _ in range(2):
+            got = matmul._i8mm(xq, b, qx, scale, zp, "static", q, plain=False, plan=plan)
+            assert torch.equal(got, want), plan
+        if plan.bm > 64 or plan.bm * plan.kper > matmul._RESIDENT_MAX:
+            continue
+        fp = dataclasses.replace(plan, fused=True)
+        for (xi, dyn), (w_out, w_qx) in wants.items():
+            xs = (x, xn)[xi]
+            args = (None, None, -128, 127) if dyn else (s, z, 0, 255)
+            for _ in range(2):
+                before = dict(MM_LAUNCHES)
+                got, gqx = matmul._i8mm_fused(xs, b, scale, zp, *args, dyn, q, plain=False,
+                                              plan=fp)
+                assert MM_LAUNCHES["i8mm"] == before["i8mm"] + 1
+                assert MM_LAUNCHES["i8mm_fused"] == before["i8mm_fused"] + 1
+                assert MM_LAUNCHES["act_quant_i8"] == before["act_quant_i8"] + int(dyn)
+                assert _nan_equal(got, w_out) and _nan_equal(gqx, w_qx), (fp, xi, dyn)
+        n_fused += 1
+    assert n_fused > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 8, 64, 65, 256])
+def test_int8_layers_launch_counts(cuda, m):
+    """A static int8 dense layer at decode M (up to FUSED_MAX_M rows) is one
+    launch, a dynamic one two (the absmax partials, counted under
+    act_quant_i8, then the fused i8mm); above it act_quant_i8 then i8mm; the
+    experts' batched product as the static layer."""
+    from jaxlsq_torch.serve import matmul
+
+    g = torch.Generator(device=cuda).manual_seed(m)
+    p = _int8_pack(1024, 1024, 5, affine=True, device=cuda)
+    x = torch.randn(m, 1024, device=cuda, generator=g)
+    xe = torch.randn(4, m, 256, device=cuda, generator=g)
+    we = torch.randint(-128, 128, (4, 256, 512), device=cuda, generator=g).to(torch.int8)
+    se, ze = torch.rand(4, device=cuda, generator=g) * 0.01, torch.zeros(4, dtype=torch.int32,
+                                                                        device=cuda)
+    s, z = torch.tensor([0.02], device=cuda), torch.tensor([3], dtype=torch.int32, device=cuda)
+    fused = m <= matmul.FUSED_MAX_M
+    for run, extra in ((lambda: matmul.static_int8_matmul(x, p, s, z, -128, 127), 0),
+                       (lambda: matmul.dynamic_int8_matmul(x, p), 1),
+                       (lambda: matmul.static_int8_bmm(xe, we, se, ze, s, z, -128, 127), 0)):
+        before = dict(MM_LAUNCHES)
+        run()
+        got = {k: MM_LAUNCHES[k] - before[k] for k in ("i8mm", "i8mm_fused", "act_quant_i8")}
+        want = {"i8mm": 1, "i8mm_fused": int(fused), "act_quant_i8": extra or int(not fused)}
+        assert got == want, (m, got)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("cin,cout,groups,kh,stride,padding,h", [
     (3, 32, 1, 3, 1, "SAME", 32), (32, 32, 32, 3, 1, "SAME", 16), (96, 96, 96, 3, 2, "SAME", 16),
@@ -2692,6 +2792,28 @@ def test_int8_operators_equal_the_launchers(cuda):
     assert MM_LAUNCHES["i8mm"] == before + 1
     assert torch.equal(op, matmul._i8mm(xq[None], p.data[None], qx, p.scale, p.zero_point,
                                         "dynamic", (0, 1), plain=False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 64, 65])
+def test_i8mm_fused_operator_equals_the_launcher(cuda, m):
+    """``jaxlsq_torch::i8mm_fused`` on CUDA tensors: the bits of the eager
+    path (the fused launch up to FUSED_MAX_M rows, act_quant_i8 then i8mm
+    above), static and dynamic."""
+    from jaxlsq_torch.serve import matmul
+
+    p = _int8_pack(1024, 512, 4, affine=True, device=cuda)
+    x = torch.randn(1, m, 1024, device=cuda, generator=torch.Generator(device=cuda).manual_seed(m))
+    s, zp = torch.tensor([0.02], device=cuda), torch.tensor([131], dtype=torch.int32,
+                                                              device=cuda)
+    for args in ((s, zp, 0, 255, False), (None, None, -128, 127, True)):
+        before = MM_LAUNCHES["i8mm"]
+        op = torch.ops.jaxlsq_torch.i8mm_fused(x, p.data[None], p.scale, p.zero_point, *args,
+                                               0, 1)
+        assert MM_LAUNCHES["i8mm"] == before + 1
+        direct = matmul._quantized_product(x, p.data[None], p.scale, p.zero_point, *args,
+                                           (0, 1), False)
+        assert torch.equal(op, direct), args
 
 
 @pytest.mark.gpu

@@ -2,11 +2,11 @@
 """Time the weight-only matmul kernels (``wo8``, ``wo4``, ``wo4g``), or with
 ``--lab`` the int4 lab's two kernels (``wo4_bf16``, ``wo4_native``), or with
 ``--fq`` the fake-quant kernels (forward, backward and fused, per tensor
-and per channel), of two checkouts of this repo on
-one card, in turns (first, second, second, first), so that two versions are
-compared within one run on one card:
+and per channel), or with ``--int8`` the int8 x int8 kernels, of two
+checkouts of this repo on one card, in turns (first, second, second,
+first), so that two versions are compared within one run on one card:
 
-    python3 wo_compare.py FIRST_DIR SECOND_DIR [--lab | --fq | --decode] [--out PATH]
+    python3 wo_compare.py FIRST_DIR SECOND_DIR [--lab | --fq | --decode | --int8] [--out PATH]
 
 Each turn is a process of its own that imports the checkout's
 ``jaxlsq_torch`` (building its kernels) and times them with this file's
@@ -42,7 +42,24 @@ costs a token; in a checkout that has the serving operators
 (``serve.custom_ops``), each turn also times the same decode with the layers
 calling the ``torch.library`` operators in eager code, in turns with the
 direct calls (direct, operators, operators, direct); one summary line a turn
-(tokens/s).
+(tokens/s).  ``--int8``: each checkout's ``act_quant_i8`` (I1, static),
+``i8mm`` (I2: ``_i8mm`` on the int8 rows, static epilogue, the checkout's
+own tiling) and the static int8 dense layer as the checkout serves it
+(``static_int8_matmul``: I1 then I2, or one launch where the checkout
+quantizes the rows inside I2) at the five d1024 layer shapes, M = 1, 8 and
+256, on seeded per-channel packs (``chip_smoke._int8_pack``), weights and
+activations rotated past the L2 (device µs, and µs a call back to back,
+which is the host's issue time where the host is the slower); the MoE's
+``static_int8_bmm`` (E = 8) at its two shapes and C = 1, 8 and 256; the w8a8
+mobilenetv2_cifar served
+'static_int8' at B = 128 (each distinct conv's ``static_int8_conv``, im2col
+included, and the whole forward); and the B = 1 decode tokens/s of the d1024
+LM in 'none', 'static_int8' and 'dynamic' in turn, twice, and where the
+checkout fuses the quantization into I2 with the fusion on and off in turns
+(on, off, off, on);
+one summary line a turn (µs, the five shapes summed at each M; each bmm;
+the convs summed over the net's layers, the depthwise ones alone, the
+forward; tokens/s).
 """
 
 import argparse
@@ -268,7 +285,149 @@ def fq_rows(torch, chip_smoke, shapes):
     return rows
 
 
-def turn(tree, lab=False, fq_shapes=None, decode=False):
+def int8_rows(torch, chip_smoke):
+    """The checkout's int8 x int8 kernels: [{kind, layer, M, K, N, ms}]."""
+    import dataclasses
+
+    from jaxlsq_torch.serve.matmul import _i8mm, act_quant_i8, static_int8_matmul
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    sx = torch.tensor([0.03], device="cuda")
+    z = torch.tensor([128], dtype=torch.int32, device="cuda")
+    rows = []
+    for layer, (k, n) in chip_smoke.WO_SHAPES.items():
+        p = chip_smoke._int8_pack(torch, (k, n), g)
+        packs = [p] + [dataclasses.replace(p, data=p.data.clone(), scale=p.scale.clone(),
+                                           zero_point=p.zero_point.clone())
+                       for _ in range(chip_smoke.copies_for(k * n + 8 * n) - 1)]
+        for m in (1, 8, 256):
+            x = torch.randn(m, k, device="cuda", generator=g)
+            xs = [x] + [x.clone() for _ in range(chip_smoke.copies_for(4 * m * k) - 1)]
+            xq, qx = act_quant_i8(x, sx, z, 0, 255)
+            pairs = [(packs[i % len(packs)], xs[i % len(xs)])
+                     for i in range(max(len(packs), len(xs)))]
+            fns = {"act_quant_i8": (lambda a: act_quant_i8(a, sx, z, 0, 255),
+                                    [(a,) for a in xs]),
+                   "i8mm": (lambda q: _i8mm(xq[None], q.data[None], qx, q.scale, q.zero_point,
+                                            "static", (0, 1), plain=False),
+                            [(q,) for q in packs]),
+                   "static_layer": (lambda q, a: static_int8_matmul(a, q, sx, z, 0, 255),
+                                    pairs)}
+            for kind, (fn, args) in fns.items():
+                ts = [chip_smoke.measure(fn, args) for _ in range(2)]
+                rows.append({"kind": kind, "layer": layer, "M": m, "K": k, "N": n,
+                             "ms": min(t[0] for t in ts), "call_ms": min(t[1] for t in ts)})
+    return rows
+
+
+def int8_conv_rows(torch, chip_smoke):
+    """The checkout's w8a8 mobilenetv2_cifar served 'static_int8' at B =
+    MNV2_B (calibrated as phase 17 does): the forward's ms, and each
+    distinct conv's ``static_int8_conv`` ms (the im2col's ops, I1 and I2)
+    with the count of its layers: [{kind, ...}]."""
+    from jaxlsq_torch import interop
+    from jaxlsq_torch.lab.accuracy_parity import make_batch
+    from jaxlsq_torch.models import QuantConv, calibrate, mobilenetv2_cifar
+    from jaxlsq_torch.serve.matmul import static_int8_conv
+
+    model = chip_smoke._mnv2(torch, "cuda", 8)
+    g = torch.Generator(device="cuda").manual_seed(172)
+    calibrate(model, [make_batch(chip_smoke.MNV2_B, g, "cuda")[0] for _ in range(4)])
+    net = mobilenetv2_cifar(chip_smoke.MNV2_CLASSES, model.qconfig.for_serving("static_int8"),
+                            device="cuda")
+    interop.load_variables(net, interop.qat_variables(model))
+    net.eval()
+    del model
+    images = make_batch(chip_smoke.MNV2_B, g, "cuda")[0]
+    layers = {}
+
+    def keep(mod, inp, out):
+        key = (tuple(inp[0].shape), tuple(mod.kernel.packed().orig_shape), tuple(mod.strides),
+               mod.groups)
+        layers.setdefault(key, [mod, inp[0].clone(), 0])[2] += 1
+
+    hooks = [m.register_forward_hook(keep) for m in net.modules() if isinstance(m, QuantConv)]
+    with torch.no_grad():
+        net(images)
+    for h in hooks:
+        h.remove()
+    rows = []
+    with torch.no_grad():
+        ims = [images] + [images.clone() for _ in range(2)]
+        rows.append({"kind": "mnv2_forward", "B": chip_smoke.MNV2_B, "ms": min(
+            chip_smoke.measure(net, [(x,) for x in ims], 10)[0] for _ in range(2))})
+        for (shape, kshape, strides, groups), (mod, x, count) in layers.items():
+            packed = mod.kernel.packed()
+            a = (mod.act_scale, mod.act_zp, mod.aspec.quant_min, mod.aspec.quant_max)
+            xs = [x] + [x.clone() for _ in range(chip_smoke.copies_for(4 * x.numel()) - 1)]
+            ms = min(chip_smoke.measure(
+                lambda xx: static_int8_conv(xx, packed, *a, strides=mod.strides,
+                                            padding=mod.padding, feature_group_count=groups),
+                [(xx,) for xx in xs], 20)[0] for _ in range(2))
+            rows.append({"kind": "conv", "x": list(shape), "kernel_hwio": list(kshape),
+                         "strides": list(strides), "groups": groups, "layers": count,
+                         "ms": ms})
+    return rows
+
+
+def int8_bmm_rows(torch, chip_smoke):
+    """The checkout's ``static_int8_bmm`` (the MoE LM's experts, E = MOE_E,
+    per-expert qparams) at the d1024 MoE's two shapes and capacity C = 1, 8
+    and 256 (B = 1 and B = 8 decode, one 256-token prefill; the serving
+    capacity is the token count): [{kind, K, N, C, ms}]."""
+    from jaxlsq_torch.serve.matmul import static_int8_bmm
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    sx = torch.tensor([0.03], device="cuda")
+    z = torch.tensor([128], dtype=torch.int32, device="cuda")
+    e = chip_smoke.MOE_E
+    rows = []
+    for k, n in ((chip_smoke.DIM, 4 * chip_smoke.DIM), (4 * chip_smoke.DIM, chip_smoke.DIM)):
+        p = chip_smoke._int8_pack(torch, (e, k, n), g)
+        ws = [p.data] + [p.data.clone() for _ in range(chip_smoke.copies_for(e * k * n) - 1)]
+        for c in (1, 8, 256):
+            x = torch.randn(e, c, k, device="cuda", generator=g)
+            ms = min(chip_smoke.measure(
+                lambda w: static_int8_bmm(x, w, p.scale, p.zero_point, sx, z, 0, 255),
+                [(w,) for w in ws])[0] for _ in range(2))
+            rows.append({"kind": "bmm", "E": e, "K": k, "N": n, "C": c, "ms": ms})
+    return rows
+
+
+def int8_decode_rows(torch, chip_smoke):
+    """Phase 17's B = 1 decode of the checkout's d1024 x 4 LM at w8
+    ('none', 'static_int8', 'dynamic'; ``_slope_tps`` 16 -> 208, least of 3
+    rounds): tokens/s of the three modes in turn, twice; then, where the
+    checkout quantizes decode rows inside i8mm (``FUSED_MAX_M``),
+    'static_int8' and 'dynamic' with the fusion on and off in turns (on,
+    off, off, on): {mode: {label: [tokens/s]}}."""
+    from jaxlsq_torch.serve import matmul
+
+    served, g = chip_smoke._int8_served_lms(torch, ("none", "static_int8", "dynamic"))
+    prompt = torch.randint(0, chip_smoke.VOCAB, (1, chip_smoke.T0), device="cuda",
+                           generator=g)
+
+    def tps(model):
+        return chip_smoke._slope_tps(torch, model, 1, prompt, torch.bfloat16)[0]
+
+    rows = {mode: {"tokens_per_s_b1": []} for mode in served}
+    for _ in range(2):
+        for mode, model in served.items():
+            rows[mode]["tokens_per_s_b1"].append(tps(model))
+    if hasattr(matmul, "FUSED_MAX_M"):
+        on = matmul.FUSED_MAX_M
+        try:
+            for mode in ("static_int8", "dynamic"):
+                rows[mode].update(fused=[], unfused=[])
+                for fused in (True, False, False, True):
+                    matmul.FUSED_MAX_M = on if fused else 0
+                    rows[mode]["fused" if fused else "unfused"].append(tps(served[mode]))
+        finally:
+            matmul.FUSED_MAX_M = on
+    return rows
+
+
+def turn(tree, lab=False, fq_shapes=None, decode=False, int8=False):
     """One checkout's rows: {kind: [row, ...]}."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -289,6 +448,10 @@ def turn(tree, lab=False, fq_shapes=None, decode=False):
         return lab_rows(torch, chip_smoke)
     if decode:
         return decode_rows(torch, chip_smoke)
+    if int8:
+        return {"int8": int8_rows(torch, chip_smoke) + int8_bmm_rows(torch, chip_smoke)
+                + int8_conv_rows(torch, chip_smoke),
+                "int8_decode": int8_decode_rows(torch, chip_smoke)}
     if fq_shapes is not None:
         return fq_rows(torch, chip_smoke, fq_shapes)
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -301,6 +464,21 @@ def turn(tree, lab=False, fq_shapes=None, decode=False):
 
 
 def summary(rows):
+    if "int8" in rows:
+        out = {kind: {f"M{m}_{key}sum_us": 1e3 * sum(r[f"{key}ms"] for r in rows["int8"]
+                                                      if r["kind"] == kind and r["M"] == m)
+                      for m in (1, 8, 256) for key in ("", "call_")}
+               for kind in ("act_quant_i8", "i8mm", "static_layer")}
+        out["bmm_us"] = {f"K{r['K']}_N{r['N']}_C{r['C']}": 1e3 * r["ms"]
+                         for r in rows["int8"] if r["kind"] == "bmm"}
+        convs = [r for r in rows["int8"] if r["kind"] == "conv"]
+        out["conv_us"] = {"sum_over_layers": 1e3 * sum(r["ms"] * r["layers"] for r in convs),
+                          "depthwise_sum": 1e3 * sum(r["ms"] * r["layers"] for r in convs
+                                                     if r["groups"] > 1),
+                          "mnv2_forward": 1e3 * next(r["ms"] for r in rows["int8"]
+                                                     if r["kind"] == "mnv2_forward")}
+        out["decode_tokens_per_s_b1"] = rows["int8_decode"]
+        return out
     if "w8" in rows and "tokens_per_s_b1" in rows["w8"]:
         return {k: {"tokens_per_s_b1": r["tokens_per_s_b1"],
                     **({"in_process": r["in_process"]} if "in_process" in r else {})}
@@ -331,11 +509,13 @@ def main(argv):
     ap.add_argument("--fq-shapes", help=argparse.SUPPRESS)
     ap.add_argument("--decode", action="store_true",
                     help="phase 3's B = 1 decode tokens/s instead")
+    ap.add_argument("--int8", action="store_true",
+                    help="time the int8 x int8 kernels (act_quant_i8, i8mm, the static layer)")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
     if args.turn:
         shapes = json.loads(args.fq_shapes) if args.fq_shapes else None
-        print(json.dumps(turn(args.turn, args.lab, shapes, args.decode)))
+        print(json.dumps(turn(args.turn, args.lab, shapes, args.decode, args.int8)))
         return 0
     if len(args.trees) != 2:
         ap.error("give two checkouts")
@@ -344,8 +524,10 @@ def main(argv):
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"[card] {smi}", flush=True)
     first, second = args.trees
-    record = {"card": smi, "lab": args.lab, "fq": args.fq, "decode": args.decode, "turns": []}
-    extra = ["--lab"] if args.lab else ["--decode"] if args.decode else []
+    record = {"card": smi, "lab": args.lab, "fq": args.fq, "decode": args.decode,
+              "int8": args.int8, "turns": []}
+    extra = (["--lab"] if args.lab else ["--decode"] if args.decode else
+             ["--int8"] if args.int8 else [])
     if args.fq:
         extra = ["--fq-shapes", json.dumps({**fq_weight_shapes(), **fq_act_shapes()})]
     for tree in (first, second, second, first):
